@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                 # the full run, one card
+    python3 chip_smoke.py --n 22          # a quick check at 2^22
+
+Phases (each fails loudly; a failure exits non-zero and prints no result):
+
+1. environment: Python, torch and CUDA versions, ``nvcc --version`` and
+   the card's name and power limit from ``nvidia-smi``;
+2. build: every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once), with seconds and ptxas usage;
+3. kernel vs plain: each kernel (copy, block, lane, tile) held bit for
+   bit against its plain PyTorch version on the card, at a small size
+   (int32, bfloat16, float32 with a d = 8 tail, a batch of 3, a ragged
+   copy) and at 2^n int32; the 2^n case is timed with CUDA events
+   beside the plain version and one PyTorch library call;
+4. main path: ``repro_torch.kernels.ops.bmmc_permute`` on 2^n int32 for
+   one BMMC of each dispatch case (bit-reverse, random BPC, random BMMC,
+   block class, lane class, mixed complement), each bit-equal to the
+   device-side plain gather, with host planning seconds, the median
+   CUDA-event time, effective GB/s, the ratio to the copy kernel, the
+   byte bound and ``torch.index_select`` on a precomputed index;
+5. tile-size sweep: the tiled cases at t = 5, 6 and 7, each beside the
+   copy kernel (the record behind ``ops.choose_tile``'s t = 6 for int32);
+6. launch counts of the main path (every kernel must have launched) and
+   one JSON line describing every kernel;
+7. last line: ``{"ok": true, "device": {...}}``.
+
+It imports only torch, numpy and ``repro_torch``; the kernels build into
+``build/kernels`` of this checkout.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE / "src"))
+
+KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
+    "copy": ("src/repro_torch/kernels/csrc/copy.cu",
+             "src/repro/kernels/bmmc_permute.py:859"),
+    "block": ("src/repro_torch/kernels/csrc/block_permute.cu",
+              "src/repro/kernels/bmmc_permute.py:724"),
+    "lane": ("src/repro_torch/kernels/csrc/lane_permute.cu",
+             "src/repro/kernels/bmmc_permute.py:811"),
+    "tile": ("src/repro_torch/kernels/csrc/tile_permute.cu",
+             "src/repro/kernels/bmmc_permute.py:72"),
+}
+
+N_SMALL = 14              # log2 elements of the small kernel-vs-plain cases
+REPS = 10                 # timed runs per measurement (the median is kept)
+TILE_SWEEP = (5, 6, 7)    # tile sizes of the sweep phase
+
+# Peak HBM bandwidth by card (NVIDIA data sheets); the byte bound of a
+# kernel is the bytes it must move over this rate.
+PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+                    ("H100", 3.35e12), ("H200", 4.8e12))
+
+
+def say(*a):
+    print(*a, flush=True)
+
+
+def check(ok, what="") -> None:
+    """Fail the run when a phase does not hold (exit code 1, no result)."""
+    if not ok:
+        raise SystemExit(f"chip_smoke: check failed: {what}")
+
+
+def peak_bw(name: str) -> float:
+    for key, bw in PEAK_BYTES_PER_S:
+        if key in name:
+            return bw
+    raise SystemExit(f"no peak bandwidth known for {name!r}")
+
+
+def run_cmd(cmd) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bits(torch, t):
+    """An integer view of ``t`` for bitwise comparison (NaN payloads and
+    -0.0 compare by their bits)."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(view[t.element_size()])
+
+
+def max_abs_err(torch, got, want) -> float:
+    """Largest absolute difference of the two tensors' bit patterns as
+    integers: 0 exactly when they are bitwise equal."""
+    check(got.shape == want.shape and got.dtype == want.dtype, (
+        got.shape, want.shape, got.dtype, want.dtype))
+    a, b = bits(torch, got), bits(torch, want)
+    if torch.equal(a, b):
+        return 0.0
+    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def make_cases(n: int, t: int):
+    """One BMMC of each dispatch case at size 2^n and tile t."""
+    from repro_torch.core.bmmc import Bmmc
+    rng = random.Random(2306)
+    ident = tuple(1 << i for i in range(n))
+    k = min(11, n - 2)                      # block class: low k bits fixed
+    while True:
+        sub = Bmmc.random(n - k, rng)
+        blk = Bmmc(ident[:k] + tuple(r << k for r in sub.rows), sub.c << k)
+        if blk.bmmc_class(t) == "block":
+            break
+    while True:
+        sub = Bmmc.random(t, rng)
+        lane = Bmmc(tuple(sub.rows) + ident[t:], sub.c)
+        if lane.bmmc_class(t) == "lane":
+            break
+    mixed = Bmmc.xor_shift(n, (rng.randrange(1, 1 << t))
+                           | (rng.randrange(1, 1 << (n - t)) << t))
+    return [("bit-reverse", Bmmc.bit_reverse(n), "tiled"),
+            ("random-bpc", Bmmc.random_bpc(n, rng), "tiled"),
+            ("random-bmmc", Bmmc.random(n, rng), "general"),
+            ("block-class", blk, "block"),
+            ("lane-class", lane, "lane"),
+            ("mixed-complement", mixed, "tiled")]
+
+
+def clocks() -> str:
+    """SM clock, power draw and temperature, to read beside a timing."""
+    return run_cmd(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                    "temperature.gpu", "--format=csv,noheader"])
+
+
+def phase_env(torch):
+    say("== phase 1: environment ==")
+    say(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}")
+    from repro_torch.kernels import build
+    say(run_cmd([build.nvcc(), "--version"]).splitlines()[-1])
+    smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"]).splitlines()
+    say(f"devices: {torch.cuda.device_count()}  "
+        f"torch name: {torch.cuda.get_device_name(0)}")
+    return smi[0]
+
+
+def phase_build():
+    say("== phase 2: build ==")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    log = build.build_all()
+    say(f"built {sorted(log)} in {time.perf_counter() - t0:.2f} s "
+        f"(build dir {build.build_dir()})")
+    for name, rec in sorted(log.items()):
+        used = [ln.split("ptxas info    : ")[-1] for ln in
+                rec["ptxas"].splitlines() if "Used" in ln]
+        say(f"  {name}: {rec['seconds']:.2f} s; " + " | ".join(used))
+    for name in build.KERNELS:
+        build.load(name)
+
+
+def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
+    """Each kernel against its plain version; returns per-kernel records
+    of the 2^n int32 case."""
+    say("== phase 3: kernel vs plain ==")
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def payload(shape, dtype):
+        raw = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                            device=dev, dtype=torch.int64)
+        if dtype == torch.int32:
+            return raw.to(torch.int32)
+        if dtype == torch.bfloat16:
+            return raw.to(torch.int16).view(torch.bfloat16)
+        return raw.to(torch.int32).view(torch.float32)
+
+    def plans(nn: int, t: int):
+        cases = {name: b for name, b, _ in make_cases(nn, t)}
+        got = {"block": ops.class_plan(cases["block-class"], t),
+               "lane": ops.class_plan(cases["lane-class"], t),
+               "tile": ops.class_plan(cases["bit-reverse"], t)}
+        check([got[k][0] for k in ("block", "lane", "tile")] == [
+            "block", "lane", "tiled"], {k: v[0] for k, v in got.items()})
+        return {"block": got["block"][1], "lane": got["lane"][1],
+                "tile": got["tile"][1][0]}
+
+    pairs = {  # kernel -> (wrapper, plain version)
+        "copy": (lambda x, plan, batched=False: K.copy_blocks(x),
+                 lambda x, plan, batched=False: K.copy_plain(x)),
+        "block": (K.block_permute, K.block_permute_plain),
+        "lane": (K.lane_permute, K.lane_permute_plain),
+        "tile": (K.tiled_permute, K.tiled_permute_plain)}
+
+    def run(name, x, plan, batched=False):
+        fn, plain = pairs[name]
+        return fn(x, plan, batched=batched), plain(x, plan, batched=batched)
+
+    worst = {k: 0.0 for k in KERNEL_INFO}
+    configs = [("int32", torch.int32, (1 << n_small,), False),
+               ("bfloat16", torch.bfloat16, (1 << n_small,), False),
+               ("float32 d=8", torch.float32, (1 << n_small, 8), False),
+               ("int32 B=3", torch.int32, (3, 1 << n_small), True)]
+    for label, dtype, shape, batched in configs:
+        d = shape[-1] if len(shape) == 2 and not batched else 1
+        t = ops.choose_tile(n_small, torch.tensor([], dtype=dtype)
+                            .element_size(), d)
+        pl = plans(n_small, t)
+        x = payload(shape, dtype)
+        for name in KERNEL_INFO:
+            got, want = run(name, x, pl.get(name), batched)
+            err = max_abs_err(torch, got, want)
+            check(err == 0.0, (name, label, err))
+            worst[name] = max(worst[name], err)
+        say(f"  n={n_small} {label} t={t}: copy, block, lane, tile bit-equal")
+    ragged = payload((3 * 2048 + 37,), torch.int32)
+    got, want = run("copy", ragged, None)
+    check(max_abs_err(torch, got, want) == 0.0)
+    say(f"  copy of {ragged.numel()} elements (ragged edge of "
+        f"{K.copy_pad_elems(ragged.numel())} padding elements) bit-equal")
+
+    t = ops.choose_tile(n, 4)
+    pl = plans(n, t)
+    x = payload((1 << n,), torch.int32)
+    nbytes = x.numel() * 4
+    records = {}
+    case_of = {"block": "block-class", "lane": "lane-class",
+               "tile": "bit-reverse", "copy": "identity"}
+    for name in KERNEL_INFO:
+        plan = pl.get(name)
+        got, want = run(name, x, plan)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, (name, n, err))
+        worst[name] = max(worst[name], err)
+        del got, want
+        fn, pfn = pairs[name]
+        kern, plain = (lambda: fn(x, plan)), (lambda: pfn(x, plan))
+        if name == "copy":
+            tab_bytes = 0
+            lib = lambda: x.clone()
+        else:
+            tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plan, dev))
+            idx = ref.bmmc_src_index(plan.bmmc, dev)
+            lib = lambda: torch.index_select(x, 0, idx)
+        ms = cuda_ms(torch, kern, reps)
+        plain_ms = cuda_ms(torch, plain, max(3, reps // 3), warmup=1)
+        lib_ms = cuda_ms(torch, lib, reps)
+        idx = None
+        bound_ms = (2 * nbytes + tab_bytes) / bw * 1e3
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "max_abs_err": worst[name]}
+        say(f"  n={n} int32 {name} ({case_of[name]}, t={t}): bit-equal; "
+            f"kernel {ms:.3f} ms ({2 * nbytes / ms / 1e6:.1f} GB/s), "
+            f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms")
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_main(torch, n: int, reps: int, bw: float):
+    """The main path at 2^n int32; returns the launch counts of the run.
+    Each case is timed right after the copy kernel, whose time its copy
+    ratio divides."""
+    say("== phase 4: main path, bmmc_permute on 2^%d int32 ==" % n)
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    nbytes = x.numel() * 4
+    t = ops.choose_tile(n, 4)
+    ops._class_plan_cached.cache_clear()
+    ops._plans_cached.cache_clear()
+    K.clear_device_tables()
+    cases = make_cases(n, t)
+    plan_s = {}
+    for name, b, want_kernel in cases:
+        t0 = time.perf_counter()
+        kernel, _ = ops.class_plan(b, t)
+        plan_s[name] = time.perf_counter() - t0
+        check(kernel == want_kernel, (name, kernel, want_kernel))
+
+    say(f"  clocks, power, temperature: {clocks()}")
+    # the counted run: the copy yardstick once, then every case once,
+    # each output checked against the plain gather (which launches no
+    # kernel of the port) before the next
+    K.reset_launch_counts()
+    got = K.copy_blocks(x)
+    check(max_abs_err(torch, got, x) == 0.0, "copy")
+    for name, b, _ in cases:
+        got = ops.bmmc_permute(x, b)
+        want = ref.bmmc_ref_device(x, b)
+        check(got.shape == x.shape and got.dtype == x.dtype, name)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, (name, err))
+        del got, want
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    say(f"  launch counts of the main-path run: {counts}")
+
+    for name, b, kernel in cases:
+        payload = ops.class_plan(b, t)[1]
+        pls = payload if isinstance(payload, tuple) else (payload,)
+        tab_bytes = sum(a.numel() * 4 for p in pls
+                        for a in K.device_tables(p, dev))
+        copy_ms = cuda_ms(torch, lambda: K.copy_blocks(x), reps)
+        ms = cuda_ms(torch, lambda: ops.bmmc_permute(x, b), reps)
+        idx = ref.bmmc_src_index(b, dev)
+        lib_ms = cuda_ms(torch, lambda: torch.index_select(x, 0, idx), reps)
+        idx = None
+        bound_ms = (2 * nbytes * len(pls) + tab_bytes) / bw * 1e3
+        say(f"  {name:17s} kernel={kernel:8s} plan {plan_s[name]:.3f} s  "
+            f"{ms:.3f} ms  {2 * nbytes / ms / 1e6:.1f} GB/s  copy "
+            f"{copy_ms:.3f} ms  copy/this {copy_ms / ms:.3f}  "
+            f"bound {bound_ms:.3f} ms  "
+            f"index_select {lib_ms:.3f} ms  bit-equal")
+        say(f"  clocks, power, temperature: {clocks()}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sweep(torch, n: int, reps: int):
+    """The tiled cases of the main path at the tile sizes around the one
+    ``ops.choose_tile`` picks, each beside the copy kernel: the record
+    behind that choice."""
+    say(f"== phase 5: tile-size sweep on 2^{n} int32 ==")
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), device=dev,
+                      dtype=torch.int32)
+    for t in TILE_SWEEP:
+        copy_ms = cuda_ms(torch, lambda: K.copy_blocks(x), reps)
+        say(f"  copy {copy_ms:.3f} ms")
+        for name, b, _ in make_cases(n, ops.choose_tile(n, 4)):
+            t0 = time.perf_counter()
+            kernel, payload = ops.class_plan(b, t)
+            plan_s = time.perf_counter() - t0
+            if kernel not in ("tiled", "general"):
+                continue
+            (plan,) = payload
+            ms = cuda_ms(torch, lambda: ops.bmmc_permute(x, b, t=t), reps)
+            say(f"  t={t} {name:17s} rows/tile {plan.rows_per_tile:3d} "
+                f"plan {plan_s:.3f} s  {ms:.3f} ms  "
+                f"{2 * x.numel() * 4 / ms / 1e6:.1f} GB/s  "
+                f"copy/this {copy_ms / ms:.3f}")
+        ops._class_plan_cached.cache_clear()
+        ops._plans_cached.cache_clear()
+        K.clear_device_tables()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=30,
+                    help="log2 elements of the main path (paper: 30)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    smi = phase_env(torch)
+    bw = peak_bw(torch.cuda.get_device_name(0))
+    phase_build()
+    records = phase_kernels(torch, N_SMALL, args.n, REPS, bw)
+    counts = phase_main(torch, args.n, REPS, bw)
+
+    phase_sweep(torch, args.n, REPS)
+
+    say("== phase 6: launch counts ==")
+    missing = [k for k in KERNEL_INFO if counts.get(k, 0) <= 0]
+    check(not missing, f"kernels never launched on the main path: {missing}")
+    kernels = []
+    for name, (src, replaces) in KERNEL_INFO.items():
+        r = records[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes", "library_ms": r["library_ms"]})
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

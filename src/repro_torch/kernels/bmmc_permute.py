@@ -1,0 +1,483 @@
+"""Host wrappers of the hand-written CUDA permutation kernels.
+
+The counterpart of :mod:`repro.kernels.bmmc_permute`. Four kernels, each
+a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
+
+* K1 ``copy.cu``          — :func:`copy_blocks`, the bandwidth yardstick
+  (reference: ``copy_through_vmem``);
+* K2 ``block_permute.cu`` — :func:`block_permute`, whole 2^b blocks
+  moved by a source-block table;
+* K3 ``lane_permute.cu``  — :func:`lane_permute`, every row permuted in
+  place by one lane table;
+* K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass
+  (no compute epilogues yet: a non-empty ``epilogue`` raises
+  ``NotImplementedError``).
+
+Every wrapper takes the device of its tensor: a CUDA tensor launches the
+kernel (or raises — there is no quiet fallback), a CPU tensor runs the
+kernel's plain PyTorch version beside it (``_*_plain``), which repeats the
+kernel's schedule with tensor indexing. Each launch adds one to
+:data:`LAUNCHES`; the plain versions count nothing.
+
+Shapes follow the reference: ``x`` is ``(2^n,)`` or ``(2^n, d)``, and with
+``batched=True`` ``(B, 2^n)`` or ``(B, 2^n, d)``. Internally every array is
+seen as ``(B, 2^n, d)`` with ``B = d = 1`` when absent. Tables live on the
+device once per plan (:func:`device_tables`).
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from ..core.tiling import BlockPlan, LanePlan, TilePlan
+
+LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0}
+
+_SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
+_LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
+_BLOCK_CTA_WORDS = 1024         # words one block-permute block moves (at least)
+_TILE_CTA_BYTES = 16 * 1024     # bytes of tiles one tile-permute block moves
+_PLAIN_CHUNK = 1 << 22          # elements per step of the plain tile version
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# shared plumbing
+# ---------------------------------------------------------------------------
+
+def _canonical(x: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``x`` as ``(B, 2^n, d)``."""
+    lead = 1 if batched else 0
+    if x.dim() not in (1 + lead, 2 + lead):
+        raise ValueError(f"expected {'(B, 2^n[, d])' if batched else '(2^n[, d])'}"
+                         f", got shape {tuple(x.shape)}")
+    b = x.shape[0] if batched else 1
+    d = x.shape[1 + lead] if x.dim() == 2 + lead else 1
+    return x.reshape(b, x.shape[lead], d)
+
+
+def _route(x: torch.Tensor, what: str) -> bool:
+    """True: launch the CUDA kernel; False: run the plain version (CPU
+    tensor). Anything else raises."""
+    if x.device.type == "cuda":
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: the CUDA kernel takes a contiguous "
+                             f"tensor, got strides {x.stride()}")
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel for device {x.device}")
+
+
+def _word_bytes(unit: int, *ptrs: int) -> int:
+    """Widest word (<= 16 bytes) dividing ``unit`` and every pointer."""
+    w = 16
+    while w > 1 and (unit % w or any(p % w for p in ptrs)):
+        w //= 2
+    return w
+
+
+def _shift(v: int) -> int:
+    """log2(v) when v is a power of two, else -1."""
+    return v.bit_length() - 1 if v > 0 and v & (v - 1) == 0 else -1
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(x: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _launch(name: str, x: torch.Tensor, *args) -> None:
+    from . import build as _build
+    fn = _build.load(name)
+    with torch.cuda.device(x.device):
+        rc = fn(*args, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _device_table(tab, device, numel: int) -> torch.Tensor:
+    """``tab`` as a contiguous int32 tensor on ``device`` with ``numel``
+    entries (the count its geometry gives); raises otherwise."""
+    t = tab if isinstance(tab, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(tab, dtype=np.int32))
+    if t.dtype != torch.int32:
+        raise ValueError(f"index tables are int32, got {t.dtype}")
+    if t.numel() != numel:
+        raise ValueError(f"index table of {t.numel()} entries, the "
+                         f"geometry needs {numel}")
+    return t.to(device).contiguous()
+
+
+_DEV_LOCK = threading.Lock()
+_DEV_TABLES: "collections.OrderedDict" = collections.OrderedDict()
+_DEV_TABLES_MAX = 32
+
+
+def device_tables(plan, device) -> tuple:
+    """A plan's index tables on ``device`` as int32 tensors, uploaded once
+    and kept beside the plan (bounded LRU; the plan itself is held so its
+    id cannot be reused while the entry lives)."""
+    key = (id(plan), str(device))
+    with _DEV_LOCK:
+        hit = _DEV_TABLES.get(key)
+        if hit is not None and hit[0] is plan:
+            _DEV_TABLES.move_to_end(key)
+            return hit[1]
+    if isinstance(plan, TilePlan):
+        arrs = (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0)
+    elif isinstance(plan, BlockPlan):
+        arrs = (plan.src_rows,)
+    elif isinstance(plan, LanePlan):
+        arrs = (plan.src_lane,)
+    else:
+        raise TypeError(f"no tables for {type(plan).__name__}")
+    tabs = tuple(_device_table(a, device, a.size) for a in arrs)
+    with _DEV_LOCK:
+        _DEV_TABLES[key] = (plan, tabs)
+        while len(_DEV_TABLES) > _DEV_TABLES_MAX:
+            _DEV_TABLES.popitem(last=False)
+    return tabs
+
+
+def clear_device_tables() -> None:
+    with _DEV_LOCK:
+        _DEV_TABLES.clear()
+
+
+def _trap_tables(pairs) -> None:
+    """Host-side descriptor trap at the kernel-launch boundary: when
+    guards are on, refuse to launch a kernel whose gather / row tables
+    address outside their geometry (the reference's
+    ``bmmc_permute._trap_tables``, same switch)."""
+    from .. import guard as _g
+    if not _g.enabled():
+        return
+    from ..guard.errors import DescriptorOOB
+    for name, tab, hi in pairs:
+        if isinstance(tab, torch.Tensor):
+            tab = tab.cpu().numpy()
+        if tab.size and (int(tab.min()) < 0 or int(tab.max()) >= hi):
+            raise DescriptorOOB(
+                f"kernel launch refused: table {name!r} addresses "
+                f"[{int(tab.min())}, {int(tab.max())}] outside [0, {hi})")
+
+
+def _long(tab, device) -> torch.Tensor:
+    if isinstance(tab, torch.Tensor):
+        return tab.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(tab), dtype=torch.int64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# K4a: one tiled pass
+# ---------------------------------------------------------------------------
+
+def default_num_buffers(n_tiles: int) -> int:
+    """2 (double buffering) whenever there is more than one tile. Kept in
+    the geometry for key parity with the reference; the CUDA kernel runs
+    tiles in parallel blocks instead of a buffered loop."""
+    return 1 if n_tiles == 1 else 2
+
+
+def plan_geometry(plan: TilePlan, num_buffers: int = None) -> tuple:
+    """The hashable tile geometry of a plan — everything that shapes the
+    kernel *except* the index tables (the reference's tuple)."""
+    if num_buffers is None:
+        num_buffers = default_num_buffers(plan.n_tiles)
+    return (plan.n, plan.t, plan.rows_per_tile, plan.in_run, plan.out_run,
+            plan.n_tiles, num_buffers)
+
+
+def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
+    """The K4a schedule with tensor indexing: tile ``g`` gathers
+    ``tile.flat[src0.flat[r * 2^t + (l ^ xor_low[g])]]`` from its input
+    rows and writes output rows ``out_rows[g]``; tiles in chunks."""
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    row_len = 1 << t
+    dev = xc.device
+    ir, orow = _long(in_rows, dev), _long(out_rows, dev)
+    xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
+    j = torch.arange(rpt * row_len, device=dev)
+    rp, cp = j >> t, j & (row_len - 1)
+    out = torch.empty_like(xc)
+    step = max(1, _PLAIN_CHUNK // (rpt * row_len))
+    for g0 in range(0, n_tiles, step):
+        gs = slice(g0, min(n_tiles, g0 + step))
+        src = s0[(rp << t) | (cp[None, :] ^ xl[gs, None])]
+        x_glob = torch.gather(ir[gs], 1, src >> t) * row_len + (src & (row_len - 1))
+        y_glob = orow[gs][:, rp] * row_len + cp
+        out[:, y_glob.reshape(-1)] = xc[:, x_glob.reshape(-1)]
+    return out
+
+
+def _tile_launch(xc, tabs, geometry):
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    out = torch.empty_like(xc)
+    batch, _, d = xc.shape
+    elem = d * xc.element_size()
+    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr())
+    wpe = elem // wb
+    pad = max(1, 4 // wb)
+    # small tiles (a mixed complement's are one row) are grouped so one
+    # block still moves about _TILE_CTA_BYTES
+    per_cta = 1
+    while (per_cta * 2 <= n_tiles
+           and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES):
+        per_cta *= 2
+    rows = per_cta * rpt
+    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + rows * (
+        (1 << t) * wpe + pad) * wb
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
+                         f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
+    _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
+            n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe, _shift(wpe),
+            _shift((1 << t) * wpe), pad, batch, wb)
+    return out
+
+
+def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
+                         *, geometry: tuple, epilogue: tuple = (),
+                         epi_scalar: tuple = (), epi_vmem: tuple = (),
+                         map_fns: tuple = (),
+                         batched: bool = False) -> torch.Tensor:
+    """One tiled-BMMC pass with the index tables as arguments (int32
+    tensors on ``x``'s device, or numpy arrays). ``geometry`` is
+    :func:`plan_geometry` output. Fused compute epilogues are not ported
+    yet: a non-empty ``epilogue`` raises ``NotImplementedError``."""
+    if epilogue or epi_scalar or epi_vmem or map_fns:
+        raise NotImplementedError(
+            "compute epilogues of the tiled kernel are not ported yet")
+    xc = _canonical(x, batched)
+    if xc.shape[1] != 1 << geometry[0]:
+        raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
+                         f"2^{geometry[0]}")
+    if _route(x, "tiled_permute"):
+        n, t, rpt, _, _, n_tiles, _ = geometry
+        tabs = tuple(_device_table(a, x.device, k) for a, k in (
+            (in_rows, n_tiles * rpt), (out_rows, n_tiles * rpt),
+            (xor_low, n_tiles), (src0, rpt << t)))
+        out = _tile_launch(xc, tabs, geometry)
+    else:
+        out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
+    return out.reshape(x.shape)
+
+
+def tiled_permute(x: torch.Tensor, plan: TilePlan, *,
+                  batched: bool = False) -> torch.Tensor:
+    """Apply one tiled-BMMC pass. ``x``: (2^n,) or (2^n, d); with
+    ``batched=True``, (B, 2^n) or (B, 2^n, d)."""
+    n_rows = 1 << (plan.n - plan.t)
+    _trap_tables([("in_rows", plan.in_rows, n_rows),
+                  ("out_rows", plan.out_rows, n_rows),
+                  ("xor_low", plan.xor_low, plan.row_len),
+                  ("src0", plan.src0, plan.rows_per_tile * plan.row_len)])
+    tabs = (device_tables(plan, x.device) if x.device.type == "cuda" else
+            (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0))
+    return tiled_permute_tables(x, *tabs, geometry=plan_geometry(plan),
+                                batched=batched)
+
+
+# ---------------------------------------------------------------------------
+# K2: block permute
+# ---------------------------------------------------------------------------
+
+def block_geometry(plan) -> tuple:
+    """Hashable kernel geometry of a :class:`BlockPlan`."""
+    return (plan.n, plan.b, plan.n_rows)
+
+
+def _block_plain(xc, src_rows, geometry):
+    n, b, n_rows = geometry
+    xv = xc.reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
+    return xv.index_select(1, _long(src_rows, xc.device)).reshape(xc.shape)
+
+
+def _block_launch(xc, src_rows, geometry):
+    n, b, n_rows = geometry
+    out = torch.empty_like(xc)
+    blk = (1 << b) * xc.shape[2] * xc.element_size()
+    wb = _word_bytes(blk, xc.data_ptr(), out.data_ptr())
+    wpb = blk // wb
+    per_cta = max(1, -(-_BLOCK_CTA_WORDS // wpb))
+    _launch("block", xc, _ptr(xc), _ptr(out), _ptr(src_rows), n_rows, wpb,
+            _shift(wpb), per_cta, xc.shape[0], wb)
+    return out
+
+
+def block_permute_tables(x: torch.Tensor, src_rows, *, geometry: tuple,
+                         batched: bool = False) -> torch.Tensor:
+    """Block-remapped copy: output block ``g`` reads input block
+    ``src_rows[g]``. ``geometry`` is :func:`block_geometry` output."""
+    xc = _canonical(x, batched)
+    if xc.shape[1] != 1 << geometry[0]:
+        raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
+                         f"2^{geometry[0]}")
+    if _route(x, "block_permute"):
+        out = _block_launch(xc, _device_table(src_rows, x.device,
+                                              geometry[2]), geometry)
+    else:
+        out = _block_plain(xc, src_rows, geometry)
+    return out.reshape(x.shape)
+
+
+def block_permute(x: torch.Tensor, plan: BlockPlan, *,
+                  batched: bool = False) -> torch.Tensor:
+    _trap_tables([("src_rows", plan.src_rows, plan.n_rows)])
+    tab = (device_tables(plan, x.device)[0] if x.device.type == "cuda"
+           else plan.src_rows)
+    return block_permute_tables(x, tab, geometry=block_geometry(plan),
+                                batched=batched)
+
+
+# ---------------------------------------------------------------------------
+# K3: lane permute
+# ---------------------------------------------------------------------------
+
+def lane_geometry(plan) -> tuple:
+    """Hashable kernel geometry of a :class:`LanePlan`."""
+    return (plan.n, plan.t, plan.rows_per_block)
+
+
+def _lane_plain(xc, src_lane, geometry):
+    n, t, _ = geometry
+    xv = xc.reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
+    return xv.index_select(2, _long(src_lane, xc.device)).reshape(xc.shape)
+
+
+def _lane_launch(xc, src_lane, geometry):
+    n, t, _ = geometry
+    out = torch.empty_like(xc)
+    elem = xc.shape[2] * xc.element_size()
+    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr())
+    wpe = elem // wb
+    row_bytes = (1 << t) * elem
+    tab = ((1 << t) * 4 + 15) & ~15
+    if tab + row_bytes > _SMEM_MAX:
+        raise ValueError(f"a row of 2^{t} elements of {elem} bytes does "
+                         f"not fit shared memory ({_SMEM_MAX} bytes)")
+    # rows_per_block is the TPU's staging size; a block here stages
+    # about _LANE_SMEM bytes of rows (at least one row)
+    rows = max(1, min(1 << (n - t), _LANE_SMEM // row_bytes))
+    _launch("lane", xc, _ptr(xc), _ptr(out), _ptr(src_lane), 1 << (n - t),
+            1 << t, wpe, _shift(wpe), _shift((1 << t) * wpe), rows,
+            xc.shape[0], wb)
+    return out
+
+
+def lane_permute_tables(x: torch.Tensor, src_lane, *, geometry: tuple,
+                        batched: bool = False) -> torch.Tensor:
+    """Row gather: ``out[.., row, lane] = x[.., row, src_lane[lane]]``.
+    ``geometry`` is :func:`lane_geometry` output."""
+    xc = _canonical(x, batched)
+    if xc.shape[1] != 1 << geometry[0]:
+        raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
+                         f"2^{geometry[0]}")
+    if _route(x, "lane_permute"):
+        out = _lane_launch(xc, _device_table(src_lane, x.device,
+                                             1 << geometry[1]), geometry)
+    else:
+        out = _lane_plain(xc, src_lane, geometry)
+    return out.reshape(x.shape)
+
+
+def lane_permute(x: torch.Tensor, plan: LanePlan, *,
+                 batched: bool = False) -> torch.Tensor:
+    _trap_tables([("src_lane", plan.src_lane, 1 << plan.t)])
+    tab = (device_tables(plan, x.device)[0] if x.device.type == "cuda"
+           else plan.src_lane)
+    return lane_permute_tables(x, tab, geometry=lane_geometry(plan),
+                               batched=batched)
+
+
+# ---------------------------------------------------------------------------
+# K1: the copy yardstick (paper §2.3, §6)
+# ---------------------------------------------------------------------------
+
+def copy_pad_elems(size: int, rows_per_block: int = 8,
+                   row_len: int = 256) -> int:
+    """Elements of zero padding the reference's ``copy_through_vmem``
+    appends so the array divides into whole blocks (0 = exact fit). The
+    CUDA kernel masks the ragged edge instead of padding; benchmarks keep
+    this number as the label of a ragged copy."""
+    blk = rows_per_block * row_len
+    return (-size) % blk
+
+
+def _copy_plain(x, rows_per_block, row_len):
+    """The reference's schedule: zero-pad to whole blocks, copy block by
+    block, slice back."""
+    blk = rows_per_block * row_len
+    flat = x.reshape(-1)
+    pad = copy_pad_elems(flat.numel(), rows_per_block, row_len)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, rows_per_block, row_len)
+    out = torch.empty_like(blocks)
+    out[:] = blocks
+    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+
+
+def copy_blocks(x: torch.Tensor, *, rows_per_block: int = 8,
+                row_len: int = 256) -> torch.Tensor:
+    """Block copy, the bandwidth yardstick (the reference's
+    ``copy_through_vmem``): one CUDA block per (rows_per_block, row_len)
+    block of elements, the last block masked at the ragged edge."""
+    if not _route(x, "copy_blocks"):
+        return _copy_plain(x, rows_per_block, row_len)
+    out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
+    if nbytes == 0:
+        return out
+    wb = _word_bytes(nbytes, x.data_ptr(), out.data_ptr())
+    per_cta = rows_per_block * row_len * x.element_size() // wb
+    _launch("copy", x, _ptr(x), _ptr(out), nbytes // wb, max(1, per_cta), wb)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The plain versions at the plan level, on any device: what a kernel is
+# held against on the card (the wrappers above take them for CPU tensors
+# only).
+# ---------------------------------------------------------------------------
+
+def copy_plain(x: torch.Tensor) -> torch.Tensor:
+    return _copy_plain(x, 8, 256)
+
+
+def block_permute_plain(x: torch.Tensor, plan: BlockPlan, *,
+                        batched: bool = False) -> torch.Tensor:
+    xc = _canonical(x, batched)
+    return _block_plain(xc, plan.src_rows,
+                        block_geometry(plan)).reshape(x.shape)
+
+
+def lane_permute_plain(x: torch.Tensor, plan: LanePlan, *,
+                       batched: bool = False) -> torch.Tensor:
+    xc = _canonical(x, batched)
+    return _lane_plain(xc, plan.src_lane,
+                       lane_geometry(plan)).reshape(x.shape)
+
+
+def tiled_permute_plain(x: torch.Tensor, plan: TilePlan, *,
+                        batched: bool = False) -> torch.Tensor:
+    xc = _canonical(x, batched)
+    return _tile_plain(xc, plan.in_rows, plan.out_rows, plan.xor_low,
+                       plan.src0, plan_geometry(plan)).reshape(x.shape)
