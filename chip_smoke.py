@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the full run, one card
-    python3 chip_smoke.py --n 22          # a quick check at 2^22
+    python3 chip_smoke.py --n 22 --n-sort 20 --n-fft 18   # a quick check
 
 Phases (each fails loudly; a failure exits non-zero and prints no result):
 
@@ -10,11 +10,11 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), with seconds and ptxas usage;
-3. kernel vs plain: each kernel (copy, block, lane, tile) held bit for
-   bit against its plain PyTorch version on the card, at a small size
-   (int32, bfloat16, float32 with a d = 8 tail, a batch of 3, a ragged
-   copy) and at 2^n int32; the 2^n case is timed with CUDA events
-   beside the plain version and one PyTorch library call;
+3. kernel vs plain: each permutation kernel (copy, block, lane, tile)
+   held bit for bit against its plain PyTorch version on the card, at a
+   small size (int32, bfloat16, float32 with a d = 8 tail, a batch of 3,
+   a ragged copy) and at 2^n int32; the 2^n case is timed with CUDA
+   events beside the plain version and one PyTorch library call;
 4. main path: ``repro_torch.kernels.ops.bmmc_permute`` on 2^n int32 for
    one BMMC of each dispatch case (bit-reverse, random BPC, random BMMC,
    block class, lane class, mixed complement), each bit-equal to the
@@ -23,9 +23,24 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    byte bound and ``torch.index_select`` on a precomputed index;
 5. tile-size sweep: the tiled cases at t = 5, 6 and 7, each beside the
    copy kernel (the record behind ``ops.choose_tile``'s t = 6 for int32);
-6. launch counts of the main path (every kernel must have launched) and
+6. K4b vs plain: the fused tiled pass (``tile_fused``) bit for bit
+   against its plain version on sort clusters of 1, 2 and 3
+   compare-exchange epilogues (int32, float32 and bfloat16 with NaNs and
+   signed zeros, a d = 3 tail, a batch of 3) and on an FFT cluster of
+   butterflies (planar float32); then the largest cluster of the 2^24
+   sort, timed beside its plain version, the same pass without
+   epilogues, the copy kernel and the torch composite of the cluster;
+7. combinator path: ``repro_torch.combinators.sort`` of 2^24 int32 keys
+   (bit-equal to ``torch.sort``) and ``fft_planar`` of 2^22 points
+   (within ``FFT_REL_TOL`` of ``torch.fft.fft`` in float64), each with
+   its cold host planning seconds, ``program_cost`` round trips equal to
+   the cold call's counted ``model.round_trips``, no fused fallback, and
+   the CUDA-graph call, the eager per-stage call and the library call
+   timed;
+8. launch counts: every permutation kernel launched on the main path
+   (phase 4) and ``tile_fused`` on the combinator path (phase 7), and
    one JSON line describing every kernel;
-7. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -41,6 +56,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
 
@@ -53,11 +70,20 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
              "src/repro/kernels/bmmc_permute.py:811"),
     "tile": ("src/repro_torch/kernels/csrc/tile_permute.cu",
              "src/repro/kernels/bmmc_permute.py:72"),
+    "tile_fused": ("src/repro_torch/kernels/csrc/tile_fused.cu",
+                   "src/repro/kernels/bmmc_permute.py:181"),
 }
+PERM_KERNELS = ("copy", "block", "lane", "tile")   # the bmmc_permute path
 
 N_SMALL = 14              # log2 elements of the small kernel-vs-plain cases
 REPS = 10                 # timed runs per measurement (the median is kept)
 TILE_SWEEP = (5, 6, 7)    # tile sizes of the sweep phase
+N_SORT = 24               # log2 keys of the combinator path's sort (64 MiB)
+N_FFT = 22                # log2 points of its FFT (32 MiB planar float32)
+# Norm-wise relative error of the float32 FFT against float64: radix-2
+# float32 rounding grows like eps * log2(N) (eps = 6e-8, 22 stages), so
+# 1e-5 leaves about an order of magnitude of room.
+FFT_REL_TOL = 1e-5
 
 # Peak HBM bandwidth by card (NVIDIA data sheets); the byte bound of a
 # kernel is the bytes it must move over this rate.
@@ -221,7 +247,7 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
         fn, plain = pairs[name]
         return fn(x, plan, batched=batched), plain(x, plan, batched=batched)
 
-    worst = {k: 0.0 for k in KERNEL_INFO}
+    worst = {k: 0.0 for k in PERM_KERNELS}
     configs = [("int32", torch.int32, (1 << n_small,), False),
                ("bfloat16", torch.bfloat16, (1 << n_small,), False),
                ("float32 d=8", torch.float32, (1 << n_small, 8), False),
@@ -232,7 +258,7 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
                             .element_size(), d)
         pl = plans(n_small, t)
         x = payload(shape, dtype)
-        for name in KERNEL_INFO:
+        for name in PERM_KERNELS:
             got, want = run(name, x, pl.get(name), batched)
             err = max_abs_err(torch, got, want)
             check(err == 0.0, (name, label, err))
@@ -251,7 +277,7 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
     records = {}
     case_of = {"block": "block-class", "lane": "lane-class",
                "tile": "bit-reverse", "copy": "identity"}
-    for name in KERNEL_INFO:
+    for name in PERM_KERNELS:
         plan = pl.get(name)
         got, want = run(name, x, plan)
         err = max_abs_err(torch, got, want)
@@ -375,10 +401,278 @@ def phase_sweep(torch, n: int, reps: int):
         K.clear_device_tables()
 
 
+def fused_cases(n: int, t: int, expr_name: str):
+    """The fused clusters (FusedStages with computes) of the sort or FFT
+    program at 2^n and tile t, as the port's planner clusters them."""
+    from repro_torch.combinators import FusedStage, compile_expr
+    from repro_torch.combinators.fft import fft_expr
+    from repro_torch.combinators.sort import sort_expr
+    expr = {"sort": sort_expr, "fft": fft_expr}[expr_name](n)
+    prog = compile_expr(expr).clustered_program(n, t)
+    return [s for s in prog if isinstance(s, FusedStage) and s.computes]
+
+
+def fused_call(K, ex, fs, t, x, batched=False, plain=False):
+    """One cluster through K4b as the executor runs it (its tables kept on
+    the card), or through the plain version of the same passes."""
+    if not plain:
+        return ex._fused_cuda(x, fs, t, batched=batched)
+    plans, entries = ex._fused_plan_cached(fs, t)
+    plan = plans[0]
+    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    y = K.tiled_permute_tables_plain(
+        x, plan.in_rows, plan.out_rows, plan.xor_low, plan.src0,
+        geometry=K.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
+        epi_vmem=vmem, batched=batched)
+    for plan in plans[1:]:
+        y = K.tiled_permute_plain(y, plan, batched=batched)
+    return y
+
+
+def phase_fused(torch, n_small: int, n_sort: int, reps: int, bw: float):
+    """K4b against its plain version, bit for bit, at small sizes; then one
+    2^n_sort int32 sort cluster timed beside the plain version and the
+    torch composite of the same cluster."""
+    say("== phase 6: K4b (tile_fused) vs plain ==")
+    from repro_torch.combinators import CmpHalves, Perm
+    from repro_torch.combinators import execute as ex
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def ties(shape, dtype):
+        """Small integers as ``dtype`` (many ties), with canonical NaNs and
+        signed zeros for the float types."""
+        v = torch.randint(-4, 5, shape, generator=gen, device=dev)
+        if dtype == torch.int32:
+            return v.to(torch.int32)
+        f = v.to(torch.float32)
+        u = torch.rand(shape, generator=gen, device=dev)
+        f = torch.where(u < 0.05, torch.full_like(f, float("nan")), f)
+        f = torch.where((u > 0.5) & (f == 0), torch.full_like(f, -0.0), f)
+        return f.to(dtype)
+
+    worst = 0.0
+    by_size = {}
+    for fs in fused_cases(n_small, 6, "sort"):
+        by_size.setdefault(len(fs.computes), fs)
+    check(1 in by_size and 2 in by_size and 3 in by_size, sorted(by_size))
+    configs = [("int32", torch.int32, (1 << n_small,), False),
+               ("float32 NaN/-0", torch.float32, (1 << n_small,), False),
+               ("bfloat16 NaN/-0", torch.bfloat16, (1 << n_small,), False),
+               ("int32 B=3", torch.int32, (3, 1 << n_small), True)]
+    for label, dtype, shape, batched in configs:
+        x = ties(shape, dtype)
+        for k in (1, 2, 3):
+            got = fused_call(K, ex, by_size[k], 6, x, batched)
+            want = fused_call(K, ex, by_size[k], 6, x, batched, plain=True)
+            err = max_abs_err(torch, got, want)
+            check(err == 0.0, ("cmp", label, k, err))
+            worst = max(worst, err)
+        say(f"  n={n_small} cmp {label} t=6: clusters of 1, 2 and 3 "
+            f"epilogues bit-equal")
+    t3 = ops.choose_tile(n_small, 4, 3)
+    for fs in fused_cases(n_small, t3, "sort")[:3]:
+        x = ties((1 << n_small, 3), torch.float32)
+        err = max_abs_err(torch, fused_call(K, ex, fs, t3, x),
+                          fused_call(K, ex, fs, t3, x, plain=True))
+        check(err == 0.0, ("cmp d=3", err))
+    say(f"  n={n_small} cmp float32 d=3 t={t3}: bit-equal")
+    t2 = ops.choose_tile(n_small, 4, 2)
+    for fs in fused_cases(n_small, t2, "fft"):
+        x = torch.randn((1 << n_small, 2), generator=gen, device=dev)
+        err = max_abs_err(torch, fused_call(K, ex, fs, t2, x),
+                          fused_call(K, ex, fs, t2, x, plain=True))
+        check(err == 0.0, ("bfly", len(fs.computes), err))
+        say(f"  n={n_small} bfly float32 planar t={t2}: "
+            f"{len(fs.computes)} epilogues bit-equal")
+
+    t = ops.choose_tile(n_sort, 4)
+    fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n_sort,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    got = fused_call(K, ex, fs, t, x)
+    want = fused_call(K, ex, fs, t, x, plain=True)
+    err = max_abs_err(torch, got, want)
+    check(err == 0.0, ("2^n cluster", err))
+    worst = max(worst, err)
+    # the torch composite of the same cluster: each Perm an index_select
+    # on a precomputed index, each CmpHalves torch.minimum/maximum
+    idx = {id(s): ref.bmmc_src_index(s.bmmc, dev) for s in fs.stages
+           if isinstance(s, Perm)}
+
+    def composite():
+        v = x
+        for s in fs.stages:
+            if isinstance(s, Perm):
+                v = torch.index_select(v, 0, idx[id(s)])
+            else:
+                check(isinstance(s, CmpHalves), type(s).__name__)
+                lo, hi = v.chunk(2)
+                v = torch.cat([torch.minimum(lo, hi), torch.maximum(lo, hi)])
+        return v
+    check(torch.equal(composite(), got), "torch composite of the cluster")
+    del got, want
+    plans, entries = ex._fused_plan_cached(fs, t)
+    check(len(plans) == 1, "one pass")
+    tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plans[0], dev))
+    tab_bytes += sum(np.asarray(a).nbytes for e in entries
+                     for a in (e[2].hi_row, e[2].hi_lane, e[2].hi_base))
+    nbytes = x.numel() * 4
+    ms = cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x), reps)
+    plain_ms = cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x, plain=True),
+                       max(3, reps // 3), warmup=1)
+    lib_ms = cuda_ms(torch, composite, reps)
+    tile_ms = cuda_ms(torch, lambda: K.tiled_permute(x, plans[0]), reps)
+    copy_ms = cuda_ms(torch, lambda: K.copy_blocks(x), reps)
+    bound_ms = (2 * nbytes + tab_bytes) / bw * 1e3
+    say(f"  n={n_sort} int32 sort cluster ({len(fs.stages)} stages, "
+        f"{len(fs.computes)} cmp epilogues, t={t}): bit-equal; kernel "
+        f"{ms:.3f} ms ({2 * nbytes / ms / 1e6:.1f} GB/s), same pass without "
+        f"epilogues (K4a) {tile_ms:.3f} ms, copy {copy_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, torch composite {lib_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "max_abs_err": worst}
+
+
+def plan_program(f, x, batched=False):
+    """Resolve a compiled program and build every plan it runs (the
+    host planning of a cold call): (program, t, seconds)."""
+    from repro_torch.combinators import FusedStage, Perm
+    from repro_torch.combinators import execute as ex
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    prog, t = f._resolve(x, batched)
+    for s in prog:
+        if isinstance(s, FusedStage):
+            check(ex._fused_plan_cached(s, t) is not None, "cluster plan")
+        elif isinstance(s, Perm):
+            ops.class_plan(s.bmmc, t)
+    return prog, t, time.perf_counter() - t0
+
+
+def phase_combinators(torch, n_sort: int, n_fft: int, reps: int):
+    """The combinator path through its entry points: the sort of 2^n_sort
+    int32 keys and the FFT of 2^n_fft planar float32 points. Returns the
+    launch counts of the two cold calls."""
+    say("== phase 7: combinator path (sort, FFT) ==")
+    from repro_torch import obs
+    from repro_torch.combinators import program_cost
+    from repro_torch.combinators import clear_caches
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import sort as S
+    from repro_torch.kernels import bmmc_permute as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2306)
+    counts = {k: 0 for k in K.LAUNCHES}
+    clear_caches()   # the planning seconds below are a cold call's
+
+    def cold(fn, x):
+        """The entry point's first call with telemetry on: (result, modeled
+        round trips counted, fused fallbacks, launch counts)."""
+        obs.reset()
+        obs.enable(sync=True)
+        K.reset_launch_counts()
+        try:
+            y = fn(x)
+            torch.cuda.synchronize()
+        finally:
+            obs.disable()
+        c = K.launch_counts()
+        for k, v in c.items():
+            counts[k] += v
+        rt = obs.counter_total("model.round_trips")
+        fb = obs.counter_total("dispatch.fused_fallback")
+        obs.reset()
+        return y, rt, fb, c
+
+    def breakdown(f, x, prog):
+        """CUDA-event ms of each stage of the program run on its own, summed
+        by the kind ``program_cost`` counts it as."""
+        from repro_torch.combinators import FusedStage, Perm, run_program
+        from repro_torch.kernels import ops
+        t = f._resolve(x, False)[1]
+        by = {}
+        v = x
+        for s in prog:
+            if isinstance(s, FusedStage):
+                kind = "fused"
+            elif isinstance(s, Perm):
+                kind = ops.class_plan(s.bmmc, t)[0]
+            else:
+                kind = "sweep"
+            ms = cuda_ms(torch, lambda: run_program((s,), v, "cuda"), 3,
+                         warmup=1)
+            by[kind] = by.get(kind, 0.0) + ms
+            v = run_program((s,), v, "cuda")
+        return by
+
+    def report(name, f, x, nbytes, prog, t, plan_s, rt, lib, lib_name):
+        cost = program_cost(prog, t, x.element_size() * (
+            x.shape[-1] if x.dim() == 2 else 1))
+        check(rt == cost["round_trips"], (name, rt, cost["round_trips"]))
+        ms = cuda_ms(torch, lambda: f(x), reps)
+        stage_ms = cuda_ms(torch, lambda: f.call_per_stage(x),
+                           max(3, reps // 3), warmup=1)
+        lib_ms = cuda_ms(torch, lib, reps)
+        gbs = cost["round_trips"] * 2 * nbytes / ms / 1e6
+        say(f"  {name}: plan {plan_s:.3f} s (cold); round trips "
+            f"{cost['round_trips']} (program_cost) = {int(rt)} (counted); "
+            f"kernels {cost['kernels']}; graph {ms:.3f} ms "
+            f"({gbs:.1f} GB/s effective), per stage {stage_ms:.3f} ms, "
+            f"{lib_name} {lib_ms:.3f} ms")
+        by = breakdown(f, x, prog)
+        say(f"  {name}: stage ms by kind (each stage timed alone): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(by.items())) +
+            f"; sum {sum(by.values()):.3f}")
+        say(f"  clocks, power, temperature: {clocks()}")
+
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n_sort,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    f = S.compiled_sort(n_sort)
+    prog, t, plan_s = plan_program(f, x)
+    y, rt, fb, c = cold(S.sort, x)
+    check(fb == 0, f"sort: {fb} fused clusters fell back")
+    check(max_abs_err(torch, y, torch.sort(x).values) == 0.0, "sort")
+    say(f"  sort of 2^{n_sort} int32: bit-equal to torch.sort; cold-call "
+        f"launches {c}")
+    report(f"sort 2^{n_sort} int32", f, x, x.numel() * 4, prog, t, plan_s,
+           rt, lambda: torch.sort(x), "torch.sort")
+    del y
+    torch.cuda.empty_cache()
+
+    z = torch.complex(torch.randn(1 << n_fft, generator=gen, device=dev),
+                      torch.randn(1 << n_fft, generator=gen, device=dev))
+    xr = F.to_planar(z)
+    g = F.compiled_fft(n_fft)
+    prog, t, plan_s = plan_program(g, xr)
+    y, rt, fb, c = cold(F.fft_planar, xr)
+    check(fb == 0, f"fft: {fb} fused clusters fell back")
+    want = torch.fft.fft(z.to(torch.complex128))
+    got = F.from_planar(y).to(torch.complex128)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    check(y.shape == xr.shape and bool(torch.isfinite(y).all()), "fft shape")
+    check(rel <= FFT_REL_TOL, ("fft relative error", rel))
+    say(f"  FFT of 2^{n_fft} planar float32: norm-wise relative error "
+        f"{rel:.3e} against torch.fft.fft in float64 (limit "
+        f"{FFT_REL_TOL:g}); cold-call launches {c}")
+    report(f"FFT 2^{n_fft} planar float32", g, xr, xr.numel() * 4, prog, t,
+           plan_s, rt, lambda: torch.fft.fft(z), "torch.fft.fft")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
                     help="log2 elements of the main path (paper: 30)")
+    ap.add_argument("--n-sort", type=int, default=N_SORT,
+                    help="log2 keys of the combinator path's sort")
+    ap.add_argument("--n-fft", type=int, default=N_FFT,
+                    help="log2 points of the combinator path's FFT")
     args = ap.parse_args(argv)
 
     import torch
@@ -394,10 +688,17 @@ def main(argv=None) -> int:
     counts = phase_main(torch, args.n, REPS, bw)
 
     phase_sweep(torch, args.n, REPS)
+    records["tile_fused"] = phase_fused(torch, N_SMALL - 2, args.n_sort, REPS,
+                                        bw)
+    comb = phase_combinators(torch, args.n_sort, args.n_fft, REPS)
 
-    say("== phase 6: launch counts ==")
-    missing = [k for k in KERNEL_INFO if counts.get(k, 0) <= 0]
+    say("== phase 8: launch counts ==")
+    missing = [k for k in PERM_KERNELS if counts.get(k, 0) <= 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
+    check(comb["tile_fused"] > 0, "tile_fused never launched on the "
+          "combinator path")
+    say(f"  combinator path (sort and FFT cold calls): {comb}")
+    counts["tile_fused"] = comb["tile_fused"]
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]

@@ -348,6 +348,115 @@ def plan_general(bmmc: Bmmc, t: int) -> Optional[TilePlan]:
     )
 
 
+# ---------------------------------------------------------------------------
+# Fused-compute tables: everything a fused epilogue needs to run a
+# CmpHalves / Bfly stage on the tile while it sits in on-chip memory.
+#
+# The compute pairs intermediate index m with m ^ 2^(n-1), where m = M x
+# (+) c_M and M is the composition of the run's perms *before* the
+# compute. Pulled back to input space the partner of x is x ^ v with
+# v = A_M^-1 e_{n-1}; when v lies in the span of the plan's tile row (R)
+# and column (L) bits, the partner is resident in the same tile at
+# position (r ^ vr, lane ^ vc). Which element of a pair is the "hi" half
+# (bit n-1 of m set) and which twiddle a butterfly pair uses are affine
+# in x, so they split into per-row / per-lane tables XORed with one
+# per-tile scalar — the same trick as ``xor_low``. Each table is affine
+# over F2 in the bits of its index, so it is built by doubling
+# (:func:`_affine_table`), where the reference loops over rows, lanes
+# and tiles; the tables are bitwise equal to the reference's.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ComputeTables:
+    """Offline tables for one on-chip compute applied inside a tiled pass."""
+
+    kind: str                        # "cmp" | "bfly"
+    vr: int                          # partner XOR on the tile-row slot
+    vc: int                          # partner XOR on the lane
+    hi_row: np.ndarray               # (rows_per_tile,) int32 parity bits
+    hi_lane: np.ndarray              # (row_len,) int32 parity bits
+    hi_base: np.ndarray              # (n_tiles,) int32 per-tile parity bit
+    tw_row: Optional[np.ndarray] = None    # (rows_per_tile,) int32 (bfly)
+    tw_lane: Optional[np.ndarray] = None   # (row_len,) int32 (bfly)
+    tw_base: Optional[np.ndarray] = None   # (n_tiles,) int32 (bfly)
+
+
+def pairing_vector(prefix: Bmmc) -> int:
+    """The input-space partner XOR ``v = A_M^{-1} e_{n-1}`` of a compute
+    whose pair bit is n-1 in the output space of ``prefix``."""
+    return f2.matvec(f2.inverse(prefix.rows), 1 << (prefix.n - 1))
+
+
+def _dir_coords(v: int, row_dirs: tuple, t: int) -> Optional[int]:
+    """Coordinates ``vr`` with ``high(v) == high(XOR(row_dirs[k] for bits
+    k of vr))``, or None when ``high(v)`` escapes the span."""
+    red: list = []                          # (high part, coordinate mask)
+    for k, d in enumerate(row_dirs):
+        hp, co = d >> t, 1 << k
+        for rh, rc in red:
+            if hp & (rh & -rh):
+                hp ^= rh
+                co ^= rc
+        if hp:
+            red.append((hp, co))
+    h, coord = v >> t, 0
+    for rh, rc in red:
+        if h & (rh & -rh):
+            h ^= rh
+            coord ^= rc
+    return coord if h == 0 else None
+
+
+def compute_tables(plan: TilePlan, prefix: Bmmc,
+                   kind: str) -> Optional[ComputeTables]:
+    """Build the epilogue tables for one compute, or None if the compute
+    is not tile-local under ``plan`` (pairing vector escapes the tile
+    span — row directions plus the low lane bits)."""
+    n, t = plan.n, plan.t
+    dirs = plan.row_dirs
+    tb = list(plan.tb_positions)
+    low_mask = (1 << t) - 1
+
+    v = pairing_vector(prefix)
+    vr = _dir_coords(v, dirs, t)
+    if vr is None:
+        return None
+    vc = v & low_mask   # slot lane == low bits of x, so the lane XOR is raw
+
+    rowvec = prefix.rows[n - 1]            # row n-1 of A_M: hi(x) predicate
+    cbit = (prefix.c >> (n - 1)) & 1
+    hi_mask = ~low_mask  # slots address rows by direction HIGH parts only
+
+    # hi(x) = <rowvec, x> is F2-linear, so it splits over the tile's
+    # decomposition x = base_g ^ high(dirs(r)) ^ lane: per-row (over the
+    # direction high parts), per-lane and per-tile tables, each the
+    # affine table of the images of its index bits.
+    def par(x: int) -> int:
+        return f2.parity(rowvec & x)
+
+    def i32(tab: np.ndarray) -> np.ndarray:
+        return tab.astype(np.int32)
+
+    hi_row = i32(_affine_table([par(d & hi_mask) for d in dirs]))
+    hi_lane = i32(_affine_table([par(1 << k) for k in range(t)]))
+    hi_base = i32(_affine_table([par(1 << p) for p in tb], cbit))
+
+    tw_row = tw_lane = tw_base = None
+    if kind == "bfly":
+        twmask = (1 << (n - 1)) - 1        # pair index: m with bit n-1 dropped
+
+        def tw(x: int) -> int:
+            return f2.matvec(prefix.rows, x) & twmask
+
+        tw_row = i32(_affine_table([tw(d & hi_mask) for d in dirs]))
+        tw_lane = i32(_affine_table([tw(1 << k) for k in range(t)]))
+        tw_base = i32(_affine_table([tw(1 << p) for p in tb],
+                                    prefix.c & twmask))
+    return ComputeTables(kind=kind, vr=vr, vc=vc, hi_row=hi_row,
+                         hi_lane=hi_lane, hi_base=hi_base, tw_row=tw_row,
+                         tw_lane=tw_lane, tw_base=tw_base)
+
+
 @dataclasses.dataclass(frozen=True)
 class PlanStats:
     """Analytic plan statistics — O(n^2) bit math, no table enumeration.

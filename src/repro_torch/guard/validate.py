@@ -15,20 +15,32 @@
   must route every element where ``bmmc.apply`` sends it. Full over all
   tiles up to ``_FULL_AUDIT_TILES``; deterministically sampled beyond.
 
+* **Program audits** — :func:`validate_program` (and its identity-memo
+  front :func:`validate_program_fast`, what ``CompiledExpr`` calls when
+  the guard is on) proves every stage of a resolved program: the BMMC
+  rank, the cached class-dispatch decision re-derived from the matrix
+  (:func:`validate_dispatch`), and each fused cluster's composed matrix
+  against its member stages, its pass plans and its epilogue tables'
+  shapes. (The reference's table fingerprints serve its ring 2, which
+  is not ported yet.)
+
 Unlike the reference, the semantic checks apply the BMMC only to the
 indices they audit instead of tabulating all ``2^n`` images first, so an
 audit stays cheap at the paper's size (n = 30). The verdicts are the
-same. The stage, program and cache audits arrive with the combinator
-layer.
+same.
 """
 from __future__ import annotations
+
+import collections
+import functools
 
 import numpy as np
 
 from ..core import f2
 from ..core.bmmc import Bmmc
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
-from .errors import DescriptorOOB, NotInvertible
+from .errors import (BadInput, CachePoisoned, ClassMismatch, DescriptorOOB,
+                     NotInvertible)
 
 _FULL_AUDIT_TILES = 64        # audit every tile up to this many
 _SAMPLE_TILES = 16            # strided sample beyond
@@ -181,3 +193,209 @@ def audit_lane_plan(plan: LanePlan) -> None:
                 f"{where}: row {row} lane {k} reads lane {int(src[k])}, "
                 f"but the BMMC maps it to {int(got[k])}, not "
                 f"{int(want[k])}")
+
+
+def _audit_compute_tables(ct, plan: TilePlan, where: str) -> None:
+    """Shape audit of one epilogue's parity/twiddle tables (the
+    truncated-parity-table corruption class)."""
+    rpt, row_len, n_tiles = (plan.rows_per_tile, plan.row_len, plan.n_tiles)
+    want = {"hi_row": (rpt,), "hi_lane": (row_len,), "hi_base": (n_tiles,),
+            "tw_row": (rpt,), "tw_lane": (row_len,), "tw_base": (n_tiles,)}
+    for nm, shape in want.items():
+        arr = getattr(ct, nm, None)
+        if arr is None:
+            continue
+        got = np.asarray(arr).shape
+        if got != shape:
+            raise DescriptorOOB(
+                f"{where}: epilogue {ct.kind} table {nm} shape {got} != "
+                f"expected {shape} (truncated parity/twiddle table)")
+
+
+# ---------------------------------------------------------------------------
+# dispatch + whole-program validation (cached)
+# ---------------------------------------------------------------------------
+
+def _audit_payload(bmmc: Bmmc, t: int, kernel: str, payload) -> None:
+    if kernel == "block":
+        if not isinstance(payload, BlockPlan):
+            raise ClassMismatch(
+                f"kernel 'block' carries a {type(payload).__name__} "
+                f"payload, expected BlockPlan")
+        if bmmc.block_bits() < payload.b:
+            raise ClassMismatch(
+                f"plan dispatched as 'block' (b={payload.b}) but the "
+                f"matrix is only block-granular to "
+                f"{bmmc.block_bits()} bits")
+        audit_block_plan(payload)
+    elif kernel == "lane":
+        if not isinstance(payload, LanePlan):
+            raise ClassMismatch(
+                f"kernel 'lane' carries a {type(payload).__name__} "
+                f"payload, expected LanePlan")
+        if not (bmmc.is_lane_local(t) or
+                (bmmc.is_complement_only() and bmmc.c >> t == 0)):
+            raise ClassMismatch(
+                f"plan dispatched as 'lane' but the matrix is not "
+                f"lane-local at t={t}")
+        audit_lane_plan(payload)
+    elif kernel != "none":
+        for plan in payload:
+            if not isinstance(plan, TilePlan):
+                raise ClassMismatch(
+                    f"kernel {kernel!r} pass carries a "
+                    f"{type(plan).__name__}, expected TilePlan")
+            audit_tile_plan(plan)
+
+
+@functools.lru_cache(maxsize=512)
+def validate_dispatch(rows: tuple, c: int, t: int) -> str:
+    """Prove the cached class-dispatch decision for ``(bmmc, t)``:
+    re-derive the kernel from the matrix, check the payload satisfies
+    the class predicate and audit its tables. Returns the kernel name."""
+    from ..core.tiling import dispatch_kernel
+    from ..kernels import ops
+
+    # build without __post_init__ so a singular matrix reaches the rank
+    # check here and raises the typed NotInvertible, not a bare error
+    bmmc = Bmmc.__new__(Bmmc)
+    object.__setattr__(bmmc, "rows", tuple(rows))
+    object.__setattr__(bmmc, "c", c)
+    verify_bmmc(bmmc)
+    kernel, payload = ops.class_plan(bmmc, t)
+    fresh = dispatch_kernel(bmmc, t)
+    if kernel != fresh:
+        raise ClassMismatch(
+            f"cached dispatch says kernel {kernel!r} for this matrix at "
+            f"t={t}, but re-deriving from the matrix gives {fresh!r} "
+            f"(stale or poisoned class-plan cache)")
+    _audit_payload(bmmc, t, kernel, payload)
+    return kernel
+
+
+def _validate_fused(fs, t: int) -> None:
+    from ..combinators import execute as _ex
+    from ..combinators.optimize import _run_fused
+
+    verify_bmmc(fs.bmmc)
+    recomposed = _run_fused(fs.stages, fs.bmmc.n)
+    if recomposed.bmmc != fs.bmmc:
+        raise ClassMismatch(
+            f"FusedStage composed BMMC {fs.bmmc!r} does not equal the "
+            f"recomposition of its member stages {recomposed.bmmc!r} "
+            f"(fold-free/cluster bookkeeping drift)")
+    got = _ex._fused_plan_cached(fs, t)
+    if got is None:
+        return  # the fused kernel rejects it; executor replays per stage
+    plans, entries = got
+    for p in plans:
+        verify_bmmc(p.bmmc)
+        audit_tile_plan(p)
+    where = f"FusedStage(n={fs.bmmc.n}, t={t})"
+    for e in entries:
+        if e[0] in ("cmp", "bfly"):
+            _audit_compute_tables(e[2], plans[0], where)
+
+
+@functools.lru_cache(maxsize=1024)
+def validate_program(prog: tuple, t) -> int:
+    """Ring-1 entry point: prove every stage of a resolved program
+    before its plans are trusted (cached per ``(program, t)`` — one
+    validation pass per compiled program, not per call). Returns the
+    number of stages audited."""
+    from ..combinators.ir import Perm
+    from ..combinators.optimize import FusedStage
+
+    audited = 0
+    for si, st in enumerate(prog):
+        try:
+            if isinstance(st, Perm):
+                verify_bmmc(st.bmmc)
+                if t is not None:
+                    validate_dispatch(st.bmmc.rows, st.bmmc.c, t)
+                audited += 1
+            elif isinstance(st, FusedStage):
+                if t is not None:
+                    _validate_fused(st, t)
+                else:
+                    verify_bmmc(st.bmmc)
+                audited += 1
+        except (NotInvertible, ClassMismatch, DescriptorOOB, BadInput,
+                CachePoisoned) as e:
+            e.args = (f"stage {si}/{len(prog)} "
+                      f"({type(st).__name__}): {e.args[0]}",) + e.args[1:]
+            raise
+    return audited
+
+
+class IdentityMemo:
+    """Bounded identity-keyed front memo with LRU eviction.
+
+    Keys on ``id(owner)`` and stores a strong reference to the owner,
+    so a stale id can never alias a different (garbage-collected)
+    object: :meth:`lookup`'s ``is`` check proves the key still names
+    the memoized owner."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def lookup(self, key, owner):
+        hit = self._d.get(key)
+        if hit is not None and hit[0] is owner:
+            self._d.move_to_end(key)
+            self.hits += 1
+            return hit[1]
+        self.misses += 1
+        return None
+
+    def store(self, key, owner, value) -> None:
+        self._d[key] = (owner, value)
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+
+    def clear(self) -> None:
+        self._d.clear()
+        self.hits = self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def cache_info(self) -> tuple:
+        """(hits, misses, maxsize, currsize) — the lru_cache vocabulary."""
+        return (self.hits, self.misses, self.maxsize, len(self._d))
+
+
+# Identity-keyed front memo over validate_program: resolved program
+# tuples are themselves lru-cached (execute._clustered_cached), so the
+# same object arrives on every warm call, and an identity hit skips
+# hashing the deep (stages x BMMC rows) key.
+_VALIDATED_FAST = IdentityMemo(maxsize=2048)
+
+
+def validate_program_fast(prog: tuple, t) -> None:
+    key = (id(prog), t)
+    if _VALIDATED_FAST.lookup(key, prog) is None:
+        validate_program(prog, t)
+        _VALIDATED_FAST.store(key, prog, True)
+
+
+# ---------------------------------------------------------------------------
+# cache hygiene
+# ---------------------------------------------------------------------------
+
+def guard_cache_stats() -> dict:
+    """Guard-cache stats in the executor's ``CacheStats`` vocabulary —
+    merged into :func:`repro_torch.combinators.execute.cache_stats`."""
+    return {"guard_validate": validate_program.cache_info(),
+            "guard_dispatch": validate_dispatch.cache_info(),
+            "guard_validate_fast": _VALIDATED_FAST.cache_info()}
+
+
+def clear_guard_caches() -> None:
+    validate_program.cache_clear()
+    validate_dispatch.cache_clear()
+    _VALIDATED_FAST.clear()

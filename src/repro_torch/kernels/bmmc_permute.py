@@ -1,6 +1,6 @@
 """Host wrappers of the hand-written CUDA permutation kernels.
 
-The counterpart of :mod:`repro.kernels.bmmc_permute`. Four kernels, each
+The counterpart of :mod:`repro.kernels.bmmc_permute`. Five kernels, each
 a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
 
 * K1 ``copy.cu``          — :func:`copy_blocks`, the bandwidth yardstick
@@ -9,9 +9,13 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
   moved by a source-block table;
 * K3 ``lane_permute.cu``  — :func:`lane_permute`, every row permuted in
   place by one lane table;
-* K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass
-  (no compute epilogues yet: a non-empty ``epilogue`` raises
-  ``NotImplementedError``).
+* K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass;
+* K4b ``tile_fused.cu``   — :func:`tiled_permute_tables` with a non-empty
+  ``epilogue``: the same pass with compare-exchange (``cmp``) and
+  butterfly (``bfly``) stages applied to the tile in shared memory
+  before the gather (reference: ``_tile_kernel``'s ``apply_computes``).
+  ``map`` epilogues (a Python callable) have no kernel and raise
+  ``NotImplementedError``.
 
 Every wrapper takes the device of its tensor: a CUDA tensor launches the
 kernel (or raises — there is no quiet fallback), a CPU tensor runs the
@@ -27,6 +31,7 @@ device once per plan (:func:`device_tables`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import threading
 
@@ -35,7 +40,7 @@ import torch
 
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
 
-LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0}
+LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0}
 
 _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
@@ -125,21 +130,102 @@ def _device_table(tab, device, numel: int) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
-_DEV_LOCK = threading.Lock()
-_DEV_TABLES: "collections.OrderedDict" = collections.OrderedDict()
-_DEV_TABLES_MAX = 32
+class _DeviceCache:
+    """Tensors uploaded to a device once and kept: a least-recently-used
+    store bounded by bytes, keyed by ``(id(owner), tag, device)``. The
+    owner is held beside its entry, so its id cannot be reused while the
+    entry lives; ``owner=None`` keys by ``tag`` alone (a tag that is the
+    entry's whole content).
+
+    While :func:`pin_device_tables` is active on a thread, every entry
+    that thread looks up is also kept in the pin's own dict and served
+    from it first: a CUDA-graph capture replays exactly the tables its
+    warm-up uploaded (an upload inside a capture would fail, and an
+    eviction would free memory the graph still reads)."""
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self._lock = threading.Lock()
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self._bytes = 0
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _size(value) -> int:
+        if isinstance(value, tuple):
+            return sum(_DeviceCache._size(v) for v in value)
+        return value.numel() * value.element_size()
+
+    def get(self, owner, tag, device, make):
+        key = (id(owner) if owner is not None else None, tag, str(device))
+        pin = getattr(_PIN, "tables", None)
+        if pin is not None:
+            hit = pin.get(key)
+            if hit is not None and hit[0] is owner:
+                return hit[1]
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is not None and hit[0] is owner:
+                self._d.move_to_end(key)
+                self.hits += 1
+                value = hit[1]
+            else:
+                hit = None
+                self.misses += 1
+        if hit is None:
+            value = make()
+            size = self._size(value)
+            with self._lock:
+                old = self._d.pop(key, None)
+                if old is not None:
+                    self._bytes -= old[2]
+                self._d[key] = (owner, value, size)
+                self._bytes += size
+                while self._bytes > self.max_bytes and len(self._d) > 1:
+                    _, (_, _, s) = self._d.popitem(last=False)
+                    self._bytes -= s
+        if pin is not None:
+            pin[key] = (owner, value)
+        return value
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+            self._bytes = 0
+            self.hits = self.misses = 0
+
+    def cache_info(self) -> tuple:
+        """(hits, misses, maxsize, currsize), the ``lru_cache`` words."""
+        return (self.hits, self.misses, None, len(self._d))
+
+
+_PIN = threading.local()
+_DEV_CACHE = _DeviceCache(max_bytes=1 << 30)
+
+
+@contextlib.contextmanager
+def pin_device_tables():
+    """Keep every device table looked up on this thread inside the block
+    in the dict it yields (see :class:`_DeviceCache`); whoever holds the
+    dict keeps the tables alive."""
+    prev = getattr(_PIN, "tables", None)
+    _PIN.tables = {} if prev is None else prev
+    try:
+        yield _PIN.tables
+    finally:
+        _PIN.tables = prev
+
+
+def device_cached(owner, tag, device, make):
+    """``make()``'s tensor (or tuple of tensors) on ``device``, built once
+    per ``(owner, tag, device)`` and kept (see :class:`_DeviceCache`)."""
+    return _DEV_CACHE.get(owner, tag, device, make)
 
 
 def device_tables(plan, device) -> tuple:
     """A plan's index tables on ``device`` as int32 tensors, uploaded once
-    and kept beside the plan (bounded LRU; the plan itself is held so its
-    id cannot be reused while the entry lives)."""
-    key = (id(plan), str(device))
-    with _DEV_LOCK:
-        hit = _DEV_TABLES.get(key)
-        if hit is not None and hit[0] is plan:
-            _DEV_TABLES.move_to_end(key)
-            return hit[1]
+    and kept beside the plan."""
     if isinstance(plan, TilePlan):
         arrs = (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0)
     elif isinstance(plan, BlockPlan):
@@ -148,17 +234,12 @@ def device_tables(plan, device) -> tuple:
         arrs = (plan.src_lane,)
     else:
         raise TypeError(f"no tables for {type(plan).__name__}")
-    tabs = tuple(_device_table(a, device, a.size) for a in arrs)
-    with _DEV_LOCK:
-        _DEV_TABLES[key] = (plan, tabs)
-        while len(_DEV_TABLES) > _DEV_TABLES_MAX:
-            _DEV_TABLES.popitem(last=False)
-    return tabs
+    return device_cached(plan, "tables", device, lambda: tuple(
+        _device_table(a, device, a.size) for a in arrs))
 
 
 def clear_device_tables() -> None:
-    with _DEV_LOCK:
-        _DEV_TABLES.clear()
+    _DEV_CACHE.clear()
 
 
 def _trap_tables(pairs) -> None:
@@ -227,7 +308,10 @@ def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
     return out
 
 
-def _tile_launch(xc, tabs, geometry):
+def _tile_args(xc, geometry, n_epi: int = 0):
+    """(out, kernel arguments after the tables) of a K4a launch, or of a
+    K4b launch with ``n_epi`` epilogues (whose tables a block stages in
+    shared memory too); raises when a block does not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
@@ -244,12 +328,214 @@ def _tile_launch(xc, tabs, geometry):
     rows = per_cta * rpt
     smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + rows * (
         (1 << t) * wpe + pad) * wb
+    smem += (n_epi * 2 * (rpt + (1 << t) + per_cta) * 4 + 15) & ~15
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
                          f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
-    _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
-            n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe, _shift(wpe),
-            _shift((1 << t) * wpe), pad, batch, wb)
+    return out, (n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe,
+                 _shift(wpe), _shift((1 << t) * wpe), pad, batch, wb)
+
+
+def _tile_launch(xc, tabs, geometry):
+    out, args = _tile_args(xc, geometry)
+    _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs), *args)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4b: the tiled pass with fused compute epilogues
+# ---------------------------------------------------------------------------
+
+_EPI_KIND = {"cmp": 0, "bfly": 1}
+_EPI_WORDS = 10     # int64 words of one epilogue descriptor (tile_fused.cu)
+_ELEM_TYPE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _int_view(x: torch.Tensor) -> torch.Tensor:
+    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        x.element_size()])
+
+
+def cmp_max(a: torch.Tensor, b: torch.Tensor, *,
+            out: torch.Tensor = None) -> torch.Tensor:
+    """``max(a, b)`` as the fused compare-exchange computes it, the same
+    on every device. Integers: plain max. Floats: NaN propagates (``a``
+    when ``a`` is NaN, else ``b`` when ``b`` is), -0 < +0, and equal
+    values give the bitwise AND of the two (``max(-0, +0) = +0``) — what
+    ``jnp.maximum`` gives on the CPU. The CUDA kernel computes the same
+    (``cmp_max`` in ``tile_fused.cu``); ``torch.maximum`` would not pin
+    the sign of a zero. ``out`` receives the result when given."""
+    if not a.is_floating_point():
+        return torch.maximum(a, b, out=out)
+    r = torch.where(b > a, b, (_int_view(a) & _int_view(b)).view(a.dtype))
+    r = torch.where(a > b, a, r)
+    r = torch.where(torch.isnan(b), b, r)
+    return torch.where(torch.isnan(a), a, r, out=out)
+
+
+def cmp_min(a: torch.Tensor, b: torch.Tensor, *,
+            out: torch.Tensor = None) -> torch.Tensor:
+    """``min(a, b)``: as :func:`cmp_max`, with equal values giving the
+    bitwise OR (``min(-0, +0) = -0``)."""
+    if not a.is_floating_point():
+        return torch.minimum(a, b, out=out)
+    r = torch.where(b < a, b, (_int_view(a) | _int_view(b)).view(a.dtype))
+    r = torch.where(a < b, a, r)
+    r = torch.where(torch.isnan(b), b, r)
+    return torch.where(torch.isnan(a), a, r, out=out)
+
+
+def _epi_entries(epilogue, epi_scalar, epi_vmem):
+    """Per epilogue ``(kind, vr, vc, hi_row, hi_lane, hi_base, tw_row,
+    tw_lane, tw_base, w)`` (the ``tw_*`` and ``w`` None for cmp)."""
+    if not (len(epilogue) == len(epi_scalar) == len(epi_vmem)):
+        raise ValueError("epilogue, epi_scalar and epi_vmem differ in length")
+    out = []
+    for sig, scal, vm in zip(epilogue, epi_scalar, epi_vmem):
+        kind = sig[0]
+        if kind == "map":
+            raise NotImplementedError(
+                "map epilogues (a Python callable) have no CUDA kernel; "
+                "the executor runs Map-bearing clusters stage by stage")
+        if kind == "cmp":
+            (hi_base,), (hi_row, hi_lane) = scal, vm
+            out.append((0, sig[1], sig[2], hi_row, hi_lane, hi_base,
+                        None, None, None, None))
+        elif kind == "bfly":
+            (hi_base, tw_base), (hi_row, hi_lane, tw_row, tw_lane, w) = \
+                scal, vm
+            out.append((1, sig[1], sig[2], hi_row, hi_lane, hi_base,
+                        tw_row, tw_lane, tw_base, w))
+        else:
+            raise ValueError(f"unknown epilogue kind {kind!r}")
+    return out
+
+
+def _check_epi_input(xc, entries, geometry):
+    _, t, rpt, _, _, _, _ = geometry
+    if xc.dtype not in _ELEM_TYPE:
+        raise ValueError(f"fused epilogues take int32, float32 or bfloat16, "
+                         f"got {xc.dtype}")
+    for e in entries:
+        if not (0 <= e[1] < rpt and 0 <= e[2] < (1 << t)) or not (
+                e[1] or e[2]):
+            raise ValueError(f"epilogue partner XOR ({e[1]}, {e[2]}) outside "
+                             f"a tile of {rpt} x 2^{t}")
+        if e[0] == 1 and (xc.dtype != torch.float32 or xc.shape[2] != 2):
+            raise ValueError("a butterfly epilogue needs float32 with a "
+                             "planar (re, im) tail of 2, got "
+                             f"{xc.dtype} with a tail of {xc.shape[2]}")
+
+
+def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
+    """One epilogue on tiles ``(B, G, rpt, row_len, d)``: position (r, c)
+    pairs with (r ^ vr, c ^ vc); ``hi`` picks max / the "hi" butterfly
+    output, exactly as the reference's ``apply_computes``."""
+    kind, vr, vc, hi_row, hi_lane, _, tw_row, tw_lane, _, w = e
+    dev = tile.device
+    rpt, row_len = tile.shape[2], tile.shape[3]
+    pv = tile.index_select(2, torch.arange(rpt, device=dev) ^ vr)
+    pv = pv.index_select(3, torch.arange(row_len, device=dev) ^ vc)
+    hi = ((hi_row[:, None] ^ hi_lane[None, :])[None]
+          ^ hi_base_g[:, None, None]) == 1                 # (G, rpt, row_len)
+    if kind == 0:
+        return torch.where(hi[None, ..., None], cmp_max(tile, pv),
+                           cmp_min(tile, pv))
+    tw = (tw_row[:, None] ^ tw_lane[None, :])[None] ^ tw_base_g[:, None, None]
+    wr, wi = w[:, 0][tw][None], w[:, 1][tw][None]
+    hi = hi[None]
+    v_re, v_im, p_re, p_im = tile[..., 0], tile[..., 1], pv[..., 0], pv[..., 1]
+    lo_re = torch.where(hi, p_re, v_re)
+    lo_im = torch.where(hi, p_im, v_im)
+    hi_re = torch.where(hi, v_re, p_re)
+    hi_im = torch.where(hi, v_im, p_im)
+    t_re = wr * hi_re - wi * hi_im
+    t_im = wr * hi_im + wi * hi_re
+    return torch.stack([torch.where(hi, lo_re - t_re, lo_re + t_re),
+                        torch.where(hi, lo_im - t_im, lo_im + t_im)], dim=-1)
+
+
+def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
+                      entries):
+    """The K4b schedule with tensor indexing: tile ``g`` loads its input
+    rows, applies every epilogue in order, then gathers
+    ``tile.flat[src0.flat[r * 2^t + (l ^ xor_low[g])]]`` into its output
+    rows; tiles in chunks."""
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    row_len = 1 << t
+    dev = xc.device
+    batch, _, d = xc.shape
+    ir, orow = _long(in_rows, dev), _long(out_rows, dev)
+    xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
+    ents = []
+    for e in entries:
+        tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
+        w = None if e[9] is None else torch.as_tensor(
+            e[9], device=dev).to(torch.float32)
+        ents.append(e[:3] + tuple(tabs) + (w,))
+    lane = torch.arange(row_len, device=dev)
+    j = torch.arange(rpt * row_len, device=dev)
+    rp, cp = j >> t, j & (row_len - 1)
+    out = torch.empty_like(xc)
+    step = max(1, _PLAIN_CHUNK // (rpt * row_len))
+    for g0 in range(0, n_tiles, step):
+        gs = slice(g0, min(n_tiles, g0 + step))
+        ng = gs.stop - gs.start
+        x_glob = (ir[gs][:, :, None] * row_len + lane).reshape(-1)
+        tile = xc[:, x_glob].reshape(batch, ng, rpt, row_len, d)
+        for e in ents:
+            tile = _apply_epilogue(tile, e, e[5][gs],
+                                   None if e[8] is None else e[8][gs])
+        src = s0[(rp << t) | (cp[None, :] ^ xl[gs, None])]    # (G, rpt*len)
+        flat = tile.reshape(batch, ng, rpt * row_len, d)
+        # gathered as integers: torch.gather on CPU bfloat16 rewrites NaN
+        # payloads, and a permutation moves bits
+        got = torch.gather(_int_view(flat), 2, src[None, :, :, None].expand(
+            batch, ng, rpt * row_len, d)).view(flat.dtype)
+        y_glob = orow[gs][:, rp] * row_len + cp
+        out[:, y_glob.reshape(-1)] = got.reshape(batch, -1, d)
+    return out
+
+
+def _device_float(a, device) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32))
+    if t.dtype != torch.float32:
+        raise ValueError(f"twiddle tables are float32, got {t.dtype}")
+    return t.to(device).contiguous()
+
+
+def _epi_desc(values: tuple, device) -> torch.Tensor:
+    """The epilogue descriptors (kind, vr, vc and seven table pointers
+    each) as an int64 tensor on ``device``, kept by content."""
+    return device_cached(None, ("epi_desc", values), device, lambda: (
+        torch.tensor(values, dtype=torch.int64).to(device)))
+
+
+def _tile_fused_launch(xc, tabs, geometry, entries):
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    dev = xc.device
+    keep, values = [], []
+    for e in entries:
+        ptrs = []
+        for k, a in enumerate(e[3:10]):
+            if a is None:
+                ptrs.append(0)
+                continue
+            numel = (rpt, 1 << t, n_tiles)[k % 3] if k < 6 else None
+            ta = (_device_float(a, dev) if k == 6
+                  else _device_table(a, dev, numel))
+            if k == 6 and ta.shape != (1 << (n - 1), 2):
+                raise ValueError(f"twiddle table of shape {tuple(ta.shape)}, "
+                                 f"a 2^{n} butterfly needs ({1 << (n - 1)}, 2)")
+            keep.append(ta)
+            ptrs.append(ta.data_ptr())
+        values.extend((e[0], e[1], e[2], *ptrs))
+    desc = _epi_desc(tuple(values), dev)
+    out, args = _tile_args(xc, geometry, len(entries))
+    _launch("tile_fused", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
+            _ptr(desc), len(entries), *args, _ELEM_TYPE[xc.dtype],
+            xc.shape[2])
     return out
 
 
@@ -260,21 +546,36 @@ def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
                          batched: bool = False) -> torch.Tensor:
     """One tiled-BMMC pass with the index tables as arguments (int32
     tensors on ``x``'s device, or numpy arrays). ``geometry`` is
-    :func:`plan_geometry` output. Fused compute epilogues are not ported
-    yet: a non-empty ``epilogue`` raises ``NotImplementedError``."""
-    if epilogue or epi_scalar or epi_vmem or map_fns:
+    :func:`plan_geometry` output.
+
+    ``epilogue`` is the fused-compute signature of the reference: a tuple
+    of ``("cmp", vr, vc)`` / ``("bfly", vr, vc, wlen)`` entries, with the
+    matching tables in ``epi_scalar`` (``(hi_base,)`` / ``(hi_base,
+    tw_base)``) and ``epi_vmem`` (``(hi_row, hi_lane)`` / ``(hi_row,
+    hi_lane, tw_row, tw_lane, w_planar)``). A non-empty epilogue runs K4b
+    (``tile_fused.cu``), an empty one K4a. ``("map", name)`` entries have
+    no kernel and raise ``NotImplementedError``."""
+    if map_fns or any(e[0] == "map" for e in epilogue):
         raise NotImplementedError(
-            "compute epilogues of the tiled kernel are not ported yet")
+            "map epilogues (a Python callable) have no CUDA kernel; the "
+            "executor runs Map-bearing clusters stage by stage")
     xc = _canonical(x, batched)
     if xc.shape[1] != 1 << geometry[0]:
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    if entries:
+        _check_epi_input(xc, entries, geometry)
     if _route(x, "tiled_permute"):
         n, t, rpt, _, _, n_tiles, _ = geometry
         tabs = tuple(_device_table(a, x.device, k) for a, k in (
             (in_rows, n_tiles * rpt), (out_rows, n_tiles * rpt),
             (xor_low, n_tiles), (src0, rpt << t)))
-        out = _tile_launch(xc, tabs, geometry)
+        out = (_tile_fused_launch(xc, tabs, geometry, entries) if entries
+               else _tile_launch(xc, tabs, geometry))
+    elif entries:
+        out = _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0,
+                                geometry, entries)
     else:
         out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
     return out.reshape(x.shape)
@@ -481,3 +782,20 @@ def tiled_permute_plain(x: torch.Tensor, plan: TilePlan, *,
     xc = _canonical(x, batched)
     return _tile_plain(xc, plan.in_rows, plan.out_rows, plan.xor_low,
                        plan.src0, plan_geometry(plan)).reshape(x.shape)
+
+
+def tiled_permute_tables_plain(x: torch.Tensor, in_rows, out_rows, xor_low,
+                               src0, *, geometry: tuple, epilogue: tuple = (),
+                               epi_scalar: tuple = (), epi_vmem: tuple = (),
+                               batched: bool = False) -> torch.Tensor:
+    """The plain version of :func:`tiled_permute_tables` (K4a or K4b) on
+    any device."""
+    xc = _canonical(x, batched)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    if entries:
+        _check_epi_input(xc, entries, geometry)
+        out = _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0,
+                                geometry, entries)
+    else:
+        out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
+    return out.reshape(x.shape)

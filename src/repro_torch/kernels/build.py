@@ -37,6 +37,9 @@ KERNELS = {
              [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P]),
     "tile": ("tile_permute.cu", "repro_tile_permute",
              [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P]),
+    "tile_fused": ("tile_fused.cu", "repro_tile_fused",
+                   [_P, _P, _P, _P, _P, _I] + [_I] * 9
+                   + [_L, _I, _I, _I, _P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,7 +76,7 @@ def nvcc() -> str:
 def _lib_path(name: str) -> Path:
     src = KERNELS[name][0]
     h = hashlib.sha256()
-    for part in (CSRC / src, CSRC / "words.cuh"):
+    for part in (CSRC / src, *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"

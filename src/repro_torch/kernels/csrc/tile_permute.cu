@@ -29,8 +29,9 @@
 // Every row of the tile is padded by one 4-byte bank, so the column-wise
 // reads of a transposing gather spread over the banks; the paper's §4.2
 // shift study and cp.async/TMA staging are left to later changes
-// (num_buffers is kept in the plan geometry but not used here).
-#include "words.cuh"
+// (num_buffers is kept in the plan geometry but not used here). Steps
+// 1-3 are macros in tile_common.cuh, which K4b (tile_fused.cu) shares.
+#include "tile_common.cuh"
 
 template <typename W>
 __global__ void __launch_bounds__(REPRO_THREADS)
@@ -44,7 +45,7 @@ tile_kernel(const W* __restrict__ x, W* __restrict__ out,
   int* s_in = reinterpret_cast<int*>(smem);
   int* s_out = s_in + rows;
   int* s_xl = s_out + rows;
-  const int tab_bytes = ((2 * rows + tiles_per_cta) * 4 + 15) & ~15;
+  const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
   W* tile = reinterpret_cast<W*>(smem + tab_bytes);
 
   const long long g0 = (long long)blockIdx.x * tiles_per_cta;
@@ -52,54 +53,20 @@ tile_kernel(const W* __restrict__ x, W* __restrict__ out,
   const unsigned rpt_mask = (1u << rpt_shift) - 1;
   const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
   const unsigned stride = row_words + (unsigned)pad_words;
-  for (int i = threadIdx.x; i < rows; i += REPRO_THREADS) {
-    s_in[i] = __ldg(in_rows + (g0 << rpt_shift) + i);
-    s_out[i] = __ldg(out_rows + (g0 << rpt_shift) + i);
-  }
-  for (int i = threadIdx.x; i < tiles_per_cta; i += REPRO_THREADS)
-    s_xl[i] = __ldg(xor_low + g0 + i);
+  REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
+                         rpt_shift, rows, tiles_per_cta)
   const unsigned span = (unsigned)rows * row_words;
   const long long batch_words = (long long)n_rows * row_words;
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
     const W* xb = x + b * batch_words;
     W* ob = out + b * batch_words;
     __syncthreads();  // tables ready; the previous batch row's reads done
-    constexpr int kBatch = LoadBatch<W>::value;
-    for (unsigned base = threadIdx.x; base < span;
-         base += kBatch * REPRO_THREADS) {
-      W v[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const unsigned li = base + k * REPRO_THREADS;
-        if (li < span) {
-          const unsigned r = div_by(li, row_words, row_shift);
-          v[k] = xb[(long long)s_in[r] * row_words + (li - r * row_words)];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const unsigned li = base + k * REPRO_THREADS;
-        if (li < span) {
-          const unsigned r = div_by(li, row_words, row_shift);
-          tile[r * stride + (li - r * row_words)] = v[k];
-        }
-      }
-    }
+    REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
+                         stride)
     __syncthreads();
-#pragma unroll 4
-    for (unsigned li = threadIdx.x; li < span; li += REPRO_THREADS) {
-      const unsigned r = div_by(li, row_words, row_shift);
-      const unsigned rem = li - r * row_words;
-      const unsigned cp = div_by(rem, (unsigned)wpe, wpe_shift);
-      const unsigned w = rem - cp * (unsigned)wpe;
-      const unsigned j = r >> rpt_shift, rp = r & rpt_mask;
-      const unsigned s =
-          (unsigned)__ldg(src0 + ((rp << t) | (cp ^ (unsigned)s_xl[j])));
-      const unsigned rs = (j << rpt_shift) | (s >> t);
-      const unsigned cs = s & (unsigned)(row_len - 1);
-      ob[(long long)s_out[r] * row_words + rem] =
-          tile[rs * stride + cs * (unsigned)wpe + w];
-    }
+    REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
+                            row_shift, wpe, wpe_shift, t, rpt_shift,
+                            rpt_mask, row_len, stride)
   }
 }
 
@@ -118,9 +85,8 @@ extern "C" int repro_tile_permute(const void* x, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = tiles_per_cta << rpt_shift;
   REPRO_DISPATCH_WORD(word_bytes, {
-    const size_t smem = (size_t)(((2 * rows + tiles_per_cta) * 4 + 15) & ~15) +
-                        (size_t)rows * ((size_t)(1 << t) * wpe + pad_words) *
-                            sizeof(W);
+    const size_t smem =
+        REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words);
     cudaError_t e = allow_smem(tile_kernel<W>, smem);
     if (e != cudaSuccess) return (int)e;
     tile_kernel<W><<<grid, REPRO_THREADS, smem, s>>>(

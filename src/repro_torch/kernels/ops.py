@@ -125,6 +125,19 @@ def class_dispatch(x: torch.Tensor, bmmc: Bmmc, t: Optional[int],
     return got
 
 
+def check_no_grad(x, what: str) -> None:
+    """Refuse a tensor that requires grad while grad mode is on: the
+    kernels write through raw pointers, so autograd would drop the
+    gradient without a word. Gradients arrive with slice 3 of the port."""
+    if (isinstance(x, torch.Tensor) and x.requires_grad
+            and torch.is_grad_enabled()):
+        raise NotImplementedError(
+            f"{what}: gradients through the port's kernels arrive in slice "
+            f"3 of the port (torch.autograd.Function rules with the "
+            f"backward kernel K5); call it under torch.no_grad() or on a "
+            f"tensor that does not require grad")
+
+
 def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
                  engine: str = "cuda", batched: bool = False) -> torch.Tensor:
     """Permute ``x`` (shape (2^n,) or (2^n, d)) by ``out[A i ^ c] = x[i]``.
@@ -135,7 +148,10 @@ def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
     their plain PyTorch versions. ``batched=True`` shifts the permuted
     axis to axis 1 — ``x`` is ``(B, 2^n)`` or ``(B, 2^n, d)`` and all batch
     rows share one plan. A non-contiguous ``x`` is made contiguous first.
+    A tensor that requires grad raises ``NotImplementedError`` (gradients
+    arrive with slice 3 of the port).
     """
+    check_no_grad(x, "bmmc_permute")
     lead = 1 if batched else 0
     if x.dim() <= lead or x.shape[lead] != bmmc.size:
         raise BadInput(f"bmmc_permute on 2^{bmmc.n} indices needs axis "

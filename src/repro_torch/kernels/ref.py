@@ -75,11 +75,15 @@ def bmmc_ref(x: torch.Tensor, bmmc: Bmmc, *,
     ``(B, 2^n)`` or ``(B, 2^n, d)`` and every batch row shares the one
     gather table.
     """
+    from .bmmc_permute import device_cached
     axis = 1 if batched else 0
     _check_axis(x, bmmc, axis)
     _ometrics.inc("dispatch.kernel", kernel="ref")
-    idx = torch.from_numpy(_src_table(bmmc.rows, bmmc.c)).to(
-        device=x.device, dtype=torch.int64)
+    tab = _src_table(bmmc.rows, bmmc.c)
+    # kept on the device beside the cached host table: a CUDA-graph
+    # capture of a program on the "ref" engine uploads nothing
+    idx = device_cached(tab, "src_index", x.device, lambda: torch.from_numpy(
+        tab).to(device=x.device, dtype=torch.int64))
     return torch.index_select(x, axis, idx)
 
 

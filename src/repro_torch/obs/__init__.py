@@ -10,7 +10,7 @@ recorded inside kernels):
   dispatch counts, DMA descriptors, modeled round trips.
 * :mod:`.export`  — ``export_trace(path)`` (Chrome trace / Perfetto
   JSON), ``report()`` (plain-text summary), ``snapshot()`` (the same as
-  a dict).
+  a dict), ``cache_stats()`` (every executor cache's hits and size).
 
 Quick tour::
 
@@ -25,7 +25,8 @@ from .trace import (disable, enable, enabled, events, record_event, reset as
 from .metrics import (class_counts, counter_total, counter_value, counters,
                       histograms, inc, kernel_counts, observe,
                       reset as _reset_metrics)
-from .export import export_trace, model_vs_measured, report, snapshot
+from .export import (cache_stats, export_trace, model_vs_measured, report,
+                     snapshot)
 
 
 def reset() -> None:
@@ -39,6 +40,6 @@ __all__ = [
     "enable", "disable", "enabled", "sync_enabled", "reset", "span",
     "events", "record_event", "inc", "observe", "counters",
     "counter_value", "counter_total", "histograms", "kernel_counts",
-    "class_counts", "export_trace", "model_vs_measured", "report",
-    "snapshot",
+    "class_counts", "cache_stats", "export_trace", "model_vs_measured",
+    "report", "snapshot",
 ]

@@ -2,10 +2,9 @@
 
 ``export_trace(path)`` writes the recorded spans as a Chrome trace
 (``chrome://tracing`` / Perfetto `ui.perfetto.dev` both open it).
-``report()`` renders the counters, histograms and the model-vs-measured
-accounting as one plain-text summary; ``snapshot()`` is the same content
-as a JSON-serializable dict. The executor cache statistics of
-:mod:`repro.obs.export` arrive with the combinator layer.
+``report()`` renders the counters, histograms, cache stats and the
+model-vs-measured accounting as one plain-text summary; ``snapshot()``
+is the same content as a JSON-serializable dict.
 """
 from __future__ import annotations
 
@@ -36,6 +35,13 @@ def _fmt_key(key: tuple) -> str:
     return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
 
+def cache_stats() -> dict:
+    """Aggregate executor/ops cache stats (see
+    :func:`repro_torch.combinators.execute.cache_stats`)."""
+    from ..combinators.execute import cache_stats as _cs
+    return {name: info._asdict() for name, info in _cs().items()}
+
+
 def snapshot() -> dict:
     """JSON-serializable summary of everything recorded so far."""
     return {
@@ -45,6 +51,7 @@ def snapshot() -> dict:
                      sorted(_metrics.counters().items())},
         "histograms": {_fmt_key(k): s for k, s in
                        sorted(_metrics.histograms().items())},
+        "caches": cache_stats(),
         "trace_events": len(_trace.events()),
         "model_vs_measured": model_vs_measured(),
     }
@@ -125,6 +132,14 @@ def report(file=None) -> str:
     lines.append("")
     lines.append("-- model vs measured --")
     lines.extend(_table(sorted(mm.items()), ("quantity", "value")))
+
+    caches = cache_stats()
+    lines.append("")
+    lines.append("-- caches --")
+    rows = [(name, c["hits"], c["misses"], c["currsize"],
+             c["maxsize"] if c["maxsize"] is not None else "-")
+            for name, c in sorted(caches.items())]
+    lines.extend(_table(rows, ("cache", "hits", "misses", "size", "max")))
 
     text = "\n".join(lines)
     if file is not None:

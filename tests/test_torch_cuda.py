@@ -72,7 +72,8 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tail, batch):
     assert torch.equal(pk.copy_blocks(y).view(torch.uint8),
                        pk.copy_plain(y).view(torch.uint8))
     after = pk.launch_counts()
-    assert all(after[k] > counts[k] for k in after), (counts, after)
+    assert all(after[k] > counts[k] for k in ("copy", "block", "lane",
+                                              "tile")), (counts, after)
 
 
 
@@ -88,3 +89,99 @@ def test_cuda_wrappers_refuse_wrong_tables(cuda_device):
         pk.tiled_permute(torch.zeros(2, 1 << 12, dtype=torch.int32,
                                      device=cuda_device)[:, ::1].t(), plan,
                          batched=False)
+
+
+def _fused_clusters(expr, n, t):
+    from repro_torch.combinators import FusedStage, compile_expr
+    prog = compile_expr(expr).clustered_program(n, t)
+    return [s for s in prog if isinstance(s, FusedStage) and s.computes]
+
+
+def _fused(fs, t, x, batched, plain):
+    """One cluster's first pass through K4b (tables given as numpy, as a
+    caller of the wrapper may), or through its plain version."""
+    from repro_torch.combinators import execute as ex
+    plans, entries = ex._fused_plan_cached(fs, t)
+    plan = plans[0]
+    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    kw = dict(geometry=pk.plan_geometry(plan), epilogue=sig,
+              epi_scalar=scal, epi_vmem=vmem, batched=batched)
+    if plain:
+        return pk.tiled_permute_tables_plain(
+            x, plan.in_rows, plan.out_rows, plan.xor_low, plan.src0, **kw)
+    return pk.tiled_permute_tables(x, *pk.device_tables(plan, x.device),
+                                   **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tail,batch", [
+    (torch.int32, (), None), (torch.float32, (), None),
+    (torch.bfloat16, (), None), (torch.float32, (3,), None),
+    (torch.int32, (), 3)])
+def test_cuda_fused_cmp_matches_plain(cuda_device, dtype, tail, batch):
+    """K4b compare-exchange epilogues bit for bit against the plain
+    version, NaNs and signed zeros included."""
+    from repro_torch.combinators.sort import sort_expr
+    n = 12
+    d = tail[0] if tail else 1
+    t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size(), d)
+    shape = ((batch,) if batch else ()) + (1 << n,) + tail
+    v = torch.randint(-4, 5, shape, device=cuda_device).to(torch.float32)
+    u = torch.rand(shape, device=cuda_device)
+    v = torch.where(u < 0.05, torch.full_like(v, float("nan")), v)
+    v = torch.where((u > 0.5) & (v == 0), torch.full_like(v, -0.0), v)
+    x = v.to(dtype)
+    before = pk.launch_counts()["tile_fused"]
+    clusters = _fused_clusters(sort_expr(n), n, t)
+    for fs in clusters[:4]:
+        got = _fused(fs, t, x, bool(batch), plain=False)
+        want = _fused(fs, t, x, bool(batch), plain=True)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert pk.launch_counts()["tile_fused"] == before + min(4, len(clusters))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_bfly_matches_plain(cuda_device):
+    from repro_torch.combinators.fft import fft_expr
+    n, t = 12, 5
+    x = torch.randn(1 << n, 2, device=cuda_device)
+    for fs in _fused_clusters(fft_expr(n), n, t):
+        got = _fused(fs, t, x, False, plain=False)
+        want = _fused(fs, t, x, False, plain=True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sort_and_fft_through_the_graph(cuda_device):
+    """The combinator path on the card: the first call runs eagerly and
+    captures a CUDA graph, later calls replay it; both agree with the
+    library and with each other, and no result aliases another."""
+    from repro_torch.combinators import fft as pfft
+    from repro_torch.combinators import sort as psort
+    from repro_torch.combinators import execute as ex
+    n = 16
+    x = torch.randint(-1000, 1000, (1 << n,), device=cuda_device,
+                      dtype=torch.int32)
+    y1 = psort.sort(x)
+    captured = ex._program_executable.cache_info().currsize
+    y2 = psort.sort(x)
+    x2 = x.flip(0).contiguous()
+    y3 = psort.sort(x2)
+    want = torch.sort(x).values
+    assert torch.equal(y1, want) and torch.equal(y2, want)
+    assert torch.equal(y3, torch.sort(x2).values)
+    assert torch.equal(y2, want)   # y3's replay did not overwrite y2
+    assert ex._program_executable.cache_info().currsize == captured
+    assert torch.equal(psort.compiled_sort(n).call_per_stage(x), want)
+    assert torch.equal(psort.sort(x.cpu().numpy()).cpu(), want.cpu())
+    ref = psort.compiled_sort(n, engine="ref")
+    assert torch.equal(ref(x), want) and torch.equal(ref(x), want)
+    z = torch.complex(torch.randn(1 << n, device=cuda_device),
+                      torch.randn(1 << n, device=cuda_device))
+    want = torch.fft.fft(z.to(torch.complex128))
+    for _ in range(2):
+        for got in (pfft.from_planar(pfft.fft_planar(pfft.to_planar(z))),
+                    pfft.fft(z)):
+            err = (torch.linalg.vector_norm(got.to(torch.complex128) - want)
+                   / torch.linalg.vector_norm(want))
+            assert float(err) < 1e-5

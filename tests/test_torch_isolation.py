@@ -29,7 +29,14 @@ def test_port_modules_found():
                  "repro_torch.core.tiling", "repro_torch.guard.validate",
                  "repro_torch.obs.export", "repro_torch.kernels.ops",
                  "repro_torch.kernels.ref", "repro_torch.kernels.build",
-                 "repro_torch.kernels.bmmc_permute"):
+                 "repro_torch.kernels.bmmc_permute",
+                 "repro_torch.core.parm", "repro_torch.core.sort",
+                 "repro_torch.combinators", "repro_torch.combinators.ir",
+                 "repro_torch.combinators.vocab",
+                 "repro_torch.combinators.optimize",
+                 "repro_torch.combinators.execute",
+                 "repro_torch.combinators.sort",
+                 "repro_torch.combinators.fft"):
         assert want in mods
 
 

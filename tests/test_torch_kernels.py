@@ -292,12 +292,16 @@ def test_device_oracle_matches_host_oracle():
 # ---------------------------------------------------------------------------
 
 def test_tile_epilogue_raises_not_implemented():
+    """Compute epilogues are ported (K4b, ``tests/test_torch_fused.py``)
+    except ``map``: a Python callable has no CUDA kernel."""
     plan = ptiling.plan_bmmc(PBmmc.bit_reverse(8), 3)[0]
     x = torch.arange(256, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         pk.tiled_permute_tables(x, plan.in_rows, plan.out_rows, plan.xor_low,
                                 plan.src0, geometry=pk.plan_geometry(plan),
-                                epilogue=(("cmp", 1, 0),))
+                                epilogue=(("map", "neg"),),
+                                epi_scalar=((),), epi_vmem=((),),
+                                map_fns=(torch.neg,))
 
 
 def test_no_kernel_for_other_devices():
