@@ -27,16 +27,18 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    against its plain version on sort clusters of 1, 2 and 3
    compare-exchange epilogues (int32, float32 and bfloat16 with NaNs and
    signed zeros, a d = 3 tail, a batch of 3) and on an FFT cluster of
-   butterflies (planar float32); then the largest cluster of the 2^24
-   sort, timed beside its plain version, the same pass without
-   epilogues, the copy kernel and the torch composite of the cluster;
+   butterflies (planar float32) at a small size and at the FFT's 2^22
+   points; then the largest cluster of the 2^24 sort, bit for bit, timed
+   beside its plain version, the same pass without epilogues, the copy
+   kernel and the torch composite of the cluster;
 7. combinator path: ``repro_torch.combinators.sort`` of 2^24 int32 keys
    (bit-equal to ``torch.sort``) and ``fft_planar`` of 2^22 points
    (within ``FFT_REL_TOL`` of ``torch.fft.fft`` in float64), each with
    its cold host planning seconds, ``program_cost`` round trips equal to
    the cold call's counted ``model.round_trips``, no fused fallback, and
    the CUDA-graph call, the eager per-stage call and the library call
-   timed;
+   timed; ``fft`` of the same points as complex64, bit-equal to the
+   planar FFT through the same kernels;
 8. launch counts: every permutation kernel launched on the main path
    (phase 4) and ``tile_fused`` on the combinator path (phase 7), and
    one JSON line describing every kernel;
@@ -429,10 +431,12 @@ def fused_call(K, ex, fs, t, x, batched=False, plain=False):
     return y
 
 
-def phase_fused(torch, n_small: int, n_sort: int, reps: int, bw: float):
-    """K4b against its plain version, bit for bit, at small sizes; then one
-    2^n_sort int32 sort cluster timed beside the plain version and the
-    torch composite of the same cluster."""
+def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
+                bw: float):
+    """K4b against its plain version, bit for bit, at small sizes and on
+    every FFT cluster at 2^n_fft; then one 2^n_sort int32 sort cluster,
+    also bit for bit, timed beside the plain version and the torch
+    composite of the same cluster."""
     say("== phase 6: K4b (tile_fused) vs plain ==")
     from repro_torch.combinators import CmpHalves, Perm
     from repro_torch.combinators import execute as ex
@@ -478,15 +482,21 @@ def phase_fused(torch, n_small: int, n_sort: int, reps: int, bw: float):
         err = max_abs_err(torch, fused_call(K, ex, fs, t3, x),
                           fused_call(K, ex, fs, t3, x, plain=True))
         check(err == 0.0, ("cmp d=3", err))
+        worst = max(worst, err)
     say(f"  n={n_small} cmp float32 d=3 t={t3}: bit-equal")
-    t2 = ops.choose_tile(n_small, 4, 2)
-    for fs in fused_cases(n_small, t2, "fft"):
-        x = torch.randn((1 << n_small, 2), generator=gen, device=dev)
-        err = max_abs_err(torch, fused_call(K, ex, fs, t2, x),
-                          fused_call(K, ex, fs, t2, x, plain=True))
-        check(err == 0.0, ("bfly", len(fs.computes), err))
-        say(f"  n={n_small} bfly float32 planar t={t2}: "
-            f"{len(fs.computes)} epilogues bit-equal")
+    # the butterfly arm at a small size and at the combinator path's FFT
+    # size, where its twiddle table is 2^(n_fft - 1) entries read through L2
+    for nb in (n_small, n_fft):
+        t2 = ops.choose_tile(nb, 4, 2)
+        for fs in fused_cases(nb, t2, "fft"):
+            x = torch.randn((1 << nb, 2), generator=gen, device=dev)
+            err = max_abs_err(torch, fused_call(K, ex, fs, t2, x),
+                              fused_call(K, ex, fs, t2, x, plain=True))
+            check(err == 0.0, ("bfly", nb, len(fs.computes), err))
+            worst = max(worst, err)
+            say(f"  n={nb} bfly float32 planar t={t2}: "
+                f"{len(fs.computes)} epilogues bit-equal")
+        del x
 
     t = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
@@ -662,6 +672,14 @@ def phase_combinators(torch, n_sort: int, n_fft: int, reps: int):
         f"{FFT_REL_TOL:g}); cold-call launches {c}")
     report(f"FFT 2^{n_fft} planar float32", g, xr, xr.numel() * 4, prog, t,
            plan_s, rt, lambda: torch.fft.fft(z), "torch.fft.fft")
+    # the complex64 entry point runs the same kernels on the planar view
+    y, rt_c, fb, c = cold(F.fft, z)
+    check(fb == 0, f"complex fft: {fb} fused clusters fell back")
+    check(rt_c == rt and c["tile_fused"] > 0, ("complex fft", rt_c, c))
+    check(torch.equal(torch.view_as_real(y), F.fft_planar(xr)),
+          "complex fft equals the planar one")
+    say(f"  FFT of 2^{n_fft} complex64: equal to the planar FFT bit for "
+        f"bit; cold-call launches {c}")
     return counts
 
 
@@ -688,8 +706,8 @@ def main(argv=None) -> int:
     counts = phase_main(torch, args.n, REPS, bw)
 
     phase_sweep(torch, args.n, REPS)
-    records["tile_fused"] = phase_fused(torch, N_SMALL - 2, args.n_sort, REPS,
-                                        bw)
+    records["tile_fused"] = phase_fused(torch, N_SMALL - 2, args.n_sort,
+                                        args.n_fft, REPS, bw)
     comb = phase_combinators(torch, args.n_sort, args.n_fft, REPS)
 
     say("== phase 8: launch counts ==")

@@ -25,11 +25,12 @@ optimize.cluster`, which groups ``Perm → compute → Perm`` runs into
 runs as ONE tiled pass of K4b (``tile_fused.cu``) — one HBM round trip
 for the whole run, with the interior ``CmpHalves``/``Bfly`` stages
 applied to each tile in shared memory. Every other engine executes the
-cluster's original stages one at a time. Clusters the kernel cannot take
-fall back to stage-at-a-time execution and count
-``dispatch.fused_fallback``: complex or other dtypes than int32, float32
-and bfloat16, butterflies off the planar float32 layout, arrays too
-small to tile, and — unlike the reference, whose kernel ran the ``Map``
+cluster's original stages one at a time. A complex64 array's butterfly
+clusters run on its planar (re, im) float32 view. Clusters the kernel
+cannot take fall back to stage-at-a-time execution and count
+``dispatch.fused_fallback``: other dtypes than int32, float32 and
+bfloat16, butterflies off the planar float32 layout, arrays too small
+to tile, and — unlike the reference, whose kernel ran the ``Map``
 callable on the tile — every cluster that holds a ``Map``: a CUDA kernel
 cannot call a Python function.
 
@@ -71,6 +72,7 @@ import torch
 from ..core.bmmc import Bmmc
 from ..core.tiling import compute_tables, plan_bmmc, plan_general
 from ..guard.errors import BadInput, BadStage, UnknownEngine
+from ..kernels import ops
 from ..kernels import ref as _ref
 from ..kernels.ops import check_no_grad
 from ..kernels.bmmc_permute import (_ELEM_TYPE, cmp_max, cmp_min,
@@ -111,40 +113,10 @@ def engines() -> tuple:
     return tuple(sorted(_ENGINES))
 
 
-# ---------------------------------------------------------------------------
-# The "cuda" engine: class-dispatched kernels
-# ---------------------------------------------------------------------------
-
-def _cuda_engine(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
-                 batched: bool = False) -> torch.Tensor:
-    from ..kernels import bmmc_permute as K
-    from ..kernels import ops
-
-    if bmmc.is_identity_perm():
-        _ometrics.inc("dispatch.kernel", kernel="none")
-        return x
-    if x.is_complex():
-        # the kernels move int/float words; a complex array rides the
-        # gather oracle (planar (re, im) float layouts take the kernels)
-        return _ref.bmmc_ref(x, bmmc, batched=batched)
-    got = ops.class_dispatch(x, bmmc, t, batched)
-    if got is None:  # too small to tile; whole array fits anywhere
-        return _ref.bmmc_ref(x, bmmc, batched=batched)
-    kernel, payload = got
-    if kernel == "none":
-        return x
-    x = x.contiguous()
-    if kernel == "block":
-        return K.block_permute(x, payload, batched=batched)
-    if kernel == "lane":
-        return K.lane_permute(x, payload, batched=batched)
-    for plan in payload:
-        x = tiled_permute(x, plan, batched=batched)
-    return x
-
-
 register_engine("ref", _ref.bmmc_ref)
-register_engine("cuda", _cuda_engine)
+# the class-dispatched kernels; they move raw words, so complex tensors
+# take them too
+register_engine("cuda", ops.bmmc_permute)
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +188,6 @@ def _fused_tile(x: torch.Tensor, fs: FusedStage,
                 batched: bool) -> Optional[int]:
     """The tile parameter the fused kernel would use on ``x``, or None
     when the fused path cannot take this input (falls back per-stage)."""
-    from ..kernels import ops
-
     lead = 1 if batched else 0
     if x.dim() not in (1 + lead, 2 + lead) or x.dtype not in _ELEM_TYPE:
         return None
@@ -282,9 +252,21 @@ def _fused_cuda(x: torch.Tensor, fs: FusedStage, t: int, *,
     return x
 
 
+def _planar_view(x: torch.Tensor, fs: FusedStage,
+                 batched: bool) -> torch.Tensor:
+    """A complex64 ``x`` seen as its planar (re, im) float32 layout, with
+    no copy, when every fused compute is a butterfly; else ``x``."""
+    lead = 1 if batched else 0
+    if (x.dtype == torch.complex64 and x.dim() == 1 + lead
+            and all(isinstance(c, Bfly) for c, _ in fs.computes)):
+        return torch.view_as_real(x.resolve_conj())
+    return x
+
+
 def _fused_forward(x, fs, engine, batched):
     if engine == "cuda":
-        t = _fused_tile(x, fs, batched)
+        xk = _planar_view(x, fs, batched)
+        t = _fused_tile(xk, fs, batched)
         if t is not None:
             if _otrace._state.enabled:
                 plans, _ = _fused_plan_cached(fs, t)
@@ -294,8 +276,10 @@ def _fused_forward(x, fs, engine, batched):
                               sum(p.dma_descriptors() for p in plans))
                 with _otrace.span("kernel.fused", stages=len(fs.stages),
                                   passes=len(plans), t=t):
-                    return _fused_cuda(x, fs, t, batched=batched)
-            return _fused_cuda(x, fs, t, batched=batched)
+                    y = _fused_cuda(xk, fs, t, batched=batched)
+            else:
+                y = _fused_cuda(xk, fs, t, batched=batched)
+            return y if xk is x else torch.view_as_complex(y)
         # cluster validated at plan time but rejected for this input
         # (dtype/shape/tile mismatch, or a Map): the honest count the
         # model lacks
@@ -361,37 +345,41 @@ def perm_apply(x: torch.Tensor, bmmc: Bmmc,
 # ---------------------------------------------------------------------------
 
 def _bfly_twiddles(twiddles: tuple, x: torch.Tensor) -> tuple:
-    """The butterfly's twiddles on ``x``'s device, kept beside the stage:
-    complex64 for a complex ``x``, else the (re, im) parts in ``x``'s
-    dtype (each Python float rounded once, as the reference does)."""
+    """The butterfly's (re, im) twiddles in ``x``'s dtype on its device,
+    kept beside the stage (each Python float rounded once, as the
+    reference does)."""
     def make():
         w = np.array(twiddles, dtype=np.complex128)
-        if x.is_complex():
-            return (torch.from_numpy(w.astype(np.complex64)).to(x.device),)
         return tuple(torch.from_numpy(p.copy()).to(device=x.device,
                                                    dtype=x.dtype)
                      for p in (w.real, w.imag))
-    key = ("bfly", str(x.dtype) if not x.is_complex() else "complex")
-    return device_cached(twiddles, key, x.device, make)
+    return device_cached(twiddles, ("bfly", str(x.dtype)), x.device, make)
 
 
 def _apply_bfly(x: torch.Tensor, twiddles: tuple,
                 axis: int = 0) -> torch.Tensor:
     """(lo, hi) -> (lo + w·hi, lo - w·hi) along ``axis``. Complex arrays, or
-    float arrays with a trailing dim of 2 holding (re, im) channels."""
-    h = x.shape[axis] // 2
-    lo = x.narrow(axis, 0, h)
-    hi = x.narrow(axis, h, h)
+    float arrays with a trailing dim of 2 holding (re, im) channels. A
+    complex array is computed on its planar (re, im) view, so it rounds
+    as the planar layout and the fused kernel do, on every device (a
+    complex128 array's twiddles are rounded to float64, where the
+    reference rounds them to complex64)."""
     if x.is_complex():
-        (w,) = _bfly_twiddles(twiddles, x)
-        w = w.to(x.dtype).reshape((1,) * axis + (h,)
-                                  + (1,) * (x.dim() - axis - 1))
-        t = w * hi
-        return torch.cat([lo + t, lo - t], dim=axis)
+        xr = torch.view_as_real(x.resolve_conj())
+        return torch.view_as_complex(_bfly_planar(xr, twiddles, axis))
     if x.dim() != axis + 2 or x.shape[-1] != 2:
         raise BadInput("real-typed Bfly input must have a trailing "
                        f"(re, im) dim of 2; got shape {tuple(x.shape)}")
-    wshape = (1,) * axis + (h,)
+    return _bfly_planar(x, twiddles, axis)
+
+
+def _bfly_planar(x: torch.Tensor, twiddles: tuple, axis: int) -> torch.Tensor:
+    """The butterfly on a (..., 2) (re, im) array, each product and sum
+    rounded on its own."""
+    h = x.shape[axis] // 2
+    lo = x.narrow(axis, 0, h)
+    hi = x.narrow(axis, h, h)
+    wshape = (1,) * axis + (h,) + (1,) * (x.dim() - axis - 2)
     wr, wi = (w.reshape(wshape) for w in _bfly_twiddles(twiddles, x))
     t = torch.empty_like(hi)
     torch.sub(wr * hi[..., 0], wi * hi[..., 1], out=t[..., 0])
@@ -630,7 +618,6 @@ def cache_stats() -> Dict[str, CacheStats]:
     tables kept on the device (``device_tables``), the guard's ring-1
     caches and the ``compiled_exprs`` memo."""
     from ..kernels import bmmc_permute as K
-    from ..kernels import ops
 
     out = {
         "program": _program_executable,
@@ -701,9 +688,8 @@ class CompiledExpr:
         if (1 << n) != x.shape[axis]:
             raise BadInput(
                 f"array length {x.shape[axis]} is not a power of 2")
-        from ..kernels.ops import choose_tile
         d = x.shape[axis + 1] if x.dim() == axis + 2 else 1
-        t = choose_tile(n, x.element_size(), d)
+        t = ops.choose_tile(n, x.element_size(), d)
         prog = self.program(n)
         if self.engine == "cuda" and self.optimized and t is not None:
             # fused clustering + free-stage folding; the ref oracle and
@@ -746,7 +732,6 @@ def clear_caches() -> None:
     the device, captured graphs), and reset the telemetry
     counters/spans with them."""
     from ..kernels import bmmc_permute as K
-    from ..kernels import ops
     from .. import obs
     from ..guard.validate import clear_guard_caches
 

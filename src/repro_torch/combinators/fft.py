@@ -12,10 +12,11 @@ times over a full-width :func:`~repro_torch.combinators.vocab.bfly`
 core — every reordering is a BMMC permutation, so the optimizer fuses
 them across stages.
 
-Complex data is carried either natively (``complex64`` tensors; the
-permutations then take the gather oracle and the butterflies run as
-torch ops) or as ``(2^n, 2)`` float32 tensors of (re, im) channels —
-the layout the fused CUDA kernel (K4b) takes.
+Complex data is carried either natively (``complex64`` tensors) or as
+``(2^n, 2)`` float32 tensors of (re, im) channels — the layout the fused
+CUDA kernel (K4b) takes. Both run the same kernels: the permutation
+kernels move a complex64 element as one 8-byte word, and a butterfly
+cluster runs on a complex64 array's planar view.
 """
 from __future__ import annotations
 

@@ -20,8 +20,9 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
 Every wrapper takes the device of its tensor: a CUDA tensor launches the
 kernel (or raises — there is no quiet fallback), a CPU tensor runs the
 kernel's plain PyTorch version beside it (``_*_plain``), which repeats the
-kernel's schedule with tensor indexing. Each launch adds one to
-:data:`LAUNCHES`; the plain versions count nothing.
+kernel's schedule with tensor indexing. Each launch that runs adds one
+to :data:`LAUNCHES`; a launch recorded into a CUDA graph, the graph's
+replays and the plain versions count nothing.
 
 Shapes follow the reference: ``x`` is ``(2^n,)`` or ``(2^n, d)``, and with
 ``batched=True`` ``(B, 2^n)`` or ``(B, 2^n, d)``. Internally every array is
@@ -114,7 +115,8 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
         rc = fn(*args, _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1     # a graph capture records, it does not run
 
 
 def _device_table(tab, device, numel: int) -> torch.Tensor:
@@ -135,7 +137,8 @@ class _DeviceCache:
     store bounded by bytes, keyed by ``(id(owner), tag, device)``. The
     owner is held beside its entry, so its id cannot be reused while the
     entry lives; ``owner=None`` keys by ``tag`` alone (a tag that is the
-    entry's whole content).
+    entry's whole content). A value larger than the whole store is
+    returned without being kept.
 
     While :func:`pin_device_tables` is active on a thread, every entry
     that thread looks up is also kept in the pin's own dict and served
@@ -176,15 +179,16 @@ class _DeviceCache:
         if hit is None:
             value = make()
             size = self._size(value)
-            with self._lock:
-                old = self._d.pop(key, None)
-                if old is not None:
-                    self._bytes -= old[2]
-                self._d[key] = (owner, value, size)
-                self._bytes += size
-                while self._bytes > self.max_bytes and len(self._d) > 1:
-                    _, (_, _, s) = self._d.popitem(last=False)
-                    self._bytes -= s
+            if size <= self.max_bytes:
+                with self._lock:
+                    old = self._d.pop(key, None)
+                    if old is not None:
+                        self._bytes -= old[2]
+                    self._d[key] = (owner, value, size)
+                    self._bytes += size
+                    while self._bytes > self.max_bytes:
+                        _, (_, _, s) = self._d.popitem(last=False)
+                        self._bytes -= s
         if pin is not None:
             pin[key] = (owner, value)
         return value

@@ -159,10 +159,13 @@ def test_cuda_sort_and_fft_through_the_graph(cuda_device):
     from repro_torch.combinators import fft as pfft
     from repro_torch.combinators import sort as psort
     from repro_torch.combinators import execute as ex
+    from repro_torch import obs as pobs
     n = 16
     x = torch.randint(-1000, 1000, (1 << n,), device=cuda_device,
                       dtype=torch.int32)
-    y1 = psort.sort(x)
+    pk.reset_launch_counts()
+    y1 = psort.sort(x)          # an eager run, then the capture
+    eager_then_capture = pk.launch_counts()
     captured = ex._program_executable.cache_info().currsize
     y2 = psort.sort(x)
     x2 = x.flip(0).contiguous()
@@ -172,13 +175,32 @@ def test_cuda_sort_and_fft_through_the_graph(cuda_device):
     assert torch.equal(y3, torch.sort(x2).values)
     assert torch.equal(y2, want)   # y3's replay did not overwrite y2
     assert ex._program_executable.cache_info().currsize == captured
+    pk.reset_launch_counts()
     assert torch.equal(psort.compiled_sort(n).call_per_stage(x), want)
+    # the kernels recorded into the graph are not counted as launched
+    assert pk.launch_counts() == eager_then_capture
     assert torch.equal(psort.sort(x.cpu().numpy()).cpu(), want.cpu())
     ref = psort.compiled_sort(n, engine="ref")
     assert torch.equal(ref(x), want) and torch.equal(ref(x), want)
     z = torch.complex(torch.randn(1 << n, device=cuda_device),
                       torch.randn(1 << n, device=cuda_device))
     want = torch.fft.fft(z.to(torch.complex128))
+    # complex64 takes the kernels: its butterfly clusters run K4b on the
+    # planar view, its permutations move 8-byte words
+    pk.reset_launch_counts()
+    pobs.reset()
+    pobs.enable()
+    try:
+        pfft.fft(z)
+        fallbacks = pobs.counter_total("dispatch.fused_fallback")
+        gathers = pobs.counter_value("dispatch.kernel", kernel="ref")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert fallbacks == 0 and gathers == 0
+    assert pk.launch_counts()["tile_fused"] > 0
+    assert torch.equal(pfft.fft(z), pfft.from_planar(
+        pfft.fft_planar(pfft.to_planar(z))))
     for _ in range(2):
         for got in (pfft.from_planar(pfft.fft_planar(pfft.to_planar(z))),
                     pfft.fft(z)):

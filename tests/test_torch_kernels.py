@@ -304,6 +304,23 @@ def test_tile_epilogue_raises_not_implemented():
                                 map_fns=(torch.neg,))
 
 
+def test_device_cache_keeps_no_value_larger_than_itself():
+    """A value larger than the whole store is returned and not kept (an
+    active pin still holds it, for the graph that reads it); smaller ones
+    are kept and evicted oldest first."""
+    cache = pk._DeviceCache(max_bytes=64)
+    big = cache.get(None, "big", "cpu", lambda: torch.zeros(32))  # 128 B
+    assert big.numel() == 32 and cache.cache_info()[3] == 0
+    small = [cache.get(None, k, "cpu", lambda: torch.zeros(4))   # 16 B
+             for k in range(5)]
+    assert cache.cache_info()[3] == 4
+    assert cache.get(None, 4, "cpu", lambda: None) is small[4]
+    with pk.pin_device_tables() as pinned:
+        again = cache.get(None, "big", "cpu", lambda: torch.ones(32))
+    assert cache.cache_info()[3] == 4
+    assert [v for _, v in pinned.values()] == [again]
+
+
 def test_no_kernel_for_other_devices():
     plan = ptiling.plan_bmmc(PBmmc.bit_reverse(8), 3)[0]
     x = torch.empty(256, device="meta")

@@ -94,6 +94,31 @@ def test_fft_matches_reference_and_numpy():
                        torch.from_numpy(xr))
 
 
+@pytest.mark.parametrize("n", [7, 10])
+def test_complex_fft_takes_the_fused_path(n):
+    """A complex64 FFT runs what the planar one runs: every butterfly
+    cluster through K4b (its plain version here) on the planar view, the
+    permutations through the class-dispatched kernels, no cluster falling
+    back and no plain gather; the result is the planar FFT's, bit for
+    bit."""
+    rng = np.random.default_rng(n)
+    z = torch.from_numpy((rng.normal(size=1 << n)
+                          + 1j * rng.normal(size=1 << n)).astype(np.complex64))
+    pobs.reset()
+    pobs.enable()
+    try:
+        got = pfft.fft(z)
+        fallbacks = pobs.counter_total("dispatch.fused_fallback")
+        fused = pobs.counter_value("dispatch.kernel", kernel="fused")
+        gathers = pobs.counter_value("dispatch.kernel", kernel="ref")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert fallbacks == 0 and gathers == 0 and fused > 0
+    planar = pfft.from_planar(pfft.fft_planar(pfft.to_planar(z)))
+    assert torch.equal(got, planar)
+
+
 @pytest.mark.parametrize("s", [0, 3, 6, 15])
 def test_fft_twiddles_bitwise_equal_reference(s):
     """The butterfly twiddles (Python complex) and the float32 (re, im)
