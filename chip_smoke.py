@@ -40,9 +40,29 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    timed; ``fft`` of the same points as complex64, bit-equal to the
    planar FFT through the same kernels;
 8. launch counts: every permutation kernel launched on the main path
-   (phase 4) and ``tile_fused`` on the combinator path (phase 7), and
-   one JSON line describing every kernel;
-9. last line: ``{"ok": true, "device": {...}}``.
+   (phase 4) and ``tile_fused`` on the combinator path (phase 7);
+9. K5 vs plain: the gradient kernel (``tile_bwd``) bit for bit against
+   its plain version on sort clusters of 1, 2 and 3 compare epilogues
+   (float32 with ties, NaNs and signed zeros, bfloat16 with canonical
+   NaNs, a d = 3 tail, a batch of 3), on the FFT's butterfly cluster at
+   2^n_fft points and on the largest cluster of the 2^n_sort float32 sort
+   with keys drawn from 2^16 values (ties); the last timed beside its
+   byte bound, its plain version and the torch composite (autograd's
+   backward through the cluster's stages as torch ops);
+10. gradients on the main path, ``loss = (w * f(x)).sum()``: the sort of
+   2^n_sort distinct float32 keys (equal to scattering ``w`` to the
+   sorting permutation, bit for bit), the gradient kernel route against
+   the collapsed route at 2^n_ties keys with ties (bit for bit), the FFT
+   of 2^n_fft planar points (within ``FFT_REL_TOL`` of float64
+   ``torch.fft.fft`` under autograd) and a permutation chain at 2^n_perm
+   float32 (equal to the inverse program applied to ``w``, bit for bit);
+   each cold backward counts ``model.vjp_round_trips`` equal to
+   ``vjp_round_trips(n, t)``, K5 launches equal to the compute clusters
+   and no fused fallback; forward and forward + backward timed beside the
+   library call under autograd, and the peak device memory; then
+   ``tile_bwd``'s launches on this path, and one JSON line describing
+   every kernel;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -74,6 +94,8 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
              "src/repro/kernels/bmmc_permute.py:72"),
     "tile_fused": ("src/repro_torch/kernels/csrc/tile_fused.cu",
                    "src/repro/kernels/bmmc_permute.py:181"),
+    "tile_bwd": ("src/repro_torch/kernels/csrc/tile_bwd.cu",
+                 "src/repro/kernels/bmmc_permute.py:265"),
 }
 PERM_KERNELS = ("copy", "block", "lane", "tile")   # the bmmc_permute path
 
@@ -82,6 +104,8 @@ REPS = 10                 # timed runs per measurement (the median is kept)
 TILE_SWEEP = (5, 6, 7)    # tile sizes of the sweep phase
 N_SORT = 24               # log2 keys of the combinator path's sort (64 MiB)
 N_FFT = 22                # log2 points of its FFT (32 MiB planar float32)
+N_TIES = 20               # log2 keys of the K5-route vs collapsed-route check
+N_PERM = 26               # log2 elements of the gradient's permutation chain
 # Norm-wise relative error of the float32 FFT against float64: radix-2
 # float32 rounding grows like eps * log2(N) (eps = 6e-8, 22 stages), so
 # 1e-5 leaves about an order of magnitude of room.
@@ -548,6 +572,337 @@ def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
             "bound_ms": bound_ms, "max_abs_err": worst}
 
 
+def bwd_call(K, ex, fs, t, x, ct, batched=False, plain=False):
+    """One cluster's backward through K5 as the executor runs it (its
+    tables kept on the card), or through K5's plain version."""
+    if not plain:
+        return ex._fused_bwd_cuda(fs, t, batched, x, ct)
+    plans, entries, inv, _ = ex._fused_bwd_kernel_plan(fs, t)
+    plan = plans[0]
+    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    return K.tiled_permute_bwd_tables_plain(
+        x, ct, plan.in_rows, plan.out_rows, plan.xor_low, inv,
+        geometry=K.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
+        epi_vmem=vmem, batched=batched)
+
+
+def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
+                     reps: int, bw: float):
+    """K5 against its plain version, bit for bit, at small sizes, on the
+    FFT's butterfly clusters at 2^n_fft and on the largest cluster of the
+    2^n_sort float32 sort (keys from 2^16 values, so with ties); the last
+    timed beside its bound, its plain version and the torch composite."""
+    say("== phase 9: K5 (tile_bwd) vs plain ==")
+    from repro_torch.combinators import CmpHalves, Perm
+    from repro_torch.combinators import execute as ex
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def ties(shape, dtype):
+        """Small integers as ``dtype`` (many ties), with canonical NaNs and
+        signed zeros."""
+        f = torch.randint(-4, 5, shape, generator=gen, device=dev).float()
+        u = torch.rand(shape, generator=gen, device=dev)
+        f = torch.where(u < 0.05, torch.full_like(f, float("nan")), f)
+        f = torch.where((u > 0.5) & (f == 0), torch.full_like(f, -0.0), f)
+        return f.to(dtype)
+
+    def compare(fs, t, x, ct, batched=False):
+        got = bwd_call(K, ex, fs, t, x, ct, batched)
+        want = bwd_call(K, ex, fs, t, x, ct, batched, plain=True)
+        return max_abs_err(torch, got, want)
+
+    worst = 0.0
+    by_size = {}
+    for fs in fused_cases(n_small, 6, "sort"):
+        by_size.setdefault(len(fs.computes), fs)
+    configs = [("float32 NaN/-0", torch.float32, (1 << n_small,), False),
+               ("bfloat16 NaN/-0", torch.bfloat16, (1 << n_small,), False),
+               ("float32 B=3", torch.float32, (3, 1 << n_small), True)]
+    for label, dtype, shape, batched in configs:
+        x = ties(shape, dtype)
+        ct = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for k in (1, 2, 3):
+            err = compare(by_size[k], 6, x, ct, batched)
+            check(err == 0.0, ("K5 cmp", label, k, err))
+            worst = max(worst, err)
+        say(f"  n={n_small} cmp {label} t=6: clusters of 1, 2 and 3 "
+            f"epilogues bit-equal")
+    t3 = ops.choose_tile(n_small, 4, 3)
+    for fs in fused_cases(n_small, t3, "sort")[:3]:
+        x = ties((1 << n_small, 3), torch.float32)
+        ct = torch.randn((1 << n_small, 3), generator=gen, device=dev)
+        err = compare(fs, t3, x, ct)
+        check(err == 0.0, ("K5 cmp d=3", err))
+        worst = max(worst, err)
+    say(f"  n={n_small} cmp float32 d=3 t={t3}: bit-equal")
+    t2 = ops.choose_tile(n_fft, 4, 2)
+    for fs in fused_cases(n_fft, t2, "fft"):
+        x = torch.randn((1 << n_fft, 2), generator=gen, device=dev)
+        ct = torch.randn((1 << n_fft, 2), generator=gen, device=dev)
+        err = compare(fs, t2, x, ct)
+        check(err == 0.0, ("K5 bfly", n_fft, err))
+        worst = max(worst, err)
+        say(f"  n={n_fft} bfly float32 planar t={t2}: {len(fs.computes)} "
+            f"epilogues bit-equal")
+    del x, ct
+
+    t = ops.choose_tile(n_sort, 4)
+    fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
+    x = torch.randint(0, 1 << 16, (1 << n_sort,), generator=gen,
+                      device=dev).float()
+    ct = torch.randn(1 << n_sort, generator=gen, device=dev)
+    err = compare(fs, t, x, ct)
+    check(err == 0.0, ("K5 2^n cluster", err))
+    worst = max(worst, err)
+    # the torch composite: autograd's backward through the cluster's
+    # stages run as torch ops (index_select per Perm, minimum/maximum per
+    # compare); only the backward is timed
+    idx = {id(s): ref.bmmc_src_index(s.bmmc, dev) for s in fs.stages
+           if isinstance(s, Perm)}
+    xr = x.clone().requires_grad_(True)
+    v = xr
+    for s in fs.stages:
+        if isinstance(s, Perm):
+            v = torch.index_select(v, 0, idx[id(s)])
+        else:
+            check(isinstance(s, CmpHalves), type(s).__name__)
+            lo, hi = v.chunk(2)
+            v = torch.cat([torch.minimum(lo, hi), torch.maximum(lo, hi)])
+    plans, entries = ex._fused_plan_cached(fs, t)
+    tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plans[0], dev))
+    tab_bytes += plans[0].src0.nbytes   # inv_src0
+    tab_bytes += sum(np.asarray(a).nbytes for e in entries
+                     for a in (e[2].hi_row, e[2].hi_lane, e[2].hi_base))
+    nbytes = x.numel() * 4
+    ms = cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct), reps)
+    plain_ms = cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct,
+                                                plain=True),
+                       max(3, reps // 3), warmup=1)
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        v, xr, ct, retain_graph=True), reps)
+    fwd_ms = cuda_ms(torch, lambda: ex._fused_cuda(x, fs, t), reps)
+    bound_ms = (3 * nbytes + tab_bytes) / bw * 1e3
+    say(f"  n={n_sort} float32 sort cluster ({len(fs.stages)} stages, "
+        f"{len(fs.computes)} cmp epilogues, t={t}, keys from 2^16 values): "
+        f"bit-equal; K5 {ms:.3f} ms ({3 * nbytes / ms / 1e6:.1f} GB/s), "
+        f"the forward pass (K4b) {fwd_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"torch composite backward {lib_ms:.3f} ms, bound {bound_ms:.3f} ms")
+    say(f"  clocks, power, temperature: {clocks()}")
+    del v, xr
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "max_abs_err": worst}
+
+
+def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
+                    n_perm: int, reps: int):
+    """Gradients through the entry points, ``loss = (w * f(x)).sum()``.
+    Returns the K5 launches of the main path's cold backwards (the sort
+    and the FFT)."""
+    say("== phase 10: gradients on the main path ==")
+    from repro_torch import obs
+    from repro_torch.combinators import FusedStage, clear_caches, compile_expr
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import sort as S
+    from repro_torch.combinators import vocab as V
+    from repro_torch.core.bmmc import Bmmc
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+
+    def cold_grad(f, x, w):
+        """One cold forward + backward with telemetry on: (gradient,
+        counted backward round trips, fused fallbacks, K5 launches,
+        host seconds)."""
+        clear_caches()
+        obs.reset()
+        obs.enable(sync=True)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            xt = x.clone().requires_grad_(True)
+            (w * f(xt)).sum().backward()
+            torch.cuda.synchronize()
+        finally:
+            obs.disable()
+        sec = time.perf_counter() - t0
+        rt = obs.counter_total("model.vjp_round_trips")
+        fb = obs.counter_total("dispatch.fused_fallback")
+        obs.reset()
+        return xt.grad, rt, fb, K.launch_counts()["tile_bwd"], sec
+
+    def clusters(f, n, t):
+        return sum(isinstance(s, FusedStage) and bool(s.computes)
+                   for s in f.clustered_program(n, t))
+
+    def times(name, f, x, w, lib):
+        """Forward alone (recording the graph) and forward + backward, the
+        forward without grad (the CUDA graph), and the library's."""
+        xt = x.clone().requires_grad_(True)
+
+        def fwd_bwd(fn):
+            xt.grad = None
+            (w * fn(xt)).sum().backward()
+        fwd = cuda_ms(torch, lambda: f(xt), reps)
+        both = cuda_ms(torch, lambda: fwd_bwd(f), reps)
+        graph = cuda_ms(torch, lambda: f(x), reps)
+        lib_fwd = cuda_ms(torch, lambda: lib(xt), reps)
+        lib_both = cuda_ms(torch, lambda: fwd_bwd(lib), reps)
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd(f)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"  {name}: forward {fwd:.3f} ms, forward + backward "
+            f"{both:.3f} ms (peak device memory {peak:.2f} GiB), forward "
+            f"without grad (graph) {graph:.3f} ms; library under autograd: "
+            f"forward {lib_fwd:.3f} ms, forward + backward {lib_both:.3f} ms")
+        say(f"  clocks, power, temperature: {clocks()}")
+
+    def breakdown(name, f, x, n, t):
+        """CUDA-event ms of each stage's backward run alone (on a random
+        cotangent, at the stage's own saved input), summed by kind."""
+        from repro_torch.combinators import Perm, run_program
+        prog = f.clustered_program(n, t)
+        res, v = [], x
+        for st in prog:
+            res.append(v)
+            v = run_program((st,), v, "cuda")
+        ct = torch.randn(v.shape, generator=gen, device=dev)
+        by = {}
+        for st, xs in zip(reversed(prog), reversed(res)):
+            if isinstance(st, Perm):
+                kind = "inverse " + ops.class_plan(st.bmmc.inverse(), t)[0]
+                fn = (lambda st=st: ex.perm_apply(ct, st.bmmc.inverse(),
+                                                  "cuda"))
+            elif isinstance(st, FusedStage) and not st.computes:
+                kind = "inverse fused (compute-free)"
+                fn = (lambda st=st: ex.fused_apply(
+                    ct, ex._fused_inverse_cached(st), "cuda"))
+            elif isinstance(st, FusedStage):
+                kind = "K5"
+                fn = (lambda st=st, xs=xs: ex._fused_bwd_impl(
+                    st, "cuda", False, xs, ct))
+            else:
+                kind = "compute VJP"
+                fn = (lambda st=st, xs=xs: ex._compute_bwd(st, xs, ct,
+                                                           False))
+            by[kind] = by.get(kind, 0.0) + cuda_ms(torch, fn, 3, warmup=1)
+        say(f"  {name}: backward ms by kind (each stage timed alone): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by.items()))
+            + f"; sum {sum(by.values()):.3f}")
+
+    k5 = 0
+    # the sort of distinct keys: the gradient scatters w to the sorting
+    # permutation
+    n = n_sort
+    x = torch.randperm(1 << n, generator=gen, device=dev).float()
+    w = torch.randn(1 << n, generator=gen, device=dev)
+    f = S.compiled_sort(n)
+    t = ops.choose_tile(n, 4)
+    g, rt, fb, launched, sec = cold_grad(f, x, w)
+    want = torch.zeros_like(w).scatter_(0, torch.sort(x).indices, w)
+    check(max_abs_err(torch, g, want) == 0.0, "sort gradient")
+    model = f.vjp_round_trips(n, t)
+    fwd_rt = f.cost(n, t, clustered=True)["round_trips"]
+    check(rt == model == fwd_rt, ("sort vjp round trips", rt, model, fwd_rt))
+    check(fb == 0, ("sort backward fused fallbacks", fb))
+    check(launched == clusters(f, n, t), ("K5 launches", launched))
+    k5 += launched
+    say(f"  sort of 2^{n} float32 (distinct keys): gradient equal to the "
+        f"scatter of w bit for bit; cold forward + backward {sec:.2f} s "
+        f"(host clock, planning included); backward round trips {int(rt)} "
+        f"(counted) = {model} (vjp_round_trips) = {fwd_rt} (forward); "
+        f"K5 launches {launched}; fused fallbacks 0")
+    times(f"sort 2^{n} float32", f, x, w, lambda v: torch.sort(v).values)
+    breakdown(f"sort 2^{n} float32", f, x, n, t)
+    del g, want
+    torch.cuda.empty_cache()
+
+    # the gradient kernel route against the collapsed route, with ties
+    n = n_ties
+    x = torch.randint(0, 1 << 12, (1 << n,), generator=gen, device=dev).float()
+    w = torch.randn(1 << n, generator=gen, device=dev)
+    f = S.compiled_sort(n)
+    grads = []
+    for mega in (True, False):
+        ex.BWD_MEGAKERNEL = mega
+        try:
+            grads.append(cold_grad(f, x, w)[0])
+        finally:
+            ex.BWD_MEGAKERNEL = True
+    clear_caches()
+    check(max_abs_err(torch, grads[0], grads[1]) == 0.0,
+          "K5 route vs collapsed route")
+    say(f"  sort of 2^{n} float32 with ties (keys from 2^12 values): the "
+        f"gradient kernel route equals the collapsed route bit for bit")
+    del grads
+    torch.cuda.empty_cache()
+
+    # the FFT against float64 torch.fft.fft under autograd
+    n = n_fft
+    xr = torch.randn((1 << n, 2), generator=gen, device=dev)
+    w = torch.randn((1 << n, 2), generator=gen, device=dev)
+    f = F.compiled_fft(n)
+    t = ops.choose_tile(n, 4, 2)
+    g, rt, fb, launched, sec = cold_grad(f, xr, w)
+    x64 = xr.double().requires_grad_(True)
+    (w.double() * torch.view_as_real(torch.fft.fft(
+        torch.view_as_complex(x64)))).sum().backward()
+    rel = float(torch.linalg.vector_norm(g.double() - x64.grad)
+                / torch.linalg.vector_norm(x64.grad))
+    check(bool(torch.isfinite(g).all()) and g.shape == xr.shape, "fft grad")
+    check(rel <= FFT_REL_TOL, ("fft gradient relative error", rel))
+    model = f.vjp_round_trips(n, t)
+    fwd_rt = f.cost(n, t, clustered=True)["round_trips"]
+    check(rt == model == fwd_rt, ("fft vjp round trips", rt, model, fwd_rt))
+    check(fb == 0, ("fft backward fused fallbacks", fb))
+    check(launched == clusters(f, n, t), ("K5 launches", launched))
+    k5 += launched
+    say(f"  FFT of 2^{n} planar float32: gradient within {rel:.3e} "
+        f"(norm-wise) of float64 torch.fft.fft under autograd (limit "
+        f"{FFT_REL_TOL:g}); cold forward + backward {sec:.2f} s; backward "
+        f"round trips {int(rt)} = {model} = {fwd_rt} (forward); K5 launches "
+        f"{launched}; fused fallbacks 0")
+    times(f"FFT 2^{n} planar float32", f, xr, w,
+          lambda v: torch.view_as_real(torch.fft.fft(torch.view_as_complex(v))))
+    breakdown(f"FFT 2^{n} planar float32", f, xr, n, t)
+    del g, x64
+    torch.cuda.empty_cache()
+
+    # a permutation-only chain: its gradient is the inverse program
+    n = n_perm
+    rng = random.Random(2306)
+    expr = (V.bit_reverse(n) >> V.perm(Bmmc.matrix_transpose(n // 2, n - n // 2))
+            >> V.perm(Bmmc.random_bpc(n, rng)))
+    f = compile_expr(expr)
+    (stage,) = f.program(n)   # the optimizer fuses the chain into one BMMC
+    idx = ref.bmmc_src_index(stage.bmmc, dev)
+    t = ops.choose_tile(n, 4)
+    x = torch.randn(1 << n, generator=gen, device=dev)
+    w = torch.randn(1 << n, generator=gen, device=dev)
+    g, rt, fb, _, sec = cold_grad(f, x, w)
+    want = w
+    for s in f.vjp_program(n):
+        want = ref.bmmc_ref_device(want, s.bmmc)
+    check(max_abs_err(torch, g, want) == 0.0, "perm chain gradient")
+    model = f.vjp_round_trips(n, t)
+    check(rt == model, ("perm chain vjp round trips", rt, model))
+    say(f"  permutation chain (bit-reverse, transpose, random BPC) on 2^{n} "
+        f"float32: gradient equal to the inverse program applied to w bit "
+        f"for bit; backward round trips {int(rt)} = {model}; cold forward + "
+        f"backward {sec:.2f} s")
+    times(f"permutation chain 2^{n} float32", f, x, w,
+          lambda v: torch.index_select(v, 0, idx))
+    del g, want, idx
+    torch.cuda.empty_cache()
+    return k5
+
+
 def plan_program(f, x, batched=False):
     """Resolve a compiled program and build every plan it runs (the
     host planning of a cold call): (program, t, seconds)."""
@@ -691,6 +1046,10 @@ def main(argv=None) -> int:
                     help="log2 keys of the combinator path's sort")
     ap.add_argument("--n-fft", type=int, default=N_FFT,
                     help="log2 points of the combinator path's FFT")
+    ap.add_argument("--n-ties", type=int, default=N_TIES,
+                    help="log2 keys of the gradient-route comparison")
+    ap.add_argument("--n-perm", type=int, default=N_PERM,
+                    help="log2 elements of the gradient's permutation chain")
     args = ap.parse_args(argv)
 
     import torch
@@ -715,8 +1074,18 @@ def main(argv=None) -> int:
     check(not missing, f"kernels never launched on the main path: {missing}")
     check(comb["tile_fused"] > 0, "tile_fused never launched on the "
           "combinator path")
+    say(f"  main path (phase 4): {counts}")
     say(f"  combinator path (sort and FFT cold calls): {comb}")
     counts["tile_fused"] = comb["tile_fused"]
+
+    records["tile_bwd"] = phase_bwd_kernel(torch, N_SMALL - 2, args.n_sort,
+                                           args.n_fft, REPS, bw)
+    counts["tile_bwd"] = phase_gradients(torch, args.n_sort, args.n_ties,
+                                         args.n_fft, args.n_perm, REPS)
+    check(counts["tile_bwd"] > 0, "tile_bwd never launched on the "
+          "gradient path")
+    say(f"  tile_bwd launches on the gradient path (sort and FFT cold "
+        f"backwards): {counts['tile_bwd']}")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]

@@ -5,8 +5,10 @@ The counterpart of :mod:`repro.combinators`: a lazy expression IR
 fusing optimizer implementing the §7.2 rewrite algebra (:mod:`.optimize`),
 and a multi-engine executor with a compiled-plan cache (:mod:`.execute`).
 Workloads: the balanced-periodic sorting network (:mod:`.sort`) and a
-radix-2 FFT (:mod:`.fft`). Forward only for now: gradients arrive with
-the next slice of the port.
+radix-2 FFT (:mod:`.fft`). Programs are differentiable: a compiled
+expression called on a tensor that requires grad records one autograd
+rule whose backward runs the compiled backward (on the ``"cuda"``
+engine, the gradient kernel K5 per compute cluster).
 
 Quick tour::
 

@@ -15,7 +15,10 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
   butterfly (``bfly``) stages applied to the tile in shared memory
   before the gather (reference: ``_tile_kernel``'s ``apply_computes``).
   ``map`` epilogues (a Python callable) have no kernel and raise
-  ``NotImplementedError``.
+  ``NotImplementedError``;
+* K5 ``tile_bwd.cu``      — :func:`tiled_permute_bwd_tables`, the
+  transpose of one K4b pass: the saved input and the output cotangent in,
+  the input cotangent out (reference: ``_tile_bwd_kernel``).
 
 Every wrapper takes the device of its tensor: a CUDA tensor launches the
 kernel (or raises — there is no quiet fallback), a CPU tensor runs the
@@ -41,7 +44,8 @@ import torch
 
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
 
-LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0}
+LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
+            "tile_bwd": 0}
 
 _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
@@ -74,9 +78,25 @@ def _canonical(x: torch.Tensor, batched: bool) -> torch.Tensor:
     return x.reshape(b, x.shape[lead], d)
 
 
+def check_no_grad(x, what: str) -> None:
+    """Refuse a tensor that requires grad while grad mode is on: a kernel
+    writes through a raw pointer, so autograd would drop the gradient
+    without a word (the reference's ``pallas_call`` has no VJP either)."""
+    if (isinstance(x, torch.Tensor) and x.requires_grad
+            and torch.is_grad_enabled()):
+        raise NotImplementedError(
+            f"{what}: a kernel writes through a raw pointer, which autograd "
+            f"cannot see, so it would drop the gradient; differentiate "
+            f"through repro_torch.combinators (compile_expr, sort, fft), "
+            f"whose autograd rules run the kernels on the cotangent, or "
+            f"call this under torch.no_grad()")
+
+
 def _route(x: torch.Tensor, what: str) -> bool:
     """True: launch the CUDA kernel; False: run the plain version (CPU
-    tensor). Anything else raises."""
+    tensor). Anything else raises, and so does a tensor that requires
+    grad (:func:`check_no_grad`)."""
+    check_no_grad(x, what)
     if x.device.type == "cuda":
         if not x.is_contiguous():
             raise ValueError(f"{what}: the CUDA kernel takes a contiguous "
@@ -312,15 +332,18 @@ def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
     return out
 
 
-def _tile_args(xc, geometry, n_epi: int = 0):
-    """(out, kernel arguments after the tables) of a K4a launch, or of a
-    K4b launch with ``n_epi`` epilogues (whose tables a block stages in
-    shared memory too); raises when a block does not fit shared memory."""
+def _tile_args(xc, geometry, n_epi: int = 0, ptrs: tuple = (),
+               n_buf: int = 1, mask_words: int = 0):
+    """(out, kernel arguments after the tables) of a K4a launch, of a K4b
+    launch with ``n_epi`` epilogues (whose tables a block stages in shared
+    memory too), or of a K5 launch (two tile buffers and ``mask_words``
+    words of compare bits per element; ``ptrs`` its other data pointers);
+    raises when a block does not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
     elem = d * xc.element_size()
-    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr())
+    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr(), *ptrs)
     wpe = elem // wb
     pad = max(1, 4 // wb)
     # small tiles (a mixed complement's are one row) are grouped so one
@@ -330,9 +353,12 @@ def _tile_args(xc, geometry, n_epi: int = 0):
            and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES):
         per_cta *= 2
     rows = per_cta * rpt
-    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + rows * (
-        (1 << t) * wpe + pad) * wb
+    tile = rows * ((1 << t) * wpe + pad) * wb
+    if n_buf > 1:
+        tile = n_buf * ((tile + 15) & ~15)
+    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile
     smem += (n_epi * 2 * (rpt + (1 << t) + per_cta) * 4 + 15) & ~15
+    smem += mask_words * (rows << t) * d * 4
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
                          f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
@@ -471,12 +497,7 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
     batch, _, d = xc.shape
     ir, orow = _long(in_rows, dev), _long(out_rows, dev)
     xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
-    ents = []
-    for e in entries:
-        tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
-        w = None if e[9] is None else torch.as_tensor(
-            e[9], device=dev).to(torch.float32)
-        ents.append(e[:3] + tuple(tabs) + (w,))
+    ents = _plain_entries(entries, dev)
     lane = torch.arange(row_len, device=dev)
     j = torch.arange(rpt * row_len, device=dev)
     rp, cp = j >> t, j & (row_len - 1)
@@ -516,9 +537,13 @@ def _epi_desc(values: tuple, device) -> torch.Tensor:
         torch.tensor(values, dtype=torch.int64).to(device)))
 
 
-def _tile_fused_launch(xc, tabs, geometry, entries):
+def _epi_desc_tensor(entries, geometry, dev) -> tuple:
+    """The epilogue descriptors of a K4b or K5 launch on ``dev``: each
+    entry's tables uploaded (or taken as they are, when they are int32 /
+    float32 tensors there already) and their pointers packed. Returns
+    (descriptors, the tables), and the caller keeps the tables alive
+    until the launch is queued."""
     n, t, rpt, _, _, n_tiles, _ = geometry
-    dev = xc.device
     keep, values = [], []
     for e in entries:
         ptrs = []
@@ -535,7 +560,11 @@ def _tile_fused_launch(xc, tabs, geometry, entries):
             keep.append(ta)
             ptrs.append(ta.data_ptr())
         values.extend((e[0], e[1], e[2], *ptrs))
-    desc = _epi_desc(tuple(values), dev)
+    return _epi_desc(tuple(values), dev), keep
+
+
+def _tile_fused_launch(xc, tabs, geometry, entries):
+    desc, _keep = _epi_desc_tensor(entries, geometry, xc.device)
     out, args = _tile_args(xc, geometry, len(entries))
     _launch("tile_fused", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
             _ptr(desc), len(entries), *args, _ELEM_TYPE[xc.dtype],
@@ -583,6 +612,187 @@ def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
     else:
         out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
     return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# K5: the transpose of one fused pass (the gradient kernel)
+# ---------------------------------------------------------------------------
+
+def tie_masks(ueq: torch.Tensor, peq: torch.Tensor, dtype) -> tuple:
+    """jax's balanced tie masks of a compare with input ``u``, partner
+    ``P(u)`` and output ``o``: ``m1 = 1{u==o} / (1 + 1{P(u)==o})`` and
+    ``m2`` with the roles swapped, as exact {0, 1/2, 1} values built by
+    selects (``ueq = u == o``, ``peq = P(u) == o``). The transposed
+    compare is ``ct * m1 + P(ct * m2)``; K5 computes the same
+    (``mask_self`` / ``mask_cross`` in ``tile_bwd.cu``)."""
+    one, half, zero = (torch.tensor(v, dtype=dtype, device=ueq.device)
+                       for v in (1.0, 0.5, 0.0))
+    return (torch.where(ueq, torch.where(peq, half, one), zero),
+            torch.where(peq, torch.where(ueq, half, one), zero))
+
+
+def bfly_transpose(c, q, lo, wr, wi) -> torch.Tensor:
+    """The transposed planar butterfly on ``(..., 2)`` cotangents, ``q``
+    the partner of ``c``: the pair's "lo" member (``lo``) takes ``c + q``,
+    its "hi" member ``Wᵀ(q - c)`` with ``W`` its twiddle ``(wr, wi)``."""
+    s_re = q[..., 0] - c[..., 0]
+    s_im = q[..., 1] - c[..., 1]
+    wt_re = wr * s_re + wi * s_im
+    wt_im = wr * s_im - wi * s_re
+    return torch.stack([torch.where(lo, c[..., 0] + q[..., 0], wt_re),
+                        torch.where(lo, c[..., 1] + q[..., 1], wt_im)],
+                       dim=-1)
+
+
+def _transposed_epilogue(ct, u, o, e, hi_base_g, tw_base_g):
+    """The transpose of one epilogue on cotangent tiles ``(B, G, rpt,
+    row_len, d)``, given the epilogue's input ``u`` and output ``o`` (the
+    reference's ``transposed_epilogues``)."""
+    kind, vr, vc, hi_row, hi_lane, _, tw_row, tw_lane, _, w = e
+    dev = ct.device
+    rpt, row_len = ct.shape[2], ct.shape[3]
+    rows = torch.arange(rpt, device=dev) ^ vr
+    lanes = torch.arange(row_len, device=dev) ^ vc
+
+    def partner(v):
+        return v.index_select(2, rows).index_select(3, lanes)
+
+    if kind == 0:
+        m1, m2 = tie_masks(u == o, partner(u) == o, ct.dtype)
+        return ct * m1 + partner(ct * m2)
+    hi = (((hi_row[:, None] ^ hi_lane[None, :])[None]
+           ^ hi_base_g[:, None, None]) == 1)[None]
+    tw = (tw_row[:, None] ^ tw_lane[None, :])[None] ^ tw_base_g[:, None, None]
+    wr, wi = w[:, 0][tw][None], w[:, 1][tw][None]
+    return bfly_transpose(ct, partner(ct), ~hi, wr, wi)
+
+
+def _plain_entries(entries, dev) -> list:
+    """Epilogue entries with their tables as int64 tensors on ``dev`` and
+    the twiddles as float32 (the plain versions' form)."""
+    ents = []
+    for e in entries:
+        tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
+        w = None if e[9] is None else torch.as_tensor(
+            e[9], device=dev).to(torch.float32)
+        ents.append(e[:3] + tuple(tabs) + (w,))
+    return ents
+
+
+def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
+                    entries):
+    """The K5 schedule with tensor indexing: tile ``g`` loads ``x`` rows
+    at ``in_rows[g]`` and cotangent rows at ``out_rows[g]``, un-gathers
+    the cotangent (``ct_pre.flat[k] = ct.flat[inv_src0.flat[k] ^
+    xor_low[g]]``), replays the epilogues on the x tile, applies their
+    transposes in reverse and writes rows ``in_rows[g]``; tiles in
+    chunks."""
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    row_len = 1 << t
+    dev = xc.device
+    batch, _, d = xc.shape
+    ir, orow = _long(in_rows, dev), _long(out_rows, dev)
+    xl, inv = _long(xor_low, dev), _long(inv_src0, dev).reshape(-1)
+    ents = _plain_entries(entries, dev)
+    lane = torch.arange(row_len, device=dev)
+    out = torch.empty_like(xc)
+    step = max(1, _PLAIN_CHUNK // (rpt * row_len))
+    for g0 in range(0, n_tiles, step):
+        gs = slice(g0, min(n_tiles, g0 + step))
+        ng = gs.stop - gs.start
+        x_glob = (ir[gs][:, :, None] * row_len + lane).reshape(-1)
+        y_glob = (orow[gs][:, :, None] * row_len + lane).reshape(-1)
+        shape = (batch, ng, rpt, row_len, d)
+        us = [xc[:, x_glob].reshape(shape)]
+        for e in ents:
+            us.append(_apply_epilogue(us[-1], e, e[5][gs],
+                                      None if e[8] is None else e[8][gs]))
+        flat = cc[:, y_glob].reshape(batch, ng, rpt * row_len, d)
+        idx = inv[None, :] ^ xl[gs, None]                  # (G, rpt*len)
+        # gathered as integers, as the forward gathers
+        ct = torch.gather(_int_view(flat), 2, idx[None, :, :, None].expand(
+            batch, ng, rpt * row_len, d)).view(flat.dtype).reshape(shape)
+        for k in range(len(ents) - 1, -1, -1):
+            e = ents[k]
+            ct = _transposed_epilogue(ct, us[k], us[k + 1], e, e[5][gs],
+                                      None if e[8] is None else e[8][gs])
+        out[:, x_glob] = ct.reshape(batch, -1, d)
+    return out
+
+
+def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
+    desc, _keep = _epi_desc_tensor(entries, geometry, xc.device)
+    n_cmp = sum(e[0] == 0 for e in entries)
+    out, args = _tile_args(xc, geometry, len(entries), ptrs=(cc.data_ptr(),),
+                           n_buf=2, mask_words=-(-n_cmp // 16))
+    _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
+            *(_ptr(a) for a in tabs), _ptr(desc), len(entries), n_cmp,
+            *args, _ELEM_TYPE[xc.dtype], xc.shape[2])
+    return out
+
+
+def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
+                             out_rows, xor_low, inv_src0, *, geometry: tuple,
+                             epilogue: tuple = (), epi_scalar: tuple = (),
+                             epi_vmem: tuple = (), map_fns: tuple = (),
+                             batched: bool = False) -> torch.Tensor:
+    """The VJP of one fused tiled pass (K5, ``tile_bwd.cu``) — the
+    reference's signature. ``x`` is the saved input of the pass, ``ct``
+    the cotangent of its output (same shape), ``inv_src0`` the offline
+    inverse of the pass's ``src0`` table; the geometry and the epilogue
+    signature and tables are the forward's own (see
+    :func:`tiled_permute_tables`). Returns the input's cotangent, shaped
+    as ``x``. Compare epilogues take float32 and bfloat16 (int32 has no
+    gradient), butterflies planar float32; ``map`` epilogues raise
+    ``NotImplementedError``. A CUDA tensor launches the kernel, a CPU
+    tensor runs its plain version."""
+    if map_fns or any(e[0] == "map" for e in epilogue):
+        raise NotImplementedError(
+            "map epilogues (a Python callable) have no CUDA kernel; the "
+            "executor differentiates Map-bearing clusters stage by stage")
+    check_no_grad(ct, "tiled_permute_bwd_tables")
+    xc, cc = _canonical(x, batched), _canonical(ct, batched)
+    if xc.shape != cc.shape or x.dtype != ct.dtype or x.device != ct.device:
+        raise ValueError(f"x {tuple(x.shape)} {x.dtype} and ct "
+                         f"{tuple(ct.shape)} {ct.dtype} differ")
+    if xc.shape[1] != 1 << geometry[0]:
+        raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
+                         f"2^{geometry[0]}")
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    if not entries:
+        raise ValueError("the gradient kernel transposes a fused pass; a "
+                         "pass without epilogues inverts as a plain pass")
+    _check_epi_input(xc, entries, geometry)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gradients take float32 or bfloat16, got {x.dtype}")
+    if _route(x, "tiled_permute_bwd_tables"):
+        if not ct.is_contiguous():
+            raise ValueError("tiled_permute_bwd_tables: the CUDA kernel "
+                             "takes a contiguous cotangent")
+        n, t, rpt, _, _, n_tiles, _ = geometry
+        tabs = tuple(_device_table(a, x.device, k) for a, k in (
+            (in_rows, n_tiles * rpt), (out_rows, n_tiles * rpt),
+            (xor_low, n_tiles), (inv_src0, rpt << t)))
+        out = _tile_bwd_launch(xc, cc, tabs, geometry, entries)
+    else:
+        out = _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0,
+                              geometry, entries)
+    return out.reshape(x.shape)
+
+
+def tiled_permute_bwd_tables_plain(x: torch.Tensor, ct: torch.Tensor, in_rows,
+                                   out_rows, xor_low, inv_src0, *,
+                                   geometry: tuple, epilogue: tuple = (),
+                                   epi_scalar: tuple = (),
+                                   epi_vmem: tuple = (),
+                                   batched: bool = False) -> torch.Tensor:
+    """The plain version of :func:`tiled_permute_bwd_tables` (K5) on any
+    device."""
+    xc, cc = _canonical(x, batched), _canonical(ct, batched)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    _check_epi_input(xc, entries, geometry)
+    return _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0,
+                           geometry, entries).reshape(x.shape)
 
 
 def tiled_permute(x: torch.Tensor, plan: TilePlan, *,

@@ -42,82 +42,10 @@
 //     int64 each) are read from device memory, so a cluster may carry any
 //     number of epilogues; each epilogue's row, lane and per-tile tables
 //     are staged in shared memory once per block, before the tile.
+// The epilogue code itself is in tile_epilogue.cuh, which the gradient
+// kernel K5 (tile_bwd.cu) shares to replay these epilogues bit for bit.
 #include "tile_common.cuh"
-
-struct Bf16 {   // bfloat16 as its bits; compared through float
-  uint16_t bits;
-};
-
-__device__ __forceinline__ float as_float(Bf16 v) {
-  return __uint_as_float((unsigned)v.bits << 16);
-}
-
-__device__ __forceinline__ int cmp_max(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int cmp_min(int a, int b) { return a < b ? a : b; }
-
-__device__ __forceinline__ float cmp_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a > b) return a;
-  if (b > a) return b;
-  return __int_as_float(__float_as_int(a) & __float_as_int(b));
-}
-
-__device__ __forceinline__ float cmp_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a < b) return a;
-  if (b < a) return b;
-  return __int_as_float(__float_as_int(a) | __float_as_int(b));
-}
-
-__device__ __forceinline__ Bf16 cmp_max(Bf16 a, Bf16 b) {
-  const float fa = as_float(a), fb = as_float(b);
-  if (fa != fa) return a;
-  if (fb != fb) return b;
-  if (fa > fb) return a;
-  if (fb > fa) return b;
-  return Bf16{(uint16_t)(a.bits & b.bits)};
-}
-
-__device__ __forceinline__ Bf16 cmp_min(Bf16 a, Bf16 b) {
-  const float fa = as_float(a), fb = as_float(b);
-  if (fa != fa) return a;
-  if (fb != fb) return b;
-  if (fa < fb) return a;
-  if (fb < fa) return b;
-  return Bf16{(uint16_t)(a.bits | b.bits)};
-}
-
-constexpr int kEpiWords = 10;   // kind, vr, vc, hi_row, hi_lane, hi_base,
-                                // tw_row, tw_lane, tw_base, w
-
-// One butterfly output, exactly as the reference writes it: `hi` says
-// whether this position holds the pair's "hi" member.
-__device__ __forceinline__ void bfly_out(bool hi, float v_re, float v_im,
-                                         float p_re, float p_im, float wr,
-                                         float wi, float* o) {
-  const float lo_re = hi ? p_re : v_re, lo_im = hi ? p_im : v_im;
-  const float hr = hi ? v_re : p_re, him = hi ? v_im : p_im;
-  const float t_re = __fsub_rn(__fmul_rn(wr, hr), __fmul_rn(wi, him));
-  const float t_im = __fadd_rn(__fmul_rn(wr, him), __fmul_rn(wi, hr));
-  o[0] = hi ? __fsub_rn(lo_re, t_re) : __fadd_rn(lo_re, t_re);
-  o[1] = hi ? __fsub_rn(lo_im, t_im) : __fadd_rn(lo_im, t_im);
-}
-
-// Ints of one epilogue's tables staged in shared memory: hi_row[rpt],
-// hi_lane[2^t], hi_base[tiles of the block], then the same three for the
-// twiddle index (bfly).
-__host__ __device__ __forceinline__ int epi_slot(int rpt, int t,
-                                                 int tiles_per_cta) {
-  return 2 * (rpt + (1 << t) + tiles_per_cta);
-}
-
-__host__ __device__ __forceinline__ int epi_table_bytes(int n_epi, int rpt,
-                                                        int t,
-                                                        int tiles_per_cta) {
-  return (n_epi * epi_slot(rpt, t, tiles_per_cta) * 4 + 15) & ~15;
-}
+#include "tile_epilogue.cuh"
 
 template <typename W, typename T>
 __global__ void __launch_bounds__(REPRO_THREADS)
@@ -146,34 +74,14 @@ tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
   const int row_len = 1 << t;
   const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
   const unsigned stride = row_words + (unsigned)pad_words;
-  const unsigned stride_bytes = stride * (unsigned)sizeof(W);
-  const unsigned elem_bytes = (unsigned)wpe * (unsigned)sizeof(W);
-  const unsigned lane_mask = (1u << t) - 1, rpt_mask = (1u << rpt_shift) - 1;
+  const unsigned rpt_mask = (1u << rpt_shift) - 1;
   const int slot = epi_slot(rpt, t, tiles_per_cta);
-  const int half = slot / 2;
-  // element k of tile position q (q = tile row << t | lane)
-  auto at = [&](unsigned q, int k) -> T* {
-    return reinterpret_cast<T*>(tile_bytes + (q >> t) * stride_bytes +
-                                (q & lane_mask) * elem_bytes) + k;
-  };
+  const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
+                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1,
+                    rpt_mask, t, rpt_shift, rpt, row_len};
   REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
                          rpt_shift, rows, tiles_per_cta)
-  // every epilogue's row, lane and tile tables (hi, then twiddle index)
-  for (int e = 0; e < n_epi; ++e) {
-    const long long* ep = epis + (long long)e * kEpiWords;
-    const bool bfly = __ldg(ep + 0) == 1;
-    int* dst = s_epi + e * slot;
-    for (int part = 0; part < (bfly ? 2 : 1); ++part) {
-      const int* row_t = reinterpret_cast<const int*>(__ldg(ep + 3 + 3 * part));
-      const int* lane_t = reinterpret_cast<const int*>(__ldg(ep + 4 + 3 * part));
-      const int* base_t = reinterpret_cast<const int*>(__ldg(ep + 5 + 3 * part));
-      int* o = dst + part * half;
-      for (int i = threadIdx.x; i < half; i += REPRO_THREADS)
-        o[i] = i < rpt ? __ldg(row_t + i)
-                       : (i < rpt + row_len ? __ldg(lane_t + (i - rpt))
-                                            : __ldg(base_t + g0 + (i - rpt - row_len)));
-    }
-  }
+  stage_epi_tables(s_epi, epis, n_epi, rpt, row_len, slot, g0);
   const unsigned span = (unsigned)rows * row_words;
   const unsigned pairs = ((unsigned)rows << t) >> 1;
   const long long batch_words = (long long)n_rows * row_words;
@@ -185,49 +93,8 @@ tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
                          stride)
     for (int e = 0; e < n_epi; ++e) {
       __syncthreads();  // the tile (or the previous epilogue) complete
-      const long long* ep = epis + (long long)e * kEpiWords;
-      const int kind = (int)__ldg(ep + 0);
-      const unsigned vr = (unsigned)__ldg(ep + 1), vc = (unsigned)__ldg(ep + 2);
-      const int* tab = s_epi + e * slot;
-      const unsigned v = (vr << t) | vc;           // partner XOR of q
-      const int low = __ffs((int)v) - 1;           // its lowest set bit
-      const unsigned below = (1u << low) - 1;
-      // the table entry of position q: row, lane and tile terms XORed
-      auto term = [&](const int* tb, unsigned q) -> int {
-        const unsigned r = q >> t;
-        return tb[r & rpt_mask] ^ tb[rpt + (q & lane_mask)] ^
-               tb[rpt + row_len + (r >> rpt_shift)];
-      };
-      if (kind == 0) {
-        const unsigned work = pairs * (unsigned)d;
-        for (unsigned i = threadIdx.x; i < work; i += REPRO_THREADS) {
-          const unsigned pi = d == 1 ? i : i / (unsigned)d;
-          const int k = (int)(i - pi * (unsigned)d);
-          const unsigned q = ((pi & ~below) << 1) | (pi & below);
-          const unsigned p = q ^ v;
-          const T a = *at(q, k), c = *at(p, k);
-          *at(q, k) = term(tab, q) ? cmp_max(a, c) : cmp_min(a, c);
-          *at(p, k) = term(tab, p) ? cmp_max(c, a) : cmp_min(c, a);
-        }
-      } else {
-        const float2* w = reinterpret_cast<const float2*>(__ldg(ep + 9));
-        const int* tw = tab + half;
-        for (unsigned pi = threadIdx.x; pi < pairs; pi += REPRO_THREADS) {
-          const unsigned q = ((pi & ~below) << 1) | (pi & below);
-          const unsigned p = q ^ v;
-          float* fq = reinterpret_cast<float*>(at(q, 0));
-          float* fp = reinterpret_cast<float*>(at(p, 0));
-          const float q_re = fq[0], q_im = fq[1], p_re = fp[0], p_im = fp[1];
-          const float2 wq = __ldg(w + term(tw, q)), wp = __ldg(w + term(tw, p));
-          float oq[2], op[2];
-          bfly_out(term(tab, q) != 0, q_re, q_im, p_re, p_im, wq.x, wq.y, oq);
-          bfly_out(term(tab, p) != 0, p_re, p_im, q_re, q_im, wp.x, wp.y, op);
-          fq[0] = oq[0];
-          fq[1] = oq[1];
-          fp[0] = op[0];
-          fp[1] = op[1];
-        }
-      }
+      forward_epilogue<T>(tv, epis + (long long)e * kEpiWords,
+                          s_epi + e * slot, slot / 2, pairs, d, NoHook{});
     }
     __syncthreads();
     REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,

@@ -30,7 +30,8 @@ from ..guard.errors import BadInput, UnknownEngine
 from ..obs import metrics as _ometrics
 from ..obs import trace as _otrace
 from . import ref as _ref
-from .bmmc_permute import block_permute, lane_permute, tiled_permute
+from .bmmc_permute import (block_permute, check_no_grad, lane_permute,
+                           tiled_permute)
 
 # Shared-memory budget for one tile. The reference sized its tile for a
 # 2 MiB VMEM buffer (t up to 12); a Hopper block has at most 227 KB of
@@ -125,19 +126,6 @@ def class_dispatch(x: torch.Tensor, bmmc: Bmmc, t: Optional[int],
     return got
 
 
-def check_no_grad(x, what: str) -> None:
-    """Refuse a tensor that requires grad while grad mode is on: the
-    kernels write through raw pointers, so autograd would drop the
-    gradient without a word. Gradients arrive with slice 3 of the port."""
-    if (isinstance(x, torch.Tensor) and x.requires_grad
-            and torch.is_grad_enabled()):
-        raise NotImplementedError(
-            f"{what}: gradients through the port's kernels arrive in slice "
-            f"3 of the port (torch.autograd.Function rules with the "
-            f"backward kernel K5); call it under torch.no_grad() or on a "
-            f"tensor that does not require grad")
-
-
 def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
                  engine: str = "cuda", batched: bool = False) -> torch.Tensor:
     """Permute ``x`` (shape (2^n,) or (2^n, d)) by ``out[A i ^ c] = x[i]``.
@@ -148,8 +136,10 @@ def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
     their plain PyTorch versions. ``batched=True`` shifts the permuted
     axis to axis 1 — ``x`` is ``(B, 2^n)`` or ``(B, 2^n, d)`` and all batch
     rows share one plan. A non-contiguous ``x`` is made contiguous first.
-    A tensor that requires grad raises ``NotImplementedError`` (gradients
-    arrive with slice 3 of the port).
+    A tensor that requires grad raises ``NotImplementedError``: the
+    kernels write through raw pointers, which autograd cannot see (the
+    reference's ``pallas_call`` has no VJP either). Gradients of
+    permutations run through :mod:`repro_torch.combinators`.
     """
     check_no_grad(x, "bmmc_permute")
     lead = 1 if batched else 0

@@ -19,9 +19,26 @@ of the two packages compare key for key):
   / block / lane / tiled / general) of each dispatched matrix.
 * ``dma.descriptors`` / ``model.round_trips`` — modeled DMA descriptor
   and HBM-round-trip totals of everything dispatched.
+* ``dispatch.fused_fallback`` — clusters the fused kernels could not
+  take (forward: K4b; backward: K5), run another way.
+* ``dispatch.vjp{kind=...}`` — one count per backward rule executed
+  (``program`` / ``fused`` / ``stage``), i.e. which backward path
+  (DESIGN.md §13) a gradient took.
+* ``model.vjp_round_trips`` — the slice of ``model.round_trips``
+  attributable to backward-rule bodies: each rule records the
+  ``model.round_trips`` delta its own dispatches produced, so a cold
+  backward call's ``model.vjp_round_trips`` delta equals the modeled
+  cost of the backward it ran (``CompiledExpr.vjp_round_trips`` — the
+  backward honesty gate). On the gradient kernel route each K5 pass
+  counts one round trip (as the forward pass it transposes) and each
+  standalone compute's VJP one ``sweep``.
 
-The rest of the reference's vocabulary (vjp, optimizer, guard ring 2,
-store and resilience counters) arrives with the layers that record it.
+Span vocabulary for gradients mirrors the forward's: ``program.vjp`` /
+``fused.vjp`` / ``stage.vjp`` wrap the corresponding backward rule
+bodies, and ``kernel.fused_bwd`` wraps the gradient kernel K5.
+
+The rest of the reference's vocabulary (optimizer, guard ring 2, store
+and resilience counters) arrives with the layers that record it.
 """
 from __future__ import annotations
 

@@ -207,3 +207,122 @@ def test_cuda_sort_and_fft_through_the_graph(cuda_device):
             err = (torch.linalg.vector_norm(got.to(torch.complex128) - want)
                    / torch.linalg.vector_norm(want))
             assert float(err) < 1e-5
+
+
+def _bwd(fs, t, x, ct, batched, plain):
+    """One cluster's backward through K5 (its tables on the card, as the
+    executor keeps them) or through K5's plain version."""
+    from repro_torch.combinators import execute as ex
+    plans, entries, inv, _ = ex._fused_bwd_kernel_plan(fs, t)
+    if not plain:
+        return ex._fused_bwd_cuda(fs, t, batched, x, ct)
+    plan = plans[0]
+    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    return pk.tiled_permute_bwd_tables_plain(
+        x, ct, plan.in_rows, plan.out_rows, plan.xor_low, inv,
+        geometry=pk.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
+        epi_vmem=vmem, batched=batched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tail,batch", [
+    (torch.float32, (), None), (torch.bfloat16, (), None),
+    (torch.float32, (3,), None), (torch.float32, (), 3)])
+def test_cuda_k5_cmp_matches_plain(cuda_device, dtype, tail, batch):
+    """K5 on compare clusters bit for bit against its plain version, on
+    inputs with ties, NaNs and signed zeros."""
+    from repro_torch.combinators.sort import sort_expr
+    n = 12
+    d = tail[0] if tail else 1
+    t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size(), d)
+    shape = ((batch,) if batch else ()) + (1 << n,) + tail
+    v = torch.randint(-4, 5, shape, device=cuda_device).to(torch.float32)
+    u = torch.rand(shape, device=cuda_device)
+    v = torch.where(u < 0.05, torch.full_like(v, float("nan")), v)
+    v = torch.where((u > 0.5) & (v == 0), torch.full_like(v, -0.0), v)
+    x = v.to(dtype)
+    ct = torch.randn(shape, device=cuda_device).to(dtype)
+    clusters = _fused_clusters(sort_expr(n), n, t)
+    picked = clusters[:2] + [max(clusters, key=lambda s: len(s.computes))]
+    before = pk.launch_counts()["tile_bwd"]
+    for fs in picked:
+        got = _bwd(fs, t, x, ct, bool(batch), plain=False)
+        want = _bwd(fs, t, x, ct, bool(batch), plain=True)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert pk.launch_counts()["tile_bwd"] == before + len(picked)
+
+
+@pytest.mark.cuda
+def test_cuda_k5_bfly_matches_plain(cuda_device):
+    from repro_torch.combinators.fft import fft_expr
+    n, t = 12, 5
+    x = torch.randn(1 << n, 2, device=cuda_device)
+    ct = torch.randn(1 << n, 2, device=cuda_device)
+    for fs in _fused_clusters(fft_expr(n), n, t):
+        got = _bwd(fs, t, x, ct, False, plain=False)
+        want = _bwd(fs, t, x, ct, False, plain=True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_sort_and_fft_gradients(cuda_device):
+    """Gradients on the card: the sort's equals the scatter of w to the
+    sorting permutation bit for bit, the gradient kernel route equals the
+    collapsed route bit for bit on ties, and the FFT's is within 1e-5 of
+    float64 ``torch.fft.fft`` under autograd. Each cold backward counts
+    the modeled round trips, and K5 runs once per compute cluster."""
+    from repro_torch import obs as pobs
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as pfft
+    from repro_torch.combinators import sort as psort
+    n = 14
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randperm(1 << n, generator=gen, device=cuda_device).float()
+    w = torch.randn(1 << n, generator=gen, device=cuda_device)
+    f = psort.compiled_sort(n)
+    t = pops.choose_tile(n, 4)
+    ex.clear_caches()
+    pk.reset_launch_counts()
+    pobs.reset()
+    pobs.enable()
+    try:
+        xt = x.clone().requires_grad_(True)
+        (w * f(xt)).sum().backward()
+        rt = pobs.counter_total("model.vjp_round_trips")
+        fb = pobs.counter_total("dispatch.fused_fallback")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    idx = torch.sort(x).indices
+    assert torch.equal(xt.grad, torch.zeros_like(w).scatter_(0, idx, w))
+    prog = f.clustered_program(n, t)
+    clusters = sum(isinstance(s, ex.FusedStage) and bool(s.computes)
+                   for s in prog)
+    assert rt == f.vjp_round_trips(n, t) == f.cost(n, t, clustered=True)[
+        "round_trips"]
+    assert fb == 0 and pk.launch_counts()["tile_bwd"] == clusters
+
+    ties = torch.randint(0, 8, (1 << n,), generator=gen,
+                         device=cuda_device).float()
+    grads = []
+    for mega in (True, False):
+        ex.BWD_MEGAKERNEL = mega
+        try:
+            xt = ties.clone().requires_grad_(True)
+            (w * f(xt)).sum().backward()
+            grads.append(xt.grad)
+        finally:
+            ex.BWD_MEGAKERNEL = True
+    assert torch.equal(grads[0].view(torch.int32), grads[1].view(torch.int32))
+
+    m = 12
+    xr = torch.randn(1 << m, 2, generator=gen, device=cuda_device)
+    wr = torch.randn(1 << m, 2, generator=gen, device=cuda_device)
+    xt = xr.clone().requires_grad_(True)
+    (wr * pfft.fft_planar(xt)).sum().backward()
+    x64 = xr.double().requires_grad_(True)
+    (wr.double() * torch.view_as_real(torch.fft.fft(
+        torch.view_as_complex(x64)))).sum().backward()
+    err = (torch.linalg.vector_norm(xt.grad.double() - x64.grad)
+           / torch.linalg.vector_norm(x64.grad))
+    assert float(err) < 1e-5

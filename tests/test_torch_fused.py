@@ -17,8 +17,8 @@ JAX reference on the CPU.
   float32 ulps).
 * A cluster that holds a ``Map`` runs stage by stage (counted as a fused
   fallback) and still matches the reference bit for bit.
-* Entry points refuse tensors that require grad: gradients arrive with
-  the backward slice.
+* The combinator entry points differentiate; the raw kernel wrappers and
+  ``bmmc_permute`` refuse a tensor that requires grad.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -229,20 +229,40 @@ def test_map_cluster_falls_back_per_stage():
 
 
 def test_entry_points_refuse_tensors_that_require_grad():
+    """The combinator entry points return gradients now; the raw kernel
+    wrappers and ``bmmc_permute`` still refuse a tensor that requires
+    grad, naming the reason (a kernel writes through a raw pointer, which
+    autograd cannot see)."""
     n = 5
     x = torch.randn(1 << n, requires_grad=True)
     f = pc.compile_expr(PV.seq(PV.rev(n), PV.cmp_halves(), PV.riffle(n)))
     fs = next(s for s in f.clustered_program(n, 2)
               if isinstance(s, pc.FusedStage))
-    calls = [lambda: f(x), lambda: f.call_per_stage(x),
-             lambda: pc.run_program(f.program(n), x, "cuda"),
-             lambda: pc.perm_apply(x, PBmmc.bit_reverse(n), "cuda"),
-             lambda: pc.fused_apply(x, fs, "cuda"),
-             lambda: pc.program_apply(x, f.program(n), 2, "cuda"),
-             lambda: bmmc_permute(x, PBmmc.bit_reverse(n))]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            call()
     with torch.no_grad():
         want = f(x)
+    calls = [lambda: f(x), lambda: f.call_per_stage(x),
+             lambda: pc.run_program(f.program(n), x, "cuda"),
+             lambda: pc.fused_apply(x, fs, "cuda"),
+             lambda: pc.program_apply(x, f.clustered_program(n, 2), 2,
+                                      "cuda")]
+    for call in calls:
+        x.grad = None
+        y = call()
+        assert torch.equal(y.detach(), want)
+        y.sum().backward()
+        assert x.grad is not None and x.grad.shape == x.shape
+    x.grad = None
+    g = torch.arange(1 << n, dtype=torch.float32)
+    pc.perm_apply(x, PBmmc.bit_reverse(n), "cuda").backward(g)
+    assert torch.equal(x.grad, bmmc_permute(g, PBmmc.bit_reverse(n)))
+    refused = [lambda: bmmc_permute(x, PBmmc.bit_reverse(n)),
+               lambda: pk.copy_blocks(x),
+               lambda: pk.tiled_permute_tables(
+                   x, None, None, None, None, geometry=(n, 2, 4, 1, 1, 2, 2))]
+    for call in refused:
+        with pytest.raises(NotImplementedError, match="raw pointer"):
+            call()
+    with torch.no_grad():
+        assert torch.equal(bmmc_permute(x, PBmmc.bit_reverse(n)),
+                           bmmc_permute(x.detach(), PBmmc.bit_reverse(n)))
     assert torch.equal(f(x.detach()), want)
