@@ -219,6 +219,24 @@ def phase_env(torch):
     return smi[0]
 
 
+def ptxas_usage(log: str) -> list:
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
+    of each kernel in an ``nvcc -Xptxas -v`` log, names shortened to the
+    template's arguments."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+            spill = ""
+        elif "spill stores" in ln:
+            parts = [p.strip() for p in ln.split(",")]
+            spill = ", ".join(p for p in parts if "spill" in p)
+        elif "Used" in ln and name is not None:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out.append((name[:60], f"{regs}, {spill or 'no spill'}"))
+    return out
+
+
 def phase_build():
     say("== phase 2: build ==")
     from repro_torch.kernels import build
@@ -227,9 +245,9 @@ def phase_build():
     say(f"built {sorted(log)} in {time.perf_counter() - t0:.2f} s "
         f"(build dir {build.build_dir()})")
     for name, rec in sorted(log.items()):
-        used = [ln.split("ptxas info    : ")[-1] for ln in
-                rec["ptxas"].splitlines() if "Used" in ln]
-        say(f"  {name}: {rec['seconds']:.2f} s; " + " | ".join(used))
+        say(f"  {name}: {rec['seconds']:.2f} s")
+        for kern, used in ptxas_usage(rec["ptxas"]):
+            say(f"    {kern}: {used}")
     for name in build.KERNELS:
         build.load(name)
 
@@ -455,6 +473,142 @@ def fused_call(K, ex, fs, t, x, batched=False, plain=False):
     return y
 
 
+def hand_cluster(n: int, t: int, n_epi: int, seed: int, bfly_every: int = 0):
+    """A hand-built cluster on the bit reversal's tile plan at 2^n, tile t:
+    (plan, epilogue signature, per-tile tables, per-row/lane tables). Its
+    partner XORs are the tile's single position bits, in order (so later
+    ones fall on the warp bits of an earlier layout), then random XORs of
+    several bits, every fourth the XOR of the two before it; the tables
+    are random linear ones; every ``bfly_every``-th epilogue is a
+    butterfly (planar float32) when non-zero."""
+    from repro_torch.core.bmmc import Bmmc
+    from repro_torch.core.tiling import _affine_table, plan_bmmc
+    rng = np.random.default_rng(seed)
+    plan = plan_bmmc(Bmmc.bit_reverse(n), t)[0]
+    rpt, n_tiles = plan.rows_per_tile, plan.n_tiles
+    rb, gb = rpt.bit_length() - 1, n_tiles.bit_length() - 1
+
+    def table(bits, hi, const=False):
+        imgs = [int(v) for v in rng.integers(0, hi, bits)]
+        c = int(rng.integers(0, hi)) if const else 0
+        return _affine_table(imgs, c).astype(np.int32)
+
+    w = rng.normal(size=(1 << (n - 1), 2)).astype(np.float32)
+    vs = [1 << b for b in range(t + rb)]
+    while len(vs) < n_epi:
+        vs.append(vs[-1] ^ vs[-2] if len(vs) % 4 == 3 and vs[-1] != vs[-2]
+                  else int(rng.integers(3, rpt << t)))
+    sig, scal, vmem = [], [], []
+    for k, v in enumerate(vs[:n_epi]):
+        hi = (table(rb, 2), table(t, 2), table(gb, 2, True))
+        if bfly_every and k % bfly_every == bfly_every - 1:
+            tw = (table(rb, 1 << (n - 1)), table(t, 1 << (n - 1)),
+                  table(gb, 1 << (n - 1), True))
+            sig.append(("bfly", v >> t, v & ((1 << t) - 1), 1 << (n - 1)))
+            scal.append((hi[2], tw[2]))
+            vmem.append((hi[0], hi[1], tw[0], tw[1], w))
+        else:
+            sig.append(("cmp", v >> t, v & ((1 << t) - 1)))
+            scal.append((hi[2],))
+            vmem.append((hi[0], hi[1]))
+    return plan, tuple(sig), tuple(scal), tuple(vmem)
+
+
+HAND_CASES = (  # label, log2 n, t, epilogues, butterfly every, dtype, tail,
+                # batch, NaNs
+    ("int32", 14, 6, 20, 0, "int32", 1, 1, False),
+    ("float32 NaN/-0", 14, 6, 20, 0, "float32", 1, 1, True),
+    ("bfloat16 NaN/-0", 14, 6, 20, 0, "bfloat16", 1, 1, True),
+    ("float32 -0, no NaN (keys)", 14, 6, 20, 0, "float32", 1, 1, False),
+    ("bfloat16 -0, no NaN (keys)", 14, 6, 20, 0, "bfloat16", 1, 1, False),
+    ("float32 d=3 NaN/-0", 14, 5, 20, 0, "float32", 3, 1, True),
+    ("float32 B=3", 14, 6, 20, 0, "float32", 1, 3, False),
+    ("planar float32, butterflies and compares", 14, 5, 12, 3, "float32",
+     2, 1, False),
+    ("float32 tile of 2^14 positions (chunks)", 16, 7, 14, 0, "float32", 1,
+     1, False),
+)
+
+
+def phase_hand(torch, backward: bool) -> float:
+    """K4b (or K5, ``backward``) bit for bit against its plain version on
+    hand-built clusters whose partner XORs fall in registers, on lanes and
+    on the warp bits of an earlier layout, with XORs of several bits and
+    more than 16 compares; returns the worst error."""
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import epilogue_plan as EP
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(71 + backward)
+    worst = 0.0
+    for (label, n, t, n_epi, bfly, dname, d, batch,
+         nan) in HAND_CASES:
+        dtype = getattr(torch, dname)
+        if backward and dtype == torch.int32:
+            continue
+        plan, sig, scal, vmem = hand_cluster(n, t, n_epi, seed=n_epi + t,
+                                             bfly_every=bfly)
+        shape = (batch, 1 << n, d)
+        v = torch.randint(-4, 5, shape, generator=gen, device=dev).float()
+        u = torch.rand(shape, generator=gen, device=dev)
+        if nan:
+            v = torch.where(u < 0.05, torch.full_like(v, float("nan")), v)
+        v = torch.where((u > 0.5) & (v == 0), torch.full_like(v, -0.0), v)
+        x = v.to(dtype) if not bfly else torch.randn(shape, generator=gen,
+                                                     device=dev)
+        kw = dict(geometry=K.plan_geometry(plan), epilogue=sig,
+                  epi_scalar=scal, epi_vmem=vmem, batched=True)
+        tabs = (plan.in_rows, plan.out_rows, plan.xor_low)
+        entries = K._epi_entries(sig, scal, vmem)
+        _, _, pl, _ = K._epi_launch_args(x, kw["geometry"], entries,
+                                         n_buf=2 if backward else 1)
+        words = pl.cpu().numpy()
+        vl = [int(EP.epi_slice(words, e)[EP.EP_VLANE])
+              for e in range(len(sig))]
+        vr = [int(EP.epi_slice(words, e)[EP.EP_VREG])
+              for e in range(len(sig))]
+        classes = (f"{pl.info['n_phases']} phases, {vl.count(0)} in-thread "
+                   f"and {len(vl) - vl.count(0)} shuffled epilogues, "
+                   f"{sum(bin(a | b << 4).count('1') > 1 for a, b in zip(vr, vl))}"
+                   f" with several coordinates, {2 ** pl.info['reg_bits']} "
+                   f"registers a thread, {2 ** pl.info['outer_bits']} "
+                   f"chunk(s)")
+        if backward:
+            s0 = plan.src0.reshape(-1)
+            inv = np.empty_like(s0)
+            inv[s0] = np.arange(s0.size, dtype=s0.dtype)
+            inv = inv.reshape(plan.src0.shape)
+            ct = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  if not nan else x.flip(1).contiguous())
+            got = K.tiled_permute_bwd_tables(x, ct, *tabs, inv, **kw)
+            want = K.tiled_permute_bwd_tables_plain(x, ct, *tabs, inv, **kw)
+        else:
+            got = K.tiled_permute_tables(x, *tabs, plan.src0, **kw)
+            want = K.tiled_permute_tables_plain(x, *tabs, plan.src0, **kw)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, ("hand-built", backward, label, err))
+        worst = max(worst, err)
+        say(f"  hand-built, {n_epi} epilogues ({classes}), {label}: "
+            f"bit-equal")
+    return worst
+
+
+def device_ms(torch, fn, inner: int = 10) -> float:
+    """Device milliseconds of one call of ``fn``: ``inner`` calls captured
+    in one CUDA graph, replayed (median of REPS), so the host's launch
+    overhead is not in the time."""
+    from repro_torch.kernels import bmmc_permute as K
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with K.pin_device_tables():
+        with torch.cuda.graph(g):
+            for _ in range(inner):
+                fn()
+    ms = cuda_ms(torch, g.replay, REPS, warmup=1) / inner
+    del g
+    return ms
+
+
 def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
                 bw: float):
     """K4b against its plain version, bit for bit, at small sizes and on
@@ -521,6 +675,7 @@ def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
             say(f"  n={nb} bfly float32 planar t={t2}: "
                 f"{len(fs.computes)} epilogues bit-equal")
         del x
+    worst = max(worst, phase_hand(torch, backward=False))
 
     t = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
@@ -554,19 +709,25 @@ def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
     tab_bytes += sum(np.asarray(a).nbytes for e in entries
                      for a in (e[2].hi_row, e[2].hi_lane, e[2].hi_base))
     nbytes = x.numel() * 4
-    ms = cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x), reps)
+    host_ms = cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x), reps)
+    ms = device_ms(torch, lambda: fused_call(K, ex, fs, t, x))
     plain_ms = cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x, plain=True),
                        max(3, reps // 3), warmup=1)
     lib_ms = cuda_ms(torch, composite, reps)
-    tile_ms = cuda_ms(torch, lambda: K.tiled_permute(x, plans[0]), reps)
-    copy_ms = cuda_ms(torch, lambda: K.copy_blocks(x), reps)
+    tile_ms = device_ms(torch, lambda: K.tiled_permute(x, plans[0]))
+    copy_ms = device_ms(torch, lambda: K.copy_blocks(x))
+    xf = x.float()
+    f32_ms = device_ms(torch, lambda: fused_call(K, ex, fs, t, xf))
     bound_ms = (2 * nbytes + tab_bytes) / bw * 1e3
     say(f"  n={n_sort} int32 sort cluster ({len(fs.stages)} stages, "
         f"{len(fs.computes)} cmp epilogues, t={t}): bit-equal; kernel "
-        f"{ms:.3f} ms ({2 * nbytes / ms / 1e6:.1f} GB/s), same pass without "
-        f"epilogues (K4a) {tile_ms:.3f} ms, copy {copy_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, torch composite {lib_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms")
+        f"{ms:.4f} ms on the device ({2 * nbytes / ms / 1e6:.1f} GB/s; "
+        f"{host_ms:.4f} ms with the host's launch path), float32 keys "
+        f"{f32_ms:.4f} ms, same pass without epilogues (K4a) {tile_ms:.4f} "
+        f"ms, copy {copy_ms:.4f} ms (device times: 10 calls in one CUDA "
+        f"graph), plain {plain_ms:.3f} ms, torch composite {lib_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms")
+    del xf
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "max_abs_err": worst}
@@ -648,6 +809,7 @@ def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
         say(f"  n={n_fft} bfly float32 planar t={t2}: {len(fs.computes)} "
             f"epilogues bit-equal")
     del x, ct
+    worst = max(worst, phase_hand(torch, backward=True))
 
     t = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
@@ -677,19 +839,22 @@ def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
     tab_bytes += sum(np.asarray(a).nbytes for e in entries
                      for a in (e[2].hi_row, e[2].hi_lane, e[2].hi_base))
     nbytes = x.numel() * 4
-    ms = cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct), reps)
+    host_ms = cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct), reps)
+    ms = device_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct))
     plain_ms = cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct,
                                                 plain=True),
                        max(3, reps // 3), warmup=1)
     lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         v, xr, ct, retain_graph=True), reps)
-    fwd_ms = cuda_ms(torch, lambda: ex._fused_cuda(x, fs, t), reps)
+    fwd_ms = device_ms(torch, lambda: ex._fused_cuda(x, fs, t))
     bound_ms = (3 * nbytes + tab_bytes) / bw * 1e3
     say(f"  n={n_sort} float32 sort cluster ({len(fs.stages)} stages, "
         f"{len(fs.computes)} cmp epilogues, t={t}, keys from 2^16 values): "
-        f"bit-equal; K5 {ms:.3f} ms ({3 * nbytes / ms / 1e6:.1f} GB/s), "
-        f"the forward pass (K4b) {fwd_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch composite backward {lib_ms:.3f} ms, bound {bound_ms:.3f} ms")
+        f"bit-equal; K5 {ms:.4f} ms on the device "
+        f"({3 * nbytes / ms / 1e6:.1f} GB/s; {host_ms:.4f} ms with the "
+        f"host's launch path), the forward pass (K4b) {fwd_ms:.4f} ms on the "
+        f"device, plain {plain_ms:.3f} ms, torch composite backward "
+        f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms")
     say(f"  clocks, power, temperature: {clocks()}")
     del v, xr
     torch.cuda.empty_cache()

@@ -12,10 +12,10 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
 * K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass;
 * K4b ``tile_fused.cu``   — :func:`tiled_permute_tables` with a non-empty
   ``epilogue``: the same pass with compare-exchange (``cmp``) and
-  butterfly (``bfly``) stages applied to the tile in shared memory
-  before the gather (reference: ``_tile_kernel``'s ``apply_computes``).
-  ``map`` epilogues (a Python callable) have no kernel and raise
-  ``NotImplementedError``;
+  butterfly (``bfly``) stages applied to the tile before the gather, in
+  registers under a layout plan (:mod:`.epilogue_plan`; reference:
+  ``_tile_kernel``'s ``apply_computes``). ``map`` epilogues (a Python
+  callable) have no kernel and raise ``NotImplementedError``;
 * K5 ``tile_bwd.cu``      — :func:`tiled_permute_bwd_tables`, the
   transpose of one K4b pass: the saved input and the output cotangent in,
   the input cotangent out (reference: ``_tile_bwd_kernel``).
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
+from . import epilogue_plan as EP
 
 LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
             "tile_bwd": 0}
@@ -332,38 +333,41 @@ def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
     return out
 
 
-def _tile_args(xc, geometry, n_epi: int = 0, ptrs: tuple = (),
-               n_buf: int = 1, mask_words: int = 0):
-    """(out, kernel arguments after the tables) of a K4a launch, of a K4b
-    launch with ``n_epi`` epilogues (whose tables a block stages in shared
-    memory too), or of a K5 launch (two tile buffers and ``mask_words``
-    words of compare bits per element; ``ptrs`` its other data pointers);
-    raises when a block does not fit shared memory."""
+def _tile_args(xc, geometry, n_buf: int = 1, max_positions: int = None,
+               word_bytes: int = None, extra_smem=0):
+    """(out, kernel arguments after the tables) of a K4a launch, or of a
+    K4b / K5 launch (``n_buf`` tile buffers, blocks of at most
+    ``max_positions`` tile positions, words of ``word_bytes``,
+    ``extra_smem`` more bytes a block, or a function of the arguments
+    giving them); raises when a block does not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
     elem = d * xc.element_size()
-    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr(), *ptrs)
+    wb = word_bytes or _word_bytes(elem, xc.data_ptr(), out.data_ptr())
     wpe = elem // wb
     pad = max(1, 4 // wb)
     # small tiles (a mixed complement's are one row) are grouped so one
     # block still moves about _TILE_CTA_BYTES
     per_cta = 1
     while (per_cta * 2 <= n_tiles
-           and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES):
+           and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES
+           and (max_positions is None
+                or per_cta * 2 * rpt * (1 << t) <= max_positions)):
         per_cta *= 2
     rows = per_cta * rpt
     tile = rows * ((1 << t) * wpe + pad) * wb
     if n_buf > 1:
         tile = n_buf * ((tile + 15) & ~15)
-    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile
-    smem += (n_epi * 2 * (rpt + (1 << t) + per_cta) * 4 + 15) & ~15
-    smem += mask_words * (rows << t) * d * 4
+    args = (n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe, _shift(wpe),
+            _shift((1 << t) * wpe), pad, batch, wb)
+    if callable(extra_smem):
+        extra_smem = extra_smem(args)
+    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile + extra_smem
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
                          f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
-    return out, (n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe,
-                 _shift(wpe), _shift((1 << t) * wpe), pad, batch, wb)
+    return out, args
 
 
 def _tile_launch(xc, tabs, geometry):
@@ -376,8 +380,6 @@ def _tile_launch(xc, tabs, geometry):
 # K4b: the tiled pass with fused compute epilogues
 # ---------------------------------------------------------------------------
 
-_EPI_KIND = {"cmp": 0, "bfly": 1}
-_EPI_WORDS = 10     # int64 words of one epilogue descriptor (tile_fused.cu)
 _ELEM_TYPE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
@@ -393,7 +395,7 @@ def cmp_max(a: torch.Tensor, b: torch.Tensor, *,
     when ``a`` is NaN, else ``b`` when ``b`` is), -0 < +0, and equal
     values give the bitwise AND of the two (``max(-0, +0) = +0``) — what
     ``jnp.maximum`` gives on the CPU. The CUDA kernel computes the same
-    (``cmp_max`` in ``tile_fused.cu``); ``torch.maximum`` would not pin
+    (``cmp_sel`` in ``tile_epilogue.cuh``); ``torch.maximum`` would not pin
     the sign of a zero. ``out`` receives the result when given."""
     if not a.is_floating_point():
         return torch.maximum(a, b, out=out)
@@ -530,45 +532,91 @@ def _device_float(a, device) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
-def _epi_desc(values: tuple, device) -> torch.Tensor:
-    """The epilogue descriptors (kind, vr, vc and seven table pointers
-    each) as an int64 tensor on ``device``, kept by content."""
-    return device_cached(None, ("epi_desc", values), device, lambda: (
-        torch.tensor(values, dtype=torch.int64).to(device)))
+def _host(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _epi_desc_tensor(entries, geometry, dev) -> tuple:
-    """The epilogue descriptors of a K4b or K5 launch on ``dev``: each
-    entry's tables uploaded (or taken as they are, when they are int32 /
-    float32 tensors there already) and their pointers packed. Returns
-    (descriptors, the tables), and the caller keeps the tables alive
-    until the launch is queued."""
+def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
+                     elem_bytes: int, stride_bytes: int, access: int,
+                     dv: int, reg_bits: int) -> torch.Tensor:
+    """The register-epilogue plan of a K4b or K5 launch on ``dev``
+    (:func:`.epilogue_plan.plan_epilogues`, with the device pointers of
+    each epilogue's per-tile tables and twiddle values filled in), built
+    once per set of tables and launch geometry and kept. The tensor
+    carries the plan's summary as ``.info`` and holds every table it
+    points to (or was built from) in ``._keep``. A table that is not
+    linear (affine per block) raises ValueError."""
     n, t, rpt, _, _, n_tiles, _ = geometry
-    keep, values = [], []
-    for e in entries:
-        ptrs = []
-        for k, a in enumerate(e[3:10]):
-            if a is None:
-                ptrs.append(0)
-                continue
-            numel = (rpt, 1 << t, n_tiles)[k % 3] if k < 6 else None
-            ta = (_device_float(a, dev) if k == 6
-                  else _device_table(a, dev, numel))
-            if k == 6 and ta.shape != (1 << (n - 1), 2):
-                raise ValueError(f"twiddle table of shape {tuple(ta.shape)}, "
-                                 f"a 2^{n} butterfly needs ({1 << (n - 1)}, 2)")
-            keep.append(ta)
-            ptrs.append(ta.data_ptr())
-        values.extend((e[0], e[1], e[2], *ptrs))
-    return _epi_desc(tuple(values), dev), keep
+    tables = tuple(a for e in entries for a in e[3:10])
+    key = ("epi_plan", tuple(id(a) for a in tables),
+           tuple(e[:3] for e in entries), tuple(geometry), per_cta,
+           elem_bytes, stride_bytes, access, dv, reg_bits)
+
+    def make():
+        host = [e[:3] + tuple(None if a is None else _host(a)
+                              for a in e[3:10]) for e in entries]
+        words, info = EP.plan_epilogues(
+            host, geometry, per_cta, elem_bytes=elem_bytes,
+            stride_bytes=stride_bytes, access=access, dv=dv,
+            reg_bits=reg_bits)
+        keep = [a for a in tables if a is not None]
+        for k, e in enumerate(entries):
+            ep = EP.epi_slice(words, k)
+            hb = _device_table(e[5], dev, n_tiles)
+            ep[EP.EP_HI_BASE] = hb.data_ptr()
+            keep.append(hb)
+            if e[0] == 1:
+                tb = _device_table(e[8], dev, n_tiles)
+                w = _device_float(e[9], dev)
+                if w.shape != (1 << (n - 1), 2):
+                    raise ValueError(
+                        f"twiddle table of shape {tuple(w.shape)}, a 2^{n} "
+                        f"butterfly needs ({1 << (n - 1)}, 2)")
+                ep[EP.EP_TW_BASE] = tb.data_ptr()
+                ep[EP.EP_W] = w.data_ptr()
+                keep += [tb, w]
+        plan = torch.from_numpy(words).to(dev)
+        plan.info = info
+        plan._keep = tuple(keep)
+        return plan
+    owner = next((a for a in tables if a is not None), None)
+    return device_cached(owner, key, dev, make)
+
+
+def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
+    """(out, tile arguments, plan tensor, dv) of a K4b (``n_buf`` 1) or K5
+    (2) launch: words of the element type's own width, blocks of at most
+    4096 positions, and shared memory for the staged plan and (K5) the
+    compare-bit words that wait there."""
+    _, t, rpt, _, _, n_tiles, _ = geometry
+    size = xc.element_size()
+    dv = 2 if any(e[0] == 1 for e in entries) else 1
+    got = []
+
+    def plan_smem(args):
+        per_cta, wpe, pad = args[3], args[5], args[8]
+        B = t + _shift(rpt) + _shift(per_cta)
+        plan = _epi_plan_tensor(
+            entries, geometry, xc.device, per_cta, elem_bytes=wpe * size,
+            stride_bytes=((1 << t) * wpe + pad) * size, access=size, dv=dv,
+            reg_bits=EP.regs_for(B, dv, n_buf > 1))
+        got.append(plan)
+        extra = (plan.numel() * 4 + 15) & ~15
+        if n_buf > 1:
+            extra += (EP.spill_sids(plan.info) * dv * EP.THREADS * 4
+                      << plan.info["reg_bits"])
+        return extra
+    out, args = _tile_args(xc, geometry, n_buf=n_buf, word_bytes=size,
+                           max_positions=EP.REGS * EP.THREADS,
+                           extra_smem=plan_smem)
+    return out, args, got[0], dv
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries):
-    desc, _keep = _epi_desc_tensor(entries, geometry, xc.device)
-    out, args = _tile_args(xc, geometry, len(entries))
+    out, args, plan, dv = _epi_launch_args(xc, geometry, entries)
     _launch("tile_fused", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
-            _ptr(desc), len(entries), *args, _ELEM_TYPE[xc.dtype],
-            xc.shape[2])
+            _ptr(plan), plan.numel(), *args, _ELEM_TYPE[xc.dtype],
+            xc.shape[2], dv, 1 << plan.info["reg_bits"])
     return out
 
 
@@ -721,13 +769,11 @@ def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
 
 
 def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
-    desc, _keep = _epi_desc_tensor(entries, geometry, xc.device)
-    n_cmp = sum(e[0] == 0 for e in entries)
-    out, args = _tile_args(xc, geometry, len(entries), ptrs=(cc.data_ptr(),),
-                           n_buf=2, mask_words=-(-n_cmp // 16))
+    out, args, plan, dv = _epi_launch_args(xc, geometry, entries, n_buf=2)
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
-            *(_ptr(a) for a in tabs), _ptr(desc), len(entries), n_cmp,
-            *args, _ELEM_TYPE[xc.dtype], xc.shape[2])
+            *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
+            _ELEM_TYPE[xc.dtype], xc.shape[2], dv,
+            int(plan.info["groups"] > 0), EP.spill_sids(plan.info))
     return out
 
 

@@ -8,7 +8,7 @@
 // into out_rows[g]. Its transpose, for the saved input x and the output
 // cotangent ct:
 //   1. loads x rows at in_rows[g] and ct rows at out_rows[g];
-//   2. replays C1..Cm on the x tile (K4b's own code, tile_epilogue.cuh),
+//   2. replays C1..Cm on the x values (K4b's own code, tile_epilogue.cuh),
 //      keeping of each compare only two bits per element: u == o and
 //      partner(u) == o, for its input u and output o;
 //   3. un-gathers the cotangent, ct_pre.flat[k] = ct.flat[inv_src0.flat[k]
@@ -28,112 +28,187 @@
 // tiled_permute_bwd_tables_plain.
 //
 // Bound on the H100: bytes. x and ct are read once and the result written
-// once, 3 * size bytes over 3.35 TB/s, plus the tables; the arithmetic is
-// a few operations per element per epilogue.
+// once, 3 * size bytes over 3.35 TB/s, plus the tables. The first design
+// ran at 7 % of it (device time): besides K4b's table reads and
+// per-epilogue barriers it kept the compare bits in shared memory (a
+// zeroing pass, two read-modify-writes per pair per compare, two reads
+// per transposed compare) and needed about 62 KiB per block.
 //
-// This design: as K4a/K4b, the tiles are split among blocks that run in
-// parallel, a block taking about 16 KiB of tiles per stream, loading and
-// storing whole rows (coalesced) through tile_common.cuh's macros. The
-// reference kept every intermediate tile of the replay; here a block
-// keeps only the compare bits, one 32-bit word per element for up to 16
-// compares (u == o in bit 2j, partner(u) == o in bit 2j + 1 of compare
-// j), so a 12-compare cluster needs 16 KiB beside its two 16 KiB tiles.
-// The x tile is free once the bits are taken, and the un-gathered
-// cotangent takes its place. As in K4b one thread owns each pair and a
-// barrier separates the epilogues.
+// This design: the epilogues run in registers under the host plan's
+// phases (tile_epilogue.cuh), 8 positions a thread. The compare bits stay
+// in registers: each element's two bits of compare j sit at bits 2j,
+// 2j + 1 of one register word of the thread that computed them, and the
+// transposed sweep runs the phases in reverse, so the same thread holds
+// the same positions under the same layout when it reads them back. The
+// replay compares floats as integer keys where a warp holds no NaN (the
+// compare bits from key equality, -0 and +0 equal). Past 16 compares (a
+// phase never spans a group of 16) or with chunks, the words of the
+// groups and chunks not in use wait in shared memory, one word per thread
+// and register. The last replay phase keeps its values and the first
+// transposed phase reads the cotangent straight from the loaded ct tile
+// through the un-gather, so the replay's last store, the un-gather pass
+// and a barrier go away. Shared memory per block: the row tables, the
+// staged plan, the two tiles and, with chunks or more than 16 compares,
+// the waiting compare bits. What still bounds it: instruction issue (the
+// replay, the transposed compares' masks and products) and the latency of
+// four phase passes per block (PERF.md).
 #include "tile_common.cuh"
 #include "tile_epilogue.cuh"
 
 __device__ __forceinline__ Bf16 round_bf16(float f) {
-  // round to nearest even, NaN as 0x7FC0: PyTorch's float -> bfloat16
-  const unsigned u = __float_as_uint(f);
-  if (f != f) return Bf16{(uint16_t)0x7FC0};
-  return Bf16{(uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16)};
+  // round to nearest even, as PyTorch rounds float to bfloat16 on the
+  // card (__float2bfloat16: a NaN becomes 0x7FFF)
+  return Bf16{__bfloat16_as_ushort(__float2bfloat16(f))};
 }
 
-// a * ma + b * mb, each product and the sum rounded to T on their own
-__device__ __forceinline__ float madd(float a, float ma, float b, float mb) {
-  return __fadd_rn(__fmul_rn(a, ma), __fmul_rn(b, mb));
+// a * m and a + b, each rounded to T on its own
+__device__ __forceinline__ float prod(float a, float m) {
+  return __fmul_rn(a, m);
 }
-__device__ __forceinline__ Bf16 madd(Bf16 a, float ma, Bf16 b, float mb) {
-  const Bf16 x = round_bf16(__fmul_rn(as_float(a), ma));
-  const Bf16 y = round_bf16(__fmul_rn(as_float(b), mb));
-  return round_bf16(__fadd_rn(as_float(x), as_float(y)));
+__device__ __forceinline__ Bf16 prod(Bf16 a, float m) {
+  return round_bf16(__fmul_rn(as_float(a), m));
 }
-
-// The compare bits of one element: bit 0 = (u == o), bit 1 = (P(u) == o).
-__device__ __forceinline__ float mask_self(unsigned b) {    // m1
-  return (b & 1u) ? ((b & 2u) ? 0.5f : 1.0f) : 0.0f;
+__device__ __forceinline__ float sum(float a, float b) {
+  return __fadd_rn(a, b);
 }
-__device__ __forceinline__ float mask_cross(unsigned b) {   // m2
-  return (b & 2u) ? ((b & 1u) ? 0.5f : 1.0f) : 0.0f;
+__device__ __forceinline__ Bf16 sum(Bf16 a, Bf16 b) {
+  return round_bf16(__fadd_rn(as_float(a), as_float(b)));
 }
 
-// Records the compare bits of one replayed compare into `m` at `bit`.
-struct MaskHook {
-  unsigned* m;
-  int bit;
-  template <typename T>
-  __device__ __forceinline__ void operator()(unsigned eq, unsigned ep, T a,
-                                             T c, T oq, T op) const {
-    const float fa = as_float(a), fc = as_float(c);
-    const float foq = as_float(oq), fop = as_float(op);
-    m[eq] |= ((unsigned)(fa == foq) | ((unsigned)(fc == foq) << 1)) << bit;
-    m[ep] |= ((unsigned)(fc == fop) | ((unsigned)(fa == fop) << 1)) << bit;
+// The compare bits b of one element (bit 0: u == o, bit 1: P(u) == o) as
+// the tie masks m1 (mask_self) and m2 (mask_cross), each 0, 1/2 or 1: two
+// byte permutes of 4-entry tables of the float's upper bytes, with one
+// selector per b (byte 3 from the first word, byte 2 from the second).
+__device__ __forceinline__ unsigned mask_selector(unsigned b) {
+  return b * 0x1100u + 0x0400u;
+}
+__device__ __forceinline__ float mask_self(unsigned sel) {    // m1: 0 1 0 1/2
+  return __uint_as_float(__byte_perm(0x3F003F00u, 0x00008000u, sel));
+}
+__device__ __forceinline__ float mask_cross(unsigned sel) {   // m2: 0 0 1 1/2
+  return __uint_as_float(__byte_perm(0x3F3F0000u, 0x00800000u, sel));
+}
+
+// Transposed compare on registers: ct * m1 + P(ct * m2), the partner's
+// product taken where the partner is (its register, or a shuffle away).
+template <int VR, int DV, int KR, typename T>
+__device__ __forceinline__ void tr_cmp_regs(T (&v)[DV][KR],
+                                            const unsigned (&m)[DV][KR],
+                                            int vlane, int shift) {
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    T s[KR], p[KR];
+#pragma unroll
+    for (int j = 0; j < KR; ++j)
+      s[j] = prod(v[c][j], mask_cross(mask_selector((m[c][j] >> shift) & 3u)));
+    partners<VR>(s, vlane, p);
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      v[c][i] = sum(prod(v[c][i], mask_self(mask_selector((m[c][i] >> shift) & 3u))),
+                    p[i]);
   }
-};
+}
 
-// Transposed epilogue e on the cotangent tile (see step 4 above); `m` and
-// `bit` locate its compare bits.
-template <typename T>
+// Transposed butterfly on registers (planar float32).
+template <int VR, int KR>
+__device__ __forceinline__ void tr_bfly_regs(float (&v)[2][KR],
+                                             unsigned hx, int vlane,
+                                             const float2* w,
+                                             const unsigned (&tw)[KR]) {
+  float pr[KR], pi[KR];
+  partners<VR>(v[0], vlane, pr);
+  partners<VR>(v[1], vlane, pi);
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    if ((hx >> i) & 1u) {                  // the pair's "hi" member
+      const float2 wv = __ldg(w + tw[i]);
+      const float s_re = __fsub_rn(pr[i], v[0][i]);
+      const float s_im = __fsub_rn(pi[i], v[1][i]);
+      v[0][i] = __fadd_rn(__fmul_rn(wv.x, s_re), __fmul_rn(wv.y, s_im));
+      v[1][i] = __fsub_rn(__fmul_rn(wv.x, s_im), __fmul_rn(wv.y, s_re));
+    } else {
+      v[0][i] = __fadd_rn(v[0][i], pr[i]);
+      v[1][i] = __fadd_rn(v[1][i], pi[i]);
+    }
+  }
+}
+
+// The transpose of epilogue e (staged record ep, device record gep) on the
+// cotangent registers (see step 4).
+template <bool kCmp, int DV, int KR, typename T>
 __device__ __forceinline__ void transposed_epilogue(
-    const TileView& tv, const long long* ep, const int* tab, int half,
-    unsigned pairs, int d, const unsigned* m, int bit) {
-  const int kind = (int)__ldg(ep + 0);
-  const unsigned vr = (unsigned)__ldg(ep + 1), vc = (unsigned)__ldg(ep + 2);
-  const unsigned v = (vr << tv.t) | vc;
-  const unsigned below = (1u << (__ffs((int)v) - 1)) - 1;
-  if (kind == 0) {
-    const unsigned work = pairs * (unsigned)d;
-    for (unsigned i = threadIdx.x; i < work; i += REPRO_THREADS) {
-      const unsigned pi = d == 1 ? i : i / (unsigned)d;
-      const int k = (int)(i - pi * (unsigned)d);
-      const unsigned q = pair_owner(pi, below);
-      const unsigned p = q ^ v;
-      const unsigned bq = (m[q * (unsigned)d + k] >> bit) & 3u;
-      const unsigned bp = (m[p * (unsigned)d + k] >> bit) & 3u;
-      const T cq = *tv.at<T>(q, k), cp = *tv.at<T>(p, k);
-      *tv.at<T>(q, k) = madd(cq, mask_self(bq), cp, mask_cross(bp));
-      *tv.at<T>(p, k) = madd(cp, mask_self(bp), cq, mask_cross(bq));
+    const int* ep, const long long* gep, T (&v)[DV][KR],
+    const unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits) {
+  const int vreg = ep[EP_VREG], vlane = ep[EP_VLANE];
+  if (ep[EP_KIND] == 0) {
+    if constexpr (kCmp) {
+      const int shift = ep[EP_SHIFT];
+      REPRO_VREG_SWITCH(vreg, (tr_cmp_regs<VR>(v, m, vlane, shift)))
     }
   } else {
-    const float2* w = reinterpret_cast<const float2*>(__ldg(ep + 9));
-    const int* tw = tab + half;
-    for (unsigned pi = threadIdx.x; pi < pairs; pi += REPRO_THREADS) {
-      const unsigned q = pair_owner(pi, below);
-      const unsigned p = q ^ v;
-      float* fq = tv.at<float>(q, 0);
-      float* fp = tv.at<float>(p, 0);
-      const float c[2][2] = {{fq[0], fq[1]}, {fp[0], fp[1]}};
-      float o[2][2];
-      for (int s = 0; s < 2; ++s) {        // s = 0: position q, 1: p
-        const float* me = c[s];
-        const float* pa = c[1 - s];
-        if (tv.term(tab, s ? p : q)) {     // the pair's "hi" member
-          const float2 wv = __ldg(w + tv.term(tw, s ? p : q));
-          const float s_re = __fsub_rn(pa[0], me[0]);
-          const float s_im = __fsub_rn(pa[1], me[1]);
-          o[s][0] = __fadd_rn(__fmul_rn(wv.x, s_re), __fmul_rn(wv.y, s_im));
-          o[s][1] = __fsub_rn(__fmul_rn(wv.x, s_im), __fmul_rn(wv.y, s_re));
-        } else {
-          o[s][0] = __fadd_rn(me[0], pa[0]);
-          o[s][1] = __fadd_rn(me[1], pa[1]);
-        }
-      }
-      fq[0] = o[0][0];
-      fq[1] = o[0][1];
-      fp[0] = o[1][0];
-      fp[1] = o[1][1];
+    if constexpr (DV == 2) {
+      const float2* w = reinterpret_cast<const float2*>(__ldg(gep + EP_W));
+      unsigned tw[KR];
+      tw_index(ep, tw_thread(ep, chunk, outer_bits), tw);
+      REPRO_VREG_SWITCH(vreg, (tr_bfly_regs<VR>(v, hi_bits(ep, qb), vlane, w,
+                                                tw)))
+    }
+  }
+}
+
+// Make the compare-bit words of set `sid` (group * chunks + chunk) the
+// ones in registers: the words in use wait in shared memory (`spill`, one
+// word per set, tail value, register and thread), and a set's first phase
+// starts from zeros.
+template <int DV, int KR>
+__device__ __forceinline__ void use_masks(unsigned (&m)[DV][KR], int& cur,
+                                          int sid, bool fresh,
+                                          unsigned* spill) {
+  if (sid == cur) return;
+  if (cur >= 0 && spill != nullptr) {
+#pragma unroll
+    for (int c = 0; c < DV; ++c)
+#pragma unroll
+      for (int i = 0; i < KR; ++i)
+        spill[(((size_t)cur * DV + c) * KR + i) * REPRO_THREADS +
+              threadIdx.x] = m[c][i];
+  }
+#pragma unroll
+  for (int c = 0; c < DV; ++c)
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      m[c][i] = fresh ? 0u
+                      : spill[(((size_t)sid * DV + c) * KR + i) *
+                                  REPRO_THREADS + threadIdx.x];
+  cur = sid;
+}
+
+// The cotangent values at the thread's positions, read through the
+// un-gather from the ct tile as loaded (step 3).
+template <int DV, int KR, typename T>
+__device__ __forceinline__ void load_ungathered(
+    T (&v)[DV][KR], const TileView& cv, unsigned qb,
+    const RegImages& qr, unsigned valid, int k,
+    const int* __restrict__ inv_src0, const int* s_xl, int rpt_shift) {
+  const int t = cv.t;
+  const unsigned lane_mask = cv.lane_mask;
+  const unsigned rpt_mask = (1u << rpt_shift) - 1;
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    if ((valid >> i) & 1u) {
+      const unsigned q = qb ^ qr(i);
+      const unsigned r = q >> t, j = r >> rpt_shift;
+      const unsigned s = (unsigned)__ldg(inv_src0 + (((r & rpt_mask) << t) |
+                                                     (q & lane_mask))) ^
+                         (unsigned)s_xl[j];
+      const unsigned src = (((j << rpt_shift) | (s >> t)) << t) |
+                           (s & lane_mask);
+#pragma unroll
+      for (int c = 0; c < DV; ++c) v[c][i] = *cv.at<T>(src, k + c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < DV; ++c) v[c][i] = T{};
     }
   }
 }
@@ -147,47 +222,110 @@ __host__ __device__ __forceinline__ size_t tile_buf_bytes(int rows, int t,
           15) & ~(size_t)15;
 }
 
-template <typename W, typename T>
-__global__ void __launch_bounds__(REPRO_THREADS)
-tile_bwd_kernel(const W* __restrict__ x, const W* __restrict__ ct,
-                W* __restrict__ out, const int* __restrict__ in_rows,
+// The replay and the transposed sweep of one batch row on the block's
+// tiles (x in tv, ct as loaded in cv; the result left in tv), from the
+// staged plan sp (device plan gp). kCmp: the cluster has compares (their
+// bits in m).
+template <typename T, int DV, int KR, bool kCmp>
+__device__ __forceinline__ void bwd_phases(const TileView& tv,
+                                           const TileView& cv, const int* sp,
+                                           const long long* gp, int d,
+                                           const int* __restrict__ inv_src0,
+                                           const int* s_xl, int rpt_shift,
+                                           unsigned* spill) {
+  const int n_phases = sp[0], outer_bits = sp[2];
+  const unsigned chunks = 1u << outer_bits;
+  const int* phases = sp + kHdrWords;
+  const int ebase = kHdrWords + n_phases * kPhaseWords;
+  T v[DV][KR];
+  unsigned m[DV][KR];
+  for (int k = 0; k < d; k += DV) {
+    int cur = -1;
+    // replay, keeping the compare bits
+    for (int p = 0; p < n_phases; ++p) {
+      __syncthreads();  // the tiles (or the previous phase) complete
+      const int* ph = phases + p * kPhaseWords;
+      const PhaseRegs pr(ph);
+      const int e0 = ph[PH_E0], e1 = ph[PH_E1], group = ph[PH_GROUP];
+      const bool first = ph[PH_FIRST] != 0;
+      for (unsigned c = 0; c < chunks; ++c) {
+        const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
+        if (kCmp && group >= 0)
+          use_masks<DV>(m, cur, group * (int)chunks + (int)c, first, spill);
+        load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+        forward_epilogues<kCmp>(sp, gp, ebase, e0, e1, v, m, qb, c,
+                                outer_bits);
+        if (p + 1 < n_phases) store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+      }
+    }
+    // the transposed epilogues, last phase first; the last phase's
+    // positions are the replay's own, so it needs no barrier and reads
+    // the cotangent through the un-gather
+    for (int p = n_phases - 1; p >= 0; --p) {
+      if (p + 1 < n_phases) __syncthreads();
+      const int* ph = phases + p * kPhaseWords;
+      const PhaseRegs pr(ph);
+      const int e0 = ph[PH_E0], e1 = ph[PH_E1], group = ph[PH_GROUP];
+      for (unsigned c = 0; c < chunks; ++c) {
+        const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
+        if (kCmp && group >= 0)
+          use_masks<DV>(m, cur, group * (int)chunks + (int)c, false, spill);
+        if (p + 1 == n_phases)
+          load_ungathered<DV>(v, cv, qb, pr.qr, pr.valid, k, inv_src0, s_xl,
+                              rpt_shift);
+        else
+          load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+        for (int e = e1 - 1; e >= e0; --e) {
+          const int off = ebase + e * kEpiWords;
+          transposed_epilogue<kCmp>(sp + off, gp + off, v, m, qb, c,
+                                    outer_bits);
+        }
+        store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+      }
+    }
+  }
+}
+
+template <typename T, int DV, int KR, bool kCmp, int MB>
+__global__ void __launch_bounds__(REPRO_THREADS, MB)
+tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
+                const typename ElemWord<T>::type* __restrict__ ct,
+                typename ElemWord<T>::type* __restrict__ out,
+                const int* __restrict__ in_rows,
                 const int* __restrict__ out_rows,
                 const int* __restrict__ xor_low,
                 const int* __restrict__ inv_src0,
-                const long long* __restrict__ epis, int n_epi, int n_rows,
+                const long long* __restrict__ plan, int n_words, int n_rows,
                 int rpt_shift, int tiles_per_cta, int t, int wpe,
                 int wpe_shift, int row_shift, int pad_words,
-                long long batch, int d, int mask_words) {
+                long long batch, int d, int n_spill) {
+  using W = typename ElemWord<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rpt = 1 << rpt_shift;
   const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
   int* s_in = reinterpret_cast<int*>(smem);
   int* s_out = s_in + rows;
   int* s_xl = s_out + rows;
   const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
-  int* s_epi = reinterpret_cast<int*>(smem + tab_bytes);
+  int* s_plan = reinterpret_cast<int*>(smem + tab_bytes);
   const size_t buf = tile_buf_bytes(rows, t, wpe, pad_words, sizeof(W));
-  unsigned char* a_bytes =
-      smem + tab_bytes + epi_table_bytes(n_epi, rpt, t, tiles_per_cta);
+  unsigned char* a_bytes = smem + tab_bytes + plan_bytes(n_words);
   W* tile = reinterpret_cast<W*>(a_bytes);             // x, then ct_pre
   W* ctile = reinterpret_cast<W*>(a_bytes + buf);      // ct as loaded
-  unsigned* masks = reinterpret_cast<unsigned*>(a_bytes + 2 * buf);
+  unsigned* spill =
+      n_spill ? reinterpret_cast<unsigned*>(a_bytes + 2 * buf) : nullptr;
 
   const long long g0 = (long long)blockIdx.x * tiles_per_cta;
   const int row_len = 1 << t;
   const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
   const unsigned stride = row_words + (unsigned)pad_words;
-  const unsigned rpt_mask = (1u << rpt_shift) - 1;
-  const int slot = epi_slot(rpt, t, tiles_per_cta);
   const TileView tv{a_bytes, stride * (unsigned)sizeof(W),
-                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1,
-                    rpt_mask, t, rpt_shift, rpt, row_len};
+                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
+  const TileView cv{a_bytes + buf, tv.stride_bytes, tv.elem_bytes,
+                    tv.lane_mask, t};
   REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
                          rpt_shift, rows, tiles_per_cta)
-  stage_epi_tables(s_epi, epis, n_epi, rpt, row_len, slot, g0);
+  stage_plan(s_plan, plan, n_words, g0);
   const unsigned span = (unsigned)rows * row_words;
-  const unsigned pairs = ((unsigned)rows << t) >> 1;
-  const unsigned elems = ((unsigned)rows << t) * (unsigned)d;
   const long long batch_words = (long long)n_rows * row_words;
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
     const W* xb = x + b * batch_words;
@@ -202,42 +340,8 @@ tile_bwd_kernel(const W* __restrict__ x, const W* __restrict__ ct,
       REPRO_TILE_LOAD_ROWS(W, ctile, cb, s_out, span, row_words, row_shift,
                            stride)
     }
-    for (unsigned i = threadIdx.x; i < elems * (unsigned)mask_words;
-         i += REPRO_THREADS)
-      masks[i] = 0u;
-    // replay, keeping the compare bits
-    int ci = 0;
-    for (int e = 0; e < n_epi; ++e) {
-      __syncthreads();
-      const long long* ep = epis + (long long)e * kEpiWords;
-      const MaskHook hook{masks + (size_t)(ci >> 4) * elems, 2 * (ci & 15)};
-      forward_epilogue<T>(tv, ep, s_epi + e * slot, slot / 2, pairs, d, hook);
-      if (__ldg(ep + 0) == 0) ++ci;
-    }
-    __syncthreads();
-    // un-gather the cotangent into the x tile's place
-#pragma unroll 4
-    for (unsigned li = threadIdx.x; li < span; li += REPRO_THREADS) {
-      const unsigned r = div_by(li, row_words, row_shift);
-      const unsigned rem = li - r * row_words;
-      const unsigned cp = div_by(rem, (unsigned)wpe, wpe_shift);
-      const unsigned w = rem - cp * (unsigned)wpe;
-      const unsigned j = r >> rpt_shift, rp = r & rpt_mask;
-      const unsigned s =
-          (unsigned)__ldg(inv_src0 + ((rp << t) | cp)) ^ (unsigned)s_xl[j];
-      const unsigned rs = (j << rpt_shift) | (s >> t);
-      const unsigned cs = s & (unsigned)(row_len - 1);
-      tile[r * stride + rem] = ctile[rs * stride + cs * (unsigned)wpe + w];
-    }
-    // the transposed epilogues, last first
-    for (int e = n_epi - 1; e >= 0; --e) {
-      __syncthreads();
-      const long long* ep = epis + (long long)e * kEpiWords;
-      if (__ldg(ep + 0) == 0) --ci;
-      transposed_epilogue<T>(tv, ep, s_epi + e * slot, slot / 2, pairs, d,
-                             masks + (size_t)(ci >> 4) * elems,
-                             2 * (ci & 15));
-    }
+    bwd_phases<T, DV, KR, kCmp>(tv, cv, s_plan, plan, d, inv_src0, s_xl,
+                            rpt_shift, spill);
     __syncthreads();
     // whole rows back where the forward read them
 #pragma unroll 4
@@ -249,62 +353,66 @@ tile_bwd_kernel(const W* __restrict__ x, const W* __restrict__ ct,
   }
 }
 
-template <typename T>
+template <typename T, int DV, int KR, bool kCmp, int MB>
 static int launch_bwd(const void* x, const void* ct, void* out,
                       const int* in_rows, const int* out_rows,
                       const int* xor_low, const int* inv_src0,
-                      const long long* epis, int n_epi, int n_cmp,
-                      int n_tiles, int n_rows, int rpt_shift,
-                      int tiles_per_cta, int t, int wpe, int wpe_shift,
-                      int row_shift, int pad_words, long long batch,
-                      int word_bytes, int d, cudaStream_t s) {
+                      const long long* plan, int n_words, int n_tiles,
+                      int n_rows, int rpt_shift, int tiles_per_cta, int t,
+                      int wpe, int wpe_shift, int row_shift, int pad_words,
+                      long long batch, int word_bytes, int d, int n_spill,
+                      cudaStream_t s) {
+  using W = typename ElemWord<T>::type;
+  if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
   const int rows = tiles_per_cta << rpt_shift;
-  const int mask_words = (n_cmp + 15) / 16;
-  const size_t elems = ((size_t)rows << t) * (size_t)d;
-  REPRO_DISPATCH_WORD(word_bytes, {
-    const size_t smem =
-        (size_t)REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta) +
-        (size_t)epi_table_bytes(n_epi, 1 << rpt_shift, t, tiles_per_cta) +
-        2 * tile_buf_bytes(rows, t, wpe, pad_words, (int)sizeof(W)) +
-        (size_t)mask_words * elems * 4;
-    cudaError_t e = allow_smem(tile_bwd_kernel<W, T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    tile_bwd_kernel<W, T><<<grid, REPRO_THREADS, smem, s>>>(
-        (const W*)x, (const W*)ct, (W*)out, in_rows, out_rows, xor_low,
-        inv_src0, epis, n_epi, n_rows, rpt_shift, tiles_per_cta, t, wpe,
-        wpe_shift, row_shift, pad_words, batch, d, mask_words);
-  });
+  const size_t smem =
+      (size_t)REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta) +
+      plan_bytes(n_words) +
+      2 * tile_buf_bytes(rows, t, wpe, pad_words, (int)sizeof(W)) +
+      (size_t)n_spill * DV * KR * REPRO_THREADS * 4;
+  cudaError_t e = allow_smem(tile_bwd_kernel<T, DV, KR, kCmp, MB>, smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_bwd_kernel<T, DV, KR, kCmp, MB><<<grid, REPRO_THREADS, smem, s>>>(
+      (const W*)x, (const W*)ct, (W*)out, in_rows, out_rows, xor_low,
+      inv_src0, plan, n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe,
+      wpe_shift, row_shift, pad_words, batch, d, n_spill);
   return (int)cudaGetLastError();
 }
 
-// elem_type: 1 = float32, 2 = bfloat16 (int32 has no gradient).
+// elem_type: 1 = float32, 2 = bfloat16 (int32 has no gradient); dv as in
+// repro_tile_fused; n_words: int64 words of plan (8 registers a thread:
+// its compare bits sit beside its values); has_cmp: the cluster has
+// compares (always, for dv 1); n_spill: compare-bit sets kept in shared
+// memory (0: all in registers).
 extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
                               const int* in_rows, const int* out_rows,
                               const int* xor_low, const int* inv_src0,
-                              const long long* epis, int n_epi, int n_cmp,
-                              int n_tiles, int n_rows, int rpt_shift,
-                              int tiles_per_cta, int t, int wpe,
-                              int wpe_shift, int row_shift, int pad_words,
-                              long long batch, int word_bytes, int elem_type,
-                              int d, void* stream) {
+                              const long long* plan, int n_words,
+                              int n_tiles, int n_rows,
+                              int rpt_shift, int tiles_per_cta, int t,
+                              int wpe, int wpe_shift, int row_shift,
+                              int pad_words, long long batch, int word_bytes,
+                              int elem_type, int d, int dv, int has_cmp,
+                              int n_spill, void* stream) {
   if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
-      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 ||
-      n_epi <= 0 || n_cmp < 0 || n_cmp > n_epi || d <= 0 || epis == nullptr)
+      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
+      n_spill < 0 || plan == nullptr || n_words < kHdrWords ||
+      (dv == 2 && (elem_type != 1 || d != 2)) || (dv == 1 && !has_cmp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (elem_type) {
-    case 1:
-      return launch_bwd<float>(x, ct, out, in_rows, out_rows, xor_low,
-                               inv_src0, epis, n_epi, n_cmp, n_tiles, n_rows,
-                               rpt_shift, tiles_per_cta, t, wpe, wpe_shift,
-                               row_shift, pad_words, batch, word_bytes, d, s);
-    case 2:
-      return launch_bwd<Bf16>(x, ct, out, in_rows, out_rows, xor_low,
-                              inv_src0, epis, n_epi, n_cmp, n_tiles, n_rows,
-                              rpt_shift, tiles_per_cta, t, wpe, wpe_shift,
-                              row_shift, pad_words, batch, word_bytes, d, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define REPRO_BWD(T, DV, CMP, MB)                                            \
+  return launch_bwd<T, DV, 8, CMP, MB>(                                      \
+      x, ct, out, in_rows, out_rows, xor_low, inv_src0, plan, n_words,       \
+      n_tiles, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,          \
+      row_shift, pad_words, batch, word_bytes, d, n_spill, s)
+  // the last argument: blocks per SM the variant's registers allow (the
+  // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
+  if (dv == 2 && has_cmp) REPRO_BWD(float, 2, true, 2);
+  if (dv == 2) REPRO_BWD(float, 2, false, 3);
+  if (dv != 1) return (int)cudaErrorInvalidValue;
+  if (elem_type == 1) REPRO_BWD(float, 1, true, 3);
+  if (elem_type == 2) REPRO_BWD(Bf16, 1, true, 2);
+  return (int)cudaErrorInvalidValue;
+#undef REPRO_BWD
 }

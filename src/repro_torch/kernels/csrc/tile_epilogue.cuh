@@ -1,15 +1,45 @@
-// The compute epilogues of a fused tiled pass, shared by K4b
-// (tile_fused.cu), which applies them on the way out of a tile, and K5
+// The compute epilogues of a fused tiled pass, run in registers, shared by
+// K4b (tile_fused.cu), which applies them on the way out of a tile, and K5
 // (tile_bwd.cu), which replays them on the saved input to recover the
-// masks of its transposed compares. One copy of this code is what makes
-// the replay bit-equal to the forward pass.
+// compare bits of its transposed compares. One copy of this code is what
+// makes the replay bit-equal to the forward pass.
 //
-// An epilogue descriptor is kEpiWords int64 words in device memory:
-// kind (0 cmp, 1 bfly), the partner XOR (vr, vc), then seven table
-// pointers (hi_row, hi_lane, hi_base, tw_row, tw_lane, tw_base, w). A
-// block stages each epilogue's row, lane and per-tile tables in shared
-// memory (stage_epi_tables) before its tile.
+// What bounds the epilogues on the H100 is instructions and latency, not
+// bytes: a 2^24-element pass moves 128 MiB in about 0.06 ms, and each
+// epilogue adds a few operations per element (PERF.md, PR 14). The design
+// keeps the count small and the data in registers:
+//   * layout: the host (epilogue_plan.py) splits a block's 2^B tile
+//     positions into KR = 16 (or 8) register positions a thread, 5 lane
+//     bits, 3 warp bits and, past 2^12 (2^11) positions, outer bits run
+//     as chunks; a run of epilogues (a phase) whose partner XORs lie in
+//     the register and lane bits runs on registers, and only a new phase
+//     passes through the shared-memory tile, behind one barrier;
+//   * partners: the XOR's register part selects the partner register at
+//     compile time (one case per value: the array never goes to local
+//     memory), its lane part is one __shfl_xor_sync per element;
+//   * no tables: hi(q) is the parity of q & hmask XOR hi_base[g0], so a
+//     thread takes the hi bits of all its registers from one word and one
+//     popc; a butterfly's twiddle index is a GF(2) product over the
+//     position bits (images in the plan) XOR tw_base[g0]; the plan itself
+//     is staged in shared memory once per block, hi_base[g0] and
+//     tw_base[g0] in it;
+//   * every position computes its own output (no pair owner): cmp as
+//     hi ? max(self, partner) : min(self, partner), the butterfly from its
+//     own and its partner's values;
+//   * floats compare as integer keys (the float order, -0 < +0) in every
+//     warp whose values hold no NaN, so a float32 or bfloat16 compare
+//     costs what an int32 one does; a warp with a NaN takes the float
+//     selects. NaN, -0 and the no-FMA rounding are exactly those of
+//     cmp_max, cmp_min and the butterfly in bmmc_permute.py.
+//
+// The plan is int64 words in device memory: a header (phases, epilogues,
+// outer bits, register bits), then one record per phase and one per
+// epilogue, with the offsets below (kept equal to epilogue_plan.py).
 #pragma once
+
+#include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "words.cuh"
 
@@ -22,45 +52,67 @@ __device__ __forceinline__ float as_float(Bf16 v) {
 }
 __device__ __forceinline__ float as_float(float v) { return v; }
 
-__device__ __forceinline__ int cmp_max(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int cmp_min(int a, int b) { return a < b ? a : b; }
-
-__device__ __forceinline__ float cmp_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a > b) return a;
-  if (b > a) return b;
-  return __int_as_float(__float_as_int(a) & __float_as_int(b));
+// The compare-exchange output of a position: hi ? max(a, b) : min(a, b)
+// with a the position's value and b its partner's. Floats, as selects:
+// NaN first (a, then b), then the strict winner, then equal values' AND
+// (max: max(-0, +0) = +0) or OR (min) — cmp_max / cmp_min in
+// bmmc_permute.py.
+__device__ __forceinline__ int cmp_sel(bool hi, int a, int b) {
+  return hi ? (a > b ? a : b) : (a < b ? a : b);
 }
-
-__device__ __forceinline__ float cmp_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a < b) return a;
-  if (b < a) return b;
-  return __int_as_float(__float_as_int(a) | __float_as_int(b));
+__device__ __forceinline__ float cmp_sel(bool hi, float a, float b) {
+  const int ia = __float_as_int(a), ib = __float_as_int(b);
+  const bool a_wins = hi ? (a > b) : (a < b);
+  const bool b_wins = hi ? (b > a) : (b < a);
+  float r = __int_as_float(hi ? (ia & ib) : (ia | ib));
+  r = b_wins ? b : r;
+  r = a_wins ? a : r;
+  r = (b != b) ? b : r;
+  return (a != a) ? a : r;
 }
-
-__device__ __forceinline__ Bf16 cmp_max(Bf16 a, Bf16 b) {
+__device__ __forceinline__ Bf16 cmp_sel(bool hi, Bf16 a, Bf16 b) {
   const float fa = as_float(a), fb = as_float(b);
-  if (fa != fa) return a;
-  if (fb != fb) return b;
-  if (fa > fb) return a;
-  if (fb > fa) return b;
-  return Bf16{(uint16_t)(a.bits & b.bits)};
+  const bool a_wins = hi ? (fa > fb) : (fa < fb);
+  const bool b_wins = hi ? (fb > fa) : (fb < fa);
+  uint16_t r = hi ? (uint16_t)(a.bits & b.bits) : (uint16_t)(a.bits | b.bits);
+  r = b_wins ? b.bits : r;
+  r = a_wins ? a.bits : r;
+  r = (fb != fb) ? b.bits : r;
+  return Bf16{(fa != fa) ? a.bits : r};
 }
 
-__device__ __forceinline__ Bf16 cmp_min(Bf16 a, Bf16 b) {
-  const float fa = as_float(a), fb = as_float(b);
-  if (fa != fa) return a;
-  if (fb != fb) return b;
-  if (fa < fb) return a;
-  if (fb < fa) return b;
-  return Bf16{(uint16_t)(a.bits | b.bits)};
+// Compare keys: a float (or bfloat16, widened) as an int whose order is
+// the float order with -0 < +0, for values that are not NaN. key(key(b))
+// = b. On keys a compare is an integer max / min, and max(-0, +0) = +0,
+// min = -0, exactly as cmp_sel on the floats (equal keys are equal bits).
+struct Key {
+  int k;
+};
+__device__ __forceinline__ int float_key(int b) {
+  return b ^ ((b >> 31) & 0x7FFFFFFF);
 }
-
-constexpr int kEpiWords = 10;   // kind, vr, vc, hi_row, hi_lane, hi_base,
-                                // tw_row, tw_lane, tw_base, w
+__device__ __forceinline__ Key to_key(float v) {
+  return Key{float_key(__float_as_int(v))};
+}
+__device__ __forceinline__ Key to_key(Bf16 v) {
+  return Key{float_key((int)((unsigned)v.bits << 16))};
+}
+__device__ __forceinline__ void from_key(Key k, float& v) {
+  v = __int_as_float(float_key(k.k));
+}
+__device__ __forceinline__ void from_key(Key k, Bf16& v) {
+  v = Bf16{(uint16_t)((unsigned)float_key(k.k) >> 16)};
+}
+__device__ __forceinline__ bool is_nan(float v) { return v != v; }
+__device__ __forceinline__ bool is_nan(Bf16 v) {
+  return as_float(v) != as_float(v);
+}
+__device__ __forceinline__ Key cmp_sel(bool hi, Key a, Key b) {
+  return Key{cmp_sel(hi, a.k, b.k)};
+}
+__device__ __forceinline__ Key shfl_x(Key v, int m) {
+  return Key{__shfl_xor_sync(0xffffffffu, v.k, m)};
+}
 
 // One butterfly output, exactly as the reference writes it: `hi` says
 // whether this position holds the pair's "hi" member.
@@ -75,130 +127,307 @@ __device__ __forceinline__ void bfly_out(bool hi, float v_re, float v_im,
   o[1] = hi ? __fsub_rn(lo_im, t_im) : __fadd_rn(lo_im, t_im);
 }
 
-// Ints of one epilogue's tables staged in shared memory: hi_row[rpt],
-// hi_lane[2^t], hi_base[tiles of the block], then the same three for the
-// twiddle index (bfly).
-__host__ __device__ __forceinline__ int epi_slot(int rpt, int t,
-                                                 int tiles_per_cta) {
-  return 2 * (rpt + (1 << t) + tiles_per_cta);
+__device__ __forceinline__ int shfl_x(int v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ float shfl_x(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ Bf16 shfl_x(Bf16 v, int m) {
+  return Bf16{(uint16_t)__shfl_xor_sync(0xffffffffu, (unsigned)v.bits, m)};
 }
 
-__host__ __device__ __forceinline__ int epi_table_bytes(int n_epi, int rpt,
-                                                        int t,
-                                                        int tiles_per_cta) {
-  return (n_epi * epi_slot(rpt, t, tiles_per_cta) * 4 + 15) & ~15;
-}
+// ---------------------------------------------------------------------
+// The plan (epilogue_plan.py)
+// ---------------------------------------------------------------------
+// The positions a thread holds, KR, are a template parameter of the code
+// below: 16, or 8 (the host's choice, epilogue_plan.regs_for).
+constexpr int kHdrWords = 4, kPhaseWords = 32, kEpiWords = 32;
+enum {   // phase record
+  PH_E0 = 0, PH_E1, PH_REG_VALID, PH_TID_INVALID, PH_GROUP, PH_FIRST,
+  PH_IMG_REG = 8, PH_IMG_THR = 12, PH_IMG_OUT = 20
+};
+enum {   // epilogue record
+  EP_KIND = 0, EP_VREG, EP_VLANE, EP_HREG, EP_HMASK, EP_HI_BASE, EP_TW_BASE,
+  EP_W, EP_SHIFT, EP_TW_REG = 12, EP_TW_THR = 16, EP_TW_OUT = 24
+};
 
-// Every epilogue's row, lane and tile tables (hi, then twiddle index) into
-// shared memory at s_epi, for the tiles g0.. of this block.
-__device__ __forceinline__ void stage_epi_tables(int* s_epi,
-                                                 const long long* epis,
-                                                 int n_epi, int rpt,
-                                                 int row_len, int slot,
-                                                 long long g0) {
-  const int half = slot / 2;
-  for (int e = 0; e < n_epi; ++e) {
-    const long long* ep = epis + (long long)e * kEpiWords;
-    const bool bfly = __ldg(ep + 0) == 1;
-    int* dst = s_epi + e * slot;
-    for (int part = 0; part < (bfly ? 2 : 1); ++part) {
-      const int* row_t = reinterpret_cast<const int*>(__ldg(ep + 3 + 3 * part));
-      const int* lane_t = reinterpret_cast<const int*>(__ldg(ep + 4 + 3 * part));
-      const int* base_t = reinterpret_cast<const int*>(__ldg(ep + 5 + 3 * part));
-      int* o = dst + part * half;
-      for (int i = threadIdx.x; i < half; i += REPRO_THREADS)
-        o[i] = i < rpt ? __ldg(row_t + i)
-                       : (i < rpt + row_len ? __ldg(lane_t + (i - rpt))
-                                            : __ldg(base_t + g0 + (i - rpt - row_len)));
-    }
+// The plan in shared memory, as ints, for the block whose first tile is
+// g0: the per-tile table words (pointers in device memory) replaced by the
+// block's entries hi_base[g0] and tw_base[g0]. The caller's next barrier
+// makes it visible; its loads overlap the tile's.
+__device__ __forceinline__ void stage_plan(int* s_plan,
+                                           const long long* __restrict__ plan,
+                                           int n_words, long long g0) {
+  const int ebase = kHdrWords + (int)__ldg(plan) * kPhaseWords;
+  for (int i = threadIdx.x; i < n_words; i += REPRO_THREADS) {
+    long long w = __ldg(plan + i);
+    const int f = (i - ebase) % kEpiWords;
+    if (i >= ebase && (f == EP_HI_BASE || f == EP_TW_BASE) && w != 0)
+      w = __ldg(reinterpret_cast<const int*>(w) + g0);
+    s_plan[i] = (int)w;
   }
 }
 
+// Bytes of the staged plan, 16-aligned.
+__host__ __device__ __forceinline__ size_t plan_bytes(int n_words) {
+  return ((size_t)n_words * 4 + 15) & ~(size_t)15;
+}
+
+// Position offsets of a thread's registers: register i holds the XOR of
+// the images of the set bits of i (compile-time i only).
+struct RegImages {
+  unsigned i0, i1, i2, i3;
+  __device__ __forceinline__ explicit RegImages(const int* img)
+      : i0((unsigned)img[0]), i1((unsigned)img[1]), i2((unsigned)img[2]),
+        i3((unsigned)img[3]) {}
+  __device__ __forceinline__ unsigned operator()(int i) const {
+    return ((i & 1) ? i0 : 0u) ^ ((i & 2) ? i1 : 0u) ^ ((i & 4) ? i2 : 0u) ^
+           ((i & 8) ? i3 : 0u);
+  }
+};
+
+// The image of `bits` under the images at img[0..nb).
+__device__ __forceinline__ unsigned image_of(const int* img, unsigned bits,
+                                             int nb) {
+  unsigned q = 0;
+  for (int b = 0; b < nb; ++b)
+    if ((bits >> b) & 1u) q ^= (unsigned)img[b];
+  return q;
+}
+
 // The typed view of a block's tile in shared memory: position q (tile row
-// << t | lane) of element type T, with `d` elements per position, each row
-// `stride_bytes` apart.
+// << t | lane) of element type T, element k of its tail.
 struct TileView {
   unsigned char* bytes;
-  unsigned stride_bytes, elem_bytes, lane_mask, rpt_mask;
-  int t, rpt_shift, rpt, row_len;
+  unsigned stride_bytes, elem_bytes, lane_mask;
+  int t;
 
-  // element k of tile position q
   template <typename T>
   __device__ __forceinline__ T* at(unsigned q, int k) const {
     return reinterpret_cast<T*>(bytes + (q >> t) * stride_bytes +
                                 (q & lane_mask) * elem_bytes) + k;
   }
-  // the table entry of position q: row, lane and tile terms XORed
-  __device__ __forceinline__ int term(const int* tb, unsigned q) const {
-    const unsigned r = q >> t;
-    return tb[r & rpt_mask] ^ tb[rpt + (q & lane_mask)] ^
-           tb[rpt + row_len + (r >> rpt_shift)];
-  }
 };
 
-// A hook that sees nothing: K4b's. K5 passes one that records, for each
-// compare, which inputs equal each output.
-struct NoHook {
-  template <typename T>
-  __device__ __forceinline__ void operator()(unsigned, unsigned, T, T, T,
-                                             T) const {}
-};
-
-// The pair that thread-step `pi` owns under partner XOR v: the position
-// whose bit at the lowest set bit of v (`below` = the bits under it) is 0.
-__device__ __forceinline__ unsigned pair_owner(unsigned pi, unsigned below) {
-  return ((pi & ~below) << 1) | (pi & below);
+// Registers of a phase: tail values k .. k + DV - 1 of the thread's
+// positions qb ^ qr(i). Registers the layout leaves empty hold zeros.
+template <int DV, int KR, typename T>
+__device__ __forceinline__ void load_regs(T (&v)[DV][KR],
+                                          const TileView& tv, unsigned qb,
+                                          const RegImages& qr,
+                                          unsigned valid, int k) {
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int c = 0; c < DV; ++c)
+      v[c][i] = ((valid >> i) & 1u) ? *tv.at<T>(qb ^ qr(i), k + c) : T{};
 }
 
-// Forward epilogue e (descriptor `ep`, staged tables `tab`) on the tile:
-// position (r, c) pairs with (r ^ vr, c ^ vc);
-//   cmp:  v = hi ? max(v, partner) : min(v, partner), over the tail d;
-//   bfly: the planar butterfly with twiddle w[tw_row ^ tw_lane ^ tw_base].
-// One thread owns each pair and writes both members. For every compare
-// `hook(flat index of q, of p, in_q, in_p, out_q, out_p)` runs after the
-// pair is written (flat index = position * d + k).
-template <typename T, typename Hook>
-__device__ __forceinline__ void forward_epilogue(const TileView& tv,
-                                                 const long long* ep,
-                                                 const int* tab, int half,
-                                                 unsigned pairs, int d,
-                                                 const Hook& hook) {
-  const int kind = (int)__ldg(ep + 0);
-  const unsigned vr = (unsigned)__ldg(ep + 1), vc = (unsigned)__ldg(ep + 2);
-  const unsigned v = (vr << tv.t) | vc;            // partner XOR of q
-  const int low = __ffs((int)v) - 1;               // its lowest set bit
-  const unsigned below = (1u << low) - 1;
-  if (kind == 0) {
-    const unsigned work = pairs * (unsigned)d;
-    for (unsigned i = threadIdx.x; i < work; i += REPRO_THREADS) {
-      const unsigned pi = d == 1 ? i : i / (unsigned)d;
-      const int k = (int)(i - pi * (unsigned)d);
-      const unsigned q = pair_owner(pi, below);
-      const unsigned p = q ^ v;
-      const T a = *tv.at<T>(q, k), c = *tv.at<T>(p, k);
-      const T oq = tv.term(tab, q) ? cmp_max(a, c) : cmp_min(a, c);
-      const T op = tv.term(tab, p) ? cmp_max(c, a) : cmp_min(c, a);
-      *tv.at<T>(q, k) = oq;
-      *tv.at<T>(p, k) = op;
-      hook(q * (unsigned)d + k, p * (unsigned)d + k, a, c, oq, op);
-    }
+template <int DV, int KR, typename T>
+__device__ __forceinline__ void store_regs(const T (&v)[DV][KR],
+                                           const TileView& tv, unsigned qb,
+                                           const RegImages& qr,
+                                           unsigned valid, int k) {
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+#pragma unroll
+    for (int c = 0; c < DV; ++c)
+      if ((valid >> i) & 1u) *tv.at<T>(qb ^ qr(i), k + c) = v[c][i];
+}
+
+// Run CALL with the compile-time constant VR equal to `vreg` (0..KR-1,
+// KR the registers of the calling function).
+#define REPRO_VR_CASE(k, CALL)   \
+  case k:                        \
+    if constexpr (k < KR) {      \
+      constexpr int VR = k;      \
+      CALL;                      \
+    }                            \
+    break;
+#define REPRO_VREG_SWITCH(vreg, CALL)                                   \
+  switch (vreg) {                                                       \
+    REPRO_VR_CASE(0, CALL) REPRO_VR_CASE(1, CALL) REPRO_VR_CASE(2, CALL) \
+    REPRO_VR_CASE(3, CALL) REPRO_VR_CASE(4, CALL) REPRO_VR_CASE(5, CALL) \
+    REPRO_VR_CASE(6, CALL) REPRO_VR_CASE(7, CALL) REPRO_VR_CASE(8, CALL) \
+    REPRO_VR_CASE(9, CALL) REPRO_VR_CASE(10, CALL)                      \
+    REPRO_VR_CASE(11, CALL) REPRO_VR_CASE(12, CALL)                     \
+    REPRO_VR_CASE(13, CALL) REPRO_VR_CASE(14, CALL)                     \
+    REPRO_VR_CASE(15, CALL)                                             \
+    default: break;                                                     \
+  }
+
+// partner[i] = the value at the partner of register i: register i ^ VR of
+// this thread, or of lane ^ vlane when vlane != 0.
+template <int VR, int KR, typename T>
+__device__ __forceinline__ void partners(const T (&v)[KR], int vlane,
+                                         T (&p)[KR]) {
+  if (vlane) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) p[i] = shfl_x(v[i ^ VR], vlane);
   } else {
-    const float2* w = reinterpret_cast<const float2*>(__ldg(ep + 9));
-    const int* tw = tab + half;
-    for (unsigned pi = threadIdx.x; pi < pairs; pi += REPRO_THREADS) {
-      const unsigned q = pair_owner(pi, below);
-      const unsigned p = q ^ v;
-      float* fq = tv.at<float>(q, 0);
-      float* fp = tv.at<float>(p, 0);
-      const float q_re = fq[0], q_im = fq[1], p_re = fp[0], p_im = fp[1];
-      const float2 wq = __ldg(w + tv.term(tw, q)), wp = __ldg(w + tv.term(tw, p));
-      float oq[2], op[2];
-      bfly_out(tv.term(tab, q) != 0, q_re, q_im, p_re, p_im, wq.x, wq.y, oq);
-      bfly_out(tv.term(tab, p) != 0, p_re, p_im, q_re, q_im, wp.x, wp.y, op);
-      fq[0] = oq[0];
-      fq[1] = oq[1];
-      fp[0] = op[0];
-      fp[1] = op[1];
+#pragma unroll
+    for (int i = 0; i < KR; ++i) p[i] = v[i ^ VR];
+  }
+}
+
+// The two compare bits of one element: (self == out) | (partner == out) << 1,
+// equality as floats.
+template <typename T>
+__device__ __forceinline__ unsigned eq_bits(T a, T p, T o) {
+  const float fo = as_float(o);
+  return (unsigned)(as_float(a) == fo) | ((unsigned)(as_float(p) == fo) << 1);
+}
+// The same on keys: the output is the self or the partner bit for bit, so
+// both bits are set when the two are equal as floats (equal keys, or both
+// zeros: keys 0 and -1), and otherwise exactly the winner's.
+__device__ __forceinline__ unsigned eq_bits(Key a, Key p, Key o) {
+  const bool tie =
+      (a.k == p.k) | ((((unsigned)a.k + 1u) | ((unsigned)p.k + 1u)) <= 1u);
+  return tie ? 3u : 2u - (unsigned)(a.k == o.k);
+}
+
+// Compare epilogue on registers; with kMask, the compare bits of each
+// element go to bits `shift`, `shift` + 1 of m. hx: bit i says whether
+// register i holds its pair's "hi" member.
+template <int VR, bool kMask, int DV, int KR, typename T>
+__device__ __forceinline__ void cmp_regs(T (&v)[DV][KR],
+                                         unsigned (&m)[DV][KR],
+                                         unsigned hx, int vlane, int shift) {
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    T p[KR];
+    partners<VR>(v[c], vlane, p);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const T o = cmp_sel((hx >> i) & 1u, v[c][i], p[i]);
+      if constexpr (kMask) m[c][i] |= eq_bits(v[c][i], p[i], o) << shift;
+      v[c][i] = o;
     }
   }
 }
+
+// Twiddle indices of a thread's registers for one butterfly epilogue.
+template <int KR>
+__device__ __forceinline__ void tw_index(const int* ep, unsigned tw0,
+                                         unsigned (&tw)[KR]) {
+  const RegImages img(ep + EP_TW_REG);
+#pragma unroll
+  for (int i = 0; i < KR; ++i) tw[i] = tw0 ^ img(i);
+}
+
+// The twiddle index of the thread's register 0 (tw_base[g0] staged).
+__device__ __forceinline__ unsigned tw_thread(const int* ep, unsigned chunk,
+                                              int outer_bits) {
+  return (unsigned)ep[EP_TW_BASE] ^ image_of(ep + EP_TW_THR, threadIdx.x, 8) ^
+         image_of(ep + EP_TW_OUT, chunk, outer_bits);
+}
+
+// Butterfly epilogue on registers (planar float32: v[0] re, v[1] im).
+template <int VR, int KR>
+__device__ __forceinline__ void bfly_regs(float (&v)[2][KR], unsigned hx,
+                                          int vlane, const float2* w,
+                                          const unsigned (&tw)[KR]) {
+  float pr[KR], pi[KR];
+  partners<VR>(v[0], vlane, pr);
+  partners<VR>(v[1], vlane, pi);
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const float2 wv = __ldg(w + tw[i]);
+    float o[2];
+    bfly_out((hx >> i) & 1u, v[0][i], v[1][i], pr[i], pi[i], wv.x, wv.y, o);
+    v[0][i] = o[0];
+    v[1][i] = o[1];
+  }
+}
+
+// The "hi" bits of a thread's registers for epilogue ep (staged): bit i
+// for register i, from the 16-bit word of the register part and the
+// parity of the thread's position bits qb under the hi mask.
+__device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
+  const unsigned h = (__popc(qb & (unsigned)ep[EP_HMASK]) ^
+                      (unsigned)ep[EP_HI_BASE]) & 1u;
+  return (unsigned)ep[EP_HREG] ^ (0u - h);
+}
+
+// Epilogue e of the plan (staged record ep, device record gep) on the
+// registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
+template <bool kMask, int DV, int KR, typename T>
+__device__ __forceinline__ void forward_epilogue(const int* ep,
+                                                 const long long* gep,
+                                                 T (&v)[DV][KR],
+                                                 unsigned (&m)[DV][KR],
+                                                 unsigned qb, unsigned chunk,
+                                                 int outer_bits) {
+  const int vreg = ep[EP_VREG], vlane = ep[EP_VLANE];
+  const unsigned hx = hi_bits(ep, qb);
+  if (ep[EP_KIND] == 0) {
+    const int shift = ep[EP_SHIFT];
+    REPRO_VREG_SWITCH(vreg, (cmp_regs<VR, kMask>(v, m, hx, vlane, shift)))
+  } else {
+    if constexpr (DV == 2) {
+      const float2* w = reinterpret_cast<const float2*>(__ldg(gep + EP_W));
+      unsigned tw[KR];
+      tw_index(ep, tw_thread(ep, chunk, outer_bits), tw);
+      REPRO_VREG_SWITCH(vreg, (bfly_regs<VR>(v, hx, vlane, w, tw)))
+    }
+  }
+}
+
+// Epilogues e0 .. e1 - 1 of a phase (staged plan sp, device plan gp; the
+// records from word ebase) on a thread's registers. A compare cluster's
+// float or bfloat16 values run on keys (integer compares, as cheap as
+// int32's) in every warp whose values hold no NaN; a warp holds every
+// partner of its positions within a phase, so the test is the warp's own.
+template <bool kMask, int DV, int KR, typename T>
+__device__ __forceinline__ void forward_epilogues(
+    const int* sp, const long long* gp, int ebase, int e0, int e1,
+    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits) {
+  if constexpr (DV == 1 && !std::is_same_v<T, int>) {
+    bool nan = false;
+#pragma unroll
+    for (int i = 0; i < KR; ++i) nan |= is_nan(v[0][i]);
+    if (!__any_sync(0xffffffffu, nan)) {
+      Key kv[1][KR];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) kv[0][i] = to_key(v[0][i]);
+      for (int e = e0; e < e1; ++e) {
+        const int off = ebase + e * kEpiWords;
+        forward_epilogue<kMask>(sp + off, gp + off, kv, m, qb, chunk,
+                                outer_bits);
+      }
+#pragma unroll
+      for (int i = 0; i < KR; ++i) from_key(kv[0][i], v[0][i]);
+      return;
+    }
+  }
+  for (int e = e0; e < e1; ++e) {
+    const int off = ebase + e * kEpiWords;
+    forward_epilogue<kMask>(sp + off, gp + off, v, m, qb, chunk, outer_bits);
+  }
+}
+
+// A thread's place in a phase (staged record ph): its position bits,
+// which registers hold a position (none when the layout leaves one of its
+// lane or warp bits empty) and the register images.
+struct PhaseRegs {
+  unsigned qt, valid;
+  RegImages qr;
+  __device__ __forceinline__ explicit PhaseRegs(const int* ph)
+      : qt(image_of(ph + PH_IMG_THR, threadIdx.x, 8)),
+        valid((threadIdx.x & (unsigned)ph[PH_TID_INVALID])
+                  ? 0u : (unsigned)ph[PH_REG_VALID]),
+        qr(ph + PH_IMG_REG) {}
+};
+
+// The word a tile of T moves in (its own width: the kernels with
+// epilogues are compiled once per element type).
+template <typename T>
+struct ElemWord {
+  using type = uint32_t;
+};
+template <>
+struct ElemWord<Bf16> {
+  using type = uint16_t;
+};

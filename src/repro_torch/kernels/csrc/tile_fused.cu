@@ -1,6 +1,6 @@
 // K4b: the one-pass tiled BMMC with fused compute epilogues (DESIGN.md
 // §10): compare-exchange (cmp) and radix-2 butterfly (bfly) stages run on
-// the tile in shared memory, in order, before the intra-tile gather.
+// the tile, in order, before the intra-tile gather.
 //
 // Replaces: src/repro/kernels/bmmc_permute.py, _tile_kernel with a
 // non-empty `epis` (apply_computes, partner_vals; launched by
@@ -15,59 +15,81 @@
 // then gathers out.flat[r * 2^t + l] = tile.flat[src0.flat[r * 2^t +
 // (l ^ xor_low[g])]] into whole rows at out_rows[g].
 //
-// Bound on the H100: bytes. Each element is read once and written once;
-// the row tables add 8 bytes per row, the epilogue tables a few bytes
-// per row and lane, and a butterfly reads one 8-byte twiddle per pair
-// (the table itself, 2^(n-1) x 8 bytes, stays in the 50 MB L2 cache).
-// The arithmetic is a few operations per element per epilogue, far below
-// the card's rate.
+// Bound on the H100: bytes, 2 * size over 3.35 TB/s, as K4a; the row
+// tables add 8 bytes per row and a butterfly reads one 8-byte twiddle per
+// element (the table stays in the 50 MB L2 cache). What held the first
+// design at 15 % of that bound (device time) was the epilogue phase: per
+// pair and epilogue it read six shared-memory table entries, two elements
+// and wrote two, behind a barrier per epilogue, and it staged 12 KiB of
+// tables per 16 KiB tile.
 //
 // This design: the load and the gather are K4a's (tile_common.cuh), so a
 // fused pass moves its bytes exactly as a plain tiled pass does. Between
-// them the block runs the epilogues on its tile:
-//   * one thread owns each pair — the position whose bit at the lowest
-//     set bit of the combined XOR (vr << t | vc) is 0 — reads both
-//     members, computes both outputs and writes both, so no pair is read
-//     after its partner was rewritten; a __syncthreads() separates the
-//     epilogues and the last one from the gather;
-//   * elements are typed (T = int32, float, or bfloat16 kept as its bits)
-//     while the load and the gather move raw words;
-//   * min and max propagate NaN (fmaxf/fminf would drop it) and order
-//     -0 below +0: equal operands give their bitwise AND (max) or OR
-//     (min), as cmp_max / cmp_min in bmmc_permute.py do;
-//   * the butterfly rounds every product and sum on its own
-//     (__fmul_rn/__fadd_rn/__fsub_rn: no contraction into FMAs), so it
-//     is bit-equal to the plain PyTorch version on the card;
-//   * the epilogue descriptors (kind, vr, vc and seven table pointers,
-//     int64 each) are read from device memory, so a cluster may carry any
-//     number of epilogues; each epilogue's row, lane and per-tile tables
-//     are staged in shared memory once per block, before the tile.
-// The epilogue code itself is in tile_epilogue.cuh, which the gradient
-// kernel K5 (tile_bwd.cu) shares to replay these epilogues bit for bit.
+// them the epilogues run in registers (tile_epilogue.cuh): the host plan
+// (epilogue_plan.py) splits them into phases; in each phase a thread
+// takes its 16 (or 8) positions of the tile into registers under the
+// phase's layout, runs the phase's epilogues there (partner in a register
+// or one warp shuffle away, hi from one mask word and a popc, floats as
+// integer keys where the warp holds no NaN), and puts them back; one
+// barrier per phase. The 12-compare clusters of a 2^24 sort run in two
+// phases. Tails are taken one value at a time (cmp acts on each value of
+// the tail alone); a cluster with butterflies holds the planar (re, im)
+// pair of each position. The kernel is compiled once per element type,
+// register count and planar-or-not, its tile moved in words of the
+// element's own width, with the blocks per SM its registers allow chosen
+// by measurement. What still bounds it: instruction issue and the
+// latency of each block's load -> phases -> gather sequence (PERF.md).
 #include "tile_common.cuh"
 #include "tile_epilogue.cuh"
 
-template <typename W, typename T>
-__global__ void __launch_bounds__(REPRO_THREADS)
-tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
+// The epilogue phases of one batch row on the block's tile, from the
+// staged plan sp (device plan gp).
+template <typename T, int DV, int KR>
+__device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
+                                             const long long* gp, int d) {
+  const int n_phases = sp[0], outer_bits = sp[2];
+  const int* phases = sp + kHdrWords;
+  const int ebase = kHdrWords + n_phases * kPhaseWords;
+  T v[DV][KR];
+  unsigned m[DV][KR];   // no compare bits in the forward pass
+  for (int k = 0; k < d; k += DV) {
+    for (int p = 0; p < n_phases; ++p) {
+      __syncthreads();  // the tile (or the previous phase) complete
+      const int* ph = phases + p * kPhaseWords;
+      const PhaseRegs pr(ph);
+      const int e0 = ph[PH_E0], e1 = ph[PH_E1];
+      for (unsigned c = 0; c < (1u << outer_bits); ++c) {
+        const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
+        load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+        forward_epilogues<false>(sp, gp, ebase, e0, e1, v, m, qb, c,
+                                 outer_bits);
+        store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+      }
+    }
+  }
+}
+
+template <typename T, int DV, int KR, int MB>
+__global__ void __launch_bounds__(REPRO_THREADS, MB)
+tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
+                  typename ElemWord<T>::type* __restrict__ out,
                   const int* __restrict__ in_rows,
                   const int* __restrict__ out_rows,
                   const int* __restrict__ xor_low,
                   const int* __restrict__ src0,
-                  const long long* __restrict__ epis, int n_epi, int n_rows,
-                  int rpt_shift, int tiles_per_cta, int t, int wpe,
-                  int wpe_shift, int row_shift, int pad_words,
+                  const long long* __restrict__ plan, int n_words,
+                  int n_rows, int rpt_shift, int tiles_per_cta, int t,
+                  int wpe, int wpe_shift, int row_shift, int pad_words,
                   long long batch, int d) {
+  using W = typename ElemWord<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rpt = 1 << rpt_shift;
   const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
   int* s_in = reinterpret_cast<int*>(smem);
   int* s_out = s_in + rows;
   int* s_xl = s_out + rows;
   const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
-  int* s_epi = reinterpret_cast<int*>(smem + tab_bytes);
-  unsigned char* tile_bytes =
-      smem + tab_bytes + epi_table_bytes(n_epi, rpt, t, tiles_per_cta);
+  int* s_plan = reinterpret_cast<int*>(smem + tab_bytes);
+  unsigned char* tile_bytes = smem + tab_bytes + plan_bytes(n_words);
   W* tile = reinterpret_cast<W*>(tile_bytes);
 
   const long long g0 = (long long)blockIdx.x * tiles_per_cta;
@@ -75,15 +97,12 @@ tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
   const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
   const unsigned stride = row_words + (unsigned)pad_words;
   const unsigned rpt_mask = (1u << rpt_shift) - 1;
-  const int slot = epi_slot(rpt, t, tiles_per_cta);
   const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
-                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1,
-                    rpt_mask, t, rpt_shift, rpt, row_len};
+                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
   REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
                          rpt_shift, rows, tiles_per_cta)
-  stage_epi_tables(s_epi, epis, n_epi, rpt, row_len, slot, g0);
+  stage_plan(s_plan, plan, n_words, g0);
   const unsigned span = (unsigned)rows * row_words;
-  const unsigned pairs = ((unsigned)rows << t) >> 1;
   const long long batch_words = (long long)n_rows * row_words;
   for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
     const W* xb = x + b * batch_words;
@@ -91,11 +110,7 @@ tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
     __syncthreads();  // tables ready; the previous batch row's reads done
     REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
                          stride)
-    for (int e = 0; e < n_epi; ++e) {
-      __syncthreads();  // the tile (or the previous epilogue) complete
-      forward_epilogue<T>(tv, epis + (long long)e * kEpiWords,
-                          s_epi + e * slot, slot / 2, pairs, d, NoHook{});
-    }
+    fused_phases<T, DV, KR>(tv, s_plan, plan, d);
     __syncthreads();
     REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
                             row_shift, wpe, wpe_shift, t, rpt_shift,
@@ -103,62 +118,64 @@ tile_fused_kernel(const W* __restrict__ x, W* __restrict__ out,
   }
 }
 
-template <typename T>
+template <typename T, int DV, int KR, int MB>
 static int launch_fused(const void* x, void* out, const int* in_rows,
                         const int* out_rows, const int* xor_low,
-                        const int* src0, const long long* epis, int n_epi,
+                        const int* src0, const long long* plan, int n_words,
                         int n_tiles, int n_rows, int rpt_shift,
                         int tiles_per_cta, int t, int wpe, int wpe_shift,
                         int row_shift, int pad_words, long long batch,
                         int word_bytes, int d, cudaStream_t s) {
+  using W = typename ElemWord<T>::type;
+  if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
   const int rows = tiles_per_cta << rpt_shift;
-  REPRO_DISPATCH_WORD(word_bytes, {
-    const size_t smem =
-        REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
-        (size_t)epi_table_bytes(n_epi, 1 << rpt_shift, t, tiles_per_cta);
-    cudaError_t e = allow_smem(tile_fused_kernel<W, T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    tile_fused_kernel<W, T><<<grid, REPRO_THREADS, smem, s>>>(
-        (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, epis, n_epi,
-        n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,
-        pad_words, batch, d);
-  });
+  const size_t smem =
+      REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
+      plan_bytes(n_words);
+  cudaError_t e = allow_smem(tile_fused_kernel<T, DV, KR, MB>, smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_fused_kernel<T, DV, KR, MB><<<grid, REPRO_THREADS, smem, s>>>(
+      (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan, n_words,
+      n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,
+      pad_words, batch, d);
   return (int)cudaGetLastError();
 }
 
-// elem_type: 0 = int32, 1 = float32, 2 = bfloat16.
+// elem_type: 0 = int32, 1 = float32, 2 = bfloat16; dv: tail values a
+// register slot holds (2: a planar (re, im) cluster with butterflies);
+// regs: positions a thread holds (16, or 8: see tile_epilogue.cuh);
+// word_bytes: the element type's own width; n_words: int64 words of plan.
 extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
                                 const int* out_rows, const int* xor_low,
-                                const int* src0, const long long* epis,
-                                int n_epi, int n_tiles, int n_rows,
+                                const int* src0, const long long* plan,
+                                int n_words, int n_tiles, int n_rows,
                                 int rpt_shift, int tiles_per_cta, int t,
                                 int wpe, int wpe_shift, int row_shift,
                                 int pad_words, long long batch,
-                                int word_bytes, int elem_type, int d,
-                                void* stream) {
+                                int word_bytes, int elem_type, int d, int dv,
+                                int regs, void* stream) {
   if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
-      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 ||
-      n_epi <= 0 || d <= 0 || epis == nullptr)
+      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
+      plan == nullptr || n_words < kHdrWords || (regs != 8 && regs != 16) ||
+      (dv == 2 && (elem_type != 1 || d != 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_FUSED(T, DV, KR, MB)                                          \
+  return launch_fused<T, DV, KR, MB>(                                       \
+      x, out, in_rows, out_rows, xor_low, src0, plan, n_words, n_tiles,     \
+      n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,       \
+      pad_words, batch, word_bytes, d, s)
+  // the last argument: blocks per SM the variant's registers allow (the
+  // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
+  if (dv == 2) REPRO_FUSED(float, 2, 8, 3);
+  if (dv != 1) return (int)cudaErrorInvalidValue;
+  const bool r16 = regs == 16;
   switch (elem_type) {
-    case 0:
-      return launch_fused<int>(x, out, in_rows, out_rows, xor_low, src0, epis,
-                               n_epi, n_tiles, n_rows, rpt_shift,
-                               tiles_per_cta, t, wpe, wpe_shift, row_shift,
-                               pad_words, batch, word_bytes, d, s);
-    case 1:
-      return launch_fused<float>(x, out, in_rows, out_rows, xor_low, src0,
-                                 epis, n_epi, n_tiles, n_rows, rpt_shift,
-                                 tiles_per_cta, t, wpe, wpe_shift, row_shift,
-                                 pad_words, batch, word_bytes, d, s);
-    case 2:
-      return launch_fused<Bf16>(x, out, in_rows, out_rows, xor_low, src0,
-                                epis, n_epi, n_tiles, n_rows, rpt_shift,
-                                tiles_per_cta, t, wpe, wpe_shift, row_shift,
-                                pad_words, batch, word_bytes, d, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: if (r16) REPRO_FUSED(int, 1, 16, 4); REPRO_FUSED(int, 1, 8, 4);
+    case 1: if (r16) REPRO_FUSED(float, 1, 16, 4); REPRO_FUSED(float, 1, 8, 4);
+    case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, 2); REPRO_FUSED(Bf16, 1, 8, 4);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_FUSED
 }
