@@ -177,9 +177,24 @@ class _DeviceCache:
 
     @staticmethod
     def _size(value) -> int:
-        if isinstance(value, tuple):
-            return sum(_DeviceCache._size(v) for v in value)
-        return value.numel() * value.element_size()
+        """Bytes an entry keeps alive: each distinct buffer of the tensors
+        and numpy arrays in it (tuples followed) counted once."""
+        bufs, todo = {}, [value]
+        while todo:
+            v = todo.pop()
+            if isinstance(v, tuple):
+                todo.extend(v)
+                continue
+            if isinstance(v, torch.Tensor):
+                st = v.untyped_storage()
+                key, size = (v.device, st.data_ptr()), st.nbytes()
+            elif isinstance(v, np.ndarray):
+                key = (torch.device("cpu"), v.__array_interface__["data"][0])
+                size = v.nbytes
+            else:
+                continue
+            bufs[key] = max(size, bufs.get(key, 0))
+        return sum(bufs.values())
 
     def get(self, owner, tag, device, make):
         key = (id(owner) if owner is not None else None, tag, str(device))
@@ -333,13 +348,26 @@ def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
     return out
 
 
-def _tile_args(xc, geometry, n_buf: int = 1, max_positions: int = None,
-               word_bytes: int = None, extra_smem=0):
+def _tiles_per_cta(geometry, elem: int, max_positions: int = None) -> int:
+    """Tiles one block takes: small tiles (a mixed complement's are one
+    row) are grouped so one block still moves about _TILE_CTA_BYTES of
+    ``elem``-byte elements (and holds at most ``max_positions``)."""
+    _, t, rpt, _, _, n_tiles, _ = geometry
+    per_cta = 1
+    while (per_cta * 2 <= n_tiles
+           and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES
+           and (max_positions is None
+                or per_cta * 2 * rpt * (1 << t) <= max_positions)):
+        per_cta *= 2
+    return per_cta
+
+
+def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
+               word_bytes: int = None, extra_smem: int = 0):
     """(out, kernel arguments after the tables) of a K4a launch, or of a
-    K4b / K5 launch (``n_buf`` tile buffers, blocks of at most
-    ``max_positions`` tile positions, words of ``word_bytes``,
-    ``extra_smem`` more bytes a block, or a function of the arguments
-    giving them); raises when a block does not fit shared memory."""
+    K4b / K5 launch (``per_cta`` tiles a block, ``n_buf`` tile buffers,
+    words of ``word_bytes``, ``extra_smem`` more bytes a block); raises
+    when a block does not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
@@ -347,27 +375,18 @@ def _tile_args(xc, geometry, n_buf: int = 1, max_positions: int = None,
     wb = word_bytes or _word_bytes(elem, xc.data_ptr(), out.data_ptr())
     wpe = elem // wb
     pad = max(1, 4 // wb)
-    # small tiles (a mixed complement's are one row) are grouped so one
-    # block still moves about _TILE_CTA_BYTES
-    per_cta = 1
-    while (per_cta * 2 <= n_tiles
-           and per_cta * 2 * rpt * (1 << t) * elem <= _TILE_CTA_BYTES
-           and (max_positions is None
-                or per_cta * 2 * rpt * (1 << t) <= max_positions)):
-        per_cta *= 2
+    if per_cta is None:
+        per_cta = _tiles_per_cta(geometry, elem)
     rows = per_cta * rpt
     tile = rows * ((1 << t) * wpe + pad) * wb
     if n_buf > 1:
         tile = n_buf * ((tile + 15) & ~15)
-    args = (n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe, _shift(wpe),
-            _shift((1 << t) * wpe), pad, batch, wb)
-    if callable(extra_smem):
-        extra_smem = extra_smem(args)
     smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile + extra_smem
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
                          f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
-    return out, args
+    return out, (n_tiles, 1 << (n - t), _shift(rpt), per_cta, t, wpe,
+                 _shift(wpe), _shift((1 << t) * wpe), pad, batch, wb)
 
 
 def _tile_launch(xc, tabs, geometry):
@@ -544,8 +563,9 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
     each epilogue's per-tile tables and twiddle values filled in), built
     once per set of tables and launch geometry and kept. The tensor
     carries the plan's summary as ``.info`` and holds every table it
-    points to (or was built from) in ``._keep``. A table that is not
-    linear (affine per block) raises ValueError."""
+    points to (or was built from) in ``._keep``; the cache counts those
+    tables in the entry's bytes. A table that is not linear (affine per
+    block) raises ValueError."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     tables = tuple(a for e in entries for a in e[3:10])
     key = ("epi_plan", tuple(id(a) for a in tables),
@@ -553,8 +573,9 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
            elem_bytes, stride_bytes, access, dv, reg_bits)
 
     def make():
+        # the plan reads the index tables, not the twiddle values (e[9])
         host = [e[:3] + tuple(None if a is None else _host(a)
-                              for a in e[3:10]) for e in entries]
+                              for a in e[3:9]) + (None,) for e in entries]
         words, info = EP.plan_epilogues(
             host, geometry, per_cta, elem_bytes=elem_bytes,
             stride_bytes=stride_bytes, access=access, dv=dv,
@@ -578,9 +599,9 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
         plan = torch.from_numpy(words).to(dev)
         plan.info = info
         plan._keep = tuple(keep)
-        return plan
+        return plan, plan._keep
     owner = next((a for a in tables if a is not None), None)
-    return device_cached(owner, key, dev, make)
+    return device_cached(owner, key, dev, make)[0]
 
 
 def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
@@ -588,28 +609,24 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
     (2) launch: words of the element type's own width, blocks of at most
     4096 positions, and shared memory for the staged plan and (K5) the
     compare-bit words that wait there."""
-    _, t, rpt, _, _, n_tiles, _ = geometry
+    _, t, rpt, _, _, _, _ = geometry
     size = xc.element_size()
+    d = xc.shape[2]
     dv = 2 if any(e[0] == 1 for e in entries) else 1
-    got = []
-
-    def plan_smem(args):
-        per_cta, wpe, pad = args[3], args[5], args[8]
-        B = t + _shift(rpt) + _shift(per_cta)
-        plan = _epi_plan_tensor(
-            entries, geometry, xc.device, per_cta, elem_bytes=wpe * size,
-            stride_bytes=((1 << t) * wpe + pad) * size, access=size, dv=dv,
-            reg_bits=EP.regs_for(B, dv, n_buf > 1))
-        got.append(plan)
-        extra = (plan.numel() * 4 + 15) & ~15
-        if n_buf > 1:
-            extra += (EP.spill_sids(plan.info) * dv * EP.THREADS * 4
-                      << plan.info["reg_bits"])
-        return extra
-    out, args = _tile_args(xc, geometry, n_buf=n_buf, word_bytes=size,
-                           max_positions=EP.REGS * EP.THREADS,
-                           extra_smem=plan_smem)
-    return out, args, got[0], dv
+    per_cta = _tiles_per_cta(geometry, d * size, EP.REGS * EP.THREADS)
+    pad = max(1, 4 // size)
+    plan = _epi_plan_tensor(
+        entries, geometry, xc.device, per_cta, elem_bytes=d * size,
+        stride_bytes=((1 << t) * d + pad) * size, access=size, dv=dv,
+        reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
+                             n_buf > 1))
+    extra = (plan.numel() * 4 + 15) & ~15
+    if n_buf > 1:
+        extra += (EP.spill_sids(plan.info) * dv * EP.THREADS * 4
+                  << plan.info["reg_bits"])
+    out, args = _tile_args(xc, geometry, per_cta=per_cta, n_buf=n_buf,
+                           word_bytes=size, extra_smem=extra)
+    return out, args, plan, dv
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries):

@@ -166,9 +166,11 @@ def _split_phases(vs: list, is_cmp: list, cap: int) -> list:
     return phases
 
 
-def _layout(span: list, vs: list, B: int, wavefronts, reg_bits: int):
-    """(reg, lane, warp, outer) slot images of one phase; ``wavefronts``
-    of a tuple of lane images."""
+@functools.lru_cache(maxsize=4096)
+def _layout(span: tuple, vs: tuple, B: int, reg_bits: int, smem: tuple):
+    """(reg, lane, warp, outer) slot images of one phase; ``smem`` the
+    (t, stride_bytes, elem_bytes, access) of :func:`_wavefronts`. Kept:
+    the clusters of one program repeat their phases."""
     cap = min(B, reg_bits + LANE_BITS)
     inside = list(span)
     for b in range(B):
@@ -190,11 +192,12 @@ def _layout(span: list, vs: list, B: int, wavefronts, reg_bits: int):
         coord = _coords(regs + lanes)
         shuffled = sum(1 for v in vs
                        if coord(v) >> len(regs))
-        key = (wavefronts(tuple(lanes)), shuffled)
+        key = (_wavefronts(tuple(lanes), *smem), shuffled)
         if best is None or key < best[0]:
             best = (key, regs, lanes)
     _, regs, lanes = best
-    return regs, lanes, rest[:WARP_BITS], rest[WARP_BITS:]
+    return tuple(regs), tuple(lanes), tuple(rest[:WARP_BITS]), tuple(
+        rest[WARP_BITS:])
 
 
 def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
@@ -224,9 +227,6 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
         raise ValueError(f"a block of 2^{B} positions exceeds the "
                          f"register epilogues' 2^{12 + MAX_OUTER}")
 
-    def wavefronts(lanes: tuple) -> int:
-        return _wavefronts(lanes, t, stride_bytes, elem_bytes, access * dv)
-
     vs, is_cmp, hmasks, tw_pos = [], [], [], []
     for e in entries:
         kind, vr, vc = e[0], int(e[1]), int(e[2])
@@ -249,8 +249,9 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
     words[:HDR_WORDS] = (len(phases), len(entries), outer_bits, reg_bits)
     ci = 0
     for p, (e0, e1, span) in enumerate(phases):
-        regs, lanes, warps, outer = _layout(span, vs[e0:e1], B, wavefronts,
-                                            reg_bits)
+        regs, lanes, warps, outer = map(list, _layout(
+            tuple(span), tuple(vs[e0:e1]), B, reg_bits,
+            (t, stride_bytes, elem_bytes, access * dv)))
         thr = lanes + [0] * (LANE_BITS - len(lanes)) + warps
         ph = words[HDR_WORDS + p * PHASE_WORDS:][:PHASE_WORDS]
         ph[PH_E0], ph[PH_E1] = e0, e1

@@ -24,7 +24,9 @@ span two registers; one with butterflies beside compares; one on a block
 of 2^14 positions, run in chunks), at t = 4, 5 and 6 with d = 1 and 3.
 Inputs are made with numpy from a seed.
 """
+import gc
 import random
+import weakref
 
 import numpy as np
 import pytest
@@ -293,9 +295,8 @@ def _emulate(xc, plan_t, entries, geometry, cc=None, inv_src0=None):
     info = plan_t.info
     row_len = 1 << t
     batch, _, d = xc.shape
-    _, args = pk._tile_args(xc, geometry, max_positions=EP.REGS * EP.THREADS,
-                            n_buf=1 if cc is None else 2)
-    per_cta = args[3]
+    per_cta = pk._tiles_per_cta(geometry, d * xc.element_size(),
+                                EP.REGS * EP.THREADS)
     nblk = n_tiles // per_cta
     g0 = torch.arange(nblk) * per_cta
     outer_bits = int(words[2])
@@ -560,3 +561,30 @@ def test_large_block_runs_in_chunks():
     info = _check_cluster(plan, entries, xc, cc)
     assert info["outer_bits"] == outer
     assert EP.spill_sids(info) == 1 << outer
+
+
+def test_plan_cache_counts_the_tables_it_keeps(monkeypatch):
+    """A caller that passes new host tables on every call misses the plan
+    cache each time. Each entry counts the tables and uploads it keeps
+    alive, so the cache stays within its byte bound and drops the tables
+    of the entries it evicts."""
+    plan, entries = _hand_cluster(12, 5, 9, seed=21, bfly_every=3)
+    geometry = pk.plan_geometry(plan)
+    xc = torch.zeros((1, 1 << 12, 2), dtype=torch.float32)
+    tables = {id(a): a.nbytes for e in entries for a in e[3:10]
+              if a is not None}
+    table_bytes = sum(tables.values())
+    cache = pk._DeviceCache(max_bytes=3 * table_bytes + (1 << 16))
+    monkeypatch.setattr(pk, "_DEV_CACHE", cache)
+    alive = []
+    for _ in range(10):
+        fresh = [e[:3] + tuple(None if a is None else a.copy()
+                               for a in e[3:10]) for e in entries]
+        alive.append(weakref.ref(fresh[0][5]))
+        pk._epi_launch_args(xc, geometry, fresh)
+        assert cache._bytes <= cache.max_bytes
+        del fresh
+    gc.collect()
+    assert cache.misses == 10 and 1 <= len(cache._d) <= 3
+    assert all(size >= table_bytes for _, _, size in cache._d.values())
+    assert sum(r() is not None for r in alive) == len(cache._d)

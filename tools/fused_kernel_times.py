@@ -8,16 +8,24 @@ For the checkout whose ``src/`` is given (its ``repro_torch`` is imported
 from there, and its kernels build into ``--build-dir``), prints:
 
 * each kernel instantiation's registers (ptxas);
+* the cold 2^24 float32 sort gradient (host seconds of one forward +
+  backward after ``clear_caches()``, telemetry on, as ``chip_smoke.py``
+  phase 10 takes it), and the host seconds of it spent building K4b's
+  and K5's epilogue descriptors or plans;
 * on the largest cluster of the 2^24 sort (t = 6, 12 compare
   epilogues): K4a (the same pass without epilogues, int32), K4b on int32
-  and on float32 keys, and K5 on float32 keys from 2^16 values (ties), each
-  as device time (10 calls captured in one CUDA graph, replayed) and as
-  the time of one call with the host's launch path (CUDA events around
-  the Python call);
+  and on float32 keys, and K5 on float32 keys from 2^16 values (ties),
+  each as the time of one call (CUDA events around the Python call, so
+  the host's launch path included), as device time (10 calls captured
+  in one CUDA graph, replayed) and as the host's launch path alone (host
+  clock per call over 50 calls queued without a wait);
 * the device time of K4b and K5 summed over all 39 sort clusters;
-* the device time of K4b and K5 on the 2^22 FFT's butterfly cluster.
+* the device time of K4b and K5 on the 2^22 FFT's butterfly cluster;
+* forward + backward of the 2^24 float32 sort and of the 2^22 planar
+  FFT through the entry points (``(w * f(x)).sum().backward()``).
 
-Two checkouts compare only within one run on one card: run them in turns
+The timers are ``chip_smoke.py``'s own (``cuda_ms``, ``device_ms``). Two
+checkouts compare only within one run on one card: run them in turns
 (parent, change, change, parent). Imports torch, numpy and the checkout's
 ``repro_torch`` only.
 """
@@ -25,16 +33,16 @@ from __future__ import annotations
 
 import argparse
 import os
-import statistics
 import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parents[1]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
-                                         / "src"),
+    ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src/ directory of the checkout to time")
     ap.add_argument("--tag", default="this", help="label of each line")
     ap.add_argument("--build-dir", default=None,
@@ -42,57 +50,93 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.build_dir:
         os.environ["REPRO_TORCH_BUILD_DIR"] = args.build_dir
-    sys.path.insert(0, args.src)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import cuda_ms, device_ms
+    sys.path.insert(0, args.src)       # ahead of the path chip_smoke adds
     import torch
     if not torch.cuda.is_available():
         print("fused_kernel_times: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.combinators import FusedStage, compile_expr
+    from repro_torch import obs
+    from repro_torch.combinators import FusedStage, clear_caches, compile_expr
     from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import sort as S
     from repro_torch.combinators.fft import fft_expr
     from repro_torch.combinators.sort import sort_expr
     from repro_torch.kernels import bmmc_permute as pk
     from repro_torch.kernels import build
 
     tag = args.tag
+    say = (lambda *a: print(tag, *a, flush=True))
     t0 = time.perf_counter()
     log = build.build_all()
-    print(f"{tag} build {time.perf_counter() - t0:.1f} s", flush=True)
+    say(f"build {time.perf_counter() - t0:.1f} s")
     for k in ("tile", "tile_fused", "tile_bwd"):
-        if k not in log:     # built by an earlier run into the same dir
-            continue
-        regs = sorted({ln.split("Used")[1].split(",")[0].strip()
-                       for ln in log[k]["ptxas"].splitlines() if "Used" in ln})
-        print(f"{tag} {k} registers: {regs}")
-
-    def host_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def dev_ms(fn, inner=10):
-        fn()
-        torch.cuda.synchronize()
-        g = torch.cuda.CUDAGraph()
-        with pk.pin_device_tables():
-            with torch.cuda.graph(g):
-                for _ in range(inner):
-                    fn()
-        return host_ms(g.replay, 10) / inner
+        if k in log:         # absent when built by an earlier run
+            regs = sorted({ln.split("Used")[1].split(",")[0].strip()
+                           for ln in log[k]["ptxas"].splitlines()
+                           if "Used" in ln})
+            say(f"{k} registers: {regs}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
-    n, t = 24, 6
+
+    # host seconds spent in the epilogue descriptors (before the register
+    # epilogues) or plans (since): the function each launch calls
+    spent = {"s": 0.0, "calls": 0}
+    name = ("_epi_plan_tensor" if hasattr(pk, "_epi_plan_tensor")
+            else "_epi_desc_tensor")
+    inner = getattr(pk, name)
+
+    def timed(*a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            spent["s"] += time.perf_counter() - t1
+            spent["calls"] += 1
+    setattr(pk, name, timed)
+
+    def launch_path_ms(fn, reps=50):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t1) / reps * 1e3
+        torch.cuda.synchronize()
+        return host
+
+    def grad_once(f, x, w):
+        xt = x.clone().requires_grad_(True)
+        (w * f(xt)).sum().backward()
+        torch.cuda.synchronize()
+
+    # every kernel module loaded first, at a small size
+    n = 12
+    grad_once(S.compiled_sort(n), torch.randperm(1 << n, device=dev).float(),
+              torch.randn(1 << n, device=dev))
+    n = 24
+    xs = torch.randperm(1 << n, generator=gen, device=dev).float()
+    ws = torch.randn(1 << n, generator=gen, device=dev)
+    fsort = S.compiled_sort(n)
+    clear_caches()
+    spent.update(s=0.0, calls=0)
+    obs.enable(sync=True)
+    t0 = time.perf_counter()
+    try:
+        grad_once(fsort, xs, ws)
+    finally:
+        obs.disable()
+    cold = time.perf_counter() - t0
+    obs.reset()
+    say(f"cold 2^24 sort gradient {cold:.3f} s, of which {name} "
+        f"{spent['s']:.3f} s over {spent['calls']} calls")
+    setattr(pk, name, inner)
+
+    t = 6
     fss = [s for s in compile_expr(sort_expr(n)).clustered_program(n, t)
            if isinstance(s, FusedStage) and s.computes]
     fs = max(fss, key=lambda s: len(s.computes))
@@ -106,24 +150,37 @@ def main(argv=None) -> int:
              "K4b int32": lambda: ex._fused_cuda(xi, fs, t),
              "K4b float32": lambda: ex._fused_cuda(xf, fs, t),
              "K5 float32": lambda: ex._fused_bwd_cuda(fs, t, False, xf, ct)}
-    for name, fn in cases.items():
-        print(f"{tag} 2^24 largest sort cluster {name}: device "
-              f"{dev_ms(fn):.4f} ms, one call with the host "
-              f"{host_ms(fn):.4f} ms", flush=True)
-    k4 = sum(dev_ms(lambda s=s: ex._fused_cuda(xi, s, t), 5) for s in fss)
-    k5 = sum(dev_ms(lambda s=s: ex._fused_bwd_cuda(s, t, False, xf, ct), 5)
+    for label, fn in cases.items():
+        say(f"2^24 largest sort cluster {label}: one call "
+            f"{cuda_ms(torch, fn, 20, warmup=3):.4f} ms, device "
+            f"{device_ms(torch, fn):.4f} ms, host launch path "
+            f"{launch_path_ms(fn):.4f} ms")
+    k4 = sum(device_ms(torch, lambda s=s: ex._fused_cuda(xi, s, t), 5)
              for s in fss)
-    print(f"{tag} all {len(fss)} sort clusters, device: K4b int32 {k4:.3f} "
-          f"ms, K5 float32 {k5:.3f} ms", flush=True)
+    k5 = sum(device_ms(torch, lambda s=s: ex._fused_bwd_cuda(
+        s, t, False, xf, ct), 5) for s in fss)
+    say(f"all {len(fss)} sort clusters, device: K4b int32 {k4:.3f} ms, "
+        f"K5 float32 {k5:.3f} ms")
     nf, tf = 22, 5
     (ff,) = [s for s in compile_expr(fft_expr(nf)).clustered_program(nf, tf)
              if isinstance(s, FusedStage) and s.computes]
     xp = torch.randn(1 << nf, 2, generator=gen, device=dev)
     cp = torch.randn(1 << nf, 2, generator=gen, device=dev)
-    f4 = dev_ms(lambda: ex._fused_cuda(xp, ff, tf))
-    f5 = dev_ms(lambda: ex._fused_bwd_cuda(ff, tf, False, xp, cp))
-    print(f"{tag} 2^22 FFT cluster, device: K4b {f4:.4f} ms, K5 {f5:.4f} ms",
-          flush=True)
+    f4 = device_ms(torch, lambda: ex._fused_cuda(xp, ff, tf))
+    f5 = device_ms(torch, lambda: ex._fused_bwd_cuda(ff, tf, False, xp, cp))
+    say(f"2^22 FFT cluster, device: K4b {f4:.4f} ms, K5 {f5:.4f} ms")
+
+    wp = torch.randn(1 << nf, 2, generator=gen, device=dev)
+    fft = F.compiled_fft(nf)
+    for label, f, x, w in (("2^24 sort", fsort, xs, ws),
+                           ("2^22 FFT", fft, xp, wp)):
+        xt = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            xt.grad = None
+            (w * f(xt)).sum().backward()
+        say(f"{label} forward + backward: "
+            f"{cuda_ms(torch, fwd_bwd, 20, warmup=3):.3f} ms")
     return 0
 
 
