@@ -28,7 +28,11 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    compare-exchange epilogues (int32, float32 and bfloat16 with NaNs and
    signed zeros, a d = 3 tail, a batch of 3) and on an FFT cluster of
    butterflies (planar float32) at a small size and at the FFT's 2^22
-   points; then the largest cluster of the 2^24 sort, bit for bit, timed
+   points; hand-built clusters with map epilogues (a map between two
+   compares, at a phase boundary, one that makes NaNs mid-phase, a
+   bfloat16 chain of three ops, an int32 wrap, B = 3 with d = 3: bit for
+   bit; tanh and log within MAP_ULPS), each timed (one call, device);
+   then the largest cluster of the 2^24 sort, bit for bit, timed
    beside its plain version, the same pass without epilogues, the copy
    kernel and the torch composite of the cluster;
 7. combinator path: ``repro_torch.combinators.sort`` of 2^24 int32 keys
@@ -37,7 +41,11 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    its cold host planning seconds, ``program_cost`` round trips equal to
    the cold call's counted ``model.round_trips``, no fused fallback, and
    the CUDA-graph call, the eager per-stage call and the library call
-   timed; ``fft`` of the same points as complex64, bit-equal to the
+   timed; the descending sort ``emap(not) >> sort >> emap(not)`` of the
+   same keys (its maps inside K4b; bit-equal to ``torch.sort(...,
+   descending=True)``, round trips equal to ``program_cost``, no fused
+   fallback), timed beside the Map-free sort and the library;
+   ``fft`` of the same points as complex64, bit-equal to the
    planar FFT through the same kernels;
 8. launch counts: every permutation kernel launched on the main path
    (phase 4) and ``tile_fused`` on the combinator path (phase 7);
@@ -46,9 +54,10 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    (float32 with ties, NaNs and signed zeros, bfloat16 with canonical
    NaNs, a d = 3 tail, a batch of 3), on the FFT's butterfly cluster at
    2^n_fft points and on the largest cluster of the 2^n_sort float32 sort
-   with keys drawn from 2^16 values (ties); the last timed beside its
-   byte bound, its plain version and the torch composite (autograd's
-   backward through the cluster's stages as torch ops);
+   with keys drawn from 2^16 values (ties); phase 6's map clusters
+   (gradients bit for bit, tanh and log within MAP_GRAD_TOL); the last
+   timed beside its byte bound, its plain version and the torch composite
+   (autograd's backward through the cluster's stages as torch ops);
 10. gradients on the main path, ``loss = (w * f(x)).sum()``: the sort of
    2^n_sort distinct float32 keys (equal to scattering ``w`` to the
    sorting permutation, bit for bit), the gradient kernel route against
@@ -56,7 +65,10 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    of 2^n_fft planar points (within ``FFT_REL_TOL`` of float64
    ``torch.fft.fft`` under autograd) and a permutation chain at 2^n_perm
    float32 (equal to the inverse program applied to ``w``, bit for bit);
-   each cold backward counts ``model.vjp_round_trips`` equal to
+   ``emap(tanh) >> sort`` of 2^n_sort float32 keys (its map inside K4b
+   and K5; within MAP_GRAD_TOL of ``torch.sort(torch.tanh(x))`` under
+   autograd, tied keys by their sums); each cold backward counts
+   ``model.vjp_round_trips`` equal to
    ``vjp_round_trips(n, t)``, K5 launches equal to the compute clusters
    and no fused fallback; forward and forward + backward timed beside the
    library call under autograd, and the peak device memory; then
@@ -466,11 +478,11 @@ def fused_call(K, ex, fs, t, x, batched=False, plain=False):
         return ex._fused_cuda(x, fs, t, batched=batched)
     plans, entries = ex._fused_plan_cached(fs, t)
     plan = plans[0]
-    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    sig, scal, vmem, fns = ex._fused_kernel_args(entries, x.dtype)
     y = K.tiled_permute_tables_plain(
         x, plan.in_rows, plan.out_rows, plan.xor_low, plan.src0,
         geometry=K.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
-        epi_vmem=vmem, batched=batched)
+        epi_vmem=vmem, map_fns=fns, batched=batched)
     for plan in plans[1:]:
         y = K.tiled_permute_plain(y, plan, batched=batched)
     return y
@@ -595,6 +607,152 @@ def phase_hand(torch, backward: bool) -> float:
     return worst
 
 
+# Map epilogues on hand-built clusters: each map is (position in the
+# epilogue list, name, torch function). A map without transcendentals is
+# exact in both directions; "tanh" and "log" run CUDA's tanhf / logf in
+# the kernel and in torch alike, held to MAP_ULPS in the forward and the
+# gradient to MAP_GRAD_TOL (torch's backward formulas may contract into
+# FMAs where the kernel rounds each op).
+MAP_ULPS = 2              # float32 ulps a transcendental map's output may move
+MAP_GRAD_TOL = 1e-5       # relative error of a transcendental map's gradient
+
+
+def _sq(v):
+    return v * v
+
+
+def _silu(v):
+    return v * v.sigmoid()
+
+
+def _self_ratio(v):
+    return v / v          # 1, or NaN where v is zero: NaNs mid-phase
+
+
+def _affine3(v):
+    return (v * 3 + 1) * 0.5
+
+
+def _wrap(v):
+    return v * 1000003 + 7
+
+
+MAP_CASES = (  # label, log2 n, t, compares, maps, dtype, tail, batch, exact
+    ("float32, maps between compares and at a phase boundary", 14, 6, 20,
+     ((3, "sq", _sq), (9, "silu", _silu), (11, "sq", _sq), (23, "silu",
+                                                            _silu)),
+     "float32", 1, 1, True),
+    ("float32, a map that makes NaNs mid-phase (keys, then floats)", 14, 6,
+     12, ((4, "v/v", _self_ratio),), "float32", 1, 1, True),
+    ("bfloat16, a chain of three ops rounded after each", 14, 6, 12,
+     ((2, "affine3", _affine3), (9, "affine3", _affine3)), "bfloat16", 1, 1,
+     True),
+    ("int32, a wrapping map", 14, 6, 12, ((1, "wrap", _wrap),
+                                          (7, "not", "bitwise_not")),
+     "int32", 1, 1, True),
+    ("float32 B=3, d=3", 14, 5, 12, ((2, "sq", _sq), (8, "silu", _silu)),
+     "float32", 3, 3, True),
+    ("float32, tanh and log (transcendental)", 14, 6, 12,
+     ((0, "tanh", "tanh"), (6, "log", "log")), "float32", 1, 1, False),
+)
+
+
+def phase_hand_maps(torch, backward: bool) -> float:
+    """K4b (or K5, ``backward``) against its plain version on hand-built
+    clusters with map epilogues: bit for bit where the maps have no
+    transcendentals, else within MAP_ULPS (K4b) or MAP_GRAD_TOL (K5);
+    returns the worst bit difference of the exact cases. A compare bit
+    that K5's replay got wrong would send a cotangent to the wrong
+    position, an error no tolerance here admits."""
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import epilogue_plan as EP
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(81 + backward)
+    worst = 0.0
+    for (label, n, t, n_cmp, maps, dname, d, batch, exact) in MAP_CASES:
+        dtype = getattr(torch, dname)
+        if backward and dtype == torch.int32:
+            continue
+        plan, sig, scal, vmem = hand_cluster(n, t, n_cmp, seed=n_cmp + t)
+        sig, scal, vmem, fns = list(sig), list(scal), list(vmem), []
+        for pos, name, fn in maps:
+            sig.insert(pos, ("map", name))
+            scal.insert(pos, ())
+            vmem.insert(pos, ())
+        for sg in sig:
+            if sg[0] == "map":
+                fn = next(f for _, nm, f in maps if nm == sg[1])
+                fns.append(getattr(torch, fn) if isinstance(fn, str) else fn)
+        shape = (batch, 1 << n, d)
+        v = torch.randint(-4, 5, shape, generator=gen, device=dev)
+        if dtype == torch.int32:
+            x = (v * 65537 + 11).to(torch.int32) * 32771
+        elif exact:
+            x = v.to(dtype)
+        else:
+            x = (torch.rand(shape, generator=gen, device=dev) + 0.5).to(
+                dtype)
+        kw = dict(geometry=K.plan_geometry(plan), epilogue=tuple(sig),
+                  epi_scalar=tuple(scal), epi_vmem=tuple(vmem),
+                  map_fns=tuple(fns), batched=True)
+        tabs = (plan.in_rows, plan.out_rows, plan.xor_low)
+        entries = K._epi_entries(kw["epilogue"], kw["epi_scalar"],
+                                 kw["epi_vmem"], kw["map_fns"], dtype)
+        _, _, pl, _ = K._epi_launch_args(x, kw["geometry"], entries,
+                                         n_buf=2 if backward else 1)
+        words = pl.cpu().numpy()
+        phases = [[int(EP.epi_slice(words, e)[EP.EP_KIND]) for e in range(
+            int(EP.phase_slice(words, p)[EP.PH_E0]),
+            int(EP.phase_slice(words, p)[EP.PH_E1]))]
+            for p in range(pl.info["n_phases"])]
+        at = [[i for i, k in enumerate(ph) if k == EP.KIND_MAP]
+              for ph in phases]
+        where = (f"{pl.info['n_phases']} phase(s), map positions by phase "
+                 f"{at} of {[len(ph) for ph in phases]} epilogues")
+        if backward:
+            s0 = plan.src0.reshape(-1)
+            inv = np.empty_like(s0)
+            inv[s0] = np.arange(s0.size, dtype=s0.dtype)
+            inv = inv.reshape(plan.src0.shape)
+            ct = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            got = K.tiled_permute_bwd_tables(x, ct, *tabs, inv, **kw)
+            want = K.tiled_permute_bwd_tables_plain(x, ct, *tabs, inv, **kw)
+            on_card = [torch.from_numpy(a).to(dev) for a in tabs + (inv,)]
+
+            def call():
+                return K.tiled_permute_bwd_tables(x, ct, *on_card, **kw)
+        else:
+            got = K.tiled_permute_tables(x, *tabs, plan.src0, **kw)
+            want = K.tiled_permute_tables_plain(x, *tabs, plan.src0, **kw)
+            on_card = [torch.from_numpy(a).to(dev)
+                       for a in tabs + (plan.src0,)]
+
+            def call():
+                return K.tiled_permute_tables(x, *on_card, **kw)
+        ms, dev_ms = cuda_ms(torch, call, REPS), device_ms(torch, call)
+        timed = (f"; {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
+                 f"({x.numel()} elements)")
+        err = max_abs_err(torch, got, want)
+        if exact:
+            check(err == 0.0, ("map hand-built", backward, label, err))
+            worst = max(worst, err)
+            say(f"  maps, hand-built ({where}), {label}: bit-equal{timed}")
+            continue
+        if not backward:
+            check(err <= MAP_ULPS, ("map hand-built", label, err))
+            say(f"  maps, hand-built ({where}), {label}: within {err:g} "
+                f"ulp(s) (limit {MAP_ULPS}){timed}")
+            continue
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)), ("map nan", label))
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30))[
+            fin & (want != 0)].max())
+        check(rel <= MAP_GRAD_TOL, ("map grad", label, rel))
+        say(f"  maps, hand-built ({where}), {label}: gradient within "
+            f"{rel:.3e} relative (limit {MAP_GRAD_TOL:g}){timed}")
+    return worst
+
+
 def device_ms(torch, fn, inner: int = 10) -> float:
     """Device milliseconds of one call of ``fn``: ``inner`` calls captured
     in one CUDA graph, replayed (median of REPS), so the host's launch
@@ -679,6 +837,7 @@ def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
                 f"{len(fs.computes)} epilogues bit-equal")
         del x
     worst = max(worst, phase_hand(torch, backward=False))
+    worst = max(worst, phase_hand_maps(torch, backward=False))
 
     t = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
@@ -743,11 +902,11 @@ def bwd_call(K, ex, fs, t, x, ct, batched=False, plain=False):
         return ex._fused_bwd_cuda(fs, t, batched, x, ct)
     plans, entries, inv, _ = ex._fused_bwd_kernel_plan(fs, t)
     plan = plans[0]
-    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    sig, scal, vmem, fns = ex._fused_kernel_args(entries, x.dtype)
     return K.tiled_permute_bwd_tables_plain(
         x, ct, plan.in_rows, plan.out_rows, plan.xor_low, inv,
         geometry=K.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
-        epi_vmem=vmem, batched=batched)
+        epi_vmem=vmem, map_fns=fns, batched=batched)
 
 
 def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
@@ -813,6 +972,7 @@ def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
             f"epilogues bit-equal")
     del x, ct
     worst = max(worst, phase_hand(torch, backward=True))
+    worst = max(worst, phase_hand_maps(torch, backward=True))
 
     t = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
@@ -868,8 +1028,8 @@ def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
 def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
                     n_perm: int, reps: int):
     """Gradients through the entry points, ``loss = (w * f(x)).sum()``.
-    Returns the K5 launches of the main path's cold backwards (the sort
-    and the FFT)."""
+    Returns the K5 launches of the main path's cold backwards (the sort,
+    tanh >> sort and the FFT)."""
     say("== phase 10: gradients on the main path ==")
     from repro_torch import obs
     from repro_torch.combinators import FusedStage, clear_caches, compile_expr
@@ -908,9 +1068,10 @@ def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
         return sum(isinstance(s, FusedStage) and bool(s.computes)
                    for s in f.clustered_program(n, t))
 
-    def times(name, f, x, w, lib):
+    def times(name, f, x, w, lib, forward="graph"):
         """Forward alone (recording the graph) and forward + backward, the
-        forward without grad (the CUDA graph), and the library's."""
+        forward without grad (the CUDA graph; a Map program's runs
+        eagerly), and the library's."""
         xt = x.clone().requires_grad_(True)
 
         def fwd_bwd(fn):
@@ -927,7 +1088,8 @@ def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
         peak = torch.cuda.max_memory_allocated() / 2**30
         say(f"  {name}: forward {fwd:.3f} ms, forward + backward "
             f"{both:.3f} ms (peak device memory {peak:.2f} GiB), forward "
-            f"without grad (graph) {graph:.3f} ms; library under autograd: "
+            f"without grad ({forward}) {graph:.3f} ms; library under "
+            f"autograd: "
             f"forward {lib_fwd:.3f} ms, forward + backward {lib_both:.3f} ms")
         say(f"  clocks, power, temperature: {clocks()}")
 
@@ -989,6 +1151,55 @@ def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
     times(f"sort 2^{n} float32", f, x, w, lambda v: torch.sort(v).values)
     breakdown(f"sort 2^{n} float32", f, x, n, t)
     del g, want
+    torch.cuda.empty_cache()
+
+    # tanh >> sort: the map fused into the first cluster, K5 its gradient
+    from repro_torch.combinators.sort import sort_expr
+    ft = compile_expr(V.emap("tanh", torch.tanh) >> sort_expr(n))
+    # distinct keys in [-1/2, 1/2), where tanh ties few of them
+    x = (torch.randperm(1 << n, generator=gen, device=dev).float()
+         - (1 << (n - 1))) / (1 << n)
+    g, rt, fb, launched, sec = cold_grad(ft, x, w)
+    model = ft.vjp_round_trips(n, t)
+    fwd_rt = ft.cost(n, t, clustered=True)["round_trips"]
+    check(rt == model == fwd_rt, ("tanh sort vjp round trips", rt, model,
+                                   fwd_rt))
+    check(fb == 0, ("tanh sort fused fallbacks", fb))
+    check(launched == clusters(ft, n, t), ("K5 launches", launched))
+    k5 += launched
+    # the library composite under autograd; where tanh ties keys, the two
+    # split the tied cotangents differently, so a tied group is held by
+    # its sum
+    xl = x.clone().requires_grad_(True)
+    (w * torch.sort(torch.tanh(xl)).values).sum().backward()
+    want = xl.grad
+    keys, order = torch.sort(torch.tanh(x))
+    first = torch.ones_like(keys, dtype=torch.bool)   # a group's first key
+    first[1:] = keys[1:] != keys[:-1]
+    last = torch.ones_like(first)
+    last[:-1] = first[1:]
+    group = torch.cumsum(first.long(), 0) - 1
+    tied = torch.empty_like(first)
+    tied[order] = ~(first & last)
+    rel_one = float(((g - want).abs() / want.abs().clamp_min(1e-30))[
+        ~tied & (want != 0)].max())
+    sums = [torch.zeros(int(group[-1]) + 1, device=dev).index_add_(
+        0, group, v[order]) for v in (g, want)]
+    rel_sum = float((sums[0] - sums[1]).abs().max()
+                    / sums[1].abs().max())
+    check(bool(torch.isfinite(g).all()), "tanh sort gradient finite")
+    check(rel_one <= MAP_GRAD_TOL and rel_sum <= MAP_GRAD_TOL,
+          ("tanh sort gradient", rel_one, rel_sum))
+    say(f"  tanh >> sort of 2^{n} float32: gradient within {rel_one:.3e} "
+        f"(elementwise, {int((~tied).sum())} untied keys) and {rel_sum:.3e} "
+        f"(sums over {int(group[-1]) + 1 - int((~tied).sum())} groups of "
+        f"tied keys) of torch.sort(torch.tanh(x)) under autograd (limit "
+        f"{MAP_GRAD_TOL:g}); cold forward + backward {sec:.2f} s; round "
+        f"trips {int(rt)} (counted backward) = {model} (vjp_round_trips) = "
+        f"{fwd_rt} (forward); K5 launches {launched}; fused fallbacks 0")
+    times(f"tanh >> sort 2^{n} float32", ft, x, w,
+          lambda v: torch.sort(torch.tanh(v)).values, forward="eager")
+    del g, want, xl, keys, order, group, tied, sums
     torch.cuda.empty_cache()
 
     # the gradient kernel route against the collapsed route, with ties
@@ -1177,6 +1388,36 @@ def phase_combinators(torch, n_sort: int, n_fft: int, reps: int):
     del y
     torch.cuda.empty_cache()
 
+    # the descending sort: not >> sort >> not, the maps fused into the
+    # first and last clusters (a Map program runs eagerly, stage by stage)
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.sort import sort_expr
+    fd = compile_expr(V.emap("not", torch.bitwise_not) >> sort_expr(n_sort)
+                      >> V.emap("not", torch.bitwise_not))
+    prog_d, t, _ = plan_program(fd, x)
+    y, rt, fb, c = cold(fd, x)
+    cost = program_cost(prog_d, t)["round_trips"]
+    check(fb == 0, f"descending sort: {fb} fused clusters fell back")
+    check(rt == cost, ("descending sort round trips", rt, cost))
+    check(max_abs_err(torch, y, torch.sort(x, descending=True).values)
+          == 0.0, "descending sort")
+    check(c["tile_fused"] > 0, ("descending sort launches", c))
+    ms_d = cuda_ms(torch, lambda: fd(x), reps)
+    ms_graph = cuda_ms(torch, lambda: f(x), reps)
+    ms_stage = cuda_ms(torch, lambda: f.call_per_stage(x), max(3, reps // 3),
+                       warmup=1)
+    lib_d = cuda_ms(torch, lambda: torch.sort(x, descending=True), reps)
+    say(f"  descending sort of 2^{n_sort} int32 (not >> sort >> not): "
+        f"bit-equal to torch.sort(descending=True); round trips {int(rt)} "
+        f"(counted) = {cost} (program_cost); fused fallbacks 0; cold-call "
+        f"launches {c}; {ms_d:.3f} ms (eager, stage by stage), the Map-free "
+        f"sort {ms_graph:.3f} ms (graph) and {ms_stage:.3f} ms (stage by "
+        f"stage), torch.sort(descending=True) {lib_d:.3f} ms")
+    say(f"  clocks, power, temperature: {clocks()}")
+    del y
+    torch.cuda.empty_cache()
+
     z = torch.complex(torch.randn(1 << n_fft, generator=gen, device=dev),
                       torch.randn(1 << n_fft, generator=gen, device=dev))
     xr = F.to_planar(z)
@@ -1243,7 +1484,8 @@ def main(argv=None) -> int:
     check(comb["tile_fused"] > 0, "tile_fused never launched on the "
           "combinator path")
     say(f"  main path (phase 4): {counts}")
-    say(f"  combinator path (sort and FFT cold calls): {comb}")
+    say(f"  combinator path (cold calls of the sort, the descending sort "
+        f"and the FFT): {comb}")
     counts["tile_fused"] = comb["tile_fused"]
 
     records["tile_bwd"] = phase_bwd_kernel(torch, N_SMALL - 2, args.n_sort,
@@ -1252,8 +1494,8 @@ def main(argv=None) -> int:
                                          args.n_fft, args.n_perm, REPS)
     check(counts["tile_bwd"] > 0, "tile_bwd never launched on the "
           "gradient path")
-    say(f"  tile_bwd launches on the gradient path (sort and FFT cold "
-        f"backwards): {counts['tile_bwd']}")
+    say(f"  tile_bwd launches on the gradient path (the cold backwards of "
+        f"the sort, tanh >> sort and the FFT): {counts['tile_bwd']}")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]

@@ -23,16 +23,17 @@ program is additionally run through :func:`repro_torch.combinators.
 optimize.cluster`, which groups ``Perm → compute → Perm`` runs into
 :class:`~repro_torch.combinators.optimize.FusedStage`\\ s. A FusedStage
 runs as ONE tiled pass of K4b (``tile_fused.cu``) — one HBM round trip
-for the whole run, with the interior ``CmpHalves``/``Bfly`` stages
-applied to each tile in shared memory. Every other engine executes the
-cluster's original stages one at a time. A complex64 array's butterfly
-clusters run on its planar (re, im) float32 view. Clusters the kernel
-cannot take fall back to stage-at-a-time execution and count
-``dispatch.fused_fallback``: other dtypes than int32, float32 and
-bfloat16, butterflies off the planar float32 layout, arrays too small
-to tile, and — unlike the reference, whose kernel ran the ``Map``
-callable on the tile — every cluster that holds a ``Map``: a CUDA kernel
-cannot call a Python function.
+for the whole run, with the interior ``CmpHalves``/``Bfly``/``Map``
+stages applied to each tile on chip. A ``Map``'s torch function runs in
+the kernel as the tape :mod:`repro_torch.kernels.map_lower` lowers it to
+(the reference's kernel called the function on the tile). Every other
+engine executes the cluster's original stages one at a time. A complex64
+array's butterfly clusters run on its planar (re, im) float32 view.
+Clusters the kernel cannot take fall back to stage-at-a-time execution
+and count ``dispatch.fused_fallback``: other dtypes than int32, float32
+and bfloat16, butterflies off the planar float32 layout, arrays too
+small to tile, a ``Map`` whose function is not lowered (outside the
+tape's op list, or its trace fails) and a ``Map`` beside butterflies.
 
 Whole-program executable: the reference jit-compiles each resolved
 program once per ``(program, engine, batched)``. Here that is a CUDA
@@ -67,8 +68,13 @@ autograd cannot see, so every gradient runs through these rules):
   trips as the forward. The ``"ref"`` engine (and ``"cuda"`` with
   ``BWD_MEGAKERNEL`` off) runs the reference's COLLAPSED backward: every
   transposed compute conjugated into forward-output coordinates, then one
-  composed inverse pass. ``Map`` stages are differentiated by autograd
-  through the user's torch function.
+  composed inverse pass.
+
+A program that holds a ``Map`` runs eagerly, stage by stage (as the
+reference keeps it off its executable), each stage through its own rule:
+on the ``"cuda"`` engine a Map-bearing cluster's backward is one K5 pass
+(the map's VJP by reverse mode over its tape), a standalone ``Map``'s is
+autograd through the user's torch function, one sweep.
 
 Backward rules count ``dispatch.vjp{kind}`` and ``model.vjp_round_trips``
 (:func:`_vjp_observed`), so a cold backward's counter delta can be held
@@ -102,6 +108,7 @@ from ..core.tiling import (compute_tables, pairing_vector, plan_bmmc,
 from ..guard.errors import BadInput, BadStage, UnknownEngine
 from ..kernels import ops
 from ..kernels import ref as _ref
+from ..kernels import map_lower
 from ..kernels.bmmc_permute import (_ELEM_TYPE, bfly_transpose, cmp_max,
                                     cmp_min, device_cached, device_tables,
                                     pin_device_tables, plan_geometry,
@@ -219,6 +226,17 @@ def _w_planar_cached(bfly: Bfly, dtype: str) -> np.ndarray:
     return np.stack([w.real.astype(dtype), w.imag.astype(dtype)], axis=-1)
 
 
+def _maps_lowered(fs: FusedStage, dtype) -> bool:
+    """Does every ``Map`` of the cluster lower to a tape for ``dtype``
+    (and none sit beside butterflies, whose register slots hold planar
+    pairs)?"""
+    maps = [c for c, _ in fs.computes if isinstance(c, Map)]
+    if maps and any(isinstance(c, Bfly) for c, _ in fs.computes):
+        return False
+    return all(map_lower.lower_map(m.name, m.fn, dtype).lowered
+               for m in maps)
+
+
 def _fused_tile(x: torch.Tensor, fs: FusedStage,
                 batched: bool) -> Optional[int]:
     """The tile parameter the fused kernel would use on ``x``, or None
@@ -226,8 +244,8 @@ def _fused_tile(x: torch.Tensor, fs: FusedStage,
     lead = 1 if batched else 0
     if x.dim() not in (1 + lead, 2 + lead) or x.dtype not in _ELEM_TYPE:
         return None
-    if any(isinstance(s, Map) for s in fs.stages):
-        return None  # no Python callable inside a CUDA kernel
+    if not _maps_lowered(fs, x.dtype):
+        return None  # a Map the tape cannot run
     d = x.shape[1 + lead] if x.dim() == 2 + lead else 1
     if any(isinstance(c, Bfly) for c, _ in fs.computes):
         if x.dim() != 2 + lead or d != 2 or x.dtype != torch.float32:
@@ -263,19 +281,21 @@ def _fused_kernel_args(entries: tuple, dtype) -> tuple:
 
 
 def _pass_tables(plan, entries, x: torch.Tensor) -> tuple:
-    """(index tables, epilogue signature, per-tile tables, per-row/lane
-    tables) of a cluster's fused pass, on ``x``'s device — uploaded once
-    and kept there for a CUDA tensor. K4b and K5 share them."""
-    sig, scal, vmem, _ = _fused_kernel_args(entries, x.dtype)
+    """(index tables, the epilogue keywords of the kernel wrappers) of a
+    cluster's fused pass, on ``x``'s device — uploaded once and kept there
+    for a CUDA tensor. K4b and K5 share them."""
+    sig, scal, vmem, map_fns = _fused_kernel_args(entries, x.dtype)
+    kw = dict(epilogue=sig, map_fns=map_fns)
     if x.device.type != "cuda":
         return (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0), \
-            sig, scal, vmem
+            dict(kw, epi_scalar=scal, epi_vmem=vmem)
     dev = x.device
     scal, vmem = device_cached(entries, "epilogue", dev, lambda: tuple(
         tuple(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                     for a in grp) for grp in part)
         for part in (scal, vmem)))
-    return device_tables(plan, dev), sig, scal, vmem
+    return device_tables(plan, dev), dict(kw, epi_scalar=scal,
+                                          epi_vmem=vmem)
 
 
 def _fused_cuda(x: torch.Tensor, fs: FusedStage, t: int, *,
@@ -285,10 +305,10 @@ def _fused_cuda(x: torch.Tensor, fs: FusedStage, t: int, *,
     BMMCs only, §5.2) finishes the permutation."""
     plans, entries = _fused_plan_cached(fs, t)
     plan = plans[0]
-    tabs, sig, scal, vmem = _pass_tables(plan, entries, x)
+    tabs, epi = _pass_tables(plan, entries, x)
     x = tiled_permute_tables(x.contiguous(), *tabs,
-                             geometry=plan_geometry(plan), epilogue=sig,
-                             epi_scalar=scal, epi_vmem=vmem, batched=batched)
+                             geometry=plan_geometry(plan), batched=batched,
+                             **epi)
     for plan in plans[1:]:
         x = tiled_permute(x, plan, batched=batched)
     return x
@@ -323,8 +343,8 @@ def _fused_forward(x, fs, engine, batched):
                 y = _fused_cuda(xk, fs, t, batched=batched)
             return y if xk is x else torch.view_as_complex(y)
         # cluster validated at plan time but rejected for this input
-        # (dtype/shape/tile mismatch, or a Map): the honest count the
-        # model lacks
+        # (dtype/shape/tile mismatch, or a Map the tape cannot run): the
+        # honest count the model lacks
         _ometrics.inc("dispatch.fused_fallback")
     return run_program(fs.stages, x, engine, batched=batched)
 
@@ -510,6 +530,30 @@ class _ComputeApply(torch.autograd.Function):
             ctx.s, x, ct, ctx.batched)), None, None)
 
 
+class _MapApply(torch.autograd.Function):
+    """A standalone ``Map`` stage under autograd: saves its input; the
+    backward is autograd through the user's function at it, counted as
+    the one element-wise sweep ``program_cost`` charges the stage."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        ctx.save_for_backward(x)
+        return s.fn(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+
+        def vjp():
+            _ometrics.inc("dispatch.kernel", kernel="sweep")
+            _ometrics.inc("model.round_trips", 1)
+            with torch.enable_grad():
+                v = x.detach().requires_grad_(True)
+                return torch.autograd.grad(ctx.s.fn(v), v, ct)[0]
+        return _vjp_observed("stage", vjp), None
+
+
 def _exec_stage(s: Expr, x: torch.Tensor, engine, batched: bool,
                 axis: int) -> torch.Tensor:
     """Dispatch ONE primitive/fused stage (the run_program loop body)."""
@@ -522,6 +566,8 @@ def _exec_stage(s: Expr, x: torch.Tensor, engine, batched: bool,
             return _ComputeApply.apply(x, s, batched)
         return _compute_forward(s, x, axis)
     if isinstance(s, Map):
+        if _needs_grad(x):
+            return _MapApply.apply(x, s)
         return s.fn(x)
     raise BadStage(f"non-primitive stage {type(s).__name__}; "
                    "lower() the expression first")
@@ -902,10 +948,16 @@ def _collapsed_bwd(plan, res, ct, engine, batched):
     return ct
 
 
+# Maps whose inputs K5 keeps in shared memory, one tile's worth each
+# (16 KiB at the 2^24 sort's blocks): a cluster with more falls back.
+MAX_BWD_MAPS = 4
+
+
 @functools.lru_cache(maxsize=256)
 def _fused_bwd_kernel_plan(fs: FusedStage, t: int):
     """Offline artifacts of the gradient kernel for one cluster, or None
-    when it can't run at this tile parameter: the forward plan + epilogue
+    when it can't run at this tile parameter (or holds more than
+    :data:`MAX_BWD_MAPS` maps): the forward plan + epilogue
     entries (shared tables), the inverse ``src0`` gather table
     (``inv[src0[j]] = j``; the per-tile XOR folds into the lookup at
     kernel time), and the inverse plans of any trailing plain passes
@@ -913,7 +965,8 @@ def _fused_bwd_kernel_plan(fs: FusedStage, t: int):
     gradient kernel, keeping the backward round-trip count equal to the
     forward's; unreachable for ``0 < t <= n/2``, kept for parity)."""
     got = _fused_plan_cached(fs, t)
-    if got is None:
+    if got is None or sum(isinstance(c, Map)
+                          for c, _ in fs.computes) > MAX_BWD_MAPS:
         return None
     plans, entries = got
     p = plans[0].src0.reshape(-1)
@@ -940,7 +993,7 @@ def _fused_bwd_cuda(fs, t, batched, x, ct):
         for p in inv_plans:
             ct = tiled_permute(ct, p, batched=batched)
     plan = plans[0]
-    tabs, sig, scal, vmem = _pass_tables(plan, entries, x)
+    tabs, epi = _pass_tables(plan, entries, x)
     inv = inv_src0
     if x.device.type == "cuda":
         dev = x.device
@@ -948,8 +1001,7 @@ def _fused_bwd_cuda(fs, t, batched, x, ct):
                             lambda: torch.from_numpy(inv_src0).to(dev))
     return tiled_permute_bwd_tables(
         x.contiguous(), ct.contiguous(), tabs[0], tabs[1], tabs[2], inv,
-        geometry=plan_geometry(plan), epilogue=sig, epi_scalar=scal,
-        epi_vmem=vmem, batched=batched)
+        geometry=plan_geometry(plan), batched=batched, **epi)
 
 
 # The gradient kernel (K5, `tile_bwd.cu`) is the hardware-shaped backward:
@@ -1008,8 +1060,9 @@ def _fused_bwd_impl(fs, engine, batched, x, ct):
                                   passes=rt, t=t):
                     return _fused_bwd_cuda(fs, t, batched, x, ct)
             return _fused_bwd_cuda(fs, t, batched, x, ct)
-        # a layout the kernel does not take (dtype, tail, a Map): the
-        # honest count the model lacks, as in the forward
+        # a layout the kernel does not take (dtype, tail, a Map the tape
+        # cannot run, too many maps): the honest count the model lacks,
+        # as in the forward
         _ometrics.inc("dispatch.fused_fallback")
     plan = _program_bwd_plan((fs,), batched)
     if plan is None:
@@ -1311,7 +1364,8 @@ def cache_stats() -> Dict[str, CacheStats]:
     ``model_round_trips``, the ops ``plans`` / ``class_plan``), the
     backward's (``inverse_program`` / ``fused_inverse`` /
     ``program_bwd_plan`` / ``fused_bwd_kernel_plan`` / ``pulled_back``),
-    the tables kept on the device (``device_tables``), the guard's
+    the maps' tapes (``map_tapes``), the tables kept on the device
+    (``device_tables``), the guard's
     ring-1 caches and the ``compiled_exprs`` memo."""
     from ..kernels import bmmc_permute as K
 
@@ -1327,6 +1381,7 @@ def cache_stats() -> Dict[str, CacheStats]:
         "program_bwd_plan": _program_bwd_plan,
         "fused_bwd_kernel_plan": _fused_bwd_kernel_plan,
         "pulled_back": _pulled_back_fn,
+        "map_tapes": map_lower,
         "plans": ops._plans_cached,
         "class_plan": ops._class_plan_cached,
         "device_tables": K._DEV_CACHE,
@@ -1419,7 +1474,8 @@ class CompiledExpr:
         return inverse_program(prog)
 
     def vjp_round_trips(self, n: int, t: Optional[int],
-                        batched: bool = False) -> Optional[int]:
+                        batched: bool = False,
+                        dtype: torch.dtype = torch.float32) -> Optional[int]:
         """Modeled HBM round trips of ONE backward (cotangent) pass — what
         a cold backward call's ``model.vjp_round_trips`` counter delta
         should equal (the backward honesty gate, DESIGN.md §13).
@@ -1430,10 +1486,13 @@ class CompiledExpr:
         what its forward costs: each compute cluster one K5 pass (plus the
         inverse of any trailing plain pass), each permutation its inverse
         pass, each standalone compute one sweep (on the layouts the
-        kernel takes; a cluster that falls back counts otherwise). With a
-        collapsed plan it pays exactly the final composed pass. None when
-        the backward is the per-stage replay (no compiled model to hold it
-        against)."""
+        kernel takes; a cluster that falls back counts otherwise). A
+        program that holds a ``Map`` runs stage by stage, each stage's
+        backward by its own rule, and counts the same on this route: a
+        standalone ``Map`` one sweep, a Map-bearing cluster one K5 pass
+        when its maps lower for ``dtype``. With a collapsed plan it pays
+        exactly the final composed pass. None when the backward is the
+        per-stage replay (no compiled model to hold it against)."""
         from .optimize import program_cost
         prog = (self.clustered_program(n, t)
                 if self.engine == "cuda" and self.optimized
@@ -1442,14 +1501,12 @@ class CompiledExpr:
             return None
         if is_perm_program(prog):
             return program_cost(inverse_program(prog), t)["round_trips"]
-        if _has_map(prog) or _bwd_plan_n(prog) is None:
-            return None
         if self.engine == "cuda" and BWD_MEGAKERNEL:
             total = 0
             for s in prog:
                 if isinstance(s, FusedStage) and s.computes:
                     kp = _fused_bwd_kernel_plan(s, t)
-                    if kp is None:
+                    if kp is None or not _maps_lowered(s, dtype):
                         return None
                     total += 1 + sum(len(ip) for ip in kp[3])
                 elif isinstance(s, (Perm, FusedStage)):
@@ -1458,6 +1515,8 @@ class CompiledExpr:
                 else:
                     total += 1
             return total
+        if _bwd_plan_n(prog) is None:
+            return None
         final = _collapsed_final(prog, _bwd_plan_n(prog))
         if final is None:
             return 0
@@ -1534,6 +1593,7 @@ def clear_caches() -> None:
     _fused_bwd_kernel_plan.cache_clear()
     _pulled_back_fn.cache_clear()
     _pulled_back_tables.cache_clear()
+    map_lower.clear_cache()
     _COMPILED.clear()
     _compiled_stats["hits"] = _compiled_stats["misses"] = 0
     ops._plans_cached.cache_clear()

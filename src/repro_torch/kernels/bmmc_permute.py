@@ -11,11 +11,12 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
   place by one lane table;
 * K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass;
 * K4b ``tile_fused.cu``   — :func:`tiled_permute_tables` with a non-empty
-  ``epilogue``: the same pass with compare-exchange (``cmp``) and
-  butterfly (``bfly``) stages applied to the tile before the gather, in
-  registers under a layout plan (:mod:`.epilogue_plan`; reference:
-  ``_tile_kernel``'s ``apply_computes``). ``map`` epilogues (a Python
-  callable) have no kernel and raise ``NotImplementedError``;
+  ``epilogue``: the same pass with compare-exchange (``cmp``), butterfly
+  (``bfly``) and element-wise ``map`` stages applied to the tile before
+  the gather, in registers under a layout plan (:mod:`.epilogue_plan`;
+  reference: ``_tile_kernel``'s ``apply_computes``). A map's torch
+  function runs in the kernel as the tape :mod:`.map_lower` lowers it to;
+  one that is not lowered raises on a CUDA tensor;
 * K5 ``tile_bwd.cu``      — :func:`tiled_permute_bwd_tables`, the
   transpose of one K4b pass: the saved input and the output cotangent in,
   the input cotangent out (reference: ``_tile_bwd_kernel``).
@@ -44,6 +45,7 @@ import torch
 
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
 from . import epilogue_plan as EP
+from .map_lower import lower_map
 
 LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
             "tile_bwd": 0}
@@ -436,19 +438,23 @@ def cmp_min(a: torch.Tensor, b: torch.Tensor, *,
     return torch.where(torch.isnan(a), a, r, out=out)
 
 
-def _epi_entries(epilogue, epi_scalar, epi_vmem):
+def _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns=(), dtype=None):
     """Per epilogue ``(kind, vr, vc, hi_row, hi_lane, hi_base, tw_row,
-    tw_lane, tw_base, w)`` (the ``tw_*`` and ``w`` None for cmp)."""
+    tw_lane, tw_base, w)`` (the ``tw_*`` and ``w`` None for cmp); a map's
+    ``(2, 0, 0, None x 6, tape)``, its function from ``map_fns`` (in
+    order) lowered for ``dtype`` (:func:`.map_lower.lower_map`)."""
     if not (len(epilogue) == len(epi_scalar) == len(epi_vmem)):
         raise ValueError("epilogue, epi_scalar and epi_vmem differ in length")
+    if sum(sig[0] == "map" for sig in epilogue) != len(map_fns):
+        raise ValueError("one function in map_fns per map epilogue")
     out = []
+    fns = iter(map_fns)
     for sig, scal, vm in zip(epilogue, epi_scalar, epi_vmem):
         kind = sig[0]
         if kind == "map":
-            raise NotImplementedError(
-                "map epilogues (a Python callable) have no CUDA kernel; "
-                "the executor runs Map-bearing clusters stage by stage")
-        if kind == "cmp":
+            out.append((EP.KIND_MAP, 0, 0) + (None,) * 6
+                       + (lower_map(sig[1], next(fns), dtype),))
+        elif kind == "cmp":
             (hi_base,), (hi_row, hi_lane) = scal, vm
             out.append((0, sig[1], sig[2], hi_row, hi_lane, hi_base,
                         None, None, None, None))
@@ -467,7 +473,15 @@ def _check_epi_input(xc, entries, geometry):
     if xc.dtype not in _ELEM_TYPE:
         raise ValueError(f"fused epilogues take int32, float32 or bfloat16, "
                          f"got {xc.dtype}")
+    if {EP.KIND_MAP, EP.KIND_BFLY} <= {e[0] for e in entries}:
+        raise ValueError("map epilogues do not run beside butterflies (a "
+                         "planar pair in each register slot)")
     for e in entries:
+        if e[0] == EP.KIND_MAP:
+            if e[9].dtype != xc.dtype:
+                raise ValueError(f"map {e[9].name!r} lowered for "
+                                 f"{e[9].dtype}, the tensor is {xc.dtype}")
+            continue
         if not (0 <= e[1] < rpt and 0 <= e[2] < (1 << t)) or not (
                 e[1] or e[2]):
             raise ValueError(f"epilogue partner XOR ({e[1]}, {e[2]}) outside "
@@ -481,8 +495,16 @@ def _check_epi_input(xc, entries, geometry):
 def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
     """One epilogue on tiles ``(B, G, rpt, row_len, d)``: position (r, c)
     pairs with (r ^ vr, c ^ vc); ``hi`` picks max / the "hi" butterfly
-    output, exactly as the reference's ``apply_computes``."""
+    output, exactly as the reference's ``apply_computes``; a map calls its
+    function on the tile, as the reference does."""
     kind, vr, vc, hi_row, hi_lane, _, tw_row, tw_lane, _, w = e
+    if kind == EP.KIND_MAP:
+        out = w.fn(tile)
+        if out.shape != tile.shape or out.dtype != tile.dtype:
+            raise ValueError(f"map {w.name!r} turned a {tuple(tile.shape)} "
+                             f"{tile.dtype} tile into {tuple(out.shape)} "
+                             f"{out.dtype}")
+        return out
     dev = tile.device
     rpt, row_len = tile.shape[2], tile.shape[3]
     pv = tile.index_select(2, torch.arange(rpt, device=dev) ^ vr)
@@ -504,6 +526,11 @@ def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
     t_im = wr * hi_im + wi * hi_re
     return torch.stack([torch.where(hi, lo_re - t_re, lo_re + t_re),
                         torch.where(hi, lo_im - t_im, lo_im + t_im)], dim=-1)
+
+
+def _tiles_of(tab, gs):
+    """A per-tile table's entries for tiles ``gs`` (None for a map)."""
+    return None if tab is None else tab[gs]
 
 
 def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
@@ -530,8 +557,8 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
         x_glob = (ir[gs][:, :, None] * row_len + lane).reshape(-1)
         tile = xc[:, x_glob].reshape(batch, ng, rpt, row_len, d)
         for e in ents:
-            tile = _apply_epilogue(tile, e, e[5][gs],
-                                   None if e[8] is None else e[8][gs])
+            tile = _apply_epilogue(tile, e, _tiles_of(e[5], gs),
+                                   _tiles_of(e[8], gs))
         src = s0[(rp << t) | (cp[None, :] ^ xl[gs, None])]    # (G, rpt*len)
         flat = tile.reshape(batch, ng, rpt * row_len, d)
         # gathered as integers: torch.gather on CPU bfloat16 rewrites NaN
@@ -573,15 +600,19 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
            elem_bytes, stride_bytes, access, dv, reg_bits)
 
     def make():
-        # the plan reads the index tables, not the twiddle values (e[9])
+        # the plan reads the index tables and a map's tape, not the
+        # twiddle values (e[9] of a butterfly)
         host = [e[:3] + tuple(None if a is None else _host(a)
-                              for a in e[3:9]) + (None,) for e in entries]
+                              for a in e[3:9])
+                + (e[9] if e[0] == EP.KIND_MAP else None,) for e in entries]
         words, info = EP.plan_epilogues(
             host, geometry, per_cta, elem_bytes=elem_bytes,
             stride_bytes=stride_bytes, access=access, dv=dv,
             reg_bits=reg_bits)
         keep = [a for a in tables if a is not None]
         for k, e in enumerate(entries):
+            if e[0] == EP.KIND_MAP:
+                continue
             ep = EP.epi_slice(words, k)
             hb = _device_table(e[5], dev, n_tiles)
             ep[EP.EP_HI_BASE] = hb.data_ptr()
@@ -608,7 +639,7 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
     """(out, tile arguments, plan tensor, dv) of a K4b (``n_buf`` 1) or K5
     (2) launch: words of the element type's own width, blocks of at most
     4096 positions, and shared memory for the staged plan and (K5) the
-    compare-bit words that wait there."""
+    compare-bit words that wait there and each map's input values."""
     _, t, rpt, _, _, _, _ = geometry
     size = xc.element_size()
     d = xc.shape[2]
@@ -619,11 +650,14 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
         entries, geometry, xc.device, per_cta, elem_bytes=d * size,
         stride_bytes=((1 << t) * d + pad) * size, access=size, dv=dv,
         reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
-                             n_buf > 1))
+                             n_buf > 1,
+                             any(e[0] == EP.KIND_MAP for e in entries)))
     extra = (plan.numel() * 4 + 15) & ~15
     if n_buf > 1:
         extra += (EP.spill_sids(plan.info) * dv * EP.THREADS * 4
                   << plan.info["reg_bits"])
+        extra += (plan.info["maps"] * size * EP.THREADS
+                  << (plan.info["reg_bits"] + plan.info["outer_bits"]))
     out, args = _tile_args(xc, geometry, per_cta=per_cta, n_buf=n_buf,
                            word_bytes=size, extra_smem=extra)
     return out, args, plan, dv
@@ -633,7 +667,8 @@ def _tile_fused_launch(xc, tabs, geometry, entries):
     out, args, plan, dv = _epi_launch_args(xc, geometry, entries)
     _launch("tile_fused", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
             _ptr(plan), plan.numel(), *args, _ELEM_TYPE[xc.dtype],
-            xc.shape[2], dv, 1 << plan.info["reg_bits"])
+            xc.shape[2], dv, 1 << plan.info["reg_bits"],
+            int(plan.info["maps"] > 0))
     return out
 
 
@@ -647,21 +682,19 @@ def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
     :func:`plan_geometry` output.
 
     ``epilogue`` is the fused-compute signature of the reference: a tuple
-    of ``("cmp", vr, vc)`` / ``("bfly", vr, vc, wlen)`` entries, with the
-    matching tables in ``epi_scalar`` (``(hi_base,)`` / ``(hi_base,
-    tw_base)``) and ``epi_vmem`` (``(hi_row, hi_lane)`` / ``(hi_row,
-    hi_lane, tw_row, tw_lane, w_planar)``). A non-empty epilogue runs K4b
-    (``tile_fused.cu``), an empty one K4a. ``("map", name)`` entries have
-    no kernel and raise ``NotImplementedError``."""
-    if map_fns or any(e[0] == "map" for e in epilogue):
-        raise NotImplementedError(
-            "map epilogues (a Python callable) have no CUDA kernel; the "
-            "executor runs Map-bearing clusters stage by stage")
+    of ``("cmp", vr, vc)`` / ``("bfly", vr, vc, wlen)`` / ``("map",
+    name)`` entries, with the matching tables in ``epi_scalar``
+    (``(hi_base,)`` / ``(hi_base, tw_base)`` / ``()``) and ``epi_vmem``
+    (``(hi_row, hi_lane)`` / ``(hi_row, hi_lane, tw_row, tw_lane,
+    w_planar)`` / ``()``), and the maps' torch functions in ``map_fns``.
+    A non-empty epilogue runs K4b (``tile_fused.cu``), an empty one K4a.
+    On a CUDA tensor a map runs as its lowered tape and one that is not
+    lowered raises ValueError; the plain version calls the function."""
     xc = _canonical(x, batched)
     if xc.shape[1] != 1 << geometry[0]:
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
-    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     if entries:
         _check_epi_input(xc, entries, geometry)
     if _route(x, "tiled_permute"):
@@ -725,6 +758,10 @@ def _transposed_epilogue(ct, u, o, e, hi_base_g, tw_base_g):
     if kind == 0:
         m1, m2 = tie_masks(u == o, partner(u) == o, ct.dtype)
         return ct * m1 + partner(ct * m2)
+    if kind == EP.KIND_MAP:   # the reference's jax.vjp of the function
+        with torch.enable_grad():
+            uu = u.detach().requires_grad_(True)
+            return torch.autograd.grad(w.fn(uu), uu, ct)[0]
     hi = (((hi_row[:, None] ^ hi_lane[None, :])[None]
            ^ hi_base_g[:, None, None]) == 1)[None]
     tw = (tw_row[:, None] ^ tw_lane[None, :])[None] ^ tw_base_g[:, None, None]
@@ -737,6 +774,9 @@ def _plain_entries(entries, dev) -> list:
     the twiddles as float32 (the plain versions' form)."""
     ents = []
     for e in entries:
+        if e[0] == EP.KIND_MAP:
+            ents.append(e)
+            continue
         tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
         w = None if e[9] is None else torch.as_tensor(
             e[9], device=dev).to(torch.float32)
@@ -770,8 +810,8 @@ def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
         shape = (batch, ng, rpt, row_len, d)
         us = [xc[:, x_glob].reshape(shape)]
         for e in ents:
-            us.append(_apply_epilogue(us[-1], e, e[5][gs],
-                                      None if e[8] is None else e[8][gs]))
+            us.append(_apply_epilogue(us[-1], e, _tiles_of(e[5], gs),
+                                      _tiles_of(e[8], gs)))
         flat = cc[:, y_glob].reshape(batch, ng, rpt * row_len, d)
         idx = inv[None, :] ^ xl[gs, None]                  # (G, rpt*len)
         # gathered as integers, as the forward gathers
@@ -779,8 +819,8 @@ def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
             batch, ng, rpt * row_len, d)).view(flat.dtype).reshape(shape)
         for k in range(len(ents) - 1, -1, -1):
             e = ents[k]
-            ct = _transposed_epilogue(ct, us[k], us[k + 1], e, e[5][gs],
-                                      None if e[8] is None else e[8][gs])
+            ct = _transposed_epilogue(ct, us[k], us[k + 1], e,
+                                      _tiles_of(e[5], gs), _tiles_of(e[8], gs))
         out[:, x_glob] = ct.reshape(batch, -1, d)
     return out
 
@@ -790,7 +830,8 @@ def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
             *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
             _ELEM_TYPE[xc.dtype], xc.shape[2], dv,
-            int(plan.info["groups"] > 0), EP.spill_sids(plan.info))
+            int(plan.info["groups"] > 0), EP.spill_sids(plan.info),
+            plan.info["maps"] << plan.info["outer_bits"])
     return out
 
 
@@ -805,14 +846,11 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
     inverse of the pass's ``src0`` table; the geometry and the epilogue
     signature and tables are the forward's own (see
     :func:`tiled_permute_tables`). Returns the input's cotangent, shaped
-    as ``x``. Compare epilogues take float32 and bfloat16 (int32 has no
-    gradient), butterflies planar float32; ``map`` epilogues raise
-    ``NotImplementedError``. A CUDA tensor launches the kernel, a CPU
-    tensor runs its plain version."""
-    if map_fns or any(e[0] == "map" for e in epilogue):
-        raise NotImplementedError(
-            "map epilogues (a Python callable) have no CUDA kernel; the "
-            "executor differentiates Map-bearing clusters stage by stage")
+    as ``x``. Compare and map epilogues take float32 and bfloat16 (int32
+    has no gradient), butterflies planar float32; a map's gradient is
+    reverse mode over its lowered tape in the kernel, autograd through
+    its function in the plain version. A CUDA tensor launches the kernel,
+    a CPU tensor runs its plain version."""
     check_no_grad(ct, "tiled_permute_bwd_tables")
     xc, cc = _canonical(x, batched), _canonical(ct, batched)
     if xc.shape != cc.shape or x.dtype != ct.dtype or x.device != ct.device:
@@ -821,7 +859,7 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
     if xc.shape[1] != 1 << geometry[0]:
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
-    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     if not entries:
         raise ValueError("the gradient kernel transposes a fused pass; a "
                          "pass without epilogues inverts as a plain pass")
@@ -847,12 +885,12 @@ def tiled_permute_bwd_tables_plain(x: torch.Tensor, ct: torch.Tensor, in_rows,
                                    out_rows, xor_low, inv_src0, *,
                                    geometry: tuple, epilogue: tuple = (),
                                    epi_scalar: tuple = (),
-                                   epi_vmem: tuple = (),
+                                   epi_vmem: tuple = (), map_fns: tuple = (),
                                    batched: bool = False) -> torch.Tensor:
     """The plain version of :func:`tiled_permute_bwd_tables` (K5) on any
     device."""
     xc, cc = _canonical(x, batched), _canonical(ct, batched)
-    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     _check_epi_input(xc, entries, geometry)
     return _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0,
                            geometry, entries).reshape(x.shape)
@@ -1064,11 +1102,12 @@ def tiled_permute_plain(x: torch.Tensor, plan: TilePlan, *,
 def tiled_permute_tables_plain(x: torch.Tensor, in_rows, out_rows, xor_low,
                                src0, *, geometry: tuple, epilogue: tuple = (),
                                epi_scalar: tuple = (), epi_vmem: tuple = (),
+                               map_fns: tuple = (),
                                batched: bool = False) -> torch.Tensor:
     """The plain version of :func:`tiled_permute_tables` (K4a or K4b) on
     any device."""
     xc = _canonical(x, batched)
-    entries = _epi_entries(epilogue, epi_scalar, epi_vmem)
+    entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     if entries:
         _check_epi_input(xc, entries, geometry)
         out = _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0,

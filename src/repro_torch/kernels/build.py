@@ -38,9 +38,9 @@ KERNELS = {
     "tile": ("tile_permute.cu", "repro_tile_permute",
              [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P]),
     "tile_fused": ("tile_fused.cu", "repro_tile_fused",
-                   [_P] * 5 + [_I] * 10 + [_L] + [_I] * 5 + [_P]),
+                   [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6 + [_P]),
     "tile_bwd": ("tile_bwd.cu", "repro_tile_bwd",
-                 [_P] * 6 + [_I] * 10 + [_L] + [_I] * 6 + [_P]),
+                 [_P] * 6 + [_I] * 10 + [_L] + [_I] * 7 + [_P]),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

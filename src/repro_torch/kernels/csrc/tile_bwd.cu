@@ -20,6 +20,8 @@
 //              products so 0 * inf stays NaN), P the partner flip;
 //        bfly: with q = P(ct), s = q - ct and the position's twiddle w:
 //              hi ? (wr*s_re + wi*s_im, wr*s_im - wi*s_re) : ct + q;
+//        map:  ct <- ct * f'(u), by reverse mode over the map's tape with
+//              autograd's derivative formulas (the reference's jax.vjp);
 //   5. writes the result where the forward read: rows in_rows[g].
 // float32 and bfloat16 (cmp) and planar float32 (bfly); bfloat16 computes
 // each product and sum in float and rounds it to nearest even once, as
@@ -49,17 +51,15 @@
 // through the un-gather, so the replay's last store, the un-gather pass
 // and a barrier go away. Shared memory per block: the row tables, the
 // staged plan, the two tiles and, with chunks or more than 16 compares,
-// the waiting compare bits. What still bounds it: instruction issue (the
-// replay, the transposed compares' masks and products) and the latency of
-// four phase passes per block (PERF.md).
+// the waiting compare bits, and each map's input values: the replay keeps
+// the values a map met (one per register and thread, by the map's slot
+// and chunk) for the transposed sweep, which recomputes the tape's
+// intermediates from them op by op (a tape of n ops costs n(n+1)/2 op
+// evaluations, no array indexed at run time). What still bounds it:
+// instruction issue (the replay, the transposed compares' masks and
+// products) and the latency of four phase passes per block (PERF.md).
 #include "tile_common.cuh"
 #include "tile_epilogue.cuh"
-
-__device__ __forceinline__ Bf16 round_bf16(float f) {
-  // round to nearest even, as PyTorch rounds float to bfloat16 on the
-  // card (__float2bfloat16: a NaN becomes 0x7FFF)
-  return Bf16{__bfloat16_as_ushort(__float2bfloat16(f))};
-}
 
 // a * m and a + b, each rounded to T on its own
 __device__ __forceinline__ float prod(float a, float m) {
@@ -133,13 +133,110 @@ __device__ __forceinline__ void tr_bfly_regs(float (&v)[2][KR],
   }
 }
 
+// The cotangents (ga, gb) of the first and second operand (a, b) of one
+// tape op from g, that of its result y: autograd's formulas, each rounded
+// to T once (a formula of several aten ops after each), as
+// map_lower.tape_vjp computes them. Out of line, as map_elem_op.
+template <typename T>
+__device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
+                                           float b, float y, float g) {
+  float ga, gb = 0.0f;
+  switch (op) {
+    case OP_ADD: ga = g; gb = g; break;
+    case OP_SUB: ga = g; gb = -g; break;
+    case OP_MUL:
+      ga = rnd<T>(__fmul_rn(g, b));
+      gb = rnd<T>(__fmul_rn(g, a));
+      break;
+    case OP_DIV:
+      if (kb == OPND_C) {   // g / c, as PyTorch divides by a number
+        ga = rnd<T>(__fmul_rn(g, __fdiv_rn(1.0f, c)));
+      } else {
+        const float q = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(a, b)), b));
+        ga = rnd<T>(__fdiv_rn(g, b));
+        gb = rnd<T>(__fmul_rn(-g, q));
+      }
+      break;
+    case OP_NEG: ga = -g; break;
+    case OP_ABS:
+      ga = rnd<T>(__fmul_rn(g, (float)((a > 0.0f) - (a < 0.0f))));
+      break;
+    case OP_MAXC: ga = a >= b ? g : 0.0f; break;
+    case OP_MINC: ga = a <= b ? g : 0.0f; break;
+    case OP_RELU: ga = y <= 0.0f ? 0.0f : g; break;
+    case OP_EXP: ga = rnd<T>(__fmul_rn(g, y)); break;
+    case OP_EXPM1:
+      ga = rnd<T>(__fmul_rn(g, rnd<T>(__fadd_rn(y, 1.0f))));
+      break;
+    case OP_LOG: ga = rnd<T>(__fdiv_rn(g, a)); break;
+    case OP_LOG1P:
+      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fadd_rn(a, 1.0f))));
+      break;
+    case OP_SQRT:
+      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fmul_rn(2.0f, y))));
+      break;
+    case OP_RSQRT:   // y.pow(3) as PyTorch's pow takes a cube, in T
+      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(-0.5f, g)),
+                            rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(y, y)), y))));
+      break;
+    case OP_TANH:
+      ga = rnd<T>(__fmul_rn(g, __fsub_rn(1.0f, __fmul_rn(y, y))));
+      break;
+    case OP_SIGMOID:
+      ga = rnd<T>(__fmul_rn(__fmul_rn(g, __fsub_rn(1.0f, y)), y));
+      break;
+    default: ga = g; break;
+  }
+  return make_float2(ga, gb);
+}
+
+// The transposed map (staged record ep) on the cotangent registers ct,
+// `at` the map's input values the replay kept (map_save_at): reverse mode
+// over the tape, one register at a time, the input of op s recomputed
+// from u by ops 0 .. s - 1; the cotangents of u summed in the order
+// autograd receives them (last op first).
+template <int KR, typename T>
+__device__ __forceinline__ void map_vjp_regs(const int* ep, T (&ct)[KR],
+                                             const T* at) {
+  const int n = ep[EP_MAP_LEN];
+  if (n == 0) return;
+  const int* tape = ep + EP_MAP_OPS;
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const float u = widen(at[i * REPRO_THREADS]);
+    float g = widen(ct[i]), cu = -0.0f;   // -0 + x == x for every x
+    for (int s = n - 1; s >= 0; --s) {
+      const int* w = tape + 2 * s;
+      const float x = map_eval<T>(tape, s, u);   // the op's R operand
+      const float y = map_elem_op<T>(w, x, u);
+      const int op = w[0] & 0xff, ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
+      const float c = __int_as_float(w[1]);
+      const float2 gg = map_op_back<T>(op, kb, c, operand(ka, x, u, c),
+                                        operand(kb, x, u, c), y, g);
+      const float ga = gg.x, gb = gg.y;
+      if (ka == OPND_U) cu = rnd<T>(__fadd_rn(cu, ga));
+      if (kb == OPND_U) cu = rnd<T>(__fadd_rn(cu, gb));
+      if (kb == OPND_R) g = ka == OPND_R ? rnd<T>(__fadd_rn(ga, gb)) : gb;
+      else if (ka == OPND_R) g = ga;
+    }
+    narrow_to(cu, ct[i]);
+  }
+}
+
 // The transpose of epilogue e (staged record ep, device record gep) on the
-// cotangent registers (see step 4).
-template <bool kCmp, int DV, int KR, typename T>
+// cotangent registers (see step 4); `save` holds the maps' inputs.
+template <bool kCmp, bool kMaps, int DV, int KR, typename T>
 __device__ __forceinline__ void transposed_epilogue(
     const int* ep, const long long* gep, T (&v)[DV][KR],
     const unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
-    int outer_bits) {
+    int outer_bits, const T* save) {
+  if constexpr (kMaps && DV == 1) {
+    if (ep[EP_KIND] == kKindMap) {
+      map_vjp_regs(ep, v[0], map_save_at<KR>(save, ep[EP_MAP_SLOT], chunk,
+                                             outer_bits));
+      return;
+    }
+  }
   const int vreg = ep[EP_VREG], vlane = ep[EP_VLANE];
   if (ep[EP_KIND] == 0) {
     if constexpr (kCmp) {
@@ -225,14 +322,14 @@ __host__ __device__ __forceinline__ size_t tile_buf_bytes(int rows, int t,
 // The replay and the transposed sweep of one batch row on the block's
 // tiles (x in tv, ct as loaded in cv; the result left in tv), from the
 // staged plan sp (device plan gp). kCmp: the cluster has compares (their
-// bits in m).
-template <typename T, int DV, int KR, bool kCmp>
+// bits in m); kMaps: it has maps, `save` the room for their inputs.
+template <typename T, int DV, int KR, bool kCmp, bool kMaps>
 __device__ __forceinline__ void bwd_phases(const TileView& tv,
                                            const TileView& cv, const int* sp,
                                            const long long* gp, int d,
                                            const int* __restrict__ inv_src0,
                                            const int* s_xl, int rpt_shift,
-                                           unsigned* spill) {
+                                           unsigned* spill, T* save) {
   const int n_phases = sp[0], outer_bits = sp[2];
   const unsigned chunks = 1u << outer_bits;
   const int* phases = sp + kHdrWords;
@@ -246,15 +343,15 @@ __device__ __forceinline__ void bwd_phases(const TileView& tv,
       __syncthreads();  // the tiles (or the previous phase) complete
       const int* ph = phases + p * kPhaseWords;
       const PhaseRegs pr(ph);
-      const int e0 = ph[PH_E0], e1 = ph[PH_E1], group = ph[PH_GROUP];
+      const int group = ph[PH_GROUP];
       const bool first = ph[PH_FIRST] != 0;
       for (unsigned c = 0; c < chunks; ++c) {
         const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
         if (kCmp && group >= 0)
           use_masks<DV>(m, cur, group * (int)chunks + (int)c, first, spill);
         load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
-        forward_epilogues<kCmp>(sp, gp, ebase, e0, e1, v, m, qb, c,
-                                outer_bits);
+        phase_epilogues<kCmp, kMaps>(ph, sp, gp, ebase, v, m, qb, c,
+                                     outer_bits, save);
         if (p + 1 < n_phases) store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }
@@ -277,8 +374,8 @@ __device__ __forceinline__ void bwd_phases(const TileView& tv,
           load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
         for (int e = e1 - 1; e >= e0; --e) {
           const int off = ebase + e * kEpiWords;
-          transposed_epilogue<kCmp>(sp + off, gp + off, v, m, qb, c,
-                                    outer_bits);
+          transposed_epilogue<kCmp, kMaps>(sp + off, gp + off, v, m, qb, c,
+                                           outer_bits, save);
         }
         store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
       }
@@ -286,7 +383,7 @@ __device__ __forceinline__ void bwd_phases(const TileView& tv,
   }
 }
 
-template <typename T, int DV, int KR, bool kCmp, int MB>
+template <typename T, int DV, int KR, bool kCmp, bool kMaps, int MB>
 __global__ void __launch_bounds__(REPRO_THREADS, MB)
 tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
                 const typename ElemWord<T>::type* __restrict__ ct,
@@ -313,6 +410,10 @@ tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
   W* ctile = reinterpret_cast<W*>(a_bytes + buf);      // ct as loaded
   unsigned* spill =
       n_spill ? reinterpret_cast<unsigned*>(a_bytes + 2 * buf) : nullptr;
+  T* save = nullptr;
+  if constexpr (kMaps)
+    save = reinterpret_cast<T*>(a_bytes + 2 * buf +
+                                (size_t)n_spill * DV * KR * REPRO_THREADS * 4);
 
   const long long g0 = (long long)blockIdx.x * tiles_per_cta;
   const int row_len = 1 << t;
@@ -340,8 +441,8 @@ tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
       REPRO_TILE_LOAD_ROWS(W, ctile, cb, s_out, span, row_words, row_shift,
                            stride)
     }
-    bwd_phases<T, DV, KR, kCmp>(tv, cv, s_plan, plan, d, inv_src0, s_xl,
-                            rpt_shift, spill);
+    bwd_phases<T, DV, KR, kCmp, kMaps>(tv, cv, s_plan, plan, d, inv_src0,
+                                       s_xl, rpt_shift, spill, save);
     __syncthreads();
     // whole rows back where the forward read them
 #pragma unroll 4
@@ -353,7 +454,7 @@ tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
   }
 }
 
-template <typename T, int DV, int KR, bool kCmp, int MB>
+template <typename T, int DV, int KR, bool kCmp, bool kMaps, int MB>
 static int launch_bwd(const void* x, const void* ct, void* out,
                       const int* in_rows, const int* out_rows,
                       const int* xor_low, const int* inv_src0,
@@ -361,7 +462,7 @@ static int launch_bwd(const void* x, const void* ct, void* out,
                       int n_rows, int rpt_shift, int tiles_per_cta, int t,
                       int wpe, int wpe_shift, int row_shift, int pad_words,
                       long long batch, int word_bytes, int d, int n_spill,
-                      cudaStream_t s) {
+                      int n_map_sets, cudaStream_t s) {
   using W = typename ElemWord<T>::type;
   if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
@@ -370,10 +471,13 @@ static int launch_bwd(const void* x, const void* ct, void* out,
       (size_t)REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta) +
       plan_bytes(n_words) +
       2 * tile_buf_bytes(rows, t, wpe, pad_words, (int)sizeof(W)) +
-      (size_t)n_spill * DV * KR * REPRO_THREADS * 4;
-  cudaError_t e = allow_smem(tile_bwd_kernel<T, DV, KR, kCmp, MB>, smem);
+      (size_t)n_spill * DV * KR * REPRO_THREADS * 4 +
+      (size_t)n_map_sets * KR * REPRO_THREADS * sizeof(T);
+  cudaError_t e =
+      allow_smem(tile_bwd_kernel<T, DV, KR, kCmp, kMaps, MB>, smem);
   if (e != cudaSuccess) return (int)e;
-  tile_bwd_kernel<T, DV, KR, kCmp, MB><<<grid, REPRO_THREADS, smem, s>>>(
+  tile_bwd_kernel<T, DV, KR, kCmp, kMaps, MB>
+      <<<grid, REPRO_THREADS, smem, s>>>(
       (const W*)x, (const W*)ct, (W*)out, in_rows, out_rows, xor_low,
       inv_src0, plan, n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe,
       wpe_shift, row_shift, pad_words, batch, d, n_spill);
@@ -383,8 +487,10 @@ static int launch_bwd(const void* x, const void* ct, void* out,
 // elem_type: 1 = float32, 2 = bfloat16 (int32 has no gradient); dv as in
 // repro_tile_fused; n_words: int64 words of plan (8 registers a thread:
 // its compare bits sit beside its values); has_cmp: the cluster has
-// compares (always, for dv 1); n_spill: compare-bit sets kept in shared
-// memory (0: all in registers).
+// compares (dv 1 takes the compare variant either way: a cluster of maps
+// alone has no compare bits to keep); n_spill: compare-bit sets kept in
+// shared memory (0: all in registers); n_map_sets: maps times chunks,
+// the sets of map inputs kept in shared memory.
 extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
                               const int* in_rows, const int* out_rows,
                               const int* xor_low, const int* inv_src0,
@@ -394,25 +500,31 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
                               int wpe, int wpe_shift, int row_shift,
                               int pad_words, long long batch, int word_bytes,
                               int elem_type, int d, int dv, int has_cmp,
-                              int n_spill, void* stream) {
+                              int n_spill, int n_map_sets, void* stream) {
   if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
       n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
-      n_spill < 0 || plan == nullptr || n_words < kHdrWords ||
-      (dv == 2 && (elem_type != 1 || d != 2)) || (dv == 1 && !has_cmp))
+      n_spill < 0 || n_map_sets < 0 || plan == nullptr ||
+      n_words < kHdrWords || (dv == 2 && (elem_type != 1 || d != 2)) ||
+      (dv == 2 && n_map_sets))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_BWD(T, DV, CMP, MB)                                            \
-  return launch_bwd<T, DV, 8, CMP, MB>(                                      \
+#define REPRO_BWD(T, DV, CMP, MAPS, MB)                                      \
+  return launch_bwd<T, DV, 8, CMP, MAPS, MB>(                                \
       x, ct, out, in_rows, out_rows, xor_low, inv_src0, plan, n_words,       \
       n_tiles, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,          \
-      row_shift, pad_words, batch, word_bytes, d, n_spill, s)
+      row_shift, pad_words, batch, word_bytes, d, n_spill, n_map_sets, s)
   // the last argument: blocks per SM the variant's registers allow (the
   // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
-  if (dv == 2 && has_cmp) REPRO_BWD(float, 2, true, 2);
-  if (dv == 2) REPRO_BWD(float, 2, false, 3);
+  if (dv == 2 && has_cmp) REPRO_BWD(float, 2, true, false, 2);
+  if (dv == 2) REPRO_BWD(float, 2, false, false, 3);
   if (dv != 1) return (int)cudaErrorInvalidValue;
-  if (elem_type == 1) REPRO_BWD(float, 1, true, 3);
-  if (elem_type == 2) REPRO_BWD(Bf16, 1, true, 2);
+  if (n_map_sets) {   // 2 blocks an SM: the map code spills at 3 (80 regs)
+    if (elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
+    if (elem_type == 2) REPRO_BWD(Bf16, 1, true, true, 2);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (elem_type == 1) REPRO_BWD(float, 1, true, false, 3);
+  if (elem_type == 2) REPRO_BWD(Bf16, 1, true, false, 2);
   return (int)cudaErrorInvalidValue;
 #undef REPRO_BWD
 }

@@ -30,7 +30,12 @@
 //     warp whose values hold no NaN, so a float32 or bfloat16 compare
 //     costs what an int32 one does; a warp with a NaN takes the float
 //     selects. NaN, -0 and the no-FMA rounding are exactly those of
-//     cmp_max, cmp_min and the butterfly in bmmc_permute.py.
+//     cmp_max, cmp_min and the butterfly in bmmc_permute.py;
+//   * a map (an element-wise torch function, map_lower.py) runs in the
+//     thread on each register as a tape of ops, uniform over the block.
+//     A map can make NaNs or move keys, so a phase that holds maps runs
+//     its compares in runs between them, each with its own NaN vote and
+//     keys, and each map on the values themselves.
 //
 // The plan is int64 words in device memory: a header (phases, epilogues,
 // outer bits, register bits), then one record per phase and one per
@@ -51,6 +56,12 @@ __device__ __forceinline__ float as_float(Bf16 v) {
   return __uint_as_float((unsigned)v.bits << 16);
 }
 __device__ __forceinline__ float as_float(float v) { return v; }
+
+__device__ __forceinline__ Bf16 round_bf16(float f) {
+  // round to nearest even, as PyTorch rounds float to bfloat16 on the
+  // card (__float2bfloat16: a NaN becomes 0x7FFF)
+  return Bf16{__bfloat16_as_ushort(__float2bfloat16(f))};
+}
 
 // The compare-exchange output of a position: hi ? max(a, b) : min(a, b)
 // with a the position's value and b its partner's. Floats, as selects:
@@ -145,7 +156,7 @@ __device__ __forceinline__ Bf16 shfl_x(Bf16 v, int m) {
 constexpr int kHdrWords = 4, kPhaseWords = 32, kEpiWords = 32;
 enum {   // phase record
   PH_E0 = 0, PH_E1, PH_REG_VALID, PH_TID_INVALID, PH_GROUP, PH_FIRST,
-  PH_IMG_REG = 8, PH_IMG_THR = 12, PH_IMG_OUT = 20
+  PH_MAPS, PH_IMG_REG = 8, PH_IMG_THR = 12, PH_IMG_OUT = 20
 };
 enum {   // epilogue record
   EP_KIND = 0, EP_VREG, EP_VLANE, EP_HREG, EP_HMASK, EP_HI_BASE, EP_TW_BASE,
@@ -350,6 +361,146 @@ __device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
   return (unsigned)ep[EP_HREG] ^ (0u - h);
 }
 
+// ---------------------------------------------------------------------
+// Map epilogues: the tape of map_lower.py. Its ops take the running value
+// (R; the map's input before the first op), the map's input (U) or a
+// constant (C). A float32 op rounds as eager PyTorch does on the card (no
+// contraction into FMAs; a / c as a * (1 / c), PyTorch's CUDA division by
+// a number); a bfloat16 op computes in float and rounds to bfloat16; an
+// int32 op wraps. The record: kind 2, the tape's length, the map's slot,
+// two words an op from EP_MAP_OPS (opcode | a << 8 | b << 10, constant),
+// past EP_HI_BASE and EP_TW_BASE, which stage_plan reads as pointers.
+// The tape runs one register at a time (a value and its input live), so
+// a map adds few registers to the phase around it.
+// ---------------------------------------------------------------------
+constexpr int kKindMap = 2;
+enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_OPS = 8 };
+enum {   // opcodes (map_lower.py)
+  OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
+  OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
+  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR
+};
+enum { OPND_R, OPND_U, OPND_C, OPND_NONE };
+
+// The value type a tape computes in: float for float32 and bfloat16.
+template <typename T>
+struct MapOf {
+  using type = float;
+};
+template <>
+struct MapOf<int> {
+  using type = int;
+};
+__device__ __forceinline__ int widen(int v) { return v; }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(Bf16 v) { return as_float(v); }
+__device__ __forceinline__ void narrow_to(int f, int& v) { v = f; }
+__device__ __forceinline__ void narrow_to(float f, float& v) { v = f; }
+__device__ __forceinline__ void narrow_to(float f, Bf16& v) {
+  v = round_bf16(f);
+}
+// One result rounded to T, kept in float.
+template <typename T>
+__device__ __forceinline__ float rnd(float f) {
+  if constexpr (std::is_same_v<T, Bf16>) return as_float(round_bf16(f));
+  return f;
+}
+
+template <typename F>
+__device__ __forceinline__ F operand(int kind, F r, F u, F c) {
+  return kind == OPND_R ? r : (kind == OPND_U ? u : c);
+}
+
+// One float op (float32 or bfloat16 T) on resolved operands.
+template <typename T>
+__device__ __forceinline__ float map_op(int op, float a, float b) {
+  float y;
+  switch (op) {
+    case OP_ADD: y = __fadd_rn(a, b); break;
+    case OP_SUB: y = __fsub_rn(a, b); break;
+    case OP_MUL: y = __fmul_rn(a, b); break;
+    case OP_DIV: y = __fdiv_rn(a, b); break;
+    case OP_NEG: y = -a; break;
+    case OP_ABS: y = fabsf(a); break;
+    case OP_MAXC: y = (a != a) ? a : fmaxf(a, b); break;
+    case OP_MINC: y = (a != a) ? a : fminf(a, b); break;
+    case OP_RELU: y = (a != a) ? a : fmaxf(a, 0.0f); break;
+    case OP_EXP: y = expf(a); break;
+    case OP_EXPM1: y = expm1f(a); break;
+    case OP_LOG: y = logf(a); break;
+    case OP_LOG1P: y = log1pf(a); break;
+    case OP_SQRT: y = sqrtf(a); break;
+    case OP_RSQRT: y = rsqrtf(a); break;
+    case OP_TANH: y = tanhf(a); break;
+    case OP_SIGMOID: y = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))); break;
+    default: y = a; break;
+  }
+  return rnd<T>(y);
+}
+
+// One int32 op, wrapping.
+__device__ __forceinline__ int map_op_int(int op, int a, int b) {
+  const unsigned ua = (unsigned)a, ub = (unsigned)b;
+  switch (op) {
+    case OP_ADD: return (int)(ua + ub);
+    case OP_SUB: return (int)(ua - ub);
+    case OP_MUL: return (int)(ua * ub);
+    case OP_NEG: return (int)(0u - ua);
+    case OP_ABS: return a < 0 ? (int)(0u - ua) : a;
+    case OP_MAXC: return a > b ? a : b;
+    case OP_MINC: return a < b ? a : b;
+    case OP_RELU: return a > 0 ? a : 0;
+    case OP_NOT: return ~a;
+    case OP_AND: return a & b;
+    case OP_OR: return a | b;
+    case OP_XOR: return a ^ b;
+    case OP_SHL: return (int)(ua << (b & 31));
+    case OP_SHR: return a >> (b & 31);
+    default: return a;
+  }
+}
+
+// Tape op w (its two staged words) on one value: r the running value, u
+// the map's input. Out of line, so the switch and its math functions are
+// one copy for all of a thread's registers: inlined into each unrolled
+// register they made the map kernels' code 1.3-1.7x larger and K5 on a
+// tanh cluster 0.61 ms instead of 0.36 on the H100 (PERF.md, PR 15).
+template <typename T>
+__device__ __noinline__ typename MapOf<T>::type map_elem_op(
+    const int* w, typename MapOf<T>::type r, typename MapOf<T>::type u) {
+  int op = w[0] & 0xff;
+  const int ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
+  if constexpr (std::is_same_v<T, int>) {
+    const int c = w[1];
+    return map_op_int(op, operand(ka, r, u, c), operand(kb, r, u, c));
+  } else {
+    float c = __int_as_float(w[1]);
+    if (op == OP_DIV && kb == OPND_C) {   // PyTorch: a * (1 / c)
+      op = OP_MUL;
+      c = __fdiv_rn(1.0f, c);
+    }
+    return map_op<T>(op, operand(ka, r, u, c), operand(kb, r, u, c));
+  }
+}
+
+// The first n ops of the tape at w on one input u.
+template <typename T>
+__device__ __forceinline__ typename MapOf<T>::type map_eval(
+    const int* w, int n, typename MapOf<T>::type u) {
+  typename MapOf<T>::type r = u;
+  for (int s = 0; s < n; ++s) r = map_elem_op<T>(w + 2 * s, r, u);
+  return r;
+}
+
+// A map epilogue (staged record ep) on a thread's registers.
+template <int KR, typename T>
+__device__ __forceinline__ void map_regs(const int* ep, T (&v)[KR]) {
+  const int n = ep[EP_MAP_LEN];
+#pragma unroll
+  for (int i = 0; i < KR; ++i)
+    narrow_to(map_eval<T>(ep + EP_MAP_OPS, n, widen(v[i])), v[i]);
+}
+
 // Epilogue e of the plan (staged record ep, device record gep) on the
 // registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
 template <bool kMask, int DV, int KR, typename T>
@@ -405,6 +556,58 @@ __device__ __forceinline__ void forward_epilogues(
   for (int e = e0; e < e1; ++e) {
     const int off = ebase + e * kEpiWords;
     forward_epilogue<kMask>(sp + off, gp + off, v, m, qb, chunk, outer_bits);
+  }
+}
+
+// Where K5 keeps map slot `slot`'s input values of chunk `chunk`: one
+// value per register and thread.
+template <int KR, typename T>
+__device__ __forceinline__ T* map_save_at(T* save, int slot, unsigned chunk,
+                                          int outer_bits) {
+  return save + ((((size_t)slot << outer_bits) + chunk) * KR) *
+                    REPRO_THREADS + threadIdx.x;
+}
+
+// A phase's epilogues (staged record ph). The kernels are compiled
+// without maps (kMaps false: exactly the compare and butterfly code) and,
+// for clusters that hold maps, with them: the map code's registers would
+// otherwise cost the map-free clusters 3-8 % of their time on the H100
+// (PERF.md, PR 15). With kMaps, a phase runs the compares between two
+// maps as forward_epilogues runs them, with their own NaN vote and keys,
+// and each map on the values (maps never share a cluster with
+// butterflies). K5 passes `save`: each map's input values (map_save_at),
+// for its transposed sweep.
+template <bool kMask, bool kMaps, int DV, int KR, typename T>
+__device__ __forceinline__ void phase_epilogues(
+    const int* ph, const int* sp, const long long* gp, int ebase,
+    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits, T* save) {
+  const int e1 = ph[PH_E1];
+  if constexpr (!kMaps || DV == 2) {
+    forward_epilogues<kMask>(sp, gp, ebase, ph[PH_E0], e1, v, m, qb, chunk,
+                             outer_bits);
+  } else {
+    const bool maps = ph[PH_MAPS] != 0;
+    int e = ph[PH_E0];
+    for (;;) {
+      int s = e1;   // the run e .. s - 1 ends at the next map
+      if (maps) {
+        s = e;
+        while (s < e1 && sp[ebase + s * kEpiWords + EP_KIND] != kKindMap) ++s;
+      }
+      if (s > e)
+        forward_epilogues<kMask>(sp, gp, ebase, e, s, v, m, qb, chunk,
+                                 outer_bits);
+      if (s == e1) return;
+      const int* ep = sp + ebase + s * kEpiWords;
+      if (save != nullptr) {
+        T* at = map_save_at<KR>(save, ep[EP_MAP_SLOT], chunk, outer_bits);
+#pragma unroll
+        for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = v[0][i];
+      }
+      map_regs(ep, v[0]);
+      e = s + 1;
+    }
   }
 }
 

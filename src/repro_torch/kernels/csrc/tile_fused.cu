@@ -1,6 +1,6 @@
 // K4b: the one-pass tiled BMMC with fused compute epilogues (DESIGN.md
-// §10): compare-exchange (cmp) and radix-2 butterfly (bfly) stages run on
-// the tile, in order, before the intra-tile gather.
+// §10): compare-exchange (cmp), radix-2 butterfly (bfly) and element-wise
+// map stages run on the tile, in order, before the intra-tile gather.
 //
 // Replaces: src/repro/kernels/bmmc_permute.py, _tile_kernel with a
 // non-empty `epis` (apply_computes, partner_vals; launched by
@@ -12,6 +12,8 @@
 //   bfly: (lo, hi) pair values of the planar (re, im) tail, twiddle
 //         w = w_planar[tw_row[r] ^ tw_lane[c] ^ tw_base[g]],
 //         v = hi ? lo - w * hi_val : lo + w * hi_val;
+//   map:  v = f(v), f the Map's torch function as the tape map_lower.py
+//         lowers it to (the reference calls the function on the tile);
 // then gathers out.flat[r * 2^t + l] = tile.flat[src0.flat[r * 2^t +
 // (l ^ xor_low[g])]] into whole rows at out_rows[g].
 //
@@ -34,17 +36,20 @@
 // barrier per phase. The 12-compare clusters of a 2^24 sort run in two
 // phases. Tails are taken one value at a time (cmp acts on each value of
 // the tail alone); a cluster with butterflies holds the planar (re, im)
-// pair of each position. The kernel is compiled once per element type,
-// register count and planar-or-not, its tile moved in words of the
-// element's own width, with the blocks per SM its registers allow chosen
-// by measurement. What still bounds it: instruction issue and the
+// pair of each position. A map runs its tape on each register in the
+// thread (tile_epilogue.cuh). The kernel is compiled once per element
+// type, register count, planar-or-not and with-or-without maps (a
+// cluster with maps takes the 8-register variant with the map code; the
+// others keep the code they had without it), its tile moved in words of
+// the element's own width, with the blocks per SM its registers allow
+// chosen by measurement. What still bounds it: instruction issue and the
 // latency of each block's load -> phases -> gather sequence (PERF.md).
 #include "tile_common.cuh"
 #include "tile_epilogue.cuh"
 
 // The epilogue phases of one batch row on the block's tile, from the
 // staged plan sp (device plan gp).
-template <typename T, int DV, int KR>
+template <typename T, int DV, int KR, bool kMaps>
 __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
                                              const long long* gp, int d) {
   const int n_phases = sp[0], outer_bits = sp[2];
@@ -57,19 +62,18 @@ __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
       __syncthreads();  // the tile (or the previous phase) complete
       const int* ph = phases + p * kPhaseWords;
       const PhaseRegs pr(ph);
-      const int e0 = ph[PH_E0], e1 = ph[PH_E1];
       for (unsigned c = 0; c < (1u << outer_bits); ++c) {
         const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
         load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
-        forward_epilogues<false>(sp, gp, ebase, e0, e1, v, m, qb, c,
-                                 outer_bits);
+        phase_epilogues<false, kMaps>(ph, sp, gp, ebase, v, m, qb, c,
+                                      outer_bits, (T*)nullptr);
         store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }
   }
 }
 
-template <typename T, int DV, int KR, int MB>
+template <typename T, int DV, int KR, bool kMaps, int MB>
 __global__ void __launch_bounds__(REPRO_THREADS, MB)
 tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
                   typename ElemWord<T>::type* __restrict__ out,
@@ -110,7 +114,7 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
     __syncthreads();  // tables ready; the previous batch row's reads done
     REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
                          stride)
-    fused_phases<T, DV, KR>(tv, s_plan, plan, d);
+    fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
     __syncthreads();
     REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
                             row_shift, wpe, wpe_shift, t, rpt_shift,
@@ -118,7 +122,7 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
   }
 }
 
-template <typename T, int DV, int KR, int MB>
+template <typename T, int DV, int KR, bool kMaps, int MB>
 static int launch_fused(const void* x, void* out, const int* in_rows,
                         const int* out_rows, const int* xor_low,
                         const int* src0, const long long* plan, int n_words,
@@ -133,9 +137,9 @@ static int launch_fused(const void* x, void* out, const int* in_rows,
   const size_t smem =
       REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
       plan_bytes(n_words);
-  cudaError_t e = allow_smem(tile_fused_kernel<T, DV, KR, MB>, smem);
+  cudaError_t e = allow_smem(tile_fused_kernel<T, DV, KR, kMaps, MB>, smem);
   if (e != cudaSuccess) return (int)e;
-  tile_fused_kernel<T, DV, KR, MB><<<grid, REPRO_THREADS, smem, s>>>(
+  tile_fused_kernel<T, DV, KR, kMaps, MB><<<grid, REPRO_THREADS, smem, s>>>(
       (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan, n_words,
       n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,
       pad_words, batch, d);
@@ -145,7 +149,8 @@ static int launch_fused(const void* x, void* out, const int* in_rows,
 // elem_type: 0 = int32, 1 = float32, 2 = bfloat16; dv: tail values a
 // register slot holds (2: a planar (re, im) cluster with butterflies);
 // regs: positions a thread holds (16, or 8: see tile_epilogue.cuh);
-// word_bytes: the element type's own width; n_words: int64 words of plan.
+// word_bytes: the element type's own width; n_words: int64 words of plan;
+// maps: the cluster holds map epilogues (single values, 8 registers).
 extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
                                 const int* out_rows, const int* xor_low,
                                 const int* src0, const long long* plan,
@@ -154,27 +159,39 @@ extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
                                 int wpe, int wpe_shift, int row_shift,
                                 int pad_words, long long batch,
                                 int word_bytes, int elem_type, int d, int dv,
-                                int regs, void* stream) {
+                                int regs, int maps, void* stream) {
   if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
       n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
       plan == nullptr || n_words < kHdrWords || (regs != 8 && regs != 16) ||
-      (dv == 2 && (elem_type != 1 || d != 2)))
+      (dv == 2 && (elem_type != 1 || d != 2)) ||
+      (maps && (dv != 1 || regs != 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_FUSED(T, DV, KR, MB)                                          \
-  return launch_fused<T, DV, KR, MB>(                                       \
+#define REPRO_FUSED(T, DV, KR, MAPS, MB)                                    \
+  return launch_fused<T, DV, KR, MAPS, MB>(                                 \
       x, out, in_rows, out_rows, xor_low, src0, plan, n_words, n_tiles,     \
       n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,       \
       pad_words, batch, word_bytes, d, s)
   // the last argument: blocks per SM the variant's registers allow (the
   // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
-  if (dv == 2) REPRO_FUSED(float, 2, 8, 3);
+  if (dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
   if (dv != 1) return (int)cudaErrorInvalidValue;
+  if (maps) {
+    switch (elem_type) {
+      case 0: REPRO_FUSED(int, 1, 8, true, 4);
+      case 1: REPRO_FUSED(float, 1, 8, true, 4);
+      case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const bool r16 = regs == 16;
   switch (elem_type) {
-    case 0: if (r16) REPRO_FUSED(int, 1, 16, 4); REPRO_FUSED(int, 1, 8, 4);
-    case 1: if (r16) REPRO_FUSED(float, 1, 16, 4); REPRO_FUSED(float, 1, 8, 4);
-    case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, 2); REPRO_FUSED(Bf16, 1, 8, 4);
+    case 0: if (r16) REPRO_FUSED(int, 1, 16, false, 4);
+            REPRO_FUSED(int, 1, 8, false, 4);
+    case 1: if (r16) REPRO_FUSED(float, 1, 16, false, 4);
+            REPRO_FUSED(float, 1, 8, false, 4);
+    case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, false, 2);
+            REPRO_FUSED(Bf16, 1, 8, false, 4);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FUSED

@@ -33,6 +33,10 @@ matrix-vector product over the position bits XOR ``tw_base[g0]``. A
 table that is not of this form raises :class:`ValueError`; there is no
 fallback to tables.
 
+A ``map`` epilogue (kind 2, an element-wise function lowered to a tape
+by :mod:`.map_lower`) has no partner (XOR 0): it runs in the thread on
+each register, in any phase, and its record holds the tape.
+
 The plan is a flat int64 array (:data:`HDR_WORDS` header words, then
 :data:`PHASE_WORDS` per phase, then :data:`EPI_WORDS` per epilogue)
 whose offsets ``tile_epilogue.cuh`` mirrors; the device pointers of
@@ -49,6 +53,7 @@ import numpy as np
 
 from ..core.f2 import in_span, parity
 from ..core.tiling import _affine_table, _coords
+from .map_lower import TAPE_MAX, tape_words
 
 REGS = 16            # most positions a thread holds (register slots: 4 bits)
 LANE_BITS = 5
@@ -61,12 +66,20 @@ HDR_WORDS = 4        # n_phases, n_epi, outer bits, register bits
 PHASE_WORDS = 32
 EPI_WORDS = 32
 # phase record
-PH_E0, PH_E1, PH_REG_VALID, PH_TID_INVALID, PH_GROUP, PH_FIRST = range(6)
+PH_E0, PH_E1, PH_REG_VALID, PH_TID_INVALID, PH_GROUP, PH_FIRST, PH_MAPS = \
+    range(7)
 PH_IMG_REG, PH_IMG_THR, PH_IMG_OUT = 8, 12, 20
 # epilogue record
+KIND_CMP, KIND_BFLY, KIND_MAP = 0, 1, 2
 (EP_KIND, EP_VREG, EP_VLANE, EP_HREG, EP_HMASK, EP_HI_BASE, EP_TW_BASE,
  EP_W, EP_SHIFT) = range(9)
 EP_TW_REG, EP_TW_THR, EP_TW_OUT = 12, 16, 24
+# a map's record: the tape's length, the map's slot among the cluster's
+# maps (K5 keeps each map's input in shared memory by slot), then two
+# words an op (map_lower.tape_words) past EP_HI_BASE and EP_TW_BASE, which
+# the kernels read as pointers
+EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_OPS = 1, 2, 8
+assert EP_MAP_OPS + 2 * TAPE_MAX <= EPI_WORDS
 
 
 def _log2(v: int) -> int:
@@ -135,12 +148,13 @@ def _wavefronts(lanes: tuple, t: int, stride_bytes: int, elem_bytes: int,
     return int(np.bincount(words % 32).max())
 
 
-def regs_for(B: int, dv: int, bwd: bool) -> int:
+def regs_for(B: int, dv: int, bwd: bool, maps: bool = False) -> int:
     """Register bits of a block of 2^B positions: 4 (16 positions a
     thread), or 3 where 16 would leave threads idle (B <= 11) or hold too
     many registers (the planar pairs of a butterfly cluster, and K5's
-    compare bits beside its values: K5 is compiled for 8 only)."""
-    return 3 if B <= 11 or dv == 2 or bwd else 4
+    compare bits beside its values: K5 is compiled for 8 only; the
+    kernels with map epilogues are compiled for 8 only, too)."""
+    return 3 if B <= 11 or dv == 2 or bwd or maps else 4
 
 
 def _split_phases(vs: list, is_cmp: list, cap: int) -> list:
@@ -206,12 +220,13 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
     """(plan, info) of a cluster's epilogues on blocks of ``per_cta``
     tiles: ``plan`` the int64 words of :mod:`tile_epilogue.cuh` (device
     pointer words 0), ``info`` a dict with ``n_phases``, ``outer_bits``,
-    ``groups`` (of CMP_GROUP compares), ``B``, ``reg_bits`` and
+    ``groups`` (of CMP_GROUP compares), ``maps``, ``B``, ``reg_bits`` and
     per-epilogue ``hmask`` and
     ``tw_pos`` (the twiddle image of each position bit, bfly only).
 
     ``entries`` are the wrappers' epilogue entries (kind, vr, vc, hi_row,
-    hi_lane, hi_base, tw_row, tw_lane, tw_base, w); ``elem_bytes`` and
+    hi_lane, hi_base, tw_row, tw_lane, tw_base, w), a map's (2, 0, 0,
+    six None, its :class:`.map_lower.Tape`); ``elem_bytes`` and
     ``stride_bytes`` the tile's element and padded row sizes in shared
     memory, ``access`` the bytes one register load reads, ``dv`` the tail
     values a register slot holds (2 for planar butterflies, else 1),
@@ -231,7 +246,14 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
     for e in entries:
         kind, vr, vc = e[0], int(e[1]), int(e[2])
         vs.append((vr << t) | vc)
-        is_cmp.append(kind == 0)
+        is_cmp.append(kind == KIND_CMP)
+        if kind == KIND_MAP:
+            if not e[9].lowered:
+                raise ValueError(f"map {e[9].name!r} is not lowered: the "
+                                 f"register epilogues cannot run it")
+            hmasks.append(0)
+            tw_pos.append(None)
+            continue
         for name, tab in (("hi_row", e[3]), ("hi_lane", e[4]),
                           ("hi_base", e[5])):
             a = np.asarray(tab)
@@ -247,7 +269,7 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
     words = np.zeros(HDR_WORDS + PHASE_WORDS * len(phases)
                      + EPI_WORDS * len(entries), dtype=np.int64)
     words[:HDR_WORDS] = (len(phases), len(entries), outer_bits, reg_bits)
-    ci = 0
+    ci = n_maps = 0
     for p, (e0, e1, span) in enumerate(phases):
         regs, lanes, warps, outer = map(list, _layout(
             tuple(span), tuple(vs[e0:e1]), B, reg_bits,
@@ -266,15 +288,24 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
         cmps = [ci + k for k in range(sum(is_cmp[e0:e1]))]
         ph[PH_GROUP] = cmps[0] // CMP_GROUP if cmps else -1
         ph[PH_FIRST] = int(any(c % CMP_GROUP == 0 for c in cmps))
+        ph[PH_MAPS] = sum(entries[e][0] == KIND_MAP for e in range(e0, e1))
         coord = _coords(regs + lanes + warps + outer)
         for e in range(e0, e1):
             ep = words[HDR_WORDS + PHASE_WORDS * len(phases)
                        + e * EPI_WORDS:][:EPI_WORDS]
+            if entries[e][0] == KIND_MAP:
+                tw = tape_words(entries[e][9])
+                ep[EP_KIND] = KIND_MAP
+                ep[EP_MAP_LEN] = len(tw) // 2
+                ep[EP_MAP_SLOT] = n_maps
+                ep[EP_MAP_OPS:EP_MAP_OPS + len(tw)] = tw
+                n_maps += 1
+                continue
             c = coord(vs[e])
             if c is None or c >> (len(regs) + len(lanes)):
                 raise AssertionError("phase layout misses a partner XOR")
             m = hmasks[e]
-            ep[EP_KIND] = 0 if is_cmp[e] else 1
+            ep[EP_KIND] = KIND_CMP if is_cmp[e] else KIND_BFLY
             ep[EP_VREG] = c & ((1 << len(regs)) - 1)
             ep[EP_VLANE] = c >> len(regs)
             ep[EP_HREG] = sum(parity(_lin(i, regs) & m) << i
@@ -292,7 +323,8 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
                 ep[EP_TW_OUT:EP_TW_OUT + len(outer)] = [_lin(q, tp)
                                                         for q in outer]
     info = {"n_phases": len(phases), "outer_bits": outer_bits,
-            "groups": -(-n_cmp // CMP_GROUP), "hmask": hmasks,
+            "groups": -(-n_cmp // CMP_GROUP), "maps": n_maps,
+            "hmask": hmasks,
             "tw_pos": tw_pos, "B": B, "reg_bits": reg_bits}
     return words, info
 

@@ -153,12 +153,19 @@ def test_plain_version_is_the_cpu_route_of_the_wrapper(sort_clusters):
     b = pk.tiled_permute_bwd_tables_plain(x, ct, plan.in_rows, plan.out_rows,
                                           plan.xor_low, inv, **kw)
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    with pytest.raises(NotImplementedError, match="map"):
+    # a map epilogue: its function's VJP on the CPU, the same through both
+    mkw = dict(geometry=kw["geometry"], epilogue=(("map", "x3"),),
+               epi_scalar=((),), epi_vmem=((),), map_fns=(lambda v: v * 3,))
+    a = pk.tiled_permute_bwd_tables(x, ct, plan.in_rows, plan.out_rows,
+                                    plan.xor_low, inv, **mkw)
+    b = pk.tiled_permute_bwd_tables_plain(x, ct, plan.in_rows,
+                                          plan.out_rows, plan.xor_low, inv,
+                                          **mkw)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError, match="map_fns"):
         pk.tiled_permute_bwd_tables(x, ct, plan.in_rows, plan.out_rows,
                                     plan.xor_low, inv,
-                                    geometry=kw["geometry"],
-                                    epilogue=(("map", "x2"),),
-                                    epi_scalar=((),), epi_vmem=((),))
+                                    **dict(mkw, map_fns=()))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         pk.tiled_permute_bwd_tables(x.to(torch.int32), ct.to(torch.int32),
                                     plan.in_rows, plan.out_rows,

@@ -103,9 +103,9 @@ def _fused(fs, t, x, batched, plain):
     from repro_torch.combinators import execute as ex
     plans, entries = ex._fused_plan_cached(fs, t)
     plan = plans[0]
-    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    sig, scal, vmem, fns = ex._fused_kernel_args(entries, x.dtype)
     kw = dict(geometry=pk.plan_geometry(plan), epilogue=sig,
-              epi_scalar=scal, epi_vmem=vmem, batched=batched)
+              epi_scalar=scal, epi_vmem=vmem, map_fns=fns, batched=batched)
     if plain:
         return pk.tiled_permute_tables_plain(
             x, plan.in_rows, plan.out_rows, plan.xor_low, plan.src0, **kw)
@@ -217,11 +217,11 @@ def _bwd(fs, t, x, ct, batched, plain):
     if not plain:
         return ex._fused_bwd_cuda(fs, t, batched, x, ct)
     plan = plans[0]
-    sig, scal, vmem, _ = ex._fused_kernel_args(entries, x.dtype)
+    sig, scal, vmem, fns = ex._fused_kernel_args(entries, x.dtype)
     return pk.tiled_permute_bwd_tables_plain(
         x, ct, plan.in_rows, plan.out_rows, plan.xor_low, inv,
         geometry=pk.plan_geometry(plan), epilogue=sig, epi_scalar=scal,
-        epi_vmem=vmem, batched=batched)
+        epi_vmem=vmem, map_fns=fns, batched=batched)
 
 
 @pytest.mark.cuda
@@ -326,3 +326,103 @@ def test_cuda_sort_and_fft_gradients(cuda_device):
     err = (torch.linalg.vector_norm(xt.grad.double() - x64.grad)
            / torch.linalg.vector_norm(x64.grad))
     assert float(err) < 1e-5
+
+
+def _map_expr(n, name, fn):
+    """perm, compare, map, perm, compare, map, perm: a map between two
+    compares and one at the end of a cluster."""
+    from repro_torch.combinators import vocab as V
+    rng = random.Random(8)
+    return V.seq(V.perm(Bmmc.random_bpc(n, rng)), V.cmp_halves(),
+                 V.emap(name, fn), V.perm(Bmmc.random_bpc(n, rng)),
+                 V.cmp_halves(), V.emap(name, fn), V.perm(Bmmc.random(n, rng)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name,fn,tail,batch", [
+    (torch.int32, "wrap", lambda v: v * 1000003 + 7, (), None),
+    (torch.int32, "not", torch.bitwise_not, (), 3),
+    (torch.float32, "v/v", lambda v: v / v, (), None),
+    (torch.float32, "silu", lambda v: v * torch.sigmoid(v), (3,), None),
+    (torch.bfloat16, "affine3", lambda v: (v * 3 + 1) * 0.5, (), None)])
+def test_cuda_map_epilogues_match_plain(cuda_device, dtype, name, fn, tail,
+                                        batch):
+    """K4b and K5 with map epilogues bit for bit against their plain
+    versions (maps that make NaNs mid-phase included), each cluster a
+    launch of the map variant."""
+    n = 12
+    d = tail[0] if tail else 1
+    t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size(), d)
+    shape = ((batch,) if batch else ()) + (1 << n,) + tail
+    v = torch.randint(-4, 5, shape, device=cuda_device)
+    x = (v * 65537 + 3).to(torch.int32) if dtype == torch.int32 else \
+        v.to(dtype)
+    ct = torch.randn(shape, device=cuda_device).to(
+        torch.float32 if dtype == torch.int32 else dtype)
+    clusters = [fs for fs in _fused_clusters(_map_expr(n, name, fn), n, t)
+                if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
+    assert clusters
+    before = pk.launch_counts()
+    for fs in clusters:
+        got = _fused(fs, t, x, bool(batch), plain=False)
+        want = _fused(fs, t, x, bool(batch), plain=True)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        if dtype != torch.int32:
+            got = _bwd(fs, t, x, ct, bool(batch), plain=False)
+            want = _bwd(fs, t, x, ct, bool(batch), plain=True)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    after = pk.launch_counts()
+    assert after["tile_fused"] == before["tile_fused"] + len(clusters)
+    assert after["tile_bwd"] == before["tile_bwd"] + (
+        0 if dtype == torch.int32 else len(clusters))
+
+
+@pytest.mark.cuda
+def test_cuda_map_programs_fuse_in_both_directions(cuda_device):
+    """``not >> sort >> not`` sorts in descending order and ``tanh >>
+    sort`` differentiates, each with its maps inside K4b / K5: no fused
+    fallback, counted round trips equal to the model in each
+    direction."""
+    from repro_torch import obs as pobs
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.sort import sort_expr
+    n = 14
+    t = pops.choose_tile(n, 4)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), generator=gen,
+                      device=cuda_device, dtype=torch.int64).to(torch.int32)
+    f = compile_expr(V.emap("not", torch.bitwise_not) >> sort_expr(n)
+                     >> V.emap("not", torch.bitwise_not))
+    g = compile_expr(V.emap("tanh", torch.tanh) >> sort_expr(n))
+    xf = (torch.randperm(1 << n, generator=gen, device=cuda_device).float()
+          - (1 << (n - 1))) / (1 << n)
+    w = torch.randn(1 << n, generator=gen, device=cuda_device)
+    ex.clear_caches()
+    pk.reset_launch_counts()
+    pobs.reset()
+    pobs.enable()
+    try:
+        y = f(x)
+        rt_sort = pobs.counter_total("model.round_trips")
+        pobs.reset()
+        xt = xf.clone().requires_grad_(True)
+        out = g(xt)
+        rt_fwd = pobs.counter_total("model.round_trips")
+        (w * out).sum().backward()
+        rt_bwd = pobs.counter_total("model.vjp_round_trips")
+        fb = pobs.counter_total("dispatch.fused_fallback")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert torch.equal(y, torch.sort(x, descending=True).values)
+    assert rt_sort == f.cost(n, t, clustered=True)["round_trips"]
+    assert rt_fwd == rt_bwd == g.vjp_round_trips(n, t) == g.cost(
+        n, t, clustered=True)["round_trips"]
+    assert fb == 0
+    counts = pk.launch_counts()
+    assert counts["tile_fused"] > 0 and counts["tile_bwd"] > 0
+    xl = xf.clone().requires_grad_(True)
+    (w * torch.sort(torch.tanh(xl)).values).sum().backward()
+    assert torch.allclose(xt.grad, xl.grad, rtol=1e-5, atol=1e-6)

@@ -15,7 +15,14 @@ themselves run only on the card. Here:
   the compare bits kept per thread and register, compares on integer keys
   in warps without NaNs, the transposed sweep in reverse with the
   un-gather folded into its first phase — equals ``_tile_fused_plain``
-  and ``_tile_bwd_plain`` bit for bit.
+  and ``_tile_bwd_plain`` bit for bit;
+* map epilogues in that emulation: each map's tape on the registers, the
+  compares between two maps as a run with its own NaN vote and keys (a
+  map that makes NaNs mid-phase sends the rest of its phase's warps to
+  the float selects), each map's input kept per slot, chunk, thread and
+  register, and K5's reverse mode over the tape in the transposed sweep,
+  equal to the plain versions (which call the map's function, and take
+  its VJP by autograd) bit for bit.
 
 Clusters: every cluster of the 2^12 and 2^14 sort and of the 2^12 FFT,
 and hand-built clusters whose partner XORs have several bits and fall on
@@ -40,6 +47,7 @@ from repro_torch.core.bmmc import Bmmc
 from repro_torch.core.tiling import _affine_table, plan_general
 from repro_torch.kernels import bmmc_permute as pk
 from repro_torch.kernels import epilogue_plan as EP
+from repro_torch.kernels import map_lower as ML
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +276,27 @@ def _forward_phase(V, eps, ents, lay, g0, outer_bits, masks):
     return torch.where(fast, Vk, Vf)
 
 
+def _run_phase(V, eps, ents, lay, g0, outer_bits, masks, saved):
+    """A phase's epilogues: the compares between two maps as one run of
+    :func:`_forward_phase` (its own NaN vote and keys), each map's tape on
+    the values, its input kept in ``saved`` by slot (K5's shared-memory
+    copy)."""
+    i = 0
+    while i < len(eps):
+        if int(eps[i][EP.EP_KIND]) == EP.KIND_MAP:
+            saved[int(eps[i][EP.EP_MAP_SLOT])] = V
+            V = ML.eval_tape(ents[i][9], V)
+            i += 1
+            continue
+        j = i + 1
+        while j < len(eps) and int(eps[j][EP.EP_KIND]) != EP.KIND_MAP:
+            j += 1
+        V = _forward_phase(V, eps[i:j], ents[i:j], lay, g0, outer_bits,
+                           masks)
+        i = j
+    return V
+
+
 def _transposed(V, ep, e, lay, g0, outer_bits, masks):
     vreg, vlane = int(ep[EP.EP_VREG]), int(ep[EP.EP_VLANE])
     if int(ep[EP.EP_KIND]) == 0:
@@ -315,7 +344,7 @@ def _emulate(xc, plan_t, entries, geometry, cc=None, inv_src0=None):
         return range(int(ph[EP.PH_E0]), int(ph[EP.PH_E1]))
 
     for k in range(0, d, dv):
-        masks = {}
+        masks, saved = {}, {}
         for p, lay in enumerate(lays):
             V = _load(X, lay, k, dv)
             ph = EP.phase_slice(words, p)
@@ -325,9 +354,9 @@ def _emulate(xc, plan_t, entries, geometry, cc=None, inv_src0=None):
                 if int(ph[EP.PH_FIRST]):
                     masks[group] = torch.zeros(V.shape, dtype=torch.long)
                 m = masks[group]
-            V = _forward_phase(V, [EP.epi_slice(words, e) for e in epis(p)],
-                               [entries[e] for e in epis(p)], lay, g0,
-                               outer_bits, m)
+            V = _run_phase(V, [EP.epi_slice(words, e) for e in epis(p)],
+                           [entries[e] for e in epis(p)], lay, g0,
+                           outer_bits, m, saved)
             if cc is None or p + 1 < n_phases:
                 _store(X, V, lay, k, dv)
         if cc is None:
@@ -349,8 +378,13 @@ def _emulate(xc, plan_t, entries, geometry, cc=None, inv_src0=None):
             V = _load(pre if p + 1 == n_phases else X, lay, k, dv)
             group = int(EP.phase_slice(words, p)[EP.PH_GROUP])
             for e in reversed(epis(p)):
-                V = _transposed(V, EP.epi_slice(words, e), entries[e], lay,
-                                g0, outer_bits, masks.get(group))
+                ep = EP.epi_slice(words, e)
+                if int(ep[EP.EP_KIND]) == EP.KIND_MAP:
+                    V = ML.tape_vjp(entries[e][9],
+                                    saved[int(ep[EP.EP_MAP_SLOT])], V)
+                    continue
+                V = _transposed(V, ep, entries[e], lay, g0, outer_bits,
+                                masks.get(group))
             _store(X, V, lay, k, dv)
     out = torch.empty_like(xc)
     if cc is not None:
@@ -588,3 +622,84 @@ def test_plan_cache_counts_the_tables_it_keeps(monkeypatch):
     assert cache.misses == 10 and 1 <= len(cache._d) <= 3
     assert all(size >= table_bytes for _, _, size in cache._d.values())
     assert sum(r() is not None for r in alive) == len(cache._d)
+
+
+# ---------------------------------------------------------------------------
+# map epilogues
+# ---------------------------------------------------------------------------
+
+def _with_maps(entries, maps, dtype):
+    """``entries`` with map entries inserted: ``maps`` holds (position,
+    name, function), positions in the final list."""
+    out = list(entries)
+    for pos, name, fn in sorted(maps, key=lambda m: m[0]):
+        out.insert(pos, (EP.KIND_MAP, 0, 0) + (None,) * 6
+                   + (ML.lower_map(name, fn, dtype),))
+    return out
+
+
+def _kinds_by_phase(words):
+    info = words.info
+    w = words.numpy()
+    out = []
+    for p in range(info["n_phases"]):
+        ph = EP.phase_slice(w, p)
+        out.append([int(EP.epi_slice(w, e)[EP.EP_KIND])
+                    for e in range(int(ph[EP.PH_E0]), int(ph[EP.PH_E1]))])
+    return out
+
+
+def _sq(v):
+    return v * v
+
+
+def _silu(v):
+    return v * torch.sigmoid(v)
+
+
+def _affine3(v):
+    return (v * 3 + 1) * 0.5
+
+
+def _wrap(v):
+    return v * 1000003 + 7
+
+
+# label, dtype, n, t, compares, maps (position, name, function), d, batch
+MAP_CASES = [
+    ("float32: log makes NaNs between compares, maps at the ends and at a "
+     "phase boundary", torch.float32, 12, 6, 20,
+     [(0, "silu", _silu), (4, "ln", torch.log), (11, "sq", _sq),
+      (15, "sq", _sq), (24, "silu", _silu)], 1, 1),
+    ("float32 d=3 B=2", torch.float32, 12, 5, 12,
+     [(2, "ln", torch.log), (9, "sq", _sq)], 3, 2),
+    ("bfloat16 chain of three ops", torch.bfloat16, 12, 6, 14,
+     [(3, "affine3", _affine3), (15, "affine3", _affine3)], 1, 2),
+    ("int32 wrapping map", torch.int32, 12, 6, 14,
+     [(1, "wrap", _wrap), (8, "wrap", _wrap)], 1, 1),
+    ("float32 map alone", torch.float32, 12, 6, 0,
+     [(0, "e^x", torch.exp)], 1, 1),
+]
+
+
+@pytest.mark.parametrize("label,dtype,n,t,n_cmp,maps,d,batch", MAP_CASES,
+                         ids=[c[0].split(":")[0] for c in MAP_CASES])
+def test_map_epilogues_schedule_matches_plain(label, dtype, n, t, n_cmp,
+                                              maps, d, batch):
+    plan, entries = _hand_cluster(n, t, n_cmp, seed=n_cmp + t)
+    entries = _with_maps(entries, maps, dtype)
+    shape = (batch, 1 << n, d)
+    xc = _values(shape, dtype, seed=t, nan=False)
+    cc = None if dtype == torch.int32 else _values(shape, dtype, seed=t + 1)
+    info = _check_cluster(plan, entries, xc, cc)
+    assert info["maps"] == len(maps)
+    words = pk._epi_launch_args(xc, pk.plan_geometry(plan), entries)[2]
+    kinds = _kinds_by_phase(words)
+    assert sum(k.count(EP.KIND_MAP) for k in kinds) == len(maps)
+    if n_cmp >= 20:
+        # a map with compares on both sides within one phase, and a map
+        # that ends a phase with another phase after it
+        assert any(x == EP.KIND_MAP and EP.KIND_CMP in k[:i]
+                   and EP.KIND_CMP in k[i + 1:]
+                   for k in kinds for i, x in enumerate(k))
+        assert any(k[-1] == EP.KIND_MAP for k in kinds[:-1])

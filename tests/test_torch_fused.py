@@ -15,8 +15,9 @@ JAX reference on the CPU.
   2e-6 absolute on unit-normal data (XLA may contract ``a*b - c*d`` into a fused multiply-add, the port
   rounds each product and sum on its own, so the two differ by a few
   float32 ulps).
-* A cluster that holds a ``Map`` runs stage by stage (counted as a fused
-  fallback) and still matches the reference bit for bit.
+* A cluster that holds a ``Map`` runs as one K4b pass when the map's
+  function lowers to a tape, and stage by stage (counted as a fused
+  fallback) when it does not; both match the reference bit for bit.
 * The combinator entry points differentiate; the raw kernel wrappers and
   ``bmmc_permute`` refuse a tensor that requires grad.
 
@@ -191,20 +192,28 @@ def test_cmp_max_min_orders_signed_zeros_and_keeps_nan():
                        torch.tensor([5]))
 
 
-def _map_expr(V, Bmmc):
+def _map_expr(V, Bmmc, name, fn):
     import random
     rng = random.Random(9)
     n = 7
     return V.seq(V.perm(Bmmc.random_bpc(n, rng)), V.cmp_halves(),
-                 V.emap("x2", lambda v: v * 2),
+                 V.emap(name, fn),
                  V.perm(Bmmc.random_bpc(n, rng)), V.cmp_halves(),
                  V.perm(Bmmc.random(n, rng)))
 
 
-def test_map_cluster_falls_back_per_stage():
+@pytest.mark.parametrize("name,fn,lowered", [
+    ("x2", lambda v: v * 2, True),
+    # floor division is outside the tape's op list: not lowered
+    ("fdiv3", lambda v: v // 3, False)])
+def test_map_cluster_falls_back_per_stage(name, fn, lowered):
+    """A cluster that holds a map runs as one K4b pass when the map's
+    function lowers to a tape (no fused fallback), and stage by stage,
+    counted as a fused fallback, when it does not; both equal the
+    reference bit for bit."""
     n = 7
-    pf = pc.compile_expr(_map_expr(PV, PBmmc), engine="cuda")
-    rf = rc.compile_expr(_map_expr(RV, RBmmc), engine="ref")
+    pf = pc.compile_expr(_map_expr(PV, PBmmc, name, fn), engine="cuda")
+    rf = rc.compile_expr(_map_expr(RV, RBmmc, name, fn), engine="ref")
     prog = pf.clustered_program(n, 3)
     assert any(isinstance(s, pc.FusedStage)
                and any(isinstance(ss, pc.Map) for ss in s.stages)
@@ -216,16 +225,16 @@ def test_map_cluster_falls_back_per_stage():
     try:
         got = pf(torch.from_numpy(x)).numpy()
         fallbacks = pobs.counter_total("dispatch.fused_fallback")
+        kernels = {dict(lab)["kernel"]: v for (nm, lab), v
+                   in pobs.counters().items() if nm == "dispatch.kernel"}
     finally:
         pobs.disable()
         pobs.reset()
-    assert fallbacks >= 1
+    if lowered:
+        assert fallbacks == 0 and kernels.get("fused", 0) >= 1
+    else:
+        assert fallbacks >= 1
     assert np.array_equal(got, np.asarray(rf(jnp.asarray(x))))
-    with pytest.raises(NotImplementedError, match="map"):
-        pk.tiled_permute_tables(
-            torch.zeros(1 << n, dtype=torch.int32), None, None, None, None,
-            geometry=(n, 3, 2, 1, 1, 16, 2), epilogue=(("map", "x2"),),
-            epi_scalar=((),), epi_vmem=((),), map_fns=(abs,))
 
 
 def test_entry_points_refuse_tensors_that_require_grad():

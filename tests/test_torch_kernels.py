@@ -292,16 +292,23 @@ def test_device_oracle_matches_host_oracle():
 # ---------------------------------------------------------------------------
 
 def test_tile_epilogue_raises_not_implemented():
-    """Compute epilogues are ported (K4b, ``tests/test_torch_fused.py``)
-    except ``map``: a Python callable has no CUDA kernel."""
+    """Every compute epilogue is ported (K4b, ``tests/test_torch_fused.py``
+    and ``tests/test_torch_map_epilogue.py``), ``map`` included: on a CPU
+    tensor its function runs on the tile. What the wrapper still refuses
+    raises ValueError: a map without its function, and one that turns the
+    tile into another dtype."""
     plan = ptiling.plan_bmmc(PBmmc.bit_reverse(8), 3)[0]
     x = torch.arange(256, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        pk.tiled_permute_tables(x, plan.in_rows, plan.out_rows, plan.xor_low,
-                                plan.src0, geometry=pk.plan_geometry(plan),
-                                epilogue=(("map", "neg"),),
-                                epi_scalar=((),), epi_vmem=((),),
-                                map_fns=(torch.neg,))
+    kw = dict(geometry=pk.plan_geometry(plan), epilogue=(("map", "neg"),),
+              epi_scalar=((),), epi_vmem=((),))
+    tabs = (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0)
+    got = pk.tiled_permute_tables(x, *tabs, map_fns=(torch.neg,), **kw)
+    assert torch.equal(got, -pk.tiled_permute(x, plan))
+    with pytest.raises(ValueError, match="map_fns"):
+        pk.tiled_permute_tables(x, *tabs, **kw)
+    with pytest.raises(ValueError, match="turned"):
+        pk.tiled_permute_tables(x, *tabs, map_fns=(torch.Tensor.double,),
+                                **dict(kw, epilogue=(("map", "f64"),)))
 
 
 def test_device_cache_keeps_no_value_larger_than_itself():

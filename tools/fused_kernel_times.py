@@ -21,6 +21,11 @@ from there, and its kernels build into ``--build-dir``), prints:
   clock per call over 50 calls queued without a wait);
 * the device time of K4b and K5 summed over all 39 sort clusters;
 * the device time of K4b and K5 on the 2^22 FFT's butterfly cluster;
+* in a checkout with map epilogues, the device time of the map
+  clusters of ``not >> sort >> not`` (K4b, int32) and of ``tanh >>
+  sort`` (K4b and K5, float32) at 2^24, each beside the same pass
+  without the map (K4a on its plan, or the sort's own cluster), and the
+  sums over all clusters of the two programs;
 * forward + backward of the 2^24 float32 sort and of the 2^22 planar
   FFT through the entry points (``(w * f(x)).sum().backward()``).
 
@@ -169,6 +174,48 @@ def main(argv=None) -> int:
     f4 = device_ms(torch, lambda: ex._fused_cuda(xp, ff, tf))
     f5 = device_ms(torch, lambda: ex._fused_bwd_cuda(ff, tf, False, xp, cp))
     say(f"2^22 FFT cluster, device: K4b {f4:.4f} ms, K5 {f5:.4f} ms")
+
+    if hasattr(ex, "_maps_lowered"):   # a checkout with map epilogues
+        from repro_torch.combinators import vocab as V
+
+        def clusters_of(expr):
+            return [s for s in compile_expr(expr).clustered_program(n, t)
+                    if isinstance(s, FusedStage) and s.computes]
+        nots = clusters_of(V.emap("not", torch.bitwise_not) >> sort_expr(n)
+                           >> V.emap("not", torch.bitwise_not))
+        tanhs = clusters_of(V.emap("tanh", torch.tanh) >> sort_expr(n))
+        first, last = nots[0], nots[-1]
+        p_first = ex._fused_plan_cached(first, t)[0][0]
+        say(f"2^24 map cluster of not (alone, before the first perm), "
+            f"device: K4b int32 "
+            f"{device_ms(torch, lambda: ex._fused_cuda(xi, first, t)):.4f}"
+            f" ms, the same pass without the map (K4a) "
+            f"{device_ms(torch, lambda: pk.tiled_permute(xi, p_first)):.4f}"
+            f" ms")
+        say(f"2^24 last sort cluster with not appended ({len(last.computes)}"
+            f" epilogues), device: K4b int32 "
+            f"{device_ms(torch, lambda: ex._fused_cuda(xi, last, t)):.4f} ms"
+            f", the sort's own last cluster "
+            f"{device_ms(torch, lambda: ex._fused_cuda(xi, fss[-1], t)):.4f}"
+            f" ms")
+        tf = tanhs[0]
+        xs_t = (xs - (1 << (n - 1))) / (1 << n)
+        p_tf = ex._fused_plan_cached(tf, t)[0][0]
+        k5_tf = device_ms(torch, lambda: ex._fused_bwd_cuda(
+            tf, t, False, xs_t, ct))
+        say(f"2^24 map cluster of tanh, device: K4b float32 "
+            f"{device_ms(torch, lambda: ex._fused_cuda(xs_t, tf, t)):.4f} "
+            f"ms, K5 float32 {k5_tf:.4f} ms, the same pass without the map "
+            f"(K4a) "
+            f"{device_ms(torch, lambda: pk.tiled_permute(xs_t, p_tf)):.4f} "
+            f"ms")
+        k4m = sum(device_ms(torch, lambda s=s: ex._fused_cuda(xi, s, t), 5)
+                  for s in nots)
+        k5m = sum(device_ms(torch, lambda s=s: ex._fused_bwd_cuda(
+            s, t, False, xs_t, ct), 5) for s in tanhs)
+        say(f"all {len(nots)} clusters of not >> sort >> not, device: K4b "
+            f"int32 {k4m:.3f} ms; all {len(tanhs)} clusters of tanh >> "
+            f"sort: K5 float32 {k5m:.3f} ms")
 
     wp = torch.randn(1 << nf, 2, generator=gen, device=dev)
     fft = F.compiled_fft(nf)
