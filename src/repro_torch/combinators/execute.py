@@ -1474,8 +1474,7 @@ class CompiledExpr:
         return inverse_program(prog)
 
     def vjp_round_trips(self, n: int, t: Optional[int],
-                        batched: bool = False,
-                        dtype: torch.dtype = torch.float32) -> Optional[int]:
+                        batched: bool = False) -> Optional[int]:
         """Modeled HBM round trips of ONE backward (cotangent) pass — what
         a cold backward call's ``model.vjp_round_trips`` counter delta
         should equal (the backward honesty gate, DESIGN.md §13).
@@ -1490,7 +1489,8 @@ class CompiledExpr:
         program that holds a ``Map`` runs stage by stage, each stage's
         backward by its own rule, and counts the same on this route: a
         standalone ``Map`` one sweep, a Map-bearing cluster one K5 pass
-        when its maps lower for ``dtype``. With a collapsed plan it pays
+        when its maps lower (for float32 and bfloat16 alike: a map that
+        lowers for one lowers for the other). With a collapsed plan it pays
         exactly the final composed pass. None when the backward is the
         per-stage replay (no compiled model to hold it against)."""
         from .optimize import program_cost
@@ -1506,7 +1506,7 @@ class CompiledExpr:
             for s in prog:
                 if isinstance(s, FusedStage) and s.computes:
                     kp = _fused_bwd_kernel_plan(s, t)
-                    if kp is None or not _maps_lowered(s, dtype):
+                    if kp is None or not _maps_lowered(s, torch.float32):
                         return None
                     total += 1 + sum(len(ip) for ip in kp[3])
                 elif isinstance(s, (Perm, FusedStage)):

@@ -26,8 +26,9 @@
 // float32 and bfloat16 (cmp) and planar float32 (bfly); bfloat16 computes
 // each product and sum in float and rounds it to nearest even once, as
 // PyTorch does; float32 rounds each on its own (__fmul_rn/__fadd_rn: no
-// contraction into FMAs), so the kernel is bit-equal to its plain version
-// tiled_permute_bwd_tables_plain.
+// contraction into FMAs); a map's derivative formulas round as PyTorch's
+// CUDA kernels for them round (map_op_back). So the kernel is bit-equal
+// to its plain version tiled_permute_bwd_tables_plain on the card.
 //
 // Bound on the H100: bytes. x and ct are read once and the result written
 // once, 3 * size bytes over 3.35 TB/s, plus the tables. The first design
@@ -134,9 +135,12 @@ __device__ __forceinline__ void tr_bfly_regs(float (&v)[2][KR],
 }
 
 // The cotangents (ga, gb) of the first and second operand (a, b) of one
-// tape op from g, that of its result y: autograd's formulas, each rounded
-// to T once (a formula of several aten ops after each), as
-// map_lower.tape_vjp computes them. Out of line, as map_elem_op.
+// tape op from g, that of its result y: autograd's formulas as eager
+// PyTorch rounds them on the card, each aten op rounded to T once (the
+// fused tanh_backward and sigmoid_backward kernels as they compute:
+// bfloat16 after each op, float32 tanh's 1 - y * y an FMA), as
+// map_lower.tape_vjp computes them for a CUDA tensor. Out of line, as
+// map_elem_op.
 template <typename T>
 __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
                                            float b, float y, float g) {
@@ -179,11 +183,16 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
       ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(-0.5f, g)),
                             rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(y, y)), y))));
       break;
-    case OP_TANH:
-      ga = rnd<T>(__fmul_rn(g, __fsub_rn(1.0f, __fmul_rn(y, y))));
+    case OP_TANH:   // PyTorch's CUDA tanh_backward: g * (1 - y * y)
+      if constexpr (std::is_same_v<T, Bf16>)   // in bfloat16 arithmetic
+        ga = rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f,
+                                                  rnd<T>(__fmul_rn(y, y))))));
+      else                                     // contracted into an FMA
+        ga = __fmul_rn(g, __fmaf_rn(-y, y, 1.0f));
       break;
-    case OP_SIGMOID:
-      ga = rnd<T>(__fmul_rn(__fmul_rn(g, __fsub_rn(1.0f, y)), y));
+    case OP_SIGMOID:   // sigmoid_backward: (g * (1 - y)) * y, each in T
+      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f, y)))),
+                            y));
       break;
     default: ga = g; break;
   }

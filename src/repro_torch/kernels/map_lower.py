@@ -2,29 +2,33 @@
 
 The reference's fused kernel calls a ``Map`` callable on the tile inside
 the kernel; a CUDA kernel cannot call Python. So the port traces the
-function once per ``(Map.name, dtype)`` with ``make_fx`` on a
+function per ``(Map.name, dtype)`` with ``make_fx`` on a
 one-element tensor and keeps it only when the trace is a chain of
 element-wise aten ops from a closed list, each keeping the dtype and
 shape, each operand the running value (``R``, the previous op's
 result), the map's input (``U``) or a Python number (``C``). K4b and K5
 (``tile_epilogue.cuh``) evaluate the tape on register values: float32
-ops as eager PyTorch rounds them on the card (no fused multiply-adds;
+ops as eager PyTorch rounds them on the card (one rounding an op;
 a division by a constant is a product with its reciprocal, as PyTorch's
 CUDA ``div`` computes it), bfloat16 ops in float rounded to bfloat16
 after each op, int32 ops wrapping. K5 takes the map's gradient by
-reverse mode over the tape, with autograd's derivative formulas.
+reverse mode over the tape, with autograd's derivative formulas rounded
+as PyTorch's CUDA kernels round them (:func:`tape_vjp`).
 
 A function the list does not cover, one whose trace fails (``.item()``,
 data-dependent Python branches), changes dtype or shape, or is longer
 than :data:`TAPE_MAX` ops is not lowered (``Tape.ops is None``): a
 cluster that holds it runs stage by stage and counts a fused fallback.
-Tapes are cached like the other plans and dropped by
-``combinators.clear_caches``.
+A float function lowers for float32 and bfloat16 alike or for neither.
+Tapes are kept in a bounded cache by ``(Map.name, dtype)``, each holding
+its function (another function under a cached name is lowered anew),
+and dropped by ``combinators.clear_caches``.
 """
 from __future__ import annotations
 
 import math
 import threading
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import numpy as np
@@ -69,38 +73,64 @@ class Tape:
         return self.ops is not None
 
 
-_CACHE: dict = {}
+_CACHE: "OrderedDict" = OrderedDict()   # (name, dtype) -> Tape, LRU
+_CACHE_MAX = 256
+_STATS = {"hits": 0, "misses": 0}
 _LOCK = threading.Lock()
 
 
 def lower_map(name: str, fn: Callable, dtype) -> Tape:
-    """The tape of ``fn`` for ``dtype``, keyed by ``(name, dtype)`` (a
-    ``Map`` compares by name) and kept; ``.ops`` is None when the function
-    is not lowered."""
+    """The tape of ``fn`` for ``dtype``; ``.ops`` is None when the function
+    is not lowered. Kept by ``(name, dtype)`` (a ``Map`` compares by name)
+    in a bounded LRU cache; a cached tape of another function under the
+    same name is lowered anew and replaced, so the tape returned always
+    holds ``fn``."""
     key = (name, str(dtype))
     with _LOCK:
         got = _CACHE.get(key)
-    if got is None:
-        got = Tape(name, fn, dtype, _lower(fn, dtype))
-        with _LOCK:
-            got = _CACHE.setdefault(key, got)
+        if got is not None and got.fn is fn:
+            _CACHE.move_to_end(key)
+            _STATS["hits"] += 1
+            return got
+        _STATS["misses"] += 1
+    got = Tape(name, fn, dtype, _lower(fn, dtype))
+    with _LOCK:
+        _CACHE[key] = got
+        _CACHE.move_to_end(key)
+        while len(_CACHE) > _CACHE_MAX:
+            _CACHE.popitem(last=False)
     return got
 
 
 def clear_cache() -> None:
     with _LOCK:
         _CACHE.clear()
+        _STATS.update(hits=0, misses=0)
 
 
 def cache_info() -> tuple:
-    """(hits, misses, maxsize, currsize) in ``lru_cache`` words (no hit
-    count is kept)."""
-    return (0, 0, None, len(_CACHE))
+    """(hits, misses, maxsize, currsize), as ``lru_cache`` reports them."""
+    with _LOCK:
+        return (_STATS["hits"], _STATS["misses"], _CACHE_MAX, len(_CACHE))
 
 
 def _lower(fn: Callable, dtype) -> Optional[tuple]:
-    if dtype not in _FLOATS + (torch.int32,):
+    """The tape ops of ``fn`` for ``dtype``. A float function is lowered
+    only when its float32 and bfloat16 traces are the same ops on the
+    same operands (constants may round differently), so whether a map
+    runs in the kernels, and with it the round-trip model, does not
+    depend on which float type it meets."""
+    if dtype not in _FLOATS:
+        return _trace(fn, dtype) if dtype == torch.int32 else None
+    ops = _trace(fn, dtype)
+    other = _trace(fn, _FLOATS[1 - _FLOATS.index(dtype)])
+    if ops is None or other is None or (
+            [o[:3] for o in ops] != [o[:3] for o in other]):
         return None
+    return ops
+
+
+def _trace(fn: Callable, dtype) -> Optional[tuple]:
     from torch.fx.experimental.proxy_tensor import make_fx
     try:
         gm = make_fx(lambda v: fn(v), tracing_mode="real")(
@@ -291,13 +321,17 @@ def eval_tape(tape: Tape, u: torch.Tensor) -> torch.Tensor:
 
 
 def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
-    """The map's VJP at ``u`` as K5 computes it: reverse mode over the
-    tape with autograd's derivative formulas, each formula computed in
-    float32 and rounded once to the dtype (a bfloat16 formula of several
-    aten ops rounded after each), the cotangents of ``u`` summed in the
-    order autograd receives them. Intermediates come from
+    """The map's VJP at ``u`` as eager autograd computes it on ``u``'s
+    device, and K5 on the card: reverse mode over the tape with
+    autograd's derivative formulas, each aten op computed in float32 and
+    rounded once to the dtype, the cotangents of ``u`` summed in the
+    order autograd receives them. The fused ``tanh_backward`` and
+    ``sigmoid_backward`` round as PyTorch's kernels do: float32 tanh's
+    ``1 - y * y`` is one FMA on either device; in bfloat16 the CUDA
+    kernels round after each op, the CPU's once. Intermediates come from
     :func:`eval_tape`."""
     dt = u.dtype
+    per_op = dt == torch.bfloat16 and u.device.type == "cuda"
 
     def rnd(v):
         return v.to(dt).float()
@@ -314,7 +348,7 @@ def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
         x = _pick(ka, rs[s].float(), uf, c)
         y = _pick(kb, rs[s].float(), uf, c)
         res = rs[s + 1].float()
-        ga, gb = _backward(op, ka, kb, g, x, y, res, c, rnd)
+        ga, gb = _backward(op, ka, kb, g, x, y, res, c, rnd, per_op)
         ng = None
         if ka == R:
             ng = ga
@@ -330,10 +364,11 @@ def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     return cu.to(dt)
 
 
-def _backward(op, ka, kb, g, x, y, res, c, rnd):
+def _backward(op, ka, kb, g, x, y, res, c, rnd, per_op):
     """(cotangent of the first operand, of the second or None) of one op
     with output cotangent ``g`` (float32 tensors; ``rnd`` rounds to the
-    dtype)."""
+    dtype; ``per_op``: tanh's and sigmoid's backward round after each op,
+    as PyTorch's CUDA kernels do in bfloat16)."""
     zero = torch.zeros_like(g)
     if op == OP_ADD:
         return g, g
@@ -369,8 +404,12 @@ def _backward(op, ka, kb, g, x, y, res, c, rnd):
     if op == OP_RSQRT:
         # result.pow(3) as PyTorch's pow takes a cube: (y * y) * y in T
         return rnd(rnd(-0.5 * g) * rnd(rnd(res * res) * res)), None
-    if op == OP_TANH:
-        return rnd(g * (1 - res * res)), None
+    if op == OP_TANH:   # float32: 1 - y * y contracted into an FMA
+        if not per_op:
+            return rnd(g * (1 - res.double() ** 2).float()), None
+        return rnd(g * rnd(1 - rnd(res * res))), None
     if op == OP_SIGMOID:
-        return rnd(g * (1 - res) * res), None
+        if not per_op:
+            return rnd(g * (1 - res) * res), None
+        return rnd(rnd(g * rnd(1 - res)) * res), None
     raise ValueError(f"op {op} has no gradient (int32)")

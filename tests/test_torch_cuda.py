@@ -344,19 +344,30 @@ def _map_expr(n, name, fn):
     (torch.int32, "not", torch.bitwise_not, (), 3),
     (torch.float32, "v/v", lambda v: v / v, (), None),
     (torch.float32, "silu", lambda v: v * torch.sigmoid(v), (3,), None),
-    (torch.bfloat16, "affine3", lambda v: (v * 3 + 1) * 0.5, (), None)])
+    (torch.float32, "tanh", torch.tanh, (), None),
+    (torch.bfloat16, "affine3", lambda v: (v * 3 + 1) * 0.5, (), None),
+    (torch.bfloat16, "tanh", torch.tanh, (), None),
+    (torch.bfloat16, "exp", torch.exp, (), 3),
+    (torch.bfloat16, "sigmoid", torch.sigmoid, (), None),
+    (torch.bfloat16, "div7", lambda v: v / 7, (3,), None)])
 def test_cuda_map_epilogues_match_plain(cuda_device, dtype, name, fn, tail,
                                         batch):
     """K4b and K5 with map epilogues bit for bit against their plain
-    versions (maps that make NaNs mid-phase included), each cluster a
-    launch of the map variant."""
+    versions on continuous inputs (maps that make NaNs mid-phase
+    included; K5's tanh and sigmoid derivatives round as PyTorch's CUDA
+    kernels do), each cluster a launch of the map variant."""
     n = 12
     d = tail[0] if tail else 1
     t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size(), d)
     shape = ((batch,) if batch else ()) + (1 << n,) + tail
-    v = torch.randint(-4, 5, shape, device=cuda_device)
-    x = (v * 65537 + 3).to(torch.int32) if dtype == torch.int32 else \
-        v.to(dtype)
+    if dtype == torch.int32:
+        v = torch.randint(-4, 5, shape, device=cuda_device)
+        x = (v * 65537 + 3).to(torch.int32)
+    else:   # continuous values in [-4, 4), with zeros planted (v / v)
+        u = torch.rand(shape, device=cuda_device)
+        x = torch.where(u < 0.05, torch.zeros_like(u),
+                        (torch.rand(shape, device=cuda_device) - 0.5) * 8)
+        x = x.to(dtype)
     ct = torch.randn(shape, device=cuda_device).to(
         torch.float32 if dtype == torch.int32 else dtype)
     clusters = [fs for fs in _fused_clusters(_map_expr(n, name, fn), n, t)

@@ -9,11 +9,13 @@ function, as the reference's kernel does. Here:
 * the lowering: for each op of the list, in each dtype it takes, the
   tape's plain emulation (the ops one by one, as the kernels run them)
   equals the function bit for bit, and the tape's reverse mode (K5's
-  arithmetic) equals autograd within 1e-6 relative plus 1e-6 absolute
-  (float32; torch's ``tanh`` backward on the CPU differs from the
-  formula's separately rounded products by an ulp) or one bfloat16 ulp;
-  functions outside the list, whose trace fails, that change dtype or
-  that are too long are not lowered;
+  arithmetic, rounded as eager autograd rounds on the tensor's device)
+  equals autograd within 1e-6 relative plus 1e-6 absolute (float32) or
+  one bfloat16 ulp; functions outside the list, whose trace fails, that
+  change dtype, whose float32 and bfloat16 traces differ or that are too
+  long are not lowered; tapes are cached per name and dtype, each
+  holding its function, in a bounded cache; the raw wrappers run the
+  function they are given; a bfloat16 chain rounds after each op;
 * K4b's plain version with maps equals the reference's
   ``tiled_permute_tables(..., map_fns=...)`` in Pallas interpret mode:
   int32 bit for bit, float32 within 1e-6 (torch's and XLA's ``tanh`` on
@@ -150,11 +152,29 @@ def test_functions_outside_the_list_are_not_lowered(name, fn):
 def test_tapes_are_cached_by_name_and_dtype_and_cleared():
     pex.clear_caches()
     a = ML.lower_map("cached", torch.tanh, F32)
-    assert ML.lower_map("cached", torch.neg, F32) is a   # a Map is its name
+    assert ML.lower_map("cached", torch.tanh, F32) is a
     assert ML.lower_map("cached", torch.tanh, BF) is not a
-    assert pex.cache_stats()["map_tapes"].currsize == 2
+    # another function under a cached name is lowered anew: the tape
+    # returned always holds the function it was given
+    b = ML.lower_map("cached", torch.neg, F32)
+    assert b.fn is torch.neg and b.ops != a.ops
+    assert ML.lower_map("cached", torch.neg, F32) is b
+    st = pex.cache_stats()["map_tapes"]
+    assert (st.hits, st.misses, st.currsize) == (2, 3, 2)
+    for k in range(ML._CACHE_MAX + 5):           # the cache is bounded
+        ML.lower_map(f"bound{k}", torch.neg, F32)
+    assert pex.cache_stats()["map_tapes"].currsize == ML._CACHE_MAX
     pex.clear_caches()
     assert pex.cache_stats()["map_tapes"].currsize == 0
+
+
+def test_a_float_map_lowers_for_both_float_types_or_neither():
+    def by_dtype(v):   # a trace that depends on the dtype
+        return torch.tanh(v) if v.dtype == F32 else torch.exp(v)
+    for dtype in (F32, BF):
+        assert not ML.lower_map("by_dtype", by_dtype, dtype).lowered
+    # a clamp bound rounds to bfloat16 but keeps the ops: both lower
+    assert ML.lower_map("clamp3", lambda v: v.clamp(max=0.3), BF).lowered
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +287,60 @@ def test_map_epilogue_backward_matches_reference(dtype, shape, batched):
         assert pk.launch_counts()["tile_bwd"] == 0
         _assert_close(_to_numpy(got), want, dtype,
                       rtol=1e-5 if dtype == np.float32 else None)
+
+
+def test_raw_wrappers_run_the_function_they_are_given():
+    """Two functions under one map name: each call of the raw wrappers
+    (and their plain versions) runs the function it was passed, as the
+    reference's raw wrapper does."""
+    n, t = 8, 4
+    (_, pfs), *_ = _map_clusters(n, t, np.float32)
+    plans, entries = pex._fused_plan_cached(pfs, t)
+    sig, scal, vmem, _ = pex._fused_kernel_args(entries, torch.float32)
+    p = plans[0]
+    tabs = (p.in_rows, p.out_rows, p.xor_low)
+    s0 = p.src0.reshape(-1)
+    inv = np.empty_like(s0)
+    inv[s0] = np.arange(s0.size, dtype=s0.dtype)
+    x = _to_torch(_values((1 << n,), np.float32, seed=5))
+    ct = _to_torch(_values((1 << n,), np.float32, seed=6))
+    n_maps = sum(sg[0] == "map" for sg in sig)
+
+    def run(name, fn):
+        sg = tuple(("map", name) if e[0] == "map" else e for e in sig)
+        kw = dict(geometry=pk.plan_geometry(p), epilogue=sg, epi_scalar=scal,
+                  epi_vmem=vmem, map_fns=(fn,) * n_maps)
+        return (pk.tiled_permute_tables(x, *tabs, p.src0, **kw),
+                pk.tiled_permute_bwd_tables(x, ct, *tabs,
+                                            inv.reshape(p.src0.shape), **kw))
+
+    def cube(v):
+        return v * v * v
+
+    for fn in (torch.tanh, cube, torch.tanh):
+        shared, own = run("one_name", fn), run(f"own_{fn.__name__}", fn)
+        for a, b in zip(shared, own):
+            assert torch.equal(_bits(a), _bits(b)), fn.__name__
+    assert not torch.equal(run("one_name", cube)[0],
+                           run("one_name", torch.tanh)[0])
+
+
+def test_bfloat16_tape_rounds_after_each_op():
+    """The bfloat16 chain of the chip check, on continuous inputs: eager
+    torch's per-op rounding, which the tape keeps, differs from a
+    computation rounded once at the end on some inputs, so a kernel that
+    rounded once would fail the chip check's bit comparison."""
+    def chain(v):
+        return (v * 3 + 1) / 7
+    tape = ML.lower_map("bf16_chain", chain, BF)
+    assert tape.lowered and len(tape.ops) == 3
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy(((rng.random(4096) - 0.5) * 8).astype(
+        np.float32)).to(BF)
+    per_op = ML.eval_tape(tape, u)
+    assert torch.equal(_bits(per_op), _bits(chain(u)))
+    once = chain(u.float()).to(BF)
+    assert int((_bits(per_op) != _bits(once)).sum()) > 100
 
 
 def test_map_plan_records_hold_the_tape():
