@@ -13,8 +13,13 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
 3. kernel vs plain: each permutation kernel (copy, block, lane, tile)
    held bit for bit against its plain PyTorch version on the card, at a
    small size (int32, bfloat16, float32 with a d = 8 tail, a batch of 3,
-   a ragged copy) and at 2^n int32; the 2^n case is timed with CUDA
-   events beside the plain version and one PyTorch library call;
+   a ragged copy, uint8 views at byte offsets 0-15) and at 2^n int32;
+   the 2^n case is timed with CUDA events in turns with one PyTorch
+   library call, and beside the plain version; the copy also at 2^n - 1
+   int32 and on a view at a 4-byte offset, each in turns with
+   ``x.clone()``, and through its bulk-copy ring (on request; ragged and
+   at 2^n, bit for bit, timed in turns with K1 and ``x.clone()``); every
+   copy prints the path its launch counted (words or bulk);
 4. main path: ``repro_torch.kernels.ops.bmmc_permute`` on 2^n int32 for
    one BMMC of each dispatch case (bit-reverse, random BPC, random BMMC,
    block class, lane class, mixed complement), each bit-equal to the
@@ -172,6 +177,19 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def in_turns(fns: dict, timer, rounds: int = 2) -> dict:
+    """Each function's readings of ``timer(fn)`` (milliseconds), taken in
+    turns: the labels in order, then reversed (A, B, B, A, ...), ``rounds``
+    times each way, so that a kernel and its library call see the same
+    clocks."""
+    got = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(2 * rounds):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            got[k].append(timer(fns[k]))
+    return got
+
+
 def bits(torch, t):
     """An integer view of ``t`` for bitwise comparison (NaN payloads and
     -0.0 compare by their bits)."""
@@ -324,26 +342,53 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
             check(err == 0.0, (name, label, err))
             worst[name] = max(worst[name], err)
         say(f"  n={n_small} {label} t={t}: copy, block, lane, tile bit-equal")
+
+    def copy_path(v, **overrides):
+        """K1 on ``v`` (under schedule ``overrides``, if any) held bit for
+        bit against its plain version; the path it took, read from the
+        path counts of its one launch."""
+        before = K.launch_counts()
+        got = K._copy_cuda(v, **overrides) if overrides else K.copy_blocks(v)
+        want = K.copy_plain(v)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, ("copy", tuple(v.shape), v.dtype, err))
+        worst["copy"] = max(worst["copy"], err)
+        after = K.launch_counts()
+        took = [p for p in ("bulk", "words")
+                if after[f"copy_{p}"] > before[f"copy_{p}"]]
+        check(len(took) == 1 and after["copy"] == before["copy"] + 1, took)
+        return took[0]
+
     ragged = payload((3 * 2048 + 37,), torch.int32)
-    got, want = run("copy", ragged, None)
-    check(max_abs_err(torch, got, want) == 0.0)
+    path = copy_path(ragged)
     say(f"  copy of {ragged.numel()} elements (ragged edge of "
-        f"{K.copy_pad_elems(ragged.numel())} padding elements) bit-equal")
+        f"{K.copy_pad_elems(ragged.numel())} padding elements) bit-equal, "
+        f"{path} path")
+    check(copy_path(ragged, path="bulk") == "bulk", "bulk ring")
+    base = ragged.view(torch.uint8)
+    paths = {copy_path(base[off:off + 4 * 6000]) for off in range(16)}
+    check(paths == {"words"}, paths)
+    say(f"  copy of uint8 views at byte offsets 0-15 bit-equal, words "
+        f"path; the bulk ring on the ragged copy bit-equal")
 
     t = ops.choose_tile(n, 4)
     pl = plans(n, t)
     x = payload((1 << n,), torch.int32)
     nbytes = x.numel() * 4
     records = {}
+    timed = (lambda fn: cuda_ms(torch, fn, reps))
     case_of = {"block": "block-class", "lane": "lane-class",
                "tile": "bit-reverse", "copy": "identity"}
     for name in PERM_KERNELS:
         plan = pl.get(name)
-        got, want = run(name, x, plan)
-        err = max_abs_err(torch, got, want)
-        check(err == 0.0, (name, n, err))
-        worst[name] = max(worst[name], err)
-        del got, want
+        if name == "copy":
+            path = copy_path(x)
+        else:
+            got, want = run(name, x, plan)
+            err = max_abs_err(torch, got, want)
+            check(err == 0.0, (name, n, err))
+            worst[name] = max(worst[name], err)
+            del got, want
         fn, pfn = pairs[name]
         kern, plain = (lambda: fn(x, plan)), (lambda: pfn(x, plan))
         if name == "copy":
@@ -353,18 +398,40 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
             tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plan, dev))
             idx = ref.bmmc_src_index(plan.bmmc, dev)
             lib = lambda: torch.index_select(x, 0, idx)
-        ms = cuda_ms(torch, kern, reps)
+        turns = in_turns({"kernel": kern, "library": lib}, timed)
+        ms, lib_ms = (statistics.median(turns[k]) for k in ("kernel",
+                                                            "library"))
         plain_ms = cuda_ms(torch, plain, max(3, reps // 3), warmup=1)
-        lib_ms = cuda_ms(torch, lib, reps)
         idx = None
         bound_ms = (2 * nbytes + tab_bytes) / bw * 1e3
         records[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "max_abs_err": worst[name]}
-        say(f"  n={n} int32 {name} ({case_of[name]}, t={t}): bit-equal; "
+        say(f"  n={n} int32 {name} ({case_of[name]}, t={t}"
+            f"{f', {path} path' if name == 'copy' else ''}): bit-equal; "
             f"kernel {ms:.3f} ms ({2 * nbytes / ms / 1e6:.1f} GB/s), "
-            f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+            f"library {lib_ms:.3f} ms (in turns), plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms")
         torch.cuda.empty_cache()
+    for label, v in ((f"2^{n} - 1 int32", x[:-1]),
+                     (f"2^{n} - 1 int32 at a 4-byte offset", x[1:])):
+        path = copy_path(v)
+        turns = in_turns({"kernel": lambda: K.copy_blocks(v),
+                          "library": lambda: v.clone()}, timed)
+        say(f"  {label} copy ({path} path): bit-equal; kernel "
+            f"{statistics.median(turns['kernel']):.3f} ms, x.clone() "
+            f"{statistics.median(turns['library']):.3f} ms (in turns), "
+            f"bound {2 * v.numel() * 4 / bw * 1e3:.3f} ms")
+        torch.cuda.empty_cache()
+    # K1's alternative, the bulk-copy ring (bulk_copy.cuh), run on request
+    check(copy_path(x, path="bulk") == "bulk", "bulk ring")
+    turns = in_turns({"ring": lambda: K._copy_cuda(x, path="bulk"),
+                      "K1": lambda: K.copy_blocks(x),
+                      "library": lambda: x.clone()}, timed)
+    say(f"  n={n} int32 copy through the bulk ring: bit-equal; "
+        f"{statistics.median(turns['ring']):.3f} ms, K1 (words path) "
+        f"{statistics.median(turns['K1']):.3f} ms, x.clone() "
+        f"{statistics.median(turns['library']):.3f} ms (in turns)")
+    torch.cuda.empty_cache()
     return records
 
 

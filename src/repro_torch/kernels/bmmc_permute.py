@@ -4,7 +4,10 @@ The counterpart of :mod:`repro.kernels.bmmc_permute`. Five kernels, each
 a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
 
 * K1 ``copy.cu``          — :func:`copy_blocks`, the bandwidth yardstick
-  (reference: ``copy_through_vmem``);
+  (reference: ``copy_through_vmem``): tiles of the widest word both
+  pointers agree on, through registers (:func:`copy_schedule`; its
+  alternative, bulk copies through a ring in shared memory, runs only on
+  request; a launch also counts under ``copy_words`` or ``copy_bulk``);
 * K2 ``block_permute.cu`` — :func:`block_permute`, whole 2^b blocks
   moved by a source-block table;
 * K3 ``lane_permute.cu``  — :func:`lane_permute`, every row permuted in
@@ -24,9 +27,10 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
 Every wrapper takes the device of its tensor: a CUDA tensor launches the
 kernel (or raises — there is no quiet fallback), a CPU tensor runs the
 kernel's plain PyTorch version beside it (``_*_plain``), which repeats the
-kernel's schedule with tensor indexing. Each launch that runs adds one
-to :data:`LAUNCHES`; a launch recorded into a CUDA graph, the graph's
-replays and the plain versions count nothing.
+kernel's schedule with tensor indexing (K1's, the reference's schedule).
+Each launch that runs adds one to :data:`LAUNCHES`; a launch recorded
+into a CUDA graph, the graph's replays and the plain versions count
+nothing.
 
 Shapes follow the reference: ``x`` is ``(2^n,)`` or ``(2^n, d)``, and with
 ``batched=True`` ``(B, 2^n)`` or ``(B, 2^n, d)``. Internally every array is
@@ -38,7 +42,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,13 +54,23 @@ from . import epilogue_plan as EP
 from .map_lower import lower_map
 
 LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
-            "tile_bwd": 0}
+            "tile_bwd": 0, "copy_bulk": 0, "copy_words": 0}
 
 _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
 _BLOCK_CTA_WORDS = 1024         # words one block-permute block moves (at least)
 _TILE_CTA_BYTES = 16 * 1024     # bytes of tiles one tile-permute block moves
 _PLAIN_CHUNK = 1 << 22          # elements per step of the plain tile version
+_SM_SMEM = 228 * 1024           # shared memory of one multiprocessor (H100)
+_COPY_CTA_SMEM = 1024 + 128     # per K1 block beside its ring: the runtime's
+                                # reserve and the ring's barriers
+_COPY_CHUNK = 32 * 1024         # bytes of one K1 bulk copy and of its stage
+_COPY_STAGES = 4                # stages of K1's ring
+_WORD_THREADS = (1024, 256)     # threads of a K1 words-path block: large
+                                # copies, and those with fewer tiles of
+                                # 1024 threads than the card has SMs
+_MAX_GRID = (1 << 31) - 1       # blocks a launch may have
+_SM_COUNTS: dict = {}           # device index -> multiprocessor count
 
 
 def launch_counts() -> dict:
@@ -128,18 +144,26 @@ def _ptr(t: torch.Tensor):
 
 
 def _stream(x: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    """The raw handle of the current stream on ``x``'s device (what
+    ``torch.cuda.current_stream(...).cuda_stream`` gives, without building
+    a Stream object on every launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(x.device.index))
 
 
-def _launch(name: str, x: torch.Tensor, *args) -> None:
+def _launch(name: str, x: torch.Tensor, *args, path: str = None) -> None:
     from . import build as _build
     fn = _build.load(name)
-    with torch.cuda.device(x.device):
+    if x.device.index == torch.cuda.current_device():
         rc = fn(*args, _stream(x))
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*args, _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES[name] += 1     # a graph capture records, it does not run
+        if path is not None:
+            LAUNCHES[f"{name}_{path}"] += 1
 
 
 def _device_table(tab, device, numel: int) -> torch.Tensor:
@@ -1031,8 +1055,8 @@ def copy_pad_elems(size: int, rows_per_block: int = 8,
                    row_len: int = 256) -> int:
     """Elements of zero padding the reference's ``copy_through_vmem``
     appends so the array divides into whole blocks (0 = exact fit). The
-    CUDA kernel masks the ragged edge instead of padding; benchmarks keep
-    this number as the label of a ragged copy."""
+    CUDA kernel pads nothing (it copies a ragged head and tail byte by
+    byte); benchmarks keep this number as the label of a ragged copy."""
     blk = rows_per_block * row_len
     return (-size) % blk
 
@@ -1051,21 +1075,115 @@ def _copy_plain(x, rows_per_block, row_len):
     return out.reshape(-1)[:x.numel()].reshape(x.shape)
 
 
-def copy_blocks(x: torch.Tensor, *, rows_per_block: int = 8,
-                row_len: int = 256) -> torch.Tensor:
-    """Block copy, the bandwidth yardstick (the reference's
-    ``copy_through_vmem``): one CUDA block per (rows_per_block, row_len)
-    block of elements, the last block masked at the ragged edge."""
-    if not _route(x, "copy_blocks"):
-        return _copy_plain(x, rows_per_block, row_len)
+class CopySchedule(NamedTuple):
+    """How K1 copies ``nbytes``: byte ranges ``(start, stop)`` of the head
+    (before the source's first boundary of ``word_bytes``), the body of
+    whole words and the tail (the rest, shorter than a word); the path,
+    ``"words"`` (tiles of ``chunk_bytes`` through registers, one block of
+    ``threads`` each) or ``"bulk"`` (bulk copies of ``chunk_bytes``
+    through a ring of ``stages`` stages of ``stage_bytes``, with
+    ``smem_bytes`` of dynamic shared memory a block); ``grid`` blocks
+    over ``n_chunks`` chunks of the body."""
+    nbytes: int
+    head: tuple
+    body: tuple
+    tail: tuple
+    path: str
+    word_bytes: int
+    chunk_bytes: int
+    stages: int
+    stage_bytes: int
+    smem_bytes: int
+    threads: int
+    grid: int
+    n_chunks: int
+
+
+def copy_schedule(nbytes: int, src_ptr: int, dst_ptr: int, n_sm: int, *,
+                  path: str = "words", chunk_bytes: int = None,
+                  stages: int = None, grid: int = None) -> CopySchedule:
+    """K1's schedule for ``nbytes`` from ``src_ptr`` to ``dst_ptr`` on a
+    card of ``n_sm`` multiprocessors. The words path (K1's own) moves the
+    widest word both pointers agree on, one block per tile of 16 bytes a
+    thread (1024 threads, or 256 below one such tile an SM); the
+    bulk path needs both pointers alike modulo 16 and a body of 16 bytes
+    or more. ``path="bulk"``, ``chunk_bytes``, ``stages`` and ``grid``
+    (fewer blocks, each walking more chunks) are for timing and testing
+    the alternatives; :func:`copy_blocks` passes none of them."""
+    return _copy_schedule(int(nbytes), src_ptr % 16, dst_ptr % 16, int(n_sm),
+                          path, chunk_bytes, stages, grid)
+
+
+@functools.lru_cache(maxsize=256)
+def _copy_schedule(nbytes, src_mod, dst_mod, n_sm, path, chunk, stages, grid):
+    if nbytes < 0 or n_sm < 1:
+        raise ValueError(f"copy_schedule: nbytes {nbytes}, n_sm {n_sm}")
+    w = 16
+    while w > 1 and (src_mod - dst_mod) % w:
+        w //= 2
+    head = min(nbytes, -src_mod % w)
+    body = (nbytes - head) // w * w
+    if path == "words":
+        if chunk or stages:
+            raise ValueError("copy_schedule: the words path has no ring")
+        big, small = _WORD_THREADS
+        threads = big if body >= n_sm * big * 16 else small
+        chunk, stages, smem, most = threads * 16, 0, 0, _MAX_GRID
+    elif path == "bulk":
+        if w < 16 or not body:
+            raise ValueError("copy_schedule: a bulk copy needs both pointers "
+                             "alike modulo 16 and a body of 16 bytes or more")
+        chunk, stages = chunk or _COPY_CHUNK, stages or _COPY_STAGES
+        smem = chunk * stages
+        if (chunk % 16 or not 2 <= stages <= 8
+                or smem + _COPY_CTA_SMEM > _SMEM_MAX):
+            raise ValueError(f"copy_schedule: {stages} stages of {chunk} "
+                             f"bytes do not fit the ring")
+        most = n_sm * min(32, _SM_SMEM // (smem + _COPY_CTA_SMEM))
+        threads = 32
+    else:
+        raise ValueError(f"copy_schedule: no path {path!r}")
+    n_chunks = -(-body // chunk)
+    grid = max(1, min(grid or most, n_chunks, _MAX_GRID))
+    return CopySchedule(nbytes, (0, head), (head, head + body),
+                        (head + body, nbytes), path, w, chunk, stages,
+                        chunk if path == "bulk" else 0, smem, threads, grid,
+                        n_chunks)
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNTS[device.index] = n
+    return n
+
+
+def _copy_cuda(x: torch.Tensor, **overrides) -> torch.Tensor:
+    """One launch of K1 on a contiguous CUDA tensor under
+    :func:`copy_schedule` (``overrides`` go to it), counted under its
+    path."""
     out = torch.empty_like(x)
     nbytes = x.numel() * x.element_size()
-    if nbytes == 0:
-        return out
-    wb = _word_bytes(nbytes, x.data_ptr(), out.data_ptr())
-    per_cta = rows_per_block * row_len * x.element_size() // wb
-    _launch("copy", x, _ptr(x), _ptr(out), nbytes // wb, max(1, per_cta), wb)
+    if nbytes:
+        s = copy_schedule(nbytes, x.data_ptr(), out.data_ptr(),
+                          _sm_count(x.device), **overrides)
+        _launch("copy", x, _ptr(x), _ptr(out), nbytes, s.head[1],
+                s.body[1] - s.body[0], 0 if s.path == "bulk" else 1,
+                s.word_bytes, s.chunk_bytes, s.stages, s.grid, path=s.path)
     return out
+
+
+def copy_blocks(x: torch.Tensor, *, rows_per_block: int = 8,
+                row_len: int = 256) -> torch.Tensor:
+    """Copy, the bandwidth yardstick (the reference's
+    ``copy_through_vmem``). On the card one launch of K1 under
+    :func:`copy_schedule`; on the CPU the reference's schedule, whose
+    block of ``rows_per_block`` x ``row_len`` elements also fixes
+    :func:`copy_pad_elems`."""
+    if not _route(x, "copy_blocks"):
+        return _copy_plain(x, rows_per_block, row_len)
+    return _copy_cuda(x)
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,103 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tail, batch):
 
 
 
+_COPY_DTYPES = [torch.uint8, torch.bool, torch.int16, torch.bfloat16,
+                torch.float16, torch.int32, torch.float32, torch.int64,
+                torch.float64, torch.complex64]
+
+
+def _copy_checked(x, **overrides):
+    """K1 on ``x`` (``copy_blocks``, or ``_copy_cuda`` under schedule
+    ``overrides``) against ``copy_plain``, bit for bit, with the launch
+    counted once under the path its schedule names."""
+    before = pk.launch_counts()
+    got = pk._copy_cuda(x, **overrides) if overrides else pk.copy_blocks(x)
+    want = pk.copy_plain(x)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert torch.equal(got.contiguous().view(torch.uint8),
+                       want.contiguous().view(torch.uint8))
+    after = pk.launch_counts()
+    nbytes = x.numel() * x.element_size()
+    if nbytes == 0:
+        assert after == before
+        return None
+    path = overrides.get("path", "words")
+    assert after["copy"] == before["copy"] + 1
+    assert after[f"copy_{path}"] == before[f"copy_{path}"] + 1
+    return path
+
+
+def _random_bytes(n, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, (n,), generator=gen, device=device,
+                         dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _COPY_DTYPES, ids=str)
+def test_cuda_copy_matches_plain(cuda_device, dtype):
+    """Every dtype the port moves, at sizes around the edges, a tile and a
+    stage: 0, 1, 15, 16 and 17 bytes (as uint8), a stage +- 1 element,
+    3 * 2048 + 37 int32 worth of bytes; through K1's words path and
+    through the bulk ring (where the body has 16 bytes), several chunks a
+    block."""
+    item = torch.empty((), dtype=dtype).element_size()
+    stage = pk._COPY_CHUNK // item
+    counts = [0, 1, 15, 16, 17] if dtype == torch.uint8 else [0, 1, 17]
+    counts += [stage - 1, stage, stage + 1, (3 * 2048 + 37) * 4 // item]
+    for i, n in enumerate(counts):
+        raw = _random_bytes(n * item, cuda_device, i)
+        x = raw.view(dtype) if dtype != torch.bool else raw.bool()
+        _copy_checked(x)
+        if n * item >= 16:
+            _copy_checked(x, path="bulk")
+            _copy_checked(x, path="bulk", chunk_bytes=1024, stages=2, grid=3)
+        _copy_checked(x, grid=2)
+
+
+@pytest.mark.cuda
+def test_cuda_copy_of_misaligned_views(cuda_device):
+    """Sources that are uint8 views at byte offsets 0-15 (the output is a
+    fresh, aligned tensor): the words path with the widest word both
+    pointers agree on; at offset 0 the bulk ring too."""
+    base = _random_bytes(3 * pk._COPY_CHUNK + 64, cuda_device, 16)
+    for off in range(16):
+        for n in (1, 15, 16, 17, pk._COPY_CHUNK - 1, pk._COPY_CHUNK + 1,
+                  3 * pk._COPY_CHUNK + 5):
+            v = base[off:off + n]
+            assert _copy_checked(v) == "words"
+            if off == 0 and n >= 16:
+                _copy_checked(v, path="bulk")
+    x = base[4:4 + 4 * 6181].view(torch.int32)
+    assert _copy_checked(x) == "words"
+
+
+@pytest.mark.cuda
+def test_cuda_copy_under_graph_capture(cuda_device):
+    """K1 recorded into a CUDA graph (words path, aligned and at a 3-byte
+    offset; the bulk ring) and replayed copies what it copies eagerly;
+    the capture and the replays count no launch."""
+    big = _random_bytes(4 * (3 * 2048 + 37) + 7, cuda_device, 3)
+    xs = [big[:4 * (3 * 2048 + 37)].view(torch.int32), big[3:]]
+    calls = [lambda x: pk.copy_blocks(x), lambda x: pk.copy_blocks(x),
+             lambda x: pk._copy_cuda(x, path="bulk")]
+    xs.append(xs[0])
+    for call, x in zip(calls, xs):
+        call(x)
+    torch.cuda.synchronize()
+    before = pk.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [call(x) for call, x in zip(calls, xs)]
+    big.copy_(_random_bytes(big.numel(), cuda_device, 4))
+    g.replay()
+    torch.cuda.synchronize()
+    for x, out in zip(xs, outs):
+        assert torch.equal(out.view(torch.uint8),
+                           pk.copy_plain(x).view(torch.uint8))
+    assert pk.launch_counts() == before
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_wrong_tables(cuda_device):
     plan = pops.class_plan(Bmmc.bit_reverse(12), 3)[1][0]
