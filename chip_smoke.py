@@ -18,8 +18,8 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    library call, and beside the plain version; the copy also at 2^n - 1
    int32 and on a view at a 4-byte offset, each in turns with
    ``x.clone()``, and through its bulk-copy ring (on request; ragged and
-   at 2^n, bit for bit, timed in turns with K1 and ``x.clone()``); every
-   copy prints the path its launch counted (words or bulk);
+   at 2^n, bit for bit); every copy prints the path its launch counted
+   (words or bulk);
 4. main path: ``repro_torch.kernels.ops.bmmc_permute`` on 2^n int32 for
    one BMMC of each dispatch case (bit-reverse, random BPC, random BMMC,
    block class, lane class, mixed complement), each bit-equal to the
@@ -343,12 +343,12 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
             worst[name] = max(worst[name], err)
         say(f"  n={n_small} {label} t={t}: copy, block, lane, tile bit-equal")
 
-    def copy_path(v, **overrides):
-        """K1 on ``v`` (under schedule ``overrides``, if any) held bit for
-        bit against its plain version; the path it took, read from the
-        path counts of its one launch."""
+    def copy_path(v, path=None):
+        """K1 on ``v`` (on ``path`` if one is asked for) held bit for bit
+        against its plain version; the path it took, read from the path
+        counts of its one launch."""
         before = K.launch_counts()
-        got = K._copy_cuda(v, **overrides) if overrides else K.copy_blocks(v)
+        got = K._copy_cuda(v, path) if path else K.copy_blocks(v)
         want = K.copy_plain(v)
         err = max_abs_err(torch, got, want)
         check(err == 0.0, ("copy", tuple(v.shape), v.dtype, err))
@@ -424,13 +424,7 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
         torch.cuda.empty_cache()
     # K1's alternative, the bulk-copy ring (bulk_copy.cuh), run on request
     check(copy_path(x, path="bulk") == "bulk", "bulk ring")
-    turns = in_turns({"ring": lambda: K._copy_cuda(x, path="bulk"),
-                      "K1": lambda: K.copy_blocks(x),
-                      "library": lambda: x.clone()}, timed)
-    say(f"  n={n} int32 copy through the bulk ring: bit-equal; "
-        f"{statistics.median(turns['ring']):.3f} ms, K1 (words path) "
-        f"{statistics.median(turns['K1']):.3f} ms, x.clone() "
-        f"{statistics.median(turns['library']):.3f} ms (in turns)")
+    say(f"  n={n} int32 copy through the bulk ring: bit-equal")
     torch.cuda.empty_cache()
     return records
 

@@ -61,15 +61,11 @@ _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
 _BLOCK_CTA_WORDS = 1024         # words one block-permute block moves (at least)
 _TILE_CTA_BYTES = 16 * 1024     # bytes of tiles one tile-permute block moves
 _PLAIN_CHUNK = 1 << 22          # elements per step of the plain tile version
-_SM_SMEM = 228 * 1024           # shared memory of one multiprocessor (H100)
-_COPY_CTA_SMEM = 1024 + 128     # per K1 block beside its ring: the runtime's
-                                # reserve and the ring's barriers
-_COPY_CHUNK = 32 * 1024         # bytes of one K1 bulk copy and of its stage
-_COPY_STAGES = 4                # stages of K1's ring
+_COPY_CHUNK = 32 * 1024         # K1's ring: stages of one bulk copy each
+_COPY_STAGES = 4                # (copy.cu's BULK_CHUNK and BULK_STAGES)
 _WORD_THREADS = (1024, 256)     # threads of a K1 words-path block: large
                                 # copies, and those with fewer tiles of
                                 # 1024 threads than the card has SMs
-_MAX_GRID = (1 << 31) - 1       # blocks a launch may have
 _SM_COUNTS: dict = {}           # device index -> multiprocessor count
 
 
@@ -1079,11 +1075,10 @@ class CopySchedule(NamedTuple):
     """How K1 copies ``nbytes``: byte ranges ``(start, stop)`` of the head
     (before the source's first boundary of ``word_bytes``), the body of
     whole words and the tail (the rest, shorter than a word); the path,
-    ``"words"`` (tiles of ``chunk_bytes`` through registers, one block of
-    ``threads`` each) or ``"bulk"`` (bulk copies of ``chunk_bytes``
-    through a ring of ``stages`` stages of ``stage_bytes``, with
-    ``smem_bytes`` of dynamic shared memory a block); ``grid`` blocks
-    over ``n_chunks`` chunks of the body."""
+    ``"words"`` (one block of ``threads`` a tile of ``chunk_bytes``,
+    through registers) or ``"bulk"`` (bulk copies of ``chunk_bytes``
+    through a ring of ``stages`` stages of ``chunk_bytes`` each); ``grid``
+    blocks."""
     nbytes: int
     head: tuple
     body: tuple
@@ -1092,30 +1087,25 @@ class CopySchedule(NamedTuple):
     word_bytes: int
     chunk_bytes: int
     stages: int
-    stage_bytes: int
-    smem_bytes: int
     threads: int
     grid: int
-    n_chunks: int
 
 
 def copy_schedule(nbytes: int, src_ptr: int, dst_ptr: int, n_sm: int, *,
-                  path: str = "words", chunk_bytes: int = None,
-                  stages: int = None, grid: int = None) -> CopySchedule:
+                  path: str = "words") -> CopySchedule:
     """K1's schedule for ``nbytes`` from ``src_ptr`` to ``dst_ptr`` on a
     card of ``n_sm`` multiprocessors. The words path (K1's own) moves the
     widest word both pointers agree on, one block per tile of 16 bytes a
-    thread (1024 threads, or 256 below one such tile an SM); the
-    bulk path needs both pointers alike modulo 16 and a body of 16 bytes
-    or more. ``path="bulk"``, ``chunk_bytes``, ``stages`` and ``grid``
-    (fewer blocks, each walking more chunks) are for timing and testing
-    the alternatives; :func:`copy_blocks` passes none of them."""
+    thread (1024 threads, or 256 below one such tile an SM). The bulk
+    path, run only on request (``path="bulk"``, for testing and timing
+    the ring), needs both pointers alike modulo 16 and a body of 16 bytes
+    or more; its ring of 128 KiB leaves room for one block an SM."""
     return _copy_schedule(int(nbytes), src_ptr % 16, dst_ptr % 16, int(n_sm),
-                          path, chunk_bytes, stages, grid)
+                          path)
 
 
 @functools.lru_cache(maxsize=256)
-def _copy_schedule(nbytes, src_mod, dst_mod, n_sm, path, chunk, stages, grid):
+def _copy_schedule(nbytes, src_mod, dst_mod, n_sm, path):
     if nbytes < 0 or n_sm < 1:
         raise ValueError(f"copy_schedule: nbytes {nbytes}, n_sm {n_sm}")
     w = 16
@@ -1124,31 +1114,21 @@ def _copy_schedule(nbytes, src_mod, dst_mod, n_sm, path, chunk, stages, grid):
     head = min(nbytes, -src_mod % w)
     body = (nbytes - head) // w * w
     if path == "words":
-        if chunk or stages:
-            raise ValueError("copy_schedule: the words path has no ring")
         big, small = _WORD_THREADS
         threads = big if body >= n_sm * big * 16 else small
-        chunk, stages, smem, most = threads * 16, 0, 0, _MAX_GRID
+        chunk, stages = threads * 16, 0
+        grid = max(1, -(-body // chunk))
     elif path == "bulk":
         if w < 16 or not body:
             raise ValueError("copy_schedule: a bulk copy needs both pointers "
                              "alike modulo 16 and a body of 16 bytes or more")
-        chunk, stages = chunk or _COPY_CHUNK, stages or _COPY_STAGES
-        smem = chunk * stages
-        if (chunk % 16 or not 2 <= stages <= 8
-                or smem + _COPY_CTA_SMEM > _SMEM_MAX):
-            raise ValueError(f"copy_schedule: {stages} stages of {chunk} "
-                             f"bytes do not fit the ring")
-        most = n_sm * min(32, _SM_SMEM // (smem + _COPY_CTA_SMEM))
-        threads = 32
+        threads, chunk, stages = 32, _COPY_CHUNK, _COPY_STAGES
+        grid = min(n_sm, -(-body // chunk))
     else:
         raise ValueError(f"copy_schedule: no path {path!r}")
-    n_chunks = -(-body // chunk)
-    grid = max(1, min(grid or most, n_chunks, _MAX_GRID))
     return CopySchedule(nbytes, (0, head), (head, head + body),
                         (head + body, nbytes), path, w, chunk, stages,
-                        chunk if path == "bulk" else 0, smem, threads, grid,
-                        n_chunks)
+                        threads, grid)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -1159,18 +1139,17 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
-def _copy_cuda(x: torch.Tensor, **overrides) -> torch.Tensor:
+def _copy_cuda(x: torch.Tensor, path: str = "words") -> torch.Tensor:
     """One launch of K1 on a contiguous CUDA tensor under
-    :func:`copy_schedule` (``overrides`` go to it), counted under its
-    path."""
+    :func:`copy_schedule` on ``path``, counted under it."""
     out = torch.empty_like(x)
     nbytes = x.numel() * x.element_size()
     if nbytes:
         s = copy_schedule(nbytes, x.data_ptr(), out.data_ptr(),
-                          _sm_count(x.device), **overrides)
+                          _sm_count(x.device), path=path)
         _launch("copy", x, _ptr(x), _ptr(out), nbytes, s.head[1],
                 s.body[1] - s.body[0], 0 if s.path == "bulk" else 1,
-                s.word_bytes, s.chunk_bytes, s.stages, s.grid, path=s.path)
+                s.word_bytes, s.threads, s.grid, path=s.path)
     return out
 
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # two data pointers)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
-    "copy": ("copy.cu", "repro_copy", [_L, _L, _L] + [_I] * 5 + [_P]),
+    "copy": ("copy.cu", "repro_copy", [_L, _L, _L] + [_I] * 4 + [_P]),
     "block": ("block_permute.cu", "repro_block_permute",
               [_P, _I, _I, _I, _I, _L, _I, _P]),
     "lane": ("lane_permute.cu", "repro_lane_permute",

@@ -39,20 +39,19 @@ def _check(s, nbytes, src, dst, n_sm):
     assert (b1 - b0) % w == 0
     if b1 > b0:
         assert (src + b0) % w == 0 and (dst + b0) % w == 0
+    n_chunks = -(-(b1 - b0) // s.chunk_bytes)
     if s.path == "bulk":
         assert w == 16 and b1 - b0 >= 16
         assert (src + b0) % 16 == 0 and (dst + b0) % 16 == 0
-        assert s.chunk_bytes % 16 == 0 and s.stage_bytes == s.chunk_bytes
-        assert s.smem_bytes == s.stages * s.stage_bytes
-        assert s.smem_bytes + pk._COPY_CTA_SMEM <= pk._SMEM_MAX
-        assert s.threads == 32
+        assert (s.chunk_bytes, s.stages, s.threads) == (S, 4, 32)
+        assert s.grid == min(n_sm, n_chunks)    # one block an SM at most
     else:
         big, small = pk._WORD_THREADS
         assert s.path == "words" and s.chunk_bytes == 16 * s.threads
         assert s.threads == (big if b1 - b0 >= n_sm * 16 * big else small)
-        assert s.stages == s.stage_bytes == s.smem_bytes == 0
-    assert s.n_chunks == -(-(b1 - b0) // s.chunk_bytes)
-    assert 1 <= s.grid <= max(1, s.n_chunks)   # one block for the edges
+        assert s.stages == 0
+        assert s.grid == max(1, n_chunks)   # a block a tile; one for edges
+    assert 1 <= s.grid <= max(1, n_chunks)
 
 
 @pytest.mark.parametrize("nbytes", SIZES)
@@ -63,18 +62,10 @@ def test_copy_schedule_partitions_every_alignment(nbytes):
                 src, dst = BASE + a, 2 * BASE + b
                 s = pk.copy_schedule(nbytes, src, dst, n_sm)
                 _check(s, nbytes, src, dst, n_sm)
-                assert s.grid == max(1, s.n_chunks)     # a block a tile
                 if (a - b) % 16 or nbytes - (-a % 16) < 16:
                     continue
                 s = pk.copy_schedule(nbytes, src, dst, n_sm, path="bulk")
                 _check(s, nbytes, src, dst, n_sm)
-                per_sm = pk._SM_SMEM // (s.smem_bytes + pk._COPY_CTA_SMEM)
-                assert s.grid == min(n_sm * per_sm, s.n_chunks)
-                s = pk.copy_schedule(nbytes, src, dst, n_sm, path="bulk",
-                                     chunk_bytes=T, stages=2, grid=3)
-                _check(s, nbytes, src, dst, n_sm)
-                assert (s.chunk_bytes, s.stages, s.grid) == (
-                    T, 2, min(3, s.n_chunks))
 
 
 def test_copy_schedule_defaults():
@@ -95,8 +86,9 @@ def test_copy_schedule_defaults():
     assert (view.path, view.word_bytes) == ("words", 4)
     ring = pk.copy_schedule(1 << 32, BASE, 2 * BASE, 132, path="bulk")
     assert (ring.chunk_bytes, ring.stages, ring.grid) == (S, 4, 132)
-    assert pk.copy_schedule(1 << 32, BASE, 2 * BASE, 132,
-                            grid=1056).grid == 1056
+    few = pk.copy_schedule(3 * S - 5, BASE + 5, 2 * BASE + 5, 132,
+                           path="bulk")
+    assert few.grid == 3 and few.head == (0, 11)
 
 
 def test_copy_schedule_refuses_what_the_kernels_cannot_run():
@@ -104,13 +96,6 @@ def test_copy_schedule_refuses_what_the_kernels_cannot_run():
         pk.copy_schedule(1 << 20, BASE + 4, 2 * BASE, 132, path="bulk")
     with pytest.raises(ValueError, match="bulk copy needs"):
         pk.copy_schedule(15, BASE, 2 * BASE, 132, path="bulk")
-    with pytest.raises(ValueError, match="do not fit"):
-        pk.copy_schedule(1 << 20, BASE, 2 * BASE, 132, path="bulk", stages=1)
-    with pytest.raises(ValueError, match="do not fit"):
-        pk.copy_schedule(1 << 20, BASE, 2 * BASE, 132, path="bulk",
-                         chunk_bytes=64 << 10, stages=4)
-    with pytest.raises(ValueError, match="no ring"):
-        pk.copy_schedule(1 << 20, BASE, 2 * BASE, 132, stages=4)
     with pytest.raises(ValueError, match="no path"):
         pk.copy_schedule(1 << 20, BASE, 2 * BASE, 132, path="dma")
     with pytest.raises(ValueError):
@@ -119,9 +104,9 @@ def test_copy_schedule_refuses_what_the_kernels_cannot_run():
 
 def _emulate(src: np.ndarray, s) -> np.ndarray:
     """``copy.cu`` under schedule ``s`` on a byte array: each block's
-    writes in the kernel's order (block 0's edges, then its chunks, grid-
-    strided: a words block's tile, a bulk block's ring of chunks); every
-    byte must be written exactly once."""
+    writes in the kernel's order (block 0's edges, then a words block's
+    one tile, or a bulk block's chunks through its ring, grid-strided);
+    every byte must be written exactly once."""
     out = np.zeros_like(src)
     seen = np.zeros(src.size, np.int64)
 
@@ -135,7 +120,7 @@ def _emulate(src: np.ndarray, s) -> np.ndarray:
             put(0, h1)
             put(t0, s.nbytes)
         j = blk
-        while j < s.n_chunks:
+        while j < -(-(b1 - b0) // s.chunk_bytes):
             lo = j * s.chunk_bytes
             if s.path == "bulk":
                 put(b0 + lo, b0 + min(lo + s.chunk_bytes, b1 - b0))
@@ -164,14 +149,12 @@ def test_schedule_emulation_copies_every_byte(dtype, src_off, dst_off):
     n = int(rng.integers(3 * S, 5 * S)) // itemsize + 3   # ragged
     src = rng.integers(0, 256, n * itemsize, dtype=np.uint8)
     x = src.view(dtype)
-    for n_sm, override in ((132, {}), (132, {"grid": 3}),
-                           (2, {"path": "bulk"}),
-                           (2, {"path": "bulk", "chunk_bytes": T,
-                                "stages": 2, "grid": 5})):
-        if override.get("path") and (src_off - dst_off) % 16:
+    for n_sm, path in ((132, "words"), (1, "words"), (2, "bulk"),
+                       (1, "bulk")):
+        if path == "bulk" and (src_off - dst_off) % 16:
             continue
         s = pk.copy_schedule(src.size, BASE + src_off, 2 * BASE + dst_off,
-                             n_sm, **override)
+                             n_sm, path=path)
         got = _emulate(src, s).view(dtype)
         assert np.array_equal(got.view(np.uint8), x.view(np.uint8))
     t = torch.from_numpy(src)

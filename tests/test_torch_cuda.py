@@ -76,18 +76,43 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tail, batch):
                                               "tile")), (counts, after)
 
 
+@pytest.mark.cuda
+def test_cuda_kernels_on_a_card_that_is_not_current(cuda_device):
+    """K1-K4a on tensors of the second card while the first is current:
+    each wrapper launches on its tensor's device and stream (``_launch``
+    switches device only then), bit-equal to the plain versions, and
+    leaves the current device as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = random.Random(7)
+    n = 12
+    x = torch.randint(0, 1 << 30, (1 << n,), device=dev, dtype=torch.int32)
+    counts = pk.launch_counts()
+    for kind in ("bitrev", "bmmc", "block", "lane"):
+        b = _bmmc(kind, n, rng)
+        assert torch.equal(pops.bmmc_permute(x, b), pref.bmmc_ref(x, b))
+    y = x.view(torch.uint8)[3:]
+    assert torch.equal(pk.copy_blocks(y), pk.copy_plain(y))
+    torch.cuda.synchronize(dev)
+    after = pk.launch_counts()
+    assert all(after[k] > counts[k] for k in ("copy", "block", "lane",
+                                              "tile")), (counts, after)
+    assert torch.cuda.current_device() == 0
+
 
 _COPY_DTYPES = [torch.uint8, torch.bool, torch.int16, torch.bfloat16,
                 torch.float16, torch.int32, torch.float32, torch.int64,
                 torch.float64, torch.complex64]
 
 
-def _copy_checked(x, **overrides):
-    """K1 on ``x`` (``copy_blocks``, or ``_copy_cuda`` under schedule
-    ``overrides``) against ``copy_plain``, bit for bit, with the launch
-    counted once under the path its schedule names."""
+def _copy_checked(x, path=None):
+    """K1 on ``x`` (``copy_blocks``, or ``_copy_cuda`` on ``path``)
+    against ``copy_plain``, bit for bit, with the launch counted once
+    under the path its schedule names."""
     before = pk.launch_counts()
-    got = pk._copy_cuda(x, **overrides) if overrides else pk.copy_blocks(x)
+    got = pk._copy_cuda(x, path) if path else pk.copy_blocks(x)
     want = pk.copy_plain(x)
     assert got.shape == x.shape and got.dtype == x.dtype
     assert torch.equal(got.contiguous().view(torch.uint8),
@@ -97,7 +122,7 @@ def _copy_checked(x, **overrides):
     if nbytes == 0:
         assert after == before
         return None
-    path = overrides.get("path", "words")
+    path = path or "words"
     assert after["copy"] == before["copy"] + 1
     assert after[f"copy_{path}"] == before[f"copy_{path}"] + 1
     return path
@@ -114,21 +139,21 @@ def _random_bytes(n, device, seed):
 def test_cuda_copy_matches_plain(cuda_device, dtype):
     """Every dtype the port moves, at sizes around the edges, a tile and a
     stage: 0, 1, 15, 16 and 17 bytes (as uint8), a stage +- 1 element,
-    3 * 2048 + 37 int32 worth of bytes; through K1's words path and
-    through the bulk ring (where the body has 16 bytes), several chunks a
-    block."""
+    3 * 2048 + 37 int32 worth of bytes (and, in int32, a ragged copy of
+    more than five chunks an SM, so the ring wraps); through K1's words
+    path and through the bulk ring (where the body has 16 bytes)."""
     item = torch.empty((), dtype=dtype).element_size()
     stage = pk._COPY_CHUNK // item
     counts = [0, 1, 15, 16, 17] if dtype == torch.uint8 else [0, 1, 17]
     counts += [stage - 1, stage, stage + 1, (3 * 2048 + 37) * 4 // item]
+    if dtype == torch.int32:
+        counts.append(5 * pk._sm_count(cuda_device) * stage + 3)
     for i, n in enumerate(counts):
         raw = _random_bytes(n * item, cuda_device, i)
         x = raw.view(dtype) if dtype != torch.bool else raw.bool()
         _copy_checked(x)
         if n * item >= 16:
             _copy_checked(x, path="bulk")
-            _copy_checked(x, path="bulk", chunk_bytes=1024, stages=2, grid=3)
-        _copy_checked(x, grid=2)
 
 
 @pytest.mark.cuda

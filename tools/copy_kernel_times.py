@@ -23,10 +23,9 @@ led by ``--tag``:
   calls queued without a wait);
 * K1's path and schedule at each size (a checkout with
   ``copy_schedule``);
-* with ``--alternatives`` (a checkout with the bulk path): at 2^30
-  int32, K1's words path beside the same kernel on a persistent grid,
-  the bulk ring at several chunk and stage sizes and the bulk path with
-  one block a chunk, in turns with ``clone``;
+* with ``--bulk`` (a checkout with the bulk path): at 2^30 int32, K1's
+  bulk-copy ring (``_copy_cuda(x, "bulk")``) in turns with K1's words
+  path and ``clone`` (other variants: ``tools/copy_sweep.py``);
 * with ``--perms``: K2 (block class), K3 (lane class) and K4a
   (bit-reverse) at 2^30 int32 through ``ops.bmmc_permute``, in turns with
   K1 and ``clone``, and each one's copy ratio (copy time / its time)
@@ -55,6 +54,24 @@ def summary(v: list) -> str:
             f"{max(v):.4f}; {' '.join(f'{t:.4f}' for t in v)})")
 
 
+def kernel_ms(torch, fn, calls: int = 10) -> float:
+    """Device milliseconds a call of ``fn`` from the profiler's record of
+    the kernels and copies ``calls`` calls ran on the card (CUPTI): unlike
+    a graph, it sees ``clone``'s copy as eager calls run it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not total:
+        raise SystemExit("the profiler saw no device time")
+    return total / calls / 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -66,8 +83,8 @@ def main(argv=None) -> int:
                     help="alternations of (K1, clone, clone, K1)")
     ap.add_argument("--reps", type=int, default=10,
                     help="calls per turn (the median is the turn's reading)")
-    ap.add_argument("--alternatives", action="store_true",
-                    help="also time other ring sizes and the register path")
+    ap.add_argument("--bulk", action="store_true",
+                    help="also time K1's bulk-copy ring at 2^30")
     ap.add_argument("--perms", action="store_true",
                     help="also time K2, K3 and K4a and their copy ratios")
     args = ap.parse_args(argv)
@@ -98,13 +115,14 @@ def main(argv=None) -> int:
     has_schedule = hasattr(pk, "_copy_cuda")
     timed = (lambda fn: cuda_ms(torch, fn, args.reps))
 
-    def path_of(x, out):
+    def path_of(x, out, path="words"):
         if not has_schedule:
             return "one path (8 x 256-element blocks, the widest word)"
         s = pk.copy_schedule(x.numel() * x.element_size(), x.data_ptr(),
-                             out.data_ptr(), n_sm)
+                             out.data_ptr(), n_sm, path=path)
         return (f"{s.path}: head {s.head}, body {s.body}, tail {s.tail}, "
-                f"word {s.word_bytes} B, chunk {s.chunk_bytes} B, "
+                f"word {s.word_bytes} B, chunk {s.chunk_bytes} B"
+                f"{f' x {s.stages} stages' if s.stages else ''}, "
                 f"grid {s.grid} x {s.threads}")
 
     def launch_path_ms(fn, reps=50):
@@ -119,24 +137,6 @@ def main(argv=None) -> int:
         host = (time.perf_counter() - t1) / reps * 1e3
         torch.cuda.synchronize()
         return host
-
-    def kernel_ms(fn, calls=10):
-        """Device milliseconds a call from the profiler's record of the
-        kernels and copies the calls ran on the card (CUPTI): unlike a
-        graph, it sees ``clone``'s copy as eager calls run it."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(ev.device_time_total for ev in prof.key_averages()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA)
-        if not total:
-            raise SystemExit("copy_kernel_times: the profiler saw no device "
-                             "time")
-        return total / calls / 1e3
 
     big = torch.randint(-2**31, 2**31 - 1, (1 << 30,), device=dev,
                         dtype=torch.int32)
@@ -163,7 +163,7 @@ def main(argv=None) -> int:
             gbs = 2 * x.numel() * 4 / statistics.median(v) / 1e6
             say(f"{label} {k} device ({inner} calls in a graph): "
                 f"{summary(v)}, {gbs:.1f} GB/s")
-        kv = in_turns(fns, kernel_ms, args.rounds)
+        kv = in_turns(fns, lambda fn: kernel_ms(torch, fn), args.rounds)
         for k, v in kv.items():
             gbs = 2 * x.numel() * 4 / statistics.median(v) / 1e6
             say(f"{label} {k} device (profiler, 10 calls): {summary(v)}, "
@@ -174,29 +174,25 @@ def main(argv=None) -> int:
                 f"{launch_path_ms(fns['clone']):.4f} ms")
         torch.cuda.empty_cache()
 
-    if args.alternatives and has_schedule:
+    if args.bulk and has_schedule:
         x = big
-        alts = {"words, one block a tile (K1)": {},
-                "words, persistent, 2 blocks an SM": {"grid": 2 * n_sm}}
-        for chunk, stages in ((32768, 4), (32768, 2), (16384, 4), (8192, 4)):
-            alts[f"bulk ring {chunk // 1024} KiB x {stages}"] = {
-                "path": "bulk", "chunk_bytes": chunk, "stages": stages}
-        for chunk in (4096, 8192):
-            alts[f"bulk, one block a chunk of {chunk // 1024} KiB"] = {
-                "path": "bulk", "chunk_bytes": chunk, "stages": 2,
-                "grid": x.numel() * 4 // chunk}
-        fns = {k: (lambda o=o: pk._copy_cuda(x, **o)) for k, o in alts.items()}
-        fns["clone"] = lambda: x.clone()
-        for k, fn in fns.items():
-            y = fn()
-            torch.cuda.synchronize()
-            if not torch.equal(y, x):
-                say(f"2^30 int32 {k}: WRONG")
-                return 1
-            del y
+        fns = {"bulk ring": lambda: pk._copy_cuda(x, "bulk"),
+               "K1 (words)": lambda: pk.copy_blocks(x),
+               "clone": lambda: x.clone()}
+        y = fns["bulk ring"]()
+        torch.cuda.synchronize()
+        ok = torch.equal(y, x)
+        say(f"2^30 int32 bulk ring: {'bit-equal' if ok else 'WRONG'}; "
+            f"{path_of(x, y, 'bulk')}")
+        del y
+        if not ok:
+            return 1
         got = in_turns(fns, timed, args.rounds)
         for k, v in got.items():
-            say(f"2^30 int32 alternative {k}: {summary(v)}")
+            say(f"2^30 int32 {k} one call: {summary(v)}")
+        kv = in_turns(fns, lambda fn: kernel_ms(torch, fn), args.rounds)
+        for k, v in kv.items():
+            say(f"2^30 int32 {k} device (profiler, 10 calls): {summary(v)}")
 
     if args.perms:
         x = big
