@@ -83,7 +83,34 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    the Python call; ``device_ms`` for K4b and K5 the device time of one
    call, 10 calls captured in one CUDA graph and replayed, null for the
    others);
-11. last line: ``{"ok": true, "device": {...}}``.
+11. guarded main path: phase 4's six BMMCs and the 2^n_sort int32 sort
+   with ``guard.enable()``, each bit-equal to its unguarded call, with no
+   trap, no fallback and the breaker board closed, counting the launches
+   of the guarded variants (``block_guarded``, ``lane_guarded``,
+   ``tile_guarded``, ``tile_fused_guarded``; no unguarded kernel runs
+   under the guard); ring 1's host seconds (validation with
+   fingerprints) per 2^n plan; each call guarded and unguarded in turns;
+   each guarded variant bit for bit against its unguarded kernel and its
+   guarded plain version, timed in turns with the unguarded kernel (one
+   call and device time);
+12. traps on the card at 2^24: each table of each guarded variant
+   poisoned on the card (2^30 and -1) sets bit 1 as the guarded plain
+   version does, and the next unguarded launch succeeds; guarded
+   ``bmmc_permute`` with a poisoned plan (host table, then the card's
+   copy only) and a guarded sort with a poisoned K4b table fall back to
+   ``ref`` and equal the oracle; a poisoned ref table raises
+   ``GuardTrap`` and the process keeps launching;
+13. store warm start: a fresh process (this script with
+   ``--store-child``) populates a plan store in a temporary root with the
+   six 2^n BMMCs, the 2^n_sort sort and its float32 gradient; a second
+   replays them with zero plans built, only hits, and outputs equal to
+   the first's (64-bit checksums on the card); first-call latency cold,
+   disk-warm and warm, and the store's bytes; then the disk-fault
+   matrix (every case caught);
+14. ring 3 and the soak: ``guard.inject.run_fault_matrix("cuda")`` at
+   2^14 (every kind caught, none silently wrong) and
+   ``resilience.chaos.run_matrix()`` on the card (every SLO met);
+15. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -117,6 +144,15 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                    "src/repro/kernels/bmmc_permute.py:181"),
     "tile_bwd": ("src/repro_torch/kernels/csrc/tile_bwd.cu",
                  "src/repro/kernels/bmmc_permute.py:265"),
+    # the guarded variants (ring 2): instantiations of K2, K3, K4a, K4b
+    "block_guarded": ("src/repro_torch/kernels/csrc/block_permute.cu",
+                      "src/repro/kernels/bmmc_permute.py:724"),
+    "lane_guarded": ("src/repro_torch/kernels/csrc/lane_permute.cu",
+                     "src/repro/kernels/bmmc_permute.py:811"),
+    "tile_guarded": ("src/repro_torch/kernels/csrc/tile_permute.cu",
+                     "src/repro/kernels/bmmc_permute.py:72"),
+    "tile_fused_guarded": ("src/repro_torch/kernels/csrc/tile_fused.cu",
+                           "src/repro/kernels/bmmc_permute.py:181"),
 }
 PERM_KERNELS = ("copy", "block", "lane", "tile")   # the bmmc_permute path
 
@@ -1517,6 +1553,505 @@ def phase_combinators(torch, n_sort: int, n_fft: int, reps: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 11-14: validated, durable and resilient execution
+# ---------------------------------------------------------------------------
+
+GUARDED = {"block": "block_guarded", "lane": "lane_guarded",
+           "tile": "tile_guarded", "tile_fused": "tile_fused_guarded"}
+N_FAULT = 24              # log2 elements of phase 12's poisoned tables
+N_MATRIX = 14             # log2 elements of phase 14's fault matrix
+
+
+def dev_hash(torch, t) -> int:
+    """A position-sensitive 64-bit checksum of ``t``'s bits, computed on
+    its device in chunks: equal across processes exactly when the bits
+    are (up to a 2^-64 chance)."""
+    v = bits(torch, t).reshape(-1)
+    h = 0
+    for s in range(0, v.numel(), 1 << 26):
+        c = v[s:s + (1 << 26)].to(torch.int64)
+        idx = torch.arange(s, s + c.numel(), device=c.device,
+                           dtype=torch.int64)
+        h += int(((c + 0x2545F491) * (2 * idx + 1)).sum())
+    return h & ((1 << 64) - 1)
+
+
+class GuardedCase:
+    """K2, K3 or K4a on ``x`` with one plan of phase 4's dispatch cases:
+    the guarded launch (into its own flag word), the unguarded launch and
+    the guarded plain version, all on the plan's device tables."""
+
+    def __init__(self, torch, name, plan, x):
+        from repro_torch.kernels import bmmc_permute as K
+        self.name, self.plan, self.x, self.K = name, plan, x, K
+        self.flags = torch.zeros(1, dtype=torch.int32, device=x.device)
+        self.tabs = K.device_tables(plan, x.device)
+
+    def guarded(self, flags=None):
+        K, fl = self.K, self.flags if flags is None else flags
+        if self.name == "block":
+            return K.block_permute_tables(self.x, self.tabs[0], flags=fl,
+                                          geometry=K.block_geometry(self.plan))
+        if self.name == "lane":
+            return K.lane_permute_tables(self.x, self.tabs[0], flags=fl,
+                                         geometry=K.lane_geometry(self.plan))
+        return K.tiled_permute_tables(self.x, *self.tabs, flags=fl,
+                                      geometry=K.plan_geometry(self.plan))
+
+    def unguarded(self):
+        K = self.K
+        return {"block": K.block_permute, "lane": K.lane_permute,
+                "tile": K.tiled_permute}[self.name](self.x, self.plan)
+
+    def plain(self, flags):
+        K = self.K
+        if self.name == "block":
+            return K.block_permute_plain(self.x, self.plan, flags=flags,
+                                         src_rows=self.tabs[0])
+        if self.name == "lane":
+            return K.lane_permute_plain(self.x, self.plan, flags=flags,
+                                        src_lane=self.tabs[0])
+        return K.tiled_permute_plain(self.x, self.plan, tables=self.tabs,
+                                     flags=flags)
+
+
+TABLE_NAMES = {"block": ("src_rows",), "lane": ("src_lane",),
+               "tile": ("in_rows", "out_rows", "xor_low", "src0")}
+
+
+def guarded_kernel_cases(torch, n: int, x) -> list:
+    """A :class:`GuardedCase` of K2, K3 and K4a at 2^n (the block-class,
+    lane-class and bit-reverse BMMCs of phase 4)."""
+    from repro_torch.kernels import ops
+    t = ops.choose_tile(n, 4)
+    cases = {name: b for name, b, _ in make_cases(n, t)}
+    out = []
+    for name, case in (("block", "block-class"), ("lane", "lane-class"),
+                       ("tile", "bit-reverse")):
+        payload = ops.class_plan(cases[case], t)[1]
+        out.append(GuardedCase(torch, name, payload if name != "tile"
+                               else payload[0], x))
+    return out
+
+
+def phase_guarded(torch, n: int, n_sort: int, reps: int, bw: float,
+                  records: dict):
+    """Phase 11: the main path with guards on. Returns (launch counts of
+    the guarded run, records of the guarded kernels, hashes of the
+    unguarded outputs for phase 13)."""
+    say(f"== phase 11: guarded main path (bmmc_permute on 2^{n} int32, "
+        f"sort of 2^{n_sort} int32) ==")
+    from repro_torch import guard, resilience
+    from repro_torch.combinators import sort as S
+    from repro_torch.combinators import execute as ex
+    from repro_torch.guard import validate as gv
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    t = ops.choose_tile(n, 4)
+    cases = make_cases(n, t)
+    # ring 1 at the paper's size: dispatch proof, table audits and the
+    # fingerprint of every table, per case (plans already built)
+    for name, b, _ in cases:
+        kernel, payload = ops.class_plan(b, t)
+        gv.validate_dispatch.cache_clear()
+        t0 = time.perf_counter()
+        gv.validate_dispatch(b.rows, b.c, t)
+        v_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gv.plan_fingerprint(kernel, payload)
+        fp_s = time.perf_counter() - t0
+        say(f"  ring 1 on {name} ({kernel}): validation with fingerprints "
+            f"{v_s:.3f} s host, of which the fingerprint {fp_s:.3f} s")
+    # the unguarded outputs, kept on the card to hold the guarded ones
+    want = {name: ops.bmmc_permute(x, b) for name, b, _ in cases}
+    hashes = {name: dev_hash(torch, y) for name, y in want.items()}
+    xs = torch.randint(-2**31, 2**31 - 1, (1 << n_sort,), generator=gen,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    f = S.compiled_sort(n_sort)
+    want_sort = f(xs)
+    check(torch.equal(want_sort, torch.sort(xs).values), "unguarded sort")
+    hashes["sort"] = dev_hash(torch, want_sort)
+    torch.cuda.synchronize()
+
+    # the counted run: every case once, then the sort twice (its first
+    # call runs eagerly and captures the guarded graph, the second
+    # replays it), each output held against its unguarded call
+    guard.reset_stats()
+    resilience.reset()
+    K.reset_launch_counts()
+    with guard.guarded():
+        for name, b, _ in cases:
+            got = ops.bmmc_permute(x, b)
+            check(torch.equal(got, want[name]), ("guarded", name))
+            del got
+        for _ in range(2):
+            check(torch.equal(f(xs), want_sort), "guarded sort")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    st = guard.stats()
+    say(f"  launch counts of the guarded run: {counts}")
+    check(st["traps"] == {} and st["fallbacks"] == {} and not st["raised"],
+          ("guarded run trapped", st))
+    check(not resilience.board().engaged("cuda")
+          and resilience.stats()["breaker"]["open"] == 0, "breaker")
+    check(all(counts[k] == 0 for k in GUARDED), ("unguarded launches "
+          "in the guarded run", counts))
+    check(all(counts[g] > 0 for g in GUARDED.values()),
+          ("guarded kernels not launched", counts))
+    say("  six BMMCs and the sort bit-equal to their unguarded calls; "
+        "traps 0, fallbacks 0, breaker closed")
+
+    # guarded and unguarded calls in turns: one call and device time
+    timed = (lambda fn: cuda_ms(torch, fn, reps))
+    for name, b, _ in cases:
+        def gcall(b=b):
+            with guard.guarded():
+                return ops.bmmc_permute(x, b)
+        turns = in_turns({"guarded": gcall,
+                          "unguarded": lambda b=b: ops.bmmc_permute(x, b)},
+                         timed)
+        gm, um = (statistics.median(turns[k]) for k in ("guarded",
+                                                        "unguarded"))
+        say(f"  {name:17s} one call: guarded {gm:.3f} ms, unguarded "
+            f"{um:.3f} ms (in turns; the guarded call reads its flag "
+            f"word back), overhead {100 * (gm / um - 1):+.2f} %")
+
+    def gsort():
+        with guard.guarded():
+            return f(xs)
+    turns = in_turns({"guarded": gsort, "unguarded": lambda: f(xs)}, timed)
+    gm, um = (statistics.median(turns[k]) for k in ("guarded", "unguarded"))
+    say(f"  sort 2^{n_sort} int32 one call (CUDA graphs): guarded {gm:.3f} "
+        f"ms, unguarded {um:.3f} ms (in turns), overhead "
+        f"{100 * (gm / um - 1):+.2f} %")
+    del want
+    torch.cuda.empty_cache()
+
+    # each guarded kernel against its unguarded kernel and its plain
+    # version, bit for bit, timed in turns (one call, device time)
+    out = {}
+    nbytes = x.numel() * 4
+    for c in guarded_kernel_cases(torch, n, x):
+        pflags = torch.zeros_like(c.flags)
+        c.flags.zero_()
+        got, ung = c.guarded(), c.unguarded()
+        err = max(max_abs_err(torch, got, ung),
+                  max_abs_err(torch, got, c.plain(pflags)))
+        check(err == 0.0 and int(c.flags.item()) == 0
+              and int(pflags.item()) == 0, (c.name, err))
+        del got, ung
+        turns = in_turns({"guarded": c.guarded, "unguarded": c.unguarded},
+                         timed)
+        gm, um = (statistics.median(turns[k]) for k in ("guarded",
+                                                        "unguarded"))
+        dturns = in_turns({"guarded": c.guarded, "unguarded": c.unguarded},
+                          lambda fn: device_ms(torch, fn), rounds=1)
+        gd, ud = (statistics.median(dturns[k]) for k in ("guarded",
+                                                         "unguarded"))
+        plain_ms = cuda_ms(torch, lambda: c.plain(pflags),
+                           max(3, reps // 3), warmup=1)
+        tab_bytes = sum(a.numel() * 4 for a in c.tabs)
+        g = GUARDED[c.name]
+        out[g] = {"ms": gm, "device_ms": gd, "plain_ms": plain_ms,
+                  "bound_ms": (2 * nbytes + tab_bytes) / bw * 1e3,
+                  "library_ms": records[c.name]["library_ms"],
+                  "max_abs_err": err}
+        say(f"  {g}: bit-equal to {c.name} and to its guarded plain "
+            f"version; one call {gm:.3f} ms vs unguarded {um:.3f} ms, "
+            f"device {gd:.4f} ms vs {ud:.4f} ms (in turns), guarded plain "
+            f"{plain_ms:.3f} ms")
+        torch.cuda.empty_cache()
+
+    # K4b at the largest 2^n_sort sort cluster (phase 6's)
+    tf = ops.choose_tile(n_sort, 4)
+    fs = max(fused_cases(n_sort, tf, "sort"), key=lambda s: len(s.computes))
+    plans, entries = ex._fused_plan_cached(fs, tf)
+    tabs, epi = ex._pass_tables(plans[0], entries, xs)
+    geo = K.plan_geometry(plans[0])
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    g = (lambda: K.tiled_permute_tables(xs, *tabs, geometry=geo,
+                                        flags=flags, **epi))
+    u = (lambda: K.tiled_permute_tables(xs, *tabs, geometry=geo, **epi))
+    pl = (lambda: K.tiled_permute_tables_plain(xs, *tabs, geometry=geo,
+                                               flags=flags, **epi))
+    got = g()
+    err = max(max_abs_err(torch, got, u()), max_abs_err(torch, got, pl()))
+    check(err == 0.0 and int(flags.item()) == 0, ("tile_fused_guarded", err))
+    turns = in_turns({"guarded": g, "unguarded": u}, timed)
+    gm, um = (statistics.median(turns[k]) for k in ("guarded", "unguarded"))
+    dturns = in_turns({"guarded": g, "unguarded": u},
+                      lambda fn: device_ms(torch, fn), rounds=1)
+    gd, ud = (statistics.median(dturns[k]) for k in ("guarded",
+                                                     "unguarded"))
+    plain_ms = cuda_ms(torch, pl, max(3, reps // 3), warmup=1)
+    rec = records["tile_fused"]
+    out["tile_fused_guarded"] = {
+        "ms": gm, "device_ms": gd, "plain_ms": plain_ms,
+        "bound_ms": rec["bound_ms"], "library_ms": rec["library_ms"],
+        "max_abs_err": err}
+    say(f"  tile_fused_guarded (largest 2^{n_sort} int32 sort cluster, "
+        f"{len(fs.computes)} cmp epilogues): bit-equal to tile_fused and to "
+        f"its guarded plain version; one call {gm:.4f} ms vs unguarded "
+        f"{um:.4f} ms, device {gd:.4f} ms vs {ud:.4f} ms (in turns), "
+        f"guarded plain {plain_ms:.3f} ms")
+    say(f"  clocks, power, temperature: {clocks()}")
+    torch.cuda.empty_cache()
+    return counts, out, hashes
+
+
+def phase_traps(torch, n: int):
+    """Phase 12: poisoned tables on the card at 2^n."""
+    say(f"== phase 12: traps on the card (2^{n} int32) ==")
+    from repro_torch import guard, resilience
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import sort as S
+    from repro_torch.core.bmmc import Bmmc
+    from repro_torch.guard import inject
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    x = torch.randint(0, 1 << 30, (1 << n,), device=dev, dtype=torch.int32,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+    ex.clear_caches()
+    for c in guarded_kernel_cases(torch, n, x):
+        clean = c.unguarded()
+        for ti, tname in enumerate(TABLE_NAMES[c.name]):
+            for value in (1 << 30, -1):
+                pflags = torch.zeros_like(c.flags)
+                with inject.poison_device_table(c.plan, dev, index=0,
+                                                table=ti, value=value):
+                    c.flags.zero_()
+                    got = c.guarded()
+                    want = c.plain(pflags)
+                    bit, pbit = int(c.flags.item()), int(pflags.item())
+                    check(bit == 1 and pbit == 1, (c.name, tname, value,
+                                                   bit, pbit))
+                    if tname != "out_rows":   # an unwritten row is undefined
+                        check(torch.equal(got, want), (c.name, tname, value))
+                # the next unguarded launch: no sticky error
+                again = c.unguarded()
+                torch.cuda.synchronize()
+                check(torch.equal(again, clean), (c.name, "after the trap"))
+        say(f"  {GUARDED[c.name]}: an entry of {'/'.join(TABLE_NAMES[c.name])} "
+            f"set to 2^30 or -1 on the card sets bit 1, as the guarded plain "
+            f"version does (outputs equal where defined); the next unguarded "
+            f"launch succeeds, bit-equal")
+        del clean, got, want, again
+    # K4b: a poisoned src0 of a sort cluster's pass, on the card only
+    t = ops.choose_tile(n, 4)
+    fs = max(fused_cases(n, t, "sort"), key=lambda s: len(s.computes))
+    plans, entries = ex._fused_plan_cached(fs, t)
+    tabs, epi = ex._pass_tables(plans[0], entries, x)
+    geo = K.plan_geometry(plans[0])
+    clean = K.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    with inject.poison_device_table(plans[0], dev):
+        got = K.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags,
+                                     **epi)
+        pflags = torch.zeros_like(flags)
+        pw = K.tiled_permute_tables_plain(x, *tabs, geometry=geo,
+                                          flags=pflags, **epi)
+        check(int(flags.item()) == 1 and int(pflags.item()) == 1
+              and torch.equal(got, pw), "tile_fused_guarded trap")
+    again = K.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+    torch.cuda.synchronize()
+    check(torch.equal(again, clean), "tile_fused after the trap")
+    say("  tile_fused_guarded: a poisoned src0 entry of a sort cluster sets "
+        "bit 1 (as its guarded plain version does); the next unguarded "
+        "launch succeeds, bit-equal")
+
+    # through the entry points: the cuda -> ref fallback
+    b = Bmmc.bit_reverse(n)
+    oracle = ref.bmmc_ref_device(x, b)
+    guard.reset_stats()
+    resilience.reset()
+    with guard.guarded():
+        ops.bmmc_permute(x, b)
+        with inject.poison_plan(b, t):
+            check(torch.equal(ops.bmmc_permute(x, b), oracle),
+                  "host-poisoned plan: fallback")
+        plan = ops.class_plan(b, t)[1][0]
+        with inject.poison_device_table(plan, dev):
+            check(torch.equal(ops.bmmc_permute(x, b), oracle),
+                  "device-poisoned plan: fallback")
+        ns = min(N_MATRIX, n)   # the ref fallback runs a sort stage by stage
+        xs = x[:1 << ns]
+        f = S.compiled_sort(ns)
+        ts = ops.choose_tile(ns, 4)
+        want_sort = torch.sort(xs).values
+        check(torch.equal(f(xs), want_sort), "guarded sort")
+        fs0 = next(s for s in f.clustered_program(ns, ts)
+                   if getattr(s, "computes", ()))
+        with inject.poison_device_table(
+                ex._fused_plan_cached(fs0, ts)[0][0], dev):
+            check(torch.equal(f(xs), want_sort), "poisoned sort: fallback")
+    st = guard.stats()
+    # a skipped access may also show in the parity sample (bit 4)
+    check(st["traps"].get(("oob", "cuda")) == 3
+          and {k for k, _ in st["traps"]} <= {"oob", "parity"}
+          and st["fallbacks"] == {"ref": 3} and st["recovered"] == 3,
+          ("fallback stats", st))
+    say(f"  guarded bmmc_permute at 2^{n} with a poisoned plan (the host "
+        f"table, then the card's copy only) and the guarded sort of 2^{ns} "
+        f"with a poisoned K4b table on the card: each traps on the card, "
+        f"falls back to ref and equals the oracle; guard stats {st}")
+    with guard.guarded(), inject.poison_ref_table(b):
+        try:
+            ops.bmmc_permute(x, b, engine="ref")
+            check(False, "a poisoned ref table did not raise")
+        except (guard.GuardTrap, guard.CachePoisoned) as e:
+            say(f"  guarded ref with a poisoned gather table raises "
+                f"{type(e).__name__} (no crash)")
+    check(torch.equal(ops.bmmc_permute(x, b), oracle), "after the ref trap")
+    torch.cuda.synchronize()
+    say("  the next unguarded launches succeed: no sticky error")
+    ex.clear_caches()
+    torch.cuda.empty_cache()
+
+
+def store_child(args) -> int:
+    """Phase 13's subprocess: drive the six 2^n BMMCs, the 2^n_sort sort
+    and its float32 gradient against the store at ``args.store_child``;
+    write first-call latencies, output hashes and store stats as JSON."""
+    import torch
+    from repro_torch import store
+    from repro_torch.combinators import sort as S
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    store.configure(args.store_child)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << args.n,), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    xs = torch.randint(-2**31, 2**31 - 1, (1 << args.n_sort,), generator=gen,
+                       device=dev, dtype=torch.int64).to(torch.int32)
+    rec = {"first_s": {}, "plans_s": {}, "warm_s": {}, "hash": {}}
+
+    def timed(name, fn, plans=None):
+        """The first call (its plans built or loaded by ``plans`` first,
+        timed on their own, when given) and a second, warm call."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plans is not None:
+            plans()
+            rec["plans_s"][name] = time.perf_counter() - t0
+        y = fn()
+        torch.cuda.synchronize()
+        rec["first_s"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        rec["warm_s"][name] = time.perf_counter() - t0
+        rec["hash"][name] = dev_hash(torch, y)
+
+    t = ops.choose_tile(args.n, 4)
+    for name, b, _ in make_cases(args.n, t):
+        timed(name, lambda b=b: ops.bmmc_permute(x, b),
+              lambda b=b: ops.class_plan(b, t))
+    f = S.compiled_sort(args.n_sort)
+
+    def sort_plans():
+        t0 = time.perf_counter()
+        f._resolve(xs, False)     # lowering and clustering: not stored
+        rec["resolve_s"] = time.perf_counter() - t0
+        plan_program(f, xs)
+    timed("sort", lambda: f(xs), sort_plans)
+    g = torch.Generator(device=dev).manual_seed(13)
+    xf = (torch.randperm(1 << args.n_sort, generator=g, device=dev)
+          .to(torch.float32) * 0.5 - 7.0)
+    w = torch.randn(1 << args.n_sort, generator=g, device=dev)
+
+    def grad():
+        v = xf.clone().requires_grad_()
+        (w * S.sort(v)).sum().backward()
+        return v.grad
+    timed("sort_grad", grad)
+    rec["stats"] = store.stats()
+    st = store.active()
+    rec["entries"] = st.entry_count()
+    rec["bytes"] = sum(p.stat().st_size
+                       for p in Path(st.objects).rglob("*.plan"))
+    Path(args.child_out).write_text(json.dumps(rec))
+    return 0
+
+
+def phase_store(torch, n: int, n_sort: int, hashes: dict):
+    """Phase 13: a store populated by one process and replayed by a fresh
+    one; then the disk-fault matrix."""
+    say(f"== phase 13: store warm start (six 2^{n} BMMCs, sort of "
+        f"2^{n_sort}, its float32 gradient) ==")
+    import tempfile
+    from repro_torch.guard import inject
+    root = tempfile.mkdtemp(prefix="repro-torch-store-")
+    got = []
+    for label in ("cold", "disk-warm"):
+        out = Path(root) / f"{label}.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--store-child",
+             str(Path(root) / "store"), "--child-out", str(out), "--n",
+             str(n), "--n-sort", str(n_sort)], capture_output=True, text=True)
+        check(proc.returncode == 0, (label, proc.stdout[-3000:],
+                                     proc.stderr[-3000:]))
+        rec = json.loads(out.read_text())
+        got.append(rec)
+        say(f"  {label} process: {time.perf_counter() - t0:.1f} s in all; "
+            f"store stats {rec['stats']}; {rec['entries']} entries, "
+            f"{rec['bytes'] / 2**20:.1f} MiB on disk")
+    cold, warm = got
+    check(cold["stats"]["plan_built"] > 0 and cold["stats"]["write"] > 0,
+          ("cold process", cold["stats"]))
+    check(warm["stats"]["plan_built"] == 0 and warm["stats"]["miss"] == 0
+          and warm["stats"]["hit"] > 0, ("disk-warm process built plans",
+                                         warm["stats"]))
+    check(cold["hash"] == warm["hash"], "outputs differ between processes")
+    for name, h in hashes.items():
+        check(cold["hash"][name] == h, (name, "differs from this process"))
+    for name in cold["first_s"]:
+        plans = ("" if name not in cold["plans_s"] else
+                 f" (of which resolving and planning or loading plans "
+                 f"{cold['plans_s'][name]:.3f} s, {warm['plans_s'][name]:.3f}"
+                 f" s)")
+        say(f"  {name:17s} first call: cold {cold['first_s'][name]:.3f} s, "
+            f"disk-warm {warm['first_s'][name]:.3f} s{plans}; warm (second "
+            f"call) {warm['warm_s'][name]:.4f} s")
+    say(f"  sort: lowering and clustering {cold['resolve_s']:.3f} s cold, "
+        f"{warm['resolve_s']:.3f} s disk-warm (the store keeps plans, not "
+        f"programs)")
+    say("  the disk-warm process built 0 plans, only hits; every output "
+        "bit-equal to the cold process's (64-bit checksums) and to this "
+        "process's")
+    rep = inject.run_disk_fault_matrix(n=N_MATRIX, device="cuda")
+    for c in rep["cases"]:
+        say(f"  {c['kind']:22s} caught={c['caught']}  {c['how']}")
+    check(rep["caught"] == rep["injected"] == 5, rep)
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_chaos(torch):
+    """Phase 14: ring 3's fault matrix and the chaos soak on the card."""
+    say("== phase 14: ring 3 and the chaos soak ==")
+    from repro_torch.guard import inject
+    from repro_torch.resilience import chaos
+    rep = inject.run_fault_matrix("cuda", n=N_MATRIX, device="cuda")
+    for c in rep["cases"]:
+        say(f"  {c['kind']:22s} caught={c['caught']}  {c['how']}")
+    check(rep["caught"] == rep["injected"] == len(inject.FAULT_KINDS)
+          and not any("SILENT" in c["how"] for c in rep["cases"]), rep)
+    say(f"  fault matrix at 2^{N_MATRIX}: {rep['caught']}/{rep['injected']} "
+        f"caught, none silently wrong")
+    for r in chaos.run_matrix(device="cuda"):
+        say("  " + r.summary())
+        check(r.passed and r.silent_wrong == 0
+              and r.traps_while_open == 0, r.summary())
+    say("  every soak SLO met")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -1529,6 +2064,9 @@ def main(argv=None) -> int:
                     help="log2 keys of the gradient-route comparison")
     ap.add_argument("--n-perm", type=int, default=N_PERM,
                     help="log2 elements of the gradient's permutation chain")
+    # phase 13 runs this script in fresh processes against one store
+    ap.add_argument("--store-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -1536,6 +2074,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    if args.store_child:
+        return store_child(args)
 
     smi = phase_env(torch)
     bw = peak_bw(torch.cuda.get_device_name(0))
@@ -1566,6 +2106,15 @@ def main(argv=None) -> int:
           "gradient path")
     say(f"  tile_bwd launches on the gradient path (the cold backwards of "
         f"the sort, tanh >> sort and the FFT): {counts['tile_bwd']}")
+
+    g_counts, g_records, hashes = phase_guarded(torch, args.n, args.n_sort,
+                                                REPS, bw, records)
+    records.update(g_records)
+    for name in GUARDED.values():
+        counts[name] = g_counts[name]
+    phase_traps(torch, min(N_FAULT, args.n))
+    phase_store(torch, args.n, args.n_sort, hashes)
+    phase_chaos(torch)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]

@@ -82,6 +82,14 @@ against :meth:`CompiledExpr.vjp_round_trips`. A complex64 input that
 requires grad runs on its planar (re, im) float32 view; torch's
 gradient of a complex input is the conjugate of JAX's.
 
+Guards (:mod:`repro_torch.guard`): ring 1 validates every resolved
+program when the guard is on; ring 2 then runs the call through
+:func:`repro_torch.guard.runtime.guarded_call` — the program with the
+guarded kernel variants and its probes, one CUDA graph on the card, a
+device flag word read once, the ``cuda`` → ``ref`` fallback on a trap.
+Plans load through the durable plan store when one is configured
+(:mod:`repro_torch.store`).
+
 Batching: ``run_program`` / ``CompiledExpr.__call__`` take
 ``batched=True`` to accept a leading batch axis — ``(B, 2^n)`` or
 ``(B, 2^n, d)`` — folded into the kernel grid with the tile plan shared
@@ -109,7 +117,8 @@ from ..guard.errors import BadInput, BadStage, UnknownEngine
 from ..kernels import ops
 from ..kernels import ref as _ref
 from ..kernels import map_lower
-from ..kernels.bmmc_permute import (_ELEM_TYPE, bfly_transpose, cmp_max,
+from ..kernels.bmmc_permute import (_ELEM_TYPE, active_guard_flags,
+                                    bfly_transpose, cmp_max,
                                     cmp_min, device_cached, device_tables,
                                     pin_device_tables, plan_geometry,
                                     tie_masks, tiled_permute,
@@ -209,10 +218,13 @@ def _fused_plan_cached(fs: FusedStage, t: int):
     parameter (no pass plannable, or a compute not tile-local in the
     first pass — possible when the runtime ``t`` differs from the
     clustering ``t``). Computes always ride the FIRST pass's tiles (they
-    are pulled back to input space, where pass 1 reads). (The reference
-    backs this cache with its durable plan store; that layer is not
-    ported yet.)"""
-    return _build_fused_plan(fs, t)
+    are pulled back to input space, where pass 1 reads). Backed by the
+    durable plan store when one is configured (:mod:`repro_torch.store`;
+    an unplannable cluster is stored as a negative entry)."""
+    from .. import store as _store
+
+    return _store.fused_plan_through(fs, t,
+                                     lambda: _build_fused_plan(fs, t))
 
 
 @functools.lru_cache(maxsize=64)
@@ -1282,12 +1294,22 @@ def _dispatch_program(prog: Program, t: Optional[int], x: torch.Tensor,
     is being built (one graph replay per call on the card), eager
     per-stage otherwise; observed when telemetry is on."""
     use_exec = (isinstance(engine, str) and not _has_map(prog)
-                and not _needs_grad(x))
+                and not _needs_grad(x) and active_guard_flags() is None)
     if not _otrace._state.enabled:
         if use_exec:
             return _executable_for(prog, engine, batched, x)(x)
         return run_program(prog, x, engine, batched=batched)
     return _observed_program_call(prog, t, x, engine, batched, use_exec)
+
+
+def _guarded_forward(prog: Program, t: Optional[int], x: torch.Tensor,
+                     engine, batched: bool) -> torch.Tensor:
+    """The forward of a guarded call that builds an autograd graph (run
+    eagerly by ring 2 under its flag word): the program's own autograd
+    rule, as an unguarded call would take it."""
+    if is_perm_program(prog) or _bwd_plan_n(prog) is not None:
+        return program_apply(x, prog, t, engine, batched)
+    return run_program(prog, x, engine, batched=batched)
 
 
 def _compute_bearing(st: Expr) -> bool:
@@ -1366,7 +1388,9 @@ def cache_stats() -> Dict[str, CacheStats]:
     ``program_bwd_plan`` / ``fused_bwd_kernel_plan`` / ``pulled_back``),
     the maps' tapes (``map_tapes``), the tables kept on the device
     (``device_tables``), the guard's
-    ring-1 caches and the ``compiled_exprs`` memo."""
+    ring-1 caches and ring-2 executables, the ``compiled_exprs`` memo, and
+    the durable plan store (``store``: session hits / misses, entries on
+    disk)."""
     from ..kernels import bmmc_permute as K
 
     out = {
@@ -1393,6 +1417,12 @@ def cache_stats() -> Dict[str, CacheStats]:
     from ..guard.validate import guard_cache_stats
     for name, info in guard_cache_stats().items():
         stats[name] = CacheStats(*info)
+    from .. import store as _store
+    ss = _store.stats()
+    st = _store.active()
+    stats["store"] = CacheStats(
+        hits=ss["hit"], misses=ss["miss"], maxsize=None,
+        currsize=st.entry_count() if st is not None else 0)
     return stats
 
 
@@ -1531,6 +1561,12 @@ class CompiledExpr:
     def __call__(self, x: torch.Tensor, *,
                  batched: bool = False) -> torch.Tensor:
         prog, t = self._resolve(x, batched)
+        from ..guard import runtime as _grt
+        if _grt.ring2_active():
+            # ring 2: the program and its probes with a device flag word
+            # (one CUDA graph on the card), read once here, with the
+            # cuda → ref fallback machine on a trap
+            return _grt.guarded_call(prog, t, x, self.engine, batched)
         if is_perm_program(prog):
             # permutation-only: ONE autograd rule whose backward runs the
             # precompiled inverse program. Capture the inverse's graph
@@ -1600,6 +1636,10 @@ def clear_caches() -> None:
     ops._class_plan_cached.cache_clear()
     K.clear_device_tables()
     clear_guard_caches()
+    from .. import guard, resilience, store
+    guard.reset_stats()
+    store.reset_stats()
+    resilience.reset()
     obs.reset()
 
 

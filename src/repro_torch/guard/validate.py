@@ -21,8 +21,18 @@
   rank, the cached class-dispatch decision re-derived from the matrix
   (:func:`validate_dispatch`), and each fused cluster's composed matrix
   against its member stages, its pass plans and its epilogue tables'
-  shapes. (The reference's table fingerprints serve its ring 2, which
-  is not ported yet.)
+  shapes.
+* **Input preconditions** — :func:`validate_input` (shape, power-of-2
+  length, dtype known) raising :class:`~.errors.BadInput`.
+
+Every validated plan's tables are fingerprinted (position-sensitive
+XOR-fold, so swapping two entries changes the fingerprint);
+:func:`check_fingerprints` re-hashes the live tables against the
+recorded values so a runtime trap can be classified as
+:class:`~.errors.CachePoisoned` (tables mutated *after* validation). The
+live tables are the host arrays and every copy of them kept on a device
+(the tables a kernel reads); a device copy is brought to the host only
+on that failure path.
 
 Unlike the reference, the semantic checks apply the BMMC only to the
 indices they audit instead of tabulating all ``2^n`` images first, so an
@@ -33,8 +43,10 @@ from __future__ import annotations
 
 import collections
 import functools
+import threading
 
 import numpy as np
+import torch
 
 from ..core import f2
 from ..core.bmmc import Bmmc
@@ -44,6 +56,10 @@ from .errors import (BadInput, CachePoisoned, ClassMismatch, DescriptorOOB,
 
 _FULL_AUDIT_TILES = 64        # audit every tile up to this many
 _SAMPLE_TILES = 16            # strided sample beyond
+_FP_CHUNK = 1 << 22           # elements a fingerprint folds per step
+
+_FP_LOCK = threading.Lock()
+_FINGERPRINTS: dict = {}      # plan key -> recorded table fingerprint
 
 
 def _np_parity(vals: np.ndarray) -> np.ndarray:
@@ -83,6 +99,38 @@ def verify_bmmc(bmmc: Bmmc) -> Bmmc:
             f"BMMC matrix is singular over F2: rank {r}, expected {n} "
             f"(a corrupted row makes the 'permutation' lossy)")
     return bmmc
+
+
+def validate_input(shape: tuple, dtype, *, batched: bool = False,
+                   n: int = None) -> int:
+    """Shape/dtype preconditions on a program input. Returns the size
+    exponent of the permuted axis; raises :class:`BadInput` otherwise.
+    ``dtype`` is a torch or numpy dtype."""
+    axis = 1 if batched else 0
+    if len(shape) <= axis:
+        what = ("a leading batch dim plus the permuted axis" if batched
+                else "a permutable leading axis")
+        raise BadInput(f"input needs {what}, got shape {tuple(shape)}")
+    if len(shape) > axis + 2:
+        raise BadInput(
+            f"input rank {len(shape)} unsupported: expected "
+            f"{'(B, 2^n[, d])' if batched else '(2^n[, d])'}, "
+            f"got shape {tuple(shape)}")
+    size = shape[axis]
+    got_n = int(size).bit_length() - 1
+    if size <= 0 or (1 << got_n) != size:
+        raise BadInput(
+            f"array length {size} on axis {axis} is not a power of 2")
+    if n is not None and got_n != n:
+        raise BadInput(
+            f"program expects a 2^{n}-length axis, got 2^{got_n} "
+            f"({size}) in shape {tuple(shape)}")
+    if not isinstance(dtype, torch.dtype):
+        try:
+            np.dtype(dtype)
+        except TypeError:
+            raise BadInput(f"unknown input dtype {dtype!r}") from None
+    return got_n
 
 
 def _bounds(name: str, arr: np.ndarray, lo: int, hi: int, where: str):
@@ -213,6 +261,116 @@ def _audit_compute_tables(ct, plan: TilePlan, where: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# fingerprints (cache-poisoning detection)
+# ---------------------------------------------------------------------------
+
+def _fp_array(arr) -> int:
+    """Position-sensitive XOR-fold of an array's entries (as uint64): the
+    reference's fingerprint, folded in chunks of ``_FP_CHUNK`` entries so
+    a 2^24-entry table costs no 2^24-entry temporaries."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.cpu().numpy()
+    a = np.ascontiguousarray(np.asarray(arr)).reshape(-1)
+    acc = np.uint64(0)
+    with np.errstate(over="ignore"):
+        for s in range(0, a.size, _FP_CHUNK):
+            v = a[s:s + _FP_CHUNK].astype(np.uint64)
+            idx = np.arange(s, s + v.size, dtype=np.uint64)
+            mixed = (v + np.uint64(0x9E3779B97F4A7C15)) * (
+                (idx << np.uint64(1)) | np.uint64(1))
+            acc ^= np.bitwise_xor.reduce(mixed)
+    return int(acc) ^ (a.size << 1)
+
+
+def _tables_of(kernel: str, payload) -> list:
+    """The table lists of a class-dispatch payload, one per plan."""
+    if kernel == "block":
+        return [(payload.src_rows,)]
+    if kernel == "lane":
+        return [(payload.src_lane,)]
+    if kernel == "none":
+        return []
+    return [(p.in_rows, p.out_rows, p.xor_low, p.src0) for p in payload]
+
+
+def _fold(kernel: str, table_lists) -> int:
+    fp = hash(kernel) & 0xFFFFFFFF
+    for tabs in table_lists:
+        for arr in tabs:
+            fp ^= _fp_array(arr)
+    return fp
+
+
+def plan_fingerprint(kernel: str, payload) -> int:
+    """Position-sensitive XOR-fold over every table of a class-dispatch
+    payload — swapping two entries changes it, unlike a plain XOR."""
+    return _fold(kernel, _tables_of(kernel, payload))
+
+
+def _live_fingerprints(kernel: str, payload) -> dict:
+    """The payload's fingerprint over its host tables (key None) and over
+    each device's copies of them (key: the device; a copy is brought to
+    the host here, on the failure path only)."""
+    from ..kernels import bmmc_permute as K
+
+    host = _tables_of(kernel, payload)
+    out = {None: _fold(kernel, host)}
+    if kernel == "none":
+        return out
+    plans = payload if kernel not in ("block", "lane") else (payload,)
+    copies = [K.device_copies(p, "tables") for p in plans]
+    for dev in set().union(*copies):
+        out[dev] = _fold(kernel, [c.get(dev, tabs)
+                                  for c, tabs in zip(copies, host)])
+    return out
+
+
+def _fused_fold(fps_per_plan) -> int:
+    fp = 0
+    for f in fps_per_plan:
+        fp ^= f ^ hash("tiled")
+    return fp ^ hash("tiled")
+
+
+def _record_fp(key, fp: int) -> None:
+    with _FP_LOCK:
+        _FINGERPRINTS[key] = fp
+
+
+def check_fingerprints(prog, t) -> list:
+    """Re-hash the LIVE plan tables of every stage against the
+    fingerprints recorded at validation; returns the mismatched keys
+    (non-empty == the tables were mutated after ring 1 signed off). The
+    live tables are the host arrays and each device's copies of them."""
+    from ..combinators.optimize import FusedStage
+    from ..combinators import execute as _ex
+    from ..kernels import ops
+
+    poisoned = []
+    for st in prog:
+        if isinstance(st, FusedStage):
+            key = ("fused", st, t)
+            got = _ex._fused_plan_cached(st, t)
+            if got is None:
+                continue
+            per_plan = [_live_fingerprints("tiled", (p,)) for p in got[0]]
+            keys = set().union(*per_plan)
+            fps = {_fused_fold(d.get(k, d[None]) for d in per_plan)
+                   for k in keys}
+        elif hasattr(st, "bmmc"):
+            key = ("class", st.bmmc.rows, st.bmmc.c, t)
+            kernel, payload = ops.class_plan(st.bmmc, t)
+            fps = set(_live_fingerprints(kernel, payload).values())
+        else:
+            continue
+        with _FP_LOCK:
+            want = _FINGERPRINTS.get(key)
+        if want is not None and any(f != want for f in fps):
+            poisoned.append(key)
+    return poisoned
+
+
+# ---------------------------------------------------------------------------
 # dispatch + whole-program validation (cached)
 # ---------------------------------------------------------------------------
 
@@ -252,7 +410,8 @@ def _audit_payload(bmmc: Bmmc, t: int, kernel: str, payload) -> None:
 def validate_dispatch(rows: tuple, c: int, t: int) -> str:
     """Prove the cached class-dispatch decision for ``(bmmc, t)``:
     re-derive the kernel from the matrix, check the payload satisfies
-    the class predicate and audit its tables. Returns the kernel name."""
+    the class predicate, audit its tables, and record the fingerprint.
+    Returns the kernel name."""
     from ..core.tiling import dispatch_kernel
     from ..kernels import ops
 
@@ -270,6 +429,7 @@ def validate_dispatch(rows: tuple, c: int, t: int) -> str:
             f"t={t}, but re-deriving from the matrix gives {fresh!r} "
             f"(stale or poisoned class-plan cache)")
     _audit_payload(bmmc, t, kernel, payload)
+    _record_fp(("class", rows, c, t), plan_fingerprint(kernel, payload))
     return kernel
 
 
@@ -295,6 +455,8 @@ def _validate_fused(fs, t: int) -> None:
     for e in entries:
         if e[0] in ("cmp", "bfly"):
             _audit_compute_tables(e[2], plans[0], where)
+    _record_fp(("fused", fs, t), _fused_fold(
+        plan_fingerprint("tiled", (p,)) for p in plans))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -390,12 +552,19 @@ def validate_program_fast(prog: tuple, t) -> None:
 def guard_cache_stats() -> dict:
     """Guard-cache stats in the executor's ``CacheStats`` vocabulary —
     merged into :func:`repro_torch.combinators.execute.cache_stats`."""
-    return {"guard_validate": validate_program.cache_info(),
-            "guard_dispatch": validate_dispatch.cache_info(),
-            "guard_validate_fast": _VALIDATED_FAST.cache_info()}
+    from . import runtime as _rt
+    out = {"guard_validate": validate_program.cache_info(),
+           "guard_dispatch": validate_dispatch.cache_info(),
+           "guard_validate_fast": _VALIDATED_FAST.cache_info()}
+    out.update(_rt.executable_cache_stats())
+    return out
 
 
 def clear_guard_caches() -> None:
     validate_program.cache_clear()
     validate_dispatch.cache_clear()
     _VALIDATED_FAST.clear()
+    with _FP_LOCK:
+        _FINGERPRINTS.clear()
+    from . import runtime as _rt
+    _rt.clear_executables()

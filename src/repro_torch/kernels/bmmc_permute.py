@@ -32,6 +32,18 @@ Each launch that runs adds one to :data:`LAUNCHES`; a launch recorded
 into a CUDA graph, the graph's replays and the plain versions count
 nothing.
 
+Guarded variants (ring 2 of :mod:`repro_torch.guard`): K2, K3, K4a and
+K4b each have a second instantiation that tests every table entry before
+the access it addresses and, on an entry out of range, sets bit 1 of a
+flag word (one int32 on the tensor's device) and skips that access: a
+block, lane or word not read is written as zeros, a tile row not read is
+loaded as zeros, an output row out of range is not written. The wrappers
+launch it (counted under ``block_guarded``, ``lane_guarded``,
+``tile_guarded`` and ``tile_fused_guarded``) when given ``flags``, or
+inside :func:`guard_flags`; their plain versions (``flags=``) apply the
+same tests and set the same bit. A guarded variant that cannot build or
+launch raises: it never gives way to the unguarded kernel.
+
 Shapes follow the reference: ``x`` is ``(2^n,)`` or ``(2^n, d)``, and with
 ``batched=True`` ``(B, 2^n)`` or ``(B, 2^n, d)``. Internally every array is
 seen as ``(B, 2^n, d)`` with ``B = d = 1`` when absent. Tables live on the
@@ -54,7 +66,9 @@ from . import epilogue_plan as EP
 from .map_lower import lower_map
 
 LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
-            "tile_bwd": 0, "copy_bulk": 0, "copy_words": 0}
+            "tile_bwd": 0, "copy_bulk": 0, "copy_words": 0,
+            "block_guarded": 0, "lane_guarded": 0, "tile_guarded": 0,
+            "tile_fused_guarded": 0}
 
 _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
@@ -251,6 +265,13 @@ class _DeviceCache:
             pin[key] = (owner, value)
         return value
 
+    def copies(self, owner, tag) -> dict:
+        """``{device string: value}`` of every entry kept for ``(owner,
+        tag)``, without touching its recency."""
+        with self._lock:
+            return {k[2]: v[1] for k, v in self._d.items()
+                    if k[0] == id(owner) and k[1] == tag and v[0] is owner}
+
     def clear(self) -> None:
         with self._lock:
             self._d.clear()
@@ -300,17 +321,71 @@ def device_tables(plan, device) -> tuple:
         _device_table(a, device, a.size) for a in arrs))
 
 
+def device_copies(owner, tag) -> dict:
+    """``{device: value}`` of what :func:`device_cached` keeps for
+    ``(owner, tag)`` (e.g. a plan's ``"tables"``), on every device."""
+    return _DEV_CACHE.copies(owner, tag)
+
+
 def clear_device_tables() -> None:
     _DEV_CACHE.clear()
+
+
+_GUARD = threading.local()
+
+
+@contextlib.contextmanager
+def guard_flags(flags: torch.Tensor):
+    """Inside the block, the K2/K3/K4a/K4b wrappers on this thread launch
+    their guarded variants (or guarded plain versions) into ``flags``, one
+    int32 on the tensors' device, unless a call passes its own."""
+    prev = getattr(_GUARD, "flags", None)
+    _GUARD.flags = flags
+    try:
+        yield flags
+    finally:
+        _GUARD.flags = prev
+
+
+def active_guard_flags():
+    """The flag word of the enclosing :func:`guard_flags`, or None."""
+    return getattr(_GUARD, "flags", None)
+
+
+def _check_flags(flags, x: torch.Tensor) -> torch.Tensor:
+    if (not isinstance(flags, torch.Tensor) or flags.dtype != torch.int32
+            or flags.numel() != 1 or flags.device != x.device):
+        raise ValueError(f"a guard flag word is one int32 on {x.device}, "
+                         f"got {flags!r}")
+    return flags
+
+
+def _flags_for(x: torch.Tensor, flags):
+    """The flag word a wrapper launches into: ``flags``, else the enclosing
+    :func:`guard_flags` word, checked against ``x``; None for neither."""
+    flags = active_guard_flags() if flags is None else flags
+    return None if flags is None else _check_flags(flags, x)
+
+
+def _in_range(tab, hi: int, flags: torch.Tensor, device) -> tuple:
+    """``tab`` as int64 on ``device`` with the entries outside ``[0, hi)``
+    replaced by 0, and the mask of the entries inside; sets bit 1 of
+    ``flags`` when one is outside (the guarded plain versions' test)."""
+    v = _long(tab, device)
+    ok = (v >= 0) & (v < hi)
+    flags.bitwise_or_((~ok).any().to(torch.int32))
+    return torch.where(ok, v, torch.zeros_like(v)), ok
 
 
 def _trap_tables(pairs) -> None:
     """Host-side descriptor trap at the kernel-launch boundary: when
     guards are on, refuse to launch a kernel whose gather / row tables
     address outside their geometry (the reference's
-    ``bmmc_permute._trap_tables``, same switch)."""
+    ``bmmc_permute._trap_tables``, same switch). Inside a guarded run
+    (:func:`guard_flags`) the guarded kernel owns this check, as the
+    reference's in-program flag owns it under its guarded trace."""
     from .. import guard as _g
-    if not _g.enabled():
+    if not _g.enabled() or active_guard_flags() is not None:
         return
     from ..guard.errors import DescriptorOOB
     for name, tab, hi in pairs:
@@ -411,9 +486,14 @@ def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
                  _shift(wpe), _shift((1 << t) * wpe), pad, batch, wb)
 
 
-def _tile_launch(xc, tabs, geometry):
+def _tile_launch(xc, tabs, geometry, flags=None):
     out, args = _tile_args(xc, geometry)
-    _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs), *args)
+    if flags is None:
+        _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
+                *args)
+    else:
+        _launch("tile_guarded", xc, _ptr(xc), _ptr(out),
+                *(_ptr(a) for a in tabs), *args, _ptr(flags))
     return out
 
 
@@ -554,17 +634,30 @@ def _tiles_of(tab, gs):
 
 
 def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
-                      entries):
+                      entries, flags=None):
     """The K4b schedule with tensor indexing: tile ``g`` loads its input
     rows, applies every epilogue in order, then gathers
     ``tile.flat[src0.flat[r * 2^t + (l ^ xor_low[g])]]`` into its output
-    rows; tiles in chunks."""
+    rows; tiles in chunks. With ``flags``, the guarded variant's schedule
+    (K4b's, and K4a's with no epilogues): a row id, lane XOR or src0 entry
+    out of range sets bit 1 and its access is skipped (see the module
+    docstring)."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     row_len = 1 << t
     dev = xc.device
     batch, _, d = xc.shape
-    ir, orow = _long(in_rows, dev), _long(out_rows, dev)
-    xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
+    if flags is None:
+        ir, orow = _long(in_rows, dev), _long(out_rows, dev)
+        xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
+    else:
+        n_rows = 1 << (n - t)
+        ir, ir_ok = _in_range(in_rows, n_rows, flags, dev)
+        orow, or_ok = _in_range(out_rows, n_rows, flags, dev)
+        xl, xl_ok = _in_range(xor_low, row_len, flags, dev)
+        s0, s0_ok = _in_range(_long(src0, dev).reshape(-1), rpt * row_len,
+                              flags, dev)
+        ir, orow = ir.reshape(n_tiles, rpt), orow.reshape(n_tiles, rpt)
+        ir_ok, or_ok = ir_ok.reshape(n_tiles, rpt), or_ok.reshape(n_tiles, rpt)
     ents = _plain_entries(entries, dev)
     lane = torch.arange(row_len, device=dev)
     j = torch.arange(rpt * row_len, device=dev)
@@ -576,17 +669,28 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
         ng = gs.stop - gs.start
         x_glob = (ir[gs][:, :, None] * row_len + lane).reshape(-1)
         tile = xc[:, x_glob].reshape(batch, ng, rpt, row_len, d)
+        if flags is not None:   # rows not read load as zeros
+            tile = _int_view(tile).masked_fill(
+                ~ir_ok[gs][None, :, :, None, None], 0).view(tile.dtype)
         for e in ents:
             tile = _apply_epilogue(tile, e, _tiles_of(e[5], gs),
                                    _tiles_of(e[8], gs))
-        src = s0[(rp << t) | (cp[None, :] ^ xl[gs, None])]    # (G, rpt*len)
+        idx = (rp << t) | (cp[None, :] ^ xl[gs, None])        # (G, rpt*len)
+        src = s0[idx]
         flat = tile.reshape(batch, ng, rpt * row_len, d)
         # gathered as integers: torch.gather on CPU bfloat16 rewrites NaN
         # payloads, and a permutation moves bits
         got = torch.gather(_int_view(flat), 2, src[None, :, :, None].expand(
-            batch, ng, rpt * row_len, d)).view(flat.dtype)
+            batch, ng, rpt * row_len, d))
         y_glob = orow[gs][:, rp] * row_len + cp
-        out[:, y_glob.reshape(-1)] = got.reshape(batch, -1, d)
+        if flags is None:
+            out[:, y_glob.reshape(-1)] = got.view(flat.dtype).reshape(
+                batch, -1, d)
+            continue
+        got = got.masked_fill(~(xl_ok[gs, None] & s0_ok[idx])[None, :, :,
+                                                               None], 0)
+        keep = or_ok[gs][:, rp]                             # rows written
+        out[:, y_glob[keep]] = got.view(flat.dtype)[:, keep]
     return out
 
 
@@ -683,23 +787,35 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
     return out, args, plan, dv
 
 
-def _tile_fused_launch(xc, tabs, geometry, entries):
+def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
     out, args, plan, dv = _epi_launch_args(xc, geometry, entries)
-    _launch("tile_fused", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
-            _ptr(plan), plan.numel(), *args, _ELEM_TYPE[xc.dtype],
-            xc.shape[2], dv, 1 << plan.info["reg_bits"],
-            int(plan.info["maps"] > 0))
+    maps = int(plan.info["maps"] > 0)
+    tail = (_ELEM_TYPE[xc.dtype], xc.shape[2], dv,
+            1 << plan.info["reg_bits"], maps)
+    if flags is None:
+        _launch("tile_fused", xc, _ptr(xc), _ptr(out),
+                *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
+                *tail)
+    else:
+        if maps:
+            raise ValueError("the guarded K4b variant takes no map "
+                             "epilogues (guarded programs with maps run "
+                             "unguarded)")
+        _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
+                *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
+                *tail, _ptr(flags))
     return out
 
 
 def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
                          *, geometry: tuple, epilogue: tuple = (),
                          epi_scalar: tuple = (), epi_vmem: tuple = (),
-                         map_fns: tuple = (),
-                         batched: bool = False) -> torch.Tensor:
+                         map_fns: tuple = (), batched: bool = False,
+                         flags: torch.Tensor = None) -> torch.Tensor:
     """One tiled-BMMC pass with the index tables as arguments (int32
     tensors on ``x``'s device, or numpy arrays). ``geometry`` is
-    :func:`plan_geometry` output.
+    :func:`plan_geometry` output. ``flags`` (or an enclosing
+    :func:`guard_flags`) runs the guarded variant into that flag word.
 
     ``epilogue`` is the fused-compute signature of the reference: a tuple
     of ``("cmp", vr, vc)`` / ``("bfly", vr, vc, wlen)`` / ``("map",
@@ -717,16 +833,17 @@ def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
     entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     if entries:
         _check_epi_input(xc, entries, geometry)
+    flags = _flags_for(x, flags)
     if _route(x, "tiled_permute"):
         n, t, rpt, _, _, n_tiles, _ = geometry
         tabs = tuple(_device_table(a, x.device, k) for a, k in (
             (in_rows, n_tiles * rpt), (out_rows, n_tiles * rpt),
             (xor_low, n_tiles), (src0, rpt << t)))
-        out = (_tile_fused_launch(xc, tabs, geometry, entries) if entries
-               else _tile_launch(xc, tabs, geometry))
-    elif entries:
+        out = (_tile_fused_launch(xc, tabs, geometry, entries, flags)
+               if entries else _tile_launch(xc, tabs, geometry, flags))
+    elif entries or flags is not None:
         out = _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0,
-                                geometry, entries)
+                                geometry, entries, flags)
     else:
         out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
     return out.reshape(x.shape)
@@ -946,29 +1063,51 @@ def _block_plain(xc, src_rows, geometry):
     return xv.index_select(1, _long(src_rows, xc.device)).reshape(xc.shape)
 
 
-def _block_launch(xc, src_rows, geometry):
+def _block_plain_guarded(xc, src_rows, geometry, flags):
+    """:func:`_block_plain` with the guarded variant's test: a block whose
+    ``src_rows`` entry is out of range sets bit 1 and is written as
+    zeros."""
+    n, b, n_rows = geometry
+    src, ok = _in_range(src_rows, n_rows, flags, xc.device)
+    xv = xc.reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
+    out = _int_view(xv.index_select(1, src))
+    out[:, ~ok] = 0
+    return out.view(xc.dtype).reshape(xc.shape)
+
+
+def _block_launch(xc, src_rows, geometry, flags=None):
     n, b, n_rows = geometry
     out = torch.empty_like(xc)
     blk = (1 << b) * xc.shape[2] * xc.element_size()
     wb = _word_bytes(blk, xc.data_ptr(), out.data_ptr())
     wpb = blk // wb
     per_cta = max(1, -(-_BLOCK_CTA_WORDS // wpb))
-    _launch("block", xc, _ptr(xc), _ptr(out), _ptr(src_rows), n_rows, wpb,
-            _shift(wpb), per_cta, xc.shape[0], wb)
+    args = (_ptr(xc), _ptr(out), _ptr(src_rows), n_rows, wpb, _shift(wpb),
+            per_cta, xc.shape[0], wb)
+    if flags is None:
+        _launch("block", xc, *args)
+    else:
+        _launch("block_guarded", xc, *args, _ptr(flags))
     return out
 
 
 def block_permute_tables(x: torch.Tensor, src_rows, *, geometry: tuple,
-                         batched: bool = False) -> torch.Tensor:
+                         batched: bool = False,
+                         flags: torch.Tensor = None) -> torch.Tensor:
     """Block-remapped copy: output block ``g`` reads input block
-    ``src_rows[g]``. ``geometry`` is :func:`block_geometry` output."""
+    ``src_rows[g]``. ``geometry`` is :func:`block_geometry` output.
+    ``flags`` (or an enclosing :func:`guard_flags`) runs the guarded
+    variant into that flag word."""
     xc = _canonical(x, batched)
     if xc.shape[1] != 1 << geometry[0]:
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
+    flags = _flags_for(x, flags)
     if _route(x, "block_permute"):
         out = _block_launch(xc, _device_table(src_rows, x.device,
-                                              geometry[2]), geometry)
+                                              geometry[2]), geometry, flags)
+    elif flags is not None:
+        out = _block_plain_guarded(xc, src_rows, geometry, flags)
     else:
         out = _block_plain(xc, src_rows, geometry)
     return out.reshape(x.shape)
@@ -998,7 +1137,7 @@ def _lane_plain(xc, src_lane, geometry):
     return xv.index_select(2, _long(src_lane, xc.device)).reshape(xc.shape)
 
 
-def _lane_launch(xc, src_lane, geometry):
+def _lane_launch(xc, src_lane, geometry, flags=None):
     n, t, _ = geometry
     out = torch.empty_like(xc)
     elem = xc.shape[2] * xc.element_size()
@@ -1012,23 +1151,45 @@ def _lane_launch(xc, src_lane, geometry):
     # rows_per_block is the TPU's staging size; a block here stages
     # about _LANE_SMEM bytes of rows (at least one row)
     rows = max(1, min(1 << (n - t), _LANE_SMEM // row_bytes))
-    _launch("lane", xc, _ptr(xc), _ptr(out), _ptr(src_lane), 1 << (n - t),
-            1 << t, wpe, _shift(wpe), _shift((1 << t) * wpe), rows,
-            xc.shape[0], wb)
+    args = (_ptr(xc), _ptr(out), _ptr(src_lane), 1 << (n - t), 1 << t, wpe,
+            _shift(wpe), _shift((1 << t) * wpe), rows, xc.shape[0], wb)
+    if flags is None:
+        _launch("lane", xc, *args)
+    else:
+        _launch("lane_guarded", xc, *args, _ptr(flags))
     return out
 
 
+def _lane_plain_guarded(xc, src_lane, geometry, flags):
+    """:func:`_lane_plain` with the guarded variant's test: a lane whose
+    ``src_lane`` entry is out of range sets bit 1 and is written as
+    zeros."""
+    n, t, _ = geometry
+    src, ok = _in_range(src_lane, 1 << t, flags, xc.device)
+    xv = xc.reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
+    out = _int_view(xv.index_select(2, src))
+    out[:, :, ~ok] = 0
+    return out.view(xc.dtype).reshape(xc.shape)
+
+
 def lane_permute_tables(x: torch.Tensor, src_lane, *, geometry: tuple,
-                        batched: bool = False) -> torch.Tensor:
+                        batched: bool = False,
+                        flags: torch.Tensor = None) -> torch.Tensor:
     """Row gather: ``out[.., row, lane] = x[.., row, src_lane[lane]]``.
-    ``geometry`` is :func:`lane_geometry` output."""
+    ``geometry`` is :func:`lane_geometry` output. ``flags`` (or an
+    enclosing :func:`guard_flags`) runs the guarded variant into that flag
+    word."""
     xc = _canonical(x, batched)
     if xc.shape[1] != 1 << geometry[0]:
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
+    flags = _flags_for(x, flags)
     if _route(x, "lane_permute"):
         out = _lane_launch(xc, _device_table(src_lane, x.device,
-                                             1 << geometry[1]), geometry)
+                                             1 << geometry[1]), geometry,
+                           flags)
+    elif flags is not None:
+        out = _lane_plain_guarded(xc, src_lane, geometry, flags)
     else:
         out = _lane_plain(xc, src_lane, geometry)
     return out.reshape(x.shape)
@@ -1176,39 +1337,57 @@ def copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def block_permute_plain(x: torch.Tensor, plan: BlockPlan, *,
-                        batched: bool = False) -> torch.Tensor:
+                        batched: bool = False, src_rows=None,
+                        flags: torch.Tensor = None) -> torch.Tensor:
+    """K2's plain version on ``plan`` (its table, or ``src_rows``); the
+    guarded one with ``flags``."""
     xc = _canonical(x, batched)
-    return _block_plain(xc, plan.src_rows,
-                        block_geometry(plan)).reshape(x.shape)
+    tab = plan.src_rows if src_rows is None else src_rows
+    if flags is not None:
+        return _block_plain_guarded(xc, tab, block_geometry(plan),
+                                    _check_flags(flags, x)).reshape(x.shape)
+    return _block_plain(xc, tab, block_geometry(plan)).reshape(x.shape)
 
 
 def lane_permute_plain(x: torch.Tensor, plan: LanePlan, *,
-                       batched: bool = False) -> torch.Tensor:
+                       batched: bool = False, src_lane=None,
+                       flags: torch.Tensor = None) -> torch.Tensor:
+    """K3's plain version on ``plan`` (its table, or ``src_lane``); the
+    guarded one with ``flags``."""
     xc = _canonical(x, batched)
-    return _lane_plain(xc, plan.src_lane,
-                       lane_geometry(plan)).reshape(x.shape)
+    tab = plan.src_lane if src_lane is None else src_lane
+    if flags is not None:
+        return _lane_plain_guarded(xc, tab, lane_geometry(plan),
+                                   _check_flags(flags, x)).reshape(x.shape)
+    return _lane_plain(xc, tab, lane_geometry(plan)).reshape(x.shape)
 
 
 def tiled_permute_plain(x: torch.Tensor, plan: TilePlan, *,
-                        batched: bool = False) -> torch.Tensor:
-    xc = _canonical(x, batched)
-    return _tile_plain(xc, plan.in_rows, plan.out_rows, plan.xor_low,
-                       plan.src0, plan_geometry(plan)).reshape(x.shape)
+                        batched: bool = False, tables: tuple = None,
+                        flags: torch.Tensor = None) -> torch.Tensor:
+    """K4a's plain version on ``plan`` (its tables, or ``tables``: in_rows,
+    out_rows, xor_low, src0); the guarded one with ``flags``."""
+    return tiled_permute_tables_plain(
+        x, *(tables or (plan.in_rows, plan.out_rows, plan.xor_low,
+                        plan.src0)),
+        geometry=plan_geometry(plan), batched=batched, flags=flags)
 
 
 def tiled_permute_tables_plain(x: torch.Tensor, in_rows, out_rows, xor_low,
                                src0, *, geometry: tuple, epilogue: tuple = (),
                                epi_scalar: tuple = (), epi_vmem: tuple = (),
-                               map_fns: tuple = (),
-                               batched: bool = False) -> torch.Tensor:
+                               map_fns: tuple = (), batched: bool = False,
+                               flags: torch.Tensor = None) -> torch.Tensor:
     """The plain version of :func:`tiled_permute_tables` (K4a or K4b) on
-    any device."""
+    any device; the guarded one with ``flags``."""
     xc = _canonical(x, batched)
     entries = _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns, x.dtype)
     if entries:
         _check_epi_input(xc, entries, geometry)
-        out = _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0,
-                                geometry, entries)
+    if entries or flags is not None:
+        out = _tile_fused_plain(
+            xc, in_rows, out_rows, xor_low, src0, geometry, entries,
+            None if flags is None else _check_flags(flags, x))
     else:
         out = _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry)
     return out.reshape(x.shape)

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 # kernel name -> (source file, C entry point, argument types after the
-# two data pointers)
+# two data pointers). A guarded variant (name ``*_guarded``) lives in its
+# kernel's source and takes the flag word's pointer before the stream.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "copy": ("copy.cu", "repro_copy", [_L, _L, _L] + [_I] * 4 + [_P]),
@@ -41,7 +42,18 @@ KERNELS = {
                    [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6 + [_P]),
     "tile_bwd": ("tile_bwd.cu", "repro_tile_bwd",
                  [_P] * 6 + [_I] * 10 + [_L] + [_I] * 7 + [_P]),
+    "block_guarded": ("block_permute.cu", "repro_block_permute_guarded",
+                      [_P, _I, _I, _I, _I, _L, _I, _P, _P]),
+    "lane_guarded": ("lane_permute.cu", "repro_lane_permute_guarded",
+                     [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P, _P]),
+    "tile_guarded": ("tile_permute.cu", "repro_tile_permute_guarded",
+                     [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P, _P]),
+    "tile_fused_guarded": ("tile_fused.cu", "repro_tile_fused_guarded",
+                           [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6
+                           + [_P, _P]),
 }
+GUARDED = {"block": "block_guarded", "lane": "lane_guarded",
+           "tile": "tile_guarded", "tile_fused": "tile_fused_guarded"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,9 +97,13 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names=None) -> dict:
     """Compile every kernel (or ``names``) not built yet, one ``nvcc`` per
-    source, all started together. Returns :data:`BUILD_LOG`."""
+    source, all started together (a guarded variant shares its kernel's
+    library, logged under the kernel's name). Returns :data:`BUILD_LOG`."""
     names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
+    by_src = {}
+    for n in names:
+        by_src.setdefault(KERNELS[n][0], n)
+    todo = [n for n in by_src.values() if not _lib_path(n).exists()]
     if todo:
         exe = nvcc()
         build_dir().mkdir(parents=True, exist_ok=True)

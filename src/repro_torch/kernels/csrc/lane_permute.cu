@@ -17,15 +17,23 @@
 // are both contiguous runs; only the shared-memory reads are permuted.
 // Those reads may meet bank conflicts when the lane map scatters a warp's
 // 32 lanes onto few banks; a swizzle is left to a later change.
+//
+// The guarded variant (kGuard, launched by repro_lane_permute_guarded)
+// tests each src_lane entry against [0, row_len) before the shared-memory
+// read it addresses: an entry out of range sets bit 1 of *flags (one
+// atomicOr per thread that met one) and the word is written as zero
+// instead of read. The unguarded instantiation compiles to the code it
+// had before the variant existed (flags unused).
 #include "words.cuh"
 
-template <typename W>
+template <typename W, bool kGuard>
 __global__ void __launch_bounds__(REPRO_THREADS)
 lane_kernel(const W* __restrict__ x, W* __restrict__ out,
             const int* __restrict__ src_lane, int n_rows, int row_len,
             int wpe, int wpe_shift, int row_words, int row_shift,
-            int rows_per_cta, long long batch) {
+            int rows_per_cta, long long batch, int* __restrict__ flags) {
   extern __shared__ __align__(16) unsigned char smem[];
+  bool bad = false;
   int* s_src = reinterpret_cast<int*>(smem);
   const int tab_bytes = (row_len * 4 + 15) & ~15;
   W* tile = reinterpret_cast<W*>(smem + tab_bytes);
@@ -63,20 +71,29 @@ lane_kernel(const W* __restrict__ x, W* __restrict__ out,
       const unsigned rem = li - r * (unsigned)row_words;
       const unsigned l = div_by(rem, (unsigned)wpe, wpe_shift);
       const unsigned w = rem - l * (unsigned)wpe;
+      if constexpr (kGuard) {
+        if ((unsigned)s_src[l] >= (unsigned)row_len) {
+          bad = true;
+          ob[li] = W{};
+          continue;
+        }
+      }
       ob[li] = tile[r * (unsigned)row_words +
                     (unsigned)s_src[l] * (unsigned)wpe + w];
     }
   }
+  if constexpr (kGuard) {
+    if (bad) atomicOr(flags, 1);
+  }
 }
 
-extern "C" int repro_lane_permute(const void* x, void* out,
-                                  const int* src_lane, int n_rows,
-                                  int row_len, int wpe, int wpe_shift,
-                                  int row_shift, int rows_per_cta,
-                                  long long batch, int word_bytes,
-                                  void* stream) {
+template <bool kGuard>
+static int launch_lane(const void* x, void* out, const int* src_lane,
+                       int n_rows, int row_len, int wpe, int wpe_shift,
+                       int row_shift, int rows_per_cta, long long batch,
+                       int word_bytes, int* flags, void* stream) {
   if (n_rows <= 0 || row_len <= 0 || wpe <= 0 || rows_per_cta <= 0 ||
-      batch <= 0)
+      batch <= 0 || (kGuard && flags == nullptr))
     return (int)cudaErrorInvalidValue;
   const int row_words = row_len * wpe;
   dim3 grid((unsigned)((n_rows + rows_per_cta - 1) / rows_per_cta),
@@ -85,11 +102,33 @@ extern "C" int repro_lane_permute(const void* x, void* out,
   REPRO_DISPATCH_WORD(word_bytes, {
     const size_t smem = (size_t)((row_len * 4 + 15) & ~15) +
                         (size_t)rows_per_cta * row_words * sizeof(W);
-    cudaError_t e = allow_smem(lane_kernel<W>, smem);
+    cudaError_t e = allow_smem(lane_kernel<W, kGuard>, smem);
     if (e != cudaSuccess) return (int)e;
-    lane_kernel<W><<<grid, REPRO_THREADS, smem, s>>>(
+    lane_kernel<W, kGuard><<<grid, REPRO_THREADS, smem, s>>>(
         (const W*)x, (W*)out, src_lane, n_rows, row_len, wpe, wpe_shift,
-        row_words, row_shift, rows_per_cta, batch);
+        row_words, row_shift, rows_per_cta, batch, flags);
   });
   return (int)cudaGetLastError();
+}
+
+extern "C" int repro_lane_permute(const void* x, void* out,
+                                  const int* src_lane, int n_rows,
+                                  int row_len, int wpe, int wpe_shift,
+                                  int row_shift, int rows_per_cta,
+                                  long long batch, int word_bytes,
+                                  void* stream) {
+  return launch_lane<false>(x, out, src_lane, n_rows, row_len, wpe,
+                            wpe_shift, row_shift, rows_per_cta, batch,
+                            word_bytes, nullptr, stream);
+}
+
+// flags: one int32 on the device; bit 1 is set when an entry of
+// src_lane lies outside [0, row_len).
+extern "C" int repro_lane_permute_guarded(
+    const void* x, void* out, const int* src_lane, int n_rows, int row_len,
+    int wpe, int wpe_shift, int row_shift, int rows_per_cta, long long batch,
+    int word_bytes, int* flags, void* stream) {
+  return launch_lane<true>(x, out, src_lane, n_rows, row_len, wpe,
+                           wpe_shift, row_shift, rows_per_cta, batch,
+                           word_bytes, flags, stream);
 }

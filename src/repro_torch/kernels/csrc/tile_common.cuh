@@ -79,6 +79,89 @@
         tile[rs * stride + cs * (unsigned)wpe + w];                         \
   }
 
+// The guarded steps (the variants K4a and K4b launch under the guard):
+// the same three steps, each table entry tested before the access it
+// addresses. A row id outside [0, n_rows) or a lane XOR outside
+// [0, row_len) sets `bad` as it is staged and is staged as -1; step 2
+// loads a row staged as -1 as zeros instead of reading it, step 3 skips
+// the write of an output row staged as -1, and writes zero for a word
+// whose tile's lane XOR is -1 or whose src0 entry lies outside the tile
+// (also setting `bad`) instead of reading shared memory through it. The
+// kernel sets bit 1 of its flag word when `bad` is set at its end.
+#define REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows,        \
+                                       out_rows, xor_low, g0, rpt_shift,   \
+                                       rows, tiles_per_cta, n_rows,        \
+                                       row_len, bad)                       \
+  for (int i = threadIdx.x; i < rows; i += REPRO_THREADS) {                 \
+    const int vi = __ldg(in_rows + (g0 << rpt_shift) + i);                  \
+    const int vo = __ldg(out_rows + (g0 << rpt_shift) + i);                 \
+    const bool oki = (unsigned)vi < (unsigned)n_rows;                       \
+    const bool oko = (unsigned)vo < (unsigned)n_rows;                       \
+    bad |= !(oki && oko);                                                   \
+    s_in[i] = oki ? vi : -1;                                                \
+    s_out[i] = oko ? vo : -1;                                               \
+  }                                                                         \
+  for (int i = threadIdx.x; i < tiles_per_cta; i += REPRO_THREADS) {        \
+    const int v = __ldg(xor_low + g0 + i);                                  \
+    const bool ok = (unsigned)v < (unsigned)row_len;                        \
+    bad |= !ok;                                                             \
+    s_xl[i] = ok ? v : -1;                                                  \
+  }
+
+#define REPRO_TILE_LOAD_ROWS_GUARDED(W, tile, xb, s_in, span, row_words,    \
+                                     row_shift, stride)                     \
+  constexpr int kBatch = LoadBatch<W>::value;                               \
+  for (unsigned base = threadIdx.x; base < span;                            \
+       base += kBatch * REPRO_THREADS) {                                    \
+    W v[kBatch];                                                            \
+    _Pragma("unroll")                                                       \
+    for (int k = 0; k < kBatch; ++k) {                                      \
+      const unsigned li = base + k * REPRO_THREADS;                         \
+      if (li < span) {                                                      \
+        const unsigned r = div_by(li, row_words, row_shift);                \
+        const int sr = s_in[r];                                             \
+        v[k] = sr >= 0 ? xb[(long long)sr * row_words + (li - r * row_words)] \
+                       : W{};                                               \
+      }                                                                     \
+    }                                                                       \
+    _Pragma("unroll")                                                       \
+    for (int k = 0; k < kBatch; ++k) {                                      \
+      const unsigned li = base + k * REPRO_THREADS;                         \
+      if (li < span) {                                                      \
+        const unsigned r = div_by(li, row_words, row_shift);                \
+        tile[r * stride + (li - r * row_words)] = v[k];                     \
+      }                                                                     \
+    }                                                                       \
+  }
+
+#define REPRO_TILE_GATHER_STORE_GUARDED(W, ob, tile, s_out, s_xl, src0,     \
+                                        span, row_words, row_shift, wpe,    \
+                                        wpe_shift, t, rpt_shift, rpt_mask,  \
+                                        row_len, stride, bad)               \
+  _Pragma("unroll 4")                                                       \
+  for (unsigned li = threadIdx.x; li < span; li += REPRO_THREADS) {         \
+    const unsigned r = div_by(li, row_words, row_shift);                    \
+    const unsigned rem = li - r * row_words;                                \
+    const unsigned cp = div_by(rem, (unsigned)wpe, wpe_shift);              \
+    const unsigned w = rem - cp * (unsigned)wpe;                            \
+    const unsigned j = r >> rpt_shift, rp = r & rpt_mask;                   \
+    const int xl = s_xl[j];                                                 \
+    W val = W{};                                                            \
+    if (xl >= 0) {                                                          \
+      const unsigned s =                                                    \
+          (unsigned)__ldg(src0 + ((rp << t) | (cp ^ (unsigned)xl)));        \
+      if (s < (1u << (rpt_shift + t))) {                                    \
+        const unsigned rs = (j << rpt_shift) | (s >> t);                    \
+        const unsigned cs = s & (unsigned)(row_len - 1);                    \
+        val = tile[rs * stride + cs * (unsigned)wpe + w];                   \
+      } else {                                                              \
+        bad = true;                                                         \
+      }                                                                     \
+    }                                                                       \
+    const int orow = s_out[r];                                              \
+    if (orow >= 0) ob[(long long)orow * row_words + rem] = val;             \
+  }
+
 // Shared-memory bytes of a block: the row tables plus the padded tile.
 #define REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words)    \
   ((size_t)(((2 * rows + tiles_per_cta) * 4 + 15) & ~15) +                  \

@@ -44,6 +44,15 @@
 // the element's own width, with the blocks per SM its registers allow
 // chosen by measurement. What still bounds it: instruction issue and the
 // latency of each block's load -> phases -> gather sequence (PERF.md).
+//
+// The guarded variant (kGuard, launched by repro_tile_fused_guarded, for
+// clusters without maps) loads and gathers through the guarded steps of
+// tile_common.cuh: every row id, lane XOR and src0 entry is tested before
+// the access it addresses, an entry out of range sets bit 1 of *flags
+// (one atomicOr per thread that met one) and its access is skipped (a
+// row not read is loaded as zeros). The epilogue phases are the same.
+// The unguarded instantiations compile to the code they had before the
+// variant existed (flags unused).
 #include "tile_common.cuh"
 #include "tile_epilogue.cuh"
 
@@ -73,7 +82,7 @@ __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
   }
 }
 
-template <typename T, int DV, int KR, bool kMaps, int MB>
+template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard>
 __global__ void __launch_bounds__(REPRO_THREADS, MB)
 tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
                   typename ElemWord<T>::type* __restrict__ out,
@@ -84,7 +93,7 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
                   const long long* __restrict__ plan, int n_words,
                   int n_rows, int rpt_shift, int tiles_per_cta, int t,
                   int wpe, int wpe_shift, int row_shift, int pad_words,
-                  long long batch, int d) {
+                  long long batch, int d, int* __restrict__ flags) {
   using W = typename ElemWord<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
@@ -103,33 +112,57 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
   const unsigned rpt_mask = (1u << rpt_shift) - 1;
   const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
                     (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
-  REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
-                         rpt_shift, rows, tiles_per_cta)
-  stage_plan(s_plan, plan, n_words, g0);
-  const unsigned span = (unsigned)rows * row_words;
-  const long long batch_words = (long long)n_rows * row_words;
-  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-    const W* xb = x + b * batch_words;
-    W* ob = out + b * batch_words;
-    __syncthreads();  // tables ready; the previous batch row's reads done
-    REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
-                         stride)
-    fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
-    __syncthreads();
-    REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
-                            row_shift, wpe, wpe_shift, t, rpt_shift,
-                            rpt_mask, row_len, stride)
+  if constexpr (!kGuard) {
+    REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low,
+                           g0, rpt_shift, rows, tiles_per_cta)
+    stage_plan(s_plan, plan, n_words, g0);
+    const unsigned span = (unsigned)rows * row_words;
+    const long long batch_words = (long long)n_rows * row_words;
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+      const W* xb = x + b * batch_words;
+      W* ob = out + b * batch_words;
+      __syncthreads();  // tables ready; the previous batch row's reads done
+      REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
+                           stride)
+      fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
+      __syncthreads();
+      REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
+                              row_shift, wpe, wpe_shift, t, rpt_shift,
+                              rpt_mask, row_len, stride)
+    }
+  } else {
+    bool bad = false;
+    REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows, out_rows,
+                                   xor_low, g0, rpt_shift, rows,
+                                   tiles_per_cta, n_rows, row_len, bad)
+    stage_plan(s_plan, plan, n_words, g0);
+    const unsigned span = (unsigned)rows * row_words;
+    const long long batch_words = (long long)n_rows * row_words;
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+      const W* xb = x + b * batch_words;
+      W* ob = out + b * batch_words;
+      __syncthreads();
+      REPRO_TILE_LOAD_ROWS_GUARDED(W, tile, xb, s_in, span, row_words,
+                                   row_shift, stride)
+      fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
+      __syncthreads();
+      REPRO_TILE_GATHER_STORE_GUARDED(W, ob, tile, s_out, s_xl, src0, span,
+                                      row_words, row_shift, wpe, wpe_shift,
+                                      t, rpt_shift, rpt_mask, row_len,
+                                      stride, bad)
+    }
+    if (bad) atomicOr(flags, 1);
   }
 }
 
-template <typename T, int DV, int KR, bool kMaps, int MB>
+template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard>
 static int launch_fused(const void* x, void* out, const int* in_rows,
                         const int* out_rows, const int* xor_low,
                         const int* src0, const long long* plan, int n_words,
                         int n_tiles, int n_rows, int rpt_shift,
                         int tiles_per_cta, int t, int wpe, int wpe_shift,
                         int row_shift, int pad_words, long long batch,
-                        int word_bytes, int d, cudaStream_t s) {
+                        int word_bytes, int d, int* flags, cudaStream_t s) {
   using W = typename ElemWord<T>::type;
   if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
@@ -137,12 +170,14 @@ static int launch_fused(const void* x, void* out, const int* in_rows,
   const size_t smem =
       REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
       plan_bytes(n_words);
-  cudaError_t e = allow_smem(tile_fused_kernel<T, DV, KR, kMaps, MB>, smem);
+  cudaError_t e =
+      allow_smem(tile_fused_kernel<T, DV, KR, kMaps, MB, kGuard>, smem);
   if (e != cudaSuccess) return (int)e;
-  tile_fused_kernel<T, DV, KR, kMaps, MB><<<grid, REPRO_THREADS, smem, s>>>(
-      (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan, n_words,
-      n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,
-      pad_words, batch, d);
+  tile_fused_kernel<T, DV, KR, kMaps, MB, kGuard>
+      <<<grid, REPRO_THREADS, smem, s>>>(
+          (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan,
+          n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,
+          row_shift, pad_words, batch, d, flags);
   return (int)cudaGetLastError();
 }
 
@@ -150,38 +185,43 @@ static int launch_fused(const void* x, void* out, const int* in_rows,
 // register slot holds (2: a planar (re, im) cluster with butterflies);
 // regs: positions a thread holds (16, or 8: see tile_epilogue.cuh);
 // word_bytes: the element type's own width; n_words: int64 words of plan;
-// maps: the cluster holds map epilogues (single values, 8 registers).
-extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
-                                const int* out_rows, const int* xor_low,
-                                const int* src0, const long long* plan,
-                                int n_words, int n_tiles, int n_rows,
-                                int rpt_shift, int tiles_per_cta, int t,
-                                int wpe, int wpe_shift, int row_shift,
-                                int pad_words, long long batch,
-                                int word_bytes, int elem_type, int d, int dv,
-                                int regs, int maps, void* stream) {
+// maps: the cluster holds map epilogues (single values, 8 registers);
+// flags: null, or (the guarded variant, clusters without maps) one int32
+// on the device whose bit 1 is set when a table entry lies out of range.
+template <bool kGuard>
+static int launch_any(const void* x, void* out, const int* in_rows,
+                      const int* out_rows, const int* xor_low,
+                      const int* src0, const long long* plan, int n_words,
+                      int n_tiles, int n_rows, int rpt_shift,
+                      int tiles_per_cta, int t, int wpe, int wpe_shift,
+                      int row_shift, int pad_words, long long batch,
+                      int word_bytes, int elem_type, int d, int dv, int regs,
+                      int maps, int* flags, void* stream) {
   if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
       n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
       plan == nullptr || n_words < kHdrWords || (regs != 8 && regs != 16) ||
       (dv == 2 && (elem_type != 1 || d != 2)) ||
-      (maps && (dv != 1 || regs != 8)))
+      (maps && (dv != 1 || regs != 8)) ||
+      (kGuard && (flags == nullptr || maps)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_FUSED(T, DV, KR, MAPS, MB)                                    \
-  return launch_fused<T, DV, KR, MAPS, MB>(                                 \
+  return launch_fused<T, DV, KR, MAPS, MB, kGuard>(                         \
       x, out, in_rows, out_rows, xor_low, src0, plan, n_words, n_tiles,     \
       n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,       \
-      pad_words, batch, word_bytes, d, s)
+      pad_words, batch, word_bytes, d, flags, s)
   // the last argument: blocks per SM the variant's registers allow (the
   // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
   if (dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
   if (dv != 1) return (int)cudaErrorInvalidValue;
-  if (maps) {
-    switch (elem_type) {
-      case 0: REPRO_FUSED(int, 1, 8, true, 4);
-      case 1: REPRO_FUSED(float, 1, 8, true, 4);
-      case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
-      default: return (int)cudaErrorInvalidValue;
+  if constexpr (!kGuard) {
+    if (maps) {
+      switch (elem_type) {
+        case 0: REPRO_FUSED(int, 1, 8, true, 4);
+        case 1: REPRO_FUSED(float, 1, 8, true, 4);
+        case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
+        default: return (int)cudaErrorInvalidValue;
+      }
     }
   }
   const bool r16 = regs == 16;
@@ -195,4 +235,34 @@ extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FUSED
+}
+
+extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
+                                const int* out_rows, const int* xor_low,
+                                const int* src0, const long long* plan,
+                                int n_words, int n_tiles, int n_rows,
+                                int rpt_shift, int tiles_per_cta, int t,
+                                int wpe, int wpe_shift, int row_shift,
+                                int pad_words, long long batch,
+                                int word_bytes, int elem_type, int d, int dv,
+                                int regs, int maps, void* stream) {
+  return launch_any<false>(x, out, in_rows, out_rows, xor_low, src0, plan,
+                           n_words, n_tiles, n_rows, rpt_shift,
+                           tiles_per_cta, t, wpe, wpe_shift, row_shift,
+                           pad_words, batch, word_bytes, elem_type, d, dv,
+                           regs, maps, nullptr, stream);
+}
+
+extern "C" int repro_tile_fused_guarded(
+    const void* x, void* out, const int* in_rows, const int* out_rows,
+    const int* xor_low, const int* src0, const long long* plan, int n_words,
+    int n_tiles, int n_rows, int rpt_shift, int tiles_per_cta, int t,
+    int wpe, int wpe_shift, int row_shift, int pad_words, long long batch,
+    int word_bytes, int elem_type, int d, int dv, int regs, int maps,
+    int* flags, void* stream) {
+  return launch_any<true>(x, out, in_rows, out_rows, xor_low, src0, plan,
+                          n_words, n_tiles, n_rows, rpt_shift, tiles_per_cta,
+                          t, wpe, wpe_shift, row_shift, pad_words, batch,
+                          word_bytes, elem_type, d, dv, regs, maps, flags,
+                          stream);
 }

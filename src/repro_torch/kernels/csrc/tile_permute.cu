@@ -31,15 +31,23 @@
 // shift study and cp.async/TMA staging are left to later changes
 // (num_buffers is kept in the plan geometry but not used here). Steps
 // 1-3 are macros in tile_common.cuh, which K4b (tile_fused.cu) shares.
+//
+// The guarded variant (kGuard, launched by repro_tile_permute_guarded)
+// runs the guarded steps of tile_common.cuh: every row id, lane XOR and
+// src0 entry is tested before the access it addresses, an entry out of
+// range sets bit 1 of *flags (one atomicOr per thread that met one) and
+// its access is skipped. The unguarded instantiation compiles to the
+// code it had before the variant existed (flags unused).
 #include "tile_common.cuh"
 
-template <typename W>
+template <typename W, bool kGuard>
 __global__ void __launch_bounds__(REPRO_THREADS)
 tile_kernel(const W* __restrict__ x, W* __restrict__ out,
             const int* __restrict__ in_rows, const int* __restrict__ out_rows,
             const int* __restrict__ xor_low, const int* __restrict__ src0,
             int n_rows, int rpt_shift, int tiles_per_cta, int t, int wpe,
-            int wpe_shift, int row_shift, int pad_words, long long batch) {
+            int wpe_shift, int row_shift, int pad_words, long long batch,
+            int* __restrict__ flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
   int* s_in = reinterpret_cast<int*>(smem);
@@ -53,21 +61,71 @@ tile_kernel(const W* __restrict__ x, W* __restrict__ out,
   const unsigned rpt_mask = (1u << rpt_shift) - 1;
   const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
   const unsigned stride = row_words + (unsigned)pad_words;
-  REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
-                         rpt_shift, rows, tiles_per_cta)
-  const unsigned span = (unsigned)rows * row_words;
-  const long long batch_words = (long long)n_rows * row_words;
-  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-    const W* xb = x + b * batch_words;
-    W* ob = out + b * batch_words;
-    __syncthreads();  // tables ready; the previous batch row's reads done
-    REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
-                         stride)
-    __syncthreads();
-    REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
-                            row_shift, wpe, wpe_shift, t, rpt_shift,
-                            rpt_mask, row_len, stride)
+  if constexpr (!kGuard) {
+    REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low,
+                           g0, rpt_shift, rows, tiles_per_cta)
+    const unsigned span = (unsigned)rows * row_words;
+    const long long batch_words = (long long)n_rows * row_words;
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+      const W* xb = x + b * batch_words;
+      W* ob = out + b * batch_words;
+      __syncthreads();  // tables ready; the previous batch row's reads done
+      REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
+                           stride)
+      __syncthreads();
+      REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
+                              row_shift, wpe, wpe_shift, t, rpt_shift,
+                              rpt_mask, row_len, stride)
+    }
+  } else {
+    bool bad = false;
+    REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows, out_rows,
+                                   xor_low, g0, rpt_shift, rows,
+                                   tiles_per_cta, n_rows, row_len, bad)
+    const unsigned span = (unsigned)rows * row_words;
+    const long long batch_words = (long long)n_rows * row_words;
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+      const W* xb = x + b * batch_words;
+      W* ob = out + b * batch_words;
+      __syncthreads();
+      REPRO_TILE_LOAD_ROWS_GUARDED(W, tile, xb, s_in, span, row_words,
+                                   row_shift, stride)
+      __syncthreads();
+      REPRO_TILE_GATHER_STORE_GUARDED(W, ob, tile, s_out, s_xl, src0, span,
+                                      row_words, row_shift, wpe, wpe_shift,
+                                      t, rpt_shift, rpt_mask, row_len,
+                                      stride, bad)
+    }
+    if (bad) atomicOr(flags, 1);
   }
+}
+
+template <bool kGuard>
+static int launch_tile(const void* x, void* out, const int* in_rows,
+                       const int* out_rows, const int* xor_low,
+                       const int* src0, int n_tiles, int n_rows,
+                       int rpt_shift, int tiles_per_cta, int t, int wpe,
+                       int wpe_shift, int row_shift, int pad_words,
+                       long long batch, int word_bytes, int* flags,
+                       void* stream) {
+  if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
+      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 ||
+      (kGuard && flags == nullptr))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rows = tiles_per_cta << rpt_shift;
+  REPRO_DISPATCH_WORD(word_bytes, {
+    const size_t smem =
+        REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words);
+    cudaError_t e = allow_smem(tile_kernel<W, kGuard>, smem);
+    if (e != cudaSuccess) return (int)e;
+    tile_kernel<W, kGuard><<<grid, REPRO_THREADS, smem, s>>>(
+        (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, n_rows,
+        rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift, pad_words,
+        batch, flags);
+  });
+  return (int)cudaGetLastError();
 }
 
 extern "C" int repro_tile_permute(const void* x, void* out,
@@ -78,21 +136,23 @@ extern "C" int repro_tile_permute(const void* x, void* out,
                                   int wpe_shift, int row_shift, int pad_words,
                                   long long batch, int word_bytes,
                                   void* stream) {
-  if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
-      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rows = tiles_per_cta << rpt_shift;
-  REPRO_DISPATCH_WORD(word_bytes, {
-    const size_t smem =
-        REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words);
-    cudaError_t e = allow_smem(tile_kernel<W>, smem);
-    if (e != cudaSuccess) return (int)e;
-    tile_kernel<W><<<grid, REPRO_THREADS, smem, s>>>(
-        (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, n_rows,
-        rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift, pad_words,
-        batch);
-  });
-  return (int)cudaGetLastError();
+  return launch_tile<false>(x, out, in_rows, out_rows, xor_low, src0,
+                            n_tiles, n_rows, rpt_shift, tiles_per_cta, t,
+                            wpe, wpe_shift, row_shift, pad_words, batch,
+                            word_bytes, nullptr, stream);
+}
+
+// flags: one int32 on the device; bit 1 is set when a table entry lies
+// outside its range (row ids [0, n_rows), lane XORs [0, 2^t), src0 the
+// tile's rpt * 2^t positions).
+extern "C" int repro_tile_permute_guarded(
+    const void* x, void* out, const int* in_rows, const int* out_rows,
+    const int* xor_low, const int* src0, int n_tiles, int n_rows,
+    int rpt_shift, int tiles_per_cta, int t, int wpe, int wpe_shift,
+    int row_shift, int pad_words, long long batch, int word_bytes,
+    int* flags, void* stream) {
+  return launch_tile<true>(x, out, in_rows, out_rows, xor_low, src0,
+                           n_tiles, n_rows, rpt_shift, tiles_per_cta, t, wpe,
+                           wpe_shift, row_shift, pad_words, batch,
+                           word_bytes, flags, stream);
 }

@@ -84,9 +84,14 @@ def _build_class_plan(rows: tuple, c: int, t: int) -> tuple:
 def _class_plan_cached(rows: tuple, c: int, t: int) -> tuple:
     """(kernel name, plan payload) for the class dispatch. The payload is
     the fast-path plan for "block"/"lane", the tiled pass tuple
-    otherwise. (The reference backs this cache with its durable plan
-    store; that layer is not ported yet.)"""
-    return _build_class_plan(rows, c, t)
+    otherwise. Backed by the durable plan store when one is configured
+    (``REPRO_STORE``, :mod:`repro_torch.store`): a disk hit is decoded and
+    re-audited through guard ring 1 before it is trusted; an integrity
+    failure quarantines the entry and falls through to fresh planning."""
+    from .. import store as _store
+
+    return _store.class_plan_through(
+        rows, c, t, lambda: _build_class_plan(rows, c, t))
 
 
 def bmmc_plans(bmmc: Bmmc, t: int):
@@ -140,8 +145,25 @@ def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
     kernels write through raw pointers, which autograd cannot see (the
     reference's ``pallas_call`` has no VJP either). Gradients of
     permutations run through :mod:`repro_torch.combinators`.
+
+    With guards on (:func:`repro_torch.guard.enable`) the call is guarded
+    (:func:`repro_torch.guard.runtime.guarded_bmmc_permute`): the guarded
+    kernel variant and a parity probe write a device flag word that is
+    read once here; a trap falls back from "cuda" to "ref".
     """
     check_no_grad(x, "bmmc_permute")
+    if engine in ("cuda", "ref"):
+        from ..guard import runtime as _grt
+        if _grt.ring2_active():
+            return _grt.guarded_bmmc_permute(x, bmmc, t=t, engine=engine,
+                                             batched=batched)
+    return _bmmc_permute(x, bmmc, t=t, engine=engine, batched=batched)
+
+
+def _bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
+                  engine: str = "cuda", batched: bool = False) -> torch.Tensor:
+    """:func:`bmmc_permute` past its guard: the class dispatch (the guarded
+    variants when a guard flag word is active)."""
     lead = 1 if batched else 0
     if x.dim() <= lead or x.shape[lead] != bmmc.size:
         raise BadInput(f"bmmc_permute on 2^{bmmc.n} indices needs axis "

@@ -74,8 +74,15 @@ def bmmc_ref(x: torch.Tensor, bmmc: Bmmc, *,
     ``batched=True`` shifts the permuted axis to axis 1: ``x`` is
     ``(B, 2^n)`` or ``(B, 2^n, d)`` and every batch row shares the one
     gather table.
+
+    Inside a guarded run (:func:`repro_torch.kernels.bmmc_permute.
+    guard_flags`) the table is tested on the tensor's device first: an
+    entry outside ``[0, 2^n)`` sets bit 1 of the flag word and is clamped
+    into range, so the gather never addresses outside ``x`` (on the card
+    an index out of range fires a device-side assert, which loses the
+    CUDA context).
     """
-    from .bmmc_permute import device_cached
+    from .bmmc_permute import active_guard_flags, device_cached
     axis = 1 if batched else 0
     _check_axis(x, bmmc, axis)
     _ometrics.inc("dispatch.kernel", kernel="ref")
@@ -84,6 +91,11 @@ def bmmc_ref(x: torch.Tensor, bmmc: Bmmc, *,
     # capture of a program on the "ref" engine uploads nothing
     idx = device_cached(tab, "src_index", x.device, lambda: torch.from_numpy(
         tab).to(device=x.device, dtype=torch.int64))
+    flags = active_guard_flags()
+    if flags is not None:
+        bad = (idx < 0) | (idx >= bmmc.size)
+        flags.bitwise_or_(bad.any().to(torch.int32))
+        idx = idx.clamp(0, bmmc.size - 1)
     return torch.index_select(x, axis, idx)
 
 

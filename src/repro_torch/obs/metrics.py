@@ -37,8 +37,25 @@ Span vocabulary for gradients mirrors the forward's: ``program.vjp`` /
 ``fused.vjp`` / ``stage.vjp`` wrap the corresponding backward rule
 bodies, and ``kernel.fused_bwd`` wraps the gradient kernel K5.
 
-The rest of the reference's vocabulary (optimizer, guard ring 2, store
-and resilience counters) arrives with the layers that record it.
+Validated, durable and resilient execution (the reference's names; each
+also has an always-on record: ``guard.stats()``, ``store.stats()``,
+``resilience.stats()``):
+
+* ``guard.trap{kind, engine}`` — a guarded call's flag word had bit
+  ``kind`` (``oob`` / ``nonfinite`` / ``parity``) set on ``engine``;
+  ``guard.fallback{engine}`` — a trapped call re-run on ``engine``
+  (``ref``); ``guard.recovered`` — a fallback that ran clean;
+  ``guard.raised{error}`` — a request that failed loudly
+  (``GuardTrap`` / ``CachePoisoned``).
+* ``store.{hit, miss, write, write_failed, corrupt, quarantined,
+  version_skew, plan_built}{kind}`` — the plan store's load-through
+  events (``kind``: ``class`` / ``fused``, or the quarantine reason
+  ``corrupt`` / ``audit``).
+* ``resilience.breaker.{open, probe, close, shunt}{engine}`` — circuit
+  transitions and calls routed to the fallback; ``resilience.retry``,
+  ``resilience.deadline``, ``resilience.shed`` — the request policy.
+
+The optimizer's counters arrive with the layer that records them.
 """
 from __future__ import annotations
 

@@ -559,3 +559,165 @@ def test_cuda_map_programs_fuse_in_both_directions(cuda_device):
     xl = xf.clone().requires_grad_(True)
     (w * torch.sort(torch.tanh(xl)).values).sum().backward()
     assert torch.allclose(xt.grad, xl.grad, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# ring 2: the guarded variants of K2, K3, K4a and K4b
+# ---------------------------------------------------------------------------
+
+def _guarded_pair(kind, x, payload, flags, tabs=None):
+    """(guarded kernel, guarded plain version) of one kernel on ``x``,
+    with its plan's device tables or ``tabs``."""
+    if kind == "block":
+        tab = pk.device_tables(payload, x.device)[0] if tabs is None else tabs
+        geo = pk.block_geometry(payload)
+        got = pk.block_permute_tables(x, tab, geometry=geo, flags=flags)
+        fp = torch.zeros_like(flags)
+        return got, pk.block_permute_plain(x, payload, src_rows=tab,
+                                           flags=fp), fp
+    if kind == "lane":
+        tab = pk.device_tables(payload, x.device)[0] if tabs is None else tabs
+        geo = pk.lane_geometry(payload)
+        got = pk.lane_permute_tables(x, tab, geometry=geo, flags=flags)
+        fp = torch.zeros_like(flags)
+        return got, pk.lane_permute_plain(x, payload, src_lane=tab,
+                                          flags=fp), fp
+    tabs = pk.device_tables(payload, x.device) if tabs is None else tabs
+    got = pk.tiled_permute_tables(x, *tabs, geometry=pk.plan_geometry(
+        payload), flags=flags)
+    fp = torch.zeros_like(flags)
+    return got, pk.tiled_permute_plain(x, payload, tables=tabs,
+                                       flags=fp), fp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["block", "lane", "bitrev", "bmmc"])
+def test_cuda_guarded_kernels_match_unguarded_and_plain(cuda_device, kind):
+    n = 14
+    b = _bmmc(kind, n, random.Random(3))
+    kernel, payload = pops.class_plan(b, 4)
+    plan = payload if kernel in ("block", "lane") else payload[0]
+    name = {"block": "block", "lane": "lane"}.get(kernel, "tile")
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), device=cuda_device,
+                      dtype=torch.int64).to(torch.int32)
+    flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = pk.launch_counts()
+    got, plain, pflags = _guarded_pair(kernel, x, plan, flags)
+    torch.cuda.synchronize()
+    after = pk.launch_counts()
+    assert after[name + "_guarded"] == before[name + "_guarded"] + 1
+    assert after[name] == before[name]
+    unguarded = {"block": pk.block_permute, "lane": pk.lane_permute}.get(
+        kernel, pk.tiled_permute)(x, plan)
+    assert int(flags) == 0 and int(pflags) == 0
+    assert torch.equal(got, plain) and torch.equal(got, unguarded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,table", [
+    ("block", 0), ("lane", 0), ("bitrev", 0), ("bitrev", 1),
+    ("bitrev", 2), ("bitrev", 3)])
+def test_cuda_poisoned_table_traps_without_a_sticky_error(cuda_device, kind,
+                                                          table):
+    """An entry out of range in the table a guarded kernel reads sets bit 1
+    (as its guarded plain version does) and the access is skipped: the
+    next unguarded launch in the process still succeeds."""
+    n = 14
+    b = _bmmc(kind, n, random.Random(3))
+    kernel, payload = pops.class_plan(b, 4)
+    plan = payload if kernel in ("block", "lane") else payload[0]
+    tabs = tuple(t.clone() for t in pk.device_tables(plan, cuda_device))
+    tabs[table].view(-1)[1] = 1 << 30
+    x = torch.randint(0, 1 << 30, (1 << n,), device=cuda_device,
+                      dtype=torch.int32)
+    flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got, plain, pflags = _guarded_pair(
+        kernel, x, plan, flags, tabs if kernel not in ("block", "lane")
+        else tabs[0])
+    torch.cuda.synchronize()
+    assert int(flags) == 1 and int(pflags) == 1
+    if not (kernel not in ("block", "lane") and table == 1):
+        # a bad output row leaves its row unwritten; else all is defined
+        assert torch.equal(got, plain)
+    y = pops.bmmc_permute(x, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, pref.bmmc_ref(x, b))
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_fused_kernel_matches_and_traps(cuda_device):
+    from repro_torch.combinators import execute as pex
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators.sort import sort_expr
+    n = 14
+    f = compile_expr(sort_expr(n))
+    t = pops.choose_tile(n, 4)
+    fs = next(s for s in f.clustered_program(n, t)
+              if getattr(s, "computes", ()))
+    plans, entries = pex._fused_plan_cached(fs, t)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), device=cuda_device,
+                      dtype=torch.int64).to(torch.int32)
+    tabs, epi = pex._pass_tables(plans[0], entries, x)
+    geo = pk.plan_geometry(plans[0])
+    flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = pk.launch_counts()["tile_fused_guarded"]
+    got = pk.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags, **epi)
+    want = pk.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+    plain = pk.tiled_permute_tables_plain(x, *tabs, geometry=geo, **epi)
+    torch.cuda.synchronize()
+    assert pk.launch_counts()["tile_fused_guarded"] == before + 1
+    assert int(flags) == 0 and torch.equal(got, want)
+    assert torch.equal(got, plain)
+    bad = tabs[3].clone()
+    bad.view(-1)[0] = -1
+    pflags = torch.zeros_like(flags)
+    got = pk.tiled_permute_tables(x, tabs[0], tabs[1], tabs[2], bad,
+                                  geometry=geo, flags=flags, **epi)
+    plain = pk.tiled_permute_tables_plain(x, tabs[0], tabs[1], tabs[2], bad,
+                                          geometry=geo, flags=pflags, **epi)
+    torch.cuda.synchronize()
+    assert int(flags) == 1 and int(pflags) == 1 and torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_entry_points_fall_back_and_recover(cuda_device):
+    """Ring 2 through the entry points on the card: clean guarded calls
+    are bit-equal with no trap; a poisoned plan traps on the card, falls
+    back to ref and recovers; a poisoned ref table raises GuardTrap; the
+    process keeps launching."""
+    from repro_torch import guard, resilience
+    from repro_torch.combinators import compile_expr, execute as pex
+    from repro_torch.combinators.sort import sort_expr
+    from repro_torch.guard import inject
+    pex.clear_caches()
+    n = 14
+    b = Bmmc.bit_reverse(n)
+    x = torch.randint(0, 1 << 30, (1 << n,), device=cuda_device,
+                      dtype=torch.int32)
+    s = compile_expr(sort_expr(n))
+    want_sort = torch.sort(x).values
+    try:
+        with guard.guarded():
+            assert torch.equal(pops.bmmc_permute(x, b), pref.bmmc_ref(x, b))
+            for _ in range(2):        # eager first call, then the graph
+                assert torch.equal(s(x), want_sort)
+            assert guard.stats()["traps"] == {}
+            assert not resilience.board().engaged("cuda")
+            t = pops.choose_tile(n, 4)
+            with inject.poison_plan(b, t):
+                assert torch.equal(pops.bmmc_permute(x, b),
+                                   pref.bmmc_ref(x, b))
+            st = guard.stats()
+            # a skipped access may also show in the parity sample
+            assert st["traps"][("oob", "cuda")] == 1
+            assert {k for k, _ in st["traps"]} <= {"oob", "parity"}
+            assert st["fallbacks"] == {"ref": 1} and st["recovered"] == 1
+            with inject.poison_ref_table(b):
+                with pytest.raises((guard.GuardTrap, guard.CachePoisoned)):
+                    pops.bmmc_permute(x, b, engine="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(pops.bmmc_permute(x, b), pref.bmmc_ref(x, b))
+        rep = inject.run_fault_matrix("cuda", n=10, device="cuda")
+        assert rep["caught"] == rep["injected"] == len(inject.FAULT_KINDS)
+    finally:
+        pex.clear_caches()

@@ -36,7 +36,13 @@ def test_port_modules_found():
                  "repro_torch.combinators.optimize",
                  "repro_torch.combinators.execute",
                  "repro_torch.combinators.sort",
-                 "repro_torch.combinators.fft"):
+                 "repro_torch.combinators.fft",
+                 "repro_torch.guard.runtime", "repro_torch.guard.inject",
+                 "repro_torch.store", "repro_torch.store.codec",
+                 "repro_torch.store.store", "repro_torch.resilience",
+                 "repro_torch.resilience.breaker",
+                 "repro_torch.resilience.policy",
+                 "repro_torch.resilience.chaos"):
         assert want in mods
 
 

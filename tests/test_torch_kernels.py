@@ -229,6 +229,10 @@ def test_dispatch_counters_equal_reference():
     cases = [(_e2e_bmmc(k, n, rng), t) for k, t in
              (("bmmc", 3), ("block", 2), ("lane", 2), ("mixed", 2),
               ("identity", 2))]
+    # cold plan caches in both packages, so each counts its plan store's
+    # builds (store.plan_built) for the same plans
+    rops._class_plan_cached.cache_clear()
+    pops._class_plan_cached.cache_clear()
     robs.reset()
     pobs.reset()
     robs.enable()
@@ -244,11 +248,8 @@ def test_dispatch_counters_equal_reference():
         b = RBmmc.random(4, rng)
         rops.bmmc_permute(jx, b, t=3)
         pops.bmmc_permute(tx, _port_bmmc(b), t=3)
-        # the reference also counts its plan store's builds (store.*), a
-        # layer the port does not have yet
-        want = {k: v for k, v in robs.counters().items()
-                if not k[0].startswith("store.")}
-        assert pobs.counters() == want
+        assert pobs.counter_value("store.plan_built", kind="class") > 0
+        assert pobs.counters() == robs.counters()
         assert pobs.kernel_counts() == robs.kernel_counts()
         assert pobs.class_counts() == robs.class_counts()
     finally:
