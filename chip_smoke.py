@@ -110,7 +110,26 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
 14. ring 3 and the soak: ``guard.inject.run_fault_matrix("cuda")`` at
    2^14 (every kind caught, none silently wrong) and
    ``resilience.chaos.run_matrix()`` on the card (every SLO met);
-15. last line: ``{"ok": true, "device": {...}}``.
+15. serving: ``mistral-nemo-12b`` at full width and depth (40 layers,
+   bfloat16, weights from a seed, built on the card) through the port's
+   serve loop (``repro_torch.launch.serve.serve``), batch 4, prompt 512,
+   32 new tokens. First K4a at the three shapes the kv-head shuffle gives
+   it (k and v, the q groups, the float32 output; t = 1), each bit for bit
+   against its plain version and the plain gather, timed in turns with
+   ``index_select`` beside its byte bound. Then the shuffle on ``cuda``
+   with the launch counts set to 0 just before: K4a launched 4 times in
+   each of the 40 prefill layers and no other kernel; the shuffle on
+   ``ref`` and off, in turns: prefill logits bit-equal across the three
+   (shuffle off within ``SHUFFLE_OFF_REL_TOL`` if the card's products are
+   not) and greedy tokens equal; prefill ms, warm decode ms per token and
+   tokens per second of each run; one decode step against a prefill over
+   the extended sequence (within ``DECODE_REL_TOL``); a ``--validate``
+   run (guarded K4a launches, zero traps, equal output); the peak device
+   memory; the decode step against the prefill again in float32 at full
+   width and depth (within ``DECODE_F32_REL_TOL``); the
+   port's SIGTERM drain drill on the card
+   (``resilience.chaos.sigterm_drill``);
+16. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -153,6 +172,10 @@ KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
                      "src/repro/kernels/bmmc_permute.py:72"),
     "tile_fused_guarded": ("src/repro_torch/kernels/csrc/tile_fused.cu",
                            "src/repro/kernels/bmmc_permute.py:181"),
+    # K4a on the serving path (phase 15): the four kv-head shuffles of one
+    # prefill layer; launches are those of one full-width prefill
+    "tile_serve": ("src/repro_torch/kernels/csrc/tile_permute.cu",
+                   "src/repro/kernels/bmmc_permute.py:72"),
 }
 PERM_KERNELS = ("copy", "block", "lane", "tile")   # the bmmc_permute path
 
@@ -2052,6 +2075,279 @@ def phase_chaos(torch):
     say("  every soak SLO met")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving a full-width model
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "mistral-nemo-12b"   # the repo's default architecture
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 512, 32
+# One decode step's logits against a prefill over the extended sequence
+# (the card's counterpart of
+# tests/test_models.py::test_decode_matches_prefill_continuation, which
+# holds a 2-layer, 64-wide float32 model to rtol = atol = 2e-4), as a
+# norm-wise relative error: in bfloat16 within DECODE_REL_TOL and in
+# float32 within DECODE_F32_REL_TOL, both at full width and depth. The
+# two paths compute the same function but sum in other orders (other
+# product shapes), and the differences add up over the 40 layers.
+# tools/decode_vs_prefill.py on an H100: bfloat16 7.6e-3 after 1 layer,
+# 2.7e-2 after 10, 6.3e-2 after 40; float32 3.0e-5 after 40, where the
+# same float32 prefill at batch 4 and one row at a time already differs
+# by 2.9e-5 (the floor of the products' orders). A decode fault (a wrong
+# position, cache entry or mask) moves the logits by their own size.
+DECODE_REL_TOL = 1e-1
+DECODE_F32_REL_TOL = 1e-3
+# The same, for the prefill logits with the shuffle on against off, if the
+# card's matrix products do not give them bit for bit (the shuffle only
+# moves whole heads between the batches of one batched product, so they
+# are expected bit-equal; this bounds what the run prints if not).
+SHUFFLE_OFF_REL_TOL = 1e-2
+
+
+def rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def shuffle_kernel_cases(torch, cfg, tokens: int):
+    """The three shapes and types the kv-head shuffle gives K4a in one
+    prefill layer, with how many of its four calls take each."""
+    kv, hd, g = cfg.n_kv_heads, cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    return [("k, v", (tokens, kv, hd), torch.bfloat16, 2),
+            ("q groups", (tokens, kv, g * hd), torch.bfloat16, 1),
+            ("output", (tokens, kv, g * hd), torch.float32, 1)]
+
+
+def decode_against_prefill(torch, M, cfg, params, prompts):
+    """Prefill ``prompts``, decode one greedy token, and hold its logits
+    against a prefill of the prompts plus that token. Returns (norm-wise
+    relative error, rows whose argmax agrees, max abs difference)."""
+    p = prompts.shape[1]
+    with torch.no_grad():
+        logits, caches = M.prefill(cfg, params, {"tokens": prompts})
+        caches = M.grow_caches(caches, p, p + 1)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        dec, _ = M.decode_step(cfg, params, caches, tok, p)
+        del caches, logits
+        full, _ = M.prefill(cfg, params, {"tokens": torch.cat(
+            [prompts, tok], dim=1)})
+    return (rel_err(torch, dec, full),
+            int((dec.argmax(-1) == full.argmax(-1)).sum()),
+            float((dec - full).abs().max()))
+
+
+def phase_serve(torch, bw: float, reps: int, smi: str):
+    """Phase 15: serve full-width Mistral-NeMo-12B through the port's serve
+    loop with the kv-head shuffle on ``cuda``, ``ref`` and off. Returns
+    the record of K4a on the serving path and its launches."""
+    import dataclasses
+    import gc
+    from repro_torch import guard
+    from repro_torch.combinators import clear_caches
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import default_head_perm
+    from repro_torch.resilience import chaos
+
+    cfg = get_config(SERVE_ARCH)
+    say(f"== phase 15: serve {cfg.name} at full width ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} "
+        f"kv heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {str(cfg.dtype).split('.')[-1]}), batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new tokens ==")
+    say(f"  card: {smi}")
+    clear_caches()          # the earlier phases' plans and device tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    hp = default_head_perm(cfg.n_kv_heads)
+    check(hp is not None, cfg.n_kv_heads)
+    rows = SERVE_BATCH * SERVE_PROMPT
+
+    # K4a at the three shuffle shapes: bit for bit against its plain
+    # version and the plain gather, timed in turns with index_select
+    gen = torch.Generator(device=dev).manual_seed(15)
+    idx = ref.bmmc_src_index(hp, dev)
+    rec = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0}
+    timed = (lambda fn: cuda_ms(torch, fn, reps))
+    for label, shape, dtype, calls in shuffle_kernel_cases(torch, cfg, rows):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        t = ops.choose_tile(hp.n, x.element_size(), shape[2])
+        kernel, plans = ops.class_plan(hp, t)
+        check(kernel == "tiled" and len(plans) == 1, (label, kernel, t))
+        plan = plans[0]
+        got = K.tiled_permute(x, plan, batched=True)
+        err = max(max_abs_err(torch, got, K.tiled_permute_plain(
+            x, plan, batched=True)), max_abs_err(torch, got, ref.bmmc_ref(
+                x, hp, batched=True)), max_abs_err(torch, ops.bmmc_permute(
+                    x, hp, batched=True), got))
+        check(err == 0.0, (label, err))
+        turns = in_turns({"kernel": lambda: K.tiled_permute(
+            x, plan, batched=True), "library": lambda: torch.index_select(
+                x, 1, idx)}, timed)
+        ms, lib_ms = (statistics.median(turns[k]) for k in ("kernel",
+                                                            "library"))
+        dturns = in_turns({"kernel": lambda: K.tiled_permute(
+            x, plan, batched=True), "library": lambda: torch.index_select(
+                x, 1, idx)}, lambda fn: device_ms(torch, fn), rounds=1)
+        dev_ms, dev_lib = (statistics.median(dturns[k]) for k in (
+            "kernel", "library"))
+        plain_ms = cuda_ms(torch, lambda: K.tiled_permute_plain(
+            x, plan, batched=True), max(3, reps // 3), warmup=1)
+        tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plan, dev))
+        bound_ms = (2 * x.numel() * x.element_size() + tab_bytes) / bw * 1e3
+        for k, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms",
+                     plain_ms), ("library_ms", lib_ms),
+                     ("bound_ms", bound_ms)):
+            rec[k] += calls * v
+        say(f"  K4a {label} {tuple(shape)} {str(dtype).split('.')[-1]} "
+            f"(t={t}, x{calls} a layer): bit-equal to its plain version "
+            f"and the gather; one call: kernel {ms:.4f} ms, index_select "
+            f"{lib_ms:.4f} ms (in turns); device: kernel {dev_ms:.4f} ms, "
+            f"index_select {dev_lib:.4f} ms (in turns); plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    say(f"  the four shuffles of one layer: one call: kernel "
+        f"{rec['ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms; "
+        f"device: kernel {rec['device_ms']:.4f} ms; plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+    del x, got
+    torch.cuda.empty_cache()
+
+    # the model, from a seed, on the card
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in M.LM(cfg, params).parameters())
+    say(f"  init: {init_s:.2f} s, {n_bytes / 1e9:.2f} GB of parameters on "
+        f"the card")
+    args = S.parse_args(["--arch", cfg.name, "--batch", str(SERVE_BATCH),
+                         "--prompt-len", str(SERVE_PROMPT),
+                         "--tokens", str(SERVE_TOKENS)])
+    prompts = S.make_prompts(cfg, args, dev)
+    engines = {"cuda": "cuda", "ref": "ref", "off": None}
+    cfgs = {k: dataclasses.replace(cfg, head_shuffle=e)
+            for k, e in engines.items()}
+
+    # the serving path with the shuffle on cuda: K4a in every prefill
+    # layer, counted from 0
+    K.reset_launch_counts()
+    first = S.serve(cfgs["cuda"], params, args, prompts)
+    counts = K.launch_counts()
+    check(not first.errors and first.gen is not None, first.errors)
+    launches = counts["tile"]
+    say(f"  serving path, shuffle on cuda: kernel launches {counts}")
+    check(launches == 4 * cfg.n_layers, (
+        "K4a launches on the serving path", launches, 4 * cfg.n_layers))
+    check(sum(v for k, v in counts.items() if k != "tile") == 0, counts)
+
+    runs = {"cuda": [first]}
+    for k in ("ref", "off", "off", "ref", "cuda"):     # in turns
+        res = S.serve(cfgs[k], params, args, prompts)
+        check(not res.errors and res.gen is not None, (k, res.errors))
+        runs.setdefault(k, []).append(res)
+    want = runs["cuda"][0]
+    for k, rs in runs.items():
+        for r in rs:
+            check(np.array_equal(r.gen, want.gen), (k, "greedy tokens"))
+            check(r.gen.shape == (SERVE_BATCH, SERVE_TOKENS), r.gen.shape)
+            check(bool(torch.isfinite(r.prefill_logits).all()), k)
+    err = max_abs_err(torch, runs["ref"][0].prefill_logits,
+                      want.prefill_logits)
+    check(err == 0.0, ("prefill logits, shuffle cuda against ref", err))
+    off_err = max_abs_err(torch, runs["off"][0].prefill_logits,
+                          want.prefill_logits)
+    if off_err == 0.0:
+        say("  prefill logits bit-equal with the shuffle on cuda, on ref "
+            "and off; greedy tokens equal in all six runs")
+    else:
+        rel = rel_err(torch, runs["off"][0].prefill_logits,
+                      want.prefill_logits)
+        say(f"  prefill logits: cuda and ref bit-equal; shuffle off NOT "
+            f"bit-equal (norm-wise relative {rel:.3e}, within "
+            f"{SHUFFLE_OFF_REL_TOL}); greedy tokens equal in all six runs")
+        check(rel <= SHUFFLE_OFF_REL_TOL, ("shuffle off", rel))
+    for k, rs in runs.items():
+        steps = [s for r in rs for s in r.step_s[1:]]   # warm steps
+        dec = [r.decode_s for r in rs]
+        rate = [SERVE_BATCH * r.gen.shape[1] / r.decode_s for r in rs]
+        say(f"  shuffle {k:4s}: prefill "
+            f"{', '.join(f'{r.prefill_s * 1e3:.1f}' for r in rs)} ms; warm "
+            f"decode {statistics.median(steps) * 1e3:.2f} ms/token (median "
+            f"of {len(steps)} steps); decode "
+            f"{', '.join(f'{d:.3f}' for d in dec)} s, "
+            f"{', '.join(f'{v:.1f}' for v in rate)} tokens/s")
+
+    # one decode step against a prefill over the extended sequence
+    rel, agree, max_abs = decode_against_prefill(torch, M, cfgs["cuda"],
+                                                 params, prompts)
+    say(f"  bfloat16 decode step vs prefill of {SERVE_PROMPT + 1} tokens: "
+        f"norm-wise relative {rel:.3e} (tolerance {DECODE_REL_TOL}), max "
+        f"abs {max_abs:.4f}, argmax equal in {agree}/{SERVE_BATCH} rows")
+    check(rel <= DECODE_REL_TOL, ("decode vs prefill", rel))
+
+    # --validate: the guarded kernels, zero traps
+    guard.reset_stats()
+    guard.enable()
+    try:
+        K.reset_launch_counts()
+        # the same horizon as the unguarded runs: decode sums over the
+        # grown cache, so another length would round otherwise
+        vargs = S.parse_args(["--arch", cfg.name, "--batch",
+                              str(SERVE_BATCH), "--prompt-len",
+                              str(SERVE_PROMPT), "--tokens",
+                              str(SERVE_TOKENS), "--validate"])
+        vres = S.serve(cfgs["cuda"], params, vargs, prompts)
+        vcounts = K.launch_counts()
+        gs = guard.stats()
+    finally:
+        guard.disable()
+    check(not vres.errors and vres.gen is not None, vres.errors)
+    check(np.array_equal(vres.gen, want.gen), "validated tokens")
+    check(max_abs_err(torch, vres.prefill_logits, want.prefill_logits)
+          == 0.0, "validated prefill logits")
+    traps = sum(gs["traps"].values())
+    fallbacks = sum(gs["fallbacks"].values())
+    say(f"  --validate: tile_guarded launches {vcounts['tile_guarded']}, "
+        f"unguarded tile {vcounts['tile']}; traps {traps}, fallbacks "
+        f"{fallbacks}; logits and tokens equal to the unguarded run")
+    check(vcounts["tile_guarded"] == 4 * cfg.n_layers
+          and vcounts["tile"] == 0 and traps == 0 and fallbacks == 0,
+          (vcounts, gs))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  peak device memory of the bfloat16 serving runs: {peak:.2f} GiB")
+    del params, runs, first, want, vres
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the decode check in float32 at full width and depth (49 GB of
+    # parameters)
+    c32 = dataclasses.replace(cfgs["cuda"], dtype=torch.float32)
+    params = M.init(c32, torch.Generator(device=dev).manual_seed(0))
+    rel, agree, max_abs = decode_against_prefill(torch, M, c32, params,
+                                                 prompts)
+    say(f"  float32 decode step vs prefill of {SERVE_PROMPT + 1} tokens: "
+        f"norm-wise relative {rel:.3e} (tolerance {DECODE_F32_REL_TOL}), "
+        f"max abs {max_abs:.2e}, argmax equal in {agree}/{SERVE_BATCH} rows")
+    check(rel <= DECODE_F32_REL_TOL, ("float32 decode vs prefill", rel))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    drill = chaos.sigterm_drill(timeout_s=180.0, device="cuda")
+    say(f"  sigterm drill on the card: started={drill['started']} "
+        f"rc={drill['returncode']} drained={drill['drained']} "
+        f"traceback={drill['traceback']}")
+    check(drill["ok"], drill["output"][-3000:])
+    rec["launches"] = launches
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -2115,6 +2411,8 @@ def main(argv=None) -> int:
     phase_traps(torch, min(N_FAULT, args.n))
     phase_store(torch, args.n, args.n_sort, hashes)
     phase_chaos(torch)
+    records["tile_serve"] = phase_serve(torch, bw, REPS, smi)
+    counts["tile_serve"] = records["tile_serve"]["launches"]
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]

@@ -6,5 +6,7 @@ reference. Offline planning (:mod:`.core`) is numpy; the kernels
 use, each with a plain PyTorch version that serves CPU tensors. This
 package imports neither JAX nor :mod:`repro`.
 
-Entry point: :func:`repro_torch.kernels.ops.bmmc_permute`.
+Entry points: :func:`repro_torch.kernels.ops.bmmc_permute`, the
+combinator programs of :mod:`repro_torch.combinators`, and the LM server
+:mod:`repro_torch.launch.serve` (dense configurations).
 """

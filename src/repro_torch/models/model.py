@@ -1,0 +1,193 @@
+"""Model facade: ArchConfig -> parameter defs, prefill, decode.
+
+The counterpart of :mod:`repro.models.model` for serving. The entry points
+are functions of ``(cfg, params, inputs)`` over a nested dict of tensors
+(the reference's parameter tree, path for path); :class:`LM` holds such a
+tree as an ``nn.Module``, so ``named_parameters()`` gives the reference's
+paths (``stack.scan.0_dense.wq``). Everything runs on the device of the
+parameters. Sharding (a ``mesh``) is not ported yet: ROADMAP Queue 1 item
+7d.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .layers import ParamDef, init_params, layer_norm, matmul_f32, rms_norm
+from .transformer import run_stack, stack_cache_defs, stack_defs_tree
+
+
+def _make_ctx(cfg: ArchConfig, mode: str, mesh, pos: int) -> Dict:
+    """What the reference's ``parallel.sharding`` gives for no mesh: one
+    data-parallel group and identity constraints."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded execution is not ported to repro_torch yet (ROADMAP "
+            "Queue 1 item 7d: parallel/sharding); pass mesh=None")
+    return {"mode": mode, "pos": int(pos), "mesh": None,
+            "constrain": lambda v: v, "constrain_moe": None,
+            "dp_groups": 1}
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+
+def model_defs(cfg: ArchConfig) -> Dict:
+    dt = cfg.dtype
+    defs: Dict = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt),
+        "stack": stack_defs_tree(cfg),
+    }
+    if cfg.norm == "ln":
+        defs["final_scale"] = ParamDef((cfg.d_model,), ("embed",), dt, "ones")
+        defs["final_bias"] = ParamDef((cfg.d_model,), ("embed",), dt, "zeros")
+    else:
+        defs["final_scale"] = ParamDef((cfg.d_model,), ("embed",), dt, "zeros")
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt)
+    return defs
+
+
+def model_cache_defs(cfg: ArchConfig, batch: int, cache_len: int) -> Dict:
+    return stack_cache_defs(cfg, batch, cache_len)
+
+
+def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
+    """Random parameters on ``generator``'s device (see
+    :func:`.layers.init_params`)."""
+    return init_params(model_defs(cfg), generator)
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _final_norm(cfg, params, x, prefix=""):
+    if cfg.norm == "ln":
+        return layer_norm(x, params[f"{prefix}final_scale"], params[f"{prefix}final_bias"])
+    return rms_norm(x, params[f"{prefix}final_scale"])
+
+
+def _head(cfg, params, x):
+    """Float32 logits. The table is widened to float32 for the product:
+    a vocab x d_model float32 copy while it runs (2.7 GB for
+    Mistral-NeMo-12B's 131072 x 5120)."""
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return matmul_f32(x, table.t())
+
+
+def _enc_states(cfg, batch: Dict):
+    if cfg.is_encdec or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention memory (encoder or patch "
+            f"embeddings) is not ported to repro_torch yet (ROADMAP Queue 1 "
+            f"item 7c: the non-dense block kinds)")
+    return None
+
+
+def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mode: str = "train",
+            mesh=None):
+    """batch: {"tokens": (B,S) int64 tensor}.
+
+    Returns (logits (B,S,V) f32, caches-or-None, aux).
+    """
+    ctx = _make_ctx(cfg, mode, mesh, 0)
+    ctx["enc"] = _enc_states(cfg, batch)
+    x = F.embedding(batch["tokens"], params["embed"])
+    x, caches, aux = run_stack(cfg, params["stack"], x, ctx)
+    x = _final_norm(cfg, params, x)
+    logits = _head(cfg, params, x)
+    return logits, caches, aux
+
+
+def prefill(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None):
+    """Full-sequence forward emitting decode caches + last-position logits."""
+    logits, caches, _ = forward(cfg, params, batch, mode="prefill", mesh=mesh)
+    return logits[:, -1:], caches
+
+
+def grow_caches(caches: Dict, old_len: int, new_len: int) -> Dict:
+    """Extend KV caches from ``old_len`` to ``new_len`` positions.
+
+    Stacked caches carry a leading layer axis (layers, B, S, ...): their
+    sequence axis is 2; prefix/tail caches use axis 1. Only leaves whose
+    sequence axis currently equals ``old_len`` are padded (with zeros).
+    """
+    pad = new_len - old_len
+    if pad <= 0:
+        return caches
+
+    def pad_tree(tree, axis):
+        if isinstance(tree, dict):
+            return {k: pad_tree(v, axis) for k, v in tree.items()}
+        if tree.dim() > axis and tree.shape[axis] == old_len:
+            widths = [0, 0] * (tree.dim() - 1 - axis) + [0, pad]
+            return F.pad(tree, widths)
+        return tree
+
+    return {group: pad_tree(sub, 2 if group == "scan" else 1)
+            for group, sub in caches.items()}
+
+
+def decode_step(cfg: ArchConfig, params: Dict, caches: Dict, tokens, pos,
+                *, mesh=None):
+    """One-token decode. tokens: (B,1) int64; pos: the number of valid
+    tokens. The new token's k/v are written into ``caches`` in place.
+
+    Returns (logits (B,1,V) f32, new_caches).
+    """
+    ctx = _make_ctx(cfg, "decode", mesh, pos)
+    ctx["enc"] = None
+    x = F.embedding(tokens, params["embed"])
+    x, new_caches, _ = run_stack(cfg, params["stack"], x, ctx, caches)
+    x = _final_norm(cfg, params, x)
+    return _head(cfg, params, x), new_caches
+
+
+# ---------------------------------------------------------------------------
+# The parameter tree as a module
+# ---------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: each dict a submodule, each
+    leaf a parameter under its own name (frozen: serving builds no
+    autograd graph), so the module's parameter paths are the tree's."""
+
+    def __init__(self, tree: Dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> Dict:
+        """The nested dict of parameter tensors (no copies)."""
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+class LM(ParamTree):
+    """A language model of configuration ``cfg`` over the parameter tree
+    ``params`` (as :func:`init` or
+    :func:`repro_torch.models.convert.params_from_numpy` return it)."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+    def forward(self, batch: Dict, *, mode: str = "train"):
+        return forward(self.cfg, self.tree(), batch, mode=mode)
+
+    def prefill(self, batch: Dict):
+        return prefill(self.cfg, self.tree(), batch)
+
+    def decode_step(self, caches: Dict, tokens, pos):
+        return decode_step(self.cfg, self.tree(), caches, tokens, pos)

@@ -1,0 +1,309 @@
+"""Block definitions + the layer-stack executor for dense and
+sliding-window architectures.
+
+The counterpart of :mod:`repro.models.transformer`, for the block kinds
+the serving path of dense configurations runs:
+
+  dense  — self-attn (GQA, RoPE) + MLP
+  local  — sliding-window self-attn + MLP
+
+The other kinds of the reference (``moe``, ``cross``, ``enc``, ``dec``,
+``rec``, ``mamba``) raise ``NotImplementedError``: ROADMAP Queue 1 item
+7c ports them.
+
+The stack is ``prefix + pattern * n_periods + tail``; the repeated
+pattern keeps its parameters (and caches) stacked on a leading layer
+axis, as the reference's ``lax.scan`` does, and runs as a Python loop over
+that axis. Rematerialization has no meaning without a backward pass and
+is ignored.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .attention import attention, decode_attention, default_head_perm
+from .layers import (ParamDef, apply_rope, layer_norm, rms_norm, stack_defs)
+
+PORTED_KINDS = ("dense", "local")
+
+
+def _not_ported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
+        f"Queue 1 item 7c: the non-dense block kinds); ported kinds: "
+        f"{PORTED_KINDS}")
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions per block kind
+# ---------------------------------------------------------------------------
+
+
+def _norm_defs(cfg, name):
+    if cfg.norm == "ln":
+        return {f"{name}_scale": ParamDef((cfg.d_model,), ("embed",), cfg.dtype, "ones"),
+                f"{name}_bias": ParamDef((cfg.d_model,), ("embed",), cfg.dtype, "zeros")}
+    return {f"{name}_scale": ParamDef((cfg.d_model,), ("embed",), cfg.dtype, "zeros")}
+
+
+def _apply_norm(cfg, p, name, x):
+    if cfg.norm == "ln":
+        return layer_norm(x, p[f"{name}_scale"], p[f"{name}_bias"])
+    return rms_norm(x, p[f"{name}_scale"])
+
+
+def _attn_defs(cfg: ArchConfig, prefix: str = "") -> Dict[str, ParamDef]:
+    e, h, kv, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.dtype
+    defs = {
+        f"{prefix}wq": ParamDef((e, h, d), ("embed", "heads", "head_dim"), dt),
+        f"{prefix}wk": ParamDef((e, kv, d), ("embed", "kv_heads", "head_dim"), dt),
+        f"{prefix}wv": ParamDef((e, kv, d), ("embed", "kv_heads", "head_dim"), dt),
+        f"{prefix}wo": ParamDef((h, d, e), ("heads", "head_dim", "embed"), dt, "small"),
+    }
+    if cfg.qkv_bias:
+        defs[f"{prefix}bq"] = ParamDef((h, d), ("heads", "head_dim"), dt, "zeros")
+        defs[f"{prefix}bk"] = ParamDef((kv, d), ("kv_heads", "head_dim"), dt, "zeros")
+        defs[f"{prefix}bv"] = ParamDef((kv, d), ("kv_heads", "head_dim"), dt, "zeros")
+    return defs
+
+
+def _mlp_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    e, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    if cfg.mlp == "gelu":
+        return {
+            "w_up": ParamDef((e, f), ("embed", "mlp"), dt),
+            "b_up": ParamDef((f,), ("mlp",), dt, "zeros"),
+            "w_down": ParamDef((f, e), ("mlp", "embed"), dt, "small"),
+            "b_down": ParamDef((e,), ("embed",), dt, "zeros"),
+        }
+    return {
+        "w_gate": ParamDef((e, f), ("embed", "mlp"), dt),
+        "w_up": ParamDef((e, f), ("embed", "mlp"), dt),
+        "w_down": ParamDef((f, e), ("mlp", "embed"), dt, "small"),
+    }
+
+
+def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, ParamDef]:
+    if kind not in PORTED_KINDS:
+        raise _not_ported(kind)
+    d: Dict[str, ParamDef] = {}
+    d.update(_norm_defs(cfg, "ln_attn"))
+    d.update(_attn_defs(cfg))
+    d.update(_norm_defs(cfg, "ln_mlp"))
+    d.update(_mlp_defs(cfg))
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Cache definitions (decode/prefill state per block)
+# ---------------------------------------------------------------------------
+
+def cache_defs(cfg: ArchConfig, kind: str, batch: int, cache_len: int) -> Dict:
+    if kind not in PORTED_KINDS:
+        raise _not_ported(kind)
+    kv, dd, dt = cfg.n_kv_heads, cfg.hd, cfg.dtype
+    kvax = ("batch", "seq_kv", "kv_heads", None)
+    return {"k": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros"),
+            "v": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros")}
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _proj(x, w):
+    """``einsum("bse,e...->bs...", x, w)``: one product over the flattened
+    trailing axes of ``w``, in the input's type."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _project_qkv(cfg, p, x, prefix=""):
+    q = _proj(x, p[f"{prefix}wq"])
+    k = _proj(x, p[f"{prefix}wk"])
+    v = _proj(x, p[f"{prefix}wv"])
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}bq"]
+        k = k + p[f"{prefix}bk"]
+        v = v + p[f"{prefix}bv"]
+    return q, k, v
+
+
+def _self_attn(cfg, p, x, ctx, *, window=None, kind_attn="causal", cache=None):
+    """Returns (attn_out, new_cache_kv).
+
+    Decode writes the new token's k/v into ``cache`` in place (the
+    reference's jitted step gets the same effect by donating the cache)."""
+    mode = ctx["mode"]
+    q, k, v = _project_qkv(cfg, p, x)
+    rd = int(cfg.hd * cfg.rotary_frac) if cfg.rotary_frac < 1.0 else None
+    if kind_attn != "full":  # positional only for causal self-attn
+        pos = ctx["pos"] + torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta, rd)
+        k = apply_rope(k, pos, cfg.rope_theta, rd)
+    hp = default_head_perm(cfg.n_kv_heads) if cfg.head_shuffle else None
+    if cfg.head_shuffle and hp is None:
+        raise ValueError(
+            f"head_shuffle={cfg.head_shuffle!r} needs a power-of-two "
+            f"kv-head count >= 2, got n_kv_heads={cfg.n_kv_heads}")
+    hp_kw = ({"head_perm": hp, "head_perm_engine": cfg.head_shuffle}
+             if hp is not None else {})
+    if mode == "decode":
+        at = ctx["pos"]
+        kc, vc = cache["k"], cache["v"]
+        kc[:, at:at + k.shape[1]] = k
+        vc[:, at:at + v.shape[1]] = v
+        # the shuffle is output-neutral, so decode skips it: re-permuting
+        # the whole KV cache every token would be O(S^2) over a decode
+        out = decode_attention(q, kc, vc, at + 1, window=window)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        out = attention(q, k, v, kind=kind_attn, window=window,
+                        kv_block=cfg.kv_block, **hp_kw)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    wo = p["wo"]
+    y = out.flatten(2) @ wo.reshape(-1, wo.shape[-1])
+    return y, new_cache
+
+
+def _mlp(cfg, p, x):
+    if cfg.mlp == "gelu":
+        h = x @ p["w_up"] + p["b_up"]
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        return h @ p["w_down"] + p["b_down"]
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    gf = g.float()
+    act = (F.gelu(gf, approximate="tanh") if cfg.mlp == "geglu"
+           else F.silu(gf))
+    h = act.to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+def block_apply(cfg: ArchConfig, kind: str, p: Dict, x, ctx,
+                cache: Optional[Dict] = None) -> Tuple[Any, Optional[Dict], Any]:
+    """Returns (x_out, new_cache, aux_loss)."""
+    if kind not in PORTED_KINDS:
+        raise _not_ported(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = ctx["constrain"](x)
+    h = _apply_norm(cfg, p, "ln_attn", x)
+    window = cfg.window if kind == "local" else None
+    a, kv_cache = _self_attn(cfg, p, h, ctx, window=window, cache=cache)
+    x = x + a
+    h = _apply_norm(cfg, p, "ln_mlp", x)
+    x = x + _mlp(cfg, p, h)
+    return x, kv_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Stack: prefix (unrolled) + pattern x n_periods (stacked) + tail (unrolled)
+# ---------------------------------------------------------------------------
+
+def _stack_names(cfg, pattern, n_periods, prefix, tail):
+    return (cfg.pattern if pattern is None else pattern,
+            cfg.n_periods if n_periods is None else n_periods,
+            cfg.prefix if prefix is None else prefix,
+            cfg.tail if tail is None else tail)
+
+
+def stack_defs_tree(cfg: ArchConfig, pattern=None, n_periods=None,
+                    prefix=None, tail=None) -> Dict:
+    pattern, n_periods, prefix, tail = _stack_names(cfg, pattern, n_periods,
+                                                    prefix, tail)
+    period = {f"{j}_{k}": block_defs(cfg, k) for j, k in enumerate(pattern)}
+    tree = {"prefix": {f"{j}_{k}": block_defs(cfg, k) for j, k in enumerate(prefix)},
+            "tail": {f"{j}_{k}": block_defs(cfg, k) for j, k in enumerate(tail)}}
+    if n_periods:
+        tree["scan"] = stack_defs(period, n_periods, "layers")
+    return tree
+
+
+def stack_cache_defs(cfg: ArchConfig, batch: int, cache_len: int,
+                     pattern=None, n_periods=None, prefix=None, tail=None) -> Dict:
+    pattern, n_periods, prefix, tail = _stack_names(cfg, pattern, n_periods,
+                                                    prefix, tail)
+    period = {f"{j}_{k}": cache_defs(cfg, k, batch, cache_len)
+              for j, k in enumerate(pattern)}
+    tree = {"prefix": {f"{j}_{k}": cache_defs(cfg, k, batch, cache_len)
+                       for j, k in enumerate(prefix)},
+            "tail": {f"{j}_{k}": cache_defs(cfg, k, batch, cache_len)
+                     for j, k in enumerate(tail)}}
+    if n_periods:
+        tree["scan"] = stack_defs(period, n_periods, "layers")
+    return tree
+
+
+def _layer(tree: Optional[Dict], i: int) -> Optional[Dict]:
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    if tree is None:
+        return None
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _stack(trees: list) -> Dict:
+    """Stack per-layer trees on a new leading layer axis."""
+    first = trees[0]
+    return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in first}
+
+
+def run_stack(cfg: ArchConfig, params: Dict, x, ctx,
+              caches: Optional[Dict] = None,
+              pattern=None, n_periods=None, prefix=None, tail=None):
+    """Returns (x, new_caches (or None), aux).
+
+    Decode updates the given caches in place and returns them; prefill
+    returns fresh caches, the stacked group's stacked on a layer axis."""
+    pattern, n_periods, prefix, tail = _stack_names(cfg, pattern, n_periods,
+                                                    prefix, tail)
+    mode = ctx["mode"]
+    want_cache = mode in ("prefill", "decode")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches: Dict[str, Any] = {"prefix": {}, "tail": {}}
+
+    def seq_blocks(x, aux, names, pgroup, cgroup, out_group):
+        for name in names:
+            kind = name.split("_", 1)[1]
+            cache = cgroup.get(name) if cgroup else None
+            x, nc, a = block_apply(cfg, kind, pgroup[name], x, ctx, cache)
+            if want_cache:
+                out_group[name] = nc if nc is not None else {}
+            aux = aux + a
+        return x, aux
+
+    pre_names = [f"{j}_{k}" for j, k in enumerate(prefix)]
+    x, aux = seq_blocks(x, aux, pre_names, params.get("prefix", {}),
+                        (caches or {}).get("prefix"), new_caches["prefix"])
+
+    if n_periods:
+        period_names = [f"{j}_{k}" for j, k in enumerate(pattern)]
+        scan_caches = (caches or {}).get("scan")
+        outs = []
+        for i in range(n_periods):
+            pparams = _layer(params["scan"], i)
+            pcaches = _layer(scan_caches, i)
+            out = {}
+            for name in period_names:
+                kind = name.split("_", 1)[1]
+                cache = pcaches.get(name) if pcaches is not None else None
+                x, nc, a = block_apply(cfg, kind, pparams[name], x, ctx,
+                                       cache)
+                out[name] = nc if nc is not None else {}
+                aux = aux + a
+            outs.append(out)
+        if mode == "decode":
+            new_caches["scan"] = scan_caches    # updated in place
+        elif want_cache:
+            new_caches["scan"] = _stack(outs)
+
+    tail_names = [f"{j}_{k}" for j, k in enumerate(tail)]
+    x, aux = seq_blocks(x, aux, tail_names, params.get("tail", {}),
+                        (caches or {}).get("tail"), new_caches["tail"])
+    return x, (new_caches if want_cache else None), aux

@@ -37,11 +37,13 @@ Requests run on the card unless ``device="cpu"`` is asked for.
 
 CLI::
 
-    python -m repro_torch.resilience.chaos --smoke [--device cpu] [--json OUT]
+    python -m repro_torch.resilience.chaos --smoke [--device cpu] \
+        [--sigterm-drill] [--json OUT]
 
 runs the full injector matrix (memory + disk x {ref, cuda}) and exits
-nonzero on any SLO violation. The reference's SIGTERM drain drill boots
-its LM server, which this package does not have yet; it is not here.
+nonzero on any SLO violation; ``--sigterm-drill`` also boots the LM server
+(:mod:`repro_torch.launch.serve`) on the same device, SIGTERMs it
+mid-decode and requires a graceful drain (:func:`sigterm_drill`).
 """
 from __future__ import annotations
 
@@ -304,6 +306,63 @@ def run_matrix(cells: Optional[list] = None, device="cuda") -> list:
             for cell in (cells or default_matrix())]
 
 
+# ---------------------------------------------------------------------------
+# SIGTERM drain drill (drives the real serve.py as a subprocess)
+# ---------------------------------------------------------------------------
+
+def sigterm_drill(tokens: int = 6000, timeout_s: float = 240.0,
+                  device: str = "cuda") -> dict:
+    """Boot ``repro_torch.launch.serve`` on ``device`` with a long decode,
+    SIGTERM it once decoding has started, and verify the graceful-drain
+    contract: exit code 0, a ``drained:`` marker, the complete summary
+    (decode report + guard resolution), and no traceback. The child finds
+    this package through ``PYTHONPATH``; a watchdog kills it if it
+    outlives ``timeout_s``, so the drill never waits longer."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+    from pathlib import Path
+
+    cmd = [sys.executable, "-u", "-m", "repro_torch.launch.serve",
+           "--arch", "mistral-nemo-12b", "--batch", "2",
+           "--prompt-len", "8", "--tokens", str(tokens),
+           "--validate", "--error-budget", "0", "--device", device]
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    watchdog = threading.Timer(timeout_s, proc.kill)
+    watchdog.start()
+    out_lines = []
+    started = False
+    try:
+        for line in proc.stdout:
+            out_lines.append(line)
+            if "decode starting" in line:
+                started = True
+                time.sleep(1.0)      # let a few decode steps land
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate()
+        out_lines.append(rest or "")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(out_lines)
+    ok = (started and proc.returncode == 0 and "drained:" in out
+          and "decode:" in out and "Traceback" not in out)
+    return {"ok": ok, "returncode": proc.returncode, "started": started,
+            "drained": "drained:" in out, "traceback": "Traceback" in out,
+            "output": out}
+
+
 def main(argv=None) -> int:
     import argparse
     import json as _json
@@ -313,6 +372,9 @@ def main(argv=None) -> int:
                     help="run the default (short) injector matrix")
     ap.add_argument("--device", default="cuda",
                     help="the device the requests run on (default cuda)")
+    ap.add_argument("--sigterm-drill", action="store_true",
+                    help="also SIGTERM a live serve.py mid-decode and "
+                         "require a graceful drain")
     ap.add_argument("--json", default=None, metavar="OUT.json")
     args = ap.parse_args(argv)
 
@@ -324,9 +386,23 @@ def main(argv=None) -> int:
             failures.extend(
                 f"{rep.engine}/{rep.fault}: {v}"
                 for v in rep.slo_violations)
+    drill = None
+    if args.sigterm_drill:
+        drill = sigterm_drill(device=args.device)
+        marker = "PASS" if drill["ok"] else "FAIL"
+        print(f"chaos[sigterm-drill]: started={drill['started']} "
+              f"rc={drill['returncode']} drained={drill['drained']} "
+              f"traceback={drill['traceback']} — {marker}")
+        if not drill["ok"]:
+            failures.append("sigterm-drill: serve.py did not drain "
+                            "gracefully")
+            print(drill["output"][-4000:])
     if args.json:
         payload = {"cells": [vars(r) for r in reports],
                    "failures": failures}
+        if drill is not None:
+            payload["sigterm_drill"] = {
+                k: v for k, v in drill.items() if k != "output"}
         with open(args.json, "w") as f:
             _json.dump(payload, f, indent=1, default=str)
     if failures:
@@ -334,7 +410,8 @@ def main(argv=None) -> int:
         for msg in failures:
             print(f"  {msg}")
         return 1
-    print(f"chaos soak: {len(reports)} cell(s) passed")
+    print(f"chaos soak: {len(reports)} cell(s) passed"
+          + (" + sigterm drill" if args.sigterm_drill else ""))
     return 0
 
 

@@ -721,3 +721,60 @@ def test_cuda_guarded_entry_points_fall_back_and_recover(cuda_device):
         assert rep["caught"] == rep["injected"] == len(inject.FAULT_KINDS)
     finally:
         pex.clear_caches()
+
+
+# ---------------------------------------------------------------------------
+# the serving path: the kv-head shuffle through K4a
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 512),
+                                     (torch.float32, 512)])
+def test_cuda_k4a_at_the_head_shuffle_shapes(cuda_device, dtype, d):
+    """The shapes the 8-kv-head shuffle gives K4a in a prefill layer (k and
+    v, the q groups, the float32 output): one tiled pass at t = 1, bit for
+    bit against its plain version and the plain gather."""
+    from repro_torch.models.attention import default_head_perm
+    hp = default_head_perm(8)
+    x = torch.randn((256, 8, d), device=cuda_device).to(dtype)
+    t = pops.choose_tile(hp.n, x.element_size(), d)
+    kernel, plans = pops.class_plan(hp, t)
+    assert (t, kernel, len(plans)) == (1, "tiled", 1)
+    before = pk.launch_counts()["tile"]
+    got = pops.bmmc_permute(x, hp, batched=True)
+    assert pk.launch_counts()["tile"] == before + 1
+    want = pk.tiled_permute_plain(x, plans[0], batched=True)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(got.view(torch.uint8),
+                       pref.bmmc_ref(x, hp, batched=True).view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_small_model_serves_with_equal_engines(cuda_device, dtype):
+    """A smoke-sized model with 8 kv heads served on the card: the shuffle
+    on cuda (K4a, 4 launches a prefill layer), on ref and off give
+    bit-equal prefill logits and equal greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    base = dataclasses.replace(
+        reduce_for_smoke(get_config("mistral-nemo-12b")), n_kv_heads=8,
+        n_heads=8, dtype=dtype)
+    params = M.init(base, torch.Generator(device=cuda_device).manual_seed(0))
+    args = S.parse_args(["--batch", "2", "--prompt-len", "16",
+                         "--tokens", "4"])
+    prompts = S.make_prompts(base, args, cuda_device)
+    got = {}
+    for engine in ("cuda", "ref", None):
+        pk.reset_launch_counts()
+        got[engine] = S.serve(dataclasses.replace(base, head_shuffle=engine),
+                              params, args, prompts)
+        launches = pk.launch_counts()["tile"]
+        assert launches == (4 * base.n_layers if engine == "cuda" else 0)
+    for engine in ("ref", None):
+        assert torch.equal(got[engine].prefill_logits,
+                           got["cuda"].prefill_logits), engine
+        assert (got[engine].gen == got["cuda"].gen).all(), engine

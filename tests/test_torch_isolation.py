@@ -42,7 +42,16 @@ def test_port_modules_found():
                  "repro_torch.store.store", "repro_torch.resilience",
                  "repro_torch.resilience.breaker",
                  "repro_torch.resilience.policy",
-                 "repro_torch.resilience.chaos"):
+                 "repro_torch.resilience.chaos", "repro_torch.configs",
+                 "repro_torch.configs.base",
+                 "repro_torch.configs.mistral_nemo_12b",
+                 "repro_torch.models", "repro_torch.models.layers",
+                 "repro_torch.models.permute", "repro_torch.models.attention",
+                 "repro_torch.models.transformer",
+                 "repro_torch.models.model", "repro_torch.models.convert",
+                 "repro_torch.train", "repro_torch.train.serve",
+                 "repro_torch.launch", "repro_torch.launch.serve",
+                 "repro_torch.data", "repro_torch.data.pipeline"):
         assert want in mods
 
 
