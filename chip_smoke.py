@@ -9,11 +9,17 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
 1. environment: Python, torch and CUDA versions, ``nvcc --version`` and
    the card's name and power limit from ``nvidia-smi``;
 2. build: every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), with seconds and ptxas usage;
+   (one ``nvcc`` per source, all at once), with seconds and ptxas usage,
+   and beside them K4a as it was before its redesign
+   (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and 15;
 3. kernel vs plain: each permutation kernel (copy, block, lane, tile)
    held bit for bit against its plain PyTorch version on the card, at a
    small size (int32, bfloat16, float32 with a d = 8 tail, a batch of 3,
    a ragged copy, uint8 views at byte offsets 0-15) and at 2^n int32;
+   K4a's two schedules forced on each small case (the narrow one in each
+   tile layout of the paper's §4.2 study, and the wide one), and the wide
+   schedule where the wrapper takes it (bfloat16 elements of 256 bytes),
+   each bit for bit against the plain version;
    the 2^n case is timed with CUDA events in turns with one PyTorch
    library call, and beside the plain version; the copy also at 2^n - 1
    int32 and on a view at a 4-byte offset, each in turns with
@@ -24,10 +30,14 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    one BMMC of each dispatch case (bit-reverse, random BPC, random BMMC,
    block class, lane class, mixed complement), each bit-equal to the
    device-side plain gather, with host planning seconds, the median
-   CUDA-event time, effective GB/s, the ratio to the copy kernel, the
+   CUDA-event time (in turns with the copy kernel and, for a one-pass
+   tiled case, with the K4a its redesign replaced, also bit-equal),
+   effective GB/s, the ratio to the copy kernel (and the old K4a's), the
    byte bound and ``torch.index_select`` on a precomputed index;
 5. tile-size sweep: the tiled cases at t = 5, 6 and 7, each beside the
-   copy kernel (the record behind ``ops.choose_tile``'s t = 6 for int32);
+   copy kernel (the record behind ``ops.choose_tile``'s t = 6 for int32),
+   and at t = 6 K4a's narrow schedule in each tile layout of the paper's
+   §4.2 study (unpadded, padded, swizzled), in turns with the copy;
 6. K4b vs plain: the fused tiled pass (``tile_fused``) bit for bit
    against its plain version on sort clusters of 1, 2 and 3
    compare-exchange epilogues (int32, float32 and bfloat16 with NaNs and
@@ -42,7 +52,8 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    beside its plain version, the same pass without epilogues, the copy
    kernel and the torch composite of the cluster;
 7. combinator path: ``repro_torch.combinators.sort`` of 2^24 int32 keys
-   (bit-equal to ``torch.sort``) and ``fft_planar`` of 2^22 points
+   (bit-equal to ``torch.sort``, its CUDA graph too) and ``fft_planar``
+   of 2^22 points
    (within ``FFT_REL_TOL`` of ``torch.fft.fft`` in float64), each with
    its cold host planning seconds, ``program_cost`` round trips equal to
    the cold call's counted ``model.round_trips``, no fused fallback, and
@@ -114,15 +125,20 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    bfloat16, weights from a seed, built on the card) through the port's
    serve loop (``repro_torch.launch.serve.serve``), batch 4, prompt 512,
    32 new tokens. First K4a at the three shapes the kv-head shuffle gives
-   it (k and v, the q groups, the float32 output; t = 1), each bit for bit
-   against its plain version and the plain gather, timed in turns with
-   ``index_select`` beside its byte bound. Then the shuffle on ``cuda``
+   it (k and v, the q groups, the float32 output; t = 1; its wide
+   schedule), each bit for bit against its plain version, the plain
+   gather, ``permute_axis`` and the old K4a, timed in turns with
+   ``index_select`` and the old K4a (one call through ``tiled_permute``
+   and through ``permute_axis``, and device time) beside its byte bound.
+   Then the shuffle on ``cuda``
    with the launch counts set to 0 just before: K4a launched 4 times in
    each of the 40 prefill layers and no other kernel; the shuffle on
    ``ref`` and off, in turns: prefill logits bit-equal across the three
    (shuffle off within ``SHUFFLE_OFF_REL_TOL`` if the card's products are
    not) and greedy tokens equal; prefill ms, warm decode ms per token and
-   tokens per second of each run; one decode step against a prefill over
+   tokens per second of each run; prefills alone with the shuffle on
+   ``cuda`` and off, in turns (the shuffle's share of a prefill); one
+   decode step against a prefill over
    the extended sequence (within ``DECODE_REL_TOL``); a ``--validate``
    run (guarded K4a launches, zero traps, equal output); the peak device
    memory; the decode step against the prefill again in float32 at full
@@ -149,6 +165,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE / "src"))
+sys.path.insert(0, str(HERE / "tools"))
 
 KERNEL_INFO = {   # name -> (source, the TPU kernel it replaces)
     "copy": ("src/repro_torch/kernels/csrc/copy.cu",
@@ -331,9 +348,14 @@ def ptxas_usage(log: str) -> list:
 
 
 def phase_build():
+    """Build every kernel, and beside them the K4a that the redesign
+    replaced (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and
+    15. Returns the A/B library."""
     say("== phase 2: build ==")
     from repro_torch.kernels import build
+    import k4a_sweep
     t0 = time.perf_counter()
+    old = k4a_sweep.start_build(build.build_dir().parent / "sweep")
     log = build.build_all()
     say(f"built {sorted(log)} in {time.perf_counter() - t0:.2f} s "
         f"(build dir {build.build_dir()})")
@@ -343,6 +365,26 @@ def phase_build():
             say(f"    {kern}: {used}")
     for name in build.KERNELS:
         build.load(name)
+    so = k4a_sweep.finish_build(old)
+    say(f"  the K4a before its redesign (tools/k4a_sweep.cu, A/B only): "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    return so
+
+
+def k4a_schedules(torch, K, x, plan, batched, label):
+    """K4a's two schedules (the narrow one in each tile layout of the §4.2
+    study) forced on ``x``, each held bit for bit against K4a's plain
+    version. Direct launches: they count in no launch count."""
+    from k4a_sweep import forced
+    want = K.tiled_permute_plain(x, plan, batched=batched)
+    done = []
+    for over in [{"schedule": "narrow", "layout": lay}
+                 for lay in K.K4A_LAYOUTS] + [{"schedule": "wide"}]:
+        fn, s = forced(torch, K, x, plan, batched=batched, **over)
+        err = max_abs_err(torch, fn(), want)
+        check(err == 0.0, ("K4a", label, s, err))
+        done.append(f"{s.schedule} {s.layout}".strip())
+    say(f"    K4a {label}: {', '.join(done)} bit-equal to the plain version")
 
 
 def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
@@ -401,6 +443,17 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
             check(err == 0.0, (name, label, err))
             worst[name] = max(worst[name], err)
         say(f"  n={n_small} {label} t={t}: copy, block, lane, tile bit-equal")
+        k4a_schedules(torch, K, x, pl["tile"], batched, label)
+    # K4a's wide schedule where the wrapper takes it: 256-byte elements
+    xw = payload((3, 1 << 10, 128), torch.bfloat16)
+    tw = ops.choose_tile(10, 2, 128)
+    pw = ops.class_plan(make_cases(10, tw)[0][1], tw)[1][0]
+    check(K.k4a_record(xw, pw, batched=True).schedule.schedule == "wide",
+          "wide schedule")
+    check(max_abs_err(torch, K.tiled_permute(xw, pw, batched=True),
+                      K.tiled_permute_plain(xw, pw, batched=True)) == 0.0,
+          "K4a wide")
+    k4a_schedules(torch, K, xw, pw, True, "bfloat16 d=128 B=3")
 
     def copy_path(v, path=None):
         """K1 on ``v`` (on ``path`` if one is asked for) held bit for bit
@@ -488,10 +541,11 @@ def phase_kernels(torch, n_small: int, n: int, reps: int, bw: float):
     return records
 
 
-def phase_main(torch, n: int, reps: int, bw: float):
+def phase_main(torch, n: int, reps: int, bw: float, old_so):
     """The main path at 2^n int32; returns the launch counts of the run.
-    Each case is timed right after the copy kernel, whose time its copy
-    ratio divides."""
+    Each case is timed in turns with the copy kernel, whose time its copy
+    ratio divides, and a tiled case also with the K4a its redesign
+    replaced (``old_so``, tools/k4a_sweep.cu)."""
     say("== phase 4: main path, bmmc_permute on 2^%d int32 ==" % n)
     from repro_torch.kernels import bmmc_permute as K
     from repro_torch.kernels import ops, ref
@@ -530,22 +584,35 @@ def phase_main(torch, n: int, reps: int, bw: float):
     counts = K.launch_counts()
     say(f"  launch counts of the main-path run: {counts}")
 
+    import k4a_sweep
+    old = k4a_sweep.old_k4a(old_so, K)
+    timed = (lambda fn: cuda_ms(torch, fn, reps))
     for name, b, kernel in cases:
         payload = ops.class_plan(b, t)[1]
         pls = payload if isinstance(payload, tuple) else (payload,)
         tab_bytes = sum(a.numel() * 4 for p in pls
                         for a in K.device_tables(p, dev))
-        copy_ms = cuda_ms(torch, lambda: K.copy_blocks(x), reps)
-        ms = cuda_ms(torch, lambda: ops.bmmc_permute(x, b), reps)
+        fns = {"copy": lambda: K.copy_blocks(x),
+               "kernel": lambda: ops.bmmc_permute(x, b)}
+        if kernel in ("tiled", "general") and len(pls) == 1:
+            check(max_abs_err(torch, old(x, pls[0]), ops.bmmc_permute(x, b))
+                  == 0.0, (name, "old K4a"))
+            fns["old K4a"] = lambda: old(x, pls[0])
+        turns = in_turns(fns, timed, rounds=1)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        copy_ms, ms = med["copy"], med["kernel"]
         idx = ref.bmmc_src_index(b, dev)
         lib_ms = cuda_ms(torch, lambda: torch.index_select(x, 0, idx), reps)
         idx = None
         bound_ms = (2 * nbytes * len(pls) + tab_bytes) / bw * 1e3
+        ab = (f"  old K4a {med['old K4a']:.3f} ms (copy/old "
+              f"{copy_ms / med['old K4a']:.3f}, in turns)"
+              if "old K4a" in med else "")
         say(f"  {name:17s} kernel={kernel:8s} plan {plan_s[name]:.3f} s  "
             f"{ms:.3f} ms  {2 * nbytes / ms / 1e6:.1f} GB/s  copy "
             f"{copy_ms:.3f} ms  copy/this {copy_ms / ms:.3f}  "
             f"bound {bound_ms:.3f} ms  "
-            f"index_select {lib_ms:.3f} ms  bit-equal")
+            f"index_select {lib_ms:.3f} ms  bit-equal{ab}")
         say(f"  clocks, power, temperature: {clocks()}")
     torch.cuda.empty_cache()
     return counts
@@ -554,8 +621,10 @@ def phase_main(torch, n: int, reps: int, bw: float):
 def phase_sweep(torch, n: int, reps: int):
     """The tiled cases of the main path at the tile sizes around the one
     ``ops.choose_tile`` picks, each beside the copy kernel: the record
-    behind that choice."""
+    behind that choice; at that tile size also K4a's narrow schedule in
+    each tile layout of the paper's §4.2 study, in turns with the copy."""
     say(f"== phase 5: tile-size sweep on 2^{n} int32 ==")
+    from k4a_sweep import forced
     from repro_torch.kernels import bmmc_permute as K
     from repro_torch.kernels import ops
     dev = torch.device("cuda")
@@ -576,6 +645,19 @@ def phase_sweep(torch, n: int, reps: int):
                 f"plan {plan_s:.3f} s  {ms:.3f} ms  "
                 f"{2 * x.numel() * 4 / ms / 1e6:.1f} GB/s  "
                 f"copy/this {copy_ms / ms:.3f}")
+            if t != ops.choose_tile(n, 4):
+                continue
+            # the paper's §4.2 study: K4a's narrow schedule in each layout
+            fns = {lay: forced(torch, K, x, plan, schedule="narrow",
+                               layout=lay)[0] for lay in K.K4A_LAYOUTS}
+            fns["copy"] = lambda: K.copy_blocks(x)
+            turns = in_turns(fns, lambda fn: cuda_ms(torch, fn, reps),
+                             rounds=1)
+            med = {k: statistics.median(v) for k, v in turns.items()}
+            say(f"    layouts (in turns with the copy): " + ", ".join(
+                f"{lay} {med[lay]:.3f} ms (copy/this "
+                f"{med['copy'] / med[lay]:.3f})" for lay in K.K4A_LAYOUTS)
+                + f"; the wrapper's: {K.k4a_record(x, plan).schedule.layout}")
         ops._class_plan_cached.cache_clear()
         ops._plans_cached.cache_clear()
         K.clear_device_tables()
@@ -1512,6 +1594,11 @@ def phase_combinators(torch, n_sort: int, n_fft: int, reps: int):
     check(max_abs_err(torch, y, torch.sort(x).values) == 0.0, "sort")
     say(f"  sort of 2^{n_sort} int32: bit-equal to torch.sort; cold-call "
         f"launches {c}")
+    check(max_abs_err(torch, f(x), torch.sort(x).values) == 0.0,
+          "sort graph")
+    say(f"  the sort's CUDA graph (its {c['tile']} K4a passes on the "
+        f"{'narrow' if c['tile_narrow'] == c['tile'] else 'mixed'} "
+        f"schedule): bit-equal to torch.sort")
     report(f"sort 2^{n_sort} int32", f, x, x.numel() * 4, prog, t, plan_s,
            rt, lambda: torch.sort(x), "torch.sort")
     del y
@@ -2135,7 +2222,7 @@ def decode_against_prefill(torch, M, cfg, params, prompts):
             float((dec - full).abs().max()))
 
 
-def phase_serve(torch, bw: float, reps: int, smi: str):
+def phase_serve(torch, bw: float, reps: int, smi: str, old_so):
     """Phase 15: serve full-width Mistral-NeMo-12B through the port's serve
     loop with the kv-head shuffle on ``cuda``, ``ref`` and off. Returns
     the record of K4a on the serving path and its launches."""
@@ -2168,53 +2255,76 @@ def phase_serve(torch, bw: float, reps: int, smi: str):
     rows = SERVE_BATCH * SERVE_PROMPT
 
     # K4a at the three shuffle shapes: bit for bit against its plain
-    # version and the plain gather, timed in turns with index_select
+    # version and the plain gather, timed in turns with index_select and
+    # the K4a its redesign replaced (behind the host path it had), one call
+    # through tiled_permute and through permute_axis (what the prefill
+    # calls), and on the device
+    import k4a_sweep
+    from repro_torch.models.permute import permute_axis
+    old = k4a_sweep.old_k4a(old_so, K)
     gen = torch.Generator(device=dev).manual_seed(15)
     idx = ref.bmmc_src_index(hp, dev)
     rec = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "max_abs_err": 0.0}
+           "bound_ms": 0.0, "max_abs_err": 0.0, "permute_axis_ms": 0.0,
+           "old_ms": 0.0, "old_device_ms": 0.0, "library_device_ms": 0.0}
     timed = (lambda fn: cuda_ms(torch, fn, reps))
     for label, shape, dtype, calls in shuffle_kernel_cases(torch, cfg, rows):
-        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        x4 = torch.randn((SERVE_BATCH, SERVE_PROMPT) + shape[1:],
+                         generator=gen, device=dev).to(dtype)
+        x = x4.reshape(shape)
         t = ops.choose_tile(hp.n, x.element_size(), shape[2])
         kernel, plans = ops.class_plan(hp, t)
         check(kernel == "tiled" and len(plans) == 1, (label, kernel, t))
         plan = plans[0]
         got = K.tiled_permute(x, plan, batched=True)
+        sched = K.k4a_record(x, plan, batched=True).schedule
         err = max(max_abs_err(torch, got, K.tiled_permute_plain(
             x, plan, batched=True)), max_abs_err(torch, got, ref.bmmc_ref(
                 x, hp, batched=True)), max_abs_err(torch, ops.bmmc_permute(
-                    x, hp, batched=True), got))
+                    x, hp, batched=True), got), max_abs_err(
+                        torch, permute_axis(x4, hp, axis=2, engine="cuda")
+                        .reshape(shape), got), max_abs_err(
+                            torch, old(x, plan, batched=True), got))
         check(err == 0.0, (label, err))
-        turns = in_turns({"kernel": lambda: K.tiled_permute(
-            x, plan, batched=True), "library": lambda: torch.index_select(
-                x, 1, idx)}, timed)
-        ms, lib_ms = (statistics.median(turns[k]) for k in ("kernel",
-                                                            "library"))
-        dturns = in_turns({"kernel": lambda: K.tiled_permute(
-            x, plan, batched=True), "library": lambda: torch.index_select(
-                x, 1, idx)}, lambda fn: device_ms(torch, fn), rounds=1)
-        dev_ms, dev_lib = (statistics.median(dturns[k]) for k in (
-            "kernel", "library"))
+        fns = {"kernel": lambda: K.tiled_permute(x, plan, batched=True),
+               "permute_axis": lambda: permute_axis(x4, hp, axis=2,
+                                                    engine="cuda"),
+               "library": lambda: torch.index_select(x, 1, idx),
+               "old": lambda: old(x, plan, batched=True)}
+        turns = in_turns(fns, timed)
+        one = {k: statistics.median(v) for k, v in turns.items()}
+        dturns = in_turns({k: fns[k] for k in ("kernel", "library", "old")},
+                          lambda fn: device_ms(torch, fn), rounds=1)
+        dv = {k: statistics.median(v) for k, v in dturns.items()}
         plain_ms = cuda_ms(torch, lambda: K.tiled_permute_plain(
             x, plan, batched=True), max(3, reps // 3), warmup=1)
         tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plan, dev))
         bound_ms = (2 * x.numel() * x.element_size() + tab_bytes) / bw * 1e3
-        for k, v in (("ms", ms), ("device_ms", dev_ms), ("plain_ms",
-                     plain_ms), ("library_ms", lib_ms),
-                     ("bound_ms", bound_ms)):
+        for k, v in (("ms", one["kernel"]), ("device_ms", dv["kernel"]),
+                     ("plain_ms", plain_ms), ("library_ms", one["library"]),
+                     ("bound_ms", bound_ms),
+                     ("permute_axis_ms", one["permute_axis"]),
+                     ("old_ms", one["old"]), ("old_device_ms", dv["old"]),
+                     ("library_device_ms", dv["library"])):
             rec[k] += calls * v
         say(f"  K4a {label} {tuple(shape)} {str(dtype).split('.')[-1]} "
-            f"(t={t}, x{calls} a layer): bit-equal to its plain version "
-            f"and the gather; one call: kernel {ms:.4f} ms, index_select "
-            f"{lib_ms:.4f} ms (in turns); device: kernel {dev_ms:.4f} ms, "
-            f"index_select {dev_lib:.4f} ms (in turns); plain "
+            f"(t={t}, {sched.schedule} schedule, x{calls} a layer): "
+            f"bit-equal to its plain version, the gather, permute_axis "
+            f"and the old K4a; one call (in turns): tiled_permute "
+            f"{one['kernel']:.4f} ms, permute_axis "
+            f"{one['permute_axis']:.4f} ms, index_select "
+            f"{one['library']:.4f} ms, old K4a {one['old']:.4f} ms; device "
+            f"(in turns): kernel {dv['kernel']:.4f} ms, index_select "
+            f"{dv['library']:.4f} ms, old K4a {dv['old']:.4f} ms; plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
-    say(f"  the four shuffles of one layer: one call: kernel "
-        f"{rec['ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms; "
-        f"device: kernel {rec['device_ms']:.4f} ms; plain "
-        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
-    del x, got
+    say(f"  the four shuffles of one layer: one call: tiled_permute "
+        f"{rec['ms']:.4f} ms, permute_axis {rec['permute_axis_ms']:.4f} ms, "
+        f"index_select {rec['library_ms']:.4f} ms, old K4a "
+        f"{rec['old_ms']:.4f} ms; device: kernel {rec['device_ms']:.4f} ms, "
+        f"index_select {rec['library_device_ms']:.4f} ms, old K4a "
+        f"{rec['old_device_ms']:.4f} ms; plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms")
+    del x, x4, got
     torch.cuda.empty_cache()
 
     # the model, from a seed, on the card
@@ -2242,9 +2352,10 @@ def phase_serve(torch, bw: float, reps: int, smi: str):
     check(not first.errors and first.gen is not None, first.errors)
     launches = counts["tile"]
     say(f"  serving path, shuffle on cuda: kernel launches {counts}")
-    check(launches == 4 * cfg.n_layers, (
+    check(launches == 4 * cfg.n_layers == counts["tile_wide"], (
         "K4a launches on the serving path", launches, 4 * cfg.n_layers))
-    check(sum(v for k, v in counts.items() if k != "tile") == 0, counts)
+    check(sum(v for k, v in counts.items()
+              if k not in ("tile", "tile_wide")) == 0, counts)
 
     runs = {"cuda": [first]}
     for k in ("ref", "off", "off", "ref", "cuda"):     # in turns
@@ -2282,6 +2393,24 @@ def phase_serve(torch, bw: float, reps: int, smi: str):
             f"of {len(steps)} steps); decode "
             f"{', '.join(f'{d:.3f}' for d in dec)} s, "
             f"{', '.join(f'{v:.1f}' for v in rate)} tokens/s")
+
+    # the shuffle's share of a prefill: prefills alone, in turns
+    def prefill_s(c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = M.prefill(c, params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        del out
+        return time.perf_counter() - t0
+    pre = in_turns({k: (lambda c=cfgs[k]: c) for k in ("cuda", "off")},
+                   lambda c: prefill_s(c()), rounds=3)
+    med = {k: statistics.median(v) * 1e3 for k, v in pre.items()}
+    say(f"  prefill alone, in turns (6 each): shuffle cuda "
+        f"{med['cuda']:.1f} ms ({min(pre['cuda']) * 1e3:.1f}-"
+        f"{max(pre['cuda']) * 1e3:.1f}), off {med['off']:.1f} ms "
+        f"({min(pre['off']) * 1e3:.1f}-{max(pre['off']) * 1e3:.1f}); "
+        f"cuda - off {med['cuda'] - med['off']:.1f} ms")
 
     # one decode step against a prefill over the extended sequence
     rel, agree, max_abs = decode_against_prefill(torch, M, cfgs["cuda"],
@@ -2375,9 +2504,9 @@ def main(argv=None) -> int:
 
     smi = phase_env(torch)
     bw = peak_bw(torch.cuda.get_device_name(0))
-    phase_build()
+    old_so = phase_build()
     records = phase_kernels(torch, N_SMALL, args.n, REPS, bw)
-    counts = phase_main(torch, args.n, REPS, bw)
+    counts = phase_main(torch, args.n, REPS, bw, old_so)
 
     phase_sweep(torch, args.n, REPS)
     records["tile_fused"] = phase_fused(torch, N_SMALL - 2, args.n_sort,
@@ -2411,7 +2540,7 @@ def main(argv=None) -> int:
     phase_traps(torch, min(N_FAULT, args.n))
     phase_store(torch, args.n, args.n_sort, hashes)
     phase_chaos(torch)
-    records["tile_serve"] = phase_serve(torch, bw, REPS, smi)
+    records["tile_serve"] = phase_serve(torch, bw, REPS, smi, old_so)
     counts["tile_serve"] = records["tile_serve"]["launches"]
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -2420,6 +2549,9 @@ def main(argv=None) -> int:
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "device_ms": r.get("device_ms"),
+                        "permute_axis_ms": r.get("permute_axis_ms"),
+                        "old_ms": r.get("old_ms"),
+                        "old_device_ms": r.get("old_device_ms"),
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes", "library_ms": r["library_ms"]})
     print(smi, flush=True)

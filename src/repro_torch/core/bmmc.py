@@ -102,9 +102,16 @@ class Bmmc:
         return verify_bmmc(self)
 
     def inverse(self) -> "Bmmc":
-        """The inverse transformation: x = A^-1 (y ^ c) = A^-1 y ^ A^-1 c."""
-        ainv = f2.inverse(self.rows)
-        return Bmmc(ainv, f2.matvec(ainv, self.c))
+        """The inverse transformation: x = A^-1 (y ^ c) = A^-1 y ^ A^-1 c.
+        Computed once per instance and kept beside it (its inverse is this
+        instance)."""
+        inv = self.__dict__.get("_inverse")
+        if inv is None:
+            ainv = f2.inverse(self.rows)
+            inv = Bmmc(ainv, f2.matvec(ainv, self.c))
+            object.__setattr__(inv, "_inverse", self)
+            object.__setattr__(self, "_inverse", inv)
+        return inv
 
     def compose(self, other: "Bmmc") -> "Bmmc":
         """self ∘ other: apply ``other`` first. (BA, B(c_A) ^ c_B)."""
@@ -117,7 +124,12 @@ class Bmmc:
         return self.compose(other)
 
     def is_identity_perm(self) -> bool:
-        return self.rows == f2.identity(self.n) and self.c == 0
+        """A == I and c == 0, tested once per instance and kept."""
+        got = self.__dict__.get("_is_identity")
+        if got is None:
+            got = self.rows == f2.identity(self.n) and self.c == 0
+            object.__setattr__(self, "_is_identity", got)
+        return got
 
     # -- classification -----------------------------------------------------
     def perm(self) -> Optional[list]:

@@ -12,7 +12,14 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
   moved by a source-block table;
 * K3 ``lane_permute.cu``  — :func:`lane_permute`, every row permuted in
   place by one lane table;
-* K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass;
+* K4a ``tile_permute.cu`` — :func:`tiled_permute`, one tiled-BMMC pass,
+  on one of two schedules the host picks from the geometry
+  (:func:`k4a_schedule`: ``narrow``, a tile staged in shared memory with
+  16-byte copies, two in flight a block; ``wide``, elements of 64 bytes
+  or more copied straight to their places; a launch also counts under
+  ``tile_narrow`` or ``tile_wide``). :func:`tiled_permute` launches from a
+  record built once per plan, device, shape, dtype and alignment and kept
+  beside the plan's device tables;
 * K4b ``tile_fused.cu``   — :func:`tiled_permute_tables` with a non-empty
   ``epilogue``: the same pass with compare-exchange (``cmp``), butterfly
   (``bfly``) and element-wise ``map`` stages applied to the tile before
@@ -61,12 +68,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import guard as _guard
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
 from . import epilogue_plan as EP
 from .map_lower import lower_map
 
 LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
             "tile_bwd": 0, "copy_bulk": 0, "copy_words": 0,
+            "tile_narrow": 0, "tile_wide": 0,
             "block_guarded": 0, "lane_guarded": 0, "tile_guarded": 0,
             "tile_fused_guarded": 0}
 
@@ -74,6 +83,9 @@ _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
 _BLOCK_CTA_WORDS = 1024         # words one block-permute block moves (at least)
 _TILE_CTA_BYTES = 16 * 1024     # bytes of tiles one tile-permute block moves
+_WIDE_ELEM_BYTES = 64           # K4a's wide schedule from elements this wide
+_K4A_GROUPS = 2                 # 16 KiB work items a narrow K4a block takes
+K4A_LAYOUTS = ("unpadded", "padded", "swizzled")
 _PLAIN_CHUNK = 1 << 22          # elements per step of the plain tile version
 _COPY_CHUNK = 32 * 1024         # K1's ring: stages of one bulk copy each
 _COPY_STAGES = 4                # (copy.cu's BULK_CHUNK and BULK_STAGES)
@@ -210,6 +222,13 @@ class _DeviceCache:
         self._bytes = 0
         self.hits = 0
         self.misses = 0
+        self.gen = 0        # bumped whenever an entry leaves the store
+        self.on_drop = None     # called then, under the lock
+
+    def _dropped(self) -> None:
+        self.gen += 1
+        if self.on_drop is not None:
+            self.on_drop()
 
     @staticmethod
     def _size(value) -> int:
@@ -232,9 +251,13 @@ class _DeviceCache:
             bufs[key] = max(size, bufs.get(key, 0))
         return sum(bufs.values())
 
-    def get(self, owner, tag, device, make):
-        key = (id(owner) if owner is not None else None, tag, str(device))
-        pin = getattr(_PIN, "tables", None)
+    def get(self, owner, tag, device, make, *args):
+        """The kept value, or ``make(*args)``'s, kept."""
+        name = _DEV_NAMES.get(device)
+        if name is None:
+            name = _DEV_NAMES.setdefault(device, str(device))
+        key = (id(owner) if owner is not None else None, tag, name)
+        pin = _PIN.tables
         if pin is not None:
             hit = pin.get(key)
             if hit is not None and hit[0] is owner:
@@ -249,18 +272,20 @@ class _DeviceCache:
                 hit = None
                 self.misses += 1
         if hit is None:
-            value = make()
+            value = make(*args)
             size = self._size(value)
             if size <= self.max_bytes:
                 with self._lock:
                     old = self._d.pop(key, None)
                     if old is not None:
                         self._bytes -= old[2]
+                        self._dropped()
                     self._d[key] = (owner, value, size)
                     self._bytes += size
                     while self._bytes > self.max_bytes:
                         _, (_, _, s) = self._d.popitem(last=False)
                         self._bytes -= s
+                        self._dropped()
         if pin is not None:
             pin[key] = (owner, value)
         return value
@@ -277,13 +302,22 @@ class _DeviceCache:
             self._d.clear()
             self._bytes = 0
             self.hits = self.misses = 0
+            self._dropped()
 
     def cache_info(self) -> tuple:
         """(hits, misses, maxsize, currsize), the ``lru_cache`` words."""
         return (self.hits, self.misses, None, len(self._d))
 
 
-_PIN = threading.local()
+class _PinState(threading.local):
+    # a class default, so reading an unset pin is an attribute hit (a
+    # getattr default on a bare threading.local raises and catches
+    # inside, about a microsecond on the launch path)
+    tables = None
+
+
+_PIN = _PinState()
+_DEV_NAMES: dict = {}           # device (object or string) -> its name
 _DEV_CACHE = _DeviceCache(max_bytes=1 << 30)
 
 
@@ -292,7 +326,7 @@ def pin_device_tables():
     """Keep every device table looked up on this thread inside the block
     in the dict it yields (see :class:`_DeviceCache`); whoever holds the
     dict keeps the tables alive."""
-    prev = getattr(_PIN, "tables", None)
+    prev = _PIN.tables
     _PIN.tables = {} if prev is None else prev
     try:
         yield _PIN.tables
@@ -306,19 +340,32 @@ def device_cached(owner, tag, device, make):
     return _DEV_CACHE.get(owner, tag, device, make)
 
 
+class _TileTables(tuple):
+    """A tile plan's four tables on one device, with the K4a launch records
+    built on them (``launch``: key -> :class:`_K4aLaunch`). The records
+    live in the tables' entry of the device store, so they are pinned,
+    evicted and cleared with the tables, and read the very tensors a
+    poisoned copy would change (:mod:`repro_torch.guard.inject`)."""
+
+
+def _upload_tables(plan, device) -> tuple:
+    if isinstance(plan, TilePlan):
+        tabs = _TileTables(_device_table(a, device, a.size) for a in (
+            plan.in_rows, plan.out_rows, plan.xor_low, plan.src0))
+        tabs.launch = {}
+        return tabs
+    if isinstance(plan, BlockPlan):
+        return (_device_table(plan.src_rows, device, plan.src_rows.size),)
+    if isinstance(plan, LanePlan):
+        return (_device_table(plan.src_lane, device, plan.src_lane.size),)
+    raise TypeError(f"no tables for {type(plan).__name__}")
+
+
 def device_tables(plan, device) -> tuple:
     """A plan's index tables on ``device`` as int32 tensors, uploaded once
     and kept beside the plan."""
-    if isinstance(plan, TilePlan):
-        arrs = (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0)
-    elif isinstance(plan, BlockPlan):
-        arrs = (plan.src_rows,)
-    elif isinstance(plan, LanePlan):
-        arrs = (plan.src_lane,)
-    else:
-        raise TypeError(f"no tables for {type(plan).__name__}")
-    return device_cached(plan, "tables", device, lambda: tuple(
-        _device_table(a, device, a.size) for a in arrs))
+    return _DEV_CACHE.get(plan, "tables", device, _upload_tables, plan,
+                          device)
 
 
 def device_copies(owner, tag) -> dict:
@@ -331,7 +378,11 @@ def clear_device_tables() -> None:
     _DEV_CACHE.clear()
 
 
-_GUARD = threading.local()
+class _GuardState(threading.local):
+    flags = None            # see _PinState
+
+
+_GUARD = _GuardState()
 
 
 @contextlib.contextmanager
@@ -339,7 +390,7 @@ def guard_flags(flags: torch.Tensor):
     """Inside the block, the K2/K3/K4a/K4b wrappers on this thread launch
     their guarded variants (or guarded plain versions) into ``flags``, one
     int32 on the tensors' device, unless a call passes its own."""
-    prev = getattr(_GUARD, "flags", None)
+    prev = _GUARD.flags
     _GUARD.flags = flags
     try:
         yield flags
@@ -349,7 +400,7 @@ def guard_flags(flags: torch.Tensor):
 
 def active_guard_flags():
     """The flag word of the enclosing :func:`guard_flags`, or None."""
-    return getattr(_GUARD, "flags", None)
+    return _GUARD.flags
 
 
 def _check_flags(flags, x: torch.Tensor) -> torch.Tensor:
@@ -384,8 +435,7 @@ def _trap_tables(pairs) -> None:
     ``bmmc_permute._trap_tables``, same switch). Inside a guarded run
     (:func:`guard_flags`) the guarded kernel owns this check, as the
     reference's in-program flag owns it under its guarded trace."""
-    from .. import guard as _g
-    if not _g.enabled() or active_guard_flags() is not None:
+    if not _guard.enabled() or active_guard_flags() is not None:
         return
     from ..guard.errors import DescriptorOOB
     for name, tab, hi in pairs:
@@ -461,10 +511,12 @@ def _tiles_per_cta(geometry, elem: int, max_positions: int = None) -> int:
 
 def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
                word_bytes: int = None, extra_smem: int = 0):
-    """(out, kernel arguments after the tables) of a K4a launch, or of a
-    K4b / K5 launch (``per_cta`` tiles a block, ``n_buf`` tile buffers,
-    words of ``word_bytes``, ``extra_smem`` more bytes a block); raises
-    when a block does not fit shared memory."""
+    """(out, kernel arguments after the tables) of a launch of the guarded
+    K4a (the design before K4a's two schedules: one tile a block, rows
+    padded by one 4-byte bank), or of a K4b / K5 launch (``per_cta``
+    tiles a block, ``n_buf`` tile buffers, words of ``word_bytes``,
+    ``extra_smem`` more bytes a block); raises when a block does not fit
+    shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
@@ -486,14 +538,235 @@ def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
                  _shift(wpe), _shift((1 << t) * wpe), pad, batch, wb)
 
 
-def _tile_launch(xc, tabs, geometry, flags=None):
-    out, args = _tile_args(xc, geometry)
-    if flags is None:
-        _launch("tile", xc, _ptr(xc), _ptr(out), *(_ptr(a) for a in tabs),
-                *args)
+class K4aSchedule(NamedTuple):
+    """How K4a runs one geometry on the card (``tile_permute.cu``). Words
+    of ``word_bytes`` (the widest that divides the element and every
+    pointer), ``wpe`` of them an element. ``narrow``: a work item is
+    ``per_cta`` tiles of one batch row (``n_groups`` a batch row,
+    ``n_work`` in all), a block takes ``groups`` of them with two in
+    flight, staged in a tile of ``layout`` (rows of ``stride`` words,
+    16-byte chunks XORed with ``row & swz``); ``vec`` 1 copies and stores
+    16 bytes a thread. ``wide``: a block copies ``per_cta`` output
+    elements of ``groups`` batch rows (``n_groups`` element chunks a batch
+    row). ``grid`` blocks of ``smem`` bytes of dynamic shared memory;
+    ``wpe_shift`` and ``row_shift`` are log2 of ``wpe`` and of a narrow
+    row's (a wide block's batch row's) words, -1 if not a power of two."""
+    schedule: str
+    word_bytes: int
+    vec: int
+    wpe: int
+    wpe_shift: int
+    row_shift: int
+    per_cta: int
+    groups: int
+    n_groups: int
+    n_work: int
+    layout: str
+    stride: int
+    swz: int
+    grid: int
+    smem: int
+
+
+def k4a_schedule(geometry, batch: int, d: int, itemsize: int,
+                 align: int = 0, *, schedule: str = None, layout: str = None,
+                 groups: int = None) -> K4aSchedule:
+    """K4a's schedule for ``batch`` rows of a ``geometry`` with elements of
+    ``d`` items of ``itemsize`` bytes; ``align`` is the OR of the data,
+    output and src0 pointers (only its residue mod 16 matters). The
+    schedule is ``wide`` from elements of ``_WIDE_ELEM_BYTES``, else
+    ``narrow``; ``schedule``, ``layout`` and ``groups`` override the
+    defaults (for the layout study and the sweep). Raises when a narrow
+    block does not fit shared memory."""
+    return _k4a_schedule(tuple(geometry), int(batch), int(d), int(itemsize),
+                         int(align) & 15, schedule, layout, groups)
+
+
+@functools.lru_cache(maxsize=1024)
+def _k4a_schedule(geometry, batch, d, itemsize, align, schedule, layout,
+                  groups):
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    elem = d * itemsize
+    wb = _word_bytes(elem, align)
+    wpe = elem // wb
+    row_len = 1 << t
+    if schedule is None:
+        schedule = "wide" if elem >= _WIDE_ELEM_BYTES else "narrow"
+    if schedule == "wide":
+        epb = min(1 << n, 1 << max(0, (_TILE_CTA_BYTES // elem).bit_length()
+                                   - 1))
+        bpb = max(1, min(batch, _TILE_CTA_BYTES // (epb * elem)))
+        chunks = (1 << n) // epb
+        return K4aSchedule("wide", wb, 0, wpe, _shift(wpe), _shift(epb * wpe),
+                           epb, bpb, chunks, batch, "", 0, 0,
+                           chunks * -(-batch // bpb), 8 * epb)
+    if schedule != "narrow":
+        raise ValueError(f"no K4a schedule {schedule!r} (narrow, wide)")
+    row_words = row_len * wpe
+    vec = int(align == 0 and row_len * elem % 16 == 0
+              and (wpe == 1 or wb == 16))
+    cw = max(1, 16 // wb)                 # words of a 16-byte chunk
+    cpr = row_words // cw if row_words % cw == 0 else 0
+    # swizzled, where a gather reads down the tile's columns; one-row
+    # tiles (a gather within a row) run about 2 % faster padded
+    # (tools/k4a_sweep.py, chip_smoke.py phase 5)
+    layout = layout or ("padded" if rpt == 1 else "swizzled")
+    if layout not in K4A_LAYOUTS:
+        raise ValueError(f"no tile layout {layout!r} {K4A_LAYOUTS}")
+    if layout == "swizzled" and (cpr < 2 or cpr & (cpr - 1)):
+        layout = "padded"                 # chunks a row: not a power of two
+    stride = row_words + (cw if layout == "padded" else 0)
+    swz = cpr - 1 if layout == "swizzled" else 0
+    per_cta = _tiles_per_cta(geometry, elem)
+    rows = per_cta * rpt
+    n_groups = n_tiles // per_cta
+    n_work = batch * n_groups
+    groups = max(1, min(groups or _K4A_GROUPS, n_work))
+    tile = (rows * stride * wb + 15) & ~15
+    smem = (((groups * 8 + 15) & ~15)
+            + ((groups * (2 * rows + per_cta) * 4 + 15) & ~15)
+            + min(2, groups) * tile)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
+                         f"needs {smem} bytes of shared memory "
+                         f"(> {_SMEM_MAX})")
+    return K4aSchedule("narrow", wb, vec, wpe, _shift(wpe), _shift(row_words),
+                       per_cta, groups, n_groups, n_work, layout, stride, swz,
+                       -(-n_work // groups), smem)
+
+
+class _K4aArgs(ctypes.Structure):
+    """``TilePermuteArgs`` of ``tile_permute.cu``, field for field."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("in_rows", "out_rows",
+                                               "xor_low", "src0")] + [
+        ("batch", ctypes.c_longlong), ("n_work", ctypes.c_longlong)] + [
+        (k, ctypes.c_int) for k in (
+            "schedule", "word_bytes", "vec", "n_rows", "t", "rpt_shift",
+            "wpe", "wpe_shift", "row_shift", "per_cta", "per_cta_shift",
+            "groups", "n_groups", "stride", "swz", "grid", "smem")]
+
+
+def _k4a_args(s: K4aSchedule, tabs, geometry, batch: int) -> _K4aArgs:
+    """The launch descriptor of schedule ``s`` on device tables ``tabs``."""
+    n, t, rpt, _, _, _, _ = geometry
+    return _K4aArgs(*(a.data_ptr() for a in tabs), batch, s.n_work,
+                    int(s.schedule == "wide"), s.word_bytes, s.vec,
+                    1 << (n - t), t, _shift(rpt), s.wpe, s.wpe_shift,
+                    s.row_shift, s.per_cta, _shift(s.per_cta), s.groups,
+                    s.n_groups, s.stride, s.swz, s.grid, s.smem)
+
+
+class _K4aLaunch:
+    """One K4a launch record: the loaded entry point, the launch descriptor
+    (kept alive here, passed by address) and the schedule it holds."""
+    __slots__ = ("fn", "args", "ref", "schedule", "path")
+
+    def __init__(self, fn, args: _K4aArgs, schedule: K4aSchedule):
+        self.fn, self.args, self.schedule = fn, args, schedule
+        self.ref = ctypes.addressof(args)
+        self.path = f"tile_{schedule.schedule}"
+
+
+def _k4a_record(x: torch.Tensor, plan: TilePlan, tabs, batched: bool,
+                align: int) -> _K4aLaunch:
+    """The launch record of ``plan`` on its device tables ``tabs`` for
+    tensors shaped, typed and aligned as ``x`` (``align``: the data and
+    output pointers' OR), built and kept in ``tabs.launch`` at first
+    use."""
+    key = (x.shape, x.dtype, batched, align & 15)
+    rec = tabs.launch.get(key)
+    if rec is None:
+        rec = tabs.launch[key] = _new_record(x, plan, tabs, batched, align)
+    return rec
+
+
+def _new_record(x, plan, tabs, batched, align) -> _K4aLaunch:
+    from . import build as _build
+    xc = _canonical(x, batched)
+    geometry = plan_geometry(plan)
+    if xc.shape[1] != 1 << plan.n:
+        raise ValueError(f"axis of {xc.shape[1]} elements, the plan "
+                         f"permutes 2^{plan.n}")
+    s = k4a_schedule(geometry, xc.shape[0], xc.shape[2], x.element_size(),
+                     align | tabs[3].data_ptr())
+    return _K4aLaunch(_build.load("tile"), _k4a_args(s, tabs, geometry,
+                                                     xc.shape[0]), s)
+
+
+def k4a_record(x: torch.Tensor, plan: TilePlan, *,
+               batched: bool = False) -> _K4aLaunch:
+    """The launch record :func:`tiled_permute` uses for ``x`` (built and
+    kept if there is none yet; the output's alignment taken as 16
+    bytes)."""
+    return _k4a_record(x, plan, device_tables(plan, x.device), batched,
+                       x.data_ptr())
+
+
+# (id(plan), device index) -> (plan, its tables, the store's generation)
+_HOT: dict = {}
+_DEV_CACHE.on_drop = _HOT.clear
+
+
+def _launch_tables(plan: TilePlan, device) -> tuple:
+    """:func:`device_tables` for the launch path: the tables (and launch
+    records) looked up last for this plan and device, while the device
+    store has dropped no entry since (its generation; a drop also forgets
+    every remembered lookup, so none keeps a dropped table alive) and no
+    pin is active; else the store's lookup, remembered."""
+    key = (id(plan), device.index)
+    hot = _HOT.get(key)
+    gen = _DEV_CACHE.gen
+    if (hot is not None and hot[0] is plan and hot[2] == gen
+            and _PIN.tables is None):
+        return hot[1]
+    tabs = device_tables(plan, device)
+    _HOT[key] = (plan, tabs, gen)
+    return tabs
+
+
+def _k4a_call(x: torch.Tensor, plan: TilePlan, batched: bool,
+              device=None) -> torch.Tensor:
+    """K4a on a CUDA tensor through the plan's launch record: the checks,
+    the output, one alignment test, one foreign call."""
+    check_no_grad(x, "tiled_permute")
+    if not x.is_contiguous():
+        raise ValueError(f"tiled_permute: the CUDA kernel takes a contiguous "
+                         f"tensor, got strides {x.stride()}")
+    device = x.device if device is None else device
+    tabs = _launch_tables(plan, device)
+    out = torch.empty_like(x)
+    xp, op = x.data_ptr(), out.data_ptr()
+    rec = _k4a_record(x, plan, tabs, batched, xp | op)
+    dev = device.index
+    if dev == torch._C._cuda_getDevice():
+        rc = rec.fn(xp, op, rec.ref, torch._C._cuda_getCurrentRawStream(dev))
     else:
+        with torch.cuda.device(dev):
+            rc = rec.fn(xp, op, rec.ref,
+                        torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"tile kernel launch failed: CUDA error {rc}")
+    if not torch._C._cuda_isCurrentStreamCapturing():
+        LAUNCHES["tile"] += 1       # a graph capture records, it does not run
+        LAUNCHES[rec.path] += 1
+    return out
+
+
+def _tile_launch(xc, tabs, geometry, flags=None):
+    """K4a on tables passed as arguments: the guarded variant with
+    ``flags`` (the design before the two schedules), else the schedule
+    :func:`k4a_schedule` picks, its descriptor built for this call."""
+    if flags is not None:
+        out, args = _tile_args(xc, geometry)
         _launch("tile_guarded", xc, _ptr(xc), _ptr(out),
                 *(_ptr(a) for a in tabs), *args, _ptr(flags))
+        return out
+    out = torch.empty_like(xc)
+    s = k4a_schedule(geometry, xc.shape[0], xc.shape[2], xc.element_size(),
+                     xc.data_ptr() | out.data_ptr() | tabs[3].data_ptr())
+    args = _k4a_args(s, tabs, geometry, xc.shape[0])
+    _launch("tile", xc, _ptr(xc), _ptr(out), ctypes.addressof(args),
+            path=s.schedule)
     return out
 
 
@@ -1036,16 +1309,27 @@ def tiled_permute_bwd_tables_plain(x: torch.Tensor, ct: torch.Tensor, in_rows,
 def tiled_permute(x: torch.Tensor, plan: TilePlan, *,
                   batched: bool = False) -> torch.Tensor:
     """Apply one tiled-BMMC pass. ``x``: (2^n,) or (2^n, d); with
-    ``batched=True``, (B, 2^n) or (B, 2^n, d)."""
-    n_rows = 1 << (plan.n - plan.t)
-    _trap_tables([("in_rows", plan.in_rows, n_rows),
-                  ("out_rows", plan.out_rows, n_rows),
-                  ("xor_low", plan.xor_low, plan.row_len),
-                  ("src0", plan.src0, plan.rows_per_tile * plan.row_len)])
+    ``batched=True``, (B, 2^n) or (B, 2^n, d). A CUDA tensor launches K4a
+    through the plan's launch record (the guarded variant inside
+    :func:`guard_flags`), a CPU tensor runs the plain version."""
+    device = x.device
+    if device.type == "cuda" and active_guard_flags() is None:
+        if _guard.enabled():
+            _trap_tables(_plan_traps(plan))
+        return _k4a_call(x, plan, batched, device)
+    _trap_tables(_plan_traps(plan))
     tabs = (device_tables(plan, x.device) if x.device.type == "cuda" else
             (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0))
     return tiled_permute_tables(x, *tabs, geometry=plan_geometry(plan),
                                 batched=batched)
+
+
+def _plan_traps(plan: TilePlan) -> list:
+    n_rows = 1 << (plan.n - plan.t)
+    return [("in_rows", plan.in_rows, n_rows),
+            ("out_rows", plan.out_rows, n_rows),
+            ("xor_low", plan.xor_low, plan.row_len),
+            ("src0", plan.src0, plan.rows_per_tile * plan.row_len)]
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,8 @@ KERNELS = {
               [_P, _I, _I, _I, _I, _L, _I, _P]),
     "lane": ("lane_permute.cu", "repro_lane_permute",
              [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P]),
-    "tile": ("tile_permute.cu", "repro_tile_permute",
-             [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P]),
+    # K4a takes its launch descriptor (TilePermuteArgs) by address
+    "tile": ("tile_permute.cu", "repro_tile_permute", [_P, _P]),
     "tile_fused": ("tile_fused.cu", "repro_tile_fused",
                    [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6 + [_P]),
     "tile_bwd": ("tile_bwd.cu", "repro_tile_bwd",

@@ -23,9 +23,11 @@ from typing import Optional
 
 import torch
 
+from .. import guard as _guard
 from ..core.bmmc import Bmmc
 from ..core.tiling import (class_stats, copy_descriptors, dispatch_kernel,
                            plan_block, plan_bmmc, plan_lane)
+from ..guard import runtime as _grt
 from ..guard.errors import BadInput, UnknownEngine
 from ..obs import metrics as _ometrics
 from ..obs import trace as _otrace
@@ -51,6 +53,11 @@ def choose_tile(n: int, itemsize: int, d: int = 1,
     Returns None if the array is too small to be worth tiling (fallback to
     the reference gather).
     """
+    return _choose_tile(n, itemsize, d, t)
+
+
+@functools.lru_cache(maxsize=1024)
+def _choose_tile(n: int, itemsize: int, d: int, t: Optional[int]):
     if t is not None:
         return t if 2 * t <= n else None
     t = _MAX_T
@@ -152,8 +159,7 @@ def bmmc_permute(x: torch.Tensor, bmmc: Bmmc, *, t: Optional[int] = None,
     read once here; a trap falls back from "cuda" to "ref".
     """
     check_no_grad(x, "bmmc_permute")
-    if engine in ("cuda", "ref"):
-        from ..guard import runtime as _grt
+    if engine in ("cuda", "ref") and _guard.enabled():
         if _grt.ring2_active():
             return _grt.guarded_bmmc_permute(x, bmmc, t=t, engine=engine,
                                              batched=batched)

@@ -733,21 +733,31 @@ def test_cuda_guarded_entry_points_fall_back_and_recover(cuda_device):
                                      (torch.float32, 512)])
 def test_cuda_k4a_at_the_head_shuffle_shapes(cuda_device, dtype, d):
     """The shapes the 8-kv-head shuffle gives K4a in a prefill layer (k and
-    v, the q groups, the float32 output): one tiled pass at t = 1, bit for
-    bit against its plain version and the plain gather."""
+    v, the q groups, the float32 output): one tiled pass at t = 1 on K4a's
+    wide schedule, bit for bit against its plain version and the plain
+    gather, through ``bmmc_permute`` and through ``permute_axis``."""
     from repro_torch.models.attention import default_head_perm
     hp = default_head_perm(8)
     x = torch.randn((256, 8, d), device=cuda_device).to(dtype)
     t = pops.choose_tile(hp.n, x.element_size(), d)
     kernel, plans = pops.class_plan(hp, t)
     assert (t, kernel, len(plans)) == (1, "tiled", 1)
-    before = pk.launch_counts()["tile"]
+    before = pk.launch_counts()
     got = pops.bmmc_permute(x, hp, batched=True)
-    assert pk.launch_counts()["tile"] == before + 1
+    after = pk.launch_counts()
+    assert after["tile"] == before["tile"] + 1
+    assert after["tile_wide"] == before["tile_wide"] + 1   # K4a's schedule
     want = pk.tiled_permute_plain(x, plans[0], batched=True)
     assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
     assert torch.equal(got.view(torch.uint8),
                        pref.bmmc_ref(x, hp, batched=True).view(torch.uint8))
+    # what the prefill calls: the shuffle of axis 2 of (b, s, heads, d)
+    from repro_torch.models.permute import permute_axis
+    x4 = x.reshape(2, 128, 8, d)
+    got4 = permute_axis(x4, hp, axis=2, engine="cuda")
+    assert torch.equal(got4.reshape(got.shape).view(torch.uint8),
+                       want.view(torch.uint8))
+    assert pk.launch_counts()["tile"] == before["tile"] + 2
 
 
 @pytest.mark.cuda
@@ -778,3 +788,156 @@ def test_cuda_small_model_serves_with_equal_engines(cuda_device, dtype):
         assert torch.equal(got[engine].prefill_logits,
                            got["cuda"].prefill_logits), engine
         assert (got[engine].gen == got["cuda"].gen).all(), engine
+
+
+# ---------------------------------------------------------------------------
+# K4a's two schedules and its launch record
+# ---------------------------------------------------------------------------
+
+def _k4a_forced(x, plan, batched, **over):
+    """One K4a launch on the schedule ``k4a_schedule`` gives with ``over``
+    (the wrapper's record path picks its own)."""
+    import ctypes
+    from repro_torch.kernels import build as pbuild
+    xc = pk._canonical(x, batched)
+    tabs = pk.device_tables(plan, x.device)
+    geometry = pk.plan_geometry(plan)
+    out = torch.empty_like(x)
+    s = pk.k4a_schedule(geometry, xc.shape[0], xc.shape[2], x.element_size(),
+                        x.data_ptr() | out.data_ptr() | tabs[3].data_ptr(),
+                        **over)
+    args = pk._k4a_args(s, tabs, geometry, xc.shape[0])
+    rc = pbuild.load("tile")(x.data_ptr(), out.data_ptr(),
+                             ctypes.addressof(args), pk._stream(x))
+    assert rc == 0, (rc, s)
+    return out, s
+
+
+# (dtype, tail, byte offset of the view): word widths 16, 8, 4, 2, 1 on
+# aligned tensors, and 4, 2, 1 on misaligned views (one word at a time)
+_K4A_WIDTHS = [(torch.float32, (4,), 0), (torch.complex64, (), 0),
+               (torch.int32, (), 0), (torch.bfloat16, (), 0),
+               (torch.bool, (), 0), (torch.int32, (), 4),
+               (torch.bfloat16, (3,), 2), (torch.uint8, (5,), 1),
+               (torch.float32, (32,), 4), (torch.bfloat16, (128,), 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tail,off", _K4A_WIDTHS)
+def test_cuda_k4a_schedules_match_plain(cuda_device, dtype, tail, off):
+    """Both schedules (the narrow one in each tile layout) bit for bit
+    against K4a's plain version and the plain gather, for every word
+    width, on aligned tensors and misaligned views; the wrapper's own
+    choice too, counted under its schedule."""
+    n, batch = 10, 3
+    rng = random.Random(53)
+    numel = batch * (1 << n) * (tail[0] if tail else 1)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    raw = torch.randint(0, 256, (numel * isz + 64,), device=cuda_device,
+                        dtype=torch.uint8)
+    x = raw[off:off + numel * isz].view(dtype).reshape((batch, 1 << n)
+                                                       + tail)
+    if dtype == torch.bool:
+        x = raw[:numel].bool().reshape(batch, 1 << n)
+    for kind in ("bitrev", "bmmc", "mixed"):
+        b = _bmmc(kind, n, rng)
+        t = pops.choose_tile(n, isz, tail[0] if tail else 1)
+        kernel, plans = pops.class_plan(b, t)
+        plan = plans[0]
+        want = pk.tiled_permute_plain(x, plan, batched=True)
+        if len(plans) == 1:
+            assert torch.equal(want.view(torch.uint8), pref.bmmc_ref(
+                x, b, batched=True).contiguous().view(torch.uint8))
+        for over in ({"schedule": "narrow", "layout": "unpadded"},
+                     {"schedule": "narrow", "layout": "padded",
+                      "groups": 3},
+                     {"schedule": "narrow", "layout": "swizzled"},
+                     {"schedule": "wide"}):
+            got, s = _k4a_forced(x, plan, True, **over)
+            assert torch.equal(got.view(torch.uint8),
+                               want.view(torch.uint8)), (kind, s)
+        before = pk.launch_counts()
+        got = pk.tiled_permute(x, plan, batched=True)
+        rec = pk.k4a_record(x, plan, batched=True)
+        after = pk.launch_counts()
+        assert after["tile"] == before["tile"] + 1
+        assert after[rec.path] == before[rec.path] + 1
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((70000, 16), torch.int32),
+                                         ((70000, 8, 64), torch.float32)])
+def test_cuda_k4a_batch_beyond_the_grid_y_limit(cuda_device, shape, dtype):
+    """More batch rows than a grid's y dimension holds (65535), on the
+    narrow (int32) and the wide (256-byte elements) schedule."""
+    n = 4 if len(shape) == 2 else 3
+    b = Bmmc.bit_reverse(n)
+    x = torch.randint(0, 1 << 20, shape, device=cuda_device).to(dtype)
+    t = pops.choose_tile(n, x.element_size(), shape[2] if len(shape) == 3
+                         else 1)
+    (plan,) = pops.class_plan(b, t)[1]
+    got = pk.tiled_permute(x, plan, batched=True)
+    assert pk.k4a_record(x, plan, batched=True).schedule.schedule == (
+        "narrow" if len(shape) == 2 else "wide")
+    assert torch.equal(got, pk.tiled_permute_plain(x, plan, batched=True))
+    assert torch.equal(got, pref.bmmc_ref(x, b, batched=True))
+
+
+@pytest.mark.cuda
+def test_cuda_k4a_record_on_a_card_that_is_not_current(cuda_device):
+    """K4a's record path on the second card while the first is current:
+    both schedules launch on the tensor's device and stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    hp = Bmmc.bit_reverse(3)
+    for shape, dtype in (((64, 8, 128), torch.bfloat16),
+                         ((64, 8), torch.int32)):
+        x = torch.randint(0, 1 << 14, shape, device=dev).to(dtype)
+        d = shape[2] if len(shape) == 3 else 1
+        (plan,) = pops.class_plan(hp, pops.choose_tile(
+            3, x.element_size(), d))[1]
+        got = pk.tiled_permute(x, plan, batched=True)
+        torch.cuda.synchronize(dev)
+        assert torch.equal(got, pk.tiled_permute_plain(x, plan,
+                                                       batched=True))
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_cuda_k4a_refuses_a_tensor_that_requires_grad(cuda_device):
+    plan = pops.class_plan(Bmmc.bit_reverse(8), 3)[1][0]
+    x = torch.zeros(256, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        pk.tiled_permute(x, plan)
+    with pytest.raises(NotImplementedError):
+        pops.bmmc_permute(x, Bmmc.bit_reverse(8))
+
+
+@pytest.mark.cuda
+def test_cuda_k4a_record_replays_in_a_graph(cuda_device):
+    """K4a launched from its record inside a CUDA-graph capture (the
+    tables pinned, nothing counted while capturing) replays bit-equal to
+    the eager call, on both schedules."""
+    hp = Bmmc.bit_reverse(3)
+    for shape, dtype in (((512, 8, 128), torch.bfloat16),
+                         ((64, 1 << 12), torch.int32)):
+        b = hp if len(shape) == 3 else Bmmc.random(12, random.Random(5))
+        x = torch.randint(0, 1 << 14, shape, device=cuda_device).to(dtype)
+        d = shape[2] if len(shape) == 3 else 1
+        t = pops.choose_tile(b.n, x.element_size(), d)
+        plan = pops.class_plan(b, t)[1][0]
+        want = pk.tiled_permute(x, plan, batched=True)
+        torch.cuda.synchronize()
+        counts = pk.launch_counts()
+        g = torch.cuda.CUDAGraph()
+        with pk.pin_device_tables():
+            with torch.cuda.graph(g):
+                got = pk.tiled_permute(x, plan, batched=True)
+        assert pk.launch_counts() == counts
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
