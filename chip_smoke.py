@@ -145,7 +145,30 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    width and depth (within ``DECODE_F32_REL_TOL``); the
    port's SIGTERM drain drill on the card
    (``resilience.chaos.sigterm_drill``);
-16. last line: ``{"ok": true, "device": {...}}``.
+16. training: ``mistral-nemo-12b`` at full width, cut to 4 of its 40
+   layers (bf16 weights, float32 AdamW moments, remat ``nothing``; from a
+   seed on the card), through the port's training loop
+   (``repro_torch.launch.train.train``) for 10 steps of batch 4 x seq 512
+   from ``data.pipeline.ShardedLoader`` with the kv-head shuffle on
+   ``cuda``: loss, grad_norm, ms and tokens/s a step, peak memory, K4a
+   launched 12 times a layer a step (forward, remat recompute, VJPs) and
+   no other kernel, every parameter moved, then 5 steps on one batch
+   lower its loss. One step from the same start with the shuffle on
+   ``cuda`` and ``ref`` (bit-equal loss, grad_norm and parameters) and
+   off (loss bit-equal, else within ``SHUFFLE_OFF_REL_TOL``), timed in
+   turns; loss and gradients with remat on and off (bit-equal; 12 and 8
+   shuffles a layer, by ``obs.kernel_counts`` and by launch); a step with
+   8-bit moments; the guarded step (``validate=True``: guarded K4a, no
+   trap, the unguarded loss) and ``GuardTrap`` on a nonfinite loss before
+   the update; a ``PermuteLayer(sort_expr(20))`` in a loss override (K4b
+   forward, K5 backward), bit-equal to the same step on ``ref``, timed;
+   the ``100m`` profile checkpointed by ``launch.train.main``, restored bit
+   for bit, and resumed in a fresh call whose losses equal an
+   uninterrupted run's. The kernels line gains ``train_launches``: K4a on
+   the full-width steps under ``tile_serve``, the sort layer's K4a, K4b
+   and K5 under ``tile``, ``tile_fused`` and ``tile_bwd``, the guarded
+   step's under ``tile_guarded``;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -2477,6 +2500,391 @@ def phase_serve(torch, bw: float, reps: int, smi: str, old_so):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training a full-width model
+# ---------------------------------------------------------------------------
+
+# Mistral-NeMo-12B at full width, cut from 40 layers to TRAIN_LAYERS: at 12
+# bytes a parameter (bf16 weights and gradients, float32 moments) the 40
+# layers' 12.25 B parameters need 147 GB, the 4 layers' 2.43 B 29.2 GB.
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 512     # the serving cell's shapes
+TRAIN_STEPS = 10
+TRAIN_FIXED_STEPS = 5               # steps on one batch whose loss must fall
+TRAIN_SORT_N = 20                   # log2 keys of the sort layer's step
+CKPT_PROFILE = "100m"               # the checkpoint drill's model (124 M)
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Every leaf of two trees (same structure) bit-equal."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(torch, x), bits(torch, y))
+        for x, y in zip(la, lb))
+
+
+def phase_train(torch, smi: str) -> dict:
+    """Phase 16: train full-width Mistral-NeMo-12B (4 layers) through the
+    port's training loop with the kv-head shuffle on K4a, then the checks
+    around it. Returns the launch counts of the training path."""
+    import dataclasses
+    import gc
+    import tempfile
+    from repro_torch import guard, obs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.combinators import clear_caches
+    from repro_torch.combinators.sort import sort_expr
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.guard.errors import GuardTrap
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.models.permute import PermuteLayer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_periods=TRAIN_LAYERS,
+                              head_shuffle="cuda")
+    say(f"== phase 16: train {cfg.name} at full width ({cfg.n_layers} of 40 "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} "
+        f"kv heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {str(cfg.dtype).split('.')[-1]} weights, "
+        f"{cfg.opt_bits}-bit AdamW moments, remat {cfg.remat} "
+        f"({cfg.remat_policy})), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} ==")
+    say(f"  card: {smi}")
+    clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    gib = 2 ** 30
+    launches = {}
+
+    def fresh(c=cfg, bits=32):
+        """Parameters from seed 0 and zero AdamW state, on the card."""
+        params = M.init(c, torch.Generator(device=dev).manual_seed(0))
+        return params, adamw_init(params, AdamWConfig(state_bits=bits))
+
+    def drop():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    dcfg = DataConfig(n_samples_log2=16, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size, seed=0)
+    args = LT.parse_args(["--steps", str(TRAIN_STEPS), "--batch",
+                          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                          "--log-every", "1"])
+
+    # 1. ten steps through the training loop, K4a counted from 0
+    params, opt = fresh()
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        params) + tree_leaves(opt.m) + tree_leaves(opt.v)) / 1e9
+    say(f"  {n_par / 1e9:.3f} B parameters; weights and moments "
+        f"{state_gb:.2f} GB, with bf16 gradients "
+        f"{state_gb + n_par * 2 / 1e9:.2f} GB (the reckoning: 29.2 GB)")
+    before = [dev_hash(torch, p) for p in tree_leaves(params)]
+    loader = ShardedLoader(dcfg, batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = LT.train(cfg, params, opt, loader, args)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / gib
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i, (l, g, s) in enumerate(zip(res.losses, res.grad_norms,
+                                      res.step_s)):
+        say(f"  step {i}: loss {l:.4f}  grad_norm {g:.4f}  "
+            f"{s * 1e3:.1f} ms  {tokens / s:,.0f} tokens/s")
+        check(np.isfinite(l) and np.isfinite(g), ("nonfinite", i, l, g))
+    warm = res.step_s[1:]
+    say(f"  warm steps: median {statistics.median(warm) * 1e3:.1f} ms "
+        f"({min(warm) * 1e3:.1f}-{max(warm) * 1e3:.1f}), "
+        f"{tokens / statistics.median(warm):,.0f} tokens/s; the first "
+        f"(cold) {res.step_s[0] * 1e3:.1f} ms; peak device memory "
+        f"{peak:.2f} GiB of {torch.cuda.get_device_properties(0).total_memory / gib:.1f}")
+    per_step = counts["tile"] / TRAIN_STEPS
+    say(f"  kernel launches in {TRAIN_STEPS} steps: {counts}; K4a "
+        f"{per_step:g} a step = 12 x {cfg.n_layers} layers")
+    check(counts["tile"] == 12 * cfg.n_layers * TRAIN_STEPS
+          == counts["tile_wide"], ("K4a launches on the training path",
+                                   counts))
+    check(sum(v for k, v in counts.items()
+              if k not in ("tile", "tile_wide")) == 0, counts)
+    launches["tile_serve"] = counts["tile"]
+    moved = [a != dev_hash(torch, p) for a, p in zip(
+        before, tree_leaves(res.params))]
+    check(all(moved), ("parameters that did not move", moved))
+    say(f"  all {len(moved)} parameter leaves moved")
+    fixed = LT.batch_to(next(loader), dev)
+    step_fn, _ = make_train_step(cfg)
+    fl = []
+    params, opt = res.params, res.opt_state
+    for _ in range(TRAIN_FIXED_STEPS):
+        params, opt, m = step_fn(params, opt, fixed)
+        fl.append(float(m["loss"]))
+    say(f"  {TRAIN_FIXED_STEPS} steps on one batch: loss "
+        f"{' -> '.join(f'{v:.4f}' for v in fl)}")
+    check(fl[-1] < fl[0], ("fixed-batch loss did not fall", fl))
+    del params, opt, res, m, before
+    drop()
+
+    # 2. one step from the same parameters, state and batch with the
+    # shuffle on cuda, on ref and off; then warm steps in turns
+    batch0 = LT.batch_to(next(ShardedLoader(dcfg, batch_size=TRAIN_BATCH)),
+                         dev)
+
+    def one_step(c, validate=False, bits=32):
+        params, opt = fresh(c, bits)
+        step, _ = make_train_step(c, opt_cfg=AdamWConfig(state_bits=bits),
+                                  validate=validate)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        del opt
+        return params, m, dt, torch.cuda.max_memory_allocated() / gib
+
+    engines = {"cuda": "cuda", "ref": "ref", "off": None}
+    cfgs = {k: dataclasses.replace(cfg, head_shuffle=e)
+            for k, e in engines.items()}
+    want_p, want_m, _, _ = one_step(cfgs["cuda"])
+    off_loss = None
+    for k in ("ref", "off"):
+        p, m, _, _ = one_step(cfgs[k])
+        if k == "ref":
+            check(torch.equal(m["loss"], want_m["loss"])
+                  and torch.equal(m["grad_norm"], want_m["grad_norm"])
+                  and tree_equal(torch, p, want_p),
+                  "step with the shuffle on ref against cuda")
+        else:
+            off_loss = m["loss"]
+        del p, m
+        drop()
+    if torch.equal(off_loss, want_m["loss"]):
+        say("  one step from the same start with the shuffle on cuda and on "
+            "ref: loss, grad_norm and every updated parameter bit-equal; "
+            "shuffle off: loss bit-equal")
+    else:
+        rel = abs(float(off_loss) - float(want_m["loss"])) / abs(
+            float(want_m["loss"]))
+        say(f"  one step from the same start with the shuffle on cuda and on "
+            f"ref: loss, grad_norm and every updated parameter bit-equal; "
+            f"shuffle off: loss NOT bit-equal (relative {rel:.3e}, within "
+            f"{SHUFFLE_OFF_REL_TOL})")
+        check(rel <= SHUFFLE_OFF_REL_TOL, ("shuffle off loss", rel))
+    loss_cuda = want_m["loss"]
+    del want_p, want_m
+    drop()
+    # what the shuffle costs a step: warm steps of one model, in turns
+    params, opt = fresh()
+    steps = {k: make_train_step(c)[0] for k, c in cfgs.items()}
+
+    def timed_step(k):
+        nonlocal params, opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _ = steps[k](params, opt, batch0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    for k in steps:
+        timed_step(k)                               # warm
+    times = in_turns({k: k for k in steps}, timed_step, rounds=3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say("  warm steps in turns (6 each, ms): " + "; ".join(
+        f"{k} {med[k]:.1f} ({min(times[k]):.1f}-{max(times[k]):.1f})"
+        for k in engines) + f"; the shuffle costs "
+        f"{med['cuda'] - med['off']:.1f} ms a step on cuda "
+        f"({(med['cuda'] - med['off']) / med['off'] * 100:.1f} %), "
+        f"{med['ref'] - med['off']:.1f} on ref")
+    del params, opt, steps
+    drop()
+
+    # 3. remat on and off: the same loss and gradients
+    def grads_of(c):
+        params = M.init(c, torch.Generator(device=dev).manual_seed(0))
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        live = tree_unflatten(params, leaves)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        obs.reset()
+        obs.enable(sync=False)
+        try:
+            loss, _ = M.loss_fn(c, live, batch0)
+            grads = torch.autograd.grad(loss, leaves)
+            dispatched = sum(obs.kernel_counts().values())
+        finally:
+            obs.disable()
+            obs.reset()
+        torch.cuda.synchronize()
+        return (loss.detach(), grads, torch.cuda.max_memory_allocated() / gib,
+                dispatched, K.launch_counts()["tile"])
+
+    r_on = grads_of(cfg)
+    r_off = grads_of(dataclasses.replace(cfg, remat=False))
+    check(torch.equal(r_on[0], r_off[0]) and all(
+        torch.equal(a, b) for a, b in zip(r_on[1], r_off[1])),
+        "remat on against off: loss and gradients")
+    for name, r, per in (("on", r_on, 12), ("off", r_off, 8)):
+        say(f"  remat {name}: peak {r[2]:.2f} GiB; shuffles dispatched "
+            f"(obs.kernel_counts) {r[3]}, K4a launches {r[4]} = {per} x "
+            f"{cfg.n_layers} layers")
+        check(r[3] == r[4] == per * cfg.n_layers, (name, r[3], r[4]))
+    say("  remat on and off: loss and every gradient bit-equal")
+    del r_on, r_off
+    drop()
+
+    # 4. 8-bit moments
+    p, m, dt, peak8 = one_step(dataclasses.replace(cfg, opt_bits=8), bits=8)
+    check(np.isfinite(float(m["loss"])) and np.isfinite(float(
+        m["grad_norm"])), "8-bit step")
+    say(f"  8-bit moments: loss {float(m['loss']):.4f}, grad_norm "
+        f"{float(m['grad_norm']):.4f}, {dt * 1e3:.1f} ms, peak {peak8:.2f} "
+        f"GiB")
+    del p, m
+    drop()
+
+    # 5. the guarded step: zero traps and the unguarded loss; a poisoned
+    # final_scale raises GuardTrap before the update
+    guard.reset_stats()
+    K.reset_launch_counts()
+    p, m, dt, _ = one_step(cfg, validate=True)
+    gcounts = K.launch_counts()
+    gs = guard.stats()
+    traps = sum(gs["traps"].values())
+    say(f"  guarded step: {dt * 1e3:.1f} ms, tile_guarded launches "
+        f"{gcounts['tile_guarded']}, unguarded tile {gcounts['tile']}; traps "
+        f"{traps}, fallbacks {sum(gs['fallbacks'].values())}; loss "
+        f"{'bit-equal to' if torch.equal(m['loss'], loss_cuda) else 'NOT'} "
+        f"the unguarded step's")
+    check(traps == 0 and torch.equal(m["loss"], loss_cuda)
+          and gcounts["tile_guarded"] > 0 and gcounts["tile"] == 0,
+          (gs, gcounts))
+    launches["tile_guarded"] = gcounts["tile_guarded"]
+    del p, m
+    drop()
+    params, opt = fresh()
+    params["final_scale"].fill_(float("nan"))
+    step, _ = make_train_step(cfg, validate=True)
+    try:
+        step(params, opt, batch0)
+        check(False, "a nonfinite loss did not trap")
+    except GuardTrap as e:
+        say(f"  poisoned final_scale: GuardTrap {e.kinds} on "
+            f"{e.engine!r}; optimizer step still {int(opt.step)}")
+        check(int(opt.step) == 0, "the update ran after a trap")
+    guard.reset_stats()
+    del params, opt, step
+    drop()
+
+    # 6. K5 inside a step: a sort layer in a loss override
+    n = TRAIN_SORT_N
+    g = torch.Generator(device=dev).manual_seed(16)
+    w0 = torch.randn(1 << n, generator=g, device=dev)
+    sb = {"x": torch.randn((TRAIN_BATCH, 1 << n), generator=g, device=dev),
+          "y": torch.randn((TRAIN_BATCH, 1 << n), generator=g, device=dev)}
+
+    def sort_step(engine):
+        layer = PermuteLayer(sort_expr(n), axis=1, engine=engine)
+
+        def loss_fn(params, batch):
+            l = torch.mean((layer(batch["x"] * params["w"]) - batch["y"])
+                           ** 2)
+            return l, {"mse": l}
+        step, oc = make_train_step(cfg, opt_cfg=AdamWConfig(),
+                                   loss_fn=loss_fn)
+        return step, oc
+
+    sort_runs = {}
+    for eng in ("cuda", "ref"):
+        step, oc = sort_step(eng)
+        K.reset_launch_counts()
+        p = {"w": w0.clone()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, _, m = step(p, adamw_init(p, oc), sb)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        c = K.launch_counts()
+        sort_runs[eng] = (step, oc, p, m, cold, c)
+    _, _, pc, mc, cold_c, c_cuda = sort_runs["cuda"]
+    _, _, pr, mr, cold_r, c_ref = sort_runs["ref"]
+    say(f"  sort layer (2^{n} float32 keys x {TRAIN_BATCH}): launches on "
+        f"cuda {c_cuda}; on ref {sum(c_ref.values())}")
+    check(c_cuda["tile_fused"] > 0 and c_cuda["tile_bwd"] > 0,
+          ("K4b and K5 in the sort layer's step", c_cuda))
+    check(torch.equal(mc["loss"], mr["loss"])
+          and torch.equal(mc["grad_norm"], mr["grad_norm"])
+          and torch.equal(pc["w"], pr["w"]),
+          "sort layer step: cuda against ref")
+    for k in ("tile", "tile_fused", "tile_bwd"):
+        launches[k] = launches.get(k, 0) + c_cuda[k]
+
+    def timed_sort(eng):
+        step, oc = sort_runs[eng][:2]
+        p = {"w": w0.clone()}
+        st = adamw_init(p, oc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, st, sb)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    st = in_turns({"cuda": "cuda", "ref": "ref"}, timed_sort, rounds=3)
+    say(f"  sort layer step: loss, grad_norm and new w bit-equal on cuda "
+        f"(K4b forward, K5 backward) and on ref; cold {cold_c * 1e3:.0f} / "
+        f"{cold_r * 1e3:.0f} ms; warm in turns (6 each): cuda "
+        f"{statistics.median(st['cuda']):.2f} ms ({min(st['cuda']):.2f}-"
+        f"{max(st['cuda']):.2f}), ref {statistics.median(st['ref']):.2f} ms "
+        f"({min(st['ref']):.2f}-{max(st['ref']):.2f})")
+    del sort_runs, pc, pr, mc, mr, sb, w0
+    clear_caches()
+    drop()
+
+    # 7. checkpoint and resume on the card (the 100m profile)
+    common = ["--profile", CKPT_PROFILE, "--log-every", "100"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        a = LT.main(common + ["--steps", "4", "--ckpt-every", "4",
+                              "--ckpt-dir", d])
+        check(ckpt.latest_step(d) == 4 and len(a.save_s) == 1, a.save_s)
+        t0 = time.perf_counter()
+        (rp, rs), extra = ckpt.restore(d, 4, (a.params, a.opt_state),
+                                       device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(tree_equal(torch, {"p": rp, "s": rs.step, "m": rs.m,
+                                 "v": rs.v},
+                         {"p": a.params, "s": a.opt_state.step,
+                          "m": a.opt_state.m, "v": a.opt_state.v}),
+              "restored parameters and state against those saved")
+        state_mb = sum(t.numel() * t.element_size() for t in tree_leaves(
+            rp) + tree_leaves(rs.m) + tree_leaves(rs.v)) / 1e6
+        del rp, rs
+        a.params = a.opt_state = None
+        b = LT.main(common + ["--steps", "8", "--ckpt-every", "100",
+                              "--ckpt-dir", d])
+    c = LT.main(common + ["--steps", "8"])
+    check(b.start == 4 and extra["loader"]["step"] == 4, (b.start, extra))
+    check(a.losses == c.losses[:4] and b.losses == c.losses[4:],
+          ("resumed losses against an uninterrupted run", a.losses,
+           b.losses, c.losses))
+    say(f"  {CKPT_PROFILE} checkpoint ({state_mb:.0f} MB of weights and "
+        f"moments): save {a.save_s[0]:.2f} s, restore {restore_s:.2f} s; "
+        f"restored parameters and state bit-equal to those saved; the run "
+        f"resumed at step 4 and its losses equal steps 4-7 of an "
+        f"uninterrupted run bit for bit")
+    del a, b, c
+    drop()
+    say(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -2542,6 +2950,7 @@ def main(argv=None) -> int:
     phase_chaos(torch)
     records["tile_serve"] = phase_serve(torch, bw, REPS, smi, old_so)
     counts["tile_serve"] = records["tile_serve"]["launches"]
+    train_counts = phase_train(torch, smi)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -2553,7 +2962,8 @@ def main(argv=None) -> int:
                         "old_ms": r.get("old_ms"),
                         "old_device_ms": r.get("old_device_ms"),
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": "bytes", "library_ms": r["library_ms"]})
+                        "bound_by": "bytes", "library_ms": r["library_ms"],
+                        "train_launches": train_counts.get(name, 0)})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Model facade: ArchConfig -> parameter defs, prefill, decode.
+"""Model facade: ArchConfig -> parameter defs, loss, prefill, decode.
 
-The counterpart of :mod:`repro.models.model` for serving. The entry points
+The counterpart of :mod:`repro.models.model`. The entry points
 are functions of ``(cfg, params, inputs)`` over a nested dict of tensors
 (the reference's parameter tree, path for path); :class:`LM` holds such a
 tree as an ``nn.Module``, so ``named_parameters()`` gives the reference's
@@ -105,6 +105,16 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mode: str = "train",
     return logits, caches, aux
 
 
+def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None):
+    """Causal-LM cross entropy (+ MoE aux). batch needs "labels" (B,S)
+    int64. Returns ``(loss, {"ce": ..., "aux": ...})``, float32 0-d."""
+    logits, _, aux = forward(cfg, params, batch, mode="train", mesh=mesh)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
+    loss = -torch.mean(ll)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
 def prefill(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None):
     """Full-sequence forward emitting decode caches + last-position logits."""
     logits, caches, _ = forward(cfg, params, batch, mode="prefill", mesh=mesh)
@@ -155,8 +165,9 @@ def decode_step(cfg: ArchConfig, params: Dict, caches: Dict, tokens, pos,
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: each dict a submodule, each
-    leaf a parameter under its own name (frozen: serving builds no
-    autograd graph), so the module's parameter paths are the tree's."""
+    leaf a trainable parameter under its own name (sharing the leaf's
+    storage), so the module's parameter paths are the tree's. Serving
+    runs under ``torch.no_grad()`` and builds no autograd graph."""
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -164,8 +175,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(
-                    k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self) -> Dict:
         """The nested dict of parameter tensors (no copies)."""

@@ -14,15 +14,26 @@ The other kinds of the reference (``moe``, ``cross``, ``enc``, ``dec``,
 The stack is ``prefix + pattern * n_periods + tail``; the repeated
 pattern keeps its parameters (and caches) stacked on a leading layer
 axis, as the reference's ``lax.scan`` does, and runs as a Python loop over
-that axis. Rematerialization has no meaning without a backward pass and
-is ignored.
+that axis. Each stacked leaf is unbound into its layers once per call, so
+a backward stacks each leaf's gradient once (a ``select`` per layer would
+allocate a zero gradient of the whole stack for every layer).
+
+``cfg.remat`` checkpoints each period's body while a gradient is being
+recorded (``torch.utils.checkpoint``, non-reentrant), as the reference's
+``jax.checkpoint`` around its scan body: policy ``nothing`` keeps only the
+body's inputs and recomputes the rest in the backward; policy ``dots``
+(JAX's ``dots_with_no_batch_dims_saveable``) also keeps the outputs of the
+products without batch dims (``aten.mm`` / ``addmm``: the projections and
+the MLP) and recomputes the batched ones (attention's scores and values).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention, default_head_perm
@@ -238,12 +249,35 @@ def stack_cache_defs(cfg: ArchConfig, batch: int, cache_len: int,
     return tree
 
 
-def _layer(tree: Optional[Dict], i: int) -> Optional[Dict]:
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+def _layers(tree: Optional[Dict], n: int) -> List[Optional[Dict]]:
+    """The ``n`` layers of a stacked tree (views, no copies): each leaf
+    unbound once."""
     if tree is None:
-        return None
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
+        return [None] * n
+    per_key = {k: (_layers(v, n) if isinstance(v, dict) else v.unbind(0))
+               for k, v in tree.items()}
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, body):
+    """``body`` checkpointed under ``cfg.remat_policy``."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: "
+                         f"'nothing' or 'dots'")
+    return functools.partial(_ckpt.checkpoint, body, use_reentrant=False,
+                             **kw)
 
 
 def _stack(trees: list) -> Dict:
@@ -285,10 +319,8 @@ def run_stack(cfg: ArchConfig, params: Dict, x, ctx,
     if n_periods:
         period_names = [f"{j}_{k}" for j, k in enumerate(pattern)]
         scan_caches = (caches or {}).get("scan")
-        outs = []
-        for i in range(n_periods):
-            pparams = _layer(params["scan"], i)
-            pcaches = _layer(scan_caches, i)
+
+        def body(x, aux, pparams, pcaches):
             out = {}
             for name in period_names:
                 kind = name.split("_", 1)[1]
@@ -297,6 +329,14 @@ def run_stack(cfg: ArchConfig, params: Dict, x, ctx,
                                        cache)
                 out[name] = nc if nc is not None else {}
                 aux = aux + a
+            return x, aux, out
+
+        if cfg.remat and not want_cache and torch.is_grad_enabled():
+            body = _remat(cfg, body)
+        outs = []
+        for pparams, pcaches in zip(_layers(params["scan"], n_periods),
+                                    _layers(scan_caches, n_periods)):
+            x, aux, out = body(x, aux, pparams, pcaches)
             outs.append(out)
         if mode == "decode":
             new_caches["scan"] = scan_caches    # updated in place

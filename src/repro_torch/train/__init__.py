@@ -1,2 +1,2 @@
-"""Serving steps of the port (the counterpart of :mod:`repro.train`;
-training waits for a later slice)."""
+"""Training and serving steps of the port (the counterpart of
+:mod:`repro.train`)."""

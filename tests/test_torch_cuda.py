@@ -941,3 +941,85 @@ def test_cuda_k4a_record_replays_in_a_graph(cuda_device):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_cuda_small_model_trains_with_equal_engines(cuda_device, remat):
+    """A smoke-sized bfloat16 model with 8 kv heads takes one AdamW step
+    on the card: the shuffle on cuda (K4a, 12 launches a layer with remat,
+    8 without) and on ref give bit-equal losses, gradient norms and
+    updated parameters; off gives the same loss."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model as M
+    from repro_torch.train.step import init_opt, make_train_step
+    from repro_torch.tree import tree_leaves
+    base = dataclasses.replace(
+        reduce_for_smoke(get_config("mistral-nemo-12b")), n_kv_heads=8,
+        n_heads=8, dtype=torch.bfloat16, remat=remat)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {k: torch.randint(0, base.vocab_size, (2, 32), generator=g,
+                              device=cuda_device)
+             for k in ("tokens", "labels")}
+    got = {}
+    for engine in ("cuda", "ref", None):
+        cfg = dataclasses.replace(base, head_shuffle=engine)
+        params = M.init(cfg, torch.Generator(device=cuda_device)
+                        .manual_seed(0))
+        step, _ = make_train_step(cfg)
+        pk.reset_launch_counts()
+        params, st, m = step(params, init_opt(cfg, params), batch)
+        launches = pk.launch_counts()["tile"]
+        per_layer = 12 if remat else 8
+        assert launches == (per_layer * cfg.n_layers if engine == "cuda"
+                            else 0)
+        assert int(st.step) == 1 and torch.isfinite(m["loss"])
+        got[engine] = (m, tree_leaves(params))
+    assert torch.equal(got["ref"][0]["loss"], got["cuda"][0]["loss"])
+    assert torch.equal(got["ref"][0]["grad_norm"],
+                       got["cuda"][0]["grad_norm"])
+    for a, b in zip(got["ref"][1], got["cuda"][1]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(got[None][0]["loss"], got["cuda"][0]["loss"])
+
+
+@pytest.mark.cuda
+def test_cuda_sort_layer_step_runs_k4b_and_k5(cuda_device):
+    """A ``PermuteLayer(sort_expr(12))`` in a loss override: the step
+    launches K4b forward and K5 backward and equals the step on ref bit
+    for bit."""
+    from repro_torch.combinators.sort import sort_expr
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.permute import PermuteLayer
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    n = 12
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    w0 = torch.randn(1 << n, generator=g, device=cuda_device)
+    batch = {k: torch.randn((4, 1 << n), generator=g, device=cuda_device)
+             for k in ("x", "y")}
+    cfg = reduce_for_smoke(get_config("mistral-nemo-12b"))
+    got = {}
+    for engine in ("cuda", "ref"):
+        layer = PermuteLayer(sort_expr(n), axis=1, engine=engine)
+
+        def loss_fn(params, b, layer=layer):
+            l = torch.mean((layer(b["x"] * params["w"]) - b["y"]) ** 2)
+            return l, {"mse": l}
+        step, oc = make_train_step(cfg, opt_cfg=AdamWConfig(),
+                                   loss_fn=loss_fn)
+        p = {"w": w0.clone()}
+        pk.reset_launch_counts()
+        p, _, m = step(p, adamw_init(p, oc), batch)
+        counts = pk.launch_counts()
+        if engine == "cuda":
+            assert counts["tile_fused"] > 0 and counts["tile_bwd"] > 0
+        got[engine] = (m, p["w"])
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(got["cuda"][0][k], got["ref"][0][k])
+    assert torch.equal(got["cuda"][1], got["ref"][1])

@@ -51,7 +51,11 @@ def test_port_modules_found():
                  "repro_torch.models.model", "repro_torch.models.convert",
                  "repro_torch.train", "repro_torch.train.serve",
                  "repro_torch.launch", "repro_torch.launch.serve",
-                 "repro_torch.data", "repro_torch.data.pipeline"):
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.tree", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                 "repro_torch.train.step", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.launch.train"):
         assert want in mods
 
 

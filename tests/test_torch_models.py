@@ -375,9 +375,10 @@ def test_params_from_numpy_is_bit_for_bit_on_bf16():
         name = ".".join(p.key for p in path)
         t = named[name]            # the reference's path names, e.g.
         assert t.dtype == torch.bfloat16    # stack.scan.0_dense.wq
-        assert not t.requires_grad
-        np.testing.assert_array_equal(t.view(torch.int16).numpy().view(
-            np.uint16), a.view(np.uint16))
+        assert t.requires_grad     # trainable leaves (the training path)
+        np.testing.assert_array_equal(
+            t.detach().view(torch.int16).numpy().view(np.uint16),
+            a.view(np.uint16))
     assert "stack.scan.0_dense.wq" in named
     # the port's own init builds the same tree of the same shapes
     mine = TM.init(tcfg, torch.Generator().manual_seed(0))
