@@ -168,7 +168,35 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    the full-width steps under ``tile_serve``, the sort layer's K4a, K4b
    and K5 under ``tile``, ``tile_fused`` and ``tile_bwd``, the guarded
    step's under ``tile_guarded``;
-17. last line: ``{"ok": true, "device": {...}}``.
+17. the non-dense block kinds (``KINDS_CELLS``), one configuration after
+   another at full width, the card freed between them, weights from a
+   seed: ``mamba2-130m`` (24 Mamba-2 layers), ``recurrentgemma-2b`` (26
+   RG-LRU and local-attention layers), ``phi3.5-moe-42b-a6.6b`` (16 of 32
+   MoE layers served, 2 trained), ``kimi-k2-1t-a32b`` (the dense prefix and
+   1 MoE layer of 384 experts; served only), ``llama-3.2-vision-90b`` (one
+   period: 4 dense + 1 cross-attention layer over 6400 patch embeddings;
+   trained with 8-bit moments) and ``seamless-m4t-medium`` (12 encoder +
+   12 decoder layers over 4096 frames). Each serves through
+   ``launch.serve.serve`` (the serving cell's traffic; source embeddings
+   from ``make_src``) with the kv-head shuffle on ``cuda`` where it has
+   power-of-two kv heads: K4a launched 4 times in every self-attention
+   layer of the prefill and no other kernel, logits and ids bit-equal
+   with the shuffle off; an MoE configuration's two prefills bit-equal
+   (the deterministic combine); a decode step within ``DECODE_REL_TOL`` of
+   a prefill of one more token (MoE configurations with a capacity that
+   drops nothing). Then ``KINDS_STEPS`` train steps on one batch of 4 x
+   512 through ``train.step.make_train_step``: the loss falls (with 8-bit
+   moments only the first update is held: a second moment that
+   dequantizes to 0 makes the next update divide the first moment by the
+   new, smaller gradient alone, and the later losses are printed), K4a
+   launched 12 times a shuffled layer a step (8 outside the remat
+   groups), the first step bit-equal with the shuffle on ``ref``.
+   Prefill ms, warm decode ms a token, ms a step, tokens/s and peak GiB,
+   each beside the card's name and power limit. The kernels line gains
+   ``kinds_launches`` (K4a in phase 17's prefills) and
+   ``kinds_train_launches`` (in one step of each trained configuration),
+   under ``tile_serve``;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -2227,22 +2255,81 @@ def shuffle_kernel_cases(torch, cfg, tokens: int):
             ("output", (tokens, kv, g * hd), torch.float32, 1)]
 
 
-def decode_against_prefill(torch, M, cfg, params, prompts):
-    """Prefill ``prompts``, decode one greedy token, and hold its logits
-    against a prefill of the prompts plus that token. Returns (norm-wise
-    relative error, rows whose argmax agrees, max abs difference)."""
-    p = prompts.shape[1]
-    with torch.no_grad():
-        logits, caches = M.prefill(cfg, params, {"tokens": prompts})
-        caches = M.grow_caches(caches, p, p + 1)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        dec, _ = M.decode_step(cfg, params, caches, tok, p)
-        del caches, logits
-        full, _ = M.prefill(cfg, params, {"tokens": torch.cat(
-            [prompts, tok], dim=1)})
-    return (rel_err(torch, dec, full),
-            int((dec.argmax(-1) == full.argmax(-1)).sum()),
-            float((dec - full).abs().max()))
+STATE_KEYS = ("conv", "state", "h")     # the carried states of mamba / rec
+
+
+def decode_against_prefill(torch, M, cfg, params, prompts,
+                           src=None) -> dict:
+    """Prefill ``prompts`` (with the source embeddings ``src`` of an
+    encoder-decoder or VLM configuration), decode one greedy token, and
+    hold its logits against a prefill of the prompts plus that token:
+    ``rel`` (norm-wise relative error), ``agree`` (rows whose argmax
+    agrees), ``max_abs``; ``state_err``, the carried states (conv tails,
+    SSD and RG-LRU states) after the decode step against the longer
+    prefill's (None without such states); and for an MoE configuration
+    the experts each routing layer chose for the decoded token in the two
+    paths (``flips``, ``rows_flipped``, ``rel_kept``), recorded pass by
+    pass. A row whose token was routed to other experts in some layer
+    (its hidden state differs by the paths' roundings, and the top-k
+    choice is a step function of it) has other logits by the experts'
+    outputs; the logits of the other rows are compared on their own."""
+    from repro_torch.models import moe as MOE
+    p, b = prompts.shape[1], prompts.shape[0]
+    extra = {} if src is None else {"src": src}
+    passes = {"prefill": [], "decode": [], "longer": []}
+    calls = passes["prefill"]       # the routing ids of the running pass
+    real = MOE.router_topk
+
+    def spy(logits, k):
+        out = real(logits, k)
+        calls.append(out[1].sort(dim=-1).values)
+        return out
+
+    def carried(caches):
+        return [t for g in caches.values() for blk in g.values()
+                for k, t in blk.items() if k in STATE_KEYS]
+
+    MOE.router_topk = spy
+    try:
+        with torch.no_grad():
+            logits, caches = M.prefill(cfg, params,
+                                       {"tokens": prompts, **extra})
+            caches = M.grow_caches(caches, p, p + 1)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            calls = passes["decode"]
+            dec, caches = M.decode_step(cfg, params, caches, tok, p)
+            mine = carried(caches)
+            del logits
+            calls = passes["longer"]
+            full, fcaches = M.prefill(cfg, params, {"tokens": torch.cat(
+                [prompts, tok], dim=1), **extra})
+            theirs = carried(fcaches)
+            state_err = (max(rel_err(torch, x, y)
+                             for x, y in zip(mine, theirs))
+                         if mine else None)
+            del caches, fcaches, mine, theirs
+    finally:
+        MOE.router_topk = real
+    n = len(passes["prefill"])       # routing layers a pass
+    check(len(passes["decode"]) == len(passes["longer"]) == n
+          and (n > 0) == bool(cfg.n_experts),
+          ("router calls a pass", {k: len(v) for k, v in passes.items()}))
+    flipped = torch.zeros(b, dtype=torch.bool, device=dec.device)
+    flips = 0
+    for d, f in zip(passes["decode"], passes["longer"]):
+        check(d.shape[:2] == (1, b) and f.shape[:2] == (1, b * (p + 1)),
+              ("one routing group a pass", d.shape, f.shape))
+        rows = (d[0] != f[0].reshape(b, p + 1, -1)[:, -1]).any(-1)
+        flips += int(rows.sum())
+        flipped |= rows
+    keep = ~flipped
+    return {"rel": rel_err(torch, dec, full),
+            "agree": int((dec.argmax(-1) == full.argmax(-1)).sum()),
+            "max_abs": float((dec - full).abs().max()),
+            "state_err": state_err, "routing_layers": n, "flips": flips,
+            "rows_flipped": int(flipped.sum()),
+            "rel_kept": (rel_err(torch, dec[keep], full[keep])
+                         if bool(keep.any()) else None)}
 
 
 def phase_serve(torch, bw: float, reps: int, smi: str, old_so):
@@ -2436,8 +2523,8 @@ def phase_serve(torch, bw: float, reps: int, smi: str, old_so):
         f"cuda - off {med['cuda'] - med['off']:.1f} ms")
 
     # one decode step against a prefill over the extended sequence
-    rel, agree, max_abs = decode_against_prefill(torch, M, cfgs["cuda"],
-                                                 params, prompts)
+    d = decode_against_prefill(torch, M, cfgs["cuda"], params, prompts)
+    rel, agree, max_abs = d["rel"], d["agree"], d["max_abs"]
     say(f"  bfloat16 decode step vs prefill of {SERVE_PROMPT + 1} tokens: "
         f"norm-wise relative {rel:.3e} (tolerance {DECODE_REL_TOL}), max "
         f"abs {max_abs:.4f}, argmax equal in {agree}/{SERVE_BATCH} rows")
@@ -2481,8 +2568,8 @@ def phase_serve(torch, bw: float, reps: int, smi: str, old_so):
     # parameters)
     c32 = dataclasses.replace(cfgs["cuda"], dtype=torch.float32)
     params = M.init(c32, torch.Generator(device=dev).manual_seed(0))
-    rel, agree, max_abs = decode_against_prefill(torch, M, c32, params,
-                                                 prompts)
+    d = decode_against_prefill(torch, M, c32, params, prompts)
+    rel, agree, max_abs = d["rel"], d["agree"], d["max_abs"]
     say(f"  float32 decode step vs prefill of {SERVE_PROMPT + 1} tokens: "
         f"norm-wise relative {rel:.3e} (tolerance {DECODE_F32_REL_TOL}), "
         f"max abs {max_abs:.2e}, argmax equal in {agree}/{SERVE_BATCH} rows")
@@ -2885,6 +2972,328 @@ def phase_train(torch, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the non-dense block kinds at full width
+# ---------------------------------------------------------------------------
+
+# (configuration, serving cut, training cut or None: not trained, 8-bit
+# moments): every width as published; depth cut only where the card's
+# 80 GB force it (bf16 weights; training holds 12 bytes a parameter with
+# float32 moments, about 6 with 8-bit ones, before activations).
+KINDS_CELLS = (
+    ("mamba2-130m", {}, {}, False),                 # whole: 24 layers
+    ("recurrentgemma-2b", {}, {}, False),           # whole: 26 layers
+    # 32 layers hold 84 GB of experts: serve 16 (42 GB), train 2 (34 GB)
+    ("phi3.5-moe-42b-a6.6b", {"n_periods": 16}, {"n_periods": 2}, False),
+    # one MoE layer holds 34 GB of experts: serve the dense prefix + 1 MoE
+    # layer (40 GB); a step would need about 200 GB
+    ("kimi-k2-1t-a32b", {"n_periods": 1}, None, False),
+    # one period (4 dense + 1 cross, 13 GB); 8-bit moments to train it
+    ("llama-3.2-vision-90b", {"n_periods": 1}, {"n_periods": 1}, True),
+    ("seamless-m4t-medium", {}, {}, False),         # whole: 12 + 12 layers
+)
+KINDS_STEPS = 3                 # train steps on one fixed batch
+# The decode check of an MoE configuration runs at the capacity factor
+# n_experts / top_k (a slot per token and expert: nothing dropped), and
+# kimi's with the prompt cut to 128 tokens (its no-drop buffers at 513
+# tokens would need 30 GB beside 40 GB of weights): a prefill drops a
+# token past an expert's capacity, and the last token is the first
+# dropped, where one decode step routes 4 tokens and drops none.
+KINDS_DECODE_PROMPT = {"kimi-k2-1t-a32b": 128}
+# In bfloat16 the decode step's hidden state and the prefill's differ by
+# their roundings (6e-2 norm-wise at 40 layers of Mistral-NeMo: the note
+# at DECODE_REL_TOL), and an MoE layer's top-k choice is a step function
+# of it: where the decoded token is routed to other experts, its logits
+# differ by those experts' outputs.
+# So the bfloat16 check holds the rows routed alike, of which there must
+# be at least one (and all rows when none flipped), and the MoE decode path
+# is held again in float32 at full width, cut to 4 layers (22 GB): there
+# every routing choice must agree and all rows be within DECODE_F32_REL_TOL.
+KINDS_F32_DECODE = {"phi3.5-moe-42b-a6.6b": {"n_periods": 4}}
+
+
+def self_attention_layers(cfg, scanned=None) -> int:
+    """The layers that shuffle kv heads: every self-attention kind, the
+    encoder's too (``scanned``: only those in a stacked group, or only
+    those outside)."""
+    kinds = ("dense", "local", "moe", "enc", "dec")
+    scan = cfg.pattern * cfg.n_periods + (
+        cfg.enc_pattern * cfg.n_enc_periods if cfg.is_encdec else ())
+    rest = cfg.prefix + cfg.tail
+    groups = {None: scan + rest, True: scan, False: rest}[scanned]
+    return sum(k in kinds for k in groups)
+
+
+def phase_kinds(torch, smi: str) -> dict:
+    """Phase 17: serve and train the non-dense block kinds (SSM, hybrid,
+    MoE, VLM, encoder-decoder) at full width, with the kv-head shuffle on
+    K4a wherever the configuration has power-of-two kv heads. Returns the
+    K4a launches of the prefills and of a train step, by configuration."""
+    import dataclasses
+    import gc
+    from repro_torch.combinators import clear_caches
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import default_head_perm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    say(f"== phase 17: the non-dense block kinds at full width: serve batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new tokens; "
+        f"train batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {KINDS_STEPS} steps "
+        f"on one batch ==")
+    say(f"  card: {smi}")
+    dev = torch.device("cuda")
+    gib = 2 ** 30
+    out = {"serve": {}, "train": {}}
+
+    def drop():
+        clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def only_k4a(counts, want):
+        check(counts["tile"] == want == counts["tile_wide"]
+              and sum(v for k, v in counts.items()
+                      if k not in ("tile", "tile_wide")) == 0,
+              ("K4a launches", want, counts))
+
+    for arch, serve_cut, train_cut, opt8 in KINDS_CELLS:
+        t_cfg = time.perf_counter()
+        base = get_config(arch)
+        shuffled = default_head_perm(base.n_kv_heads) is not None and (
+            self_attention_layers(base) > 0)
+        eng = "cuda" if shuffled else None
+        cfg = dataclasses.replace(base, head_shuffle=eng, **serve_cut)
+        layers = (f"{cfg.n_layers}" + (f" + {cfg.n_enc_periods} encoder"
+                                       if cfg.is_encdec else ""))
+        cut = (f"cut to {layers} of {base.n_layers} layers" if serve_cut
+               else f"whole: {layers} layers")
+        say(f"  -- {arch} ({base.family}: kinds "
+            f"{sorted(set(base.layer_kinds))}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, vocab "
+            f"{cfg.vocab_size}"
+            + (f", {cfg.n_experts} experts top {cfg.top_k}"
+               if cfg.n_experts else "")
+            + (f", src {cfg.src_len} x {cfg.d_model}" if cfg.src_len else "")
+            + f"); serving {cut}; shuffle "
+            + (f"cuda (K4a, {cfg.n_kv_heads} kv heads, 4 a self-attention "
+               f"layer)" if shuffled else "none (no power-of-two kv heads "
+                                         "in a self-attention layer)"))
+        drop()
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        args = S.parse_args(["--arch", arch, "--batch", str(SERVE_BATCH),
+                             "--prompt-len", str(SERVE_PROMPT),
+                             "--tokens", str(SERVE_TOKENS)])
+        prompts = S.make_prompts(cfg, args, dev)
+        src = S.make_src(cfg, args, dev)
+        want = 4 * self_attention_layers(cfg) if shuffled else 0
+
+        K.reset_launch_counts()
+        first = S.serve(cfg, params, args, prompts, src)
+        counts = K.launch_counts()
+        check(not first.errors and first.gen is not None, first.errors)
+        check(first.gen.shape == (SERVE_BATCH, SERVE_TOKENS), first.gen.shape)
+        check(bool(torch.isfinite(first.prefill_logits).all()), arch)
+        only_k4a(counts, want)
+        out["serve"][arch] = counts["tile"]
+        runs = [first]
+        if shuffled:
+            off = S.serve(dataclasses.replace(cfg, head_shuffle=None),
+                          params, args, prompts, src)
+            check(not off.errors, off.errors)
+            err = max_abs_err(torch, off.prefill_logits, first.prefill_logits)
+            check(err == 0.0 and np.array_equal(off.gen, first.gen),
+                  (arch, "shuffle cuda against off", err))
+            runs.append(off)
+        if cfg.n_experts:
+            with torch.no_grad():
+                again, _ = M.prefill(cfg, params, {"tokens": prompts})
+            check(torch.equal(again[:, -1:], first.prefill_logits),
+                  (arch, "two prefills"))
+            del again
+        steps = [st for r in runs for st in r.step_s[1:]]
+        say(f"    {n_bytes / 1e9:.2f} GB of weights; K4a launches in the "
+            f"prefill {counts['tile']} (wide {counts['tile_wide']}), no "
+            f"other kernel"
+            + ("; prefill logits and ids bit-equal with the shuffle off"
+               if shuffled else "")
+            + ("; two prefills bit-equal" if cfg.n_experts else ""))
+        say(f"    prefill {', '.join(f'{r.prefill_s * 1e3:.1f}' for r in runs)}"
+            f" ms (first, then warm); warm decode "
+            f"{statistics.median(steps) * 1e3:.2f} ms/token (median of "
+            f"{len(steps)}); "
+            f"{', '.join(f'{SERVE_BATCH * r.gen.shape[1] / r.decode_s:.1f}' for r in runs)}"
+            f" tokens/s; {smi}")
+        dcfg = cfg
+        if cfg.n_experts:
+            dcfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        dp = KINDS_DECODE_PROMPT.get(arch, SERVE_PROMPT)
+        d = decode_against_prefill(torch, M, dcfg, params, prompts[:, :dp], src)
+        say(f"    decode step vs prefill of {dp + 1} tokens"
+            + (f" (capacity factor {dcfg.capacity_factor:g}: no drops)"
+               if cfg.n_experts else "")
+            + f": norm-wise relative {d['rel']:.3e} (tolerance "
+            f"{DECODE_REL_TOL}), max abs {d['max_abs']:.4f}, argmax equal in "
+            f"{d['agree']}/{SERVE_BATCH} rows"
+            + ("" if d["state_err"] is None else
+               f"; carried states after the step (conv tails, "
+               f"{'SSD' if 'mamba' in cfg.layer_kinds else 'RG-LRU'} "
+               f"states) vs the longer prefill's: worst norm-wise relative "
+               f"{d['state_err']:.3e}")
+            + f"; peak {torch.cuda.max_memory_allocated() / gib:.2f} GiB; "
+            f"{smi}")
+        check(d["state_err"] is None or d["state_err"] <= DECODE_REL_TOL,
+              (arch, "carried states vs prefill", d["state_err"]))
+        if cfg.n_experts:
+            kept = d["rel_kept"]
+            say(f"    routing of the decoded token, decode vs the longer "
+                f"prefill: {d['flips']} (layer, row) choices of "
+                f"{d['routing_layers']} x {SERVE_BATCH} differ, in "
+                f"{d['rows_flipped']} rows; the other rows' logits: "
+                + ("none left" if kept is None else
+                   f"norm-wise relative {kept:.3e}"))
+            check(kept is not None and kept <= DECODE_REL_TOL,
+                  (arch, "decode vs prefill, rows routed alike", kept))
+            if d["flips"] == 0:
+                check(d["rel"] <= DECODE_REL_TOL,
+                      (arch, "decode vs prefill", d["rel"]))
+        else:
+            check(d["rel"] <= DECODE_REL_TOL,
+                  (arch, "decode vs prefill", d["rel"]))
+        del params, runs, first
+        drop()
+        if arch in KINDS_F32_DECODE:
+            c32 = dataclasses.replace(
+                dcfg, dtype=torch.float32, **KINDS_F32_DECODE[arch])
+            params = M.init(c32, torch.Generator(device=dev).manual_seed(0))
+            d = decode_against_prefill(torch, M, c32, params, prompts, src)
+            say(f"    float32 ({c32.n_layers} layers, "
+                f"{sum(t.numel() for t in tree_leaves(params)) * 4 / 1e9:.1f}"
+                f" GB): decode step vs prefill of {SERVE_PROMPT + 1} tokens: "
+                f"norm-wise relative {d['rel']:.3e} over all rows (tolerance "
+                f"{DECODE_F32_REL_TOL}), argmax equal in {d['agree']}/"
+                f"{SERVE_BATCH} rows; routing choices that differ "
+                f"{d['flips']} of {d['routing_layers']} x {SERVE_BATCH} "
+                f"(must be 0)")
+            check(d["flips"] == 0 and d["rel"] <= DECODE_F32_REL_TOL,
+                  (arch, "float32 decode vs prefill", d))
+            del params
+            drop()
+        del src
+
+        if train_cut is None:
+            say(f"    not trained on the card: {arch} at one MoE layer holds "
+                f"{n_bytes / 1e9:.0f} GB of bf16 weights, and a step needs "
+                f"weights, gradients and moments of them")
+            say(f"    {arch}: {time.perf_counter() - t_cfg:.1f} s")
+            continue
+        tcfg = dataclasses.replace(base, head_shuffle=eng,
+                                   opt_bits=8 if opt8 else base.opt_bits,
+                                   **train_cut)
+        ocfg = AdamWConfig(state_bits=tcfg.opt_bits)
+        g = torch.Generator(device=dev).manual_seed(17)
+        batch = {k: torch.randint(0, tcfg.vocab_size,
+                                  (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                                  device=dev) for k in ("tokens", "labels")}
+        if tcfg.src_len:
+            batch["src"] = torch.randn(
+                (TRAIN_BATCH, tcfg.src_len, tcfg.d_model), generator=g,
+                device=dev).to(tcfg.dtype)
+        per_step = (12 if tcfg.remat else 8) * self_attention_layers(
+            tcfg, scanned=True) + 8 * self_attention_layers(
+                tcfg, scanned=False) if shuffled else 0
+
+        def first_step(c):
+            params = M.init(c, torch.Generator(device=dev).manual_seed(0))
+            opt = adamw_init(params, ocfg)
+            step, _ = make_train_step(c, opt_cfg=ocfg)
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            return (params, opt, step, m, time.perf_counter() - t0,
+                    K.launch_counts())
+
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, step, m, dt, counts = first_step(tcfg)
+        only_k4a(counts, per_step)
+        if tcfg.opt_bits == 8:
+            # the leaves of an 8-bit moment come in (q, s) pairs
+            lost = sum(int(((vq == 0) & (mq != 0)).sum()) for mq, vq in zip(
+                tree_leaves(opt.m)[0::2], tree_leaves(opt.v)[0::2]))
+            lost /= sum(t.numel() for t in tree_leaves(params))
+        hashes = [dev_hash(torch, t) for t in tree_leaves(params)]
+        losses, times = [float(m["loss"])], [dt]
+        m0 = {k: m[k] for k in ("loss", "grad_norm")}
+        for _ in range(KINDS_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / gib
+        n_par = sum(t.numel() for t in tree_leaves(params))
+        if tcfg.opt_bits == 8:
+            # the reference's 8-bit moments: a second moment under 1/254 of
+            # its block's largest dequantizes to 0, so the next update
+            # divides a first moment by sqrt of the new gradient's square
+            # alone; after a first step that fits the batch, that gradient
+            # is orders smaller and the step overshoots. The first update
+            # (fresh moments) is held; the later ones are printed.
+            check(np.isfinite(losses[1]) and losses[1] < losses[0],
+                  (arch, "loss on one batch, first update", losses))
+            say(f"    8-bit moments after the first step: {lost:.2%} of the "
+                f"entries have a first moment and a second moment of 0 "
+                f"(int8 blocks of 256 scaled by their largest entry, as the "
+                f"reference's); the loss after the first update "
+                f"{losses[1]:.4f} < {losses[0]:.4f}, after the later ones "
+                f"{', '.join(f'{v:.4f}' for v in losses[2:])}")
+        else:
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  (arch, "loss on one batch", losses))
+        out["train"][arch] = counts["tile"]
+        del params, opt, step, m
+        drop()
+        if shuffled:
+            rp, _, _, rm, _, rcounts = first_step(
+                dataclasses.replace(tcfg, head_shuffle="ref"))
+            check(all(torch.equal(rm[k], m0[k]) for k in m0)
+                  and [dev_hash(torch, t) for t in tree_leaves(rp)] == hashes
+                  and rcounts["tile"] == 0,
+                  (arch, "a step with the shuffle on ref against cuda"))
+            del rp, rm
+            drop()
+        warm = statistics.median(times[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        tcut = (f"cut to {tcfg.n_layers} of {base.n_layers} layers"
+                if train_cut else "whole")
+        say(f"    train ({tcut}; {n_par / 1e9:.3f} B parameters, "
+            f"{tcfg.opt_bits}-bit moments, remat {tcfg.remat}): loss "
+            f"{' -> '.join(f'{v:.4f}' for v in losses)}; K4a "
+            f"{counts['tile']} a step"
+            + (f" = {'12' if tcfg.remat else '8'} x "
+               f"{self_attention_layers(tcfg)} self-attention layers; a step "
+               f"with the shuffle on ref bit-equal (loss, grad_norm, every "
+               f"parameter)" if shuffled else "")
+            + f"; first step {times[0] * 1e3:.1f} ms, warm "
+            f"{', '.join(f'{v * 1e3:.1f}' for v in times[1:])} ms, "
+            f"{tokens / warm:,.0f} tokens/s; peak {peak:.2f} GiB; {smi}")
+        say(f"    {arch}: {time.perf_counter() - t_cfg:.1f} s")
+    say(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -2951,6 +3360,9 @@ def main(argv=None) -> int:
     records["tile_serve"] = phase_serve(torch, bw, REPS, smi, old_so)
     counts["tile_serve"] = records["tile_serve"]["launches"]
     train_counts = phase_train(torch, smi)
+    kinds = phase_kinds(torch, smi)
+    kinds_counts = {"tile_serve": (sum(kinds["serve"].values()),
+                                   sum(kinds["train"].values()))}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -2963,7 +3375,10 @@ def main(argv=None) -> int:
                         "old_device_ms": r.get("old_device_ms"),
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes", "library_ms": r["library_ms"],
-                        "train_launches": train_counts.get(name, 0)})
+                        "train_launches": train_counts.get(name, 0),
+                        "kinds_launches": kinds_counts.get(name, (0, 0))[0],
+                        "kinds_train_launches":
+                            kinds_counts.get(name, (0, 0))[1]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ configuration reduced for a smoke run (``reduce_for_smoke``), as the
 reference does; :func:`serve` is the loop itself, a function of
 ``(cfg, params, args)`` that runs any configuration at any width.
 
+An encoder-decoder or VLM configuration prefills with ``(batch, src_len,
+d_model)`` source embeddings drawn from ``--seed`` (:func:`make_src`), as
+the reference does.
+
 ``--head-shuffle ENGINE`` routes the kv-head shuffle of every prefill
-layer through ``ENGINE``: ``ref`` (the plain gather) or ``cuda`` (the
+self-attention layer through ``ENGINE``: ``ref`` (the plain gather) or ``cuda`` (the
 class-dispatched kernels: a tiled-permutation launch, K4a, for each of k,
 v, the q groups and the output). Decode skips the shuffle, as the
 reference does.
@@ -180,6 +184,18 @@ def make_prompts(cfg, args, device) -> torch.Tensor:
                          generator=gen, device=device)
 
 
+def make_src(cfg, args, device) -> Optional[torch.Tensor]:
+    """The cross-attention memory of an encoder-decoder or VLM
+    configuration: ``(batch, src_len, d_model)`` standard normals in the
+    model's type, drawn from ``--seed`` on ``device`` (stub audio frames
+    or patch embeddings, as the reference's); None for the others."""
+    if not (cfg.is_encdec or cfg.family == "vlm"):
+        return None
+    gen = torch.Generator(device=device).manual_seed(args.seed + 2)
+    return torch.randn((args.batch, cfg.src_len, cfg.d_model),
+                       generator=gen, device=device).to(cfg.dtype)
+
+
 @dataclasses.dataclass
 class ServeResult:
     """What one serving run produced."""
@@ -197,17 +213,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(cfg, params, args, prompts: Optional[torch.Tensor] = None
-          ) -> ServeResult:
+def serve(cfg, params, args, prompts: Optional[torch.Tensor] = None,
+          src: Optional[torch.Tensor] = None) -> ServeResult:
     """Prefill ``prompts`` (default :func:`make_prompts`) and decode
     ``args.tokens`` greedy tokens with the model ``(cfg, params)``, each
-    request under the resilience policy. Runs on the device of
-    ``params``; no gradient is recorded."""
+    request under the resilience policy. An encoder-decoder or VLM
+    configuration prefills with the source embeddings ``src`` (default
+    :func:`make_src`). Runs on the device of ``params``; no gradient is
+    recorded."""
     lm = params if isinstance(params, M.LM) else M.LM(cfg, params)
     device = lm.embed.device
     if prompts is None:
         prompts = make_prompts(cfg, args, device)
     batch = {"tokens": prompts}
+    if src is None:
+        src = make_src(cfg, args, device)
+    if src is not None:
+        batch["src"] = src
     total = args.prompt_len + args.tokens
 
     gbase = guard.stats() if args.validate else None

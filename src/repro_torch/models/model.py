@@ -22,15 +22,14 @@ from .transformer import run_stack, stack_cache_defs, stack_defs_tree
 
 
 def _make_ctx(cfg: ArchConfig, mode: str, mesh, pos: int) -> Dict:
-    """What the reference's ``parallel.sharding`` gives for no mesh: one
-    data-parallel group and identity constraints."""
+    """What the reference's ``parallel.sharding`` gives for no mesh: an
+    identity constraint."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded execution is not ported to repro_torch yet (ROADMAP "
             "Queue 1 item 7d: parallel/sharding); pass mesh=None")
     return {"mode": mode, "pos": int(pos), "mesh": None,
-            "constrain": lambda v: v, "constrain_moe": None,
-            "dp_groups": 1}
+            "constrain": lambda v: v}
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +49,11 @@ def model_defs(cfg: ArchConfig) -> Dict:
         defs["final_scale"] = ParamDef((cfg.d_model,), ("embed",), dt, "zeros")
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), dt)
+    if cfg.is_encdec:
+        defs["enc_stack"] = stack_defs_tree(
+            cfg, pattern=cfg.enc_pattern, n_periods=cfg.n_enc_periods,
+            prefix=(), tail=())
+        defs["enc_final_scale"] = ParamDef((cfg.d_model,), ("embed",), dt, "zeros")
     return defs
 
 
@@ -81,23 +85,35 @@ def _head(cfg, params, x):
     return matmul_f32(x, table.t())
 
 
-def _enc_states(cfg, batch: Dict):
-    if cfg.is_encdec or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention memory (encoder or patch "
-            f"embeddings) is not ported to repro_torch yet (ROADMAP Queue 1 "
-            f"item 7c: the non-dense block kinds)")
+def _encode(cfg, params, src, ctx):
+    """Run the encoder stack over stub source embeddings (audio). The
+    final norm is ``rms_norm`` for every ``cfg.norm``, as the
+    reference's."""
+    x, _, _ = run_stack(cfg, params["enc_stack"], src,
+                        {**ctx, "mode": "train", "pos": 0},
+                        pattern=cfg.enc_pattern, n_periods=cfg.n_enc_periods,
+                        prefix=(), tail=())
+    return rms_norm(x, params["enc_final_scale"])
+
+
+def _enc_states(cfg, params, batch: Dict, ctx):
+    """Cross-attention memory: encoder output (audio) or raw patch embeds (vlm)."""
+    if cfg.is_encdec:
+        return _encode(cfg, params, batch["src"], ctx)
+    if cfg.family == "vlm":
+        return batch["src"]
     return None
 
 
 def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mode: str = "train",
             mesh=None):
-    """batch: {"tokens": (B,S) int64 tensor}.
+    """batch: {"tokens": (B,S) int64 tensor, optional "src": (B,Ssrc,E)
+    source embeddings (encoder-decoder and VLM configurations)}.
 
     Returns (logits (B,S,V) f32, caches-or-None, aux).
     """
     ctx = _make_ctx(cfg, mode, mesh, 0)
-    ctx["enc"] = _enc_states(cfg, batch)
+    ctx["enc"] = _enc_states(cfg, params, batch, ctx)
     x = F.embedding(batch["tokens"], params["embed"])
     x, caches, aux = run_stack(cfg, params["stack"], x, ctx)
     x = _final_norm(cfg, params, x)
@@ -125,17 +141,22 @@ def grow_caches(caches: Dict, old_len: int, new_len: int) -> Dict:
     """Extend KV caches from ``old_len`` to ``new_len`` positions.
 
     Stacked caches carry a leading layer axis (layers, B, S, ...): their
-    sequence axis is 2; prefix/tail caches use axis 1. Only leaves whose
-    sequence axis currently equals ``old_len`` are padded (with zeros).
+    sequence axis is 2; prefix/tail caches use axis 1. Only the
+    self-attention caches ``k`` and ``v`` whose sequence axis equals
+    ``old_len`` are padded (with zeros): SSM/RG-LRU state and conv leaves
+    and the cross-attention ``ck``/``cv`` are length-independent and pass
+    through. (The reference tests the length alone, so a state whose head
+    or source axis happens to equal ``old_len`` would be padded too.)
     """
     pad = new_len - old_len
     if pad <= 0:
         return caches
 
-    def pad_tree(tree, axis):
+    def pad_tree(tree, axis, key=None):
         if isinstance(tree, dict):
-            return {k: pad_tree(v, axis) for k, v in tree.items()}
-        if tree.dim() > axis and tree.shape[axis] == old_len:
+            return {k: pad_tree(v, axis, k) for k, v in tree.items()}
+        if (key in ("k", "v") and tree.dim() > axis
+                and tree.shape[axis] == old_len):
             widths = [0, 0] * (tree.dim() - 1 - axis) + [0, pad]
             return F.pad(tree, widths)
         return tree
@@ -147,7 +168,8 @@ def grow_caches(caches: Dict, old_len: int, new_len: int) -> Dict:
 def decode_step(cfg: ArchConfig, params: Dict, caches: Dict, tokens, pos,
                 *, mesh=None):
     """One-token decode. tokens: (B,1) int64; pos: the number of valid
-    tokens. The new token's k/v are written into ``caches`` in place.
+    tokens. The new token's k/v and every advanced state (conv tails, SSD
+    and RG-LRU states) are written into ``caches`` in place.
 
     Returns (logits (B,1,V) f32, new_caches).
     """

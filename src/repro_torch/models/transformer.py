@@ -1,30 +1,37 @@
-"""Block definitions + the layer-stack executor for dense and
-sliding-window architectures.
+"""Block definitions + the layer-stack executor for all arch families.
 
-The counterpart of :mod:`repro.models.transformer`, for the block kinds
-the serving path of dense configurations runs:
+The counterpart of :mod:`repro.models.transformer`. Block kinds:
 
   dense  — self-attn (GQA, RoPE) + MLP
   local  — sliding-window self-attn + MLP
+  moe    — self-attn + mixture-of-experts FFN (+ optional shared experts)
+  cross  — gated cross-attention to stub patch/frame embeddings + MLP (VLM)
+  enc    — bidirectional self-attn + MLP (encoder)
+  dec    — causal self-attn + cross-attn + MLP (enc-dec decoder)
+  rec    — RG-LRU recurrent block + MLP (RecurrentGemma)
+  mamba  — Mamba-2 SSD block
 
-The other kinds of the reference (``moe``, ``cross``, ``enc``, ``dec``,
-``rec``, ``mamba``) raise ``NotImplementedError``: ROADMAP Queue 1 item
-7c ports them.
+Every self-attention (``dense``, ``local``, ``moe``, ``enc``, ``dec``)
+runs the kv-head shuffle when ``cfg.head_shuffle`` is set; cross-attention
+runs none, as in the reference.
 
 The stack is ``prefix + pattern * n_periods + tail``; the repeated
 pattern keeps its parameters (and caches) stacked on a leading layer
 axis, as the reference's ``lax.scan`` does, and runs as a Python loop over
 that axis. Each stacked leaf is unbound into its layers once per call, so
 a backward stacks each leaf's gradient once (a ``select`` per layer would
-allocate a zero gradient of the whole stack for every layer).
+allocate a zero gradient of the whole stack for every layer). Decode
+writes every cache it advances (k/v at the new position, the conv tails,
+the SSD state, the RG-LRU state) into the given caches in place.
 
 ``cfg.remat`` checkpoints each period's body while a gradient is being
 recorded (``torch.utils.checkpoint``, non-reentrant), as the reference's
 ``jax.checkpoint`` around its scan body: policy ``nothing`` keeps only the
 body's inputs and recomputes the rest in the backward; policy ``dots``
 (JAX's ``dots_with_no_batch_dims_saveable``) also keeps the outputs of the
-products without batch dims (``aten.mm`` / ``addmm``: the projections and
-the MLP) and recomputes the batched ones (attention's scores and values).
+products without batch dims (``aten.mm`` / ``addmm``: the projections, the
+MLP and the router) and recomputes the batched ones (attention's scores
+and values, the experts' products).
 """
 from __future__ import annotations
 
@@ -38,15 +45,9 @@ from torch.utils import checkpoint as _ckpt
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention, default_head_perm
 from .layers import (ParamDef, apply_rope, layer_norm, rms_norm, stack_defs)
-
-PORTED_KINDS = ("dense", "local")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet (ROADMAP "
-        f"Queue 1 item 7c: the non-dense block kinds); ported kinds: "
-        f"{PORTED_KINDS}")
+from .moe import moe_ffn
+from .ssm import (causal_conv1d, rglru, rglru_step, softplus, ssd_chunked,
+                  ssd_decode_step)
 
 
 # ---------------------------------------------------------------------------
@@ -99,14 +100,90 @@ def _mlp_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
     }
 
 
+def _moe_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    e, f, x, dt = cfg.d_model, cfg.moe_d_ff, cfg.n_experts, cfg.dtype
+    defs = {
+        "router": ParamDef((e, x), ("embed", None), torch.float32, "normal",
+                           0.006),
+        "we_gate": ParamDef((x, e, f), ("experts", "embed", None), dt),
+        "we_up": ParamDef((x, e, f), ("experts", "embed", None), dt),
+        "we_down": ParamDef((x, f, e), ("experts", None, "embed"), dt, "small"),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        defs.update({
+            "ws_gate": ParamDef((e, fs), ("embed", "mlp"), dt),
+            "ws_up": ParamDef((e, fs), ("embed", "mlp"), dt),
+            "ws_down": ParamDef((fs, e), ("mlp", "embed"), dt, "small"),
+        })
+    return defs
+
+
+def _mamba_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    e, dt = cfg.d_model, cfg.dtype
+    di = cfg.ssm_expand * e
+    n = cfg.ssm_state
+    nh = di // cfg.ssm_headdim
+    k = cfg.ssm_conv
+    conv_ch = di + 2 * n
+    f32 = torch.float32
+    return {
+        "w_z": ParamDef((e, di), ("embed", "mlp"), dt),
+        "w_x": ParamDef((e, di), ("embed", "mlp"), dt),
+        "w_b": ParamDef((e, n), ("embed", "state"), dt),
+        "w_c": ParamDef((e, n), ("embed", "state"), dt),
+        "w_dt": ParamDef((e, nh), ("embed", None), dt),
+        "dt_bias": ParamDef((nh,), (None,), f32, "zeros"),
+        "a_log": ParamDef((nh,), (None,), f32, "ones"),
+        "d_skip": ParamDef((nh,), (None,), f32, "ones"),
+        "conv_w": ParamDef((k, conv_ch), (None, "mlp"), dt, "normal", 0.1),
+        "norm_y": ParamDef((di,), ("mlp",), dt, "zeros"),
+        "w_out": ParamDef((di, e), ("mlp", "embed"), dt, "small"),
+    }
+
+
+def _rec_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    e, dt = cfg.d_model, cfg.dtype
+    w = cfg.lru_width or e
+    k = cfg.ssm_conv
+    return {
+        "w_xb": ParamDef((e, w), ("embed", "mlp"), dt),
+        "w_gateb": ParamDef((e, w), ("embed", "mlp"), dt),
+        "conv_w": ParamDef((k, w), (None, "mlp"), dt, "normal", 0.1),
+        "w_gate_a": ParamDef((w, w), ("mlp", None), dt, "small"),
+        "w_gate_x": ParamDef((w, w), ("mlp", None), dt, "small"),
+        "a_param": ParamDef((w,), ("mlp",), torch.float32, "ones"),
+        "w_out": ParamDef((w, e), ("mlp", "embed"), dt, "small"),
+    }
+
+
 def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, ParamDef]:
-    if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
     d: Dict[str, ParamDef] = {}
-    d.update(_norm_defs(cfg, "ln_attn"))
-    d.update(_attn_defs(cfg))
-    d.update(_norm_defs(cfg, "ln_mlp"))
-    d.update(_mlp_defs(cfg))
+    if kind in ("dense", "local", "moe", "enc", "dec"):
+        d.update(_norm_defs(cfg, "ln_attn"))
+        d.update(_attn_defs(cfg))
+    if kind == "dec":
+        d.update(_norm_defs(cfg, "ln_cross"))
+        d.update(_attn_defs(cfg, prefix="c_"))
+    if kind == "cross":
+        d.update(_norm_defs(cfg, "ln_attn"))
+        d.update(_attn_defs(cfg))
+        d["attn_gate"] = ParamDef((1,), (None,), torch.float32, "zeros")
+        d["mlp_gate"] = ParamDef((1,), (None,), torch.float32, "zeros")
+    if kind in ("dense", "local", "cross", "enc", "dec"):
+        d.update(_norm_defs(cfg, "ln_mlp"))
+        d.update(_mlp_defs(cfg))
+    if kind == "moe":
+        d.update(_norm_defs(cfg, "ln_mlp"))
+        d.update(_moe_defs(cfg))
+    if kind == "mamba":
+        d.update(_norm_defs(cfg, "ln_attn"))
+        d.update(_mamba_defs(cfg))
+    if kind == "rec":
+        d.update(_norm_defs(cfg, "ln_attn"))
+        d.update(_rec_defs(cfg))
+        d.update(_norm_defs(cfg, "ln_mlp"))
+        d.update(_mlp_defs(cfg))
     return d
 
 
@@ -115,12 +192,39 @@ def block_defs(cfg: ArchConfig, kind: str) -> Dict[str, ParamDef]:
 # ---------------------------------------------------------------------------
 
 def cache_defs(cfg: ArchConfig, kind: str, batch: int, cache_len: int) -> Dict:
-    if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
     kv, dd, dt = cfg.n_kv_heads, cfg.hd, cfg.dtype
     kvax = ("batch", "seq_kv", "kv_heads", None)
-    return {"k": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros"),
-            "v": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros")}
+    if kind == "enc":
+        return {}
+    if kind in ("dense", "local", "moe"):
+        return {"k": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros"),
+                "v": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros")}
+    if kind == "dec":
+        src = max(cfg.src_len, 1)
+        return {"k": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros"),
+                "v": ParamDef((batch, cache_len, kv, dd), kvax, dt, "zeros"),
+                "ck": ParamDef((batch, src, kv, dd), kvax, dt, "zeros"),
+                "cv": ParamDef((batch, src, kv, dd), kvax, dt, "zeros")}
+    if kind == "cross":
+        src = max(cfg.src_len, 1)
+        return {"ck": ParamDef((batch, src, kv, dd), kvax, dt, "zeros"),
+                "cv": ParamDef((batch, src, kv, dd), kvax, dt, "zeros")}
+    if kind == "mamba":
+        di = cfg.ssm_expand * cfg.d_model
+        nh = di // cfg.ssm_headdim
+        conv_ch = di + 2 * cfg.ssm_state
+        return {"conv": ParamDef((batch, cfg.ssm_conv - 1, conv_ch),
+                                 ("batch", None, "mlp"), dt, "zeros"),
+                "state": ParamDef((batch, nh, cfg.ssm_headdim, cfg.ssm_state),
+                                  ("batch", None, None, "state"),
+                                  torch.float32, "zeros")}
+    if kind == "rec":
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": ParamDef((batch, cfg.ssm_conv - 1, w),
+                                 ("batch", None, "mlp"), dt, "zeros"),
+                "h": ParamDef((batch, w), ("batch", "mlp"), torch.float32,
+                              "zeros")}
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -195,20 +299,172 @@ def _mlp(cfg, p, x):
     return h @ p["w_down"]
 
 
+def _cross_attn(cfg, p, x, ctx, prefix="", cache=None):
+    """Cross-attention to ``ctx["enc"]`` (prefill, train) or to the
+    ``ck``/``cv`` caches prefill made (decode); no RoPE, no shuffle."""
+    mode = ctx["mode"]
+    q = _proj(x, p[f"{prefix}wq"])
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}bq"]
+    if mode == "decode":
+        k, v = cache["ck"], cache["cv"]
+        new_cache = {"ck": k, "cv": v}
+    else:
+        enc = ctx["enc"]
+        k = _proj(enc, p[f"{prefix}wk"])
+        v = _proj(enc, p[f"{prefix}wv"])
+        if cfg.qkv_bias:
+            k = k + p[f"{prefix}bk"]
+            v = v + p[f"{prefix}bv"]
+        new_cache = {"ck": k, "cv": v} if mode == "prefill" else None
+    out = attention(q, k, v, kind="full", kv_block=cfg.kv_block)
+    wo = p[f"{prefix}wo"]
+    y = out.flatten(2) @ wo.reshape(-1, wo.shape[-1])
+    return y, new_cache
+
+
+def _moe_block_ffn(cfg, p, x):
+    """The routed experts (``moe_ffn``; with no mesh also for
+    ``moe_impl="a2a"``, as the reference) plus the shared ones."""
+    b, s, e = x.shape
+    # With no mesh every ``moe_impl`` routes the batch as one group.
+    out, aux = moe_ffn(x.reshape(1, b * s, e), p["router"], p["we_gate"],
+                       p["we_up"], p["we_down"], top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor)
+    out = out.reshape(b, s, e)
+    if cfg.n_shared_experts:
+        g = x @ p["ws_gate"]
+        u = x @ p["ws_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+        out = out + h @ p["ws_down"]
+    return out, aux
+
+
+def _advance(cache, new):
+    """Decode: write each advanced state into the layer's cache (a view of
+    the stacked caches) and return the cache."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
+def _mamba_block(cfg, p, x, ctx, cache=None):
+    b, s, e = x.shape
+    di = cfg.ssm_expand * e
+    n = cfg.ssm_state
+    nh = di // cfg.ssm_headdim
+    pdim = cfg.ssm_headdim
+    z = x @ p["w_z"]
+    xi = x @ p["w_x"]
+    bb = x @ p["w_b"]
+    cc = x @ p["w_c"]
+    dt = x @ p["w_dt"]
+
+    conv_in = torch.cat([xi, bb, cc], dim=-1)
+    prev = cache["conv"] if ctx["mode"] == "decode" else None
+    conv_out, conv_state = causal_conv1d(conv_in, p["conv_w"], prev)
+    conv_out = F.silu(conv_out.float()).to(x.dtype)
+    xi, bb, cc = (conv_out[..., :di], conv_out[..., di:di + n],
+                  conv_out[..., di + n:])
+
+    dt = softplus(dt.float() + p["dt_bias"])                       # (b,s,nh)
+    a = -torch.exp(p["a_log"])                                     # (nh,)
+    dt_a = dt * a                                                  # (b,s,nh)
+    xh = xi.reshape(b, s, nh, pdim) * dt[..., None].to(x.dtype)
+    bg = bb[:, :, None, :]                                         # (b,s,1,n)
+    cg = cc[:, :, None, :]
+
+    if ctx["mode"] == "decode":
+        new_state, y = ssd_decode_step(cache["state"], xh[:, 0],
+                                       dt_a[:, 0].float(), bg[:, 0], cg[:, 0])
+        y = y[:, None]                                             # (b,1,nh,p)
+        new_cache = _advance(cache, {"conv": conv_state, "state": new_state})
+    elif ctx["mode"] == "prefill":
+        y, state = ssd_chunked(xh, dt_a, bg, cg, chunk=cfg.ssm_chunk,
+                               return_final_state=True)
+        new_cache = {"conv": conv_state, "state": state}
+    else:
+        y = ssd_chunked(xh, dt_a, bg, cg, chunk=cfg.ssm_chunk)
+        new_cache = None
+    y = y + xh * p["d_skip"][:, None].to(x.dtype)
+    y = y.reshape(b, -1, di)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm_y"])
+    return y @ p["w_out"], new_cache
+
+
+def _rec_block(cfg, p, x, ctx, cache=None):
+    xb = x @ p["w_xb"]
+    gate_b = x @ p["w_gateb"]
+    prev = cache["conv"] if ctx["mode"] == "decode" else None
+    xc, conv_state = causal_conv1d(xb, p["conv_w"], prev)
+    ga = xc @ p["w_gate_a"]
+    gx = xc @ p["w_gate_x"]
+    if ctx["mode"] == "decode":
+        h_new, y = rglru_step(cache["h"], xc[:, 0], ga[:, 0], gx[:, 0],
+                              p["a_param"])
+        y = y[:, None]
+        new_cache = _advance(cache, {"conv": conv_state, "h": h_new})
+    else:
+        y, h_last = rglru(xc, ga, gx, p["a_param"])
+        new_cache = ({"conv": conv_state, "h": h_last.float()}
+                     if ctx["mode"] == "prefill" else None)
+    y = y * F.gelu(gate_b.float(), approximate="tanh").to(x.dtype)
+    return y @ p["w_out"], new_cache
+
+
 def block_apply(cfg: ArchConfig, kind: str, p: Dict, x, ctx,
                 cache: Optional[Dict] = None) -> Tuple[Any, Optional[Dict], Any]:
     """Returns (x_out, new_cache, aux_loss)."""
-    if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = ctx["constrain"](x)
-    h = _apply_norm(cfg, p, "ln_attn", x)
-    window = cfg.window if kind == "local" else None
-    a, kv_cache = _self_attn(cfg, p, h, ctx, window=window, cache=cache)
-    x = x + a
-    h = _apply_norm(cfg, p, "ln_mlp", x)
-    x = x + _mlp(cfg, p, h)
-    return x, kv_cache, aux
+    if kind in ("dense", "local", "moe"):
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        window = cfg.window if kind == "local" else None
+        a, kv_cache = _self_attn(cfg, p, h, ctx, window=window, cache=cache)
+        x = x + a
+        h = _apply_norm(cfg, p, "ln_mlp", x)
+        if kind == "moe":
+            m, aux = _moe_block_ffn(cfg, p, h)
+        else:
+            m = _mlp(cfg, p, h)
+        x = x + m
+        return x, kv_cache, aux
+    if kind == "enc":
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        a, _ = _self_attn(cfg, p, h, ctx, kind_attn="full")
+        x = x + a
+        x = x + _mlp(cfg, p, _apply_norm(cfg, p, "ln_mlp", x))
+        return x, None, aux
+    if kind == "dec":
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        a, kv_cache = _self_attn(cfg, p, h, ctx, cache=cache)
+        x = x + a
+        h = _apply_norm(cfg, p, "ln_cross", x)
+        ca, c_cache = _cross_attn(cfg, p, h, ctx, prefix="c_", cache=cache)
+        x = x + ca
+        x = x + _mlp(cfg, p, _apply_norm(cfg, p, "ln_mlp", x))
+        new_cache = None
+        if kv_cache is not None or c_cache is not None:
+            new_cache = {**(kv_cache or {}), **(c_cache or {})}
+        return x, new_cache, aux
+    if kind == "cross":
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        ca, c_cache = _cross_attn(cfg, p, h, ctx, cache=cache)
+        x = x + torch.tanh(p["attn_gate"]).to(x.dtype) * ca
+        m = _mlp(cfg, p, _apply_norm(cfg, p, "ln_mlp", x))
+        x = x + torch.tanh(p["mlp_gate"]).to(x.dtype) * m
+        return x, c_cache, aux
+    if kind == "mamba":
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        y, new_cache = _mamba_block(cfg, p, h, ctx, cache)
+        return x + y, new_cache, aux
+    if kind == "rec":
+        h = _apply_norm(cfg, p, "ln_attn", x)
+        y, new_cache = _rec_block(cfg, p, h, ctx, cache)
+        x = x + y
+        x = x + _mlp(cfg, p, _apply_norm(cfg, p, "ln_mlp", x))
+        return x, new_cache, aux
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------

@@ -49,9 +49,27 @@ def _program_call_us() -> float:
                if nm == "program.call_us")
 
 
+def _observe_step(t0: int, sargs: dict, rt0, vjp0, perm0) -> None:
+    dur_us = (time.perf_counter_ns() - t0) / 1e3
+    sargs["dur_us"] = round(dur_us, 1)
+    obs.observe("train.step_us", dur_us)
+    rt = obs.counter_total("model.round_trips") - rt0
+    if rt:  # permute stages dispatched inside this step
+        obs.inc("train.permute_round_trips", rt)
+    vjp = obs.counter_total("model.vjp_round_trips") - vjp0
+    if vjp:  # backward-rule passes dispatched inside this step
+        obs.inc("train.permute_vjp_round_trips", vjp)
+    perm_us = _program_call_us() - perm0
+    if perm_us and dur_us > 0:
+        # CompiledExpr permute calls inside the step: their measured
+        # share of the step wall clock
+        obs.observe("train.permute_share", perm_us / dur_us)
+
+
 def _instrument_step(train_step: Callable) -> Callable:
     """Wrap a step fn with per-step telemetry; transparent when obs is
     disabled (one attribute check)."""
+    from ..guard import GuardTrap
 
     @functools.wraps(train_step)
     def observed(params, opt_state, batch):
@@ -62,25 +80,18 @@ def _instrument_step(train_step: Callable) -> Callable:
         perm0 = _program_call_us()
         with obs.span("train.step") as sargs:
             t0 = time.perf_counter_ns()
-            out = train_step(params, opt_state, batch)
+            try:
+                out = train_step(params, opt_state, batch)
+            except GuardTrap:
+                # the reference's guard raises after its instrumented
+                # step has recorded; any other error records no time
+                _observe_step(t0, sargs, rt0, vjp0, perm0)
+                raise
             if obs.sync_enabled():
                 loss = out[2]["loss"]
                 if loss.device.type == "cuda":
                     torch.cuda.synchronize(loss.device)
-            dur_us = (time.perf_counter_ns() - t0) / 1e3
-            sargs["dur_us"] = round(dur_us, 1)
-        obs.observe("train.step_us", dur_us)
-        rt = obs.counter_total("model.round_trips") - rt0
-        if rt:  # permute stages dispatched inside this step
-            obs.inc("train.permute_round_trips", rt)
-        vjp = obs.counter_total("model.vjp_round_trips") - vjp0
-        if vjp:  # backward-rule passes dispatched inside this step
-            obs.inc("train.permute_vjp_round_trips", vjp)
-        perm_us = _program_call_us() - perm0
-        if perm_us and dur_us > 0:
-            # CompiledExpr permute calls inside the step: their measured
-            # share of the step wall clock
-            obs.observe("train.permute_share", perm_us / dur_us)
+            _observe_step(t0, sargs, rt0, vjp0, perm0)
         return out
 
     return observed
@@ -163,7 +174,11 @@ def make_train_step(cfg: ArchConfig, mesh=None,
         live = tree_unflatten(params, leaves)
         if grad_accum > 1:
             b = tree_leaves(batch)[0].shape[0]     # custom losses may
-            mb = b // grad_accum                   # not carry "tokens"
+            if b % grad_accum:                     # not carry "tokens"
+                raise ValueError(
+                    f"a batch of {b} rows does not split into "
+                    f"grad_accum={grad_accum} equal microbatches")
+            mb = b // grad_accum
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32,

@@ -197,3 +197,64 @@ def test_port_checkpoint_restores_in_the_reference(bits):
     for a, b in zip(want, jax.tree.leaves((rp, rs))):
         assert a.dtype.itemsize == b.dtype.itemsize and a.shape == b.shape
         assert a.tobytes() == b.tobytes()
+
+
+# -- models of the non-dense block kinds, across packages ---------------------
+
+def _model_tree(arch, bits):
+    """A bfloat16 model of ``arch`` (smoke size) with its float32 leaves,
+    and its AdamW state after one update, as the reference makes them."""
+    import dataclasses
+    from repro.configs import get_config, reduce_for_smoke
+    from repro.models import model as RM
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              dtype=jnp.bfloat16, opt_bits=bits)
+    params = RM.init(cfg, jax.random.PRNGKey(bits))
+    ocfg = RA.AdamWConfig(state_bits=bits)
+    grads = jax.tree.map(lambda p: p * 0.5 + 0.25, params)
+    return jax.jit(lambda p, g, s: RA.adamw_update(p, g, s, ocfg))(
+        params, grads, RA.adamw_init(params, ocfg))
+
+
+F32_LEAVES = {"phi3.5-moe-42b-a6.6b": {"router"},
+              "mamba2-130m": {"dt_bias", "a_log", "d_skip"}}
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+@pytest.mark.parametrize("arch", sorted(F32_LEAVES))
+def test_model_checkpoints_restore_across_packages(arch, bits):
+    """An MoE and a Mamba model (bfloat16 weights, float32 router / SSM
+    leaves) with their optimizer state: the reference's checkpoint
+    restores in the port, and the port's in the reference, bit for bit;
+    the two manifests are equal and name each leaf's type."""
+    params, st = _model_tree(arch, bits)
+    tp, ts = _port_like(params, st)
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as e:
+        rckpt.save(d, 1, (params, st))
+        (gp, gs), _ = ckpt.restore(d, 1, (tp, ts))
+        ckpt.save(e, 1, (tp, ts))
+        (rp, rs), _ = rckpt.restore(e, 1, (params, st))
+        manifests = []
+        for root in (d, e):
+            with open(os.path.join(root, "step_00000001",
+                                   "manifest.json")) as f:
+                manifests.append(json.load(f))
+    assert manifests[0] == manifests[1]
+    leaves = manifests[0]["leaves"]
+    f32 = {k.rsplit("/", 1)[-1] for k, v in leaves.items()
+           if k.startswith("0/") and v["dtype"] == "float32"}
+    assert f32 == F32_LEAVES[arch]
+    assert {v["dtype"] for k, v in leaves.items()
+            if k.startswith("0/")} == {"bfloat16", "float32"}
+    want = jax.tree.leaves(jax.tree.map(np.asarray, (params, st)))
+    got = tree_leaves(gp) + [gs.step] + tree_leaves(gs.m) + tree_leaves(
+        gs.v)
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert tuple(a.shape) == tuple(b.shape)
+        np.testing.assert_array_equal(_bits(b), a.view(np.int16) if
+                                      a.dtype.name == "bfloat16" else a)
+    for a, b in zip(want, jax.tree.leaves((rp, rs))):
+        assert a.dtype.itemsize == b.dtype.itemsize and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()

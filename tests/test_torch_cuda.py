@@ -1023,3 +1023,123 @@ def test_cuda_sort_layer_step_runs_k4b_and_k5(cuda_device):
     for k in ("loss", "grad_norm"):
         assert torch.equal(got["cuda"][0][k], got["ref"][0][k])
     assert torch.equal(got["cuda"][1], got["ref"][1])
+
+
+# ---------------------------------------------------------------------------
+# the non-dense block kinds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_cuda_moe_combine_is_bit_equal_across_runs(cuda_device,
+                                                   deterministic):
+    """The MoE layer on the card, top 8 of 32 experts with drops (each
+    token's copies added in ascending expert id, the dispatch's backward
+    likewise): two runs of the output and of every gradient are bit-equal,
+    with ``torch.use_deterministic_algorithms`` off and on, and equal
+    across the two modes."""
+    from repro_torch.models.moe import _dispatch_group, moe_capacity, moe_ffn
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    t, e, f, xn, k = 512, 64, 96, 32, 8
+
+    def make(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda_device)
+                * scale).to(torch.bfloat16)
+    x = make(2, t, e)
+    rw = torch.randn((e, xn), generator=g, device=cuda_device)
+    ws = (make(xn, e, f, scale=0.2), make(xn, e, f, scale=0.2),
+          make(xn, f, e, scale=0.2))
+    w = make(2, t, e)
+
+    def run():
+        leaves = [v.clone().requires_grad_() for v in (x, rw) + ws]
+        out, aux = moe_ffn(leaves[0], leaves[1], *leaves[2:], top_k=k,
+                           capacity_factor=1.0)
+        ((out.float() * w.float()).sum() + aux).backward()
+        return [out.detach()] + [v.grad for v in leaves]
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    # warn_only: cuBLAS asks for CUBLAS_WORKSPACE_CONFIG before its first
+    # handle, which a test cannot set; the scatters and gathers still take
+    # their deterministic paths
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        a, b = run(), run()
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    other = run()
+    for u, v, o in zip(a, b, other):
+        assert torch.equal(u, v)
+        assert torch.equal(u, o)
+    cap = moe_capacity(t, xn, k, 1.0)
+    slot = _dispatch_group(x, rw, top_k=k, cap=cap, xn=xn)[1]
+    assert (slot == xn * cap).any()                     # drops happened
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind", [("mamba2-130m", "mamba"),
+                                       ("recurrentgemma-2b", "rec")])
+def test_cuda_stateful_decode_advances_caches_in_place(cuda_device, arch,
+                                                       kind):
+    """Decode on the card writes the conv tails and the SSD / RG-LRU states
+    into the stacked caches' layer slices (the same storage), and a
+    decode after a prefill of t tokens equals a prefill of t + 1."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model as M
+    cfg = reduce_for_smoke(get_config(arch))
+    params = M.init(cfg, torch.Generator(device=cuda_device).manual_seed(4))
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(5))
+    with torch.no_grad():
+        full, _ = M.prefill(cfg, params, {"tokens": toks})
+        _, caches = M.prefill(cfg, params, {"tokens": toks[:, :15]})
+        caches = M.grow_caches(caches, 15, 16)
+        stacked = caches["scan"]
+        names = [n for n in stacked if n.endswith("_" + kind)]
+        old = {(n, k): (t.data_ptr(), t.clone())
+               for n in names for k, t in stacked[n].items()}
+        dec, new = M.decode_step(cfg, params, caches, toks[:, 15:], 15)
+    assert new["scan"] is stacked
+    for (n, k), (ptr, before) in old.items():
+        t = new["scan"][n][k]
+        assert t.data_ptr() == ptr and not torch.equal(t, before), (n, k)
+    torch.testing.assert_close(dec, full, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_cuda_k4a_runs_in_enc_dec_and_moe_layers(cuda_device, arch):
+    """With 4 kv heads and the shuffle on ``cuda``, K4a launches 4 times in
+    every self-attention layer of a prefill (the encoder's ``enc`` and the
+    decoder's ``dec`` layers; the ``moe`` layers) and none in
+    cross-attention; the prefill logits are bit-equal to the shuffle's
+    ``ref`` engine and to no shuffle."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    base = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                               n_kv_heads=4, n_heads=4, dtype=torch.bfloat16)
+    params = M.init(base, torch.Generator(device=cuda_device).manual_seed(6))
+    args = S.parse_args(["--arch", arch, "--batch", "2", "--prompt-len",
+                         "16", "--tokens", "3"])
+    prompts = S.make_prompts(base, args, cuda_device)
+    src = S.make_src(base, args, cuda_device)
+    self_attn = sum(k in ("moe", "enc", "dec") for k in
+                    base.layer_kinds + base.enc_pattern * base.n_enc_periods)
+    got = {}
+    for engine in ("cuda", "ref", None):
+        pk.reset_launch_counts()
+        got[engine] = S.serve(dataclasses.replace(base, head_shuffle=engine),
+                              params, args, prompts, src)
+        counts = pk.launch_counts()
+        assert counts["tile"] == (4 * self_attn if engine == "cuda" else 0)
+    assert self_attn == (2 * base.n_periods if base.is_encdec
+                         else base.n_layers)
+    for engine in ("ref", None):
+        assert torch.equal(got[engine].prefill_logits,
+                           got["cuda"].prefill_logits), engine
+        assert (got[engine].gen == got["cuda"].gen).all(), engine

@@ -49,6 +49,7 @@ def test_port_modules_found():
                  "repro_torch.models.permute", "repro_torch.models.attention",
                  "repro_torch.models.transformer",
                  "repro_torch.models.model", "repro_torch.models.convert",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.train", "repro_torch.train.serve",
                  "repro_torch.launch", "repro_torch.launch.serve",
                  "repro_torch.data", "repro_torch.data.pipeline",

@@ -387,13 +387,284 @@ def test_params_from_numpy_is_bit_for_bit_on_bf16():
         is_leaf=lambda v: isinstance(v, torch.Tensor))
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-130m",
-                                  "recurrentgemma-2b", "llama-3.2-vision-90b",
-                                  "seamless-m4t-medium", "kimi-k2-1t-a32b"])
-def test_non_dense_kinds_are_not_ported(arch):
+# ---------------------------------------------------------------------------
+# every block kind: the ten configurations
+# ---------------------------------------------------------------------------
+
+# The reference's top-k margin (k-th largest router probability less the
+# (k+1)-th) that whole-model tests hold every routing decision to: the
+# packages' float32 softmaxes may differ by an ulp (about 6e-8 at these
+# sizes), so a closer call could route a token to another expert.
+ROUTE_MARGIN = 1e-6
+
+
+def _ref_margins(monkeypatch):
+    """Record the reference's top-k margin of every routing call (inside
+    its scans and vmaps, through ``jax.debug.callback``)."""
+    from repro.models import moe as RMoE
+    margins = []
+    real = RMoE.router_topk
+
+    def spy(logits, k):
+        top = jax.lax.top_k(jax.nn.softmax(logits.astype(jnp.float32), -1),
+                            k + 1)[0]
+        jax.debug.callback(lambda m: margins.append(float(np.min(m))),
+                           top[..., k - 1] - top[..., k])
+        return real(logits, k)
+
+    monkeypatch.setattr(RMoE, "router_topk", spy)
+    return margins
+
+
+def _model_inputs(cfg, seed, s=S):
+    """Tokens and, for encoder-decoder and VLM configurations, source
+    embeddings, as (reference batch, port batch)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
+    rb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": _t(toks).long()}
+    if cfg.is_encdec or cfg.family == "vlm":
+        src = jnp.asarray(rng.standard_normal(
+            (B, cfg.src_len, cfg.d_model)).astype(np.float32), cfg.dtype)
+        rb["src"] = src
+        tb["src"] = params_from_numpy(np.asarray(src), "cpu")
+    return rb, tb
+
+
+def _open_gates(params):
+    """VLM cross blocks start with tanh(0) = 0 gates, which would hide the
+    cross-attention from the logits: open them to 0.5."""
+    scan = params["stack"].get("scan", {})
+    for name, p in scan.items():
+        if name.endswith("_cross"):
+            p["attn_gate"] = jnp.full_like(p["attn_gate"], 0.5)
+            p["mlp_gate"] = jnp.full_like(p["mlp_gate"], 0.5)
+    return params
+
+
+def _greedy(cfg, params, batch, prefill, decode, grow, to_np, argmax):
+    logits, caches = prefill(cfg, params, batch)
+    first = to_np(logits)
+    caches = grow(caches, S, S + STEPS)
+    out = []
+    for i in range(STEPS):
+        tok = argmax(logits)
+        out.append(to_np(tok))
+        logits, caches = decode(cfg, params, caches, tok, S + i)
+    return first, np.concatenate(out, 1), to_np(logits)
+
+
+def _ref_greedy(cfg, params, batch):
+    return _greedy(cfg, params, batch, RM.prefill,
+                   lambda c, p, ca, t, i: RM.decode_step(c, p, ca, t,
+                                                          jnp.int32(i)),
+                   RM.grow_caches, np.asarray,
+                   lambda lg: jnp.argmax(lg[:, -1], -1)[:, None].astype(
+                       jnp.int32))
+
+
+def _port_greedy(cfg, params, batch):
+    with torch.no_grad():
+        return _greedy(cfg, params, batch, TM.prefill, TM.decode_step,
+                       TM.grow_caches, _np,
+                       lambda lg: torch.argmax(lg[:, -1], -1)[:, None])
+
+
+@pytest.mark.parametrize("arch", sorted(T_ARCHS))
+def test_every_configuration_matches_the_reference(arch, monkeypatch):
+    """Prefill logits, greedy ids and the last decode step's logits of
+    each configuration from the reference's weights (VLM gates opened),
+    with source embeddings where the configuration takes them; every
+    routing decision of the MoE configurations clears ``ROUTE_MARGIN``."""
+    margins = _ref_margins(monkeypatch)
+    rcfg, tcfg = _configs(arch)
+    params = _open_gates(RM.init(rcfg, jax.random.PRNGKey(0)))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    rb, tb = _model_inputs(rcfg, 6)
+    r_first, r_ids, r_last = _ref_greedy(rcfg, params, rb)
+    t_first, t_ids, t_last = _port_greedy(tcfg, tparams, tb)
+    jax.effects_barrier()
+    if rcfg.n_experts:
+        assert len(margins) >= STEPS + 1 and min(margins) > ROUTE_MARGIN
+    else:
+        assert not margins
+    np.testing.assert_allclose(t_first, r_first, **F32_TOL)
+    np.testing.assert_array_equal(t_ids, r_ids)
+    np.testing.assert_allclose(t_last, r_last, **F32_TOL)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_shuffled_stacks_match_the_reference(arch, monkeypatch):
+    """The MoE, VLM and encoder-decoder stacks with 4 kv heads and the
+    kv-head shuffle on: the port's ``cuda`` engine (K4a's plain version
+    here) in every self-attention layer (``moe``, ``dense``, ``enc``,
+    ``dec``; none in cross-attention) against the reference's ``pallas``
+    engine; the port's logits bit-equal with the shuffle off."""
+    from repro_torch import obs
+    margins = _ref_margins(monkeypatch)
+    rcfg, tcfg = _configs(arch, kv=4, shuffle=True)
+    params = _open_gates(RM.init(rcfg, jax.random.PRNGKey(1)))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    rb, tb = _model_inputs(rcfg, 7)
+    want, _ = RM.prefill(rcfg, params, rb)
+    obs.reset()
+    obs.enable(sync=False)
+    try:
+        with torch.no_grad():
+            got, _ = TM.prefill(tcfg, tparams, tb)
+        shuffles = sum(obs.kernel_counts().values())
+    finally:
+        obs.disable()
+        obs.reset()
+    self_attn = sum(k in ("dense", "local", "moe", "enc", "dec")
+                    for k in tcfg.layer_kinds
+                    + tcfg.enc_pattern * tcfg.n_enc_periods)
+    assert shuffles == 4 * self_attn > 0
+    jax.effects_barrier()
+    assert all(m > ROUTE_MARGIN for m in margins)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+    with torch.no_grad():
+        off, _ = TM.prefill(dataclasses.replace(tcfg, head_shuffle=None),
+                            tparams, tb)
+    assert torch.equal(off, got)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_decode_continuation_stateful_archs(arch):
+    """The reference's test of the same name in the port:
+    prefill(x[:t]) + decode(x[t]) == prefill(x[:t+1]) for SSM, hybrid and
+    MoE: the SSD state carry, the RG-LRU hidden state, the conv tails and
+    the windowed-attention caches."""
     cfg = t_reduce(t_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.block_apply(cfg, "moe", {}, torch.zeros(1, 2, cfg.d_model),
-                       {"mode": "prefill"})
+    params = TM.init(cfg, torch.Generator().manual_seed(11))
+    s = 16
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, s)))
+    with torch.no_grad():
+        full, _ = TM.prefill(cfg, params, {"tokens": toks})
+        _, caches = TM.prefill(cfg, params, {"tokens": toks[:, :s - 1]})
+        caches = TM.grow_caches(caches, s - 1, s)
+        dec, _ = TM.decode_step(cfg, params, caches, toks[:, s - 1:], s - 1)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=5e-3,
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("arch,kinds", [("mamba2-130m", ("mamba",)),
+                                        ("recurrentgemma-2b", ("rec",))])
+def test_decode_advances_stateful_caches_in_place(arch, kinds):
+    """Decode writes the conv tails and the SSD / RG-LRU states into the
+    stacked caches it was given (the layer's slice, in place) and returns
+    those same tensors; the states equal the reference's decode from the
+    same caches."""
+    rcfg, tcfg = _configs(arch)
+    params = RM.init(rcfg, jax.random.PRNGKey(2))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    rb, tb = _model_inputs(rcfg, 8)
+    _, rc = RM.prefill(rcfg, params, rb)
+    rc = RM.grow_caches(rc, S, S + 1)
+    tc = caches_from_numpy(jax.tree.map(np.asarray, rc), "cpu")
+    before = jax.tree.map(lambda t: (t.data_ptr(), t.clone()), tc,
+                          is_leaf=lambda v: isinstance(v, torch.Tensor))
+    tok = np.ones((B, 1), np.int32)
+    _, rnew = RM.decode_step(rcfg, params, rc, jnp.asarray(tok),
+                             jnp.int32(S))
+    with torch.no_grad():
+        _, tnew = TM.decode_step(tcfg, tparams, tc, _t(tok).long(), S)
+    for group in ("scan", "tail"):
+        for name, leaves in tnew.get(group, {}).items():
+            if name.split("_", 1)[1] not in kinds:
+                continue
+            for key, t in leaves.items():
+                ptr, old = before[group][name][key]
+                assert t is tc[group][name][key] and t.data_ptr() == ptr
+                assert not torch.equal(t, old), (group, name, key)
+                np.testing.assert_allclose(
+                    _np(t), np.asarray(rnew[group][name][key], np.float32),
+                    **F32_TOL)
+                assert t.dtype == (torch.float32 if key in ("state", "h")
+                                   else tcfg.dtype)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mamba2-130m",
+                                  "recurrentgemma-2b",
+                                  "llama-3.2-vision-90b"])
+def test_float32_leaves_carry_across_in_bf16_trees(arch):
+    """A bfloat16 model's float32 leaves (the router, ``dt_bias``,
+    ``a_log``, ``d_skip``, ``a_param``, the VLM gates) and its float32
+    caches (the SSD ``state``, the RG-LRU ``h``) carry across bit for bit,
+    each in its own type, both ways."""
+    rcfg, tcfg = _configs(arch, dtype="bf16")
+    params = jax.tree.map(np.asarray, _open_gates(
+        RM.init(rcfg, jax.random.PRNGKey(4))))
+    tparams = params_from_numpy(params, "cpu")
+    kinds = set()
+    for (path, a), t in zip(jax.tree_util.tree_flatten_with_path(params)[0],
+                            jax.tree.leaves(tparams, is_leaf=lambda v:
+                                            isinstance(v, torch.Tensor))):
+        kinds.add((path[-1].key, str(t.dtype)))
+        if a.dtype.name == "bfloat16":
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy().view(np.uint16), a.view(np.uint16))
+        else:
+            assert t.dtype == torch.float32 and a.dtype == np.float32
+            np.testing.assert_array_equal(t.numpy(), a)
+    f32 = {k for k, d in kinds if d == "torch.float32"}
+    assert f32 and f32 <= {"router", "dt_bias", "a_log", "d_skip", "a_param",
+                           "attn_gate", "mlp_gate"}
+    rb, tb = _model_inputs(rcfg, 9)
+    _, rc = RM.prefill(rcfg, params, rb)
+    with torch.no_grad():
+        _, tc = TM.prefill(tcfg, tparams, tb)
+    back = caches_to_numpy(tc)
+    carried = caches_from_numpy(jax.tree.map(np.asarray, rc), "cpu")
+    for (path, a), t, b in zip(
+            jax.tree_util.tree_flatten_with_path(rc)[0],
+            jax.tree.leaves(carried, is_leaf=lambda v: isinstance(
+                v, torch.Tensor)), jax.tree.leaves(back)):
+        a = np.asarray(a)
+        assert t.dtype == (torch.float32 if a.dtype == np.float32
+                           else torch.bfloat16), path
+        if a.dtype == np.float32:
+            np.testing.assert_array_equal(t.numpy(), a)
+            assert path[-1].key in ("state", "h")
+        assert b.shape == a.shape
+
+
+def test_grow_caches_pads_only_the_kv_caches():
+    """``grow_caches`` pads the self-attention ``k``/``v`` caches alone. The
+    reference pads every leaf whose sequence axis equals the old length,
+    so a prompt as long as mamba2's 16 SSD heads (smoke size) pads its
+    state's head axis too; the port's state keeps its shape and the
+    decode continues the prefill (rtol = atol = 5e-3, the reference's
+    stateful continuation bound)."""
+    cfg = t_reduce(t_config("mamba2-130m"))
+    rcfg = ref_reduce(ref_config("mamba2-130m"))
+    s = 16
+    params = RM.init(rcfg, jax.random.PRNGKey(12))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                              (B, s + 1)).astype(np.int32)
+    _, rc = RM.prefill(rcfg, params, {"tokens": jnp.asarray(toks[:, :s])})
+    state = rc["scan"]["0_mamba"]["state"]
+    assert state.shape[2] == s                  # 16 heads: the prompt length
+    assert RM.grow_caches(rc, s, s + 1)["scan"]["0_mamba"]["state"].shape[
+        2] == s + 1
+    with torch.no_grad():
+        full, _ = TM.prefill(cfg, tparams, {"tokens": _t(toks).long()})
+        _, tc = TM.prefill(cfg, tparams, {"tokens": _t(toks[:, :s]).long()})
+        grown = TM.grow_caches(tc, s, s + 1)
+        assert grown["scan"]["0_mamba"]["state"].shape == tuple(state.shape)
+        dec, _ = TM.decode_step(cfg, tparams, grown,
+                                _t(toks[:, s:]).long(), s)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=5e-3,
+                               atol=5e-3)
+    # a dense model's k/v caches grow as before
+    dcfg = t_reduce(t_config("mistral-nemo-12b"))
+    dp = TM.init(dcfg, torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        _, kv = TM.prefill(dcfg, dp, {"tokens": _t(toks[:, :s]).long()})
+    g = TM.grow_caches(kv, s, s + 3)["scan"]["0_dense"]
+    assert g["k"].shape[2] == g["v"].shape[2] == s + 3

@@ -100,6 +100,49 @@ def test_adamw_update_matches_the_reference(bits):
             np.testing.assert_array_equal(b, a)
 
 
+MIXED = {"w": ((3, 300), "bfloat16"), "router": ((16, 4), "float32"),
+         "gate": ((1,), "float32"), "a_log": ((7,), "float32"),
+         "x": ((2, 3, 515), "bfloat16")}
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_adamw_update_of_a_mixed_tree_matches_the_reference(bits):
+    """A tree of the non-dense block kinds' mix: bfloat16 weights beside
+    float32 leaves, among them a ``(1,)`` gate smaller than one 8-bit
+    block. Three steps from identical params, grads and state: moments
+    bit for bit; float32 parameters within UPDATE_RTOL; bfloat16
+    parameters (rounded from those float32 values) within one bfloat16
+    step (2^-8 relative); each leaf keeps its type."""
+    rng = np.random.default_rng(bits + 1)
+    p = {k: rng.standard_normal(s).astype(np.float32)
+         for k, (s, _) in MIXED.items()}
+    rp = {k: jnp.asarray(v, MIXED[k][1]) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v.copy()).to(getattr(torch, MIXED[k][1]))
+          for k, v in p.items()}
+    rcfg, tcfg = RA.AdamWConfig(state_bits=bits), TA.AdamWConfig(
+        state_bits=bits)
+    rs, ts = RA.adamw_init(rp, rcfg), TA.adamw_init(tp, tcfg)
+    for _ in range(3):
+        g = {k: rng.standard_normal(MIXED[k][0]).astype(np.float32)
+             for k in p}
+        rp, rs = RA.adamw_update(
+            rp, {k: jnp.asarray(v, MIXED[k][1]) for k, v in g.items()}, rs,
+            rcfg)
+        _, ts = TA.adamw_update(tp, {k: torch.from_numpy(v).to(tp[k].dtype)
+                                     for k, v in g.items()}, ts, tcfg)
+        for k, (_, dt) in MIXED.items():
+            assert str(tp[k].dtype) == f"torch.{dt}"
+            tol = (dict(rtol=UPDATE_RTOL, atol=0) if dt == "float32"
+                   else dict(rtol=2.0 ** -8, atol=0))
+            np.testing.assert_allclose(tp[k].float().numpy(),
+                                       np.asarray(rp[k], np.float32), **tol)
+        got = opt_state_to_numpy(ts)
+        for a, b in zip(jax.tree.leaves(_host(rs)), jax.tree.leaves(
+                tuple(got))):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(b, a)
+
+
 def test_adamw_update_in_slices_equals_one_pass(monkeypatch):
     """The update runs each leaf in slices of rows; the slicing changes
     no bit (float32 and 8-bit, a bfloat16 leaf among them)."""

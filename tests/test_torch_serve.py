@@ -7,6 +7,7 @@ import re
 import tempfile
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -68,14 +69,33 @@ def test_serve_validate_and_store_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch,kv", [("mistral-nemo-12b", 8),
-                                     ("starcoder2-7b", 4)])
-def test_serve_generates_the_reference_ids(arch, kv):
-    """The reference's serve (its weights and prompts from ``--seed``, the
-    shuffle on ``pallas``) and the port's serve loop on those weights and
-    prompts (the shuffle on ``cuda``): the same ids."""
+                                     ("starcoder2-7b", 4),
+                                     ("seamless-m4t-medium", 4),
+                                     ("phi3.5-moe-42b-a6.6b", 4)])
+def test_serve_generates_the_reference_ids(arch, kv, monkeypatch):
+    """The reference's serve (its weights, prompts and, for an
+    encoder-decoder configuration, source embeddings from ``--seed``; the
+    shuffle on ``pallas``) and the port's serve loop on those inputs (the
+    shuffle on ``cuda``): the same ids. Every routing decision of the MoE
+    configuration clears a top-k margin of 1e-6 in the reference (the
+    packages' float32 softmaxes may differ by an ulp)."""
+    from repro.models import moe as RMoE
+    margins = []
+    real = RMoE.router_topk
+
+    def spy(logits, k):
+        top = jax.lax.top_k(jax.nn.softmax(logits.astype(jnp.float32), -1),
+                            k + 1)[0]
+        jax.debug.callback(lambda m: margins.append(float(np.min(m))),
+                           top[..., k - 1] - top[..., k])
+        return real(logits, k)
+
+    monkeypatch.setattr(RMoE, "router_topk", spy)
     argv = ["--arch", arch, "--batch", "2", "--prompt-len", "8",
             "--tokens", "4", "--kv-heads", str(kv), "--seed", "3"]
     want = RS.main(argv + ["--head-shuffle", "pallas"])
+    jax.effects_barrier()
+    assert all(m > 1e-6 for m in margins)
     rcfg = dataclasses.replace(ref_reduce(ref_config(arch)), n_kv_heads=kv,
                                n_heads=max(4, kv), head_shuffle="pallas")
     key = jax.random.PRNGKey(3)
@@ -83,13 +103,43 @@ def test_serve_generates_the_reference_ids(arch, kv):
                                "cpu")
     prompts = np.array(jax.random.randint(key, (2, 8), 0,
                                             rcfg.vocab_size))
+    src = None
+    if rcfg.is_encdec:
+        src = params_from_numpy(np.asarray(jax.random.normal(
+            key, (2, rcfg.src_len, rcfg.d_model), rcfg.dtype)), "cpu")
     args = TS.parse_args(argv + ["--head-shuffle", "cuda", "--device",
                                  "cpu"])
     cfg = TS.config_for(args)
     assert cfg.n_heads == rcfg.n_heads and cfg.head_shuffle == "cuda"
-    got = TS.serve(cfg, params, args, torch.from_numpy(prompts).long())
+    got = TS.serve(cfg, params, args, torch.from_numpy(prompts).long(), src)
     assert not got.errors
     np.testing.assert_array_equal(got.gen, np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-90b"])
+def test_serve_main_draws_source_embeddings(arch, capsys):
+    """The port's ``main`` serves an encoder-decoder and a VLM
+    configuration: the source embeddings come from ``--seed``
+    (``make_src``), so two runs give the same ids and another seed's
+    source another prefill."""
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len", "6",
+            "--tokens", "3", "--device", "cpu"]
+    a = TS.main(argv)
+    b = TS.main(argv)
+    assert a.shape == (2, 3)
+    np.testing.assert_array_equal(a, b)
+    args = TS.parse_args(argv)
+    cfg = TS.config_for(args)
+    src = TS.make_src(cfg, args, torch.device("cpu"))
+    assert src.shape == (2, cfg.src_len, cfg.d_model)
+    assert src.dtype == cfg.dtype
+    other = TS.make_src(cfg, TS.parse_args(argv + ["--seed", "1"]),
+                        torch.device("cpu"))
+    assert not torch.equal(src, other)
+    assert TS.make_src(TS.config_for(TS.parse_args(
+        ["--arch", "mamba2-130m"])), args, torch.device("cpu")) is None
+    assert "resilience: requests=" in capsys.readouterr().out
 
 
 def test_sigterm_drill_drains_on_the_cpu():
