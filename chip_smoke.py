@@ -196,7 +196,32 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    ``kinds_launches`` (K4a in phase 17's prefills) and
    ``kinds_train_launches`` (in one step of each trained configuration),
    under ``tile_serve``;
-18. last line: ``{"ok": true, "device": {...}}``.
+18. the mesh: a (1, 1) mesh of one single-rank NCCL group
+   (``launch.mesh.make_dev_mesh(1, 1, device="cuda")``, destroyed at the
+   end). ``models.moe_a2a.moe_ffn_a2a`` at phi's layer width (E 4096, F
+   6400, 16 experts top 2, bf16, T = 4 x 512, weights from a seed) with
+   the slot shuffle on ``cuda``, on ``ref`` and off at the same
+   power-of-two capacity: outputs and aux bit-equal, K4a launched 2 times
+   a forward and 2 more a backward and no other kernel (by launch and by
+   ``obs``), forward and backward on ``cuda`` and ``ref`` bit-equal; K4a
+   at the shuffle's ``(1, 8192, 4096)`` bf16 bit for bit against its
+   plain version and the gather, timed in turns with ``index_select``
+   (one call and device time) beside its byte bound.
+   ``phi3.5-moe-42b-a6.6b`` at 16 of 32 layers served with ``mesh=``
+   through ``model.prefill`` / ``decode_step``: the a2a branch in every
+   MoE layer (``obs`` counter ``model.moe_a2a``), K4a 4 times in every
+   self-attention layer, two mesh prefills bit-equal, logits within
+   ``A2A_REL_TOL`` of the same prefill with no mesh, a mesh decode step
+   against a longer mesh prefill (rows routed alike, at a capacity that
+   drops nothing); ``kimi-k2-1t-a32b`` (the dense prefix + 1 MoE layer)
+   served the same way; phi at 2 layers trained 3 steps on one batch of
+   4 x 512 through ``train.step.make_train_step(cfg, mesh)`` (the loss
+   falls, the first step bit-equal across two runs, its loss within
+   ``A2A_REL_TOL`` of the step with no mesh). Prefill ms, decode ms a
+   token and ms a step with the mesh and without, in turns, peak GiB,
+   each beside the card's name and power limit. The kernels line gains
+   ``mesh_launches``: K4a in phase 18 under ``tile_serve``;
+19. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -2259,7 +2284,7 @@ STATE_KEYS = ("conv", "state", "h")     # the carried states of mamba / rec
 
 
 def decode_against_prefill(torch, M, cfg, params, prompts,
-                           src=None) -> dict:
+                           src=None, mesh=None) -> dict:
     """Prefill ``prompts`` (with the source embeddings ``src`` of an
     encoder-decoder or VLM configuration), decode one greedy token, and
     hold its logits against a prefill of the prompts plus that token:
@@ -2272,8 +2297,11 @@ def decode_against_prefill(torch, M, cfg, params, prompts,
     pass. A row whose token was routed to other experts in some layer
     (its hidden state differs by the paths' roundings, and the top-k
     choice is a step function of it) has other logits by the experts'
-    outputs; the logits of the other rows are compared on their own."""
+    outputs; the logits of the other rows are compared on their own.
+    With a ``mesh`` every pass runs on it (routing through the all-to-all
+    branch where the configuration takes it)."""
     from repro_torch.models import moe as MOE
+    from repro_torch.models import moe_a2a as A2A
     p, b = prompts.shape[1], prompts.shape[0]
     extra = {} if src is None else {"src": src}
     passes = {"prefill": [], "decode": [], "longer": []}
@@ -2282,34 +2310,37 @@ def decode_against_prefill(torch, M, cfg, params, prompts,
 
     def spy(logits, k):
         out = real(logits, k)
-        calls.append(out[1].sort(dim=-1).values)
+        # (1, tokens, k): the a2a branch routes (tokens, k) on one rank
+        calls.append(out[1].sort(dim=-1).values.reshape(1, -1, k))
         return out
 
     def carried(caches):
         return [t for g in caches.values() for blk in g.values()
                 for k, t in blk.items() if k in STATE_KEYS]
 
-    MOE.router_topk = spy
+    MOE.router_topk = A2A.router_topk = spy
     try:
         with torch.no_grad():
             logits, caches = M.prefill(cfg, params,
-                                       {"tokens": prompts, **extra})
+                                       {"tokens": prompts, **extra},
+                                       mesh=mesh)
             caches = M.grow_caches(caches, p, p + 1)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             calls = passes["decode"]
-            dec, caches = M.decode_step(cfg, params, caches, tok, p)
+            dec, caches = M.decode_step(cfg, params, caches, tok, p,
+                                        mesh=mesh)
             mine = carried(caches)
             del logits
             calls = passes["longer"]
             full, fcaches = M.prefill(cfg, params, {"tokens": torch.cat(
-                [prompts, tok], dim=1), **extra})
+                [prompts, tok], dim=1), **extra}, mesh=mesh)
             theirs = carried(fcaches)
             state_err = (max(rel_err(torch, x, y)
                              for x, y in zip(mine, theirs))
                          if mine else None)
             del caches, fcaches, mine, theirs
     finally:
-        MOE.router_topk = real
+        MOE.router_topk = A2A.router_topk = real
     n = len(passes["prefill"])       # routing layers a pass
     check(len(passes["decode"]) == len(passes["longer"]) == n
           and (n > 0) == bool(cfg.n_experts),
@@ -3294,6 +3325,429 @@ def phase_kinds(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the model on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "phi3.5-moe-42b-a6.6b"     # moe_impl="a2a", 16 experts top 2
+MESH_KIMI = "kimi-k2-1t-a32b"          # moe_impl="a2a", 384 experts top 8
+# Norm-wise relative error allowed between the logits (and a step's
+# loss) of the all-to-all branch on a (1, 1) mesh and the capacity branch
+# with no mesh. On one rank both pack each expert's rows alike (one peer:
+# the same per-expert capacity, the same rows in the same order, so the
+# same drops and the same products); they differ only in the order a
+# token's routed copies are added: by top-k rank against by expert id.
+# For top 2 the orders give the same bits (a sum of two terms commutes).
+# For kimi's top 8 each element of the MoE output may round otherwise at
+# each of the 7 additions: at most 7 units of bfloat16's roundoff (2^-8)
+# of the terms' magnitude, 2.7e-2 per element and much less norm-wise,
+# which the final norm and the head carry to the logits. So 3e-2.
+A2A_REL_TOL = 3e-2
+MESH_TRAIN_LAYERS = 2             # phi trained at 2 layers, as in phase 17
+MESH_TRAIN_STEPS = 3
+MESH_DECODE_STEPS = 20
+
+
+def phase_mesh(torch, smi: str, bw: float, reps: int) -> dict:
+    """Phase 18: the model on a (1, 1) device mesh of one single-rank NCCL
+    group: ``moe_ffn_a2a`` at phi's layer width with the slot shuffle on
+    K4a, phi served and trained and kimi served through the all-to-all
+    branch. Returns the K4a launches of its runs."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch import obs
+    from repro_torch.combinators import clear_caches
+    from repro_torch.configs import get_config
+    from repro_torch.core.bmmc import Bmmc
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import default_head_perm
+    from repro_torch.models.moe_a2a import moe_ffn_a2a
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    say("== phase 18: the model on a device mesh: a (1, 1) mesh of one "
+        "single-rank NCCL group; moe_ffn_a2a at phi's layer width, phi "
+        f"served ({SERVE_BATCH} x {SERVE_PROMPT}) and trained, kimi served, "
+        "through the all-to-all branch ==")
+    say(f"  card: {smi}")
+    dev = torch.device("cuda")
+    gib = 2 ** 30
+    launches = {}
+    timed = (lambda fn: cuda_ms(torch, fn, reps))
+
+    def drop():
+        clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def only_k4a(counts, want, what):
+        check(counts["tile"] == want == counts["tile_wide"]
+              and sum(v for k, v in counts.items()
+                      if k not in ("tile", "tile_wide")) == 0,
+              (what, "K4a launches", want, counts))
+
+    check(not dist.is_initialized(), "a process group before phase 18")
+    mesh = make_dev_mesh(1, 1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              (dist.get_backend(), dist.get_world_size()))
+        say(f"  {mesh}: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}, coordinates {mesh.coords}")
+
+        # -- moe_ffn_a2a at phi's layer width -------------------------------
+        base = get_config(MESH_ARCH)
+        e, f, xn, k = base.d_model, base.moe_d_ff, base.n_experts, base.top_k
+        b, s = SERVE_BATCH, SERVE_PROMPT
+        t = b * s
+        cf = base.capacity_factor
+        cap = int(np.ceil(k * t * cf))
+        cap = max(8, int(np.ceil(cap / 8)) * 8)
+        p2 = 1 << (cap - 1).bit_length()
+        cf_off = p2 / (k * t)          # the same power-of-two capacity
+        check(int(np.ceil(k * t * cf_off)) == p2, (cf_off, p2))
+        gen = torch.Generator(device=dev).manual_seed(18)
+
+        def rnd(shape, scale):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * scale).to(torch.bfloat16)
+        inputs = [rnd((b, s, e), 1.0), rnd((e, xn), 0.02),
+                  rnd((xn, e, f), 0.02), rnd((xn, e, f), 0.02),
+                  rnd((xn, f, e), 0.02)]
+        ct = torch.randn((b, s, e), generator=gen, device=dev)
+
+        def a2a(eng, cfac, grad):
+            ts = [v.clone().requires_grad_(grad) for v in inputs]
+            obs.reset()
+            obs.enable(sync=False)
+            K.reset_launch_counts()
+            try:
+                out, aux = moe_ffn_a2a(
+                    *ts, top_k=k, capacity_factor=cfac, mesh=mesh,
+                    dispatch_shuffle=eng is not None,
+                    shuffle_engine=eng or "cuda")
+                torch.cuda.synchronize()
+                fwd, fobs = K.launch_counts(), obs.kernel_counts()
+                grads = None
+                if grad:
+                    ((out.float() * ct).sum() + aux).backward()
+                    torch.cuda.synchronize()
+                    grads = [v.grad for v in ts]
+                both, bobs = K.launch_counts(), obs.kernel_counts()
+            finally:
+                obs.disable()
+                obs.reset()
+            return out.detach(), aux.detach(), grads, fwd, both, fobs, bobs
+
+        runs = {"cuda": a2a("cuda", cf, False), "ref": a2a("ref", cf, False),
+                "off": a2a(None, cf_off, False)}
+        only_k4a(runs["cuda"][3], 2, "a2a forward on cuda")
+        check(runs["cuda"][5] == {"tiled": 2, "ref": 1}, runs["cuda"][5])
+        check(runs["ref"][3]["tile"] == runs["off"][3]["tile"] == 0,
+              "K4a on ref or off")
+        for name in ("ref", "off"):
+            check(max_abs_err(torch, runs[name][0], runs["cuda"][0]) == 0.0
+                  and torch.equal(runs[name][1], runs["cuda"][1]),
+                  ("a2a shuffle", name, "against cuda"))
+        gc_, gr = a2a("cuda", cf, True), a2a("ref", cf, True)
+        only_k4a(gc_[4], 4, "a2a forward and backward on cuda")
+        check(gc_[6] == {"tiled": 4, "ref": 1}, gc_[6])
+        check(gr[4]["tile"] == 0, gr[4])
+        check(max_abs_err(torch, gc_[0], gr[0]) == 0.0
+              and torch.equal(gc_[1], gr[1])
+              and all(max_abs_err(torch, x, y) == 0.0
+                      for x, y in zip(gc_[2], gr[2])),
+              "a2a forward and backward, cuda against ref")
+        launches["dispatch shuffle, forward and backward"] = gc_[4]["tile"]
+        say(f"  moe_ffn_a2a (E {e}, F {f}, {xn} experts top {k}, bf16, T = "
+            f"{b} x {s}): capacity {cap} slots, {p2} with the shuffle; "
+            f"shuffle on cuda, on ref and off (capacity factor {cf_off:g}, "
+            f"{p2} slots): outputs and aux bit-equal (aux "
+            f"{float(runs['cuda'][1]):.6f}); K4a launched "
+            f"{runs['cuda'][3]['tile']} times a forward (wide "
+            f"{runs['cuda'][3]['tile_wide']}), {gc_[4]['tile']} with the "
+            f"backward, no other kernel (obs: {gc_[6]}; the metadata's "
+            f"shuffle is the plain gather); forward and backward on cuda "
+            f"and ref bit-equal (output, aux, 5 gradients)")
+        del runs, gc_, gr
+
+        # K4a at the dispatch shuffle's shape, timed in turns with
+        # index_select
+        bm = Bmmc.bit_reverse(p2.bit_length() - 1)
+        buf = rnd((1, p2, e), 1.0)
+        tt = ops.choose_tile(bm.n, buf.element_size(), e)
+        kernel, plans = ops.class_plan(bm, tt)
+        check(kernel == "tiled" and len(plans) == 1, (kernel, tt))
+        plan = plans[0]
+        got = K.tiled_permute(buf, plan, batched=True)
+        sched = K.k4a_record(buf, plan, batched=True).schedule
+        err = max(max_abs_err(torch, got, K.tiled_permute_plain(
+            buf, plan, batched=True)), max_abs_err(torch, got, ref.bmmc_ref(
+                buf, bm, batched=True)), max_abs_err(
+                    torch, ops.bmmc_permute(buf, bm, batched=True), got))
+        check(err == 0.0, ("K4a at the dispatch shuffle's shape", err))
+        idx = ref.bmmc_src_index(bm, dev)
+        fns = {"kernel": lambda: K.tiled_permute(buf, plan, batched=True),
+               "library": lambda: torch.index_select(buf, 1, idx)}
+        one = {kk: statistics.median(v)
+               for kk, v in in_turns(fns, timed).items()}
+        dv = {kk: statistics.median(v) for kk, v in in_turns(
+            fns, lambda fn: device_ms(torch, fn), rounds=1).items()}
+        plain_ms = cuda_ms(torch, lambda: K.tiled_permute_plain(
+            buf, plan, batched=True), max(3, reps // 3), warmup=1)
+        tab_bytes = sum(a.numel() * 4 for a in K.device_tables(plan, dev))
+        bound_ms = (2 * buf.numel() * buf.element_size() + tab_bytes) / bw \
+            * 1e3
+        say(f"  K4a, MoE dispatch shuffle {tuple(buf.shape)} bf16 "
+            f"(bit-reverse of 2^{bm.n} slots of {e * 2} bytes, t={tt}, "
+            f"{sched.schedule} schedule, {sched.per_cta} elements a block, "
+            f"{sched.grid} blocks): bit-equal to its plain version and "
+            f"the gather; one call (in turns): kernel {one['kernel']:.4f} "
+            f"ms, index_select {one['library']:.4f} ms; device (in turns): "
+            f"kernel {dv['kernel']:.4f} ms, index_select "
+            f"{dv['library']:.4f} ms; plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({2 * buf.numel() * 2 / 2 ** 20:.0f} MiB "
+            f"moved); {smi}")
+        del buf, got, inputs, ct
+        drop()
+
+        # -- phi served with the mesh ---------------------------------------
+        cfg = dataclasses.replace(base, head_shuffle="cuda", n_periods=16)
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        args = S.parse_args(["--arch", cfg.name, "--batch", str(SERVE_BATCH),
+                             "--prompt-len", str(SERVE_PROMPT),
+                             "--tokens", str(SERVE_TOKENS)])
+        prompts = S.make_prompts(cfg, args, dev)
+        moe_layers = cfg.layer_kinds.count("moe")
+
+        def prefill(c, m, p, toks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                lg, caches = M.prefill(c, p, {"tokens": toks}, mesh=m)
+            torch.cuda.synchronize()
+            return lg, caches, (time.perf_counter() - t0) * 1e3
+
+        def counted(fn):
+            obs.reset()
+            obs.enable(sync=False)
+            K.reset_launch_counts()
+            try:
+                got = fn()
+                return got, K.launch_counts(), obs.counter_value(
+                    "model.moe_a2a")
+            finally:
+                obs.disable()
+                obs.reset()
+
+        (lg1, c1, ms1), counts, n_a2a = counted(
+            lambda: prefill(cfg, mesh, params, prompts))
+        check(n_a2a == moe_layers == 16, ("a2a branch", n_a2a, moe_layers))
+        want = 4 * self_attention_layers(cfg)
+        only_k4a(counts, want, "phi prefill with the mesh")
+        launches["phi prefill (16 layers)"] = counts["tile"]
+        del c1
+        lg2, c2, _ = prefill(cfg, mesh, params, prompts)
+        check(torch.equal(lg1, lg2), "phi: two mesh prefills")
+        del c2
+        lg0, c0, ms0 = prefill(cfg, None, params, prompts)
+        del c0
+        rel = rel_err(torch, lg1, lg0)
+        check(rel <= A2A_REL_TOL, ("phi: mesh against no mesh", rel))
+        say(f"  {cfg.name} (cut to {cfg.n_layers} of {base.n_layers} "
+            f"layers, bf16, weights from a seed): prefill with the mesh: "
+            f"the a2a branch in {n_a2a} of {moe_layers} MoE layers; K4a "
+            f"{counts['tile']} (wide {counts['tile_wide']}, 4 in each "
+            f"self-attention layer), no other kernel; two mesh prefills "
+            f"bit-equal; logits against no mesh (capacity branch): "
+            f"norm-wise relative {rel:.3e}"
+            + (" (bit-equal)" if torch.equal(lg1, lg0) else "")
+            + f" (tolerance {A2A_REL_TOL})")
+        del lg1, lg2, lg0
+        pre = in_turns(
+            {"mesh": lambda: prefill(cfg, mesh, params, prompts)[2],
+             "none": lambda: prefill(cfg, None, params, prompts)[2]},
+            lambda fn: fn(), rounds=1)
+
+        def decode_ms(m):
+            lg, caches, _ = prefill(cfg, m, params, prompts)
+            caches = M.grow_caches(caches, SERVE_PROMPT,
+                                   SERVE_PROMPT + MESH_DECODE_STEPS)
+            times = []
+            with torch.no_grad():
+                for i in range(MESH_DECODE_STEPS):
+                    tok = torch.argmax(lg[:, -1], -1)[:, None]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, caches = M.decode_step(cfg, params, caches, tok,
+                                               SERVE_PROMPT + i, mesh=m)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times[1:])
+        dec = in_turns({"mesh": lambda: decode_ms(mesh),
+                        "none": lambda: decode_ms(None)},
+                       lambda fn: fn(), rounds=1)
+        dcfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        d = decode_against_prefill(torch, M, dcfg, params, prompts,
+                                   mesh=mesh)
+        kept = d["rel_kept"]
+        check(kept is not None and kept <= DECODE_REL_TOL,
+              ("phi: mesh decode vs prefill, rows routed alike", kept))
+        if d["flips"] == 0:
+            check(d["rel"] <= DECODE_REL_TOL, ("phi: mesh decode", d["rel"]))
+        serve_peak = torch.cuda.max_memory_allocated() / gib
+        say(f"    decode step with the mesh vs a mesh prefill of "
+            f"{SERVE_PROMPT + 1} tokens (capacity factor "
+            f"{dcfg.capacity_factor:g}: no drops): routing choices that "
+            f"differ {d['flips']} of {d['routing_layers']} x {SERVE_BATCH}, "
+            f"in {d['rows_flipped']} rows; the other rows norm-wise "
+            f"relative {kept:.3e}, all rows {d['rel']:.3e} (tolerance "
+            f"{DECODE_REL_TOL})")
+        say(f"    prefill {SERVE_BATCH} x {SERVE_PROMPT} (in turns, first "
+            f"call {ms1:.1f} ms with the mesh, {ms0:.1f} without): mesh "
+            f"{', '.join(f'{v:.1f}' for v in pre['mesh'])} ms, no mesh "
+            f"{', '.join(f'{v:.1f}' for v in pre['none'])} ms; warm decode "
+            f"(median of {MESH_DECODE_STEPS - 1}, in turns): mesh "
+            f"{', '.join(f'{v:.2f}' for v in dec['mesh'])} ms/token, no "
+            f"mesh {', '.join(f'{v:.2f}' for v in dec['none'])} ms/token; "
+            f"peak {serve_peak:.2f} GiB; {smi}")
+        del params, pre, dec, d
+        drop()
+
+        # -- kimi served with the mesh --------------------------------------
+        kbase = get_config(MESH_KIMI)
+        shuffled = default_head_perm(kbase.n_kv_heads) is not None
+        kcfg = dataclasses.replace(kbase, n_periods=1,
+                                   head_shuffle="cuda" if shuffled else None)
+        torch.cuda.reset_peak_memory_stats()
+        kparams = M.init(kcfg, torch.Generator(device=dev).manual_seed(0))
+        kprompts = S.make_prompts(kcfg, S.parse_args(
+            ["--arch", kcfg.name, "--batch", str(SERVE_BATCH),
+             "--prompt-len", str(SERVE_PROMPT), "--tokens",
+             str(SERVE_TOKENS)]), dev)
+        (kl1, kc1, kms1), kcounts, k_a2a = counted(
+            lambda: prefill(kcfg, mesh, kparams, kprompts))
+        del kc1
+        kmoe = kcfg.layer_kinds.count("moe")
+        check(k_a2a == kmoe == 1, ("kimi: a2a branch", k_a2a, kmoe))
+        only_k4a(kcounts, 4 * self_attention_layers(kcfg) if shuffled else 0,
+                 "kimi prefill with the mesh")
+        launches["kimi prefill (prefix + 1)"] = kcounts["tile"]
+        kl2, kc2, _ = prefill(kcfg, mesh, kparams, kprompts)
+        del kc2
+        check(torch.equal(kl1, kl2), "kimi: two mesh prefills")
+        kl0, kc0, kms0 = prefill(kcfg, None, kparams, kprompts)
+        del kc0
+        krel = rel_err(torch, kl1, kl0)
+        check(krel <= A2A_REL_TOL, ("kimi: mesh against no mesh", krel))
+        kpre = in_turns(
+            {"mesh": lambda: prefill(kcfg, mesh, kparams, kprompts)[2],
+             "none": lambda: prefill(kcfg, None, kparams, kprompts)[2]},
+            lambda fn: fn(), rounds=1)
+        say(f"  {kcfg.name} (the dense prefix + {kcfg.n_periods} MoE layer "
+            f"of {kcfg.n_experts} experts top {kcfg.top_k}): prefill with "
+            f"the mesh through the a2a branch ({k_a2a} layer); K4a "
+            f"{kcounts['tile']}, no other kernel; two mesh prefills "
+            f"bit-equal; logits against no mesh: norm-wise relative "
+            f"{krel:.3e}" + (" (bit-equal)" if torch.equal(kl1, kl0) else "")
+            + f" (tolerance {A2A_REL_TOL}); prefill (first call {kms1:.1f} "
+            f"ms with the mesh, {kms0:.1f} without; then in turns): mesh "
+            f"{', '.join(f'{v:.1f}' for v in kpre['mesh'])} ms, no mesh "
+            f"{', '.join(f'{v:.1f}' for v in kpre['none'])} ms; peak "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; {smi}")
+        del kparams, kl1, kl2, kl0
+        drop()
+
+        # -- phi trained with the mesh --------------------------------------
+        tcfg = dataclasses.replace(base, head_shuffle="cuda",
+                                   n_periods=MESH_TRAIN_LAYERS)
+        ocfg = AdamWConfig(state_bits=tcfg.opt_bits)
+        g = torch.Generator(device=dev).manual_seed(17)
+        batch = {kk: torch.randint(0, tcfg.vocab_size,
+                                   (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                                   device=dev) for kk in ("tokens", "labels")}
+        per_step = (12 if tcfg.remat else 8) * self_attention_layers(tcfg)
+
+        def train(m):
+            params = M.init(tcfg, torch.Generator(device=dev).manual_seed(0))
+            opt = adamw_init(params, ocfg)
+            step, _ = make_train_step(tcfg, m, opt_cfg=ocfg)
+            losses, times = [], []
+            for i in range(MESH_TRAIN_STEPS):
+                if i == 0:
+                    obs.reset()
+                    obs.enable(sync=False)
+                    K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+                if i == 0:
+                    counts = K.launch_counts()
+                    n_a2a = obs.counter_value("model.moe_a2a")
+                    obs.disable()
+                    obs.reset()
+                    first = ({kk: met[kk].clone() for kk in
+                              ("loss", "grad_norm")},
+                             [dev_hash(torch, v) for v in tree_leaves(params)])
+            del params, opt, step
+            drop()
+            return losses, times, counts, n_a2a, first
+
+        torch.cuda.reset_peak_memory_stats()
+        ta = train(mesh)
+        tn = train(None)
+        tb = train(mesh)
+        train_peak = torch.cuda.max_memory_allocated() / gib
+        losses = ta[0]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              ("phi with the mesh: loss on one batch", losses))
+        only_k4a(ta[2], per_step, "phi step with the mesh")
+        check(ta[3] >= MESH_TRAIN_LAYERS, ("a2a in the step", ta[3]))
+        launches["phi train step (2 layers)"] = ta[2]["tile"]
+        check(all(torch.equal(ta[4][0][kk], tb[4][0][kk])
+                  for kk in ("loss", "grad_norm")) and ta[4][1] == tb[4][1],
+              "phi with the mesh: the first step of two runs")
+        lrel = abs(ta[0][0] - tn[0][0]) / abs(tn[0][0])
+        check(lrel <= A2A_REL_TOL, ("phi: step loss, mesh vs none", lrel))
+        step_equal = all(torch.equal(ta[4][0][kk], tn[4][0][kk])
+                         for kk in ("loss", "grad_norm")) and \
+            ta[4][1] == tn[4][1]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        warm = statistics.median(ta[1][1:] + tb[1][1:])
+        say(f"  {tcfg.name} trained with the mesh (cut to {tcfg.n_layers} "
+            f"layers, {tcfg.opt_bits}-bit moments, remat {tcfg.remat}): "
+            f"loss {' -> '.join(f'{v:.4f}' for v in losses)}; the a2a "
+            f"branch {int(ta[3])} times a step; K4a {ta[2]['tile']} a step, "
+            f"no other kernel; first step of two mesh runs bit-equal (loss, "
+            f"grad_norm, every parameter); its loss against no mesh: "
+            f"relative {lrel:.3e}"
+            + (" (the whole step bit-equal)" if step_equal else "")
+            + f" (tolerance {A2A_REL_TOL})")
+        say(f"    step ms (runs in turns: mesh, none, mesh; first step, "
+            f"then warm): mesh {', '.join(f'{v:.1f}' for v in ta[1])} and "
+            f"{', '.join(f'{v:.1f}' for v in tb[1])}, no mesh "
+            f"{', '.join(f'{v:.1f}' for v in tn[1])}; {tokens / warm * 1e3:,.0f}"
+            f" tokens/s with the mesh; peak {train_peak:.2f} GiB; {smi}")
+    finally:
+        mesh.close()
+    check(not dist.is_initialized(), "the phase's process group outlived it")
+    say(f"  K4a launches in phase 18: {launches}; the group destroyed")
+    say(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -3363,6 +3817,8 @@ def main(argv=None) -> int:
     kinds = phase_kinds(torch, smi)
     kinds_counts = {"tile_serve": (sum(kinds["serve"].values()),
                                    sum(kinds["train"].values()))}
+    mesh_counts = {"tile_serve": sum(phase_mesh(torch, smi, bw,
+                                                REPS).values())}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -3378,7 +3834,8 @@ def main(argv=None) -> int:
                         "train_launches": train_counts.get(name, 0),
                         "kinds_launches": kinds_counts.get(name, (0, 0))[0],
                         "kinds_train_launches":
-                            kinds_counts.get(name, (0, 0))[1]})
+                            kinds_counts.get(name, (0, 0))[1],
+                        "mesh_launches": mesh_counts.get(name, 0)})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

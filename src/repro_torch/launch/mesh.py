@@ -1,0 +1,217 @@
+"""Device meshes over ``torch.distributed``: the counterpart of
+:mod:`repro.launch.mesh`.
+
+A :class:`Mesh` lays this job's ranks out row-major over named axes
+(:func:`torch.distributed.device_mesh.init_device_mesh`), one rank a
+device. It offers what the reference's code reads of a ``jax`` mesh,
+``axis_names`` and ``shape`` (a dict from axis name to size), and what
+the port's collectives need: the process group of one axis or of a
+tuple of axes, and this rank's coordinate on each axis.
+
+The device picks the backend: NCCL for ``"cuda"``, ``gloo`` for
+``"cpu"`` (the CPU tests' multi-rank meshes). Neither falls back to the
+other: a mesh on ``"cuda"`` over a ``gloo`` process group raises. The
+caller initializes the default process group (``init_process_group``
+with its address, world size and rank); for a mesh of one rank, the
+mesh creates that single-rank group itself, on a file store in a fresh
+temporary directory (no network), and :meth:`Mesh.close` destroys it.
+
+Meshes are made by functions, never at import: importing this module
+touches no device and no process group.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import os
+import shutil
+import tempfile
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch.distributed as dist
+
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+Axes = Union[str, Sequence[str]]
+
+
+class Mesh:
+    """``shape`` ranks (row-major, the last axis fastest) named
+    ``axis_names``, on ``device`` (``"cuda"``: NCCL, ``"cpu"``: gloo).
+    The default process group must hold exactly ``prod(shape)`` ranks.
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
+                 device: str = "cuda"):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        shape, axis_names = tuple(int(v) for v in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names):
+            raise ValueError(f"mesh shape {shape} and axis names "
+                             f"{axis_names} do not match")
+        if device not in _BACKENDS:
+            raise ValueError(f"mesh device {device!r}: one of "
+                             f"{sorted(_BACKENDS)}")
+        backend = _BACKENDS[device]
+        size = math.prod(shape)
+        self._store_dir: Optional[str] = None
+        if not dist.is_initialized():
+            if size != 1:
+                raise RuntimeError(
+                    f"a {shape} mesh needs {size} ranks: initialize the "
+                    f"default process group ({backend}) on each first")
+            self._store_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+            dist.init_process_group(
+                backend, init_method="file://" + os.path.join(
+                    self._store_dir, "store"), rank=0, world_size=1)
+        got = dist.get_backend()
+        if got != backend:
+            raise RuntimeError(f"a mesh on {device!r} needs the {backend} "
+                               f"backend; the process group runs {got}")
+        if dist.get_world_size() != size:
+            raise ValueError(f"a {shape} mesh needs {size} ranks; the "
+                             f"process group has {dist.get_world_size()}")
+        self.device = device
+        self.axis_names = axis_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.device_mesh = init_device_mesh(device, shape,
+                                            mesh_dim_names=axis_names)
+        self.rank = dist.get_rank()
+        # global ranks in row-major mesh order
+        self._flat = self.device_mesh.mesh.flatten().tolist()
+        coord = self.device_mesh.get_coordinate()
+        self.coords: Dict[str, int] = dict(zip(axis_names, coord))
+        self._groups = {(a,): self.device_mesh.get_group(a)
+                        for a in axis_names}
+        # groups of several axes, each subset in mesh order: every rank
+        # creates every group, in one order
+        for k in range(2, len(axis_names) + 1):
+            for sub in itertools.combinations(axis_names, k):
+                mine, _ = dist.new_subgroups_by_enumeration(
+                    self._rank_sets(sub))
+                self._groups[sub] = mine
+
+    def _axes(self, axes: Axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(order) or len(set(order)) != len(order):
+            raise ValueError(f"axes {axes} must be distinct and in the "
+                             f"mesh's order {self.axis_names}")
+        return axes
+
+    def size(self, axes: Axes) -> int:
+        """The number of ranks along ``axes`` (1 for none)."""
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def index(self, axes: Axes, coords: Optional[Dict[str, int]] = None
+              ) -> int:
+        """The row-major index over ``axes`` of this rank (or of
+        ``coords``): JAX's linear index over a tuple of axes."""
+        coords = self.coords if coords is None else coords
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + coords[a]
+        return idx
+
+    def group(self, axes: Axes):
+        """The process group of this rank's ranks along ``axes``; its
+        group ranks run in the mesh's row-major order over ``axes``."""
+        return self._groups[self._axes(axes)]
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of a global rank."""
+        rest, out = self._flat.index(rank), {}
+        for a in reversed(self.axis_names):
+            rest, out[a] = divmod(rest, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def rank_of(self, coords: Dict[str, int]) -> int:
+        """The global rank at ``coords``."""
+        return self._flat[self.index(self.axis_names, coords)]
+
+    def _rank_sets(self, axes: Tuple[str, ...]) -> list:
+        """Every group of ranks that share their coordinates off ``axes``,
+        each in row-major order over ``axes``."""
+        rest = [a for a in self.axis_names if a not in axes]
+        sets = []
+        for fixed in itertools.product(*(range(self.shape[a])
+                                         for a in rest)):
+            base = dict(zip(rest, fixed))
+            sets.append([self.rank_of({**base, **dict(zip(axes, var))})
+                         for var in itertools.product(
+                             *(range(self.shape[a]) for a in axes))])
+        return sets
+
+    def close(self) -> None:
+        """Destroy the single-rank process group this mesh created, if it
+        did; a group the caller initialized stays theirs to destroy."""
+        if self._store_dir is not None:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(self._store_dir, ignore_errors=True)
+            self._store_dir = None
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, device={self.device!r}, "
+                f"rank={self.rank})")
+
+
+def make_production_mesh(*, multi_pod: bool = False, shape=None,
+                         device: str = "cuda") -> Mesh:
+    """Default (16, 16) / (2, 16, 16); ``shape`` overrides the per-pod
+    (data, model) factorization (e.g. (32, 8) for 40-head
+    configurations). Raises unless the world holds that many ranks."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    elif multi_pod:
+        shape = (2,) + tuple(shape)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(tuple(shape), axes, device=device)
+
+
+def make_dev_mesh(n_data: int = 2, n_model: int = 2, *,
+                  device: str = "cuda") -> Mesh:
+    """A small (data, model) mesh: (1, 1) on one card, or ``gloo`` CPU
+    ranks in the tests."""
+    return Mesh((n_data, n_model), ("data", "model"), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on a mesh's groups
+# ---------------------------------------------------------------------------
+
+def all_to_all(x, group):
+    """JAX's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)`` over
+    ``group``: chunk j of axis 0 goes to group rank j; chunk i of the
+    result came from group rank i."""
+    x = x.contiguous()
+    out = x.new_empty(x.shape)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_gather(x, group) -> list:
+    """Every group rank's ``x``, in group-rank order. Over a group of one
+    rank that is ``[x]`` itself: no collective and no copy (a gather of an
+    expert weight over a one-wide dp axis would copy 0.8 GB a layer at
+    phi's width)."""
+    if dist.get_world_size(group) == 1:
+        return [x]
+    parts = [x.new_empty(x.shape) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def ordered_sum(parts):
+    """``((0 + p_0) + p_1) + ...``: one order of summation on every rank."""
+    out = parts[0].new_zeros(parts[0].shape)
+    for p in parts:
+        out = out + p
+    return out
+
+
+def all_sum(x, group):
+    """An all-reduce (sum) whose terms are added in group-rank order, so
+    every rank holds the same bits."""
+    return ordered_sum(all_gather(x, group))

@@ -68,6 +68,17 @@ def init_params(defs, generator: torch.Generator) -> Dict:
     return tree_map_defs(make, defs)
 
 
+def shape_tree(defs):
+    """The tree as ``meta`` tensors: shapes and types, no storage (the
+    reference's ``ShapeDtypeStruct`` tree)."""
+    return tree_map_defs(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
+
+
+def axes_tree(defs):
+    return tree_map_defs(lambda d: d.axes, defs)
+
+
 def stack_defs(defs, n: int, axis_name: Optional[str] = None):
     """Prepend a stacked (layer) axis to every leaf."""
     return tree_map_defs(

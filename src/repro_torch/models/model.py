@@ -5,8 +5,10 @@ are functions of ``(cfg, params, inputs)`` over a nested dict of tensors
 (the reference's parameter tree, path for path); :class:`LM` holds such a
 tree as an ``nn.Module``, so ``named_parameters()`` gives the reference's
 paths (``stack.scan.0_dense.wq``). Everything runs on the device of the
-parameters. Sharding (a ``mesh``) is not ported yet: ROADMAP Queue 1 item
-7d.
+parameters. With a ``mesh`` (:mod:`repro_torch.launch.mesh`) every rank
+holds the parameters and activations whole (replicated) and runs the
+same program; the all-to-all MoE body alone works on each rank's slice
+(:mod:`repro_torch.parallel.sharding`, :mod:`.moe_a2a`).
 """
 from __future__ import annotations
 
@@ -17,19 +19,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .layers import ParamDef, init_params, layer_norm, matmul_f32, rms_norm
+from ..parallel.sharding import (activation_constrainer, dp_size,
+                                 moe_buffer_constrainer)
+from .layers import (ParamDef, axes_tree, init_params, layer_norm,
+                     matmul_f32, rms_norm, shape_tree)
 from .transformer import run_stack, stack_cache_defs, stack_defs_tree
 
 
 def _make_ctx(cfg: ArchConfig, mode: str, mesh, pos: int) -> Dict:
-    """What the reference's ``parallel.sharding`` gives for no mesh: an
-    identity constraint."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 7d: parallel/sharding); pass mesh=None")
-    return {"mode": mode, "pos": int(pos), "mesh": None,
-            "constrain": lambda v: v}
+    return {"mode": mode, "pos": int(pos), "mesh": mesh,
+            "constrain": activation_constrainer(
+                mesh, seq_parallel=getattr(cfg, "seq_parallel", False)),
+            "constrain_moe": moe_buffer_constrainer(mesh),
+            "dp_groups": dp_size(mesh)}
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +67,16 @@ def init(cfg: ArchConfig, generator: torch.Generator) -> Dict:
     """Random parameters on ``generator``'s device (see
     :func:`.layers.init_params`)."""
     return init_params(model_defs(cfg), generator)
+
+
+def param_shapes(cfg: ArchConfig):
+    """The parameter tree as ``meta`` tensors (shapes and types, nothing
+    allocated)."""
+    return shape_tree(model_defs(cfg))
+
+
+def param_axes(cfg: ArchConfig):
+    return axes_tree(model_defs(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Mixture-of-Experts: top-k routing with sort-based capacity dispatch.
 
-The counterpart of :mod:`repro.models.moe` (its group-local dispatch
-with one data-parallel group: ``mesh=None``). Tokens arrive as
-``(groups, T_local, d_model)``; routing, sorting and the capacity
+The counterpart of :mod:`repro.models.moe` (its group-local dispatch:
+one group with no mesh, ``dp_size(mesh)`` groups with one). Tokens
+arrive as ``(groups, T_local, d_model)``; routing, sorting and the capacity
 scatter run per group along a leading group axis where the reference
 ``vmap``s them. Plain PyTorch: the data-dependent relayout is a stable
 sort, not a BMMC, so no kernel of this port applies.
@@ -22,6 +22,8 @@ the combine does so, and so does the backward of the dispatch's gather
 each element once.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -146,11 +148,15 @@ def moe_capacity(t: int, xn: int, top_k: int,
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
-            capacity_factor: float = 1.25):
+            capacity_factor: float = 1.25,
+            constrain_buf: Optional[Callable] = None):
     """x: (G, T_local, E) grouped tokens. Expert weights: (X, E, F) etc.
 
     Returns (out (G, T_local, E), aux_loss). Tokens beyond per-group expert
     capacity are dropped (standard capacity-based MoE semantics).
+    ``constrain_buf`` is applied to the (G, X, C, E) buffers where the
+    reference constrains their layout (the port's constrainers return
+    the buffer unchanged: :mod:`repro_torch.parallel.sharding`).
     """
     g, t, e = x.shape
     xn = router_w.shape[1]
@@ -159,11 +165,15 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     buf, slot, pos, w_sorted, aux = _dispatch_group(
         x, router_w, top_k=top_k, cap=cap, xn=xn)
     buf = buf.reshape(g, xn, cap, e)
+    if constrain_buf is not None:
+        buf = constrain_buf(buf)
 
     gate = buf @ w_gate                                   # (G, X, C, F)
     up = buf @ w_up
     h = F.silu(gate.float()).to(x.dtype) * up
     yexp = h @ w_down                                     # (G, X, C, E)
+    if constrain_buf is not None:
+        yexp = constrain_buf(yexp)
     yexp = yexp.reshape(g, xn * cap, e)
 
     out = _combine_group(yexp, slot, pos, w_sorted)

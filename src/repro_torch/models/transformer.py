@@ -43,9 +43,11 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ArchConfig
+from ..obs import metrics as _ometrics
 from .attention import attention, decode_attention, default_head_perm
 from .layers import (ParamDef, apply_rope, layer_norm, rms_norm, stack_defs)
 from .moe import moe_ffn
+from .moe_a2a import moe_ffn_a2a
 from .ssm import (causal_conv1d, rglru, rglru_step, softplus, ssd_chunked,
                   ssd_decode_step)
 
@@ -323,15 +325,32 @@ def _cross_attn(cfg, p, x, ctx, prefix="", cache=None):
     return y, new_cache
 
 
-def _moe_block_ffn(cfg, p, x):
-    """The routed experts (``moe_ffn``; with no mesh also for
-    ``moe_impl="a2a"``, as the reference) plus the shared ones."""
+def _moe_block_ffn(cfg, p, x, ctx):
+    """The routed experts plus the shared ones. ``moe_impl="a2a"`` with a
+    mesh whose model axis divides the sequence and the experts runs the
+    all-to-all dispatch (:func:`.moe_a2a.moe_ffn_a2a`); otherwise
+    ``moe_ffn`` routes ``dp_groups`` groups (one for ``"naive"`` or a
+    ragged ``b*s``), as the reference."""
     b, s, e = x.shape
-    # With no mesh every ``moe_impl`` routes the batch as one group.
-    out, aux = moe_ffn(x.reshape(1, b * s, e), p["router"], p["we_gate"],
-                       p["we_up"], p["we_down"], top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor)
-    out = out.reshape(b, s, e)
+    mesh = ctx.get("mesh")
+    if (cfg.moe_impl == "a2a" and mesh is not None
+            and s % mesh.shape["model"] == 0
+            and cfg.n_experts % mesh.shape["model"] == 0):
+        _ometrics.inc("model.moe_a2a")
+        out, aux = moe_ffn_a2a(x, p["router"], p["we_gate"], p["we_up"],
+                               p["we_down"], top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor, mesh=mesh)
+    else:
+        # "naive" = historical baseline: one global group
+        groups = 1 if cfg.moe_impl == "naive" else ctx.get("dp_groups", 1)
+        if (b * s) % max(groups, 1):
+            groups = 1
+        grouped = x.reshape(groups, (b * s) // groups, e)
+        out, aux = moe_ffn(grouped, p["router"], p["we_gate"], p["we_up"],
+                           p["we_down"], top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           constrain_buf=ctx.get("constrain_moe"))
+        out = out.reshape(b, s, e)
     if cfg.n_shared_experts:
         g = x @ p["ws_gate"]
         u = x @ p["ws_up"]
@@ -424,7 +443,7 @@ def block_apply(cfg: ArchConfig, kind: str, p: Dict, x, ctx,
         x = x + a
         h = _apply_norm(cfg, p, "ln_mlp", x)
         if kind == "moe":
-            m, aux = _moe_block_ffn(cfg, p, h)
+            m, aux = _moe_block_ffn(cfg, p, h, ctx)
         else:
             m = _mlp(cfg, p, h)
         x = x + m

@@ -1143,3 +1143,68 @@ def test_cuda_k4a_runs_in_enc_dec_and_moe_layers(cuda_device, arch):
         assert torch.equal(got[engine].prefill_logits,
                            got["cuda"].prefill_logits), engine
         assert (got[engine].gen == got["cuda"].gen).all(), engine
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A (1, 1) mesh on a single-rank NCCL group (destroyed afterwards)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dev_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    mesh = make_dev_mesh(1, 1, device="cuda")
+    yield mesh
+    mesh.close()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_is_single_rank_nccl(nccl_mesh):
+    import torch.distributed as dist
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert nccl_mesh.shape == {"data": 1, "model": 1}
+    assert nccl_mesh.coords == {"data": 0, "model": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_moe_a2a_dispatch_shuffle_is_neutral_on_k4a(nccl_mesh):
+    """On a single-rank NCCL mesh ``moe_ffn_a2a`` with the slot shuffle on
+    ``cuda`` (K4a), on ``ref`` and off gives bit-equal outputs and aux;
+    on ``cuda`` K4a is launched 2 times a forward, 2 more a backward, and
+    no other kernel; its gradients equal ``ref``'s bit for bit."""
+    from repro_torch.models.moe_a2a import moe_ffn_a2a
+    g = torch.Generator(device="cuda").manual_seed(3)
+    e, f, xn, k = 256, 384, 8, 2
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+    inputs = [rnd(4, 64, e), rnd(e, xn, scale=0.1), rnd(xn, e, f, scale=0.05),
+              rnd(xn, e, f, scale=0.05), rnd(xn, f, e, scale=0.05)]
+    ct = torch.randn((4, 64, e), generator=g, device="cuda")
+    runs = {}
+    # capacity 1.25: ceil(2 * 256 * 1.25) = 640 slots, rounded to 1024
+    # with the shuffle; 4.0 gives 1024 without it
+    for eng, cf in (("cuda", 1.25), ("ref", 1.25), (None, 4.0)):
+        ts = [t.clone().requires_grad_() for t in inputs]
+        pk.reset_launch_counts()
+        out, aux = moe_ffn_a2a(*ts, top_k=k, capacity_factor=cf,
+                               mesh=nccl_mesh,
+                               dispatch_shuffle=eng is not None,
+                               shuffle_engine=eng or "cuda")
+        torch.cuda.synchronize()
+        fwd = pk.launch_counts()
+        ((out.float() * ct).sum() + aux).backward()
+        torch.cuda.synchronize()
+        both = pk.launch_counts()
+        runs[eng] = (out.detach(), aux.detach(), [t.grad for t in ts])
+        want = 2 if eng == "cuda" else 0
+        assert fwd["tile"] == want and both["tile"] == 2 * want
+        assert sum(v for key, v in both.items()
+                   if not key.startswith("tile")) == 0
+    for eng in ("ref", None):
+        assert torch.equal(runs[eng][0].view(torch.int16),
+                           runs["cuda"][0].view(torch.int16))
+        assert torch.equal(runs[eng][1], runs["cuda"][1])
+    for a, b in zip(runs["cuda"][2], runs["ref"][2]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+

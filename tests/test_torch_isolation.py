@@ -56,7 +56,11 @@ def test_port_modules_found():
                  "repro_torch.tree", "repro_torch.optim",
                  "repro_torch.optim.adamw", "repro_torch.optim.schedule",
                  "repro_torch.train.step", "repro_torch.checkpoint",
-                 "repro_torch.checkpoint.ckpt", "repro_torch.launch.train"):
+                 "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+                 "repro_torch.launch.hw", "repro_torch.launch.mesh",
+                 "repro_torch.parallel", "repro_torch.parallel.sharding",
+                 "repro_torch.models.moe_a2a",
+                 "repro_torch.core.distributed"):
         assert want in mods
 
 
