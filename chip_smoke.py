@@ -221,7 +221,24 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    token and ms a step with the mesh and without, in turns, peak GiB,
    each beside the card's name and power limit. The kernels line gains
    ``mesh_launches``: K4a in phase 18 under ``tile_serve``;
-19. last line: ``{"ok": true, "device": {...}}``.
+19. the dry run (``repro_torch.launch.dryrun``, ``launch.op_analysis``):
+   three cells each traced first on fake tensors (a fake one-rank world
+   for the mesh cell) and then run for real on the card under the same
+   ``OpCounter``: ``mistral-nemo-12b`` at 40 layers (shuffle on ``cuda``;
+   a prefill of 4 x 512 and one decode step), the same cut to 4 layers
+   (one training step of 4 x 512), and phi at 16 layers prefilled on a
+   (1, 1) mesh (a fake world, then phase 18's single-rank NCCL group
+   made anew; the fake and the real group never overlap). Dot FLOPs,
+   collective bytes by kind and kernel launches by name and schedule
+   equal (K4a 160, 48 and 64, as phases 15, 16 and 18 count; the real
+   ones also by ``launch_counts``), the dry run's peak of live storages
+   within ``DRY_PEAK_REL`` of the peak plus ``DRY_PEAK_ABS`` of the card's
+   ``max_memory_allocated``; then ``mistral-nemo-12b`` ``decode_32k`` on a
+   fake 256-rank world (``pod16x16``): seconds, dot FLOPs per rank, held
+   bytes against the specs' and ``fits_hbm``. Under 60 s. The kernels
+   line gains ``dryrun_launches`` (K4a in phase 19's real runs, under
+   ``tile_serve``);
+20. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -3748,6 +3765,240 @@ def phase_mesh(torch, smi: str, bw: float, reps: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run held against a real run
+# ---------------------------------------------------------------------------
+
+DRY_PHI_LAYERS = 16               # phi served with the mesh, as in phase 18
+# The dry run's peak of live storages against the card's: the card's
+# ``max_memory_allocated`` over the run less what the allocator held
+# beside the run's inputs when it started. They differ where the
+# allocator differs from a count of storages: it rounds every block up
+# to 512 bytes and hands out a cached block whole when less than 1 MiB of
+# it would be left; the real run also uploads K4a's index tables (a few
+# hundred bytes), and the dry run sees RoPE's host tables, which a real
+# run makes with no aten op (16 KiB a layer at most). So 2 % of the peak
+# plus 64 MiB.
+DRY_PEAK_REL, DRY_PEAK_ABS = 0.02, 64 * 2 ** 20
+
+
+def _serve_once(torch, M, cfg, params, tokens, mesh=None) -> None:
+    """The serving cell's work: a prefill, then one decode step over the
+    caches grown by one position."""
+    s = tokens.shape[1]
+    with torch.no_grad():
+        logits, caches = M.prefill(cfg, params, {"tokens": tokens},
+                                   mesh=mesh)
+        caches = M.grow_caches(caches, s, s + 1)
+        nxt = torch.argmax(logits[:, -1], -1)[:, None]
+        M.decode_step(cfg, params, caches, nxt, s, mesh=mesh)
+
+
+def phase_dryrun(torch, smi: str) -> dict:
+    """Phase 19: each cell dry-run on a fake one-rank world, then run for
+    real on the card under the same op counter, the counts held equal;
+    then Mistral-NeMo ``decode_32k`` dry-run on a fake 256-rank world.
+    Returns the K4a launches each run counted."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.combinators import clear_caches
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hw import HBM_BYTES
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.op_analysis import (COLLECTIVE_KINDS, OpCounter,
+                                                dry_run)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step, opt_state_shapes
+
+    t_phase = time.perf_counter()
+    say("== phase 19: the dry run (fake tensors, a fake world) held against "
+        "a real run on the card: dot FLOPs, collective bytes and kernel "
+        "launches equal, the peak within a bound; then Mistral-NeMo "
+        "decode_32k on a fake 256-rank world ==")
+    say(f"  card: {smi}")
+    check(not dist.is_initialized(), "a process group before phase 19")
+    dev = torch.device("cuda")
+    gib = 2 ** 30
+    launches = {}
+
+    def drop():
+        clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dry(make, work, mesh_world):
+        """``work(inputs, mesh)`` on fake tensors from ``make("cpu")``."""
+        mesh = (make_dev_mesh(1, 1, device="cpu", dry_run=True)
+                if mesh_world else None)
+        t0 = time.perf_counter()
+        try:
+            with dry_run() as c:
+                inputs = make("cpu")
+                work(inputs, mesh)
+                del inputs
+        finally:
+            if mesh is not None:
+                mesh.close()
+        check(not dist.is_initialized(), "the fake world outlived its run")
+        return c.result(), time.perf_counter() - t0
+
+    def real(inputs, work, mesh):
+        """``work`` on the card under a counter holding ``inputs``; the
+        card's peak less what the allocator held beside the inputs."""
+        torch.cuda.synchronize()
+        c = OpCounter()
+        c.hold(inputs)
+        other = torch.cuda.memory_allocated() - c.live_bytes
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with c:
+            work(inputs, mesh)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (c.result(), torch.cuda.max_memory_allocated() - other,
+                secs, K.launch_counts())
+
+    def held_equal(name, d, r, peak, counts, want_k4a):
+        for k in COLLECTIVE_KINDS + ("dot_flops",):
+            check(d[k] == r[k], (name, k, "dry", d[k], "real", r[k]))
+        check(d["kernel_launches"] == r["kernel_launches"],
+              (name, "launches", d["kernel_launches"], r["kernel_launches"]))
+        k4a = d["kernel_launches"].get("tile_wide", {}).get("launches", 0)
+        check(k4a == want_k4a == counts["tile"] == counts["tile_wide"]
+              and sum(counts.values()) == 2 * k4a,
+              (name, "K4a", k4a, want_k4a, counts))
+        gap = peak - d["peak_bytes"]
+        bound = DRY_PEAK_REL * d["peak_bytes"] + DRY_PEAK_ABS
+        check(abs(gap) <= bound, (name, "peak", d["peak_bytes"], peak))
+        return k4a, gap
+
+    def report(name, d, ds, r, peak, rs, k4a, gap):
+        say(f"  {name}: dot FLOPs {d['dot_flops']:.6e} (dry = real); "
+            f"collective bytes {d['collective_total']:.0f} "
+            f"({', '.join(f'{k} {d[k]:.0f}' for k in COLLECTIVE_KINDS if d[k])}"
+            f"{'none' if not d['collective_total'] else ''}; dry = real); "
+            f"K4a {k4a} (wide, dry = real, by launch); aten calls dry "
+            f"{d['ops']}, real {r['ops']}; peak dry {d['peak_bytes'] / gib:.3f}"
+            f" GiB, card {peak / gib:.3f} GiB (card - dry {gap / 2 ** 20:+.1f}"
+            f" MiB; bound {DRY_PEAK_REL:.0%} + {DRY_PEAK_ABS >> 20} MiB); "
+            f"dry {ds:.1f} s, real {rs:.2f} s")
+
+    # -- serving: Mistral-NeMo-12B at 40 layers, prefill + one decode ------
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), head_shuffle="cuda")
+    tok_shape = (SERVE_BATCH, SERVE_PROMPT)
+
+    def serve_work(inputs, mesh):
+        _serve_once(torch, M, cfg, inputs[0], inputs[1], mesh)
+
+    d, ds = dry(lambda device: (D._materialize(M.param_shapes(cfg), device),
+                                torch.zeros(tok_shape, dtype=torch.int64,
+                                            device=device)),
+                serve_work, False)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, tok_shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    r, peak, rs, counts = real((params, tokens), serve_work, None)
+    del params, tokens
+    drop()
+    k4a, gap = held_equal("serving", d, r, peak, counts,
+                          4 * self_attention_layers(cfg))
+    launches["serving (prefill + decode)"] = k4a
+    report(f"{cfg.name} ({cfg.n_layers} layers, bf16; prefill "
+           f"{SERVE_BATCH} x {SERVE_PROMPT} + one decode step)", d, ds, r,
+           peak, rs, k4a, gap)
+
+    # -- training: the same model cut to 4 layers, one step ------------------
+    tcfg = dataclasses.replace(cfg, n_periods=TRAIN_LAYERS)
+    ocfg = AdamWConfig(state_bits=tcfg.opt_bits)
+    step, _ = make_train_step(tcfg, opt_cfg=ocfg)
+    bshape = (TRAIN_BATCH, TRAIN_SEQ)
+
+    def train_work(inputs, mesh):
+        step(*inputs)
+
+    def train_dry(device):
+        p = D._materialize(M.param_shapes(tcfg), device)
+        o = D._materialize(opt_state_shapes(tcfg, M.param_shapes(tcfg), ocfg),
+                           device)
+        b = {k: torch.zeros(bshape, dtype=torch.int64, device=device)
+             for k in ("tokens", "labels")}
+        return p, o, b
+    d, ds = dry(train_dry, train_work, False)
+    params = M.init(tcfg, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(17)
+    batch = {k: torch.randint(0, tcfg.vocab_size, bshape, generator=g,
+                              device=dev) for k in ("tokens", "labels")}
+    r, peak, rs, counts = real((params, adamw_init(params, ocfg), batch),
+                               train_work, None)
+    del params, batch
+    drop()
+    k4a, gap = held_equal("training", d, r, peak, counts,
+                          12 * self_attention_layers(tcfg))
+    launches["training step (4 layers)"] = k4a
+    report(f"{tcfg.name} cut to {tcfg.n_layers} layers, one step of "
+           f"{TRAIN_BATCH} x {TRAIN_SEQ} ({tcfg.opt_bits}-bit moments, remat "
+           f"{tcfg.remat_policy})", d, ds, r, peak, rs, k4a, gap)
+
+    # -- phi on a (1, 1) mesh: a fake world, then a real NCCL group ---------
+    pcfg = dataclasses.replace(get_config(MESH_ARCH), head_shuffle="cuda",
+                               n_periods=DRY_PHI_LAYERS)
+
+    def phi_work(inputs, mesh):
+        with torch.no_grad():
+            M.prefill(pcfg, inputs[0], {"tokens": inputs[1]}, mesh=mesh)
+
+    d, ds = dry(lambda device: (D._materialize(M.param_shapes(pcfg), device),
+                                torch.zeros(tok_shape, dtype=torch.int64,
+                                            device=device)),
+                phi_work, True)
+    params = M.init(pcfg, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, pcfg.vocab_size, tok_shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    mesh = make_dev_mesh(1, 1, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        r, peak, rs, counts = real((params, tokens), phi_work, mesh)
+    finally:
+        mesh.close()
+    check(not dist.is_initialized(), "phase 19's NCCL group outlived it")
+    del params, tokens
+    drop()
+    check(d["all-to-all"] > 0, ("phi: no all-to-all", d))
+    k4a, gap = held_equal("phi with the mesh", d, r, peak, counts,
+                          4 * self_attention_layers(pcfg))
+    launches["phi mesh prefill (16 layers)"] = k4a
+    report(f"{pcfg.name} at {pcfg.n_layers} layers, prefill {SERVE_BATCH} x "
+           f"{SERVE_PROMPT} on a (1, 1) mesh (fake world, then one NCCL "
+           f"rank)", d, ds, r, peak, rs, k4a, gap)
+
+    # -- a production cell: decode_32k on a fake 256-rank world -------------
+    with tempfile.TemporaryDirectory(prefix="dryrun_torch_") as out:
+        rec = D.run_cell(SERVE_ARCH, "decode_32k", False, out, resume=False)
+    check("error" not in rec, rec.get("traceback"))
+    check(not dist.is_initialized(), "the 256-rank fake world outlived it")
+    mem, ops = rec["memory"], rec["op_analysis"]
+    check(mem["fits_hbm"] == (mem["peak_bytes"] <= HBM_BYTES), mem)
+    say(f"  {SERVE_ARCH} decode_32k on a fake {rec['n_devices']}-rank world "
+        f"({rec['mesh']}; rank 0 traced): {rec['trace_s']:.1f} s; dot FLOPs "
+        f"per rank {ops['dot_flops']:.4e}; held parameters "
+        f"{mem['held_param_bytes'] / 1e9:.2f} GB (spec: "
+        f"{rec['param_bytes_per_device'] / 1e9:.3f}), kv cache "
+        f"{mem['held_cache_bytes'] / 1e9:.1f} GB (spec: "
+        f"{rec['cache_bytes_per_device'] / 1e9:.3f}); peak "
+        f"{mem['peak_bytes'] / 1e9:.1f} GB; fits_hbm {mem['fits_hbm']}")
+    secs = time.perf_counter() - t_phase
+    check(secs < 60, ("phase 19 took", secs))
+    say(f"  phase 19: {secs:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -3819,6 +4070,7 @@ def main(argv=None) -> int:
                                    sum(kinds["train"].values()))}
     mesh_counts = {"tile_serve": sum(phase_mesh(torch, smi, bw,
                                                 REPS).values())}
+    dry_counts = {"tile_serve": sum(phase_dryrun(torch, smi).values())}
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -3835,7 +4087,8 @@ def main(argv=None) -> int:
                         "kinds_launches": kinds_counts.get(name, (0, 0))[0],
                         "kinds_train_launches":
                             kinds_counts.get(name, (0, 0))[1],
-                        "mesh_launches": mesh_counts.get(name, 0)})
+                        "mesh_launches": mesh_counts.get(name, 0),
+                        "dryrun_launches": dry_counts.get(name, 0)})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

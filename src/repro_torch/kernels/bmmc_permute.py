@@ -39,6 +39,16 @@ Each launch that runs adds one to :data:`LAUNCHES`; a launch recorded
 into a CUDA graph, the graph's replays and the plain versions count
 nothing.
 
+Dry runs (:func:`repro_torch.launch.op_analysis.dry_run`): a wrapper
+given a fake tensor inside a dry run still builds its plan (the numpy
+planners need shapes only), counts the launch the card would make in the
+dry run's :class:`~repro_torch.launch.op_analysis.OpCounter` (K4a with
+the schedule :func:`k4a_schedule` picks for the tensor's shape, type and
+alignment) and returns an empty result of the right shape and type; it
+reads no data pointer, uploads no table and builds no launch record. A
+fake tensor outside a dry run raises. A real launch is also reported to
+an active counter, so a dry run and a real run count alike.
+
 Guarded variants (ring 2 of :mod:`repro_torch.guard`): K2, K3, K4a and
 K4b each have a second instantiation that tests every table entry before
 the access it addresses and, on an entry out of range, sets bit 1 of a
@@ -67,6 +77,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor as _FakeTensor
 
 from .. import guard as _guard
 from ..core.tiling import BlockPlan, LanePlan, TilePlan
@@ -133,6 +144,39 @@ def check_no_grad(x, what: str) -> None:
             f"call this under torch.no_grad()")
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _report(name: str, path, moved: int) -> None:
+    """A real launch, reported to the active op counter, if any (one test
+    of the dispatch-mode stack's length when there is none)."""
+    if torch._C._len_torch_dispatch_stack():
+        from ..launch.op_analysis import active_counter
+        c = active_counter()
+        if c is not None:
+            c.kernel(name, path, moved)
+
+
+def _dry_launch(x: torch.Tensor, name: str, path, moved: int
+                ) -> torch.Tensor:
+    """A fake tensor's launch inside a dry run: counted, never run; an
+    empty result shaped as ``x``. Raises outside a dry run."""
+    from ..launch.op_analysis import dry_counter
+    dry_counter(name).kernel(name, path, moved)
+    return torch.empty_like(x)
+
+
+def _dry_k4a(xc: torch.Tensor, geometry, moved: int) -> torch.Tensor:
+    """K4a on a fake ``(B, 2^n, d)`` tensor: the schedule the card's record
+    would hold (the output and the ``src0`` table are fresh allocations,
+    so the tensor's own offset is the only misalignment)."""
+    align = xc.storage_offset() * xc.element_size()
+    s = k4a_schedule(geometry, xc.shape[0], xc.shape[2], xc.element_size(),
+                     align)
+    return _dry_launch(xc, "tile", s.schedule, moved)
+
+
 def _route(x: torch.Tensor, what: str) -> bool:
     """True: launch the CUDA kernel; False: run the plain version (CPU
     tensor). Anything else raises, and so does a tensor that requires
@@ -172,7 +216,8 @@ def _stream(x: torch.Tensor):
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(x.device.index))
 
 
-def _launch(name: str, x: torch.Tensor, *args, path: str = None) -> None:
+def _launch(name: str, x: torch.Tensor, *args, path: str = None,
+            moved: int = 0) -> None:
     from . import build as _build
     fn = _build.load(name)
     if x.device.index == torch.cuda.current_device():
@@ -186,6 +231,7 @@ def _launch(name: str, x: torch.Tensor, *args, path: str = None) -> None:
         LAUNCHES[name] += 1     # a graph capture records, it does not run
         if path is not None:
             LAUNCHES[f"{name}_{path}"] += 1
+        _report(name, path, moved)
 
 
 def _device_table(tab, device, numel: int) -> torch.Tensor:
@@ -252,7 +298,12 @@ class _DeviceCache:
         return sum(bufs.values())
 
     def get(self, owner, tag, device, make, *args):
-        """The kept value, or ``make(*args)``'s, kept."""
+        """The kept value, or ``make(*args)``'s, kept. Inside a fake mode
+        (a dry run) nothing is looked up or kept: ``make(*args)``."""
+        if torch._C._len_torch_dispatch_stack():
+            from ..launch.op_analysis import in_fake_mode
+            if in_fake_mode():
+                return make(*args)
         name = _DEV_NAMES.get(device)
         if name is None:
             name = _DEV_NAMES.setdefault(device, str(device))
@@ -749,6 +800,8 @@ def _k4a_call(x: torch.Tensor, plan: TilePlan, batched: bool,
     if not torch._C._cuda_isCurrentStreamCapturing():
         LAUNCHES["tile"] += 1       # a graph capture records, it does not run
         LAUNCHES[rec.path] += 1
+        if torch._C._len_torch_dispatch_stack():
+            _report("tile", rec.schedule.schedule, 2 * _nbytes(x))
     return out
 
 
@@ -759,14 +812,15 @@ def _tile_launch(xc, tabs, geometry, flags=None):
     if flags is not None:
         out, args = _tile_args(xc, geometry)
         _launch("tile_guarded", xc, _ptr(xc), _ptr(out),
-                *(_ptr(a) for a in tabs), *args, _ptr(flags))
+                *(_ptr(a) for a in tabs), *args, _ptr(flags),
+                moved=2 * _nbytes(xc))
         return out
     out = torch.empty_like(xc)
     s = k4a_schedule(geometry, xc.shape[0], xc.shape[2], xc.element_size(),
                      xc.data_ptr() | out.data_ptr() | tabs[3].data_ptr())
     args = _k4a_args(s, tabs, geometry, xc.shape[0])
     _launch("tile", xc, _ptr(xc), _ptr(out), ctypes.addressof(args),
-            path=s.schedule)
+            path=s.schedule, moved=2 * _nbytes(xc))
     return out
 
 
@@ -1068,7 +1122,7 @@ def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
     if flags is None:
         _launch("tile_fused", xc, _ptr(xc), _ptr(out),
                 *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
-                *tail)
+                *tail, moved=2 * _nbytes(xc))
     else:
         if maps:
             raise ValueError("the guarded K4b variant takes no map "
@@ -1076,7 +1130,7 @@ def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
                              "unguarded)")
         _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
                 *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
-                *tail, _ptr(flags))
+                *tail, _ptr(flags), moved=2 * _nbytes(xc))
     return out
 
 
@@ -1107,7 +1161,17 @@ def tiled_permute_tables(x: torch.Tensor, in_rows, out_rows, xor_low, src0,
     if entries:
         _check_epi_input(xc, entries, geometry)
     flags = _flags_for(x, flags)
-    if _route(x, "tiled_permute"):
+    if isinstance(x, _FakeTensor):
+        check_no_grad(x, "tiled_permute")
+        moved = 2 * _nbytes(x)
+        if entries:
+            name = "tile_fused" if flags is None else "tile_fused_guarded"
+            out = _dry_launch(xc, name, None, moved)
+        elif flags is not None:
+            out = _dry_launch(xc, "tile_guarded", None, moved)
+        else:
+            out = _dry_k4a(xc, geometry, moved)
+    elif _route(x, "tiled_permute"):
         n, t, rpt, _, _, n_tiles, _ = geometry
         tabs = tuple(_device_table(a, x.device, k) for a, k in (
             (in_rows, n_tiles * rpt), (out_rows, n_tiles * rpt),
@@ -1241,7 +1305,8 @@ def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
             *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
             _ELEM_TYPE[xc.dtype], xc.shape[2], dv,
             int(plan.info["groups"] > 0), EP.spill_sids(plan.info),
-            plan.info["maps"] << plan.info["outer_bits"])
+            plan.info["maps"] << plan.info["outer_bits"],
+            moved=3 * _nbytes(xc))
     return out
 
 
@@ -1276,7 +1341,9 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
     _check_epi_input(xc, entries, geometry)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gradients take float32 or bfloat16, got {x.dtype}")
-    if _route(x, "tiled_permute_bwd_tables"):
+    if isinstance(x, _FakeTensor):
+        out = _dry_launch(xc, "tile_bwd", None, 3 * _nbytes(x))
+    elif _route(x, "tiled_permute_bwd_tables"):
         if not ct.is_contiguous():
             raise ValueError("tiled_permute_bwd_tables: the CUDA kernel "
                              "takes a contiguous cotangent")
@@ -1316,9 +1383,11 @@ def tiled_permute(x: torch.Tensor, plan: TilePlan, *,
     if device.type == "cuda" and active_guard_flags() is None:
         if _guard.enabled():
             _trap_tables(_plan_traps(plan))
-        return _k4a_call(x, plan, batched, device)
+        if not isinstance(x, _FakeTensor):
+            return _k4a_call(x, plan, batched, device)
     _trap_tables(_plan_traps(plan))
-    tabs = (device_tables(plan, x.device) if x.device.type == "cuda" else
+    tabs = (device_tables(plan, x.device) if x.device.type == "cuda"
+            and not isinstance(x, _FakeTensor) else
             (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0))
     return tiled_permute_tables(x, *tabs, geometry=plan_geometry(plan),
                                 batched=batched)
@@ -1369,9 +1438,10 @@ def _block_launch(xc, src_rows, geometry, flags=None):
     args = (_ptr(xc), _ptr(out), _ptr(src_rows), n_rows, wpb, _shift(wpb),
             per_cta, xc.shape[0], wb)
     if flags is None:
-        _launch("block", xc, *args)
+        _launch("block", xc, *args, moved=2 * _nbytes(xc))
     else:
-        _launch("block_guarded", xc, *args, _ptr(flags))
+        _launch("block_guarded", xc, *args, _ptr(flags),
+                moved=2 * _nbytes(xc))
     return out
 
 
@@ -1387,7 +1457,11 @@ def block_permute_tables(x: torch.Tensor, src_rows, *, geometry: tuple,
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
     flags = _flags_for(x, flags)
-    if _route(x, "block_permute"):
+    if isinstance(x, _FakeTensor):
+        check_no_grad(x, "block_permute")
+        out = _dry_launch(xc, "block" if flags is None else "block_guarded",
+                          None, 2 * _nbytes(x))
+    elif _route(x, "block_permute"):
         out = _block_launch(xc, _device_table(src_rows, x.device,
                                               geometry[2]), geometry, flags)
     elif flags is not None:
@@ -1401,7 +1475,7 @@ def block_permute(x: torch.Tensor, plan: BlockPlan, *,
                   batched: bool = False) -> torch.Tensor:
     _trap_tables([("src_rows", plan.src_rows, plan.n_rows)])
     tab = (device_tables(plan, x.device)[0] if x.device.type == "cuda"
-           else plan.src_rows)
+           and not isinstance(x, _FakeTensor) else plan.src_rows)
     return block_permute_tables(x, tab, geometry=block_geometry(plan),
                                 batched=batched)
 
@@ -1438,9 +1512,10 @@ def _lane_launch(xc, src_lane, geometry, flags=None):
     args = (_ptr(xc), _ptr(out), _ptr(src_lane), 1 << (n - t), 1 << t, wpe,
             _shift(wpe), _shift((1 << t) * wpe), rows, xc.shape[0], wb)
     if flags is None:
-        _launch("lane", xc, *args)
+        _launch("lane", xc, *args, moved=2 * _nbytes(xc))
     else:
-        _launch("lane_guarded", xc, *args, _ptr(flags))
+        _launch("lane_guarded", xc, *args, _ptr(flags),
+                moved=2 * _nbytes(xc))
     return out
 
 
@@ -1468,7 +1543,11 @@ def lane_permute_tables(x: torch.Tensor, src_lane, *, geometry: tuple,
         raise ValueError(f"axis of {xc.shape[1]} elements, geometry says "
                          f"2^{geometry[0]}")
     flags = _flags_for(x, flags)
-    if _route(x, "lane_permute"):
+    if isinstance(x, _FakeTensor):
+        check_no_grad(x, "lane_permute")
+        out = _dry_launch(xc, "lane" if flags is None else "lane_guarded",
+                          None, 2 * _nbytes(x))
+    elif _route(x, "lane_permute"):
         out = _lane_launch(xc, _device_table(src_lane, x.device,
                                              1 << geometry[1]), geometry,
                            flags)
@@ -1483,7 +1562,7 @@ def lane_permute(x: torch.Tensor, plan: LanePlan, *,
                  batched: bool = False) -> torch.Tensor:
     _trap_tables([("src_lane", plan.src_lane, 1 << plan.t)])
     tab = (device_tables(plan, x.device)[0] if x.device.type == "cuda"
-           else plan.src_lane)
+           and not isinstance(x, _FakeTensor) else plan.src_lane)
     return lane_permute_tables(x, tab, geometry=lane_geometry(plan),
                                batched=batched)
 
@@ -1594,7 +1673,8 @@ def _copy_cuda(x: torch.Tensor, path: str = "words") -> torch.Tensor:
                           _sm_count(x.device), path=path)
         _launch("copy", x, _ptr(x), _ptr(out), nbytes, s.head[1],
                 s.body[1] - s.body[0], 0 if s.path == "bulk" else 1,
-                s.word_bytes, s.threads, s.grid, path=s.path)
+                s.word_bytes, s.threads, s.grid, path=s.path,
+                moved=2 * nbytes)
     return out
 
 
@@ -1605,6 +1685,11 @@ def copy_blocks(x: torch.Tensor, *, rows_per_block: int = 8,
     :func:`copy_schedule`; on the CPU the reference's schedule, whose
     block of ``rows_per_block`` x ``row_len`` elements also fixes
     :func:`copy_pad_elems`."""
+    if isinstance(x, _FakeTensor):
+        check_no_grad(x, "copy_blocks")
+        if not x.numel():
+            return torch.empty_like(x)
+        return _dry_launch(x, "copy", "words", 2 * _nbytes(x))
     if not _route(x, "copy_blocks"):
         return _copy_plain(x, rows_per_block, row_len)
     return _copy_cuda(x)

@@ -16,6 +16,15 @@ with its address, world size and rank); for a mesh of one rank, the
 mesh creates that single-rank group itself, on a file store in a fresh
 temporary directory (no network), and :meth:`Mesh.close` destroys it.
 
+A **dry-run mesh** (``dry_run=True``, asked for by name, never a
+default) stands on torch's ``fake`` backend over a ``FakeStore``: one
+process holds rank 0 of a world of ``prod(shape)`` ranks (256 or 512 for
+the production meshes) and its collectives move nothing, so a trace of
+:func:`repro_torch.launch.op_analysis.dry_run` counts what rank 0 would
+exchange. It refuses to start while a process group is initialized,
+:meth:`Mesh.close` destroys its group, and a real (non-fake) tensor
+handed to a collective on it raises.
+
 Meshes are made by functions, never at import: importing this module
 touches no device and no process group.
 """
@@ -38,13 +47,13 @@ Axes = Union[str, Sequence[str]]
 class Mesh:
     """``shape`` ranks (row-major, the last axis fastest) named
     ``axis_names``, on ``device`` (``"cuda"``: NCCL, ``"cpu"``: gloo).
-    The default process group must hold exactly ``prod(shape)`` ranks.
+    The default process group must hold exactly ``prod(shape)`` ranks;
+    with ``dry_run=True`` the mesh starts its own group on the ``fake``
+    backend instead, as rank 0 (see the module docstring).
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
-                 device: str = "cuda"):
-        from torch.distributed.device_mesh import init_device_mesh
-
+                 device: str = "cuda", dry_run: bool = False):
         shape, axis_names = tuple(int(v) for v in shape), tuple(axis_names)
         if len(shape) != len(axis_names) or len(set(axis_names)) != len(
                 axis_names):
@@ -56,7 +65,17 @@ class Mesh:
         backend = _BACKENDS[device]
         size = math.prod(shape)
         self._store_dir: Optional[str] = None
-        if not dist.is_initialized():
+        self.dry_run = dry_run
+        if dry_run:
+            from torch.testing._internal.distributed.fake_pg import FakeStore
+            if dist.is_initialized():
+                raise RuntimeError("a dry-run mesh starts its own fake "
+                                   "process group; one is initialized "
+                                   "already")
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=size)
+            backend = "fake"
+        elif not dist.is_initialized():
             if size != 1:
                 raise RuntimeError(
                     f"a {shape} mesh needs {size} ranks: initialize the "
@@ -65,18 +84,30 @@ class Mesh:
             dist.init_process_group(
                 backend, init_method="file://" + os.path.join(
                     self._store_dir, "store"), rank=0, world_size=1)
+        try:
+            self._layout(shape, axis_names, device, backend)
+        except BaseException:
+            self.close()
+            raise
+
+    def _layout(self, shape, axis_names, device, backend) -> None:
+        from torch.distributed.device_mesh import init_device_mesh
         got = dist.get_backend()
         if got != backend:
             raise RuntimeError(f"a mesh on {device!r} needs the {backend} "
                                f"backend; the process group runs {got}")
+        size = math.prod(shape)
         if dist.get_world_size() != size:
             raise ValueError(f"a {shape} mesh needs {size} ranks; the "
                              f"process group has {dist.get_world_size()}")
         self.device = device
         self.axis_names = axis_names
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
-        self.device_mesh = init_device_mesh(device, shape,
-                                            mesh_dim_names=axis_names)
+        # a fake world's groups serve tensors of either device: its mesh
+        # is laid out on the host, where a CPU-only build can make one
+        self.device_mesh = init_device_mesh(
+            "cpu" if self.dry_run else device, shape,
+            mesh_dim_names=axis_names)
         self.rank = dist.get_rank()
         # global ranks in row-major mesh order
         self._flat = self.device_mesh.mesh.flatten().tolist()
@@ -144,8 +175,13 @@ class Mesh:
         return sets
 
     def close(self) -> None:
-        """Destroy the single-rank process group this mesh created, if it
-        did; a group the caller initialized stays theirs to destroy."""
+        """Destroy the process group this mesh created (a single-rank
+        group, or a dry run's fake world), if it did; a group the caller
+        initialized stays theirs to destroy."""
+        if self.dry_run:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            self.dry_run = False
         if self._store_dir is not None:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -154,37 +190,52 @@ class Mesh:
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, device={self.device!r}, "
-                f"rank={self.rank})")
+                f"rank={self.rank}{', dry run' if self.dry_run else ''})")
 
 
 def make_production_mesh(*, multi_pod: bool = False, shape=None,
-                         device: str = "cuda") -> Mesh:
+                         device: str = "cuda",
+                         dry_run: bool = False) -> Mesh:
     """Default (16, 16) / (2, 16, 16); ``shape`` overrides the per-pod
     (data, model) factorization (e.g. (32, 8) for 40-head
-    configurations). Raises unless the world holds that many ranks."""
+    configurations). Raises unless the world holds that many ranks;
+    ``dry_run=True`` makes that world on the fake backend."""
     if shape is None:
         shape = (2, 16, 16) if multi_pod else (16, 16)
     elif multi_pod:
         shape = (2,) + tuple(shape)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(tuple(shape), axes, device=device)
+    return Mesh(tuple(shape), axes, device=device, dry_run=dry_run)
 
 
 def make_dev_mesh(n_data: int = 2, n_model: int = 2, *,
-                  device: str = "cuda") -> Mesh:
+                  device: str = "cuda", dry_run: bool = False) -> Mesh:
     """A small (data, model) mesh: (1, 1) on one card, or ``gloo`` CPU
-    ranks in the tests."""
-    return Mesh((n_data, n_model), ("data", "model"), device=device)
+    ranks in the tests (or a fake world with ``dry_run=True``)."""
+    return Mesh((n_data, n_model), ("data", "model"), device=device,
+                dry_run=dry_run)
 
 
 # ---------------------------------------------------------------------------
 # Collectives on a mesh's groups
 # ---------------------------------------------------------------------------
 
+def _check_operand(x, group) -> None:
+    """A collective on the fake backend moves nothing, so it takes fake
+    tensors only: a real one would come back unfilled."""
+    if dist.get_backend(group) == "fake":
+        from .op_analysis import is_fake
+        if not is_fake(x):
+            raise RuntimeError("a real tensor handed to a collective of a "
+                               "dry-run (fake) process group, which "
+                               "moves no data")
+
+
 def all_to_all(x, group):
     """JAX's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)`` over
     ``group``: chunk j of axis 0 goes to group rank j; chunk i of the
     result came from group rank i."""
+    _check_operand(x, group)
     x = x.contiguous()
     out = x.new_empty(x.shape)
     dist.all_to_all_single(out, x, group=group)
@@ -198,6 +249,7 @@ def all_gather(x, group) -> list:
     phi's width)."""
     if dist.get_world_size(group) == 1:
         return [x]
+    _check_operand(x, group)
     parts = [x.new_empty(x.shape) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return parts

@@ -119,7 +119,7 @@ def _enc_states(cfg, params, batch: Dict, ctx):
 
 def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mode: str = "train",
             mesh=None):
-    """batch: {"tokens": (B,S) int64 tensor, optional "src": (B,Ssrc,E)
+    """batch: {"tokens": (B,S) int64 or int32 tensor, optional "src": (B,Ssrc,E)
     source embeddings (encoder-decoder and VLM configurations)}.
 
     Returns (logits (B,S,V) f32, caches-or-None, aux).
@@ -134,11 +134,12 @@ def forward(cfg: ArchConfig, params: Dict, batch: Dict, *, mode: str = "train",
 
 
 def loss_fn(cfg: ArchConfig, params: Dict, batch: Dict, *, mesh=None):
-    """Causal-LM cross entropy (+ MoE aux). batch needs "labels" (B,S)
-    int64. Returns ``(loss, {"ce": ..., "aux": ...})``, float32 0-d."""
+    """Causal-LM cross entropy (+ MoE aux). batch needs "labels" (B,S),
+    int64 or int32 (the reference's type, widened here for the gather).
+    Returns ``(loss, {"ce": ..., "aux": ...})``, float32 0-d."""
     logits, _, aux = forward(cfg, params, batch, mode="train", mesh=mesh)
     logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
+    ll = torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     loss = -torch.mean(ll)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 

@@ -59,8 +59,12 @@ def _expert_counts(ids, x: int):
     lead = ids.shape[:-2]
     flat = ids.reshape(-1, ids.shape[-2] * ids.shape[-1])
     off = torch.arange(flat.shape[0], device=ids.device)[:, None] * x
-    counts = torch.bincount((flat + off).reshape(-1),
-                            minlength=flat.shape[0] * x)
+    idx = (flat + off).reshape(-1)
+    # a fixed-size count (bincount's output length depends on the data,
+    # which a trace on fake tensors cannot follow)
+    counts = torch.zeros(flat.shape[0] * x, dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+                             0, idx, torch.ones_like(idx))
     return counts.reshape(lead + (x,)).float()
 
 

@@ -39,6 +39,7 @@ import torch
 
 from .. import obs
 from ..configs.base import ArchConfig
+from ..launch.op_analysis import is_fake
 from ..models import model as M
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, state_shapes
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -89,7 +90,7 @@ def _instrument_step(train_step: Callable) -> Callable:
                 raise
             if obs.sync_enabled():
                 loss = out[2]["loss"]
-                if loss.device.type == "cuda":
+                if loss.device.type == "cuda" and not is_fake(loss):
                     torch.cuda.synchronize(loss.device)
             _observe_step(t0, sargs, rt0, vjp0, perm0)
         return out

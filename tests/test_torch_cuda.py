@@ -1208,3 +1208,65 @@ def test_cuda_moe_a2a_dispatch_shuffle_is_neutral_on_k4a(nccl_mesh):
     for a, b in zip(runs["cuda"][2], runs["ref"][2]):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
+
+
+# ---------------------------------------------------------------------------
+# the dry run
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_cuda_dry_run_counts_equal_the_real_run(cuda_device, kind):
+    """Mistral-NeMo at smoke width with 8 kv heads and the kv-head shuffle
+    on ``cuda``: the dry run (fake tensors) and the real run on the card
+    under an ``OpCounter`` count the same dot FLOPs, collective bytes and
+    K4a launches by schedule (4 a prefill layer, 8 a trained layer at
+    smoke size, where remat is off), and
+    the dry run's peak of live storages is within 64 MiB of the card's
+    (allocator rounding, K4a's tables)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.op_analysis import COLLECTIVE_KINDS, OpCounter
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.serve import make_prefill_step
+    from repro_torch.train.step import make_train_step, opt_state_shapes
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("mistral-nemo-12b")),
+                              n_heads=8, n_kv_heads=8, head_shuffle="cuda")
+    shape = ShapeConfig("smoke", 64, 4, kind)
+    batch = D.input_specs(cfg, shape)
+    pshapes = M.param_shapes(cfg)
+    if kind == "train":
+        oc = AdamWConfig(state_bits=cfg.opt_bits)
+        fn = make_train_step(cfg, opt_cfg=oc)[0]
+        args = (pshapes, opt_state_shapes(cfg, pshapes, oc), batch)
+    else:
+        fn, args = make_prefill_step(cfg), (pshapes, batch)
+    dry = D.trace_step(fn, args, kind).result()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    params = M.init(cfg, g)
+    real_batch = {k: torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                                   device=cuda_device, dtype=v.dtype)
+                  for k, v in batch.items()}
+    inputs = ((params, adamw_init(params, oc), real_batch) if kind == "train"
+              else (params, real_batch))
+    torch.cuda.synchronize()
+    counter = OpCounter()
+    counter.hold(inputs)
+    other = torch.cuda.memory_allocated() - counter.live_bytes
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launch_counts()
+    with counter, torch.set_grad_enabled(kind == "train"):
+        fn(*inputs)
+        torch.cuda.synchronize()
+    real = counter.result()
+    for k in COLLECTIVE_KINDS + ("dot_flops", "kernel_launches"):
+        assert dry[k] == real[k], k
+    # a training step shuffles 12 times a layer under remat, 8 without
+    per_layer = (12 if cfg.remat else 8) if kind == "train" else 4
+    k4a = sum(v["launches"] for v in real["kernel_launches"].values())
+    assert k4a == per_layer * cfg.n_layers == pk.launch_counts()["tile"]
+    peak = torch.cuda.max_memory_allocated() - other
+    assert abs(peak - dry["peak_bytes"]) <= 64 * 2 ** 20

@@ -60,7 +60,9 @@ def test_port_modules_found():
                  "repro_torch.launch.hw", "repro_torch.launch.mesh",
                  "repro_torch.parallel", "repro_torch.parallel.sharding",
                  "repro_torch.models.moe_a2a",
-                 "repro_torch.core.distributed"):
+                 "repro_torch.core.distributed",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun"):
         assert want in mods
 
 
