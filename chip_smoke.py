@@ -443,12 +443,16 @@ def ptxas_usage(log: str) -> list:
 def phase_build():
     """Build every kernel, and beside them the K4a that the redesign
     replaced (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and
-    15. Returns the A/B library."""
+    15, and the K4b and K5 before their work-item schedules
+    (``tools/fused_ab.cu``), the A/B reference of phases 6 and 9. Returns
+    the K4a library and (the K4b/K5 library, its ptxas log)."""
     say("== phase 2: build ==")
     from repro_torch.kernels import build
+    import fused_ab
     import k4a_sweep
     t0 = time.perf_counter()
     old = k4a_sweep.start_build(build.build_dir().parent / "sweep")
+    ab = fused_ab.start_build(build.build_dir().parent / "sweep")
     log = build.build_all()
     say(f"built {sorted(log)} in {time.perf_counter() - t0:.2f} s "
         f"(build dir {build.build_dir()})")
@@ -461,7 +465,73 @@ def phase_build():
     so = k4a_sweep.finish_build(old)
     say(f"  the K4a before its redesign (tools/k4a_sweep.cu, A/B only): "
         f"built in {time.perf_counter() - t0:.2f} s")
-    return so
+    ab = fused_ab.finish_build(ab)
+    say(f"  the K4b and K5 before their schedules (tools/fused_ab.cu, A/B "
+        f"only): built in {time.perf_counter() - t0:.2f} s")
+    for kern, used in ptxas_usage(ab[1]):
+        if "old_kernel" in kern:
+            say(f"    {kern}: {used}")
+    return so, ab
+
+
+def regs_of(log: str, fragment: str) -> str:
+    """The ptxas usage of the one kernel whose (mangled) name holds
+    ``fragment``, from an ``nvcc -Xptxas -v`` log."""
+    got = [u for k, u in ptxas_usage(log) if fragment in k]
+    check(len(got) == 1, ("ptxas usage", fragment, len(got)))
+    return got[0]
+
+
+# The instantiations the A/B of phases 6 and 9 times, by their mangled
+# template arguments: (new, old) name fragments
+AB_KERNELS = {
+    "K4b int32": ("tile_fused_items_kernelIiLi1ELi16ELb0E",
+                  "tile_fused_old_kernelIiLi1ELi16ELb0E"),
+    "K4b float32": ("tile_fused_items_kernelIfLi1ELi16ELb0E",
+                    "tile_fused_old_kernelIfLi1ELi16ELb0E"),
+    "K5 float32": ("tile_bwd_kernelIfLi1ELi8ELb1ELb0E",
+                   "tile_bwd_old_kernelIfLi1ELi8ELb1ELb0E"),
+    "K5 bfloat16": ("tile_bwd_kernelI4Bf16Li1ELi8ELb1ELb0E",
+                    "tile_bwd_old_kernelI4Bf16Li1ELi8ELb1ELb0E"),
+}
+
+
+def fused_ab_turns(torch, ab, fs, t, cases) -> dict:
+    """Old and new K4b or K5 (``tools/fused_ab.py``) on one cluster: each
+    bit for bit against the plain version, then timed in turns (old, new,
+    new, old; one call and device time), printed with each side's
+    registers and the new side's schedule. Returns {label: {"ms",
+    "device_ms", "old_ms", "old_device_ms"}} (medians)."""
+    import fused_ab
+    from repro_torch.kernels import build
+    so, ab_log = ab
+    out = {}
+    for label, x, ct in cases:
+        old, new, plain, s = fused_ab.cluster_calls(so, fs, t, x, ct)
+        want = plain()
+        for side, fn in (("old", old), ("new", new)):
+            err = max_abs_err(torch, fn(), want)
+            check(err == 0.0, ("A/B", label, side, err))
+        one = in_turns({"old": old, "new": new},
+                       lambda f: cuda_ms(torch, f, REPS))
+        dev = in_turns({"old": old, "new": new},
+                       lambda f: device_ms(torch, f))
+        kern = "tile_bwd" if ct is not None else "tile_fused"
+        new_frag, old_frag = AB_KERNELS[label]
+        new_regs = (regs_of(build.BUILD_LOG[kern]["ptxas"], new_frag)
+                    if kern in build.BUILD_LOG else "not built here")
+        med = {k: statistics.median(v) for k, v in (
+            ("ms", one["new"]), ("old_ms", one["old"]),
+            ("device_ms", dev["new"]), ("old_device_ms", dev["old"]))}
+        say(f"  A/B {label}, in turns (old, new, new, old): one call old "
+            f"{one['old']} new {one['new']} ms; device old {dev['old']} "
+            f"new {dev['new']} ms; medians device old "
+            f"{med['old_device_ms']:.4f} new {med['device_ms']:.4f} ms "
+            f"({med['old_device_ms'] / med['device_ms']:.2f}x); registers "
+            f"old {regs_of(ab_log, old_frag)}, new {new_regs}; schedule: "
+            f"{fused_ab.schedule_text(s)}")
+        out[label] = med
+    return out
 
 
 def k4a_schedules(torch, K, x, plan, batched, label):
@@ -1075,7 +1145,7 @@ def device_ms(torch, fn, inner: int = 10) -> float:
 
 
 def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
-                bw: float):
+                bw: float, ab):
     """K4b against its plain version, bit for bit, at small sizes and on
     every FFT cluster at 2^n_fft; then one 2^n_sort int32 sort cluster,
     also bit for bit, timed beside the plain version and the torch
@@ -1193,10 +1263,14 @@ def phase_fused(torch, n_small: int, n_sort: int, n_fft: int, reps: int,
         f"(K4a) {tile_ms:.4f} ms, copy {copy_ms:.4f} ms (device times: 10 "
         f"calls in one CUDA graph), plain {plain_ms:.3f} ms, torch composite "
         f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    turns = fused_ab_turns(torch, ab, fs, t, (("K4b int32", x, None),
+                                              ("K4b float32", xf, None)))
     del xf
     torch.cuda.empty_cache()
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": worst}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": worst,
+            "old_ms": turns["K4b int32"]["old_ms"],
+            "old_device_ms": turns["K4b int32"]["old_device_ms"]}
 
 
 def bwd_call(K, ex, fs, t, x, ct, batched=False, plain=False):
@@ -1214,7 +1288,7 @@ def bwd_call(K, ex, fs, t, x, ct, batched=False, plain=False):
 
 
 def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
-                     reps: int, bw: float):
+                     reps: int, bw: float, ab):
     """K5 against its plain version, bit for bit, at small sizes, on the
     FFT's butterfly clusters at 2^n_fft and on the largest cluster of the
     2^n_sort float32 sort (keys from 2^16 values, so with ties); the last
@@ -1324,9 +1398,13 @@ def phase_bwd_kernel(torch, n_small: int, n_sort: int, n_fft: int,
         f"composite backward {lib_ms:.3f} ms, bound {bound_ms:.4f} ms")
     say(f"  clocks, power, temperature: {clocks()}")
     del v, xr
+    turns = fused_ab_turns(torch, ab, fs, t, (
+        ("K5 float32", x, ct), ("K5 bfloat16", x.bfloat16(), ct.bfloat16())))
     torch.cuda.empty_cache()
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": worst}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "max_abs_err": worst,
+            "old_ms": turns["K5 float32"]["old_ms"],
+            "old_device_ms": turns["K5 float32"]["old_device_ms"]}
 
 
 def phase_gradients(torch, n_sort: int, n_ties: int, n_fft: int,
@@ -4026,13 +4104,13 @@ def main(argv=None) -> int:
 
     smi = phase_env(torch)
     bw = peak_bw(torch.cuda.get_device_name(0))
-    old_so = phase_build()
+    old_so, ab = phase_build()
     records = phase_kernels(torch, N_SMALL, args.n, REPS, bw)
     counts = phase_main(torch, args.n, REPS, bw, old_so)
 
     phase_sweep(torch, args.n, REPS)
     records["tile_fused"] = phase_fused(torch, N_SMALL - 2, args.n_sort,
-                                        args.n_fft, REPS, bw)
+                                        args.n_fft, REPS, bw, ab)
     comb = phase_combinators(torch, args.n_sort, args.n_fft, REPS)
 
     say("== phase 8: launch counts ==")
@@ -4046,7 +4124,7 @@ def main(argv=None) -> int:
     counts["tile_fused"] = comb["tile_fused"]
 
     records["tile_bwd"] = phase_bwd_kernel(torch, N_SMALL - 2, args.n_sort,
-                                           args.n_fft, REPS, bw)
+                                           args.n_fft, REPS, bw, ab)
     counts["tile_bwd"] = phase_gradients(torch, args.n_sort, args.n_ties,
                                          args.n_fft, args.n_perm, REPS)
     check(counts["tile_bwd"] > 0, "tile_bwd never launched on the "

@@ -31,6 +31,12 @@ a CUDA C++ source in ``csrc/`` (built and loaded by :mod:`.build`):
   transpose of one K4b pass: the saved input and the output cotangent in,
   the input cotangent out (reference: ``_tile_bwd_kernel``).
 
+K4b and K5 run on a work-item schedule the host picks
+(:func:`k4b_schedule`, :func:`k5_schedule`: work items of at most 4096
+positions, a run of them a block, moved 16 bytes a thread where pointers
+and rows allow) and take one launch descriptor (``_EpiArgs``) by
+address.
+
 Every wrapper takes the device of its tensor: a CUDA tensor launches the
 kernel (or raises — there is no quiet fallback), a CPU tensor runs the
 kernel's plain PyTorch version beside it (``_*_plain``), which repeats the
@@ -560,14 +566,13 @@ def _tiles_per_cta(geometry, elem: int, max_positions: int = None) -> int:
     return per_cta
 
 
-def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
+def _tile_args(xc, geometry, *, per_cta: int = None,
                word_bytes: int = None, extra_smem: int = 0):
     """(out, kernel arguments after the tables) of a launch of the guarded
-    K4a (the design before K4a's two schedules: one tile a block, rows
-    padded by one 4-byte bank), or of a K4b / K5 launch (``per_cta``
-    tiles a block, ``n_buf`` tile buffers, words of ``word_bytes``,
-    ``extra_smem`` more bytes a block); raises when a block does not fit
-    shared memory."""
+    K4a or K4b (the design before their schedules: one tile or work item
+    a block, rows padded by one 4-byte bank; K4b with ``per_cta`` tiles a
+    block, words of ``word_bytes`` and ``extra_smem`` more bytes a block);
+    raises when a block does not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
@@ -579,8 +584,6 @@ def _tile_args(xc, geometry, *, per_cta: int = None, n_buf: int = 1,
         per_cta = _tiles_per_cta(geometry, elem)
     rows = per_cta * rpt
     tile = rows * ((1 << t) * wpe + pad) * wb
-    if n_buf > 1:
-        tile = n_buf * ((tile + 15) & ~15)
     smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile + extra_smem
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
@@ -1086,51 +1089,227 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
     return device_cached(owner, key, dev, make)[0]
 
 
-def _epi_launch_args(xc, geometry, entries, n_buf: int = 1) -> tuple:
-    """(out, tile arguments, plan tensor, dv) of a K4b (``n_buf`` 1) or K5
-    (2) launch: words of the element type's own width, blocks of at most
-    4096 positions, and shared memory for the staged plan and (K5) the
-    compare-bit words that wait there and each map's input values."""
+class EpiSchedule(NamedTuple):
+    """How K4b (``tile_fused.cu``) or K5 (``tile_bwd.cu``) runs one
+    geometry on the card (the work-item schedule of ``tile_items.cuh``).
+    Words of ``word_bytes`` (the element type's own width), ``wpe`` of
+    them an element; ``vec`` 1 moves 16 bytes a thread (cp.async copies
+    in, 16-byte gathers or row copies out), 0 one word. A work item is
+    ``per_cta`` tiles of one batch row (at most 4096 positions;
+    ``n_groups`` a batch row, ``n_work`` in all); a block takes
+    ``groups`` consecutive items with ``n_buf`` of them in flight (two
+    where the block's shared memory stays within _EPI_TWO_SMEM), each in
+    a tile (K5: an x and a ct tile) whose rows are padded by one 16-byte
+    chunk (``stride`` words a row). ``grid`` blocks of ``smem`` bytes of
+    dynamic shared memory; ``wpe_shift`` and ``row_shift`` are log2 of
+    ``wpe`` and of a row's words, -1 if not a power of two."""
+    word_bytes: int
+    vec: int
+    wpe: int
+    wpe_shift: int
+    row_shift: int
+    per_cta: int
+    groups: int
+    n_groups: int
+    n_work: int
+    n_buf: int
+    stride: int
+    grid: int
+    smem: int
+
+
+_EPI_GROUPS = 2         # work items a K4b or K5 block takes
+_EPI_TWO_SMEM = 48 * 1024   # a block keeps two work items in flight only
+                            # within this much shared memory: above it
+                            # (K5 on float32, 71 KiB) one ran faster on the
+                            # H100 (tools/fused_ab.py)
+
+
+def _epi_item(geometry, elem: int) -> tuple:
+    """(tiles a work item, bytes a tile row takes in shared memory) of
+    K4b and K5 for ``elem``-byte elements: items of at most 4096
+    positions (a block's register layout) and about _TILE_CTA_BYTES,
+    rows padded by one 16-byte chunk."""
+    t = geometry[1]
+    return (_tiles_per_cta(geometry, elem, EP.REGS * EP.THREADS),
+            ((1 << t) * elem) + 16)
+
+
+def k4b_schedule(geometry, batch: int, d: int, itemsize: int,
+                 align: int = 0, *, n_words: int, n_epi: int, dv: int = 1,
+                 groups: int = None, n_buf: int = None) -> EpiSchedule:
+    """K4b's schedule for ``batch`` rows of a ``geometry`` with elements of
+    ``d`` items of ``itemsize`` bytes under a plan of ``n_words`` int64
+    words and ``n_epi`` epilogues (``dv`` tail values a register slot);
+    ``align`` is the OR of the data, output and src0 pointers (only its
+    residue mod 16 matters); ``groups`` and ``n_buf`` override the work
+    items a block and those in flight (for a sweep). Raises when a block
+    does not fit shared memory."""
+    return _epi_schedule(tuple(geometry), int(batch), int(d), int(itemsize),
+                         int(align) & 15, int(n_words), int(n_epi), int(dv),
+                         1, 0, groups, n_buf)
+
+
+def k5_schedule(geometry, batch: int, d: int, itemsize: int,
+                align: int = 0, *, n_words: int, n_epi: int, dv: int = 1,
+                n_spill: int = 0, n_map_sets: int = 0, groups: int = None,
+                n_buf: int = None) -> EpiSchedule:
+    """K5's schedule, as :func:`k4b_schedule` (``align`` also ORs in the
+    cotangent's pointer), for a plan whose compare bits keep ``n_spill``
+    sets in shared memory and whose maps keep ``n_map_sets`` sets of
+    inputs there (8 registers a thread). A work item holds two tiles (x
+    and ct); a second item is in flight where the block's shared memory
+    stays within _EPI_TWO_SMEM."""
+    extra = (n_spill * dv * EP.THREADS * 4 + n_map_sets * itemsize
+             * EP.THREADS) * 8
+    return _epi_schedule(tuple(geometry), int(batch), int(d), int(itemsize),
+                         int(align) & 15, int(n_words), int(n_epi), int(dv),
+                         2, extra, groups, n_buf)
+
+
+@functools.lru_cache(maxsize=1024)
+def _epi_schedule(geometry, batch, d, itemsize, align, n_words, n_epi, dv,
+                  tiles_per_item, extra, groups, n_buf):
+    n, t, rpt, _, _, n_tiles, _ = geometry
+    elem = d * itemsize
+    per_cta, stride_bytes = _epi_item(geometry, elem)
+    row_len = 1 << t
+    row_words = row_len * d
+    vec = int(align == 0 and row_len * elem % 16 == 0 and d == dv)
+    rows = per_cta * rpt
+    n_groups = n_tiles // per_cta
+    n_work = batch * n_groups
+    groups = max(1, min(groups or _EPI_GROUPS, n_work))
+    tile = (rows * stride_bytes + 15) & ~15
+
+    def smem_of(g, in_flight):
+        return (((g * 8 + 15) & ~15)
+                + ((g * (2 * rows + per_cta + 2 * n_epi) * 4 + 15) & ~15)
+                + ((n_words * 4 + 15) & ~15)
+                + in_flight * tiles_per_item * tile + extra)
+    if n_buf is None:
+        n_buf = 2 if smem_of(groups, 2) <= _EPI_TWO_SMEM else 1
+    n_buf = min(n_buf, groups)
+    if n_buf > 1 and smem_of(groups, n_buf) > _SMEM_MAX:
+        n_buf = 1                         # one item in flight
+    smem = smem_of(groups, n_buf)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
+                         f"with {extra} bytes of compare bits and map "
+                         f"inputs needs {smem} bytes of shared memory "
+                         f"(> {_SMEM_MAX})")
+    return EpiSchedule(itemsize, vec, d, _shift(d), _shift(row_words),
+                       per_cta, groups, n_groups, n_work, n_buf,
+                       stride_bytes // itemsize, -(-n_work // groups), smem)
+
+
+class _EpiArgs(ctypes.Structure):
+    """``EpiTileArgs`` of ``tile_items.cuh``, field for field."""
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "in_rows", "out_rows", "xor_low", "src0", "plan")] + [
+        ("batch", ctypes.c_longlong), ("n_work", ctypes.c_longlong)] + [
+        (k, ctypes.c_int) for k in (
+            "n_words", "n_epi", "n_rows", "t", "rpt_shift", "wpe",
+            "wpe_shift", "row_shift", "per_cta", "per_cta_shift", "groups",
+            "n_groups", "n_buf", "stride", "word_bytes", "vec", "elem_type",
+            "d", "dv", "regs", "maps", "has_cmp", "n_spill", "n_map_sets",
+            "grid", "smem")]
+
+
+def _epi_args(s: EpiSchedule, tabs, plan, geometry, batch: int, dtype,
+              d: int, dv: int, **k5) -> _EpiArgs:
+    """The launch descriptor of schedule ``s`` on device tables ``tabs``
+    and plan tensor ``plan`` (K5 passes has_cmp, n_spill, n_map_sets)."""
+    n, t, rpt, _, _, _, _ = geometry
+    info = plan.info
+    return _EpiArgs(*(a.data_ptr() for a in tabs), plan.data_ptr(), batch,
+                    s.n_work, plan.numel(), len(info["hmask"]),
+                    1 << (n - t), t, _shift(rpt), s.wpe, s.wpe_shift,
+                    s.row_shift, s.per_cta, _shift(s.per_cta), s.groups,
+                    s.n_groups, s.n_buf, s.stride, s.word_bytes, s.vec,
+                    _ELEM_TYPE[dtype], d, dv, 1 << info["reg_bits"],
+                    int(info["maps"] > 0), k5.get("has_cmp", 0),
+                    k5.get("n_spill", 0), k5.get("n_map_sets", 0), s.grid,
+                    s.smem)
+
+
+def _epi_plan(xc, geometry, entries, n_buf: int, stride_bytes: int):
+    """(plan tensor, dv) of a K4b (``n_buf`` 1) or K5 (2: an x and a ct
+    tile) launch on work items of :func:`_epi_item`'s tiles, its layouts
+    chosen for tile rows of ``stride_bytes``."""
     _, t, rpt, _, _, _, _ = geometry
     size = xc.element_size()
     d = xc.shape[2]
     dv = 2 if any(e[0] == 1 for e in entries) else 1
-    per_cta = _tiles_per_cta(geometry, d * size, EP.REGS * EP.THREADS)
-    pad = max(1, 4 // size)
+    per_cta = _epi_item(geometry, d * size)[0]
     plan = _epi_plan_tensor(
         entries, geometry, xc.device, per_cta, elem_bytes=d * size,
-        stride_bytes=((1 << t) * d + pad) * size, access=size, dv=dv,
+        stride_bytes=stride_bytes, access=size, dv=dv,
         reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
                              n_buf > 1,
                              any(e[0] == EP.KIND_MAP for e in entries)))
-    extra = (plan.numel() * 4 + 15) & ~15
+    return plan, dv
+
+
+def _epi_launch_args(xc, geometry, entries, n_buf: int = 1,
+                     align: int = 0) -> tuple:
+    """(out, schedule, plan tensor, dv) of a K4b (``n_buf`` 1) or K5 (2)
+    launch: the plan for the schedule's tile layout, then
+    :func:`k4b_schedule` or :func:`k5_schedule` for ``xc``, its output and
+    the pointers OR-ed into ``align``."""
+    size, d = xc.element_size(), xc.shape[2]
+    plan, dv = _epi_plan(xc, geometry, entries, n_buf,
+                         _epi_item(geometry, d * size)[1])
+    out = torch.empty_like(xc)
+    align |= xc.data_ptr() | out.data_ptr()
+    kw = dict(n_words=plan.numel(), n_epi=len(entries), dv=dv)
     if n_buf > 1:
-        extra += (EP.spill_sids(plan.info) * dv * EP.THREADS * 4
-                  << plan.info["reg_bits"])
-        extra += (plan.info["maps"] * size * EP.THREADS
-                  << (plan.info["reg_bits"] + plan.info["outer_bits"]))
-    out, args = _tile_args(xc, geometry, per_cta=per_cta, n_buf=n_buf,
-                           word_bytes=size, extra_smem=extra)
+        s = k5_schedule(geometry, xc.shape[0], d, size, align,
+                        n_spill=EP.spill_sids(plan.info),
+                        n_map_sets=plan.info["maps"]
+                        << plan.info["outer_bits"], **kw)
+    else:
+        s = k4b_schedule(geometry, xc.shape[0], d, size, align, **kw)
+    return out, s, plan, dv
+
+
+def _guarded_fused_args(xc, geometry, entries) -> tuple:
+    """(out, kernel arguments after the tables, plan tensor, dv) of the
+    guarded K4b, which keeps the design before the work-item schedule:
+    one work item a block, its plan's bases fixed at the block's first
+    tile, words of the element type's width into a tile padded by one
+    4-byte bank (``_tile_args``)."""
+    _, t, _, _, _, _, _ = geometry
+    size, d = xc.element_size(), xc.shape[2]
+    pad = max(1, 4 // size)
+    plan, dv = _epi_plan(xc, geometry, entries, 1,
+                         ((1 << t) * d + pad) * size)
+    out, args = _tile_args(xc, geometry,
+                           per_cta=_epi_item(geometry, d * size)[0],
+                           word_bytes=size,
+                           extra_smem=(plan.numel() * 4 + 15) & ~15)
     return out, args, plan, dv
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
-    out, args, plan, dv = _epi_launch_args(xc, geometry, entries)
-    maps = int(plan.info["maps"] > 0)
-    tail = (_ELEM_TYPE[xc.dtype], xc.shape[2], dv,
-            1 << plan.info["reg_bits"], maps)
-    if flags is None:
-        _launch("tile_fused", xc, _ptr(xc), _ptr(out),
-                *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
-                *tail, moved=2 * _nbytes(xc))
-    else:
-        if maps:
+    if flags is not None:
+        out, args, plan, dv = _guarded_fused_args(xc, geometry, entries)
+        if plan.info["maps"]:
             raise ValueError("the guarded K4b variant takes no map "
                              "epilogues (guarded programs with maps run "
                              "unguarded)")
+        tail = (_ELEM_TYPE[xc.dtype], xc.shape[2], dv,
+                1 << plan.info["reg_bits"], 0)
         _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
                 *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
                 *tail, _ptr(flags), moved=2 * _nbytes(xc))
+        return out
+    out, s, plan, dv = _epi_launch_args(xc, geometry, entries,
+                                        align=tabs[3].data_ptr())
+    a = _epi_args(s, tabs, plan, geometry, xc.shape[0], xc.dtype,
+                  xc.shape[2], dv)
+    _launch("tile_fused", xc, _ptr(xc), _ptr(out), ctypes.addressof(a),
+            moved=2 * _nbytes(xc))
     return out
 
 
@@ -1300,13 +1479,16 @@ def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
 
 
 def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
-    out, args, plan, dv = _epi_launch_args(xc, geometry, entries, n_buf=2)
+    out, s, plan, dv = _epi_launch_args(
+        xc, geometry, entries, n_buf=2,
+        align=cc.data_ptr() | tabs[3].data_ptr())
+    info = plan.info
+    a = _epi_args(s, tabs, plan, geometry, xc.shape[0], xc.dtype,
+                  xc.shape[2], dv, has_cmp=int(info["groups"] > 0),
+                  n_spill=EP.spill_sids(info),
+                  n_map_sets=info["maps"] << info["outer_bits"])
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
-            *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
-            _ELEM_TYPE[xc.dtype], xc.shape[2], dv,
-            int(plan.info["groups"] > 0), EP.spill_sids(plan.info),
-            plan.info["maps"] << plan.info["outer_bits"],
-            moved=3 * _nbytes(xc))
+            ctypes.addressof(a), moved=3 * _nbytes(xc))
     return out
 
 

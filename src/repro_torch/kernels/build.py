@@ -38,10 +38,9 @@ KERNELS = {
              [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P]),
     # K4a takes its launch descriptor (TilePermuteArgs) by address
     "tile": ("tile_permute.cu", "repro_tile_permute", [_P, _P]),
-    "tile_fused": ("tile_fused.cu", "repro_tile_fused",
-                   [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6 + [_P]),
-    "tile_bwd": ("tile_bwd.cu", "repro_tile_bwd",
-                 [_P] * 6 + [_I] * 10 + [_L] + [_I] * 7 + [_P]),
+    # K4b and K5 take their launch descriptor (EpiTileArgs) by address
+    "tile_fused": ("tile_fused.cu", "repro_tile_fused", [_P, _P]),
+    "tile_bwd": ("tile_bwd.cu", "repro_tile_bwd", [_P, _P, _P]),
     "block_guarded": ("block_permute.cu", "repro_block_permute_guarded",
                       [_P, _I, _I, _I, _I, _L, _I, _P, _P]),
     "lane_guarded": ("lane_permute.cu", "repro_lane_permute_guarded",

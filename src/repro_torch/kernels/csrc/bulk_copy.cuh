@@ -13,6 +13,11 @@
 //          still reading shared memory (the stage may be refilled), and
 //          bulk_wait_all() once every group's writes are done.
 //
+// Beside them, the per-thread asynchronous copies (cp.async, 4 to 16 bytes
+// a thread, tracked by commit groups): stage_copy, cp_async_commit,
+// cp_async_wait<N> (returns once at most N of the thread's groups are
+// pending).
+//
 // Shared-memory addresses are 32-bit (cvta to the shared window); device
 // addresses are 64-bit.
 #pragma once
@@ -84,4 +89,29 @@ __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// One word (or, with kVec, one 16-byte chunk) from device memory to
+// shared memory: cp.async for 4, 8 and 16 bytes (16 bypasses L1), a
+// plain load and store below that.
+template <int kBytes, typename W>
+__device__ __forceinline__ void stage_copy(W* dst, const W* src) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+  } else if constexpr (kBytes >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes) : "memory");
+  } else {
+    *dst = *src;
+  }
 }

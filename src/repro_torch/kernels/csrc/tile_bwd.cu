@@ -37,30 +37,47 @@
 // zeroing pass, two read-modify-writes per pair per compare, two reads
 // per transposed compare) and needed about 62 KiB per block.
 //
-// This design: the epilogues run in registers under the host plan's
-// phases (tile_epilogue.cuh), 8 positions a thread. The compare bits stay
-// in registers: each element's two bits of compare j sit at bits 2j,
-// 2j + 1 of one register word of the thread that computed them, and the
-// transposed sweep runs the phases in reverse, so the same thread holds
-// the same positions under the same layout when it reads them back. The
-// replay compares floats as integer keys where a warp holds no NaN (the
-// compare bits from key equality, -0 and +0 equal). Past 16 compares (a
-// phase never spans a group of 16) or with chunks, the words of the
-// groups and chunks not in use wait in shared memory, one word per thread
-// and register. The last replay phase keeps its values and the first
-// transposed phase reads the cotangent straight from the loaded ct tile
-// through the un-gather, so the replay's last store, the un-gather pass
-// and a barrier go away. Shared memory per block: the row tables, the
-// staged plan, the two tiles and, with chunks or more than 16 compares,
-// the waiting compare bits, and each map's input values: the replay keeps
+// This design: a block takes a run of work items (at most 4096
+// positions of one batch row; the host's k5_schedule), stages all their
+// row ids, lane XORs and epilogue bases once, and copies each item's x
+// rows and ct rows with 16-byte cp.async copies as two commit groups
+// (tile_items.cuh): the replay waits for x alone, the first transposed
+// phase for ct, so the cotangent lands under the replay; a second item
+// is in flight where the block's shared memory stays small enough (the
+// schedule's rule). The result leaves 16 bytes a thread to rows
+// in_rows[g]. Tile rows are padded by one 16-byte chunk. The epilogues
+// run in registers under the host plan's phases (tile_epilogue.cuh, its
+// kFast register moves and kPairs compares), 8 positions a thread. The
+// compare bits stay in registers: each element's two bits of compare j
+// sit at bits 2j, 2j + 1 of one register word of the thread that
+// computed them, and the transposed sweep runs the phases in reverse, so
+// the same thread holds the same positions under the same layout when it
+// reads them back. The replay compares floats as integer keys where a
+// warp holds no NaN (the compare bits from key equality, -0 and +0
+// equal). With two compare-bit sets (two chunks of one group, or two
+// groups of 16 compares: the 2^24 sort's largest cluster is the first)
+// the second waits in registers too; with more, the words of the sets
+// not in use wait in shared memory, one word per thread and register.
+// The last replay phase keeps no values and the first transposed phase
+// reads the cotangent straight from the loaded ct tile through the
+// un-gather. Shared memory per block: the tables, the staged plan, an x
+// and a ct tile per item in flight and, with more than two bit sets, the
+// waiting compare bits, and each map's input values: the replay keeps
 // the values a map met (one per register and thread, by the map's slot
 // and chunk) for the transposed sweep, which recomputes the tape's
 // intermediates from them op by op (a tape of n ops costs n(n+1)/2 op
-// evaluations, no array indexed at run time). What still bounds it:
-// instruction issue (the replay, the transposed compares' masks and
-// products) and the latency of four phase passes per block (PERF.md).
-#include "tile_common.cuh"
-#include "tile_epilogue.cuh"
+// evaluations, no array indexed at run time). A pointer off 16-byte
+// alignment or rows of fewer than 16 bytes take the same schedule one
+// word of the element's width at a time.
+//
+// Measured (PERF.md; H100 80GB HBM3, 700 W; the largest 2^24 sort
+// cluster, float32, device time): 0.393 ms against 0.442 for the design
+// before (tools/fused_ab.cu), in turns; bound 0.061 ms. What still
+// bounds it: the replay and the transposed compares (about 20
+// instructions an element and compare: keys, compare bits, the masks'
+// byte permutes, two products and a sum), issued at 3 blocks an SM with
+// their latency behind a barrier a phase.
+#include "tile_items.cuh"
 
 // a * m and a + b, each rounded to T on its own
 __device__ __forceinline__ float prod(float a, float m) {
@@ -264,29 +281,42 @@ __device__ __forceinline__ void transposed_epilogue(
 }
 
 // Make the compare-bit words of set `sid` (group * chunks + chunk) the
-// ones in registers: the words in use wait in shared memory (`spill`, one
-// word per set, tail value, register and thread), and a set's first phase
-// starts from zeros.
+// ones in registers, m. With `spill` (more than two sets) the words of the
+// other sets wait in shared memory, one word per set, tail value, register
+// and thread; with two sets or one, the other set waits in registers
+// (alt), swapped with m. A set's first phase starts from zeros.
 template <int DV, int KR>
-__device__ __forceinline__ void use_masks(unsigned (&m)[DV][KR], int& cur,
+__device__ __forceinline__ void use_masks(unsigned (&m)[DV][KR],
+                                          unsigned (&alt)[DV][KR], int& cur,
                                           int sid, bool fresh,
                                           unsigned* spill) {
   if (sid == cur) return;
-  if (cur >= 0 && spill != nullptr) {
+  if (spill != nullptr) {
+    if (cur >= 0) {
+#pragma unroll
+      for (int c = 0; c < DV; ++c)
+#pragma unroll
+        for (int i = 0; i < KR; ++i)
+          spill[(((size_t)cur * DV + c) * KR + i) * REPRO_THREADS +
+                threadIdx.x] = m[c][i];
+    }
 #pragma unroll
     for (int c = 0; c < DV; ++c)
 #pragma unroll
       for (int i = 0; i < KR; ++i)
-        spill[(((size_t)cur * DV + c) * KR + i) * REPRO_THREADS +
-              threadIdx.x] = m[c][i];
+        m[c][i] = fresh ? 0u
+                        : spill[(((size_t)sid * DV + c) * KR + i) *
+                                    REPRO_THREADS + threadIdx.x];
+  } else {
+#pragma unroll
+    for (int c = 0; c < DV; ++c)
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const unsigned w = alt[c][i];
+        alt[c][i] = m[c][i];
+        m[c][i] = fresh ? 0u : w;
+      }
   }
-#pragma unroll
-  for (int c = 0; c < DV; ++c)
-#pragma unroll
-    for (int i = 0; i < KR; ++i)
-      m[c][i] = fresh ? 0u
-                      : spill[(((size_t)sid * DV + c) * KR + i) *
-                                  REPRO_THREADS + threadIdx.x];
   cur = sid;
 }
 
@@ -319,37 +349,36 @@ __device__ __forceinline__ void load_ungathered(
   }
 }
 
-// Bytes of one tile buffer (rows padded as K4a pads them), 16-aligned.
-__host__ __device__ __forceinline__ size_t tile_buf_bytes(int rows, int t,
-                                                          int wpe,
-                                                          int pad_words,
-                                                          int word_bytes) {
-  return ((size_t)rows * ((size_t)(1 << t) * wpe + pad_words) * word_bytes +
-          15) & ~(size_t)15;
-}
-
-// The replay and the transposed sweep of one batch row on the block's
-// tiles (x in tv, ct as loaded in cv; the result left in tv), from the
-// staged plan sp (device plan gp). kCmp: the cluster has compares (their
-// bits in m); kMaps: it has maps, `save` the room for their inputs.
+// The replay and the transposed sweep of one work item on its tiles (x in
+// tv, ct as loaded in cv; the result left in tv), from the staged plan sp
+// (device plan gp). kCmp: the cluster has compares (their bits in m, and
+// a second set in alt); kMaps: it has maps, `save` the room for their
+// inputs. The replay needs x alone: the cotangent's copies are waited for
+// (all but `ct_pending` of the thread's newest commit groups) only before
+// the first transposed phase, so they land under the replay.
 template <typename T, int DV, int KR, bool kCmp, bool kMaps>
 __device__ __forceinline__ void bwd_phases(const TileView& tv,
                                            const TileView& cv, const int* sp,
                                            const long long* gp, int d,
                                            const int* __restrict__ inv_src0,
                                            const int* s_xl, int rpt_shift,
-                                           unsigned* spill, T* save) {
+                                           unsigned* spill, T* save,
+                                           int ct_pending) {
   const int n_phases = sp[0], outer_bits = sp[2];
   const unsigned chunks = 1u << outer_bits;
   const int* phases = sp + kHdrWords;
   const int ebase = kHdrWords + n_phases * kPhaseWords;
   T v[DV][KR];
-  unsigned m[DV][KR];
+  unsigned m[DV][KR], alt[DV][KR];
+#pragma unroll
+  for (int c = 0; c < DV; ++c)
+#pragma unroll
+    for (int i = 0; i < KR; ++i) alt[c][i] = 0u;
   for (int k = 0; k < d; k += DV) {
     int cur = -1;
     // replay, keeping the compare bits
     for (int p = 0; p < n_phases; ++p) {
-      __syncthreads();  // the tiles (or the previous phase) complete
+      __syncthreads();  // the x tile (or the previous phase) complete
       const int* ph = phases + p * kPhaseWords;
       const PhaseRegs pr(ph);
       const int group = ph[PH_GROUP];
@@ -357,183 +386,163 @@ __device__ __forceinline__ void bwd_phases(const TileView& tv,
       for (unsigned c = 0; c < chunks; ++c) {
         const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
         if (kCmp && group >= 0)
-          use_masks<DV>(m, cur, group * (int)chunks + (int)c, first, spill);
-        load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
-        phase_epilogues<kCmp, kMaps>(ph, sp, gp, ebase, v, m, qb, c,
-                                     outer_bits, save);
-        if (p + 1 < n_phases) store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+          use_masks<DV>(m, alt, cur, group * (int)chunks + (int)c, first,
+                        spill);
+        load_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
+        phase_epilogues<kCmp, kMaps, true>(ph, sp, gp, ebase, v, m, qb, c,
+                                           outer_bits, save);
+        if (p + 1 < n_phases)
+          store_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }
+    cp_async_wait_n(ct_pending);
     // the transposed epilogues, last phase first; the last phase's
-    // positions are the replay's own, so it needs no barrier and reads
-    // the cotangent through the un-gather
+    // positions are the replay's own, and it reads the cotangent through
+    // the un-gather
     for (int p = n_phases - 1; p >= 0; --p) {
-      if (p + 1 < n_phases) __syncthreads();
+      __syncthreads();  // the ct tile landed (or the previous phase)
       const int* ph = phases + p * kPhaseWords;
       const PhaseRegs pr(ph);
       const int e0 = ph[PH_E0], e1 = ph[PH_E1], group = ph[PH_GROUP];
       for (unsigned c = 0; c < chunks; ++c) {
         const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
         if (kCmp && group >= 0)
-          use_masks<DV>(m, cur, group * (int)chunks + (int)c, false, spill);
+          use_masks<DV>(m, alt, cur, group * (int)chunks + (int)c, false,
+                        spill);
         if (p + 1 == n_phases)
           load_ungathered<DV>(v, cv, qb, pr.qr, pr.valid, k, inv_src0, s_xl,
                               rpt_shift);
         else
-          load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+          load_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
         for (int e = e1 - 1; e >= e0; --e) {
           const int off = ebase + e * kEpiWords;
           transposed_epilogue<kCmp, kMaps>(sp + off, gp + off, v, m, qb, c,
                                            outer_bits, save);
         }
-        store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+        store_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }
   }
 }
 
+// A block of K5: `groups` work items (k5_schedule), `n_buf` of them in
+// flight, each in an x tile and a ct tile.
 template <typename T, int DV, int KR, bool kCmp, bool kMaps, int MB>
 __global__ void __launch_bounds__(REPRO_THREADS, MB)
 tile_bwd_kernel(const typename ElemWord<T>::type* __restrict__ x,
                 const typename ElemWord<T>::type* __restrict__ ct,
                 typename ElemWord<T>::type* __restrict__ out,
-                const int* __restrict__ in_rows,
-                const int* __restrict__ out_rows,
-                const int* __restrict__ xor_low,
-                const int* __restrict__ inv_src0,
-                const long long* __restrict__ plan, int n_words, int n_rows,
-                int rpt_shift, int tiles_per_cta, int t, int wpe,
-                int wpe_shift, int row_shift, int pad_words,
-                long long batch, int d, int n_spill) {
+                const EpiTileArgs a) {
   using W = typename ElemWord<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
-  int* s_in = reinterpret_cast<int*>(smem);
-  int* s_out = s_in + rows;
-  int* s_xl = s_out + rows;
-  const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
-  int* s_plan = reinterpret_cast<int*>(smem + tab_bytes);
-  const size_t buf = tile_buf_bytes(rows, t, wpe, pad_words, sizeof(W));
-  unsigned char* a_bytes = smem + tab_bytes + plan_bytes(n_words);
-  W* tile = reinterpret_cast<W*>(a_bytes);             // x, then ct_pre
-  W* ctile = reinterpret_cast<W*>(a_bytes + buf);      // ct as loaded
-  unsigned* spill =
-      n_spill ? reinterpret_cast<unsigned*>(a_bytes + 2 * buf) : nullptr;
+  const int rows = a.per_cta << a.rpt_shift;      // tile rows of an item
+  const int rows_shift = a.per_cta_shift + a.rpt_shift;
+  const unsigned row_words = (1u << a.t) * (unsigned)a.wpe;
+  const unsigned span = (unsigned)rows * row_words;
+  const unsigned stride = (unsigned)a.stride;
+  const long long batch_words = (long long)a.n_rows * row_words;
+  const ItemTables s = carve_items(smem, a, rows);
+  const size_t tb = item_tile_bytes(rows, a.stride, (int)sizeof(W));
+  unsigned char* after = s.tiles + 2 * (size_t)a.n_buf * tb;
+  unsigned* spill = a.n_spill ? reinterpret_cast<unsigned*>(after) : nullptr;
   T* save = nullptr;
   if constexpr (kMaps)
-    save = reinterpret_cast<T*>(a_bytes + 2 * buf +
-                                (size_t)n_spill * DV * KR * REPRO_THREADS * 4);
+    save = reinterpret_cast<T*>(after + (size_t)a.n_spill * DV * KR *
+                                            REPRO_THREADS * 4);
+  const long long w0 = (long long)blockIdx.x * a.groups;
+  const int nw = (int)min((long long)a.groups, a.n_work - w0);
+  stage_items(s, a, w0, nw, rows, rows_shift, batch_words);
+  __syncthreads();
 
-  const long long g0 = (long long)blockIdx.x * tiles_per_cta;
-  const int row_len = 1 << t;
-  const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
-  const unsigned stride = row_words + (unsigned)pad_words;
-  const TileView tv{a_bytes, stride * (unsigned)sizeof(W),
-                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
-  const TileView cv{a_bytes + buf, tv.stride_bytes, tv.elem_bytes,
-                    tv.lane_mask, t};
-  REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low, g0,
-                         rpt_shift, rows, tiles_per_cta)
-  stage_plan(s_plan, plan, n_words, g0);
-  const unsigned span = (unsigned)rows * row_words;
-  const long long batch_words = (long long)n_rows * row_words;
-  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-    const W* xb = x + b * batch_words;
-    const W* cb = ct + b * batch_words;
-    W* ob = out + b * batch_words;
-    __syncthreads();  // tables ready; the previous batch row's reads done
-    {
-      REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
-                           stride)
-    }
-    {
-      REPRO_TILE_LOAD_ROWS(W, ctile, cb, s_out, span, row_words, row_shift,
-                           stride)
-    }
-    bwd_phases<T, DV, KR, kCmp, kMaps>(tv, cv, s_plan, plan, d, inv_src0,
-                                       s_xl, rpt_shift, spill, save);
+  // item k's x tile and ct tile
+  auto xt = [&](int k) {
+    return s.tiles + (a.n_buf > 1 && (k & 1) ? 2 * tb : 0);
+  };
+  // its x rows, then its ct rows: two commit groups
+  auto load = [&](int k) {
+    load_item_rows(reinterpret_cast<W*>(xt(k)), x + s.base[k],
+                   s.in + (k << rows_shift), span, row_words, a.row_shift,
+                   stride, a.vec);
+    load_item_rows(reinterpret_cast<W*>(xt(k) + tb), ct + s.base[k],
+                   s.out + (k << rows_shift), span, row_words, a.row_shift,
+                   stride, a.vec);
+  };
+  load(0);
+  if (a.n_buf > 1 && nw > 1) load(1);
+  const TileView tv0{xt(0), stride * (unsigned)sizeof(W),
+                     (unsigned)a.wpe * (unsigned)sizeof(W),
+                     (1u << a.t) - 1, a.t};
+  for (int k = 0; k < nw; ++k) {
+    const bool next = a.n_buf > 1 && k + 1 < nw;   // item k + 1 in flight
+    cp_async_wait_n(next ? 3 : 1);                 // item k's x rows
+    use_item_bases(s, k, a.n_epi);
+    TileView tv = tv0, cv = tv0;
+    tv.bytes = xt(k);
+    cv.bytes = xt(k) + tb;
+    bwd_phases<T, DV, KR, kCmp, kMaps>(
+        tv, cv, s.plan, a.plan, a.d, a.src0, s.xl + (k << a.per_cta_shift),
+        a.rpt_shift, spill, save, next ? 2 : 0);
     __syncthreads();
     // whole rows back where the forward read them
-#pragma unroll 4
-    for (unsigned li = threadIdx.x; li < span; li += REPRO_THREADS) {
-      const unsigned r = div_by(li, row_words, row_shift);
-      const unsigned rem = li - r * row_words;
-      ob[(long long)s_in[r] * row_words + rem] = tile[r * stride + rem];
+    copy_out_item(out + s.base[k], reinterpret_cast<const W*>(tv.bytes),
+                  s.in + (k << rows_shift), span, row_words, a.row_shift,
+                  stride, a.vec);
+    if (k + a.n_buf < nw) {
+      __syncthreads();   // every thread is done with the item's tiles
+      load(k + a.n_buf);
     }
   }
 }
 
 template <typename T, int DV, int KR, bool kCmp, bool kMaps, int MB>
 static int launch_bwd(const void* x, const void* ct, void* out,
-                      const int* in_rows, const int* out_rows,
-                      const int* xor_low, const int* inv_src0,
-                      const long long* plan, int n_words, int n_tiles,
-                      int n_rows, int rpt_shift, int tiles_per_cta, int t,
-                      int wpe, int wpe_shift, int row_shift, int pad_words,
-                      long long batch, int word_bytes, int d, int n_spill,
-                      int n_map_sets, cudaStream_t s) {
+                      const EpiTileArgs& a, cudaStream_t s) {
   using W = typename ElemWord<T>::type;
-  if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
-  const int rows = tiles_per_cta << rpt_shift;
-  const size_t smem =
-      (size_t)REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta) +
-      plan_bytes(n_words) +
-      2 * tile_buf_bytes(rows, t, wpe, pad_words, (int)sizeof(W)) +
-      (size_t)n_spill * DV * KR * REPRO_THREADS * 4 +
-      (size_t)n_map_sets * KR * REPRO_THREADS * sizeof(T);
-  cudaError_t e =
-      allow_smem(tile_bwd_kernel<T, DV, KR, kCmp, kMaps, MB>, smem);
+  if (a.word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(tile_bwd_kernel<T, DV, KR, kCmp, kMaps, MB>,
+                             (size_t)a.smem);
   if (e != cudaSuccess) return (int)e;
   tile_bwd_kernel<T, DV, KR, kCmp, kMaps, MB>
-      <<<grid, REPRO_THREADS, smem, s>>>(
-      (const W*)x, (const W*)ct, (W*)out, in_rows, out_rows, xor_low,
-      inv_src0, plan, n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe,
-      wpe_shift, row_shift, pad_words, batch, d, n_spill);
+      <<<(unsigned)a.grid, REPRO_THREADS, (size_t)a.smem, s>>>(
+          (const W*)x, (const W*)ct, (W*)out, a);
   return (int)cudaGetLastError();
 }
 
-// elem_type: 1 = float32, 2 = bfloat16 (int32 has no gradient); dv as in
-// repro_tile_fused; n_words: int64 words of plan (8 registers a thread:
-// its compare bits sit beside its values); has_cmp: the cluster has
-// compares (dv 1 takes the compare variant either way: a cluster of maps
-// alone has no compare bits to keep); n_spill: compare-bit sets kept in
-// shared memory (0: all in registers); n_map_sets: maps times chunks,
+// One K5 launch under the schedule *a (EpiTileArgs; k5_schedule in
+// bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16 (int32 has no
+// gradient); dv as in repro_tile_fused; 8 registers a thread (its compare
+// bits sit beside its values); has_cmp: the cluster has compares (dv 1
+// takes the compare variant either way: a cluster of maps alone has no
+// compare bits to keep); n_spill: compare-bit sets kept in shared memory
+// (0: one or two sets, all in registers); n_map_sets: maps times chunks,
 // the sets of map inputs kept in shared memory.
 extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
-                              const int* in_rows, const int* out_rows,
-                              const int* xor_low, const int* inv_src0,
-                              const long long* plan, int n_words,
-                              int n_tiles, int n_rows,
-                              int rpt_shift, int tiles_per_cta, int t,
-                              int wpe, int wpe_shift, int row_shift,
-                              int pad_words, long long batch, int word_bytes,
-                              int elem_type, int d, int dv, int has_cmp,
-                              int n_spill, int n_map_sets, void* stream) {
-  if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
-      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
-      n_spill < 0 || n_map_sets < 0 || plan == nullptr ||
-      n_words < kHdrWords || (dv == 2 && (elem_type != 1 || d != 2)) ||
-      (dv == 2 && n_map_sets))
+                              const EpiTileArgs* a, void* stream) {
+  if (a == nullptr || a->grid <= 0 || a->n_work <= 0 || a->batch <= 0 ||
+      a->n_rows <= 0 || a->t < 0 || a->rpt_shift < 0 || a->wpe <= 0 ||
+      a->per_cta <= 0 || a->groups <= 0 || a->n_groups <= 0 ||
+      (a->n_buf != 1 && a->n_buf != 2) || a->d <= 0 || a->n_spill < 0 ||
+      a->n_map_sets < 0 || a->plan == nullptr || a->n_words < kHdrWords ||
+      a->n_epi < 0 || a->regs != 8 ||
+      (a->dv == 2 && (a->elem_type != 1 || a->d != 2)) ||
+      (a->dv == 2 && a->n_map_sets) || (a->vec && a->wpe != a->dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_BWD(T, DV, CMP, MAPS, MB)                                      \
-  return launch_bwd<T, DV, 8, CMP, MAPS, MB>(                                \
-      x, ct, out, in_rows, out_rows, xor_low, inv_src0, plan, n_words,       \
-      n_tiles, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,          \
-      row_shift, pad_words, batch, word_bytes, d, n_spill, n_map_sets, s)
-  // the last argument: blocks per SM the variant's registers allow (the
-  // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
-  if (dv == 2 && has_cmp) REPRO_BWD(float, 2, true, false, 2);
-  if (dv == 2) REPRO_BWD(float, 2, false, false, 3);
-  if (dv != 1) return (int)cudaErrorInvalidValue;
-  if (n_map_sets) {   // 2 blocks an SM: the map code spills at 3 (80 regs)
-    if (elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
-    if (elem_type == 2) REPRO_BWD(Bf16, 1, true, true, 2);
+#define REPRO_BWD(T, DV, CMP, MAPS, MB) \
+  return launch_bwd<T, DV, 8, CMP, MAPS, MB>(x, ct, out, *a, s)
+  // the last argument: blocks per SM, the fastest of a sweep on the H100
+  // (tools/fused_ab.py; PERF.md): compares at 4 (float32, 64 registers)
+  // and 3 (bfloat16, 80) ran faster than at 3 and 2, with no spills
+  if (a->dv == 2 && a->has_cmp) REPRO_BWD(float, 2, true, false, 2);
+  if (a->dv == 2) REPRO_BWD(float, 2, false, false, 3);
+  if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  if (a->n_map_sets) {   // 2 blocks an SM: the map code spills at 3
+    if (a->elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
+    if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, true, 2);
     return (int)cudaErrorInvalidValue;
   }
-  if (elem_type == 1) REPRO_BWD(float, 1, true, false, 3);
-  if (elem_type == 2) REPRO_BWD(Bf16, 1, true, false, 2);
+  if (a->elem_type == 1) REPRO_BWD(float, 1, true, false, 4);
+  if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, false, 3);
   return (int)cudaErrorInvalidValue;
 #undef REPRO_BWD
 }

@@ -22,7 +22,10 @@
 //     popc; a butterfly's twiddle index is a GF(2) product over the
 //     position bits (images in the plan) XOR tw_base[g0]; the plan itself
 //     is staged in shared memory once per block, hi_base[g0] and
-//     tw_base[g0] in it;
+//     tw_base[g0] in it (g0 the first tile of the block, or, in the
+//     work-item kernels, of the work item whose phases run:
+//     tile_items.cuh stages every item's entries and puts each item's in
+//     the plan before its phases);
 //   * every position computes its own output (no pair owner): cmp as
 //     hi ? max(self, partner) : min(self, partner), the butterfly from its
 //     own and its partner's values;
@@ -219,32 +222,63 @@ struct TileView {
     return reinterpret_cast<T*>(bytes + (q >> t) * stride_bytes +
                                 (q & lane_mask) * elem_bytes) + k;
   }
+  // The same for rows padded by `pad` bytes (stride_bytes - the row's
+  // bytes): the position's bytes plus its row's padding.
+  template <typename T>
+  __device__ __forceinline__ T* at_padded(unsigned q, int k,
+                                          unsigned pad) const {
+    return reinterpret_cast<T*>(bytes + q * elem_bytes + (q >> t) * pad) + k;
+  }
 };
 
 // Registers of a phase: tail values k .. k + DV - 1 of the thread's
 // positions qb ^ qr(i). Registers the layout leaves empty hold zeros.
-template <int DV, int KR, typename T>
+// kFast (the work-item kernels): addresses as at_padded, and every
+// register loads (an empty register's position is one of the thread's
+// others, inside the tile) and selects; stores are predicated.
+template <int DV, bool kFast = false, int KR, typename T>
 __device__ __forceinline__ void load_regs(T (&v)[DV][KR],
                                           const TileView& tv, unsigned qb,
                                           const RegImages& qr,
                                           unsigned valid, int k) {
+  if constexpr (kFast) {
+    const unsigned pad = tv.stride_bytes - (tv.elem_bytes << tv.t);
 #pragma unroll
-  for (int i = 0; i < KR; ++i)
+    for (int i = 0; i < KR; ++i)
 #pragma unroll
-    for (int c = 0; c < DV; ++c)
-      v[c][i] = ((valid >> i) & 1u) ? *tv.at<T>(qb ^ qr(i), k + c) : T{};
+      for (int c = 0; c < DV; ++c) {
+        const T val = *tv.at_padded<T>(qb ^ qr(i), k + c, pad);
+        v[c][i] = ((valid >> i) & 1u) ? val : T{};
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+#pragma unroll
+      for (int c = 0; c < DV; ++c)
+        v[c][i] = ((valid >> i) & 1u) ? *tv.at<T>(qb ^ qr(i), k + c) : T{};
+  }
 }
 
-template <int DV, int KR, typename T>
+template <int DV, bool kFast = false, int KR, typename T>
 __device__ __forceinline__ void store_regs(const T (&v)[DV][KR],
                                            const TileView& tv, unsigned qb,
                                            const RegImages& qr,
                                            unsigned valid, int k) {
+  if constexpr (kFast) {
+    const unsigned pad = tv.stride_bytes - (tv.elem_bytes << tv.t);
 #pragma unroll
-  for (int i = 0; i < KR; ++i)
+    for (int i = 0; i < KR; ++i)
 #pragma unroll
-    for (int c = 0; c < DV; ++c)
-      if ((valid >> i) & 1u) *tv.at<T>(qb ^ qr(i), k + c) = v[c][i];
+      for (int c = 0; c < DV; ++c)
+        if ((valid >> i) & 1u)
+          *tv.at_padded<T>(qb ^ qr(i), k + c, pad) = v[c][i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+#pragma unroll
+      for (int c = 0; c < DV; ++c)
+        if ((valid >> i) & 1u) *tv.at<T>(qb ^ qr(i), k + c) = v[c][i];
+  }
 }
 
 // Run CALL with the compile-time constant VR equal to `vreg` (0..KR-1,
@@ -314,6 +348,49 @@ __device__ __forceinline__ void cmp_regs(T (&v)[DV][KR],
       const T o = cmp_sel((hx >> i) & 1u, v[c][i], p[i]);
       if constexpr (kMask) m[c][i] |= eq_bits(v[c][i], p[i], o) << shift;
       v[c][i] = o;
+    }
+  }
+}
+
+// cmp_regs for integer values and keys (min and max the same either way
+// round), with in-register partners taken as pairs: each pair's min and
+// max once, then each register's pick; shuffled partners as cmp_regs
+// takes them, without its copies. The work-item kernels run it.
+template <int VR, bool kMask, int DV, int KR, typename T>
+__device__ __forceinline__ void cmp_pairs(T (&v)[DV][KR],
+                                          unsigned (&m)[DV][KR],
+                                          unsigned hx, int vlane, int shift) {
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    if (vlane == 0) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const int j = i ^ VR;
+        if (i < j) {
+          const T a = v[c][i], b = v[c][j];
+          const T lo = cmp_sel(false, a, b), hi = cmp_sel(true, a, b);
+          const T oi = ((hx >> i) & 1u) ? hi : lo;
+          const T oj = ((hx >> j) & 1u) ? hi : lo;
+          if constexpr (kMask) {
+            m[c][i] |= eq_bits(a, b, oi) << shift;
+            m[c][j] |= eq_bits(b, a, oj) << shift;
+          }
+          v[c][i] = oi;
+          v[c][j] = oj;
+        }
+      }
+    } else {
+      T p[KR];
+#pragma unroll
+      for (int i = 0; i < KR; ++i) p[i] = shfl_x(v[c][i ^ VR], vlane);
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const T lo = cmp_sel(false, v[c][i], p[i]);
+        const T hi = cmp_sel(true, v[c][i], p[i]);
+        const T o = ((hx >> i) & 1u) ? hi : lo;
+        if constexpr (kMask) m[c][i] |= eq_bits(v[c][i], p[i], o) << shift;
+        v[c][i] = o;
+      }
     }
   }
 }
@@ -503,7 +580,8 @@ __device__ __forceinline__ void map_regs(const int* ep, T (&v)[KR]) {
 
 // Epilogue e of the plan (staged record ep, device record gep) on the
 // registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
-template <bool kMask, int DV, int KR, typename T>
+// kPairs: integer values and keys compare through cmp_pairs.
+template <bool kMask, bool kPairs = false, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogue(const int* ep,
                                                  const long long* gep,
                                                  T (&v)[DV][KR],
@@ -514,7 +592,12 @@ __device__ __forceinline__ void forward_epilogue(const int* ep,
   const unsigned hx = hi_bits(ep, qb);
   if (ep[EP_KIND] == 0) {
     const int shift = ep[EP_SHIFT];
-    REPRO_VREG_SWITCH(vreg, (cmp_regs<VR, kMask>(v, m, hx, vlane, shift)))
+    if constexpr (kPairs && (std::is_same_v<T, int> ||
+                             std::is_same_v<T, Key>)) {
+      REPRO_VREG_SWITCH(vreg, (cmp_pairs<VR, kMask>(v, m, hx, vlane, shift)))
+    } else {
+      REPRO_VREG_SWITCH(vreg, (cmp_regs<VR, kMask>(v, m, hx, vlane, shift)))
+    }
   } else {
     if constexpr (DV == 2) {
       const float2* w = reinterpret_cast<const float2*>(__ldg(gep + EP_W));
@@ -530,7 +613,7 @@ __device__ __forceinline__ void forward_epilogue(const int* ep,
 // float or bfloat16 values run on keys (integer compares, as cheap as
 // int32's) in every warp whose values hold no NaN; a warp holds every
 // partner of its positions within a phase, so the test is the warp's own.
-template <bool kMask, int DV, int KR, typename T>
+template <bool kMask, bool kPairs = false, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogues(
     const int* sp, const long long* gp, int ebase, int e0, int e1,
     T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
@@ -545,8 +628,8 @@ __device__ __forceinline__ void forward_epilogues(
       for (int i = 0; i < KR; ++i) kv[0][i] = to_key(v[0][i]);
       for (int e = e0; e < e1; ++e) {
         const int off = ebase + e * kEpiWords;
-        forward_epilogue<kMask>(sp + off, gp + off, kv, m, qb, chunk,
-                                outer_bits);
+        forward_epilogue<kMask, kPairs>(sp + off, gp + off, kv, m, qb,
+                                        chunk, outer_bits);
       }
 #pragma unroll
       for (int i = 0; i < KR; ++i) from_key(kv[0][i], v[0][i]);
@@ -555,7 +638,8 @@ __device__ __forceinline__ void forward_epilogues(
   }
   for (int e = e0; e < e1; ++e) {
     const int off = ebase + e * kEpiWords;
-    forward_epilogue<kMask>(sp + off, gp + off, v, m, qb, chunk, outer_bits);
+    forward_epilogue<kMask, kPairs>(sp + off, gp + off, v, m, qb, chunk,
+                                    outer_bits);
   }
 }
 
@@ -577,15 +661,16 @@ __device__ __forceinline__ T* map_save_at(T* save, int slot, unsigned chunk,
 // and each map on the values (maps never share a cluster with
 // butterflies). K5 passes `save`: each map's input values (map_save_at),
 // for its transposed sweep.
-template <bool kMask, bool kMaps, int DV, int KR, typename T>
+template <bool kMask, bool kMaps, bool kPairs = false, int DV, int KR,
+          typename T>
 __device__ __forceinline__ void phase_epilogues(
     const int* ph, const int* sp, const long long* gp, int ebase,
     T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
     int outer_bits, T* save) {
   const int e1 = ph[PH_E1];
   if constexpr (!kMaps || DV == 2) {
-    forward_epilogues<kMask>(sp, gp, ebase, ph[PH_E0], e1, v, m, qb, chunk,
-                             outer_bits);
+    forward_epilogues<kMask, kPairs>(sp, gp, ebase, ph[PH_E0], e1, v, m, qb,
+                                     chunk, outer_bits);
   } else {
     const bool maps = ph[PH_MAPS] != 0;
     int e = ph[PH_E0];
@@ -596,8 +681,8 @@ __device__ __forceinline__ void phase_epilogues(
         while (s < e1 && sp[ebase + s * kEpiWords + EP_KIND] != kKindMap) ++s;
       }
       if (s > e)
-        forward_epilogues<kMask>(sp, gp, ebase, e, s, v, m, qb, chunk,
-                                 outer_bits);
+        forward_epilogues<kMask, kPairs>(sp, gp, ebase, e, s, v, m, qb,
+                                         chunk, outer_bits);
       if (s == e1) return;
       const int* ep = sp + ebase + s * kEpiWords;
       if (save != nullptr) {

@@ -25,40 +25,57 @@
 // and wrote two, behind a barrier per epilogue, and it staged 12 KiB of
 // tables per 16 KiB tile.
 //
-// This design: the load and the gather are K4a's (tile_common.cuh), so a
-// fused pass moves its bytes exactly as a plain tiled pass does. Between
-// them the epilogues run in registers (tile_epilogue.cuh): the host plan
-// (epilogue_plan.py) splits them into phases; in each phase a thread
-// takes its 16 (or 8) positions of the tile into registers under the
-// phase's layout, runs the phase's epilogues there (partner in a register
-// or one warp shuffle away, hi from one mask word and a popc, floats as
-// integer keys where the warp holds no NaN), and puts them back; one
-// barrier per phase. The 12-compare clusters of a 2^24 sort run in two
-// phases. Tails are taken one value at a time (cmp acts on each value of
-// the tail alone); a cluster with butterflies holds the planar (re, im)
-// pair of each position. A map runs its tape on each register in the
-// thread (tile_epilogue.cuh). The kernel is compiled once per element
-// type, register count, planar-or-not and with-or-without maps (a
-// cluster with maps takes the 8-register variant with the map code; the
-// others keep the code they had without it), its tile moved in words of
-// the element's own width, with the blocks per SM its registers allow
-// chosen by measurement. What still bounds it: instruction issue and the
-// latency of each block's load -> phases -> gather sequence (PERF.md).
+// This design: a block takes a run of work items (a
+// work item is at most 4096 positions of one batch row, 16 KiB of int32;
+// the host's k4b_schedule) and keeps two in flight (tile_items.cuh): it
+// stages all its items' row ids, lane XORs and epilogue bases once,
+// copies item k + 1's rows into the other tile with 16-byte cp.async
+// copies (one commit group) before it runs item k's phases, and gathers
+// item k's output rows 16 bytes a thread (src0 entries read four at a
+// time). Tile rows are padded by one 16-byte chunk. Between load and
+// gather the epilogues run in registers (tile_epilogue.cuh): the host
+// plan (epilogue_plan.py) splits them into phases; in each phase a
+// thread takes its 16 (or 8) positions of the tile into registers under
+// the phase's layout, runs the phase's epilogues there (partner in a
+// register or one warp shuffle away, hi from one mask word and a popc,
+// floats as integer keys where the warp holds no NaN; integers and keys
+// compare in-register pairs once, kPairs), and puts them back
+// (addresses as at_padded, no branch a register, kFast); one barrier
+// per phase. The 12-compare clusters of a 2^24 sort run in two phases.
+// Tails are taken one value at a time (cmp acts on each value of the
+// tail alone); a cluster with butterflies holds the planar (re, im) pair
+// of each position. A map runs its tape on each register in the thread.
+// The kernel is compiled once per element type, register count,
+// planar-or-not and with-or-without maps, at the blocks per SM its
+// registers allow (a sweep, tools/fused_ab.py). A pointer off 16-byte
+// alignment, rows of fewer than 16 bytes or a tail of several values a
+// register slot does not hold take the same schedule one word of the
+// element's width at a time.
+//
+// Measured (PERF.md; H100 80GB HBM3, 700 W; the largest 2^24 sort
+// cluster, device time): 0.0999 ms on int32 keys against 0.1431 for the
+// design before (tools/fused_ab.cu), in turns; bound 0.041 ms. What
+// still bounds it: instruction issue in the phases (the compares, the
+// register moves through the tile, each epilogue's dispatch) at 4 blocks
+// an SM, about 2,000 instructions a thread and work item.
 //
 // The guarded variant (kGuard, launched by repro_tile_fused_guarded, for
-// clusters without maps) loads and gathers through the guarded steps of
-// tile_common.cuh: every row id, lane XOR and src0 entry is tested before
-// the access it addresses, an entry out of range sets bit 1 of *flags
-// (one atomicOr per thread that met one) and its access is skipped (a
-// row not read is loaded as zeros). The epilogue phases are the same.
-// The unguarded instantiations compile to the code they had before the
-// variant existed (flags unused).
+// clusters without maps) keeps the design before the work-item schedule:
+// one work item a block, loaded and gathered one word a thread through
+// the guarded steps of tile_common.cuh into rows padded by one 4-byte
+// bank: every row id, lane XOR and src0 entry is tested before the
+// access it addresses, an entry out of range sets bit 1 of *flags (one
+// atomicOr per thread that met one) and its access is skipped (a row not
+// read is loaded as zeros). Its epilogue phases are the plain steps
+// (kFast and kPairs off). The design before, unguarded, is the A/B
+// reference in tools/fused_ab.cu.
 #include "tile_common.cuh"
-#include "tile_epilogue.cuh"
+#include "tile_items.cuh"
 
 // The epilogue phases of one batch row on the block's tile, from the
-// staged plan sp (device plan gp).
-template <typename T, int DV, int KR, bool kMaps>
+// staged plan sp (device plan gp). kFast (the work-item kernel): the
+// register moves and compares of tile_epilogue.cuh's kFast and kPairs.
+template <typename T, int DV, int KR, bool kMaps, bool kFast = false>
 __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
                                              const long long* gp, int d) {
   const int n_phases = sp[0], outer_bits = sp[2];
@@ -73,10 +90,10 @@ __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
       const PhaseRegs pr(ph);
       for (unsigned c = 0; c < (1u << outer_bits); ++c) {
         const unsigned qb = pr.qt ^ image_of(ph + PH_IMG_OUT, c, outer_bits);
-        load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
-        phase_epilogues<false, kMaps>(ph, sp, gp, ebase, v, m, qb, c,
-                                      outer_bits, (T*)nullptr);
-        store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
+        load_regs<DV, kFast>(v, tv, qb, pr.qr, pr.valid, k);
+        phase_epilogues<false, kMaps, kFast>(ph, sp, gp, ebase, v, m, qb, c,
+                                             outer_bits, (T*)nullptr);
+        store_regs<DV, kFast>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }
   }
@@ -112,25 +129,8 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
   const unsigned rpt_mask = (1u << rpt_shift) - 1;
   const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
                     (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
-  if constexpr (!kGuard) {
-    REPRO_TILE_LOAD_TABLES(s_in, s_out, s_xl, in_rows, out_rows, xor_low,
-                           g0, rpt_shift, rows, tiles_per_cta)
-    stage_plan(s_plan, plan, n_words, g0);
-    const unsigned span = (unsigned)rows * row_words;
-    const long long batch_words = (long long)n_rows * row_words;
-    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-      const W* xb = x + b * batch_words;
-      W* ob = out + b * batch_words;
-      __syncthreads();  // tables ready; the previous batch row's reads done
-      REPRO_TILE_LOAD_ROWS(W, tile, xb, s_in, span, row_words, row_shift,
-                           stride)
-      fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
-      __syncthreads();
-      REPRO_TILE_GATHER_STORE(ob, tile, s_out, s_xl, src0, span, row_words,
-                              row_shift, wpe, wpe_shift, t, rpt_shift,
-                              rpt_mask, row_len, stride)
-    }
-  } else {
+  static_assert(kGuard, "the unguarded K4b is tile_fused_items_kernel");
+  {
     bool bad = false;
     REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows, out_rows,
                                    xor_low, g0, rpt_shift, rows,
@@ -153,6 +153,71 @@ tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
     }
     if (bad) atomicOr(flags, 1);
   }
+}
+
+// A block of K4b: `groups` work items (k4b_schedule), `n_buf` of them in
+// flight: item k + 1's rows are copied into the other tile while item k's
+// phases and gather run.
+template <typename T, int DV, int KR, bool kMaps, int MB>
+__global__ void __launch_bounds__(REPRO_THREADS, MB)
+tile_fused_items_kernel(const typename ElemWord<T>::type* __restrict__ x,
+                        typename ElemWord<T>::type* __restrict__ out,
+                        const EpiTileArgs a) {
+  using W = typename ElemWord<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = a.per_cta << a.rpt_shift;      // tile rows of an item
+  const int rows_shift = a.per_cta_shift + a.rpt_shift;
+  const unsigned row_words = (1u << a.t) * (unsigned)a.wpe;
+  const unsigned span = (unsigned)rows * row_words;
+  const unsigned stride = (unsigned)a.stride;
+  const long long batch_words = (long long)a.n_rows * row_words;
+  const ItemTables s = carve_items(smem, a, rows);
+  const size_t tb = item_tile_bytes(rows, a.stride, (int)sizeof(W));
+  const long long w0 = (long long)blockIdx.x * a.groups;
+  const int nw = (int)min((long long)a.groups, a.n_work - w0);
+  stage_items(s, a, w0, nw, rows, rows_shift, batch_words);
+  __syncthreads();
+
+  auto tile_of = [&](int k) {
+    return reinterpret_cast<W*>(s.tiles + (a.n_buf > 1 && (k & 1) ? tb : 0));
+  };
+  auto load = [&](int k) {
+    load_item_rows(tile_of(k), x + s.base[k], s.in + (k << rows_shift), span,
+                   row_words, a.row_shift, stride, a.vec);
+  };
+  load(0);
+  if (a.n_buf > 1 && nw > 1) load(1);
+  TileView tv{nullptr, stride * (unsigned)sizeof(W),
+              (unsigned)a.wpe * (unsigned)sizeof(W), (1u << a.t) - 1, a.t};
+  for (int k = 0; k < nw; ++k) {
+    cp_async_wait_n(a.n_buf > 1 && k + 1 < nw ? 1 : 0);   // item k's rows
+    use_item_bases(s, k, a.n_epi);
+    W* tile = tile_of(k);
+    tv.bytes = reinterpret_cast<unsigned char*>(tile);
+    fused_phases<T, DV, KR, kMaps, true>(tv, s.plan, a.plan, a.d);
+    __syncthreads();
+    gather_item<W, DV>(out + s.base[k], tile, s.out + (k << rows_shift),
+                       s.xl + (k << a.per_cta_shift), a.src0, a, span,
+                       row_words, stride);
+    if (k + a.n_buf < nw) {
+      __syncthreads();   // every thread is done reading that tile
+      load(k + a.n_buf);
+    }
+  }
+}
+
+template <typename T, int DV, int KR, bool kMaps, int MB>
+static int launch_items(const void* x, void* out, const EpiTileArgs& a,
+                        cudaStream_t s) {
+  using W = typename ElemWord<T>::type;
+  if (a.word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(tile_fused_items_kernel<T, DV, KR, kMaps, MB>,
+                             (size_t)a.smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_fused_items_kernel<T, DV, KR, kMaps, MB>
+      <<<(unsigned)a.grid, REPRO_THREADS, (size_t)a.smem, s>>>(
+          (const W*)x, (W*)out, a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard>
@@ -214,16 +279,6 @@ static int launch_any(const void* x, void* out, const int* in_rows,
   // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
   if (dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
   if (dv != 1) return (int)cudaErrorInvalidValue;
-  if constexpr (!kGuard) {
-    if (maps) {
-      switch (elem_type) {
-        case 0: REPRO_FUSED(int, 1, 8, true, 4);
-        case 1: REPRO_FUSED(float, 1, 8, true, 4);
-        case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
-        default: return (int)cudaErrorInvalidValue;
-      }
-    }
-  }
   const bool r16 = regs == 16;
   switch (elem_type) {
     case 0: if (r16) REPRO_FUSED(int, 1, 16, false, 4);
@@ -237,20 +292,51 @@ static int launch_any(const void* x, void* out, const int* in_rows,
 #undef REPRO_FUSED
 }
 
-extern "C" int repro_tile_fused(const void* x, void* out, const int* in_rows,
-                                const int* out_rows, const int* xor_low,
-                                const int* src0, const long long* plan,
-                                int n_words, int n_tiles, int n_rows,
-                                int rpt_shift, int tiles_per_cta, int t,
-                                int wpe, int wpe_shift, int row_shift,
-                                int pad_words, long long batch,
-                                int word_bytes, int elem_type, int d, int dv,
-                                int regs, int maps, void* stream) {
-  return launch_any<false>(x, out, in_rows, out_rows, xor_low, src0, plan,
-                           n_words, n_tiles, n_rows, rpt_shift,
-                           tiles_per_cta, t, wpe, wpe_shift, row_shift,
-                           pad_words, batch, word_bytes, elem_type, d, dv,
-                           regs, maps, nullptr, stream);
+// One K4b launch under the schedule *a (EpiTileArgs; k4b_schedule in
+// bmmc_permute.py): elem_type 0 = int32, 1 = float32, 2 = bfloat16; dv:
+// tail values a register slot holds (2: a planar (re, im) cluster with
+// butterflies); regs: positions a thread holds (16, or 8: see
+// tile_epilogue.cuh); maps: the cluster holds map epilogues (single
+// values, 8 registers).
+extern "C" int repro_tile_fused(const void* x, void* out,
+                                const EpiTileArgs* a, void* stream) {
+  if (a == nullptr || a->grid <= 0 || a->n_work <= 0 || a->batch <= 0 ||
+      a->n_rows <= 0 || a->t < 0 || a->rpt_shift < 0 || a->wpe <= 0 ||
+      a->per_cta <= 0 || a->groups <= 0 || a->n_groups <= 0 ||
+      (a->n_buf != 1 && a->n_buf != 2) || a->d <= 0 ||
+      a->plan == nullptr || a->n_words < kHdrWords || a->n_epi < 0 ||
+      (a->regs != 8 && a->regs != 16) ||
+      (a->dv == 2 && (a->elem_type != 1 || a->d != 2)) ||
+      (a->maps && (a->dv != 1 || a->regs != 8)) ||
+      (a->vec && a->wpe != a->dv))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_FUSED(T, DV, KR, MAPS, MB) \
+  return launch_items<T, DV, KR, MAPS, MB>(x, out, *a, s)
+  // the last argument: blocks per SM, the fastest of a sweep on the H100
+  // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
+  // 3 with a few spills than at 2 without
+  if (a->dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
+  if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  if (a->maps) {
+    switch (a->elem_type) {
+      case 0: REPRO_FUSED(int, 1, 8, true, 4);
+      case 1: REPRO_FUSED(float, 1, 8, true, 4);
+      case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  const bool r16 = a->regs == 16;
+  switch (a->elem_type) {
+    case 0: if (r16) REPRO_FUSED(int, 1, 16, false, 4);
+            REPRO_FUSED(int, 1, 8, false, 4);
+    case 1: if (r16) REPRO_FUSED(float, 1, 16, false, 4);
+            REPRO_FUSED(float, 1, 8, false, 4);
+    case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, false, 3);
+            REPRO_FUSED(Bf16, 1, 8, false, 4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FUSED
 }
 
 extern "C" int repro_tile_fused_guarded(

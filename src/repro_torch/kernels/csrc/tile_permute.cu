@@ -64,8 +64,10 @@
 // before the access it addresses, an entry out of range sets bit 1 of
 // *flags (one atomicOr per thread that met one) and its access is
 // skipped. Its steps are the guarded macros of tile_common.cuh, which
-// K4b (tile_fused.cu) shares; a tile row there is padded by one 4-byte
-// bank.
+// the guarded K4b (tile_fused.cu) shares; a tile row there is padded by
+// one 4-byte bank. The cp.async steps of the narrow schedule
+// (stage_copy, cp_async_commit, cp_async_wait) live in bulk_copy.cuh,
+// which K4b's and K5's work-item schedule (tile_items.cuh) shares.
 #include "bulk_copy.cuh"
 #include "tile_common.cuh"
 
@@ -196,31 +198,6 @@ struct TilePermuteArgs {
   int grid;            // blocks
   int smem;            // dynamic shared-memory bytes a block
 };
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// One word (or, with kVec, one 16-byte chunk) from device memory to
-// shared memory: cp.async for 4, 8 and 16 bytes (16 bypasses L1), a
-// plain load and store below that.
-template <int kBytes, typename W>
-__device__ __forceinline__ void stage_copy(W* dst, const W* src) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
-  } else if constexpr (kBytes >= 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes) : "memory");
-  } else {
-    *dst = *src;
-  }
-}
 
 template <typename W, bool kVec>
 __global__ void __launch_bounds__(REPRO_THREADS)

@@ -1,9 +1,10 @@
 """Host plan of the fused epilogues that K4b and K5 run in registers.
 
-A block of K4b (``tile_fused.cu``) or K5 (``tile_bwd.cu``) holds ``Q =
-2^B`` tile positions: the column bits of its rows (``0 .. t-1``), the
-row bits of a tile (``t .. t + log2(rows_per_tile) - 1``) and, when a
-block takes several tiles, the tile-in-block bits above. Its 256 threads
+A block of K4b (``tile_fused.cu``) or K5 (``tile_bwd.cu``) runs the
+epilogues on one work item at a time, ``Q = 2^B`` tile positions: the
+column bits of its rows (``0 .. t-1``), the row bits of a tile (``t ..
+t + log2(rows_per_tile) - 1``) and, when a work item holds several
+tiles, the tile-in-item bits above. Its 256 threads
 hold the positions in registers under a *layout*: a basis of the
 positions over GF(2) split into 4 register slots (16 positions a
 thread), 5 lane slots and 3 warp slots, plus *outer* slots when ``B >
@@ -28,8 +29,10 @@ The tables of an epilogue become algebra: ``hi_row`` and ``hi_lane``
 index (:func:`repro_torch.core.tiling.compute_tables` builds them with no
 constant), and ``hi_base`` / ``tw_base`` are affine over the tiles of a
 block. So ``hi(q)`` is the parity of ``q & hmask`` XOR ``hi_base[g0]``
-(``g0`` the block's first tile), and the twiddle index is a GF(2)
-matrix-vector product over the position bits XOR ``tw_base[g0]``. A
+(``g0`` the first tile of the block's positions: of a work item, where a
+K4b or K5 block takes several, each with its own entries), and the
+twiddle index is a GF(2) matrix-vector product over the position bits
+XOR ``tw_base[g0]``. A
 table that is not of this form raises :class:`ValueError`; there is no
 fallback to tables.
 
@@ -341,6 +344,7 @@ def epi_slice(words: np.ndarray, e: int) -> np.ndarray:
 
 def spill_sids(info: dict) -> Optional[int]:
     """Mask-register sets K5 keeps in shared memory: one per compare group
-    and chunk when there is more than one, else 0 (all in registers)."""
+    and chunk when there are more than two, else 0 (one set, or two, the
+    second waiting in registers)."""
     n = info["groups"] * (1 << info["outer_bits"])
-    return n if n > 1 else 0
+    return n if n > 2 else 0

@@ -386,6 +386,151 @@ def test_cuda_k5_bfly_matches_plain(cuda_device):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _hand_cmp(n, t, n_epi, seed):
+    """A compare cluster built by hand on the bit reversal's tile plan at
+    2^n, tile t: partner XORs on every tile position bit, then random
+    XORs of several bits; random linear hi tables. (plan, signature,
+    per-tile tables, row and lane tables.)"""
+    import numpy as np
+    from repro_torch.core.tiling import _affine_table, plan_bmmc
+    rng = np.random.default_rng(seed)
+    plan = plan_bmmc(Bmmc.bit_reverse(n), t)[0]
+    rpt, n_tiles = plan.rows_per_tile, plan.n_tiles
+    rb, gb = rpt.bit_length() - 1, n_tiles.bit_length() - 1
+
+    def table(bits, const=False):
+        imgs = [int(v) for v in rng.integers(0, 2, bits)]
+        c = int(rng.integers(0, 2)) if const else 0
+        return _affine_table(imgs, c).astype(np.int32)
+    vs = [1 << b for b in range(t + rb)]
+    while len(vs) < n_epi:
+        vs.append(int(rng.integers(3, rpt << t)))
+    sig = tuple(("cmp", v >> t, v & ((1 << t) - 1)) for v in vs[:n_epi])
+    return (plan, sig, tuple((table(gb, True),) for _ in sig),
+            tuple((table(rb), table(t)) for _ in sig))
+
+
+def _ties(shape, dtype, device, seed):
+    """Small integers (ties), NaNs and signed zeros, as ``dtype``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randint(-4, 5, shape, generator=g, device=device).float()
+    u = torch.rand(shape, generator=g, device=device)
+    v = torch.where(u < 0.05, torch.full_like(v, float("nan")), v)
+    v = torch.where((u > 0.5) & (v == 0), torch.full_like(v, -0.0), v)
+    return v.to(dtype)
+
+
+def _offset(x, off):
+    """``x``'s values in a contiguous view ``off`` elements into a larger
+    buffer (a pointer off 16-byte alignment: K4b's and K5's word path)."""
+    if not off:
+        return x
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    view = buf[off:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# (label, cluster, log2 n, t, dtype, batch, element offset); cluster
+# "sort" is the 2^n sort's largest (one 4096-position work item a batch
+# row, so batch 3 makes three items: a block of two spanning batch rows,
+# then a last block of one)
+_EDGE_CASES = [
+    ("items across batch rows, a last block of one", "sort", 12, 6,
+     torch.float32, 3, 0),
+    ("float32 4 bytes off (word path)", "sort", 12, 6, torch.float32, 3, 1),
+    ("bfloat16 2 bytes off (word path)", "sort", 12, 6, torch.bfloat16, 1,
+     1),
+    ("bfloat16 at 16 registers", "sort", 12, 6, torch.bfloat16, 3, 0),
+    ("int32 at 16 registers", "sort", 12, 6, torch.int32, 3, 0),
+    ("planar butterflies", "fft", 12, 5, torch.float32, 3, 0),
+    ("planar butterflies 4 bytes off", "fft", 12, 5, torch.float32, 1, 1),
+    ("maps (tanh >> sort)", "tanh", 12, 6, torch.float32, 3, 0),
+    ("maps, bfloat16 2 bytes off", "tanh", 12, 6, torch.bfloat16, 1, 1),
+    ("20 compares (two compare groups)", "hand20", 12, 6, torch.float32, 3,
+     0),
+    ("2^14-position tiles (chunks)", "hand14", 14, 7, torch.float32, 1, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kind,n,t,dtype,batch,off", _EDGE_CASES)
+def test_cuda_k4b_k5_schedule_edges(cuda_device, label, kind, n, t, dtype,
+                                    batch, off):
+    """K4b and K5 on their work-item schedules, bit for bit against their
+    plain versions at the schedule's edges: work items across batch rows
+    and a last block with fewer of them, pointers off 16-byte alignment
+    (the word path), bfloat16 at 16 registers, planar butterflies, maps,
+    more than 16 compares, and tiles run in chunks."""
+    import numpy as np
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.fft import fft_expr
+    from repro_torch.combinators.sort import sort_expr
+    d = 2 if kind == "fft" else 1
+    shape = (batch, 1 << n) + ((d,) if d > 1 else ())
+    if kind == "fft":
+        x = torch.randn(shape, device=cuda_device)
+    elif kind == "tanh":
+        x = (torch.rand(shape, device=cuda_device) - 0.5).to(dtype) * 4
+    else:
+        x = _ties(shape, dtype, cuda_device, n + t)
+    ct = torch.randn(shape, device=cuda_device).to(x.dtype)
+    x, ct = _offset(x, off), _offset(ct, off)
+    if kind.startswith("hand"):
+        plan, sig, scal, vmem = _hand_cmp(n, t, 20 if kind == "hand20"
+                                          else 14, seed=n + t)
+        s0 = plan.src0.reshape(-1)
+        inv = np.empty_like(s0)
+        inv[s0] = np.arange(s0.size, dtype=s0.dtype)
+        kw = dict(geometry=pk.plan_geometry(plan), epilogue=sig,
+                  epi_scalar=scal, epi_vmem=vmem, batched=True)
+        tabs = (plan.in_rows, plan.out_rows, plan.xor_low)
+        fwd = (lambda: pk.tiled_permute_tables(x, *tabs, plan.src0, **kw),
+               lambda: pk.tiled_permute_tables_plain(x, *tabs, plan.src0,
+                                                     **kw))
+        bwd = (lambda: pk.tiled_permute_bwd_tables(
+            x, ct, *tabs, inv.reshape(plan.src0.shape), **kw),
+            lambda: pk.tiled_permute_bwd_tables_plain(
+                x, ct, *tabs, inv.reshape(plan.src0.shape), **kw))
+        entries = pk._epi_entries(sig, scal, vmem)
+        geometry = kw["geometry"]
+    else:
+        expr = {"sort": sort_expr(n), "fft": fft_expr(n),
+                "tanh": V.emap("tanh", torch.tanh) >> sort_expr(n)}[kind]
+        clusters = _fused_clusters(expr, n, t)
+        fs = (clusters[0] if kind == "tanh" else
+              max(clusters, key=lambda c: len(c.computes)))
+        fwd = (lambda: _fused(fs, t, x, True, plain=False),
+               lambda: _fused(fs, t, x, True, plain=True))
+        bwd = (lambda: _bwd(fs, t, x, ct, True, plain=False),
+               lambda: _bwd(fs, t, x, ct, True, plain=True))
+        plans, ents = ex._fused_plan_cached(fs, t)
+        sig, scal, vmem, fns = ex._fused_kernel_args(ents, x.dtype)
+        entries = pk._epi_entries(sig, scal, vmem, fns, x.dtype)
+        geometry = pk.plan_geometry(plans[0])
+    xc = x.reshape(batch, 1 << n, d)
+    for n_buf, (kern, plain) in ((1, fwd), (2, bwd)):
+        if n_buf == 2 and dtype == torch.int32:
+            continue
+        _, s, plan_t, _ = pk._epi_launch_args(xc, geometry, entries,
+                                              n_buf=n_buf)
+        assert s.vec == int(not off), (label, s)
+        if kind == "sort" and batch == 3:
+            assert s.groups == 2 and s.n_work == 3 and s.grid == 2
+        if label == "bfloat16 at 16 registers" and n_buf == 1:
+            assert plan_t.info["reg_bits"] == 4
+        if kind == "hand14":
+            assert plan_t.info["outer_bits"] >= 1
+        name = "tile_bwd" if n_buf == 2 else "tile_fused"
+        before = pk.launch_counts()[name]
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert pk.launch_counts()[name] == before + 1, label
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), (
+            label, name)
+
+
 @pytest.mark.cuda
 def test_cuda_sort_and_fft_gradients(cuda_device):
     """Gradients on the card: the sort's equals the scatter of w to the

@@ -594,7 +594,10 @@ def test_large_block_runs_in_chunks():
         size=(1, 1 << 14, 1)).astype(np.float32))
     info = _check_cluster(plan, entries, xc, cc)
     assert info["outer_bits"] == outer
-    assert EP.spill_sids(info) == 1 << outer
+    # one compare group: a set a chunk; K5 keeps two sets in registers
+    # and more in shared memory
+    sets = 1 << outer
+    assert EP.spill_sids(info) == (sets if sets > 2 else 0)
 
 
 def test_plan_cache_counts_the_tables_it_keeps(monkeypatch):

@@ -27,7 +27,16 @@ from there, and its kernels build into ``--build-dir``), prints:
   without the map (K4a on its plan, or the sort's own cluster), and the
   sums over all clusters of the two programs;
 * forward + backward of the 2^24 float32 sort and of the 2^22 planar
-  FFT through the entry points (``(w * f(x)).sum().backward()``).
+  FFT through the entry points (``(w * f(x)).sum().backward()``);
+* in a checkout with K4b's and K5's work-item schedules, their A/B
+  against the kernels before those schedules (``tools/fused_ab.py``,
+  built from this checkout's ``tools/fused_ab.cu``), in turns (old, new,
+  new, old): the largest sort cluster (K4b int32 and float32, K5 float32
+  and bfloat16; one call and device time) and the device time summed
+  over all 39 sort clusters (K4b int32 and float32, K5 float32 and
+  bfloat16), over the FFT's butterfly cluster and over the map clusters
+  of ``not >> sort >> not`` (K4b) and ``tanh >> sort`` (K5), each side
+  held bit for bit against the other.
 
 The timers are ``chip_smoke.py``'s own (``cuda_ms``, ``device_ms``). Two
 checkouts compare only within one run on one card: run them in turns
@@ -228,7 +237,85 @@ def main(argv=None) -> int:
             (w * f(xt)).sum().backward()
         say(f"{label} forward + backward: "
             f"{cuda_ms(torch, fwd_bwd, 20, warmup=3):.3f} ms")
+
+    if hasattr(pk, "k4b_schedule"):    # a checkout with the schedules
+        ab_turns(torch, say, fss, t, n, xi, xf, ct, ff, 5, xp, cp)
     return 0
+
+
+def ab_turns(torch, say, fss, t, n, xi, xf, ct, ff, tf, xp, cp):
+    """The A/B of the work-item schedules (see the module docstring)."""
+    import statistics
+    sys.path.insert(0, str(ROOT / "tools"))
+    import fused_ab
+    from chip_smoke import cuda_ms, device_ms, in_turns
+    from repro_torch.combinators import FusedStage, compile_expr
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.sort import sort_expr
+    from repro_torch.kernels import build
+    so, ab_log = fused_ab.finish_build(fused_ab.start_build(
+        build.build_dir().parent / "sweep"))
+    for name, u in fused_ab.usage(ab_log, "old_kernel"):
+        say(f"old {name}: {u}")
+
+    def turns(pairs, timer):
+        """{side: [readings]} of the summed ``timer`` over ``pairs`` of
+        (old, new) calls, old, new, new, old."""
+        return in_turns({"old": lambda: sum(timer(o) for o, _ in pairs),
+                         "new": lambda: sum(timer(w) for _, w in pairs)},
+                        lambda f: f())
+
+    def calls(clusters, x, c=None, tt=None):
+        got = []
+        for fs in clusters:
+            old, new, _, s = fused_ab.cluster_calls(so, fs, tt or t, x, c)
+            a, b = old(), new()
+            if not torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                      else torch.int32),
+                               b.view(torch.int16 if b.element_size() == 2
+                                      else torch.int32)):
+                raise SystemExit("fused_kernel_times: old and new differ")
+            got.append((old, new))
+        return got, s
+
+    fs = max(fss, key=lambda s: len(s.computes))
+    xb, cb = xf.bfloat16(), ct.bfloat16()
+    cases = (("K4b int32", xi, None), ("K4b float32", xf, None),
+             ("K5 float32", xf, ct), ("K5 bfloat16", xb, cb))
+    for label, x, c in cases:
+        pairs, s = calls([fs], x, c)
+        one = turns(pairs, lambda f: cuda_ms(torch, f, 20, warmup=3))
+        devt = turns(pairs, lambda f: device_ms(torch, f))
+        say(f"A/B 2^{n} largest sort cluster {label} "
+            f"({fused_ab.schedule_text(s)}): one call old {one['old']} new "
+            f"{one['new']} ms; device old {devt['old']} new {devt['new']} "
+            f"ms (medians {statistics.median(devt['old']):.4f} / "
+            f"{statistics.median(devt['new']):.4f})")
+    for label, x, c in cases:
+        pairs, _ = calls(fss, x, c)
+        devt = turns(pairs, lambda f: device_ms(torch, f, 5))
+        say(f"A/B all {len(fss)} sort clusters {label}, device summed: old "
+            f"{devt['old']} new {devt['new']} ms")
+    for label, c in (("K4b", None), ("K5", cp)):
+        pairs, s = calls([ff], xp, c, tf)
+        devt = turns(pairs, lambda f: device_ms(torch, f))
+        say(f"A/B 2^22 FFT cluster {label} ({fused_ab.schedule_text(s)}): "
+            f"device old {devt['old']} new {devt['new']} ms")
+
+    def clusters_of(expr):
+        return [s for s in compile_expr(expr).clustered_program(n, t)
+                if isinstance(s, FusedStage) and s.computes]
+    nots = clusters_of(V.emap("not", torch.bitwise_not) >> sort_expr(n)
+                       >> V.emap("not", torch.bitwise_not))
+    tanhs = clusters_of(V.emap("tanh", torch.tanh) >> sort_expr(n))
+    xs_t = (xf - (1 << (n - 1))) / (1 << n)
+    for label, clusters, x, c in (
+            ("not >> sort >> not, K4b int32", nots, xi, None),
+            ("tanh >> sort, K5 float32", tanhs, xs_t, ct)):
+        pairs, _ = calls(clusters, x, c)
+        devt = turns(pairs, lambda f: device_ms(torch, f, 5))
+        say(f"A/B all {len(clusters)} clusters of {label}, device summed: "
+            f"old {devt['old']} new {devt['new']} ms")
 
 
 if __name__ == "__main__":
