@@ -11,7 +11,9 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
 2. build: every CUDA kernel compiled from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), with seconds and ptxas usage,
    and beside them K4a as it was before its redesign
-   (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and 15;
+   (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and 15, and
+   K4b, K5 and the guarded K4b before their work-item schedules
+   (``tools/fused_ab.cu``), that of phases 6, 9 and 11;
 3. kernel vs plain: each permutation kernel (copy, block, lane, tile)
    held bit for bit against its plain PyTorch version on the card, at a
    small size (int32, bfloat16, float32 with a d = 8 tail, a batch of 3,
@@ -103,10 +105,13 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    fingerprints) per 2^n plan; each call guarded and unguarded in turns;
    each guarded variant bit for bit against its unguarded kernel and its
    guarded plain version, timed in turns with the unguarded kernel (one
-   call and device time);
-12. traps on the card at 2^24: each table of each guarded variant
-   poisoned on the card (2^30 and -1) sets bit 1 as the guarded plain
-   version does, and the next unguarded launch succeeds; guarded
+   call and device time), the guarded K4b (largest 2^n_sort sort
+   cluster) also with the guarded K4b before its work-item schedule
+   (``tools/fused_ab.cu``);
+12. traps on the card at 2^24: each table of each guarded variant (K4b:
+   of a sort cluster's pass) poisoned on the card (2^30 and -1) sets bit
+   1 as the guarded plain version does, outputs bit-equal where defined,
+   and the next unguarded launch succeeds; guarded
    ``bmmc_permute`` with a poisoned plan (host table, then the card's
    copy only) and a guarded sort with a poisoned K4b table fall back to
    ``ref`` and equal the oracle; a poisoned ref table raises
@@ -443,9 +448,9 @@ def ptxas_usage(log: str) -> list:
 def phase_build():
     """Build every kernel, and beside them the K4a that the redesign
     replaced (``tools/k4a_sweep.cu``), the A/B reference of phases 4 and
-    15, and the K4b and K5 before their work-item schedules
-    (``tools/fused_ab.cu``), the A/B reference of phases 6 and 9. Returns
-    the K4a library and (the K4b/K5 library, its ptxas log)."""
+    15, and the K4b, K5 and guarded K4b before their work-item schedules
+    (``tools/fused_ab.cu``), the A/B reference of phases 6, 9 and 11.
+    Returns the K4a library and (the A/B library, its ptxas log)."""
     say("== phase 2: build ==")
     from repro_torch.kernels import build
     import fused_ab
@@ -1917,10 +1922,11 @@ def guarded_kernel_cases(torch, n: int, x) -> list:
 
 
 def phase_guarded(torch, n: int, n_sort: int, reps: int, bw: float,
-                  records: dict):
-    """Phase 11: the main path with guards on. Returns (launch counts of
-    the guarded run, records of the guarded kernels, hashes of the
-    unguarded outputs for phase 13)."""
+                  records: dict, ab):
+    """Phase 11: the main path with guards on (``ab``: phase 2's A/B
+    library, for the guarded K4b before its schedule). Returns (launch
+    counts of the guarded run, records of the guarded kernels, hashes of
+    the unguarded outputs for phase 13)."""
     say(f"== phase 11: guarded main path (bmmc_permute on 2^{n} int32, "
         f"sort of 2^{n_sort} int32) ==")
     from repro_torch import guard, resilience
@@ -2048,38 +2054,50 @@ def phase_guarded(torch, n: int, n_sort: int, reps: int, bw: float,
             f"{plain_ms:.3f} ms")
         torch.cuda.empty_cache()
 
-    # K4b at the largest 2^n_sort sort cluster (phase 6's)
+    # K4b at the largest 2^n_sort sort cluster (phase 6's): guarded and
+    # unguarded through the wrapper, and the guarded K4b before its
+    # work-item schedule (tools/fused_ab.cu, a direct launch), in turns
+    import fused_ab
     tf = ops.choose_tile(n_sort, 4)
     fs = max(fused_cases(n_sort, tf, "sort"), key=lambda s: len(s.computes))
     plans, entries = ex._fused_plan_cached(fs, tf)
     tabs, epi = ex._pass_tables(plans[0], entries, xs)
     geo = K.plan_geometry(plans[0])
     flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    oflags = torch.zeros_like(flags)
     g = (lambda: K.tiled_permute_tables(xs, *tabs, geometry=geo,
                                         flags=flags, **epi))
     u = (lambda: K.tiled_permute_tables(xs, *tabs, geometry=geo, **epi))
     pl = (lambda: K.tiled_permute_tables_plain(xs, *tabs, geometry=geo,
                                                flags=flags, **epi))
+    old = fused_ab.cluster_calls(ab[0], fs, tf, xs, flags=oflags)[0]
     got = g()
-    err = max(max_abs_err(torch, got, u()), max_abs_err(torch, got, pl()))
-    check(err == 0.0 and int(flags.item()) == 0, ("tile_fused_guarded", err))
-    turns = in_turns({"guarded": g, "unguarded": u}, timed)
-    gm, um = (statistics.median(turns[k]) for k in ("guarded", "unguarded"))
-    dturns = in_turns({"guarded": g, "unguarded": u},
-                      lambda fn: device_ms(torch, fn), rounds=1)
-    gd, ud = (statistics.median(dturns[k]) for k in ("guarded",
-                                                     "unguarded"))
+    err = max(max_abs_err(torch, got, u()), max_abs_err(torch, got, pl()),
+              max_abs_err(torch, got, old()))
+    check(err == 0.0 and int(flags.item()) == 0 and int(oflags.item()) == 0,
+          ("tile_fused_guarded", err))
+    fns = {"old guarded": old, "guarded": g, "unguarded": u}
+    turns = in_turns(fns, timed)
+    dturns = in_turns(fns, lambda fn: device_ms(torch, fn), rounds=1)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    dmed = {k: statistics.median(v) for k, v in dturns.items()}
     plain_ms = cuda_ms(torch, pl, max(3, reps // 3), warmup=1)
     rec = records["tile_fused"]
     out["tile_fused_guarded"] = {
-        "ms": gm, "device_ms": gd, "plain_ms": plain_ms,
-        "bound_ms": rec["bound_ms"], "library_ms": rec["library_ms"],
-        "max_abs_err": err}
+        "ms": med["guarded"], "device_ms": dmed["guarded"],
+        "old_ms": med["old guarded"], "old_device_ms": dmed["old guarded"],
+        "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
+        "library_ms": rec["library_ms"], "max_abs_err": err}
     say(f"  tile_fused_guarded (largest 2^{n_sort} int32 sort cluster, "
-        f"{len(fs.computes)} cmp epilogues): bit-equal to tile_fused and to "
-        f"its guarded plain version; one call {gm:.4f} ms vs unguarded "
-        f"{um:.4f} ms, device {gd:.4f} ms vs {ud:.4f} ms (in turns), "
-        f"guarded plain {plain_ms:.3f} ms")
+        f"{len(fs.computes)} cmp epilogues): bit-equal to tile_fused, to "
+        f"its guarded plain version and to the guarded K4b before its "
+        f"schedule; in turns (old guarded, guarded, unguarded, and back) "
+        f"one call {turns} ms, device {dturns} ms; medians one call "
+        f"{med['guarded']:.4f} ms against unguarded {med['unguarded']:.4f} "
+        f"and old guarded {med['old guarded']:.4f}, device "
+        f"{dmed['guarded']:.4f} ms against {dmed['unguarded']:.4f} and "
+        f"{dmed['old guarded']:.4f} (bound {rec['bound_ms']:.4f}); guarded "
+        f"plain {plain_ms:.3f} ms")
     say(f"  clocks, power, temperature: {clocks()}")
     torch.cuda.empty_cache()
     return counts, out, hashes
@@ -2123,7 +2141,7 @@ def phase_traps(torch, n: int):
             f"version does (outputs equal where defined); the next unguarded "
             f"launch succeeds, bit-equal")
         del clean, got, want, again
-    # K4b: a poisoned src0 of a sort cluster's pass, on the card only
+    # K4b: each table of a sort cluster's pass poisoned on the card only
     t = ops.choose_tile(n, 4)
     fs = max(fused_cases(n, t, "sort"), key=lambda s: len(s.computes))
     plans, entries = ex._fused_plan_cached(fs, t)
@@ -2131,20 +2149,34 @@ def phase_traps(torch, n: int):
     geo = K.plan_geometry(plans[0])
     clean = K.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
     flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    with inject.poison_device_table(plans[0], dev):
-        got = K.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags,
-                                     **epi)
-        pflags = torch.zeros_like(flags)
-        pw = K.tiled_permute_tables_plain(x, *tabs, geometry=geo,
-                                          flags=pflags, **epi)
-        check(int(flags.item()) == 1 and int(pflags.item()) == 1
-              and torch.equal(got, pw), "tile_fused_guarded trap")
-    again = K.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
-    torch.cuda.synchronize()
-    check(torch.equal(again, clean), "tile_fused after the trap")
-    say("  tile_fused_guarded: a poisoned src0 entry of a sort cluster sets "
-        "bit 1 (as its guarded plain version does); the next unguarded "
-        "launch succeeds, bit-equal")
+    row_len = 1 << geo[1]
+    for ti, tname in enumerate(TABLE_NAMES["tile"]):
+        # a bad output row id leaves that row unwritten: compare the rest
+        keep = torch.ones(1 << n, dtype=torch.bool, device=dev)
+        if tname == "out_rows":
+            r0 = int(plans[0].out_rows.reshape(-1)[0])
+            keep[r0 * row_len:(r0 + 1) * row_len] = False
+        for value in (1 << 30, -1):
+            flags.zero_()
+            pflags = torch.zeros_like(flags)
+            with inject.poison_device_table(plans[0], dev, table=ti,
+                                            value=value):
+                got = K.tiled_permute_tables(x, *tabs, geometry=geo,
+                                             flags=flags, **epi)
+                pw = K.tiled_permute_tables_plain(x, *tabs, geometry=geo,
+                                                  flags=pflags, **epi)
+                check(int(flags.item()) == 1 and int(pflags.item()) == 1
+                      and torch.equal(got[keep], pw[keep]),
+                      ("tile_fused_guarded trap", tname, value))
+            again = K.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+            torch.cuda.synchronize()
+            check(torch.equal(again, clean), ("tile_fused after the trap",
+                                              tname, value))
+    say(f"  tile_fused_guarded: an entry of "
+        f"{'/'.join(TABLE_NAMES['tile'])} of a sort cluster's pass set to "
+        f"2^30 or -1 on the card sets bit 1, as its guarded plain version "
+        f"does (outputs bit-equal where defined: all but the row a bad "
+        f"output id names); the next unguarded launch succeeds, bit-equal")
 
     # through the entry points: the cuda -> ref fallback
     b = Bmmc.bit_reverse(n)
@@ -4133,7 +4165,7 @@ def main(argv=None) -> int:
         f"the sort, tanh >> sort and the FFT): {counts['tile_bwd']}")
 
     g_counts, g_records, hashes = phase_guarded(torch, args.n, args.n_sort,
-                                                REPS, bw, records)
+                                                REPS, bw, records, ab)
     records.update(g_records)
     for name in GUARDED.values():
         counts[name] = g_counts[name]

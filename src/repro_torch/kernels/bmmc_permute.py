@@ -566,25 +566,23 @@ def _tiles_per_cta(geometry, elem: int, max_positions: int = None) -> int:
     return per_cta
 
 
-def _tile_args(xc, geometry, *, per_cta: int = None,
-               word_bytes: int = None, extra_smem: int = 0):
+def _tile_args(xc, geometry):
     """(out, kernel arguments after the tables) of a launch of the guarded
-    K4a or K4b (the design before their schedules: one tile or work item
-    a block, rows padded by one 4-byte bank; K4b with ``per_cta`` tiles a
-    block, words of ``word_bytes`` and ``extra_smem`` more bytes a block);
-    raises when a block does not fit shared memory."""
+    K4a (the design before its schedules: ``_tiles_per_cta`` tiles a
+    block, words of the widest width that divides the element and both
+    pointers, rows padded by one 4-byte bank); raises when a block does
+    not fit shared memory."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     out = torch.empty_like(xc)
     batch, _, d = xc.shape
     elem = d * xc.element_size()
-    wb = word_bytes or _word_bytes(elem, xc.data_ptr(), out.data_ptr())
+    wb = _word_bytes(elem, xc.data_ptr(), out.data_ptr())
     wpe = elem // wb
     pad = max(1, 4 // wb)
-    if per_cta is None:
-        per_cta = _tiles_per_cta(geometry, elem)
+    per_cta = _tiles_per_cta(geometry, elem)
     rows = per_cta * rpt
     tile = rows * ((1 << t) * wpe + pad) * wb
-    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile + extra_smem
+    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile
     if smem > _SMEM_MAX:
         raise ValueError(f"tile of {rpt} x 2^{t} elements of {elem} bytes "
                          f"needs {smem} bytes of shared memory (> {_SMEM_MAX})")
@@ -1273,43 +1271,23 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1,
     return out, s, plan, dv
 
 
-def _guarded_fused_args(xc, geometry, entries) -> tuple:
-    """(out, kernel arguments after the tables, plan tensor, dv) of the
-    guarded K4b, which keeps the design before the work-item schedule:
-    one work item a block, its plan's bases fixed at the block's first
-    tile, words of the element type's width into a tile padded by one
-    4-byte bank (``_tile_args``)."""
-    _, t, _, _, _, _, _ = geometry
-    size, d = xc.element_size(), xc.shape[2]
-    pad = max(1, 4 // size)
-    plan, dv = _epi_plan(xc, geometry, entries, 1,
-                         ((1 << t) * d + pad) * size)
-    out, args = _tile_args(xc, geometry,
-                           per_cta=_epi_item(geometry, d * size)[0],
-                           word_bytes=size,
-                           extra_smem=(plan.numel() * 4 + 15) & ~15)
-    return out, args, plan, dv
-
-
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
-    if flags is not None:
-        out, args, plan, dv = _guarded_fused_args(xc, geometry, entries)
-        if plan.info["maps"]:
-            raise ValueError("the guarded K4b variant takes no map "
-                             "epilogues (guarded programs with maps run "
-                             "unguarded)")
-        tail = (_ELEM_TYPE[xc.dtype], xc.shape[2], dv,
-                1 << plan.info["reg_bits"], 0)
-        _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
-                *(_ptr(a) for a in tabs), _ptr(plan), plan.numel(), *args,
-                *tail, _ptr(flags), moved=2 * _nbytes(xc))
-        return out
+    """K4b on tables passed as arguments under :func:`k4b_schedule`, its
+    descriptor built for this call; with ``flags`` the guarded K4b, the
+    same schedule with its tests, which takes no map epilogues."""
     out, s, plan, dv = _epi_launch_args(xc, geometry, entries,
                                         align=tabs[3].data_ptr())
+    if flags is not None and plan.info["maps"]:
+        raise ValueError("the guarded K4b variant takes no map epilogues "
+                         "(guarded programs with maps run unguarded)")
     a = _epi_args(s, tabs, plan, geometry, xc.shape[0], xc.dtype,
                   xc.shape[2], dv)
-    _launch("tile_fused", xc, _ptr(xc), _ptr(out), ctypes.addressof(a),
-            moved=2 * _nbytes(xc))
+    if flags is None:
+        _launch("tile_fused", xc, _ptr(xc), _ptr(out), ctypes.addressof(a),
+                moved=2 * _nbytes(xc))
+    else:
+        _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
+                ctypes.addressof(a), _ptr(flags), moved=2 * _nbytes(xc))
     return out
 
 

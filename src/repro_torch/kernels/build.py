@@ -48,8 +48,7 @@ KERNELS = {
     "tile_guarded": ("tile_permute.cu", "repro_tile_permute_guarded",
                      [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P, _P]),
     "tile_fused_guarded": ("tile_fused.cu", "repro_tile_fused_guarded",
-                           [_P] * 5 + [_I] * 10 + [_L] + [_I] * 6
-                           + [_P, _P]),
+                           [_P, _P, _P]),
 }
 GUARDED = {"block": "block_guarded", "lane": "lane_guarded",
            "tile": "tile_guarded", "tile_fused": "tile_fused_guarded"}

@@ -14,7 +14,8 @@
 //          bulk_wait_all() once every group's writes are done.
 //
 // Beside them, the per-thread asynchronous copies (cp.async, 4 to 16 bytes
-// a thread, tracked by commit groups): stage_copy, cp_async_commit,
+// a thread, tracked by commit groups): stage_copy (stage_copy_or_zero
+// fills zeros where a guarded kernel reads nothing), cp_async_commit,
 // cp_async_wait<N> (returns once at most N of the thread's groups are
 // pending).
 //
@@ -113,5 +114,24 @@ __device__ __forceinline__ void stage_copy(W* dst, const W* src) {
                  :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes) : "memory");
   } else {
     *dst = *src;
+  }
+}
+
+// stage_copy, or with !ok zeros into dst and nothing read: cp.async with
+// a source size of 0 (src must still be a valid address), a plain store
+// below 4 bytes.
+template <int kBytes, typename W>
+__device__ __forceinline__ void stage_copy_or_zero(W* dst, const W* src,
+                                                   bool ok) {
+  const uint32_t n = ok ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n) : "memory");
+  } else if constexpr (kBytes >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(kBytes), "r"(n)
+                 : "memory");
+  } else {
+    *dst = ok ? *src : W{};
   }
 }

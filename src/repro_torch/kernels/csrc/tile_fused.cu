@@ -59,16 +59,22 @@
 // register moves through the tile, each epilogue's dispatch) at 4 blocks
 // an SM, about 2,000 instructions a thread and work item.
 //
-// The guarded variant (kGuard, launched by repro_tile_fused_guarded, for
-// clusters without maps) keeps the design before the work-item schedule:
-// one work item a block, loaded and gathered one word a thread through
-// the guarded steps of tile_common.cuh into rows padded by one 4-byte
-// bank: every row id, lane XOR and src0 entry is tested before the
-// access it addresses, an entry out of range sets bit 1 of *flags (one
-// atomicOr per thread that met one) and its access is skipped (a row not
-// read is loaded as zeros). Its epilogue phases are the plain steps
-// (kFast and kPairs off). The design before, unguarded, is the A/B
-// reference in tools/fused_ab.cu.
+// The guarded variant (launched by repro_tile_fused_guarded, for clusters
+// without maps) runs the same schedule, phases and gathers, instantiated
+// with kGuard: stage_items tests every row id and lane XOR as it stages
+// them, load_item_rows fills a row not read with zeros, and gather_item
+// tests each src0 entry before the tile read it addresses (one compare an
+// entry, four an int4 of them). An entry out of range sets bit 1 of
+// *flags (one atomicOr per thread that met one) and its access is
+// skipped; a tile whose lane XOR is out of range stores zeros and a row
+// whose output id is out of range is not written, as the guarded plain
+// version (_tile_fused_plain with flags) does. The guarded K4b before
+// this design (one work item a block, one word a thread, the plain
+// epilogue steps) is the A/B reference k4b_guarded_old in
+// tools/fused_ab.cu, beside the unguarded design before the schedule.
+// Measured (PERF.md; H100 80GB HBM3, 700 W; the same cluster, device
+// time, in turns): 0.1042 ms on int32 keys against 0.1595 for the guarded
+// design before and 0.0996 for the unguarded K4b.
 #include "tile_common.cuh"
 #include "tile_items.cuh"
 
@@ -99,197 +105,117 @@ __device__ __forceinline__ void fused_phases(const TileView& tv, const int* sp,
   }
 }
 
-template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard>
-__global__ void __launch_bounds__(REPRO_THREADS, MB)
-tile_fused_kernel(const typename ElemWord<T>::type* __restrict__ x,
-                  typename ElemWord<T>::type* __restrict__ out,
-                  const int* __restrict__ in_rows,
-                  const int* __restrict__ out_rows,
-                  const int* __restrict__ xor_low,
-                  const int* __restrict__ src0,
-                  const long long* __restrict__ plan, int n_words,
-                  int n_rows, int rpt_shift, int tiles_per_cta, int t,
-                  int wpe, int wpe_shift, int row_shift, int pad_words,
-                  long long batch, int d, int* __restrict__ flags) {
-  using W = typename ElemWord<T>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
-  int* s_in = reinterpret_cast<int*>(smem);
-  int* s_out = s_in + rows;
-  int* s_xl = s_out + rows;
-  const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
-  int* s_plan = reinterpret_cast<int*>(smem + tab_bytes);
-  unsigned char* tile_bytes = smem + tab_bytes + plan_bytes(n_words);
-  W* tile = reinterpret_cast<W*>(tile_bytes);
-
-  const long long g0 = (long long)blockIdx.x * tiles_per_cta;
-  const int row_len = 1 << t;
-  const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
-  const unsigned stride = row_words + (unsigned)pad_words;
-  const unsigned rpt_mask = (1u << rpt_shift) - 1;
-  const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
-                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
-  static_assert(kGuard, "the unguarded K4b is tile_fused_items_kernel");
-  {
-    bool bad = false;
-    REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows, out_rows,
-                                   xor_low, g0, rpt_shift, rows,
-                                   tiles_per_cta, n_rows, row_len, bad)
-    stage_plan(s_plan, plan, n_words, g0);
-    const unsigned span = (unsigned)rows * row_words;
-    const long long batch_words = (long long)n_rows * row_words;
-    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-      const W* xb = x + b * batch_words;
-      W* ob = out + b * batch_words;
-      __syncthreads();
-      REPRO_TILE_LOAD_ROWS_GUARDED(W, tile, xb, s_in, span, row_words,
-                                   row_shift, stride)
-      fused_phases<T, DV, KR, kMaps>(tv, s_plan, plan, d);
-      __syncthreads();
-      REPRO_TILE_GATHER_STORE_GUARDED(W, ob, tile, s_out, s_xl, src0, span,
-                                      row_words, row_shift, wpe, wpe_shift,
-                                      t, rpt_shift, rpt_mask, row_len,
-                                      stride, bad)
-    }
-    if (bad) atomicOr(flags, 1);
-  }
-}
-
 // A block of K4b: `groups` work items (k4b_schedule), `n_buf` of them in
 // flight: item k + 1's rows are copied into the other tile while item k's
-// phases and gather run.
+// phases and gather run. One body for both kernels below, kGuard true in
+// the guarded K4b (its tests and its flag word, see above). It is a macro,
+// as tile_common.cuh's steps are: the same body as an inlined device
+// function compiled the unguarded K4b to other SASS (tools/sass_diff.py).
+#define REPRO_K4B_ITEMS(kGuard)                                               \
+  using W = typename ElemWord<T>::type;                                       \
+  extern __shared__ __align__(16) unsigned char smem[];                       \
+  const int rows = a.per_cta << a.rpt_shift;      /* tile rows of an item */  \
+  const int rows_shift = a.per_cta_shift + a.rpt_shift;                       \
+  const unsigned row_words = (1u << a.t) * (unsigned)a.wpe;                   \
+  const unsigned span = (unsigned)rows * row_words;                           \
+  const unsigned stride = (unsigned)a.stride;                                 \
+  const long long batch_words = (long long)a.n_rows * row_words;              \
+  const ItemTables s = carve_items(smem, a, rows);                            \
+  const size_t tb = item_tile_bytes(rows, a.stride, (int)sizeof(W));          \
+  const long long w0 = (long long)blockIdx.x * a.groups;                      \
+  const int nw = (int)min((long long)a.groups, a.n_work - w0);                \
+  bool bad = false;                                                           \
+  stage_items<kGuard>(s, a, w0, nw, rows, rows_shift, batch_words, &bad);     \
+  __syncthreads();                                                            \
+                                                                              \
+  auto tile_of = [&](int k) {                                                 \
+    return reinterpret_cast<W*>(s.tiles + (a.n_buf > 1 && (k & 1) ? tb : 0)); \
+  };                                                                          \
+  auto load = [&](int k) {                                                    \
+    load_item_rows<W, kGuard>(tile_of(k), x + s.base[k],                      \
+                              s.in + (k << rows_shift), span, row_words,      \
+                              a.row_shift, stride, a.vec);                    \
+  };                                                                          \
+  load(0);                                                                    \
+  if (a.n_buf > 1 && nw > 1) load(1);                                         \
+  TileView tv{nullptr, stride * (unsigned)sizeof(W),                          \
+              (unsigned)a.wpe * (unsigned)sizeof(W), (1u << a.t) - 1, a.t};   \
+  for (int k = 0; k < nw; ++k) {                                              \
+    cp_async_wait_n(a.n_buf > 1 && k + 1 < nw ? 1 : 0);   /* item k's rows */ \
+    use_item_bases(s, k, a.n_epi);                                            \
+    W* tile = tile_of(k);                                                     \
+    tv.bytes = reinterpret_cast<unsigned char*>(tile);                        \
+    fused_phases<T, DV, KR, kMaps, true>(tv, s.plan, a.plan, a.d);            \
+    __syncthreads();                                                          \
+    gather_item<W, DV, kGuard>(out + s.base[k], tile,                         \
+                               s.out + (k << rows_shift),                     \
+                               s.xl + (k << a.per_cta_shift), a.src0, a,      \
+                               span, row_words, stride, &bad);                \
+    if (k + a.n_buf < nw) {                                                   \
+      __syncthreads();   /* every thread is done reading that tile */         \
+      load(k + a.n_buf);                                                      \
+    }                                                                         \
+  }                                                                           \
+  if constexpr (kGuard) {                                                     \
+    if (bad) atomicOr(flags, 1);                                              \
+  }
+
 template <typename T, int DV, int KR, bool kMaps, int MB>
 __global__ void __launch_bounds__(REPRO_THREADS, MB)
 tile_fused_items_kernel(const typename ElemWord<T>::type* __restrict__ x,
                         typename ElemWord<T>::type* __restrict__ out,
                         const EpiTileArgs a) {
-  using W = typename ElemWord<T>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = a.per_cta << a.rpt_shift;      // tile rows of an item
-  const int rows_shift = a.per_cta_shift + a.rpt_shift;
-  const unsigned row_words = (1u << a.t) * (unsigned)a.wpe;
-  const unsigned span = (unsigned)rows * row_words;
-  const unsigned stride = (unsigned)a.stride;
-  const long long batch_words = (long long)a.n_rows * row_words;
-  const ItemTables s = carve_items(smem, a, rows);
-  const size_t tb = item_tile_bytes(rows, a.stride, (int)sizeof(W));
-  const long long w0 = (long long)blockIdx.x * a.groups;
-  const int nw = (int)min((long long)a.groups, a.n_work - w0);
-  stage_items(s, a, w0, nw, rows, rows_shift, batch_words);
-  __syncthreads();
-
-  auto tile_of = [&](int k) {
-    return reinterpret_cast<W*>(s.tiles + (a.n_buf > 1 && (k & 1) ? tb : 0));
-  };
-  auto load = [&](int k) {
-    load_item_rows(tile_of(k), x + s.base[k], s.in + (k << rows_shift), span,
-                   row_words, a.row_shift, stride, a.vec);
-  };
-  load(0);
-  if (a.n_buf > 1 && nw > 1) load(1);
-  TileView tv{nullptr, stride * (unsigned)sizeof(W),
-              (unsigned)a.wpe * (unsigned)sizeof(W), (1u << a.t) - 1, a.t};
-  for (int k = 0; k < nw; ++k) {
-    cp_async_wait_n(a.n_buf > 1 && k + 1 < nw ? 1 : 0);   // item k's rows
-    use_item_bases(s, k, a.n_epi);
-    W* tile = tile_of(k);
-    tv.bytes = reinterpret_cast<unsigned char*>(tile);
-    fused_phases<T, DV, KR, kMaps, true>(tv, s.plan, a.plan, a.d);
-    __syncthreads();
-    gather_item<W, DV>(out + s.base[k], tile, s.out + (k << rows_shift),
-                       s.xl + (k << a.per_cta_shift), a.src0, a, span,
-                       row_words, stride);
-    if (k + a.n_buf < nw) {
-      __syncthreads();   // every thread is done reading that tile
-      load(k + a.n_buf);
-    }
-  }
+  int* flags = nullptr;   // named by the body, never written here
+  REPRO_K4B_ITEMS(false)
 }
 
-template <typename T, int DV, int KR, bool kMaps, int MB>
+// The guarded K4b: the same body with kGuard, and the flag word as its one
+// extra argument (the unguarded kernel keeps its signature and its code).
+template <typename T, int DV, int KR, int MB>
+__global__ void __launch_bounds__(REPRO_THREADS, MB)
+tile_fused_items_guarded_kernel(
+    const typename ElemWord<T>::type* __restrict__ x,
+    typename ElemWord<T>::type* __restrict__ out, const EpiTileArgs a,
+    int* __restrict__ flags) {
+  constexpr bool kMaps = false;
+  REPRO_K4B_ITEMS(true)
+}
+
+template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard = false>
 static int launch_items(const void* x, void* out, const EpiTileArgs& a,
-                        cudaStream_t s) {
+                        cudaStream_t s, int* flags = nullptr) {
   using W = typename ElemWord<T>::type;
   if (a.word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(tile_fused_items_kernel<T, DV, KR, kMaps, MB>,
-                             (size_t)a.smem);
-  if (e != cudaSuccess) return (int)e;
-  tile_fused_items_kernel<T, DV, KR, kMaps, MB>
-      <<<(unsigned)a.grid, REPRO_THREADS, (size_t)a.smem, s>>>(
-          (const W*)x, (W*)out, a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DV, int KR, bool kMaps, int MB, bool kGuard>
-static int launch_fused(const void* x, void* out, const int* in_rows,
-                        const int* out_rows, const int* xor_low,
-                        const int* src0, const long long* plan, int n_words,
-                        int n_tiles, int n_rows, int rpt_shift,
-                        int tiles_per_cta, int t, int wpe, int wpe_shift,
-                        int row_shift, int pad_words, long long batch,
-                        int word_bytes, int d, int* flags, cudaStream_t s) {
-  using W = typename ElemWord<T>::type;
-  if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
-  const int rows = tiles_per_cta << rpt_shift;
-  const size_t smem =
-      REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
-      plan_bytes(n_words);
-  cudaError_t e =
-      allow_smem(tile_fused_kernel<T, DV, KR, kMaps, MB, kGuard>, smem);
-  if (e != cudaSuccess) return (int)e;
-  tile_fused_kernel<T, DV, KR, kMaps, MB, kGuard>
-      <<<grid, REPRO_THREADS, smem, s>>>(
-          (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan,
-          n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,
-          row_shift, pad_words, batch, d, flags);
-  return (int)cudaGetLastError();
-}
-
-// elem_type: 0 = int32, 1 = float32, 2 = bfloat16; dv: tail values a
-// register slot holds (2: a planar (re, im) cluster with butterflies);
-// regs: positions a thread holds (16, or 8: see tile_epilogue.cuh);
-// word_bytes: the element type's own width; n_words: int64 words of plan;
-// maps: the cluster holds map epilogues (single values, 8 registers);
-// flags: null, or (the guarded variant, clusters without maps) one int32
-// on the device whose bit 1 is set when a table entry lies out of range.
-template <bool kGuard>
-static int launch_any(const void* x, void* out, const int* in_rows,
-                      const int* out_rows, const int* xor_low,
-                      const int* src0, const long long* plan, int n_words,
-                      int n_tiles, int n_rows, int rpt_shift,
-                      int tiles_per_cta, int t, int wpe, int wpe_shift,
-                      int row_shift, int pad_words, long long batch,
-                      int word_bytes, int elem_type, int d, int dv, int regs,
-                      int maps, int* flags, void* stream) {
-  if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
-      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
-      plan == nullptr || n_words < kHdrWords || (regs != 8 && regs != 16) ||
-      (dv == 2 && (elem_type != 1 || d != 2)) ||
-      (maps && (dv != 1 || regs != 8)) ||
-      (kGuard && (flags == nullptr || maps)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_FUSED(T, DV, KR, MAPS, MB)                                    \
-  return launch_fused<T, DV, KR, MAPS, MB, kGuard>(                         \
-      x, out, in_rows, out_rows, xor_low, src0, plan, n_words, n_tiles,     \
-      n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,       \
-      pad_words, batch, word_bytes, d, flags, s)
-  // the last argument: blocks per SM the variant's registers allow (the
-  // fastest choice on the H100 of a sweep over it; see PERF.md, PR 14)
-  if (dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
-  if (dv != 1) return (int)cudaErrorInvalidValue;
-  const bool r16 = regs == 16;
-  switch (elem_type) {
-    case 0: if (r16) REPRO_FUSED(int, 1, 16, false, 4);
-            REPRO_FUSED(int, 1, 8, false, 4);
-    case 1: if (r16) REPRO_FUSED(float, 1, 16, false, 4);
-            REPRO_FUSED(float, 1, 8, false, 4);
-    case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, false, 2);
-            REPRO_FUSED(Bf16, 1, 8, false, 4);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (kGuard) {
+    static_assert(!kMaps, "the guarded K4b takes no maps");
+    cudaError_t e = allow_smem(tile_fused_items_guarded_kernel<T, DV, KR, MB>,
+                               (size_t)a.smem);
+    if (e != cudaSuccess) return (int)e;
+    tile_fused_items_guarded_kernel<T, DV, KR, MB>
+        <<<(unsigned)a.grid, REPRO_THREADS, (size_t)a.smem, s>>>(
+            (const W*)x, (W*)out, a, flags);
+  } else {
+    cudaError_t e = allow_smem(tile_fused_items_kernel<T, DV, KR, kMaps, MB>,
+                               (size_t)a.smem);
+    if (e != cudaSuccess) return (int)e;
+    tile_fused_items_kernel<T, DV, KR, kMaps, MB>
+        <<<(unsigned)a.grid, REPRO_THREADS, (size_t)a.smem, s>>>(
+            (const W*)x, (W*)out, a);
   }
-#undef REPRO_FUSED
+  return (int)cudaGetLastError();
+}
+
+// Whether *a describes a launch the kernels take.
+static bool valid_args(const EpiTileArgs* a) {
+  return a != nullptr && a->grid > 0 && a->n_work > 0 && a->batch > 0 &&
+         a->n_rows > 0 && a->t >= 0 && a->rpt_shift >= 0 && a->wpe > 0 &&
+         a->per_cta > 0 && a->groups > 0 && a->n_groups > 0 &&
+         (a->n_buf == 1 || a->n_buf == 2) && a->d > 0 &&
+         a->plan != nullptr && a->n_words >= kHdrWords && a->n_epi >= 0 &&
+         (a->regs == 8 || a->regs == 16) &&
+         !(a->dv == 2 && (a->elem_type != 1 || a->d != 2)) &&
+         !(a->maps && (a->dv != 1 || a->regs != 8)) &&
+         !(a->vec && a->wpe != a->dv);
 }
 
 // One K4b launch under the schedule *a (EpiTileArgs; k4b_schedule in
@@ -300,16 +226,7 @@ static int launch_any(const void* x, void* out, const int* in_rows,
 // values, 8 registers).
 extern "C" int repro_tile_fused(const void* x, void* out,
                                 const EpiTileArgs* a, void* stream) {
-  if (a == nullptr || a->grid <= 0 || a->n_work <= 0 || a->batch <= 0 ||
-      a->n_rows <= 0 || a->t < 0 || a->rpt_shift < 0 || a->wpe <= 0 ||
-      a->per_cta <= 0 || a->groups <= 0 || a->n_groups <= 0 ||
-      (a->n_buf != 1 && a->n_buf != 2) || a->d <= 0 ||
-      a->plan == nullptr || a->n_words < kHdrWords || a->n_epi < 0 ||
-      (a->regs != 8 && a->regs != 16) ||
-      (a->dv == 2 && (a->elem_type != 1 || a->d != 2)) ||
-      (a->maps && (a->dv != 1 || a->regs != 8)) ||
-      (a->vec && a->wpe != a->dv))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_FUSED(T, DV, KR, MAPS, MB) \
   return launch_items<T, DV, KR, MAPS, MB>(x, out, *a, s)
@@ -339,16 +256,31 @@ extern "C" int repro_tile_fused(const void* x, void* out,
 #undef REPRO_FUSED
 }
 
-extern "C" int repro_tile_fused_guarded(
-    const void* x, void* out, const int* in_rows, const int* out_rows,
-    const int* xor_low, const int* src0, const long long* plan, int n_words,
-    int n_tiles, int n_rows, int rpt_shift, int tiles_per_cta, int t,
-    int wpe, int wpe_shift, int row_shift, int pad_words, long long batch,
-    int word_bytes, int elem_type, int d, int dv, int regs, int maps,
-    int* flags, void* stream) {
-  return launch_any<true>(x, out, in_rows, out_rows, xor_low, src0, plan,
-                          n_words, n_tiles, n_rows, rpt_shift, tiles_per_cta,
-                          t, wpe, wpe_shift, row_shift, pad_words, batch,
-                          word_bytes, elem_type, d, dv, regs, maps, flags,
-                          stream);
+// The guarded K4b under the same schedule (clusters without maps): bit 1
+// of the int32 *flags on the device is set when a table entry lies out of
+// range.
+extern "C" int repro_tile_fused_guarded(const void* x, void* out,
+                                        const EpiTileArgs* a, int* flags,
+                                        void* stream) {
+  if (!valid_args(a) || a->maps || flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_GUARDED(T, DV, KR, MB) \
+  return launch_items<T, DV, KR, false, MB, true>(x, out, *a, s, flags)
+  // the last argument: blocks per SM, the fastest of a sweep on the H100
+  // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
+  // 4 with spills than at 3
+  if (a->dv == 2) REPRO_GUARDED(float, 2, 8, 3);
+  if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  const bool r16 = a->regs == 16;
+  switch (a->elem_type) {
+    case 0: if (r16) REPRO_GUARDED(int, 1, 16, 4);
+            REPRO_GUARDED(int, 1, 8, 4);
+    case 1: if (r16) REPRO_GUARDED(float, 1, 16, 4);
+            REPRO_GUARDED(float, 1, 8, 4);
+    case 2: if (r16) REPRO_GUARDED(Bf16, 1, 16, 4);
+            REPRO_GUARDED(Bf16, 1, 8, 4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_GUARDED
 }

@@ -16,6 +16,11 @@
 // step moves one word of the element type's own width a thread (cp.async
 // for 4 bytes, plain loads for bfloat16's 2).
 //
+// With kGuard (the guarded K4b, tile_fused.cu) the steps test each table
+// entry before the access it addresses; their unguarded statements stay
+// apart from the guarded ones (if constexpr), as they were: folding the
+// two (`!kGuard || ...`) compiled the unguarded K4b to other SASS.
+//
 // Shared memory of a block: s_base (groups int64 batch offsets), then the
 // int32 tables of its items (input rows, output rows, lane XORs, and each
 // epilogue's hi_base and tw_base entry at the item's first tile), the
@@ -105,25 +110,46 @@ __device__ __forceinline__ ItemTables carve_items(unsigned char* smem,
 
 // Stage the tables of the block's nw items (from work item w0) and the
 // plan, whose per-tile base words use_item_bases fills per item. The
-// caller's next barrier makes them visible.
+// caller's next barrier makes them visible. kGuard (the guarded K4b): a
+// row id outside [0, n_rows) or a lane XOR outside [0, 2^t) sets *bad and
+// is staged as -1.
+template <bool kGuard = false>
 __device__ __forceinline__ void stage_items(const ItemTables& s,
                                             const EpiTileArgs& a,
                                             long long w0, int nw, int rows,
                                             int rows_shift,
-                                            long long batch_words) {
+                                            long long batch_words,
+                                            bool* bad = nullptr) {
   for (int k = threadIdx.x; k < nw; k += REPRO_THREADS)
     s.base[k] = (w0 + k) / a.n_groups * batch_words;
   for (int i = threadIdx.x; i < (nw << rows_shift); i += REPRO_THREADS) {
     const long long grp = (w0 + (i >> rows_shift)) % a.n_groups;
     const long long at = (grp << rows_shift) + (i & (rows - 1));
-    s.in[i] = __ldg(a.in_rows + at);
-    s.out[i] = __ldg(a.out_rows + at);
+    if constexpr (kGuard) {
+      const int vi = __ldg(a.in_rows + at), vo = __ldg(a.out_rows + at);
+      const bool oki = (unsigned)vi < (unsigned)a.n_rows;
+      const bool oko = (unsigned)vo < (unsigned)a.n_rows;
+      *bad |= !(oki && oko);
+      s.in[i] = oki ? vi : -1;
+      s.out[i] = oko ? vo : -1;
+    } else {
+      s.in[i] = __ldg(a.in_rows + at);
+      s.out[i] = __ldg(a.out_rows + at);
+    }
   }
   for (int i = threadIdx.x; i < (nw << a.per_cta_shift);
        i += REPRO_THREADS) {
     const long long grp = (w0 + (i >> a.per_cta_shift)) % a.n_groups;
-    s.xl[i] = __ldg(a.xor_low + (grp << a.per_cta_shift) +
-                    (i & (a.per_cta - 1)));
+    if constexpr (kGuard) {
+      const int v = __ldg(a.xor_low + (grp << a.per_cta_shift) +
+                          (i & (a.per_cta - 1)));
+      const bool ok = (unsigned)v < (1u << a.t);
+      *bad |= !ok;
+      s.xl[i] = ok ? v : -1;
+    } else {
+      s.xl[i] = __ldg(a.xor_low + (grp << a.per_cta_shift) +
+                      (i & (a.per_cta - 1)));
+    }
   }
   // each epilogue's hi_base and tw_base entry at each item's first tile
   // (a word the plan leaves 0 stays 0: no table)
@@ -162,8 +188,9 @@ __host__ __device__ __forceinline__ size_t item_tile_bytes(int rows,
 
 // An item's rows (ids in rows_tab) into a tile, one commit group: 16-byte
 // cp.async copies with vec, else one word of W a thread, consecutive
-// threads on consecutive chunks (words) of a row.
-template <typename W>
+// threads on consecutive chunks (words) of a row. kGuard: a row staged as
+// -1 is filled with zeros (stage_copy_or_zero) and not read.
+template <typename W, bool kGuard = false>
 __device__ __forceinline__ void load_item_rows(W* tile, const W* xb,
                                                const int* rows_tab,
                                                unsigned span,
@@ -176,15 +203,30 @@ __device__ __forceinline__ void load_item_rows(W* tile, const W* xb,
          li += REPRO_THREADS * CW) {
       const unsigned r = div_by(li, row_words, row_shift);
       const unsigned q = li - r * row_words;
-      stage_copy<16>(tile + r * stride + q,
-                     xb + (long long)rows_tab[r] * row_words + q);
+      if constexpr (kGuard) {
+        const int row = rows_tab[r];
+        stage_copy_or_zero<16>(tile + r * stride + q,
+                               xb + (long long)max(row, 0) * row_words + q,
+                               row >= 0);
+      } else {
+        stage_copy<16>(tile + r * stride + q,
+                       xb + (long long)rows_tab[r] * row_words + q);
+      }
     }
   } else {
     for (unsigned li = threadIdx.x; li < span; li += REPRO_THREADS) {
       const unsigned r = div_by(li, row_words, row_shift);
       const unsigned q = li - r * row_words;
-      stage_copy<(int)sizeof(W)>(tile + r * stride + q,
-                                 xb + (long long)rows_tab[r] * row_words + q);
+      if constexpr (kGuard) {
+        const int row = rows_tab[r];
+        stage_copy_or_zero<(int)sizeof(W)>(
+            tile + r * stride + q,
+            xb + (long long)max(row, 0) * row_words + q, row >= 0);
+      } else {
+        stage_copy<(int)sizeof(W)>(tile + r * stride + q,
+                                   xb + (long long)rows_tab[r] * row_words +
+                                       q);
+      }
     }
   }
   cp_async_commit();
@@ -206,13 +248,18 @@ struct ElemVec<uint32_t, 2> {
 // element bytes consecutive lanes, whose src0 entries are those at
 // (l ^ xl_hi) + m, read at once and taken in the order m ^ xl_lo
 // (xl_lo = xl & (VE - 1)), as K4a's narrow schedule does (tile_permute.cu).
-template <typename W, int DV>
+// kGuard (the guarded K4b, tables staged by stage_items<true>): a lane
+// whose src0 entry lies outside the tile sets *bad and stores zero; a
+// tile whose lane XOR is -1 reads no src0 entry and stores zeros; a row
+// whose output id is -1 is not written.
+template <typename W, int DV, bool kGuard = false>
 __device__ __forceinline__ void gather_item(W* ob, const W* tile,
                                             const int* rout, const int* xls,
                                             const int* __restrict__ src0,
                                             const EpiTileArgs& a,
                                             unsigned span, unsigned row_words,
-                                            unsigned stride) {
+                                            unsigned stride,
+                                            bool* bad = nullptr) {
   const unsigned lane_mask = (1u << a.t) - 1;
   const unsigned rpt_mask = (1u << a.rpt_shift) - 1;
   if (a.vec) {
@@ -226,50 +273,69 @@ __device__ __forceinline__ void gather_item(W* ob, const W* tile,
       const unsigned rem = li - r * row_words;
       const unsigned j = r >> a.rpt_shift, rp = r & rpt_mask;
       const unsigned xl = (unsigned)xls[j];
-      const unsigned l0 = rem / DV;   // the first output lane
-      const int* e = src0 + ((rp << a.t) | (l0 ^ (xl & ~(VE - 1u))));
-      int s[VE];
-      if constexpr (VE == 1) {
-        s[0] = __ldg(e);
-      } else if constexpr (VE == 2) {
-        const int2 v = __ldg(reinterpret_cast<const int2*>(e));
-        s[0] = v.x;
-        s[1] = v.y;
-      } else {
-#pragma unroll
-        for (int m = 0; m < VE; m += 4) {
-          const int4 v = __ldg(reinterpret_cast<const int4*>(e + m));
-          s[m] = v.x;
-          s[m + 1] = v.y;
-          s[m + 2] = v.z;
-          s[m + 3] = v.w;
-        }
-      }
-#pragma unroll
-      for (int bit = 1; bit < VE; bit <<= 1) {   // s[m] <- s[m ^ xl_lo]
-        const bool flip = xl & bit;
-#pragma unroll
-        for (int m = 0; m < VE; ++m) {
-          if (!(m & bit)) {
-            const int lo = s[m], hi = s[m | bit];
-            s[m] = flip ? hi : lo;
-            s[m | bit] = flip ? lo : hi;
-          }
-        }
-      }
       union {
         E e[VE];
         uint4 v;
       } pack;
+      if (kGuard && (int)xl < 0) {
+        pack.v = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        const unsigned l0 = rem / DV;   // the first output lane
+        const int* e = src0 + ((rp << a.t) | (l0 ^ (xl & ~(VE - 1u))));
+        int s[VE];
+        if constexpr (VE == 1) {
+          s[0] = __ldg(e);
+        } else if constexpr (VE == 2) {
+          const int2 v = __ldg(reinterpret_cast<const int2*>(e));
+          s[0] = v.x;
+          s[1] = v.y;
+        } else {
 #pragma unroll
-      for (int m = 0; m < VE; ++m) {
-        const unsigned sm = (unsigned)s[m];
-        const unsigned rs = (j << a.rpt_shift) | (sm >> a.t);
-        pack.e[m] = *reinterpret_cast<const E*>(
-            tile + rs * stride + (sm & lane_mask) * DV);
+          for (int m = 0; m < VE; m += 4) {
+            const int4 v = __ldg(reinterpret_cast<const int4*>(e + m));
+            s[m] = v.x;
+            s[m + 1] = v.y;
+            s[m + 2] = v.z;
+            s[m + 3] = v.w;
+          }
+        }
+#pragma unroll
+        for (int bit = 1; bit < VE; bit <<= 1) {   // s[m] <- s[m ^ xl_lo]
+          const bool flip = xl & bit;
+#pragma unroll
+          for (int m = 0; m < VE; ++m) {
+            if (!(m & bit)) {
+              const int lo = s[m], hi = s[m | bit];
+              s[m] = flip ? hi : lo;
+              s[m | bit] = flip ? lo : hi;
+            }
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < VE; ++m) {
+          const unsigned sm = (unsigned)s[m];
+          const unsigned rs = (j << a.rpt_shift) | (sm >> a.t);
+          if constexpr (kGuard) {   // one compare an entry
+            const bool ok = sm < (1u << (a.rpt_shift + a.t));
+            *bad |= !ok;
+            pack.e[m] = ok ? *reinterpret_cast<const E*>(
+                                 tile + rs * stride + (sm & lane_mask) * DV)
+                           : E{};
+          } else {
+            pack.e[m] = *reinterpret_cast<const E*>(
+                tile + rs * stride + (sm & lane_mask) * DV);
+          }
+        }
       }
-      *reinterpret_cast<uint4*>(ob + (long long)rout[r] * row_words + rem) =
-          pack.v;
+      if constexpr (kGuard) {
+        const int orow = rout[r];
+        if (orow >= 0)
+          *reinterpret_cast<uint4*>(ob + (long long)orow * row_words + rem) =
+              pack.v;
+      } else {
+        *reinterpret_cast<uint4*>(ob + (long long)rout[r] * row_words +
+                                  rem) = pack.v;
+      }
     }
   } else {
 #pragma unroll 4
@@ -279,11 +345,28 @@ __device__ __forceinline__ void gather_item(W* ob, const W* tile,
       const unsigned cp = div_by(rem, (unsigned)a.wpe, a.wpe_shift);
       const unsigned w = rem - cp * (unsigned)a.wpe;
       const unsigned j = r >> a.rpt_shift, rp = r & rpt_mask;
-      const unsigned s =
-          (unsigned)__ldg(src0 + ((rp << a.t) | (cp ^ (unsigned)xls[j])));
-      const unsigned rs = (j << a.rpt_shift) | (s >> a.t);
-      ob[(long long)rout[r] * row_words + rem] =
-          tile[rs * stride + (s & lane_mask) * (unsigned)a.wpe + w];
+      if constexpr (kGuard) {
+        const int xl = xls[j];
+        W val = W{};
+        if (xl >= 0) {
+          const unsigned s =
+              (unsigned)__ldg(src0 + ((rp << a.t) | (cp ^ (unsigned)xl)));
+          if (s < (1u << (a.rpt_shift + a.t))) {
+            const unsigned rs = (j << a.rpt_shift) | (s >> a.t);
+            val = tile[rs * stride + (s & lane_mask) * (unsigned)a.wpe + w];
+          } else {
+            *bad = true;
+          }
+        }
+        const int orow = rout[r];
+        if (orow >= 0) ob[(long long)orow * row_words + rem] = val;
+      } else {
+        const unsigned s =
+            (unsigned)__ldg(src0 + ((rp << a.t) | (cp ^ (unsigned)xls[j])));
+        const unsigned rs = (j << a.rpt_shift) | (s >> a.t);
+        ob[(long long)rout[r] * row_words + rem] =
+            tile[rs * stride + (s & lane_mask) * (unsigned)a.wpe + w];
+      }
     }
   }
 }

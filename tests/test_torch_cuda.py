@@ -790,38 +790,75 @@ def test_cuda_poisoned_table_traps_without_a_sticky_error(cuda_device, kind,
 
 
 @pytest.mark.cuda
-def test_cuda_guarded_fused_kernel_matches_and_traps(cuda_device):
+@pytest.mark.parametrize("table,value", [(None, 0)] + [
+    (k, v) for k in range(4) for v in (-1, 1 << 30)])
+@pytest.mark.parametrize("path", ["16-byte", "word"])
+@pytest.mark.parametrize("cluster", ["sort int32", "sort float32",
+                                     "sort bfloat16", "fft float32"])
+def test_cuda_guarded_fused_kernel_matches_and_traps(cuda_device, cluster,
+                                                     path, table, value):
+    """The guarded K4b on the largest cluster of the 2^14 sort or FFT, on
+    its 16-byte path and (data one element off 16-byte alignment) its word
+    path: on clean tables bit-equal to the unguarded K4b and its guarded
+    plain version with no flag; with entry 1 of in_rows, out_rows, xor_low
+    or src0 set to -1 or 2^30 on the card, bit 1 set as the guarded plain
+    version sets it and outputs bit-equal where defined (all but the row a
+    bad output id names); the next unguarded launch succeeds."""
     from repro_torch.combinators import execute as pex
     from repro_torch.combinators import compile_expr
+    from repro_torch.combinators.fft import fft_expr
     from repro_torch.combinators.sort import sort_expr
+    name, dt = cluster.split()
+    dtype = getattr(torch, dt)
     n = 14
-    f = compile_expr(sort_expr(n))
     t = pops.choose_tile(n, 4)
-    fs = next(s for s in f.clustered_program(n, t)
-              if getattr(s, "computes", ()))
+    prog = compile_expr({"sort": sort_expr, "fft": fft_expr}[name](n)) \
+        .clustered_program(n, t)
+    fs = max((s for s in prog if getattr(s, "computes", ())),
+             key=lambda s: len(s.computes))
     plans, entries = pex._fused_plan_cached(fs, t)
-    x = torch.randint(-2**31, 2**31 - 1, (1 << n,), device=cuda_device,
-                      dtype=torch.int64).to(torch.int32)
+    d = 2 if name == "fft" else 1
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    raw = torch.randint(-2**31, 2**31 - 1, ((1 << n) * d + 1,),
+                        device=cuda_device, generator=gen,
+                        dtype=torch.int64)
+    buf = (raw.to(torch.int32) if dtype == torch.int32
+           else (raw % 65536).to(dtype))
+    x = buf[1:] if path == "word" else buf[:-1]
+    if d == 2:
+        x = x.view(1 << n, 2)
     tabs, epi = pex._pass_tables(plans[0], entries, x)
     geo = pk.plan_geometry(plans[0])
     flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    pflags = torch.zeros_like(flags)
+    iv = torch.int16 if x.element_size() == 2 else torch.int32
     before = pk.launch_counts()["tile_fused_guarded"]
-    got = pk.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags, **epi)
     want = pk.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
-    plain = pk.tiled_permute_tables_plain(x, *tabs, geometry=geo, **epi)
+    got = pk.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags, **epi)
+    plain = pk.tiled_permute_tables_plain(x, *tabs, geometry=geo,
+                                          flags=pflags, **epi)
     torch.cuda.synchronize()
     assert pk.launch_counts()["tile_fused_guarded"] == before + 1
-    assert int(flags) == 0 and torch.equal(got, want)
-    assert torch.equal(got, plain)
-    bad = tabs[3].clone()
-    bad.view(-1)[0] = -1
-    pflags = torch.zeros_like(flags)
-    got = pk.tiled_permute_tables(x, tabs[0], tabs[1], tabs[2], bad,
-                                  geometry=geo, flags=flags, **epi)
-    plain = pk.tiled_permute_tables_plain(x, tabs[0], tabs[1], tabs[2], bad,
-                                          geometry=geo, flags=pflags, **epi)
+    assert int(flags) == 0 and int(pflags) == 0
+    assert torch.equal(got.view(iv), want.view(iv))
+    assert torch.equal(got.view(iv), plain.view(iv))
+    if table is None:
+        return
+    bad = [a.clone() for a in tabs]
+    bad[table].view(-1)[1] = value
+    got = pk.tiled_permute_tables(x, *bad, geometry=geo, flags=flags, **epi)
+    plain = pk.tiled_permute_tables_plain(x, *bad, geometry=geo,
+                                          flags=pflags, **epi)
     torch.cuda.synchronize()
-    assert int(flags) == 1 and int(pflags) == 1 and torch.equal(got, plain)
+    assert int(flags) == 1 and int(pflags) == 1
+    keep = torch.ones(1 << n, dtype=torch.bool, device=cuda_device)
+    if table == 1:   # a bad output row id leaves that row unwritten
+        r0 = int(tabs[1].view(-1)[1])
+        keep[r0 << geo[1]:(r0 + 1) << geo[1]] = False
+    assert torch.equal(got.view(iv)[keep], plain.view(iv)[keep])
+    again = pk.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+    torch.cuda.synchronize()
+    assert torch.equal(again.view(iv), want.view(iv))
 
 
 @pytest.mark.cuda

@@ -16,9 +16,13 @@ made with numpy from a seed. Also: the schedules' coverage, shared-memory
 and path rules, the bank model of the epilogue plan against a brute-force
 count over the tile the copies fill, and each work item's epilogue bases
 (the hi bit and twiddle index of every position of a block of several
-items) against the tables. Tolerance: none, everything here moves bits or
-counts.
+items) against the tables. The guarded K4b (the same schedule, its tests
+where it stages the tables and in the gather) is emulated with one
+table entry poisoned, its epilogues run between load and gather, and
+held against the guarded plain version and the reference's OOB probe.
+Tolerance: none, everything here moves bits or counts.
 """
+import functools
 import random
 
 import jax.numpy as jnp
@@ -27,7 +31,10 @@ import numpy as np
 import pytest
 import torch
 
+import repro.combinators as rcomb
+from repro.combinators import execute as rex
 from repro.core.bmmc import Bmmc as RBmmc
+from repro.guard import runtime as rrt
 from repro.kernels import ref as rref
 from repro_torch.combinators import FusedStage, compile_expr
 from repro_torch.combinators import execute as pex
@@ -55,7 +62,8 @@ def _blocks(a):
 
 def _load(a, xw_b, rows_tab, rows):
     """A work item's rows into a tile (shared-memory words), as
-    load_item_rows copies them; also where each row word landed."""
+    load_item_rows copies them; also where each row word landed. A row
+    staged as -1 (the guarded K4b) is filled with zeros, not read."""
     row_words = (1 << a.t) * a.wpe
     span = rows * row_words
     step = 16 // a.word_bytes if a.vec else 1
@@ -63,9 +71,11 @@ def _load(a, xw_b, rows_tab, rows):
     place = np.full(span, -1, np.int64)
     li = np.arange(0, span, step)
     r, q = li // row_words, li % row_words
+    ok = rows_tab[r] >= 0
     for i in range(step):
         at = r * a.stride + q + i
-        tile[at] = xw_b[rows_tab[r] * row_words + q + i]
+        tile[at] = np.where(ok, xw_b[np.maximum(rows_tab[r], 0) * row_words
+                                     + q + i], 0)
         place[li + i] = at
     assert (place >= 0).all() and np.unique(place).size == span
     if a.vec:   # whole 16-byte chunks, to 16-byte aligned rows
@@ -73,9 +83,24 @@ def _load(a, xw_b, rows_tab, rows):
     return tile, place
 
 
-def emulate_k4b(a, xw, tabs):
-    """K4b's data movement under descriptor ``a`` with no epilogues (the
-    phases leave the tile as loaded): every output word written once."""
+def _staged(tab, hi, guard):
+    """A table's entries as stage_items stages them: with ``guard``, an
+    entry outside [0, hi) as -1, and whether one was."""
+    if not guard:
+        return tab, False
+    ok = (tab >= 0) & (tab < hi)
+    return np.where(ok, tab, -1), bool((~ok).any())
+
+
+def emulate_k4b(a, xw, tabs, guard=False, phases=None):
+    """K4b's data movement under descriptor ``a`` (the phases leave the
+    tile as loaded, or ``phases(tile, b, grp)`` runs them on it): with
+    ``guard`` the guarded K4b's, in its order (row ids and lane XORs
+    tested as they are staged, a row not read loaded as zeros, each src0
+    entry the gather reads tested, on the 16-byte path four an int4, a
+    tile with a bad lane XOR reading none and storing zeros, a row with a
+    bad output id not written). Returns the output words (every word
+    written once), or with ``guard`` (output words, written mask, flag)."""
     in_rows, out_rows, xor_low, src0 = (
         np.asarray(v).reshape(-1).astype(np.int64) for v in tabs)
     t, rs_, wpe = a.t, a.rpt_shift, a.wpe
@@ -84,18 +109,28 @@ def emulate_k4b(a, xw, tabs):
     row_words = (1 << t) * wpe
     out = np.zeros_like(xw)
     seen = np.zeros(xw.shape, np.int64)
+    bad = False
     for items in _blocks(a):
         for b, grp in items:
-            rin = in_rows[grp * rows:(grp + 1) * rows]
-            rout = out_rows[grp * rows:(grp + 1) * rows]
-            xls = xor_low[grp * a.per_cta:(grp + 1) * a.per_cta]
+            rin, b1 = _staged(in_rows[grp * rows:(grp + 1) * rows],
+                              a.n_rows, guard)
+            rout, b2 = _staged(out_rows[grp * rows:(grp + 1) * rows],
+                               a.n_rows, guard)
+            xls, b3 = _staged(xor_low[grp * a.per_cta:
+                                      (grp + 1) * a.per_cta], 1 << t, guard)
+            bad |= b1 or b2 or b3
             tile, _ = _load(a, xw[b], rin, rows)
+            if phases is not None:
+                tile = phases(tile, b, grp)
             step = 16 // a.word_bytes if a.vec else 1
             li = np.arange(0, rows * row_words, step)
             r, rem = li // row_words, li % row_words
             j, rp = r >> rs_, r & (rpt - 1)
             xl = xls[j]
-            dst = rout[r] * row_words + rem
+            read = xl >= 0        # a tile with a bad lane XOR reads no src0
+            xl = np.maximum(xl, 0)
+            wr = rout[r] >= 0     # rows written
+            dst = np.maximum(rout[r], 0) * row_words + rem
             if a.vec:
                 ve = step // a.dv
                 m = np.arange(ve)
@@ -104,18 +139,29 @@ def emulate_k4b(a, xw, tabs):
                             + m]
                 sm = np.take_along_axis(ents, m ^ (xl & (ve - 1))[:, None],
                                         axis=1)
+                ok = read[:, None] & (sm >= 0) & (sm < rpt << t)
+                bad |= bool((read[:, None] & ~ok).any())
+                sm = np.where(ok, sm, 0)
                 rs = (j[:, None] << rs_) | (sm >> t)
                 base = rs * a.stride + (sm & lane) * a.dv
                 for w in range(a.dv):
-                    at = dst[:, None] + m * a.dv + w
-                    out[b, at] = tile[base + w]
+                    at = (dst[:, None] + m * a.dv + w)[wr]
+                    out[b, at] = np.where(ok, tile[base + w], 0)[wr]
                     np.add.at(seen[b], at.ravel(), 1)
             else:
                 cp, wd = rem // wpe, rem % wpe
                 s = src0[(rp << t) | (cp ^ xl)]
+                ok = read & (s >= 0) & (s < rpt << t)
+                bad |= bool((read & ~ok).any())
+                s = np.where(ok, s, 0)
                 rs = (j << rs_) | (s >> t)
-                out[b, dst] = tile[rs * a.stride + (s & lane) * wpe + wd]
-                np.add.at(seen[b], dst, 1)
+                val = np.where(ok, tile[rs * a.stride + (s & lane) * wpe
+                                        + wd], 0)
+                out[b, dst[wr]] = val[wr]
+                np.add.at(seen[b], dst[wr], 1)
+    if guard:
+        assert seen.max() <= 1
+        return out, seen == 1, int(bad)
     assert (seen == 1).all()
     return out
 
@@ -445,3 +491,127 @@ def test_item_bases_give_every_position_its_hi_and_twiddle(batch, groups):
                     want = (np.asarray(e[6])[r] ^ np.asarray(e[7])[c]
                             ^ np.asarray(e[8])[g])
                     assert np.array_equal(lin ^ tb, want), (label, b, grp)
+
+
+@functools.lru_cache(maxsize=None)
+def _guard_cluster(name):
+    """(port plan, port entries, reference cluster, t) of the largest
+    cluster of the 2^10 sort or FFT, and the same cluster of the
+    reference's clustered program."""
+    expr, rexpr = {"sort": (sort_expr, rcomb.sort_expr),
+                   "fft": (fft_expr, rcomb.fft_expr)}[name]
+    n, t = 10, 4
+    prog = compile_expr(expr(n)).clustered_program(n, t)
+    rprog = rcomb.compile_expr(rexpr(n)).clustered_program(n, t)
+    i = max((k for k, s in enumerate(prog)
+             if isinstance(s, FusedStage) and s.computes),
+            key=lambda k: len(prog[k].computes))
+    assert len(rprog[i].computes) == len(prog[i].computes)
+    plans, entries = pex._fused_plan_cached(prog[i], t)
+    return plans[0], entries, rprog[i], t
+
+
+def _reference_oob(rfs, t, table, index, value):
+    """The reference's OOB bit (``TRAP_KINDS["oob"]`` of its guarded
+    executable's probe) for its cluster ``rfs`` with entry ``index`` of
+    its first pass's ``table`` set to ``value``."""
+    plan = rex._fused_plan_cached(rfs, t)[0][0]
+    tab = getattr(plan, table).reshape(-1) if table else None
+    orig = None if tab is None else int(tab[index])
+    x = jnp.zeros(1 << plan.n, jnp.int32)
+    try:
+        if tab is not None:
+            tab[index] = value
+        flags = int(rrt._build_probe((rfs,), t, "pallas", False)(x, x))
+    finally:
+        if tab is not None:
+            tab[index] = orig
+    return flags & rrt.TRAP_KINDS["oob"]
+
+
+_TABLES = ("in_rows", "out_rows", "xor_low", "src0")
+
+
+@pytest.mark.parametrize("table,value", [(None, 0)] + [
+    (k, v) for k in _TABLES for v in (-1, 1 << 30)])
+@pytest.mark.parametrize("path", ["16-byte", "word"])
+@pytest.mark.parametrize("cluster", ["sort int32", "sort float32",
+                                     "sort bfloat16", "fft float32"])
+def test_guarded_k4b_tests_where_it_stages_and_gathers(cluster, path, table,
+                                                       value):
+    """The guarded K4b's schedule (row ids and lane XORs tested as they are
+    staged, rows not read loaded as zeros, src0 entries tested per lane in
+    the 16-byte and the word gather) on a cluster of the 2^10 sort or FFT,
+    its epilogues run between load and gather as the plain version runs
+    them, with one entry of one table set to -1 or 2^30: bit 1 and every
+    written word equal ``_tile_fused_plain(flags=)``'s, exactly the output
+    row a bad output id names is left unwritten, and the bit equals the
+    reference's OOB flag for the same poisoned table."""
+    name, dt = cluster.split()
+    plan, entries, rfs, t = _guard_cluster(name)
+    dtype = {"int32": torch.int32, "float32": torch.float32,
+             "bfloat16": torch.bfloat16}[dt]
+    sig, scal, vmem, fns = pex._fused_kernel_args(entries, dtype)
+    ents = pk._epi_entries(sig, scal, vmem, fns, dtype)
+    geometry = pk.plan_geometry(plan)
+    n, _, rpt = geometry[:3]
+    dv = 2 if any(e[0] == 1 for e in ents) else 1
+    batch = 3
+    size = torch.tensor([], dtype=dtype).element_size()
+    iv = {2: (torch.int16, np.uint16), 4: (torch.int32, np.uint32)}[size]
+    arr = _payload((batch, 1 << n, dv), {2: ml_dtypes.bfloat16,
+                                         4: np.float32}[size], n + dv)
+    sint = np.int16 if size == 2 else np.int32
+    xc = torch.from_numpy(np.ascontiguousarray(arr).view(sint)).view(dtype)
+    tabs = [np.array(getattr(plan, k), copy=True) for k in _TABLES]
+    index = None
+    if table is not None:
+        flat = tabs[_TABLES.index(table)].reshape(-1)
+        index = int(np.random.default_rng(_TABLES.index(table)).integers(
+            flat.size))
+        flat[index] = value
+    pflags = torch.zeros(1, dtype=torch.int32)
+    want = pk._tile_fused_plain(xc, *tabs, geometry, ents, pflags)
+    want = want.view(iv[0]).numpy().view(iv[1]).reshape(batch, -1)
+
+    plain_ents = pk._plain_entries(ents, torch.device("cpu"))
+
+    def phases(a):
+        rows = a.per_cta * rpt
+        row_words = (1 << a.t) * a.wpe
+        at = (np.arange(rows)[:, None] * a.stride
+              + np.arange(row_words)).ravel()
+
+        def run(tile, b, grp):
+            v = torch.from_numpy(tile[at].view(sint)).view(dtype).reshape(
+                1, a.per_cta, rpt, 1 << a.t, dv)
+            gs = slice(grp * a.per_cta, (grp + 1) * a.per_cta)
+            for e in plain_ents:
+                v = pk._apply_epilogue(v, e, pk._tiles_of(e[5], gs),
+                                       pk._tiles_of(e[8], gs))
+            tile = tile.copy()
+            tile[at] = v.contiguous().view(iv[0]).numpy().view(
+                iv[1]).ravel()
+            return tile
+        return run
+
+    align = 0 if path == "16-byte" else size
+    s = pk.k4b_schedule(geometry, batch, dv, size, align, n_words=100,
+                        n_epi=len(ents), dv=dv)
+    assert s.vec == (path == "16-byte")
+    plan_t = torch.zeros(100, dtype=torch.int64)
+    plan_t.info = {"hmask": [0] * len(ents), "reg_bits": 3, "maps": 0}
+    a = pk._epi_args(s, [torch.from_numpy(v.astype(np.int32)) for v in tabs],
+                     plan_t, geometry, batch, dtype, dv, dv)
+    got, written, bit = emulate_k4b(a, _words(arr, size, batch), tabs,
+                                    guard=True, phases=phases(a))
+    assert bit == int(pflags) == (table is not None)
+    assert np.array_equal(got[written], want[written])
+    row_len = 1 << geometry[1]
+    unwritten = np.zeros(1 << n, bool)
+    if table == "out_rows":
+        r0 = int(np.asarray(plan.out_rows).reshape(-1)[index])
+        unwritten[r0 * row_len:(r0 + 1) * row_len] = True
+    assert np.array_equal(~written, np.broadcast_to(
+        np.repeat(unwritten, dv), written.shape))
+    assert _reference_oob(rfs, t, table, index, value) == bit

@@ -3,15 +3,19 @@
 // at most 4096 positions, loaded in words of the element's width into a
 // tile padded by one 4-byte bank, its plan's bases fixed at the block's
 // first tile, then gathered or copied out one word a thread; K5 kept a
-// second compare-bit set in shared memory). It includes the port's
-// tile_fused.cu and tile_bwd.cu for their shared device code
-// (fused_phases, the transposed epilogues, the guarded K4b's steps), so
-// the old kernels run exactly that code. tools/fused_kernel_times.py and
-// chip_smoke.py (phases 6 and 9) time them in turns with the port's.
+// second compare-bit set in shared memory), and the guarded K4b as it was
+// before it took the work-item schedule (the same design, each row id,
+// lane XOR and src0 entry tested by tile_common.cuh's guarded steps, the
+// plain epilogue steps). It includes the port's tile_fused.cu and
+// tile_bwd.cu for their shared device code (fused_phases, the transposed
+// epilogues), so the old kernels run exactly that code.
+// tools/fused_kernel_times.py, tools/fused_ab.py and chip_smoke.py
+// (phases 6, 9 and 11) time them in turns with the port's.
 //
-// k4b_old and k5_old take the arguments the old launchers passed
-// (bmmc_permute._tile_args's, then the element type, tail, registers and
-// maps, or K5's compare, spill and map-set counts).
+// k4b_old, k4b_guarded_old and k5_old take the arguments the old
+// launchers passed (tools/fused_ab.py's _old_args, then the element
+// type, tail, registers and maps, the guarded kernel's flag word, or K5's
+// compare, spill and map-set counts).
 #include "tile_fused.cu"
 #include "tile_bwd.cu"
 
@@ -136,6 +140,120 @@ extern "C" int k4b_old(const void* x, void* out, const int* in_rows,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FUSED_OLD
+}
+
+// ---------------------------------------------------------------------------
+// The guarded K4b before the work-item schedule
+// ---------------------------------------------------------------------------
+
+template <typename T, int DV, int KR, int MB>
+__global__ void __launch_bounds__(REPRO_THREADS, MB)
+tile_fused_guarded_old_kernel(
+    const typename ElemWord<T>::type* __restrict__ x,
+    typename ElemWord<T>::type* __restrict__ out,
+    const int* __restrict__ in_rows, const int* __restrict__ out_rows,
+    const int* __restrict__ xor_low, const int* __restrict__ src0,
+    const long long* __restrict__ plan, int n_words, int n_rows,
+    int rpt_shift, int tiles_per_cta, int t, int wpe, int wpe_shift,
+    int row_shift, int pad_words, long long batch, int d,
+    int* __restrict__ flags) {
+  using W = typename ElemWord<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = tiles_per_cta << rpt_shift;   // tile rows of this block
+  int* s_in = reinterpret_cast<int*>(smem);
+  int* s_out = s_in + rows;
+  int* s_xl = s_out + rows;
+  const int tab_bytes = REPRO_TILE_TABLE_BYTES(rows, tiles_per_cta);
+  int* s_plan = reinterpret_cast<int*>(smem + tab_bytes);
+  unsigned char* tile_bytes = smem + tab_bytes + plan_bytes(n_words);
+  W* tile = reinterpret_cast<W*>(tile_bytes);
+
+  const long long g0 = (long long)blockIdx.x * tiles_per_cta;
+  const int row_len = 1 << t;
+  const unsigned row_words = (unsigned)row_len * (unsigned)wpe;
+  const unsigned stride = row_words + (unsigned)pad_words;
+  const unsigned rpt_mask = (1u << rpt_shift) - 1;
+  const TileView tv{tile_bytes, stride * (unsigned)sizeof(W),
+                    (unsigned)wpe * (unsigned)sizeof(W), (1u << t) - 1, t};
+  bool bad = false;
+  REPRO_TILE_LOAD_TABLES_GUARDED(s_in, s_out, s_xl, in_rows, out_rows,
+                                 xor_low, g0, rpt_shift, rows,
+                                 tiles_per_cta, n_rows, row_len, bad)
+  stage_plan(s_plan, plan, n_words, g0);
+  const unsigned span = (unsigned)rows * row_words;
+  const long long batch_words = (long long)n_rows * row_words;
+  for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+    const W* xb = x + b * batch_words;
+    W* ob = out + b * batch_words;
+    __syncthreads();
+    REPRO_TILE_LOAD_ROWS_GUARDED(W, tile, xb, s_in, span, row_words,
+                                 row_shift, stride)
+    fused_phases<T, DV, KR, false>(tv, s_plan, plan, d);
+    __syncthreads();
+    REPRO_TILE_GATHER_STORE_GUARDED(W, ob, tile, s_out, s_xl, src0, span,
+                                    row_words, row_shift, wpe, wpe_shift,
+                                    t, rpt_shift, rpt_mask, row_len,
+                                    stride, bad)
+  }
+  if (bad) atomicOr(flags, 1);
+}
+
+template <typename T, int DV, int KR, int MB>
+static int launch_fused_guarded_old(
+    const void* x, void* out, const int* in_rows, const int* out_rows,
+    const int* xor_low, const int* src0, const long long* plan, int n_words,
+    int n_tiles, int n_rows, int rpt_shift, int tiles_per_cta, int t,
+    int wpe, int wpe_shift, int row_shift, int pad_words, long long batch,
+    int word_bytes, int d, int* flags, cudaStream_t s) {
+  using W = typename ElemWord<T>::type;
+  if (word_bytes != (int)sizeof(W)) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(n_tiles / tiles_per_cta), batch_grid(batch));
+  const int rows = tiles_per_cta << rpt_shift;
+  const size_t smem =
+      REPRO_TILE_SMEM_BYTES(W, rows, tiles_per_cta, t, wpe, pad_words) +
+      plan_bytes(n_words);
+  cudaError_t e =
+      allow_smem(tile_fused_guarded_old_kernel<T, DV, KR, MB>, smem);
+  if (e != cudaSuccess) return (int)e;
+  tile_fused_guarded_old_kernel<T, DV, KR, MB>
+      <<<grid, REPRO_THREADS, smem, s>>>(
+          (const W*)x, (W*)out, in_rows, out_rows, xor_low, src0, plan,
+          n_words, n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift,
+          row_shift, pad_words, batch, d, flags);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k4b_guarded_old(
+    const void* x, void* out, const int* in_rows, const int* out_rows,
+    const int* xor_low, const int* src0, const long long* plan, int n_words,
+    int n_tiles, int n_rows, int rpt_shift, int tiles_per_cta, int t,
+    int wpe, int wpe_shift, int row_shift, int pad_words, long long batch,
+    int word_bytes, int elem_type, int d, int dv, int regs, int maps,
+    int* flags, void* stream) {
+  if (n_tiles <= 0 || n_rows <= 0 || rpt_shift < 0 || tiles_per_cta <= 0 ||
+      n_tiles % tiles_per_cta || t < 0 || wpe <= 0 || batch <= 0 || d <= 0 ||
+      plan == nullptr || n_words < kHdrWords || (regs != 8 && regs != 16) ||
+      (dv == 2 && (elem_type != 1 || d != 2)) || maps || flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_GUARDED_OLD(T, DV, KR, MB)                                    \
+  return launch_fused_guarded_old<T, DV, KR, MB>(                           \
+      x, out, in_rows, out_rows, xor_low, src0, plan, n_words, n_tiles,     \
+      n_rows, rpt_shift, tiles_per_cta, t, wpe, wpe_shift, row_shift,       \
+      pad_words, batch, word_bytes, d, flags, s)
+  if (dv == 2) REPRO_GUARDED_OLD(float, 2, 8, 3);
+  if (dv != 1) return (int)cudaErrorInvalidValue;
+  const bool r16 = regs == 16;
+  switch (elem_type) {
+    case 0: if (r16) REPRO_GUARDED_OLD(int, 1, 16, 4);
+            REPRO_GUARDED_OLD(int, 1, 8, 4);
+    case 1: if (r16) REPRO_GUARDED_OLD(float, 1, 16, 4);
+            REPRO_GUARDED_OLD(float, 1, 8, 4);
+    case 2: if (r16) REPRO_GUARDED_OLD(Bf16, 1, 16, 2);
+            REPRO_GUARDED_OLD(Bf16, 1, 8, 4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_GUARDED_OLD
 }
 
 // ---------------------------------------------------------------------------
@@ -402,6 +520,29 @@ extern "C" int k4b_mb(const void* x, void* out, const EpiTileArgs* a,
   if (a->elem_type == 2 && mb == 3)
     return launch_items<Bf16, 1, 16, false, 3>(x, out, *a, s);
 #undef REPRO_MB
+  return (int)cudaErrorInvalidValue;
+}
+
+// The port's guarded K4b at other blocks per SM (16 registers, no maps)
+extern "C" int k4b_guarded_mb(const void* x, void* out, const EpiTileArgs* a,
+                              int* flags, int mb, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->dv != 1 || a->maps || a->regs != 16 || flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define REPRO_GMB(T)                                                       \
+  switch (mb) {                                                            \
+    case 2: return launch_items<T, 1, 16, false, 2, true>(x, out, *a, s,   \
+                                                          flags);          \
+    case 3: return launch_items<T, 1, 16, false, 3, true>(x, out, *a, s,   \
+                                                          flags);          \
+    case 4: return launch_items<T, 1, 16, false, 4, true>(x, out, *a, s,   \
+                                                          flags);          \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
+  if (a->elem_type == 0) REPRO_GMB(int)
+  if (a->elem_type == 1) REPRO_GMB(float)
+  if (a->elem_type == 2) REPRO_GMB(Bf16)
+#undef REPRO_GMB
   return (int)cudaErrorInvalidValue;
 }
 

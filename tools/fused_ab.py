@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The A/B reference of K4b and K5: the kernels as they were before their
-work-item schedules, built from ``tools/fused_ab.cu``, and their callers.
+"""The A/B reference of K4b, K5 and the guarded K4b: the kernels as they
+were before their work-item schedules, built from ``tools/fused_ab.cu``,
+and their callers.
 
-    python3 tools/fused_ab.py [--n 24]
+    python3 tools/fused_ab.py [--n 24] [--guarded-only]
 
 Run as a script on a card, it builds the reference beside the port's
 kernels, holds old and new K4b (int32, float32) and K5 (float32,
@@ -10,9 +11,15 @@ bfloat16) bit for bit against each other and their plain versions on the
 largest cluster of the 2^n sort, and times them in turns (one call and
 device time), with each side's registers (ptxas) and the new side's
 schedule; then the new K4b and K5 at 1, 2, 3 and 4 work items a block.
-``chip_smoke.py`` (phases 2, 6 and 9) and ``tools/fused_kernel_times.py``
-import the helpers below. Imports torch and ``repro_torch`` only; the
-timers are ``chip_smoke.py``'s (``cuda_ms``, ``device_ms``, ``in_turns``).
+Then the guarded K4b (int32, float32, bfloat16): old guarded, new guarded
+and the unguarded K4b bit for bit against each other and the guarded
+plain version with no flag set, timed in turns on the largest cluster
+(one call and device time) and summed over all the sort's clusters
+(device time), and the new guarded K4b at 2, 3 and 4 blocks an SM.
+``chip_smoke.py`` (phases 2, 6, 9 and 11) and
+``tools/fused_kernel_times.py`` import the helpers below. Imports torch
+and ``repro_torch`` only; the timers are ``chip_smoke.py``'s
+(``cuda_ms``, ``device_ms``, ``in_turns``).
 """
 from __future__ import annotations
 
@@ -52,9 +59,12 @@ def finish_build(started):
     so.k4b_mb.argtypes = [P, P, P, I, P]
     so.k5_mb.argtypes = [P, P, P, P, I, P]
     so.k5_kr16.argtypes = [P, P, P, P, I, P]
+    so.k4b_guarded_old.argtypes = [P] * 7 + [I] * 10 + [L] + [I] * 6 + [P, P]
+    so.k4b_guarded_mb.argtypes = [P, P, P, P, I, P]
     so.k5_kr16.restype = I
     so.k4b_old.restype = so.k5_old.restype = I
     so.k4b_mb.restype = so.k5_mb.restype = I
+    so.k4b_guarded_old.restype = so.k4b_guarded_mb.restype = I
     return so, log
 
 
@@ -68,9 +78,10 @@ def usage(log: str, marker: str) -> list:
 
 def _old_args(K, EP, xc, geometry, entries, n_buf):
     """(out, arguments after the tables, plan tensor, dv) of the old K4b
-    (``n_buf`` 1) or K5 (2): a work item a block, rows padded by one
-    4-byte bank, compare-bit sets in shared memory from two on."""
-    _, t, rpt, _, _, _, _ = geometry
+    (``n_buf`` 1; the old guarded K4b's too) or K5 (2): a work item a
+    block, words of the element type's width in rows padded by one 4-byte
+    bank, compare-bit sets in shared memory from two on."""
+    n, t, rpt, _, _, n_tiles, _ = geometry
     size, d = xc.element_size(), xc.shape[2]
     pad = max(1, 4 // size)
     plan, dv = K._epi_plan(xc, geometry, entries, n_buf,
@@ -84,11 +95,16 @@ def _old_args(K, EP, xc, geometry, entries, n_buf):
         extra += (info["maps"] * size * EP.THREADS
                   << (info["reg_bits"] + info["outer_bits"]))
     per_cta = K._epi_item(geometry, d * size)[0]
+    rows = per_cta * rpt
+    tile = rows * ((1 << t) * d + pad) * size
     if n_buf > 1:   # K5's second tile (the ct tile), 16-aligned
-        extra += (per_cta * rpt * ((1 << t) * d + pad) * size + 15) & ~15
-    out, args = K._tile_args(xc, geometry, per_cta=per_cta, word_bytes=size,
-                             extra_smem=extra)
-    return out, args, plan, dv, spill
+        extra += (tile + 15) & ~15
+    smem = (((2 * rows + per_cta) * 4 + 15) & ~15) + tile + extra
+    if smem > K._SMEM_MAX:
+        raise ValueError(f"old kernel: {smem} bytes of shared memory")
+    args = (n_tiles, 1 << (n - t), K._shift(rpt), per_cta, t, d,
+            K._shift(d), K._shift((1 << t) * d), pad, xc.shape[0], size)
+    return xc.new_empty(xc.shape), args, plan, dv, spill
 
 
 def old_fused(so, K, EP, xc, tabs, geometry, entries):
@@ -102,6 +118,19 @@ def old_fused(so, K, EP, xc, tabs, geometry, entries):
                     K._stream(xc))
     if rc:
         raise SystemExit(f"k4b_old: CUDA error {rc}")
+    return out
+
+
+def old_guarded_fused(so, K, EP, xc, tabs, geometry, entries, flags):
+    """One launch of the old guarded K4b on ``xc`` into ``flags``."""
+    out, args, plan, dv, _ = _old_args(K, EP, xc, geometry, entries, 1)
+    rc = so.k4b_guarded_old(K._ptr(xc), K._ptr(out),
+                            *(K._ptr(a) for a in tabs), K._ptr(plan),
+                            plan.numel(), *args, K._ELEM_TYPE[xc.dtype],
+                            xc.shape[2], dv, 1 << plan.info["reg_bits"], 0,
+                            K._ptr(flags), K._stream(xc))
+    if rc:
+        raise SystemExit(f"k4b_guarded_old: CUDA error {rc}")
     return out
 
 
@@ -120,14 +149,14 @@ def old_bwd(so, K, EP, xc, cc, tabs, geometry, entries):
 
 
 def cluster_calls(so, fs, t, x, ct=None, groups=None, mb=None,
-                  n_buf=None):
+                  n_buf=None, flags=None):
     """(old, new, plain, schedule) calls of one combinator cluster's first
-    pass (K4b; with ``ct``, its transpose K5) on the 1-D tensor ``x``: the
-    old kernel, the port's kernel (its schedule with ``groups`` work items
-    a block and ``n_buf`` of them in flight, when given; launched
-    directly, so they count in no launch
-    count; at ``mb`` blocks an SM when given, from this library), and
-    the plain version."""
+    pass (K4b; with ``ct``, its transpose K5; with ``flags``, the guarded
+    K4b into that flag word) on the 1-D tensor ``x``: the old kernel, the
+    port's kernel (its schedule with ``groups`` work items a block and
+    ``n_buf`` of them in flight, when given; launched directly, so they
+    count in no launch count; at ``mb`` blocks an SM when given, from
+    this library), and the plain version (guarded: ``plain(pflags)``)."""
     import torch
     from repro_torch.combinators import execute as ex
     from repro_torch.kernels import bmmc_permute as K
@@ -167,16 +196,21 @@ def cluster_calls(so, fs, t, x, ct=None, groups=None, mb=None,
               n_map_sets=info["maps"] << info["outer_bits"]) if bwd else {}
     args = K._epi_args(s, tabs, pl, geometry, 1, x.dtype, xc.shape[2], dv,
                        **k5)
-    fn = B.load("tile_bwd" if bwd else "tile_fused")
+    guard = () if flags is None else (flags.data_ptr(),)
+    fn = B.load("tile_bwd" if bwd else "tile_fused" if flags is None
+                else "tile_fused_guarded")
 
     def new(_keep=(tabs, pl, args)):   # the descriptor points into these
         out = torch.empty_like(xc)
         ptrs = (xc.data_ptr(), out.data_ptr()) + (
             (cc.data_ptr(),) if bwd else ())
         if mb is None:
-            rc = fn(*ptrs, ctypes.addressof(args), K._stream(x))
+            rc = fn(*ptrs, ctypes.addressof(args), *guard, K._stream(x))
         elif bwd:
             rc = so.k5_mb(*ptrs, ctypes.addressof(args), mb, K._stream(x))
+        elif guard:
+            rc = so.k4b_guarded_mb(*ptrs, ctypes.addressof(args), *guard, mb,
+                                   K._stream(x))
         else:
             rc = so.k4b_mb(*ptrs, ctypes.addressof(args), mb, K._stream(x))
         if rc:
@@ -187,17 +221,20 @@ def cluster_calls(so, fs, t, x, ct=None, groups=None, mb=None,
         if bwd:
             return old_bwd(so, K, EP, xc, cc, tabs, geometry,
                            ents).reshape(x.shape)
+        if guard:
+            return old_guarded_fused(so, K, EP, xc, tabs, geometry, ents,
+                                     flags).reshape(x.shape)
         return old_fused(so, K, EP, xc, tabs, geometry, ents).reshape(
             x.shape)
 
-    def plain():
+    def plain(pflags=None):
         if bwd:
             return K._tile_bwd_plain(xc, cc, plan.in_rows, plan.out_rows,
                                      plan.xor_low, last, geometry,
                                      ents).reshape(x.shape)
         return K._tile_fused_plain(xc, plan.in_rows, plan.out_rows,
-                                   plan.xor_low, plan.src0, geometry,
-                                   ents).reshape(x.shape)
+                                   plan.xor_low, plan.src0, geometry, ents,
+                                   pflags).reshape(x.shape)
     return old, new, plain, s
 
 
@@ -247,6 +284,65 @@ def schedule_text(s) -> str:
             f"blocks of {s.smem} bytes")
 
 
+def guarded_ab(torch, so, n, t, xi, xf, rounds, sweep):
+    """The guarded K4b's A/B on the 2^n sort (int32, float32, bfloat16):
+    old guarded, guarded and unguarded bit for bit against each other and
+    the guarded plain version, no flag set; in turns on the largest
+    cluster (one call, device time), and summed over every cluster
+    (device time, int32); with ``sweep``, the guarded K4b at 2, 3 and 4
+    blocks an SM."""
+    from chip_smoke import cuda_ms, device_ms, fused_cases, in_turns
+    dev = xi.device
+    flags = torch.zeros(1, dtype=torch.int32, device=dev)
+    fss = fused_cases(n, t, "sort")
+    fs = max(fss, key=lambda s: len(s.computes))
+    iv = {2: torch.int16, 4: torch.int32}
+    for label, x in (("int32", xi), ("float32", xf),
+                     ("bfloat16", xf.bfloat16())):
+        old, new, plain, s = cluster_calls(so, fs, t, x, flags=flags)
+        ung = cluster_calls(so, fs, t, x)[1]
+        pflags = torch.zeros_like(flags)
+        want = plain(pflags).view(iv[x.element_size()])
+        for side, fn in (("old guarded", old), ("guarded", new),
+                         ("unguarded", ung)):
+            if not torch.equal(fn().view(want.dtype), want):
+                raise SystemExit(f"fused_ab: guarded K4b {label}: {side} "
+                                 f"differs from the guarded plain version")
+        if int(flags.item()) or int(pflags.item()):
+            raise SystemExit(f"fused_ab: guarded K4b {label}: a flag set "
+                             f"on clean tables")
+        fns = {"old guarded": old, "guarded": new, "unguarded": ung}
+        one = in_turns(fns, lambda f: cuda_ms(torch, f, 20, warmup=3),
+                       rounds)
+        devt = in_turns(fns, lambda f: device_ms(torch, f), rounds)
+        med = {k: statistics.median(v) for k, v in devt.items()}
+        print(f"2^{n} largest sort cluster, guarded K4b {label} "
+              f"({schedule_text(s)}): one call {one} ms; device {devt} ms; "
+              f"medians device old guarded {med['old guarded']:.4f}, "
+              f"guarded {med['guarded']:.4f}, unguarded "
+              f"{med['unguarded']:.4f} ms", flush=True)
+        if sweep:
+            for mb in (2, 3, 4):
+                newm = cluster_calls(so, fs, t, x, mb=mb, flags=flags)[1]
+                if not torch.equal(newm().view(want.dtype), want):
+                    raise SystemExit(f"fused_ab: guarded K4b {label} at {mb} "
+                                     f"blocks an SM differs")
+                print(f"  guarded K4b {label} at {mb} blocks an SM (16 "
+                      f"registers): device {device_ms(torch, newm):.4f} ms",
+                      flush=True)
+    calls = [cluster_calls(so, f, t, xi, flags=flags)[:2]
+             + cluster_calls(so, f, t, xi)[1:2] for f in fss]
+    sums = in_turns({k: (lambda i=i: sum(device_ms(torch, c[i])
+                                         for c in calls))
+                     for i, k in ((0, "old guarded"), (1, "guarded"),
+                                  (2, "unguarded"))},
+                    lambda f: f(), rounds=1)
+    if int(flags.item()):
+        raise SystemExit("fused_ab: a flag set on clean tables")
+    print(f"2^{n} sort, guarded K4b int32 summed over its {len(fss)} "
+          f"clusters, device ms in turns: {sums}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=24)
@@ -254,6 +350,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-sweep", action="store_true",
                     help="time old and new only (no work-item or "
                          "blocks-an-SM sweep)")
+    ap.add_argument("--guarded-only", action="store_true",
+                    help="the guarded K4b's A/B only")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -291,7 +389,7 @@ def main(argv=None) -> int:
     cases = (("K4b int32", xi, None), ("K4b float32", xf, None),
              ("K4b bfloat16", xf.bfloat16(), None), ("K5 float32", xf, ct),
              ("K5 bfloat16", xf.bfloat16(), ct.bfloat16()))
-    for label, x, c in cases:
+    for label, x, c in () if args.guarded_only else cases:
         old, new, plain, s = cluster_calls(so, fs, t, x, c)
         want = plain()
         for side, fn in (("old", old), ("new", new)):
@@ -342,6 +440,7 @@ def main(argv=None) -> int:
                                  f"differs")
             print(f"  {label} at {mb} blocks an SM (launch bound): device "
                   f"{device_ms(torch, newm):.4f} ms", flush=True)
+    guarded_ab(torch, so, n, t, xi, xf, args.rounds, not args.no_sweep)
     return 0
 
 
