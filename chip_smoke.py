@@ -243,7 +243,27 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    bytes against the specs' and ``fits_hbm``. Under 60 s. The kernels
    line gains ``dryrun_launches`` (K4a in phase 19's real runs, under
    ``tile_serve``);
-20. last line: ``{"ok": true, "device": {...}}``.
+20. element types (``NEW_TYPES``: float16, int8, uint8, int16, uint16,
+   uint32, bool), each path with the launch counts set to 0 just before
+   and read just after: the sort of 2^n_sort keys of each type through
+   ``compiled_sort`` (no fused fallback, round trips equal to
+   ``program_cost``, K4b launched once a compute cluster; bit-equal to
+   ``torch.sort`` where torch sorts the type, else sorted and the same
+   keys; graph and stage-by-stage one call), then the same sort guarded
+   (``guard.guarded()``: the guarded K4b once a cluster, the unguarded
+   output); the float16 sort gradient (K5 once a cluster, the gradient
+   ``w`` scattered to the sorting permutation on distinct keys); the FFT
+   of 2^n_fft points on float16 and bfloat16 planar input (within
+   ``log2(N)`` unit roundoffs of float64, norm-wise) and its gradient; the
+   float32 FFT with a map (``v * 2 - 1``) beside the butterflies of one
+   cluster, forward and gradient. For each, the largest cluster's K4b,
+   guarded K4b (the sorts) and K5 bit for bit against their plain
+   versions (the guarded one with no flag), timed (one call, device time,
+   plain version; the sorts' torch composite) beside the byte bound, each
+   a row of the kernels line (``tile_fused[int8]``, ...). Last, a ``sin``
+   map's cluster on keys up to 300 in magnitude against an exact map, and
+   the map kernel's stack frame;
+21. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -4109,6 +4129,384 @@ def phase_dryrun(torch, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the element types the reference's fused kernel takes
+# ---------------------------------------------------------------------------
+
+NEW_TYPES = ("float16", "int8", "uint8", "int16", "uint16", "uint32", "bool")
+# Norm-wise relative error of a half-float planar FFT against float64:
+# each product and sum rounds to the type (unit roundoff u = 2^-11 for
+# float16, 2^-8 for bfloat16), and a radix-2 FFT's error grows like
+# u * log2(N) at worst; the limit is that bound.
+HALF_FFT_U = {"float16": 2.0 ** -11, "bfloat16": 2.0 ** -8}
+
+
+def stack_frames(log: str, fragment: str) -> list:
+    """(kernel, "N bytes stack frame") of each kernel whose mangled name
+    holds ``fragment``, from an ``nvcc -Xptxas -v`` log."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[-1].strip()
+        elif "stack frame" in ln and name is not None and fragment in name:
+            out.append((name[:60], " ".join(ln.split()[:3])))
+    return out
+
+
+def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
+                 smi: str) -> list:
+    """Phase 20: the 2^n_sort sort of each new element type, the float16
+    sort gradient, the 2^n_fft FFT on float16 and bfloat16 planar input
+    and a map beside butterflies, through their entry points, each with
+    the launch counts set to 0 just before and read just after; the
+    largest cluster's K4b, guarded K4b and K5 bit for bit against their
+    plain versions and timed beside their byte bound. Returns the rows
+    this phase adds to the kernels line."""
+    say("== phase 20: element types ==")
+    from repro_torch import guard, obs
+    from repro_torch.combinators import (CmpHalves, FusedStage, Perm,
+                                         compile_expr, program_cost)
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import sort as S
+    from repro_torch.combinators import vocab as V
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2616)
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    rows = []
+
+    def keys(dtype, n):
+        if dtype == torch.bool:
+            return torch.randint(0, 2, (1 << n,), generator=gen,
+                                 device=dev) > 0
+        if dtype.is_floating_point:
+            return torch.randn(1 << n, generator=gen, device=dev).to(dtype)
+        raw = torch.randint(-2**31, 2**31 - 1, (1 << n,), generator=gen,
+                            device=dev, dtype=torch.int64)
+        return raw.to(signed[torch.empty((), dtype=dtype).element_size()]
+                      ).view(dtype)
+
+    def cold(fn, x):
+        """``fn(x)`` with telemetry on and the launch counts set to 0 just
+        before: (result, round trips counted, fused fallbacks, launch
+        counts, kernel histogram)."""
+        obs.reset()
+        obs.enable(sync=True)
+        K.reset_launch_counts()
+        try:
+            y = fn(x)
+            torch.cuda.synchronize()
+        finally:
+            obs.disable()
+        c = K.launch_counts()
+        hist = {dict(lab)["kernel"]: v for (nm, lab), v
+                in obs.counters().items() if nm == "dispatch.kernel"}
+        rt = obs.counter_total("model.round_trips")
+        fb = obs.counter_total("dispatch.fused_fallback")
+        obs.reset()
+        return y, rt, fb, c, hist
+
+    def largest(prog):
+        return max((s for s in prog if isinstance(s, FusedStage)
+                    and s.computes), key=lambda s: len(s.computes))
+
+    def row(name, src, launches, err, ms, dev_ms, plain_ms, bound_ms,
+            composite_ms=None):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": "src/repro/kernels/bmmc_permute.py:"
+                                 + ("265" if "bwd" in name else "181"),
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": None, "composite_ms": composite_ms})
+        say(f"  {name}: bit-equal to its plain version; {launches} "
+            f"launches on its path; {ms:.4f} ms a call, {dev_ms:.4f} ms on "
+            f"the device (bound {bound_ms:.4f} ms, "
+            f"{bound_ms / dev_ms:.2f} of it), plain {plain_ms:.3f} ms"
+            + ("" if composite_ms is None
+               else f", torch composite {composite_ms:.3f} ms")
+            + f"  [{smi}]")
+
+    def k4b_rows(label, fs, t, x, launches, guarded_launches, composite):
+        """K4b and the guarded K4b on cluster ``fs``: bit for bit against
+        their plain versions (the guarded one with no flag), timed."""
+        got = fused_call(K, ex, fs, t, x)
+        want = fused_call(K, ex, fs, t, x, plain=True)
+        check(max_abs_err(torch, got, want) == 0.0, ("K4b", label))
+        plans, entries = ex._fused_plan_cached(fs, t)
+        tabs, epi = ex._pass_tables(plans[0], entries, x)
+        geo = K.plan_geometry(plans[0])
+        flags = torch.zeros(1, dtype=torch.int32, device=dev)
+        pflags = torch.zeros_like(flags)
+
+        def guarded():
+            return K.tiled_permute_tables(x, *tabs, geometry=geo,
+                                          flags=flags, **epi)
+        if guarded_launches is not None:
+            g = guarded()
+            gp = K.tiled_permute_tables_plain(x, *tabs, geometry=geo,
+                                              flags=pflags, **epi)
+            torch.cuda.synchronize()
+            check(int(flags) == 0 and int(pflags) == 0,
+                  ("guard flag", label))
+            check(max_abs_err(torch, g, want) == 0.0
+                  and max_abs_err(torch, gp, want) == 0.0,
+                  ("guarded", label))
+        nbytes = x.numel() * x.element_size()
+        bound = 2 * nbytes / bw * 1e3
+        comp = (cuda_ms(torch, composite, max(3, reps // 3))
+                if composite is not None else None)
+        row(f"tile_fused[{label}]", KERNEL_INFO["tile_fused"][0], launches,
+            0.0, cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x), reps),
+            device_ms(torch, lambda: fused_call(K, ex, fs, t, x)),
+            cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x, plain=True),
+                    max(3, reps // 3), warmup=1), bound, comp)
+        if guarded_launches is not None:
+            row(f"tile_fused_guarded[{label}]",
+                KERNEL_INFO["tile_fused_guarded"][0], guarded_launches, 0.0,
+                cuda_ms(torch, guarded, reps), device_ms(torch, guarded),
+                cuda_ms(torch, lambda: K.tiled_permute_tables_plain(
+                    x, *tabs, geometry=geo, flags=pflags, **epi),
+                    max(3, reps // 3), warmup=1), bound)
+
+    def k5_row(label, fs, t, x, ct, launches):
+        got = bwd_call(K, ex, fs, t, x, ct)
+        want = bwd_call(K, ex, fs, t, x, ct, plain=True)
+        check(max_abs_err(torch, got, want) == 0.0, ("K5", label))
+        nbytes = x.numel() * x.element_size()
+        row(f"tile_bwd[{label}]", KERNEL_INFO["tile_bwd"][0], launches, 0.0,
+            cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct), reps),
+            device_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct)),
+            cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct, plain=True),
+                    max(3, reps // 3), warmup=1), 3 * nbytes / bw * 1e3)
+
+    def composite_of(fs, x):
+        """The cluster's stages as torch calls: each Perm an index_select of
+        the bits on a precomputed index, each CmpHalves ``cmp_min`` and
+        ``cmp_max`` of the halves."""
+        idx = {id(s): ref.bmmc_src_index(s.bmmc, dev) for s in fs.stages
+               if isinstance(s, Perm)}
+
+        def run():
+            v = x
+            for s in fs.stages:
+                if isinstance(s, Perm):
+                    v = torch.index_select(K._bits(v), 0, idx[id(s)]).view(
+                        x.dtype)
+                else:
+                    check(isinstance(s, CmpHalves), type(s).__name__)
+                    lo, hi = v.chunk(2)
+                    v = torch.cat([K.cmp_min(lo, hi), K.cmp_max(lo, hi)])
+            return v
+        return run
+
+    # the sort of every new type
+    for name in NEW_TYPES:
+        dtype = getattr(torch, name)
+        x = keys(dtype, n_sort)
+        f = S.compiled_sort(n_sort)
+        prog, t, plan_s = plan_program(f, x)
+        y, rt, fb, c, hist = cold(f, x)
+        fused = sum(1 for s in prog if isinstance(s, FusedStage)
+                    and s.computes)
+        cost = program_cost(prog, t, x.element_size())
+        check(fb == 0, (name, "fused fallbacks", fb))
+        check(rt == cost["round_trips"], (name, rt, cost["round_trips"]))
+        check(c["tile_fused"] == fused == hist.get("fused"),
+              (name, c["tile_fused"], fused, hist))
+        if dtype in (torch.int8, torch.uint8, torch.int16, torch.float16):
+            check(max_abs_err(torch, y, torch.sort(x).values) == 0.0,
+                  (name, "torch.sort"))
+        else:   # no torch.sort of the type: sorted, and the same keys
+            wide = (K._int_view(y).to(torch.int64) & 0xFFFFFFFF
+                    if dtype == torch.uint32 else
+                    K._int_view(y).to(torch.int64) & 0xFFFF
+                    if dtype == torch.uint16 else y.to(torch.int64))
+            xw = (K._int_view(x).to(torch.int64) & 0xFFFFFFFF
+                  if dtype == torch.uint32 else
+                  K._int_view(x).to(torch.int64) & 0xFFFF
+                  if dtype == torch.uint16 else x.to(torch.int64))
+            check(bool((wide[1:] >= wide[:-1]).all())
+                  and torch.equal(wide, torch.sort(xw).values),
+                  (name, "sorted"))
+        graph_ms = cuda_ms(torch, lambda: f(x), reps)
+        check(max_abs_err(torch, f(x), y) == 0.0, (name, "graph"))
+        eager_ms = cuda_ms(torch, lambda: f.call_per_stage(x),
+                           max(3, reps // 3), warmup=1)
+        say(f"  sort of 2^{n_sort} {name} (t={t}): bit-equal "
+            f"{'to torch.sort' if dtype in (torch.int8, torch.uint8, torch.int16, torch.float16) else 'to the sorted keys'}; "
+            f"plan {plan_s:.2f} s; fused fallbacks 0; round trips "
+            f"{int(rt)} = program_cost; histogram {hist}; launches "
+            f"{ {k: v for k, v in c.items() if v} }; graph {graph_ms:.3f} ms, "
+            f"one call stage by stage {eager_ms:.3f} ms")
+        with guard.guarded():
+            yg, _, fbg, cg, _ = cold(f, x)
+        check(max_abs_err(torch, yg, y) == 0.0 and fbg == 0
+              and cg["tile_fused_guarded"] == fused
+              and cg["tile_fused"] == 0, (name, "guarded sort", cg))
+        fs = largest(prog)
+        k4b_rows(name, fs, t, x, c["tile_fused"], cg["tile_fused_guarded"],
+                 composite_of(fs, x))
+        del x, y, yg
+        torch.cuda.empty_cache()
+
+    # the float16 sort gradient: K5 once a compute cluster
+    x = keys(torch.float16, n_sort)
+    w = torch.randn(1 << n_sort, generator=gen, device=dev).to(torch.float16)
+    f = S.compiled_sort(n_sort)
+    prog, t, _ = plan_program(f, x)
+
+    def grad(v):
+        v = v.clone().requires_grad_(True)
+        (w * f(v)).sum().backward()
+        return v.grad
+    gx, _, fb, c, _ = cold(grad, x)
+    fused = sum(1 for s in prog if isinstance(s, FusedStage) and s.computes)
+    check(fb == 0 and c["tile_bwd"] == fused, ("float16 gradient", fb, c))
+    check(bool(torch.isfinite(gx).all()), "float16 gradient finite")
+    g_ms = cuda_ms(torch, lambda: grad(x), max(3, reps // 3))
+    # with ties, the kernel route against the collapsed route, bit for bit
+    n_ties = min(n_sort, N_TIES)
+    xt = torch.randint(0, 6, (1 << n_ties,), generator=gen,
+                       device=dev).to(torch.float16)
+    wt = torch.randn(1 << n_ties, generator=gen, device=dev).to(
+        torch.float16)
+    ft = S.compiled_sort(n_ties)
+    routes = {}
+    for mega in (True, False):
+        ex.BWD_MEGAKERNEL = mega
+        try:
+            v = xt.clone().requires_grad_(True)
+            (wt * ft(v)).sum().backward()
+            routes[mega] = v.grad
+        finally:
+            ex.BWD_MEGAKERNEL = True
+    check(max_abs_err(torch, routes[True], routes[False]) == 0.0,
+          "float16 gradient routes")
+    say(f"  float16 sort gradient at 2^{n_sort}: fused fallbacks 0, K5 "
+        f"{c['tile_bwd']} launches (one a compute cluster); forward + "
+        f"backward {g_ms:.3f} ms; at 2^{n_ties} keys with ties the K5 "
+        f"route bit-equal to the collapsed route")
+    ct = torch.randn(1 << n_sort, generator=gen, device=dev).to(torch.float16)
+    k5_row("float16", largest(prog), t, x, ct, c["tile_bwd"])
+    del x, w, gx, ct, routes
+    torch.cuda.empty_cache()
+
+    # the FFT on half-float planar input, forward and gradient
+    z = torch.complex(torch.randn(1 << n_fft, generator=gen, device=dev),
+                      torch.randn(1 << n_fft, generator=gen, device=dev))
+    for name in ("float16", "bfloat16"):
+        dtype = getattr(torch, name)
+        xr = F.to_planar(z).to(dtype)
+        g = F.compiled_fft(n_fft)
+        prog, t, _ = plan_program(g, xr)
+        y, rt, fb, c, hist = cold(F.fft_planar, xr)
+        fused = sum(1 for s in prog if isinstance(s, FusedStage)
+                    and s.computes)
+        check(fb == 0 and c["tile_fused"] == fused, (name, "fft", fb, c))
+        exact = torch.fft.fft(torch.complex(xr[:, 0].double(),
+                                            xr[:, 1].double()))
+        got = torch.complex(y[:, 0].double(), y[:, 1].double())
+        rel = float(torch.linalg.vector_norm(got - exact)
+                    / torch.linalg.vector_norm(exact))
+        tol = n_fft * HALF_FFT_U[name]
+        check(rel <= tol, (name, "fft error", rel, tol))
+        wg = torch.randn(xr.shape, generator=gen, device=dev).to(dtype)
+
+        def grad(v):
+            v = v.clone().requires_grad_(True)
+            (wg * F.fft_planar(v)).sum().backward()
+            return v.grad
+        _, _, fbg, cg, _ = cold(grad, xr)
+        check(fbg == 0 and cg["tile_bwd"] == fused, (name, "fft grad", cg))
+        say(f"  FFT of 2^{n_fft} planar {name} (t={t}): fused fallbacks 0, "
+            f"K4b {c['tile_fused']} launches = the model's clusters; "
+            f"norm-wise relative error {rel:.3e} against float64 (limit "
+            f"{tol:.3e} = log2(N) * unit roundoff); its gradient K5 "
+            f"{cg['tile_bwd']} launches; graph "
+            f"{cuda_ms(torch, lambda: g(xr), reps):.3f} ms")
+        fs = largest(prog)
+        with guard.guarded():
+            _, _, _, cgf, _ = cold(F.fft_planar, xr)
+        check(cgf["tile_fused_guarded"] == fused, (name, "guarded fft", cgf))
+        k4b_rows(f"{name} planar", fs, t, xr, c["tile_fused"],
+                 cgf["tile_fused_guarded"], None)
+        ct = torch.randn(xr.shape, generator=gen, device=dev).to(dtype)
+        k5_row(f"{name} planar", fs, t, xr, ct, cg["tile_bwd"])
+        del xr, y, ct
+        torch.cuda.empty_cache()
+
+    # a map beside butterflies: v * 2 - 1 after the first FFT stage whose
+    # cluster then holds it beside butterflies
+    xr = F.to_planar(z)
+
+    def mixed_of(prog):
+        return [s for s in prog if isinstance(s, FusedStage)
+                and {"Map", "Bfly"} <= {type(cc).__name__
+                                        for cc, _ in s.computes}]
+    for map_at in range(n_fft):
+        stages = [V.bit_reverse(n_fft)]
+        for s in range(n_fft):
+            e = F._stage_core(s)
+            for _ in range(n_fft - s - 1):
+                e = V.two(e)
+            stages.append(e)
+            if s == map_at:
+                stages.append(V.emap("twice_less_one", lambda v: v * 2 - 1))
+        fm = compile_expr(V.seq(*stages))
+        prog, t, _ = plan_program(fm, xr)
+        if mixed_of(prog):
+            break
+    mixed = mixed_of(prog)
+    y, rt, fb, c, _ = cold(fm, xr)
+    check(fb == 0 and len(mixed) == 1, ("map beside butterflies", fb))
+    wg = torch.randn(xr.shape, generator=gen, device=dev)
+
+    def mgrad(v):
+        v = v.clone().requires_grad_(True)
+        (wg * fm(v)).sum().backward()
+        return v.grad
+    _, _, fbg, cg, _ = cold(mgrad, xr)
+    check(fbg == 0 and cg["tile_bwd"] >= 1, ("map beside butterflies", cg))
+    say(f"  FFT of 2^{n_fft} float32 with a map after stage {map_at}: the map and "
+        f"its butterflies in one cluster, fused fallbacks 0, K4b "
+        f"{c['tile_fused']} launches, K5 {cg['tile_bwd']} in its gradient")
+    k4b_rows("float32 planar + map", mixed[0], t, xr, c["tile_fused"], None,
+             None)
+    ct = torch.randn(xr.shape, generator=gen, device=dev)
+    k5_row("float32 planar + map", mixed[0], t, xr, ct, cg["tile_bwd"])
+    del xr, y, ct, z
+    torch.cuda.empty_cache()
+
+    # sin in a map: K4b on the cluster that holds it, beside an exact map
+    x = torch.randn(1 << n_sort, generator=gen, device=dev) * 100
+    times = {}
+    for mname, fn in (("sin", torch.sin), ("twice", lambda v: v * 2)):
+        fsm = compile_expr(V.emap(mname, fn) >> S.sort_expr(n_sort))
+        prog, t, _ = plan_program(fsm, x)
+        first = next(s for s in prog if isinstance(s, FusedStage)
+                     and s.computes)
+        check(max_abs_err(torch, fused_call(K, ex, first, t, x),
+                          fused_call(K, ex, first, t, x, plain=True)) == 0.0,
+              (mname, "map cluster"))
+        times[mname] = device_ms(torch, lambda: fused_call(K, ex, first, t,
+                                                           x))
+    log = B.BUILD_LOG.get("tile_fused", {}).get("ptxas", "")
+    frames = (stack_frames(log, "tile_fused_items_kernelIfLi1ELi8ELb1E")
+              + stack_frames(log, "map_trig"))
+    say(f"  a sin map on 2^{n_sort} float32 keys in [-300, 300] (its large-"
+        f"argument path): K4b {times['sin']:.4f} ms on the device against "
+        f"{times['twice']:.4f} ms for v * 2 (the first sort cluster, bit-"
+        f"equal to its plain version, eager torch.sin); stack frames of the "
+        f"float32 map kernel and of map_trig (sinf, cosf): {frames}  "
+        f"[{smi}]")
+    say(f"  clocks, power, temperature: {clocks()}")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -4181,6 +4579,7 @@ def main(argv=None) -> int:
     mesh_counts = {"tile_serve": sum(phase_mesh(torch, smi, bw,
                                                 REPS).values())}
     dry_counts = {"tile_serve": sum(phase_dryrun(torch, smi).values())}
+    dtype_rows = phase_dtypes(torch, args.n_sort, args.n_fft, REPS, bw, smi)
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -4199,6 +4598,7 @@ def main(argv=None) -> int:
                             kinds_counts.get(name, (0, 0))[1],
                         "mesh_launches": mesh_counts.get(name, 0),
                         "dryrun_launches": dry_counts.get(name, 0)})
+    kernels += dtype_rows
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

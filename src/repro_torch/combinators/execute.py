@@ -29,11 +29,15 @@ the kernel as the tape :mod:`repro_torch.kernels.map_lower` lowers it to
 (the reference's kernel called the function on the tile). Every other
 engine executes the cluster's original stages one at a time. A complex64
 array's butterfly clusters run on its planar (re, im) float32 view.
-Clusters the kernel cannot take fall back to stage-at-a-time execution
-and count ``dispatch.fused_fallback``: other dtypes than int32, float32
-and bfloat16, butterflies off the planar float32 layout, arrays too
-small to tile, a ``Map`` whose function is not lowered (outside the
-tape's op list, or its trace fails) and a ``Map`` beside butterflies.
+The kernel takes every element type the reference's fused kernel takes
+but complex: integers of 8, 16 and 32 bits (uint64 and int64 not), bool,
+float32, bfloat16 and float16; butterflies on a planar (re, im) tail of 2
+in any of the three float types, a ``Map`` beside them on both planar
+values. Clusters the kernel cannot take fall back to stage-at-a-time
+execution and count ``dispatch.fused_fallback``: 64-bit and complex
+types, butterflies off the planar layout, arrays too small to tile and a
+``Map`` whose function is not lowered (outside the tape's op list for the
+type, or its trace fails).
 
 Whole-program executable: the reference jit-compiles each resolved
 program once per ``(program, engine, batched)``. Here that is a CUDA
@@ -227,26 +231,33 @@ def _fused_plan_cached(fs: FusedStage, t: int):
                                      lambda: _build_fused_plan(fs, t))
 
 
+def _rounded(a: np.ndarray, dtype) -> torch.Tensor:
+    """A float64 table as a CPU tensor of ``dtype``, each value rounded as
+    the reference's numpy types round it: float16 once (torch rounds a
+    double to float16 through float32), bfloat16 through float32."""
+    a = np.ascontiguousarray(a, dtype=np.float64)
+    if dtype == torch.float16:
+        return torch.from_numpy(a.astype(np.float16))
+    return torch.from_numpy(a).to(dtype)
+
+
 @functools.lru_cache(maxsize=64)
 def _w_planar_cached(bfly: Bfly, dtype: str) -> np.ndarray:
     """The (2^(n-1), 2) (re, im) twiddle-value table of a butterfly stage.
-    Each value is the Python complex's double rounded once to ``dtype``,
-    as the reference's table is. Keyed by the stage, whose hash is kept,
-    not by its twiddle tuple, which would be hashed anew (2^21 complex
-    numbers at 2^22 points) on every lookup."""
+    Each value is the Python complex's double rounded to ``dtype`` as the
+    reference's table is (:func:`_rounded`), kept as float32 (a half
+    value is exact there; the kernels read float32 twiddles). Keyed by the
+    stage, whose hash is kept, not by its twiddle tuple, which would be
+    hashed anew (2^21 complex numbers at 2^22 points) on every lookup."""
     w = np.array(bfly.twiddles, dtype=np.complex128)
-    return np.stack([w.real.astype(dtype), w.imag.astype(dtype)], axis=-1)
+    return _rounded(np.stack([w.real, w.imag], axis=-1),
+                    getattr(torch, dtype)).float().numpy()
 
 
 def _maps_lowered(fs: FusedStage, dtype) -> bool:
-    """Does every ``Map`` of the cluster lower to a tape for ``dtype``
-    (and none sit beside butterflies, whose register slots hold planar
-    pairs)?"""
-    maps = [c for c, _ in fs.computes if isinstance(c, Map)]
-    if maps and any(isinstance(c, Bfly) for c, _ in fs.computes):
-        return False
-    return all(map_lower.lower_map(m.name, m.fn, dtype).lowered
-               for m in maps)
+    """Does every ``Map`` of the cluster lower to a tape for ``dtype``?"""
+    return all(map_lower.lower_map(c.name, c.fn, dtype).lowered
+               for c, _ in fs.computes if isinstance(c, Map))
 
 
 def _fused_tile(x: torch.Tensor, fs: FusedStage,
@@ -260,8 +271,8 @@ def _fused_tile(x: torch.Tensor, fs: FusedStage,
         return None  # a Map the tape cannot run
     d = x.shape[1 + lead] if x.dim() == 2 + lead else 1
     if any(isinstance(c, Bfly) for c, _ in fs.computes):
-        if x.dim() != 2 + lead or d != 2 or x.dtype != torch.float32:
-            return None  # butterflies need the planar float32 layout
+        if x.dim() != 2 + lead or d != 2 or not x.is_floating_point():
+            return None  # butterflies need a planar (re, im) float layout
     t = ops.choose_tile(fs.bmmc.n, x.element_size(), d)
     if t is None or _fused_plan_cached(fs, t) is None:
         return None
@@ -294,18 +305,22 @@ def _fused_kernel_args(entries: tuple, dtype) -> tuple:
 
 def _pass_tables(plan, entries, x: torch.Tensor) -> tuple:
     """(index tables, the epilogue keywords of the kernel wrappers) of a
-    cluster's fused pass, on ``x``'s device — uploaded once and kept there
-    for a CUDA tensor. K4b and K5 share them."""
+    cluster's fused pass, on ``x``'s device — uploaded once per element
+    type (a butterfly's twiddles are rounded to it) and kept there for a
+    CUDA tensor. K4b and K5 share them."""
     sig, scal, vmem, map_fns = _fused_kernel_args(entries, x.dtype)
     kw = dict(epilogue=sig, map_fns=map_fns)
     if x.device.type != "cuda":
         return (plan.in_rows, plan.out_rows, plan.xor_low, plan.src0), \
             dict(kw, epi_scalar=scal, epi_vmem=vmem)
     dev = x.device
-    scal, vmem = device_cached(entries, "epilogue", dev, lambda: tuple(
-        tuple(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                    for a in grp) for grp in part)
-        for part in (scal, vmem)))
+
+    def upload():
+        return tuple(tuple(tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                 .to(dev) for a in grp) for grp in part)
+                     for part in (scal, vmem))
+    scal, vmem = device_cached(entries, ("epilogue", str(x.dtype)), dev,
+                               upload)
     return device_tables(plan, dev), dict(kw, epi_scalar=scal,
                                           epi_vmem=vmem)
 
@@ -469,8 +484,7 @@ def _bfly_twiddles(twiddles: tuple, x: torch.Tensor) -> tuple:
     reference does)."""
     def make():
         w = np.array(twiddles, dtype=np.complex128)
-        return tuple(torch.from_numpy(p.copy()).to(device=x.device,
-                                                   dtype=x.dtype)
+        return tuple(_rounded(p, x.dtype).to(x.device)
                      for p in (w.real, w.imag))
     return device_cached(twiddles, ("bfly", str(x.dtype)), x.device, make)
 
@@ -696,6 +710,8 @@ def _on(tab: np.ndarray, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """An offline numpy table on ``like``'s device (kept there for a CUDA
     tensor; a CPU tensor shares the numpy memory when no cast is asked)."""
     def make():
+        if dtype is not None and tab.dtype == np.float64:
+            return _rounded(tab, dtype).to(like.device)
         t = torch.from_numpy(np.ascontiguousarray(tab))
         return t.to(device=like.device, dtype=dtype or t.dtype)
     if like.device.type == "cpu":

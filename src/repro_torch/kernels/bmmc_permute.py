@@ -541,15 +541,16 @@ def _tile_plain(xc, in_rows, out_rows, xor_low, src0, geometry):
     xl, s0 = _long(xor_low, dev), _long(src0, dev).reshape(-1)
     j = torch.arange(rpt * row_len, device=dev)
     rp, cp = j >> t, j & (row_len - 1)
-    out = torch.empty_like(xc)
+    xb = _bits(xc)
+    out = torch.empty_like(xb)
     step = max(1, _PLAIN_CHUNK // (rpt * row_len))
     for g0 in range(0, n_tiles, step):
         gs = slice(g0, min(n_tiles, g0 + step))
         src = s0[(rp << t) | (cp[None, :] ^ xl[gs, None])]
         x_glob = torch.gather(ir[gs], 1, src >> t) * row_len + (src & (row_len - 1))
         y_glob = orow[gs][:, rp] * row_len + cp
-        out[:, y_glob.reshape(-1)] = xc[:, x_glob.reshape(-1)]
-    return out
+        out[:, y_glob.reshape(-1)] = xb[:, x_glob.reshape(-1)]
+    return out.view(xc.dtype)
 
 
 def _tiles_per_cta(geometry, elem: int, max_positions: int = None) -> int:
@@ -829,23 +830,57 @@ def _tile_launch(xc, tabs, geometry, flags=None):
 # K4b: the tiled pass with fused compute epilogues
 # ---------------------------------------------------------------------------
 
-_ELEM_TYPE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+# The element types K4b and the guarded K4b take, by the code the kernels
+# switch on: the class (signed or unsigned integer, float32, a half float
+# widened to float) and the storage width. bool is uint8 (max is OR and
+# min is AND on 0 and 1).
+_ELEM_TYPE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2,
+              torch.float16: 3, torch.int8: 4, torch.uint8: 5,
+              torch.bool: 5, torch.int16: 6, torch.uint16: 7,
+              torch.uint32: 8}
+_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)  # and K5's
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+# unsigned types torch's CPU build lacks max, index_select and index_put for
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 
 
 def _int_view(x: torch.Tensor) -> torch.Tensor:
-    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
-        x.element_size()])
+    """``x``'s bits as the signed integer type of its width."""
+    return x.view(_SIGNED[x.element_size()])
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the plain versions move it: a signed integer view of its
+    width (a permutation moves bits; torch on the CPU has no index ops
+    for uint16, uint32 and uint64, and its bfloat16 gather rewrites NaN
+    payloads), or ``x`` itself for a 16-byte element."""
+    return _int_view(x) if x.element_size() in _SIGNED else x
+
+
+def _unsigned_op(op, a, b, out):
+    """``op`` (torch.maximum or torch.minimum) on unsigned ``a``, ``b`` as
+    signed views with the sign bit flipped, which keeps their order."""
+    m = torch.iinfo(_SIGNED[a.element_size()]).min
+    r = op(_int_view(a) ^ m, _int_view(b) ^ m)
+    if out is None:
+        return (r ^ m).view(a.dtype)
+    torch.bitwise_xor(r, m, out=_int_view(out))
+    return out
 
 
 def cmp_max(a: torch.Tensor, b: torch.Tensor, *,
             out: torch.Tensor = None) -> torch.Tensor:
     """``max(a, b)`` as the fused compare-exchange computes it, the same
-    on every device. Integers: plain max. Floats: NaN propagates (``a``
-    when ``a`` is NaN, else ``b`` when ``b`` is), -0 < +0, and equal
-    values give the bitwise AND of the two (``max(-0, +0) = +0``) — what
-    ``jnp.maximum`` gives on the CPU. The CUDA kernel computes the same
-    (``cmp_sel`` in ``tile_epilogue.cuh``); ``torch.maximum`` would not pin
-    the sign of a zero. ``out`` receives the result when given."""
+    on every device. Integers: plain max (uint16, uint32 and uint64 as
+    signed views with the sign bit flipped; bool is OR). Floats: NaN
+    propagates (``a`` when ``a`` is NaN, else ``b`` when ``b`` is), -0 <
+    +0, and equal values give the bitwise AND of the two (``max(-0, +0) =
+    +0``) — what ``jnp.maximum`` gives on the CPU. The CUDA kernel
+    computes the same (``cmp_sel`` in ``tile_epilogue.cuh``);
+    ``torch.maximum`` would not pin the sign of a zero. ``out`` receives
+    the result when given."""
+    if a.dtype in _WIDE_UNSIGNED:
+        return _unsigned_op(torch.maximum, a, b, out)
     if not a.is_floating_point():
         return torch.maximum(a, b, out=out)
     r = torch.where(b > a, b, (_int_view(a) & _int_view(b)).view(a.dtype))
@@ -858,6 +893,8 @@ def cmp_min(a: torch.Tensor, b: torch.Tensor, *,
             out: torch.Tensor = None) -> torch.Tensor:
     """``min(a, b)``: as :func:`cmp_max`, with equal values giving the
     bitwise OR (``min(-0, +0) = -0``)."""
+    if a.dtype in _WIDE_UNSIGNED:
+        return _unsigned_op(torch.minimum, a, b, out)
     if not a.is_floating_point():
         return torch.minimum(a, b, out=out)
     r = torch.where(b < a, b, (_int_view(a) | _int_view(b)).view(a.dtype))
@@ -899,11 +936,9 @@ def _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns=(), dtype=None):
 def _check_epi_input(xc, entries, geometry):
     _, t, rpt, _, _, _, _ = geometry
     if xc.dtype not in _ELEM_TYPE:
-        raise ValueError(f"fused epilogues take int32, float32 or bfloat16, "
-                         f"got {xc.dtype}")
-    if {EP.KIND_MAP, EP.KIND_BFLY} <= {e[0] for e in entries}:
-        raise ValueError("map epilogues do not run beside butterflies (a "
-                         "planar pair in each register slot)")
+        raise ValueError(f"fused epilogues take integers of 8, 16 and 32 "
+                         f"bits, bool, float32, bfloat16 and float16, got "
+                         f"{xc.dtype}")
     for e in entries:
         if e[0] == EP.KIND_MAP:
             if e[9].dtype != xc.dtype:
@@ -914,17 +949,21 @@ def _check_epi_input(xc, entries, geometry):
                 e[1] or e[2]):
             raise ValueError(f"epilogue partner XOR ({e[1]}, {e[2]}) outside "
                              f"a tile of {rpt} x 2^{t}")
-        if e[0] == 1 and (xc.dtype != torch.float32 or xc.shape[2] != 2):
-            raise ValueError("a butterfly epilogue needs float32 with a "
-                             "planar (re, im) tail of 2, got "
-                             f"{xc.dtype} with a tail of {xc.shape[2]}")
+        if e[0] == 1 and (xc.dtype not in _FLOAT_TYPES
+                          or xc.shape[2] != 2):
+            raise ValueError("a butterfly epilogue needs float32, bfloat16 "
+                             "or float16 with a planar (re, im) tail of 2, "
+                             f"got {xc.dtype} with a tail of {xc.shape[2]}")
 
 
 def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
     """One epilogue on tiles ``(B, G, rpt, row_len, d)``: position (r, c)
     pairs with (r ^ vr, c ^ vc); ``hi`` picks max / the "hi" butterfly
     output, exactly as the reference's ``apply_computes``; a map calls its
-    function on the tile, as the reference does."""
+    function on the tile, as the reference does (beside butterflies on
+    both planar values). A butterfly on bfloat16 or float16 rounds each
+    product and sum to the tile's type, its twiddles ``w`` already in it
+    (:func:`_plain_entries`)."""
     kind, vr, vc, hi_row, hi_lane, _, tw_row, tw_lane, _, w = e
     if kind == EP.KIND_MAP:
         out = w.fn(tile)
@@ -935,13 +974,14 @@ def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
         return out
     dev = tile.device
     rpt, row_len = tile.shape[2], tile.shape[3]
-    pv = tile.index_select(2, torch.arange(rpt, device=dev) ^ vr)
-    pv = pv.index_select(3, torch.arange(row_len, device=dev) ^ vc)
+    pv = _bits(tile).index_select(2, torch.arange(rpt, device=dev) ^ vr)
+    pv = pv.index_select(3, torch.arange(row_len, device=dev) ^ vc).view(
+        tile.dtype)
     hi = ((hi_row[:, None] ^ hi_lane[None, :])[None]
           ^ hi_base_g[:, None, None]) == 1                 # (G, rpt, row_len)
-    if kind == 0:
-        return torch.where(hi[None, ..., None], cmp_max(tile, pv),
-                           cmp_min(tile, pv))
+    if kind == 0:   # selected as bits: no torch.where for every type
+        return torch.where(hi[None, ..., None], _bits(cmp_max(tile, pv)),
+                           _bits(cmp_min(tile, pv))).view(tile.dtype)
     tw = (tw_row[:, None] ^ tw_lane[None, :])[None] ^ tw_base_g[:, None, None]
     wr, wi = w[:, 0][tw][None], w[:, 1][tw][None]
     hi = hi[None]
@@ -986,20 +1026,21 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
                               flags, dev)
         ir, orow = ir.reshape(n_tiles, rpt), orow.reshape(n_tiles, rpt)
         ir_ok, or_ok = ir_ok.reshape(n_tiles, rpt), or_ok.reshape(n_tiles, rpt)
-    ents = _plain_entries(entries, dev)
+    ents = _plain_entries(entries, dev, xc.dtype)
     lane = torch.arange(row_len, device=dev)
     j = torch.arange(rpt * row_len, device=dev)
     rp, cp = j >> t, j & (row_len - 1)
-    out = torch.empty_like(xc)
+    xb = _bits(xc)
+    out = torch.empty_like(xb)
     step = max(1, _PLAIN_CHUNK // (rpt * row_len))
     for g0 in range(0, n_tiles, step):
         gs = slice(g0, min(n_tiles, g0 + step))
         ng = gs.stop - gs.start
         x_glob = (ir[gs][:, :, None] * row_len + lane).reshape(-1)
-        tile = xc[:, x_glob].reshape(batch, ng, rpt, row_len, d)
+        tile = xb[:, x_glob].reshape(batch, ng, rpt, row_len, d)
         if flags is not None:   # rows not read load as zeros
-            tile = _int_view(tile).masked_fill(
-                ~ir_ok[gs][None, :, :, None, None], 0).view(tile.dtype)
+            tile = tile.masked_fill(~ir_ok[gs][None, :, :, None, None], 0)
+        tile = tile.view(xc.dtype)
         for e in ents:
             tile = _apply_epilogue(tile, e, _tiles_of(e[5], gs),
                                    _tiles_of(e[8], gs))
@@ -1008,21 +1049,21 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
         flat = tile.reshape(batch, ng, rpt * row_len, d)
         # gathered as integers: torch.gather on CPU bfloat16 rewrites NaN
         # payloads, and a permutation moves bits
-        got = torch.gather(_int_view(flat), 2, src[None, :, :, None].expand(
+        got = torch.gather(_bits(flat), 2, src[None, :, :, None].expand(
             batch, ng, rpt * row_len, d))
         y_glob = orow[gs][:, rp] * row_len + cp
         if flags is None:
-            out[:, y_glob.reshape(-1)] = got.view(flat.dtype).reshape(
-                batch, -1, d)
+            out[:, y_glob.reshape(-1)] = got.reshape(batch, -1, d)
             continue
         got = got.masked_fill(~(xl_ok[gs, None] & s0_ok[idx])[None, :, :,
                                                                None], 0)
         keep = or_ok[gs][:, rp]                             # rows written
-        out[:, y_glob[keep]] = got.view(flat.dtype)[:, keep]
-    return out
+        out[:, y_glob[keep]] = got[:, keep]
+    return out.view(xc.dtype)
 
 
 def _device_float(a, device) -> torch.Tensor:
+    """A float32 twiddle table on ``device``."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a, dtype=np.float32))
     if t.dtype != torch.float32:
@@ -1036,11 +1077,13 @@ def _host(a):
 
 def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
                      elem_bytes: int, stride_bytes: int, access: int,
-                     dv: int, reg_bits: int) -> torch.Tensor:
+                     dv: int, reg_bits: int,
+                     dtype=torch.float32) -> torch.Tensor:
     """The register-epilogue plan of a K4b or K5 launch on ``dev``
     (:func:`.epilogue_plan.plan_epilogues`, with the device pointers of
     each epilogue's per-tile tables and twiddle values filled in), built
-    once per set of tables and launch geometry and kept. The tensor
+    once per set of tables, launch geometry and element type and kept
+    (twiddles as float32 values rounded to ``dtype``). The tensor
     carries the plan's summary as ``.info`` and holds every table it
     points to (or was built from) in ``._keep``; the cache counts those
     tables in the entry's bytes. A table that is not linear (affine per
@@ -1049,7 +1092,7 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
     tables = tuple(a for e in entries for a in e[3:10])
     key = ("epi_plan", tuple(id(a) for a in tables),
            tuple(e[:3] for e in entries), tuple(geometry), per_cta,
-           elem_bytes, stride_bytes, access, dv, reg_bits)
+           elem_bytes, stride_bytes, access, dv, reg_bits, str(dtype))
 
     def make():
         # the plan reads the index tables and a map's tape, not the
@@ -1071,7 +1114,7 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
             keep.append(hb)
             if e[0] == 1:
                 tb = _device_table(e[8], dev, n_tiles)
-                w = _device_float(e[9], dev)
+                w = _device_float(e[9], dev).to(dtype).float()
                 if w.shape != (1 << (n - 1), 2):
                     raise ValueError(
                         f"twiddle table of shape {tuple(w.shape)}, a 2^{n} "
@@ -1245,7 +1288,8 @@ def _epi_plan(xc, geometry, entries, n_buf: int, stride_bytes: int):
         stride_bytes=stride_bytes, access=size, dv=dv,
         reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
                              n_buf > 1,
-                             any(e[0] == EP.KIND_MAP for e in entries)))
+                             any(e[0] == EP.KIND_MAP for e in entries)),
+        dtype=xc.dtype)
     return plan, dv
 
 
@@ -1264,11 +1308,16 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1,
     if n_buf > 1:
         s = k5_schedule(geometry, xc.shape[0], d, size, align,
                         n_spill=EP.spill_sids(plan.info),
-                        n_map_sets=plan.info["maps"]
-                        << plan.info["outer_bits"], **kw)
+                        n_map_sets=_map_sets(plan.info, dv), **kw)
     else:
         s = k4b_schedule(geometry, xc.shape[0], d, size, align, **kw)
     return out, s, plan, dv
+
+
+def _map_sets(info: dict, dv: int) -> int:
+    """Sets of map inputs K5 keeps in shared memory: one a map, chunk and
+    planar value."""
+    return (info["maps"] << info["outer_bits"]) * dv
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
@@ -1400,9 +1449,10 @@ def _transposed_epilogue(ct, u, o, e, hi_base_g, tw_base_g):
     return bfly_transpose(ct, partner(ct), ~hi, wr, wi)
 
 
-def _plain_entries(entries, dev) -> list:
+def _plain_entries(entries, dev, dtype=torch.float32) -> list:
     """Epilogue entries with their tables as int64 tensors on ``dev`` and
-    the twiddles as float32 (the plain versions' form)."""
+    the twiddles in the tile's type ``dtype``, rounded from float32 (the
+    plain versions' form; the kernels read the same values as float32)."""
     ents = []
     for e in entries:
         if e[0] == EP.KIND_MAP:
@@ -1410,7 +1460,7 @@ def _plain_entries(entries, dev) -> list:
             continue
         tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
         w = None if e[9] is None else torch.as_tensor(
-            e[9], device=dev).to(torch.float32)
+            e[9], device=dev).to(torch.float32).to(dtype)
         ents.append(e[:3] + tuple(tabs) + (w,))
     return ents
 
@@ -1429,7 +1479,7 @@ def _tile_bwd_plain(xc, cc, in_rows, out_rows, xor_low, inv_src0, geometry,
     batch, _, d = xc.shape
     ir, orow = _long(in_rows, dev), _long(out_rows, dev)
     xl, inv = _long(xor_low, dev), _long(inv_src0, dev).reshape(-1)
-    ents = _plain_entries(entries, dev)
+    ents = _plain_entries(entries, dev, xc.dtype)
     lane = torch.arange(row_len, device=dev)
     out = torch.empty_like(xc)
     step = max(1, _PLAIN_CHUNK // (rpt * row_len))
@@ -1464,7 +1514,7 @@ def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
     a = _epi_args(s, tabs, plan, geometry, xc.shape[0], xc.dtype,
                   xc.shape[2], dv, has_cmp=int(info["groups"] > 0),
                   n_spill=EP.spill_sids(info),
-                  n_map_sets=info["maps"] << info["outer_bits"])
+                  n_map_sets=_map_sets(info, dv))
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
             ctypes.addressof(a), moved=3 * _nbytes(xc))
     return out
@@ -1481,8 +1531,8 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
     inverse of the pass's ``src0`` table; the geometry and the epilogue
     signature and tables are the forward's own (see
     :func:`tiled_permute_tables`). Returns the input's cotangent, shaped
-    as ``x``. Compare and map epilogues take float32 and bfloat16 (int32
-    has no gradient), butterflies planar float32; a map's gradient is
+    as ``x``. It takes float32, bfloat16 and float16 (integers have no
+    gradient), butterflies on their planar (re, im) tail; a map's gradient is
     reverse mode over its lowered tape in the kernel, autograd through
     its function in the plain version. A CUDA tensor launches the kernel,
     a CPU tensor runs its plain version."""
@@ -1499,8 +1549,9 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
         raise ValueError("the gradient kernel transposes a fused pass; a "
                          "pass without epilogues inverts as a plain pass")
     _check_epi_input(xc, entries, geometry)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"gradients take float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _FLOAT_TYPES:
+        raise ValueError(f"gradients take float32, bfloat16 or float16, got "
+                         f"{x.dtype}")
     if isinstance(x, _FakeTensor):
         out = _dry_launch(xc, "tile_bwd", None, 3 * _nbytes(x))
     elif _route(x, "tiled_permute_bwd_tables"):
@@ -1572,8 +1623,9 @@ def block_geometry(plan) -> tuple:
 
 def _block_plain(xc, src_rows, geometry):
     n, b, n_rows = geometry
-    xv = xc.reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
-    return xv.index_select(1, _long(src_rows, xc.device)).reshape(xc.shape)
+    xv = _bits(xc).reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
+    return xv.index_select(1, _long(src_rows, xc.device)).view(
+        xc.dtype).reshape(xc.shape)
 
 
 def _block_plain_guarded(xc, src_rows, geometry, flags):
@@ -1582,8 +1634,8 @@ def _block_plain_guarded(xc, src_rows, geometry, flags):
     zeros."""
     n, b, n_rows = geometry
     src, ok = _in_range(src_rows, n_rows, flags, xc.device)
-    xv = xc.reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
-    out = _int_view(xv.index_select(1, src))
+    xv = _bits(xc).reshape(xc.shape[0], n_rows, 1 << b, xc.shape[2])
+    out = xv.index_select(1, src)
     out[:, ~ok] = 0
     return out.view(xc.dtype).reshape(xc.shape)
 
@@ -1651,8 +1703,9 @@ def lane_geometry(plan) -> tuple:
 
 def _lane_plain(xc, src_lane, geometry):
     n, t, _ = geometry
-    xv = xc.reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
-    return xv.index_select(2, _long(src_lane, xc.device)).reshape(xc.shape)
+    xv = _bits(xc).reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
+    return xv.index_select(2, _long(src_lane, xc.device)).view(
+        xc.dtype).reshape(xc.shape)
 
 
 def _lane_launch(xc, src_lane, geometry, flags=None):
@@ -1685,8 +1738,8 @@ def _lane_plain_guarded(xc, src_lane, geometry, flags):
     zeros."""
     n, t, _ = geometry
     src, ok = _in_range(src_lane, 1 << t, flags, xc.device)
-    xv = xc.reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
-    out = _int_view(xv.index_select(2, src))
+    xv = _bits(xc).reshape(xc.shape[0], 1 << (n - t), 1 << t, xc.shape[2])
+    out = xv.index_select(2, src)
     out[:, :, ~ok] = 0
     return out.view(xc.dtype).reshape(xc.shape)
 
@@ -1745,14 +1798,14 @@ def _copy_plain(x, rows_per_block, row_len):
     """The reference's schedule: zero-pad to whole blocks, copy block by
     block, slice back."""
     blk = rows_per_block * row_len
-    flat = x.reshape(-1)
+    flat = _bits(x).reshape(-1)
     pad = copy_pad_elems(flat.numel(), rows_per_block, row_len)
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
     blocks = flat.reshape(-1, rows_per_block, row_len)
     out = torch.empty_like(blocks)
     out[:] = blocks
-    return out.reshape(-1)[:x.numel()].reshape(x.shape)
+    return out.reshape(-1)[:x.numel()].view(x.dtype).reshape(x.shape)
 
 
 class CopySchedule(NamedTuple):

@@ -23,12 +23,13 @@
 //        map:  ct <- ct * f'(u), by reverse mode over the map's tape with
 //              autograd's derivative formulas (the reference's jax.vjp);
 //   5. writes the result where the forward read: rows in_rows[g].
-// float32 and bfloat16 (cmp) and planar float32 (bfly); bfloat16 computes
-// each product and sum in float and rounds it to nearest even once, as
-// PyTorch does; float32 rounds each on its own (__fmul_rn/__fadd_rn: no
-// contraction into FMAs); a map's derivative formulas round as PyTorch's
-// CUDA kernels for them round (map_op_back). So the kernel is bit-equal
-// to its plain version tiled_permute_bwd_tables_plain on the card.
+// float32, bfloat16 and float16 (cmp, map, and bfly on a planar (re, im)
+// tail; integers have no gradient); a half float computes each product and
+// sum in float and rounds it to nearest even once, as PyTorch does;
+// float32 rounds each on its own (__fmul_rn/__fadd_rn: no contraction
+// into FMAs); a map's derivative formulas round as PyTorch's CUDA kernels
+// for them round (map_op_back). So the kernel is bit-equal to its plain
+// version tiled_permute_bwd_tables_plain on the card.
 //
 // Bound on the H100: bytes. x and ct are read once and the result written
 // once, 3 * size bytes over 3.35 TB/s, plus the tables. The first design
@@ -86,11 +87,17 @@ __device__ __forceinline__ float prod(float a, float m) {
 __device__ __forceinline__ Bf16 prod(Bf16 a, float m) {
   return round_bf16(__fmul_rn(as_float(a), m));
 }
+__device__ __forceinline__ F16 prod(F16 a, float m) {
+  return round_f16(__fmul_rn(as_float(a), m));
+}
 __device__ __forceinline__ float sum(float a, float b) {
   return __fadd_rn(a, b);
 }
 __device__ __forceinline__ Bf16 sum(Bf16 a, Bf16 b) {
   return round_bf16(__fadd_rn(as_float(a), as_float(b)));
+}
+__device__ __forceinline__ F16 sum(F16 a, F16 b) {
+  return round_f16(__fadd_rn(as_float(a), as_float(b)));
 }
 
 // The compare bits b of one element (bit 0: u == o, bit 1: P(u) == o) as
@@ -127,26 +134,46 @@ __device__ __forceinline__ void tr_cmp_regs(T (&v)[DV][KR],
   }
 }
 
-// Transposed butterfly on registers (planar float32).
-template <int VR, int KR>
-__device__ __forceinline__ void tr_bfly_regs(float (&v)[2][KR],
-                                             unsigned hx, int vlane,
-                                             const float2* w,
+// Transposed butterfly on registers (planar float32, bfloat16 or float16;
+// a half float rounds each product and sum to its type).
+template <int VR, int KR, typename T>
+__device__ __forceinline__ void tr_bfly_regs(T (&v)[2][KR], unsigned hx,
+                                             int vlane, const float2* w,
                                              const unsigned (&tw)[KR]) {
-  float pr[KR], pi[KR];
+  T pr[KR], pi[KR];
   partners<VR>(v[0], vlane, pr);
   partners<VR>(v[1], vlane, pi);
+  if constexpr (std::is_same_v<T, float>) {   // float32's code, as it was
 #pragma unroll
-  for (int i = 0; i < KR; ++i) {
-    if ((hx >> i) & 1u) {                  // the pair's "hi" member
-      const float2 wv = __ldg(w + tw[i]);
-      const float s_re = __fsub_rn(pr[i], v[0][i]);
-      const float s_im = __fsub_rn(pi[i], v[1][i]);
-      v[0][i] = __fadd_rn(__fmul_rn(wv.x, s_re), __fmul_rn(wv.y, s_im));
-      v[1][i] = __fsub_rn(__fmul_rn(wv.x, s_im), __fmul_rn(wv.y, s_re));
-    } else {
-      v[0][i] = __fadd_rn(v[0][i], pr[i]);
-      v[1][i] = __fadd_rn(v[1][i], pi[i]);
+    for (int i = 0; i < KR; ++i) {
+      if ((hx >> i) & 1u) {                // the pair's "hi" member
+        const float2 wv = __ldg(w + tw[i]);
+        const float s_re = __fsub_rn(pr[i], v[0][i]);
+        const float s_im = __fsub_rn(pi[i], v[1][i]);
+        v[0][i] = __fadd_rn(__fmul_rn(wv.x, s_re), __fmul_rn(wv.y, s_im));
+        v[1][i] = __fsub_rn(__fmul_rn(wv.x, s_im), __fmul_rn(wv.y, s_re));
+      } else {
+        v[0][i] = __fadd_rn(v[0][i], pr[i]);
+        v[1][i] = __fadd_rn(v[1][i], pi[i]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const float c_re = as_float(v[0][i]), c_im = as_float(v[1][i]);
+      const float q_re = as_float(pr[i]), q_im = as_float(pi[i]);
+      if ((hx >> i) & 1u) {                // the pair's "hi" member
+        const float2 wv = __ldg(w + tw[i]);
+        const float s_re = rnd<T>(__fsub_rn(q_re, c_re));
+        const float s_im = rnd<T>(__fsub_rn(q_im, c_im));
+        narrow_to(__fadd_rn(rnd<T>(__fmul_rn(wv.x, s_re)),
+                            rnd<T>(__fmul_rn(wv.y, s_im))), v[0][i]);
+        narrow_to(__fsub_rn(rnd<T>(__fmul_rn(wv.x, s_im)),
+                            rnd<T>(__fmul_rn(wv.y, s_re))), v[1][i]);
+      } else {
+        narrow_to(__fadd_rn(c_re, q_re), v[0][i]);
+        narrow_to(__fadd_rn(c_im, q_im), v[1][i]);
+      }
     }
   }
 }
@@ -156,8 +183,8 @@ __device__ __forceinline__ void tr_bfly_regs(float (&v)[2][KR],
 // PyTorch rounds them on the card, each aten op rounded to T once (the
 // fused tanh_backward and sigmoid_backward kernels as they compute:
 // bfloat16 after each op, float32 tanh's 1 - y * y an FMA), as
-// map_lower.tape_vjp computes them for a CUDA tensor. Out of line, as
-// map_elem_op.
+// map_lower.tape_vjp computes them for a CUDA tensor; float16 rounds as
+// bfloat16 does. Out of line, as map_elem_op.
 template <typename T>
 __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
                                            float b, float y, float g) {
@@ -201,7 +228,7 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
                             rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(y, y)), y))));
       break;
     case OP_TANH:   // PyTorch's CUDA tanh_backward: g * (1 - y * y)
-      if constexpr (std::is_same_v<T, Bf16>)   // in bfloat16 arithmetic
+      if constexpr (kHalf<T>)                  // in half arithmetic
         ga = rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f,
                                                   rnd<T>(__fmul_rn(y, y))))));
       else                                     // contracted into an FMA
@@ -210,6 +237,12 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
     case OP_SIGMOID:   // sigmoid_backward: (g * (1 - y)) * y, each in T
       ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f, y)))),
                             y));
+      break;
+    case OP_SIN:   // autograd: g * a.cos(), two ops
+      ga = rnd<T>(__fmul_rn(g, rnd<T>(map_trig(OP_COS, a))));
+      break;
+    case OP_COS:   // g * -a.sin()
+      ga = rnd<T>(__fmul_rn(g, -rnd<T>(map_trig(OP_SIN, a))));
       break;
     default: ga = g; break;
   }
@@ -256,10 +289,13 @@ __device__ __forceinline__ void transposed_epilogue(
     const int* ep, const long long* gep, T (&v)[DV][KR],
     const unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
     int outer_bits, const T* save) {
-  if constexpr (kMaps && DV == 1) {
+  if constexpr (kMaps) {
     if (ep[EP_KIND] == kKindMap) {
-      map_vjp_regs(ep, v[0], map_save_at<KR>(save, ep[EP_MAP_SLOT], chunk,
-                                             outer_bits));
+#pragma unroll
+      for (int c = 0; c < DV; ++c)
+        map_vjp_regs(ep, v[c], map_save_at<KR>(save,
+                                               ep[EP_MAP_SLOT] * DV + c,
+                                               chunk, outer_bits));
       return;
     }
   }
@@ -508,14 +544,17 @@ static int launch_bwd(const void* x, const void* ct, void* out,
   return (int)cudaGetLastError();
 }
 
+#ifndef REPRO_NO_EPI_ENTRY_POINTS   // as in tile_fused.cu
+
 // One K5 launch under the schedule *a (EpiTileArgs; k5_schedule in
-// bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16 (int32 has no
-// gradient); dv as in repro_tile_fused; 8 registers a thread (its compare
-// bits sit beside its values); has_cmp: the cluster has compares (dv 1
-// takes the compare variant either way: a cluster of maps alone has no
-// compare bits to keep); n_spill: compare-bit sets kept in shared memory
-// (0: one or two sets, all in registers); n_map_sets: maps times chunks,
-// the sets of map inputs kept in shared memory.
+// bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16, 3 = float16
+// (integers have no gradient); dv as in repro_tile_fused; 8 registers a
+// thread (its compare bits sit beside its values); has_cmp: the cluster
+// has compares (dv 1, and a planar cluster with maps, take the compare
+// variant either way: a cluster of maps alone has no compare bits to
+// keep); n_spill: compare-bit sets kept in shared memory (0: one or two
+// sets, all in registers); n_map_sets: maps times chunks times dv, the
+// sets of map inputs kept in shared memory.
 extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
                               const EpiTileArgs* a, void* stream) {
   if (a == nullptr || a->grid <= 0 || a->n_work <= 0 || a->batch <= 0 ||
@@ -523,9 +562,9 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
       a->per_cta <= 0 || a->groups <= 0 || a->n_groups <= 0 ||
       (a->n_buf != 1 && a->n_buf != 2) || a->d <= 0 || a->n_spill < 0 ||
       a->n_map_sets < 0 || a->plan == nullptr || a->n_words < kHdrWords ||
-      a->n_epi < 0 || a->regs != 8 ||
-      (a->dv == 2 && (a->elem_type != 1 || a->d != 2)) ||
-      (a->dv == 2 && a->n_map_sets) || (a->vec && a->wpe != a->dv))
+      a->n_epi < 0 || a->regs != 8 || a->elem_type < 1 ||
+      a->elem_type > 3 || (a->dv == 2 && a->d != 2) ||
+      (a->vec && a->wpe != a->dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_BWD(T, DV, CMP, MAPS, MB) \
@@ -533,16 +572,34 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): compares at 4 (float32, 64 registers)
   // and 3 (bfloat16, 80) ran faster than at 3 and 2, with no spills
-  if (a->dv == 2 && a->has_cmp) REPRO_BWD(float, 2, true, false, 2);
-  if (a->dv == 2) REPRO_BWD(float, 2, false, false, 3);
+  // (float16 takes bfloat16's)
+  if (a->dv == 2) {
+#define REPRO_PLANAR(T)                                     \
+  if (a->n_map_sets) REPRO_BWD(T, 2, true, true, 2);        \
+  if (a->has_cmp) REPRO_BWD(T, 2, true, false, 2);          \
+  REPRO_BWD(T, 2, false, false, 3);                         \
+  break
+    switch (a->elem_type) {
+      case 1: REPRO_PLANAR(float);
+      case 2: REPRO_PLANAR(Bf16);
+      case 3: REPRO_PLANAR(F16);
+      default: break;
+    }
+#undef REPRO_PLANAR
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->n_map_sets) {   // 2 blocks an SM: the map code spills at 3
     if (a->elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
     if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, true, 2);
+    if (a->elem_type == 3) REPRO_BWD(F16, 1, true, true, 2);
     return (int)cudaErrorInvalidValue;
   }
   if (a->elem_type == 1) REPRO_BWD(float, 1, true, false, 4);
   if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, false, 3);
+  if (a->elem_type == 3) REPRO_BWD(F16, 1, true, false, 3);
   return (int)cudaErrorInvalidValue;
 #undef REPRO_BWD
 }
+
+#endif  // REPRO_NO_EPI_ENTRY_POINTS

@@ -30,15 +30,24 @@
 //     hi ? max(self, partner) : min(self, partner), the butterfly from its
 //     own and its partner's values;
 //   * floats compare as integer keys (the float order, -0 < +0) in every
-//     warp whose values hold no NaN, so a float32 or bfloat16 compare
-//     costs what an int32 one does; a warp with a NaN takes the float
-//     selects. NaN, -0 and the no-FMA rounding are exactly those of
-//     cmp_max, cmp_min and the butterfly in bmmc_permute.py;
+//     warp whose values hold no NaN, so a float32, bfloat16 or float16
+//     compare costs what an int32 one does; a warp with a NaN takes the
+//     float selects. Integers of 8, 16 and 32 bits (signed or unsigned;
+//     bool is uint8) always compare as int keys. NaN, -0 and the no-FMA
+//     rounding are exactly those of cmp_max, cmp_min and the butterfly in
+//     bmmc_permute.py; a bfloat16 or float16 butterfly computes each
+//     product and sum in float and rounds it to its type;
 //   * a map (an element-wise torch function, map_lower.py) runs in the
 //     thread on each register as a tape of ops, uniform over the block.
 //     A map can make NaNs or move keys, so a phase that holds maps runs
 //     its compares in runs between them, each with its own NaN vote and
-//     keys, and each map on the values themselves.
+//     keys, and each map on the values themselves (beside butterflies, on
+//     both planar values of a register slot).
+//
+// Element types: the kernels are instantiated by storage width and
+// compare class, not by dtype: int, U32 (4 bytes), I16, U16 (2), I8, U8
+// (1; bool), float and the half floats Bf16 and F16 (2, computed through
+// float).
 //
 // The plan is int64 words in device memory: a header (phases, epilogues,
 // outer bits, register bits), then one record per phase and one per
@@ -46,6 +55,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -54,9 +64,38 @@
 struct Bf16 {   // bfloat16 as its bits; compared through float
   uint16_t bits;
 };
+struct F16 {    // float16 as its bits; compared through float
+  uint16_t bits;
+};
+// Integers as their storage; compared and mapped as int (U32 with its
+// sign bit flipped for compares, unsigned in a map's ops)
+struct I8 {
+  int8_t v;
+};
+struct U8 {
+  uint8_t v;
+};
+struct I16 {
+  int16_t v;
+};
+struct U16 {
+  uint16_t v;
+};
+struct U32 {
+  uint32_t v;
+};
+
+template <typename T>
+inline constexpr bool kHalf =
+    std::is_same_v<T, Bf16> || std::is_same_v<T, F16>;
+template <typename T>
+inline constexpr bool kFloatElem = std::is_same_v<T, float> || kHalf<T>;
 
 __device__ __forceinline__ float as_float(Bf16 v) {
   return __uint_as_float((unsigned)v.bits << 16);
+}
+__device__ __forceinline__ float as_float(F16 v) {
+  return __half2float(__ushort_as_half(v.bits));
 }
 __device__ __forceinline__ float as_float(float v) { return v; }
 
@@ -64,6 +103,10 @@ __device__ __forceinline__ Bf16 round_bf16(float f) {
   // round to nearest even, as PyTorch rounds float to bfloat16 on the
   // card (__float2bfloat16: a NaN becomes 0x7FFF)
   return Bf16{__bfloat16_as_ushort(__float2bfloat16(f))};
+}
+__device__ __forceinline__ F16 round_f16(float f) {
+  // round to nearest even, as PyTorch rounds float to float16 on the card
+  return F16{__half_as_ushort(__float2half_rn(f))};
 }
 
 // The compare-exchange output of a position: hi ? max(a, b) : min(a, b)
@@ -94,6 +137,16 @@ __device__ __forceinline__ Bf16 cmp_sel(bool hi, Bf16 a, Bf16 b) {
   r = (fb != fb) ? b.bits : r;
   return Bf16{(fa != fa) ? a.bits : r};
 }
+__device__ __forceinline__ F16 cmp_sel(bool hi, F16 a, F16 b) {
+  const float fa = as_float(a), fb = as_float(b);
+  const bool a_wins = hi ? (fa > fb) : (fa < fb);
+  const bool b_wins = hi ? (fb > fa) : (fb < fa);
+  uint16_t r = hi ? (uint16_t)(a.bits & b.bits) : (uint16_t)(a.bits | b.bits);
+  r = b_wins ? b.bits : r;
+  r = a_wins ? a.bits : r;
+  r = (fb != fb) ? b.bits : r;
+  return F16{(fa != fa) ? a.bits : r};
+}
 
 // Compare keys: a float (or bfloat16, widened) as an int whose order is
 // the float order with -0 < +0, for values that are not NaN. key(key(b))
@@ -111,14 +164,46 @@ __device__ __forceinline__ Key to_key(float v) {
 __device__ __forceinline__ Key to_key(Bf16 v) {
   return Key{float_key((int)((unsigned)v.bits << 16))};
 }
+// float16: its sign-magnitude bits as a two's-complement key at 16 bits
+// (+0 is 0, -0 is -1, as float_key gives for the wider floats)
+__device__ __forceinline__ Key to_key(F16 v) {
+  const int b = (int)(int16_t)v.bits;
+  return Key{b ^ ((b >> 31) & 0x7FFF)};
+}
 __device__ __forceinline__ void from_key(Key k, float& v) {
   v = __int_as_float(float_key(k.k));
 }
 __device__ __forceinline__ void from_key(Key k, Bf16& v) {
   v = Bf16{(uint16_t)((unsigned)float_key(k.k) >> 16)};
 }
+__device__ __forceinline__ void from_key(Key k, F16& v) {
+  v = F16{(uint16_t)(k.k ^ ((k.k >> 31) & 0x7FFF))};
+}
+// Integer keys: the value as int (uint32 with its sign bit flipped), so
+// an int compare orders it; used only where no compare bits are kept.
+__device__ __forceinline__ Key to_key(I8 v) { return Key{v.v}; }
+__device__ __forceinline__ Key to_key(U8 v) { return Key{v.v}; }
+__device__ __forceinline__ Key to_key(I16 v) { return Key{v.v}; }
+__device__ __forceinline__ Key to_key(U16 v) { return Key{v.v}; }
+__device__ __forceinline__ Key to_key(U32 v) {
+  return Key{(int)(v.v ^ 0x80000000u)};
+}
+__device__ __forceinline__ void from_key(Key k, I8& v) { v.v = (int8_t)k.k; }
+__device__ __forceinline__ void from_key(Key k, U8& v) { v.v = (uint8_t)k.k; }
+__device__ __forceinline__ void from_key(Key k, I16& v) {
+  v.v = (int16_t)k.k;
+}
+__device__ __forceinline__ void from_key(Key k, U16& v) {
+  v.v = (uint16_t)k.k;
+}
+__device__ __forceinline__ void from_key(Key k, U32& v) {
+  v.v = (unsigned)k.k ^ 0x80000000u;
+}
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
 __device__ __forceinline__ bool is_nan(Bf16 v) {
+  return as_float(v) != as_float(v);
+}
+__device__ __forceinline__ bool is_nan(F16 v) {
   return as_float(v) != as_float(v);
 }
 __device__ __forceinline__ Key cmp_sel(bool hi, Key a, Key b) {
@@ -128,17 +213,38 @@ __device__ __forceinline__ Key shfl_x(Key v, int m) {
   return Key{__shfl_xor_sync(0xffffffffu, v.k, m)};
 }
 
+// One result rounded to T (float32, or a half float), kept in float.
+template <typename T>
+__device__ __forceinline__ float rnd(float f) {
+  if constexpr (std::is_same_v<T, Bf16>) return as_float(round_bf16(f));
+  if constexpr (std::is_same_v<T, F16>) return as_float(round_f16(f));
+  return f;
+}
+__device__ __forceinline__ void narrow_to(float f, float& v) { v = f; }
+__device__ __forceinline__ void narrow_to(float f, Bf16& v) {
+  v = round_bf16(f);
+}
+__device__ __forceinline__ void narrow_to(float f, F16& v) {
+  v = round_f16(f);
+}
+
 // One butterfly output, exactly as the reference writes it: `hi` says
-// whether this position holds the pair's "hi" member.
-__device__ __forceinline__ void bfly_out(bool hi, float v_re, float v_im,
-                                         float p_re, float p_im, float wr,
-                                         float wi, float* o) {
-  const float lo_re = hi ? p_re : v_re, lo_im = hi ? p_im : v_im;
-  const float hr = hi ? v_re : p_re, him = hi ? v_im : p_im;
-  const float t_re = __fsub_rn(__fmul_rn(wr, hr), __fmul_rn(wi, him));
-  const float t_im = __fadd_rn(__fmul_rn(wr, him), __fmul_rn(wi, hr));
-  o[0] = hi ? __fsub_rn(lo_re, t_re) : __fadd_rn(lo_re, t_re);
-  o[1] = hi ? __fsub_rn(lo_im, t_im) : __fadd_rn(lo_im, t_im);
+// whether this position holds the pair's "hi" member. Each product and
+// sum is rounded on its own (no contraction into FMAs), to T for a half
+// float, the twiddles (float32 values already rounded to T) included.
+template <typename T>
+__device__ __forceinline__ void bfly_out(bool hi, T v_re, T v_im, T p_re,
+                                         T p_im, float wr, float wi, T* o) {
+  const float lo_re = as_float(hi ? p_re : v_re);
+  const float lo_im = as_float(hi ? p_im : v_im);
+  const float hr = as_float(hi ? v_re : p_re);
+  const float him = as_float(hi ? v_im : p_im);
+  const float t_re = rnd<T>(__fsub_rn(rnd<T>(__fmul_rn(wr, hr)),
+                                      rnd<T>(__fmul_rn(wi, him))));
+  const float t_im = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(wr, him)),
+                                      rnd<T>(__fmul_rn(wi, hr))));
+  narrow_to(hi ? __fsub_rn(lo_re, t_re) : __fadd_rn(lo_re, t_re), o[0]);
+  narrow_to(hi ? __fsub_rn(lo_im, t_im) : __fadd_rn(lo_im, t_im), o[1]);
 }
 
 __device__ __forceinline__ int shfl_x(int v, int m) {
@@ -149,6 +255,9 @@ __device__ __forceinline__ float shfl_x(float v, int m) {
 }
 __device__ __forceinline__ Bf16 shfl_x(Bf16 v, int m) {
   return Bf16{(uint16_t)__shfl_xor_sync(0xffffffffu, (unsigned)v.bits, m)};
+}
+__device__ __forceinline__ F16 shfl_x(F16 v, int m) {
+  return F16{(uint16_t)__shfl_xor_sync(0xffffffffu, (unsigned)v.bits, m)};
 }
 
 // ---------------------------------------------------------------------
@@ -411,18 +520,19 @@ __device__ __forceinline__ unsigned tw_thread(const int* ep, unsigned chunk,
          image_of(ep + EP_TW_OUT, chunk, outer_bits);
 }
 
-// Butterfly epilogue on registers (planar float32: v[0] re, v[1] im).
-template <int VR, int KR>
-__device__ __forceinline__ void bfly_regs(float (&v)[2][KR], unsigned hx,
+// Butterfly epilogue on registers (planar float32, bfloat16 or float16:
+// v[0] re, v[1] im).
+template <int VR, int KR, typename T>
+__device__ __forceinline__ void bfly_regs(T (&v)[2][KR], unsigned hx,
                                           int vlane, const float2* w,
                                           const unsigned (&tw)[KR]) {
-  float pr[KR], pi[KR];
+  T pr[KR], pi[KR];
   partners<VR>(v[0], vlane, pr);
   partners<VR>(v[1], vlane, pi);
 #pragma unroll
   for (int i = 0; i < KR; ++i) {
     const float2 wv = __ldg(w + tw[i]);
-    float o[2];
+    T o[2];
     bfly_out((hx >> i) & 1u, v[0][i], v[1][i], pr[i], pi[i], wv.x, wv.y, o);
     v[0][i] = o[0];
     v[1][i] = o[1];
@@ -443,8 +553,9 @@ __device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
 // (R; the map's input before the first op), the map's input (U) or a
 // constant (C). A float32 op rounds as eager PyTorch does on the card (no
 // contraction into FMAs; a / c as a * (1 / c), PyTorch's CUDA division by
-// a number); a bfloat16 op computes in float and rounds to bfloat16; an
-// int32 op wraps. The record: kind 2, the tape's length, the map's slot,
+// a number); a bfloat16 or float16 op computes in float and rounds to its
+// type; an integer op computes in int and wraps at its type's width
+// (uint32 unsigned). The record: kind 2, the tape's length, the map's slot,
 // two words an op from EP_MAP_OPS (opcode | a << 8 | b << 10, constant),
 // past EP_HI_BASE and EP_TW_BASE, which stage_plan reads as pointers.
 // The tape runs one register at a time (a value and its input live), so
@@ -455,31 +566,44 @@ enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_OPS = 8 };
 enum {   // opcodes (map_lower.py)
   OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
   OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
-  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR
+  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR, OP_SIN, OP_COS
 };
 enum { OPND_R, OPND_U, OPND_C, OPND_NONE };
 
-// The value type a tape computes in: float for float32 and bfloat16.
+// The value type a tape computes in: float for the float types, int for
+// the integers.
 template <typename T>
 struct MapOf {
-  using type = float;
-};
-template <>
-struct MapOf<int> {
-  using type = int;
+  using type = std::conditional_t<kFloatElem<T>, float, int>;
 };
 __device__ __forceinline__ int widen(int v) { return v; }
+__device__ __forceinline__ int widen(I8 v) { return v.v; }
+__device__ __forceinline__ int widen(U8 v) { return v.v; }
+__device__ __forceinline__ int widen(I16 v) { return v.v; }
+__device__ __forceinline__ int widen(U16 v) { return v.v; }
+__device__ __forceinline__ int widen(U32 v) { return (int)v.v; }
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(Bf16 v) { return as_float(v); }
+__device__ __forceinline__ float widen(F16 v) { return as_float(v); }
 __device__ __forceinline__ void narrow_to(int f, int& v) { v = f; }
-__device__ __forceinline__ void narrow_to(float f, float& v) { v = f; }
-__device__ __forceinline__ void narrow_to(float f, Bf16& v) {
-  v = round_bf16(f);
+__device__ __forceinline__ void narrow_to(int f, I8& v) { v.v = (int8_t)f; }
+__device__ __forceinline__ void narrow_to(int f, U8& v) { v.v = (uint8_t)f; }
+__device__ __forceinline__ void narrow_to(int f, I16& v) {
+  v.v = (int16_t)f;
 }
-// One result rounded to T, kept in float.
+__device__ __forceinline__ void narrow_to(int f, U16& v) {
+  v.v = (uint16_t)f;
+}
+__device__ __forceinline__ void narrow_to(int f, U32& v) {
+  v.v = (unsigned)f;
+}
+// An integer op's result wrapped at T's width (sign- or zero-extended).
 template <typename T>
-__device__ __forceinline__ float rnd(float f) {
-  if constexpr (std::is_same_v<T, Bf16>) return as_float(round_bf16(f));
+__device__ __forceinline__ int wrap(int f) {
+  if constexpr (std::is_same_v<T, I8>) return (int8_t)f;
+  if constexpr (std::is_same_v<T, U8>) return (uint8_t)f;
+  if constexpr (std::is_same_v<T, I16>) return (int16_t)f;
+  if constexpr (std::is_same_v<T, U16>) return (uint16_t)f;
   return f;
 }
 
@@ -488,7 +612,14 @@ __device__ __forceinline__ F operand(int kind, F r, F u, F c) {
   return kind == OPND_R ? r : (kind == OPND_U ? u : c);
 }
 
-// One float op (float32 or bfloat16 T) on resolved operands.
+// sin and cos (CUDA's sinf and cosf: a large argument reduces through a
+// local-memory array). Out of line, so that their code and stack frame
+// stay out of map_elem_op's other ops.
+__device__ __noinline__ float map_trig(int op, float a) {
+  return op == OP_SIN ? sinf(a) : cosf(a);
+}
+
+// One float op (float32, bfloat16 or float16 T) on resolved operands.
 template <typename T>
 __device__ __forceinline__ float map_op(int op, float a, float b) {
   float y;
@@ -510,14 +641,28 @@ __device__ __forceinline__ float map_op(int op, float a, float b) {
     case OP_RSQRT: y = rsqrtf(a); break;
     case OP_TANH: y = tanhf(a); break;
     case OP_SIGMOID: y = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))); break;
+    case OP_SIN:
+    case OP_COS: y = map_trig(op, a); break;
     default: y = a; break;
   }
   return rnd<T>(y);
 }
 
-// One int32 op, wrapping.
+// One int32 op, wrapping (kUnsigned: uint32's bits, compared and
+// shifted as unsigned).
+template <bool kUnsigned = false>
 __device__ __forceinline__ int map_op_int(int op, int a, int b) {
   const unsigned ua = (unsigned)a, ub = (unsigned)b;
+  if constexpr (kUnsigned) {
+    switch (op) {
+      case OP_ABS: return a;
+      case OP_MAXC: return (int)(ua > ub ? ua : ub);
+      case OP_MINC: return (int)(ua < ub ? ua : ub);
+      case OP_RELU: return a;
+      case OP_SHR: return (int)(ua >> (b & 31));
+      default: break;
+    }
+  }
   switch (op) {
     case OP_ADD: return (int)(ua + ub);
     case OP_SUB: return (int)(ua - ub);
@@ -550,6 +695,10 @@ __device__ __noinline__ typename MapOf<T>::type map_elem_op(
   if constexpr (std::is_same_v<T, int>) {
     const int c = w[1];
     return map_op_int(op, operand(ka, r, u, c), operand(kb, r, u, c));
+  } else if constexpr (!kFloatElem<T>) {
+    const int c = w[1];
+    return wrap<T>(map_op_int<std::is_same_v<T, U32>>(
+        op, operand(ka, r, u, c), operand(kb, r, u, c)));
   } else {
     float c = __int_as_float(w[1]);
     if (op == OP_DIV && kb == OPND_C) {   // PyTorch: a * (1 / c)
@@ -580,7 +729,8 @@ __device__ __forceinline__ void map_regs(const int* ep, T (&v)[KR]) {
 
 // Epilogue e of the plan (staged record ep, device record gep) on the
 // registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
-// kPairs: integer values and keys compare through cmp_pairs.
+// kPairs: integer values and keys compare through cmp_pairs. A butterfly
+// runs on planar pairs (DV 2) of float32, bfloat16 or float16.
 template <bool kMask, bool kPairs = false, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogue(const int* ep,
                                                  const long long* gep,
@@ -610,11 +760,44 @@ __device__ __forceinline__ void forward_epilogue(const int* ep,
 
 // Epilogues e0 .. e1 - 1 of a phase (staged plan sp, device plan gp; the
 // records from word ebase) on a thread's registers. A compare cluster's
-// float or bfloat16 values run on keys (integer compares, as cheap as
-// int32's) in every warp whose values hold no NaN; a warp holds every
-// partner of its positions within a phase, so the test is the warp's own.
+// float, bfloat16 or float16 values run on keys (integer compares, as
+// cheap as int32's) in every warp whose values hold no NaN; a warp holds
+// every partner of its positions within a phase, so the test is the
+// warp's own. Integers other than int32 always run on keys (the forward
+// pass only: no compare bits are kept for them).
+template <bool kMask, bool kPairs, int DV, int KR, typename T>
+__device__ __forceinline__ void forward_epilogues_of(
+    const int* sp, const long long* gp, int ebase, int e0, int e1,
+    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits);
+
 template <bool kMask, bool kPairs = false, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogues(
+    const int* sp, const long long* gp, int ebase, int e0, int e1,
+    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits) {
+  if constexpr (!kFloatElem<T> && !std::is_same_v<T, int>) {
+    static_assert(DV == 1 && !kMask, "integers: single values, forward");
+    Key kv[1][KR];
+#pragma unroll
+    for (int i = 0; i < KR; ++i) kv[0][i] = to_key(v[0][i]);
+    for (int e = e0; e < e1; ++e) {
+      const int off = ebase + e * kEpiWords;
+      forward_epilogue<kMask, kPairs>(sp + off, gp + off, kv, m, qb, chunk,
+                                      outer_bits);
+    }
+#pragma unroll
+    for (int i = 0; i < KR; ++i) from_key(kv[0][i], v[0][i]);
+    return;
+  } else {
+    forward_epilogues_of<kMask, kPairs>(sp, gp, ebase, e0, e1, v, m, qb,
+                                        chunk, outer_bits);
+  }
+}
+
+// forward_epilogues for int32 and the float types.
+template <bool kMask, bool kPairs, int DV, int KR, typename T>
+__device__ __forceinline__ void forward_epilogues_of(
     const int* sp, const long long* gp, int ebase, int e0, int e1,
     T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
     int outer_bits) {
@@ -644,7 +827,8 @@ __device__ __forceinline__ void forward_epilogues(
 }
 
 // Where K5 keeps map slot `slot`'s input values of chunk `chunk`: one
-// value per register and thread.
+// value per register and thread (beside butterflies, slot 2 * map + c for
+// planar value c).
 template <int KR, typename T>
 __device__ __forceinline__ T* map_save_at(T* save, int slot, unsigned chunk,
                                           int outer_bits) {
@@ -656,11 +840,11 @@ __device__ __forceinline__ T* map_save_at(T* save, int slot, unsigned chunk,
 // without maps (kMaps false: exactly the compare and butterfly code) and,
 // for clusters that hold maps, with them: the map code's registers would
 // otherwise cost the map-free clusters 3-8 % of their time on the H100
-// (PERF.md, PR 15). With kMaps, a phase runs the compares between two
-// maps as forward_epilogues runs them, with their own NaN vote and keys,
-// and each map on the values (maps never share a cluster with
-// butterflies). K5 passes `save`: each map's input values (map_save_at),
-// for its transposed sweep.
+// (PERF.md, PR 15). With kMaps, a phase runs the compares and butterflies
+// between two maps as forward_epilogues runs them, with their own NaN
+// vote and keys, and each map on the values (on both planar values of a
+// butterfly cluster's register slots). K5 passes `save`: each map's input
+// values (map_save_at), for its transposed sweep.
 template <bool kMask, bool kMaps, bool kPairs = false, int DV, int KR,
           typename T>
 __device__ __forceinline__ void phase_epilogues(
@@ -668,7 +852,7 @@ __device__ __forceinline__ void phase_epilogues(
     T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
     int outer_bits, T* save) {
   const int e1 = ph[PH_E1];
-  if constexpr (!kMaps || DV == 2) {
+  if constexpr (!kMaps) {
     forward_epilogues<kMask, kPairs>(sp, gp, ebase, ph[PH_E0], e1, v, m, qb,
                                      chunk, outer_bits);
   } else {
@@ -685,12 +869,16 @@ __device__ __forceinline__ void phase_epilogues(
                                          chunk, outer_bits);
       if (s == e1) return;
       const int* ep = sp + ebase + s * kEpiWords;
-      if (save != nullptr) {
-        T* at = map_save_at<KR>(save, ep[EP_MAP_SLOT], chunk, outer_bits);
 #pragma unroll
-        for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = v[0][i];
+      for (int c = 0; c < DV; ++c) {
+        if (save != nullptr) {
+          T* at = map_save_at<KR>(save, ep[EP_MAP_SLOT] * DV + c, chunk,
+                                  outer_bits);
+#pragma unroll
+          for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = v[c][i];
+        }
+        map_regs(ep, v[c]);
       }
-      map_regs(ep, v[0]);
       e = s + 1;
     }
   }
@@ -710,12 +898,10 @@ struct PhaseRegs {
 };
 
 // The word a tile of T moves in (its own width: the kernels with
-// epilogues are compiled once per element type).
+// epilogues are compiled once per element class).
 template <typename T>
 struct ElemWord {
-  using type = uint32_t;
-};
-template <>
-struct ElemWord<Bf16> {
-  using type = uint16_t;
+  using type = std::conditional_t<
+      sizeof(T) == 1, uint8_t,
+      std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>>;
 };

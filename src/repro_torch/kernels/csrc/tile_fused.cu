@@ -8,8 +8,11 @@
 // epilogue, tile position (r, c) pairs with (r ^ vr, c ^ vc) and
 //     hi = hi_row[r] ^ hi_lane[c] ^ hi_base[g]
 //   cmp:  v = hi ? max(v, partner) : min(v, partner), elementwise over
-//         the tail d (int32, float32, bfloat16);
-//   bfly: (lo, hi) pair values of the planar (re, im) tail, twiddle
+//         the tail d (integers of 8, 16 and 32 bits, bool, float32,
+//         bfloat16, float16);
+//   bfly: (lo, hi) pair values of the planar (re, im) tail (float32,
+//         bfloat16 or float16; a half float rounds each product and sum
+//         to its type, the twiddles already rounded to it), twiddle
 //         w = w_planar[tw_row[r] ^ tw_lane[c] ^ tw_base[g]],
 //         v = hi ? lo - w * hi_val : lo + w * hi_val;
 //   map:  v = f(v), f the Map's torch function as the tape map_lower.py
@@ -44,10 +47,14 @@
 // per phase. The 12-compare clusters of a 2^24 sort run in two phases.
 // Tails are taken one value at a time (cmp acts on each value of the
 // tail alone); a cluster with butterflies holds the planar (re, im) pair
-// of each position. A map runs its tape on each register in the thread.
-// The kernel is compiled once per element type, register count,
+// of each position. A map runs its tape on each register in the thread
+// (beside butterflies, on both planar values). The kernel is compiled once
+// per element class (storage width and compare class: int, U32, I16, U16,
+// I8, U8 for uint8 and bool, float, Bf16, F16), register count,
 // planar-or-not and with-or-without maps, at the blocks per SM its
-// registers allow (a sweep, tools/fused_ab.py). A pointer off 16-byte
+// registers allow (a sweep, tools/fused_ab.py, for the int32, float32 and
+// bfloat16 ones; the classes added later take the blocks per SM of the
+// class they widen like). A pointer off 16-byte
 // alignment, rows of fewer than 16 bytes or a tail of several values a
 // register slot does not hold take the same schedule one word of the
 // element's width at a time.
@@ -213,17 +220,31 @@ static bool valid_args(const EpiTileArgs* a) {
          (a->n_buf == 1 || a->n_buf == 2) && a->d > 0 &&
          a->plan != nullptr && a->n_words >= kHdrWords && a->n_epi >= 0 &&
          (a->regs == 8 || a->regs == 16) &&
-         !(a->dv == 2 && (a->elem_type != 1 || a->d != 2)) &&
-         !(a->maps && (a->dv != 1 || a->regs != 8)) &&
-         !(a->vec && a->wpe != a->dv);
+         !(a->dv == 2 && (a->elem_type < 1 || a->elem_type > 3 ||
+                          a->d != 2)) &&
+         !(a->maps && a->regs != 8) && !(a->vec && a->wpe != a->dv);
 }
 
+// The entry points (a file that includes this one for its device code,
+// tools/fused_ab.cu, leaves them and their instantiations out).
+#ifndef REPRO_NO_EPI_ENTRY_POINTS
+
+// The planar (dv 2) element types: float32, bfloat16, float16.
+#define REPRO_PLANAR_SWITCH(elem_type, CASE) \
+  switch (elem_type) {                       \
+    case 1: CASE(float);                     \
+    case 2: CASE(Bf16);                      \
+    case 3: CASE(F16);                       \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
 // One K4b launch under the schedule *a (EpiTileArgs; k4b_schedule in
-// bmmc_permute.py): elem_type 0 = int32, 1 = float32, 2 = bfloat16; dv:
-// tail values a register slot holds (2: a planar (re, im) cluster with
-// butterflies); regs: positions a thread holds (16, or 8: see
-// tile_epilogue.cuh); maps: the cluster holds map epilogues (single
-// values, 8 registers).
+// bmmc_permute.py): elem_type 0 = int32, 1 = float32, 2 = bfloat16, 3 =
+// float16, 4 = int8, 5 = uint8 (and bool), 6 = int16, 7 = uint16, 8 =
+// uint32; dv: tail values a register slot holds (2: a planar (re, im)
+// cluster with butterflies, float types only); regs: positions a thread
+// holds (16, or 8: see tile_epilogue.cuh); maps: the cluster holds map
+// epilogues (8 registers).
 extern "C" int repro_tile_fused(const void* x, void* out,
                                 const EpiTileArgs* a, void* stream) {
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
@@ -233,13 +254,25 @@ extern "C" int repro_tile_fused(const void* x, void* out,
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 3 with a few spills than at 2 without
-  if (a->dv == 2) REPRO_FUSED(float, 2, 8, false, 3);
+  if (a->dv == 2) {
+#define REPRO_PLANAR(T)                                    \
+  if (a->maps) REPRO_FUSED(T, 2, 8, true, 3);              \
+  REPRO_FUSED(T, 2, 8, false, 3)
+    REPRO_PLANAR_SWITCH(a->elem_type, REPRO_PLANAR)
+#undef REPRO_PLANAR
+  }
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->maps) {
     switch (a->elem_type) {
       case 0: REPRO_FUSED(int, 1, 8, true, 4);
       case 1: REPRO_FUSED(float, 1, 8, true, 4);
       case 2: REPRO_FUSED(Bf16, 1, 8, true, 4);
+      case 3: REPRO_FUSED(F16, 1, 8, true, 4);
+      case 4: REPRO_FUSED(I8, 1, 8, true, 4);
+      case 5: REPRO_FUSED(U8, 1, 8, true, 4);
+      case 6: REPRO_FUSED(I16, 1, 8, true, 4);
+      case 7: REPRO_FUSED(U16, 1, 8, true, 4);
+      case 8: REPRO_FUSED(U32, 1, 8, true, 4);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -251,6 +284,18 @@ extern "C" int repro_tile_fused(const void* x, void* out,
             REPRO_FUSED(float, 1, 8, false, 4);
     case 2: if (r16) REPRO_FUSED(Bf16, 1, 16, false, 3);
             REPRO_FUSED(Bf16, 1, 8, false, 4);
+    case 3: if (r16) REPRO_FUSED(F16, 1, 16, false, 3);
+            REPRO_FUSED(F16, 1, 8, false, 4);
+    case 4: if (r16) REPRO_FUSED(I8, 1, 16, false, 4);
+            REPRO_FUSED(I8, 1, 8, false, 4);
+    case 5: if (r16) REPRO_FUSED(U8, 1, 16, false, 4);
+            REPRO_FUSED(U8, 1, 8, false, 4);
+    case 6: if (r16) REPRO_FUSED(I16, 1, 16, false, 4);
+            REPRO_FUSED(I16, 1, 8, false, 4);
+    case 7: if (r16) REPRO_FUSED(U16, 1, 16, false, 4);
+            REPRO_FUSED(U16, 1, 8, false, 4);
+    case 8: if (r16) REPRO_FUSED(U32, 1, 16, false, 4);
+            REPRO_FUSED(U32, 1, 8, false, 4);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FUSED
@@ -270,7 +315,11 @@ extern "C" int repro_tile_fused_guarded(const void* x, void* out,
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 4 with spills than at 3
-  if (a->dv == 2) REPRO_GUARDED(float, 2, 8, 3);
+  if (a->dv == 2) {
+#define REPRO_PLANAR(T) REPRO_GUARDED(T, 2, 8, 3)
+    REPRO_PLANAR_SWITCH(a->elem_type, REPRO_PLANAR)
+#undef REPRO_PLANAR
+  }
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   const bool r16 = a->regs == 16;
   switch (a->elem_type) {
@@ -280,7 +329,21 @@ extern "C" int repro_tile_fused_guarded(const void* x, void* out,
             REPRO_GUARDED(float, 1, 8, 4);
     case 2: if (r16) REPRO_GUARDED(Bf16, 1, 16, 4);
             REPRO_GUARDED(Bf16, 1, 8, 4);
+    case 3: if (r16) REPRO_GUARDED(F16, 1, 16, 4);
+            REPRO_GUARDED(F16, 1, 8, 4);
+    case 4: if (r16) REPRO_GUARDED(I8, 1, 16, 4);
+            REPRO_GUARDED(I8, 1, 8, 4);
+    case 5: if (r16) REPRO_GUARDED(U8, 1, 16, 4);
+            REPRO_GUARDED(U8, 1, 8, 4);
+    case 6: if (r16) REPRO_GUARDED(I16, 1, 16, 4);
+            REPRO_GUARDED(I16, 1, 8, 4);
+    case 7: if (r16) REPRO_GUARDED(U16, 1, 16, 4);
+            REPRO_GUARDED(U16, 1, 8, 4);
+    case 8: if (r16) REPRO_GUARDED(U32, 1, 16, 4);
+            REPRO_GUARDED(U32, 1, 8, 4);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_GUARDED
 }
+
+#endif  // REPRO_NO_EPI_ENTRY_POINTS

@@ -14,7 +14,7 @@
 // thread (16 / element bytes consecutive output lanes, their src0 entries
 // read at once) and K5's copy-out moves 16 bytes a thread; otherwise every
 // step moves one word of the element type's own width a thread (cp.async
-// for 4 bytes, plain loads for bfloat16's 2).
+// for 4 bytes, plain loads for 2- and 1-byte elements).
 //
 // With kGuard (the guarded K4b, tile_fused.cu) the steps test each table
 // entry before the access it addresses; their unguarded statements stay
@@ -56,7 +56,9 @@ struct EpiTileArgs {
   int stride;               // words a tile row takes in shared memory
   int word_bytes;           // bytes of the element type's word
   int vec;                  // 16-byte copies, gathers and stores
-  int elem_type;            // 0 int32, 1 float32, 2 bfloat16
+  int elem_type;            // 0 int32, 1 float32, 2 bfloat16, 3 float16,
+                            // 4 int8, 5 uint8 (bool), 6 int16, 7 uint16,
+                            // 8 uint32
   int d;                    // tail values an element
   int dv;                   // tail values a register slot holds
   int regs;                 // positions a thread holds (16 or 8)
@@ -241,13 +243,18 @@ template <>
 struct ElemVec<uint32_t, 2> {
   using type = uint2;
 };
+template <>
+struct ElemVec<uint16_t, 2> {   // a planar bfloat16 or float16 pair
+  using type = uint32_t;
+};
 
 // An item's output rows from its tile: out.flat[r * 2^t + l] =
 // tile.flat[src0.flat[r * 2^t + (l ^ xl[j])]] (j the row's tile), whole
 // rows at rout[r]. With vec, each thread stores 16 bytes: VE = 16 /
 // element bytes consecutive lanes, whose src0 entries are those at
 // (l ^ xl_hi) + m, read at once and taken in the order m ^ xl_lo
-// (xl_lo = xl & (VE - 1)), as K4a's narrow schedule does (tile_permute.cu).
+// (xl_lo = xl & (VE - 1)), as K4a's narrow schedule does (tile_permute.cu);
+// VE is 1 to 16 (1-byte elements: 16 lanes, four int4 loads of src0).
 // kGuard (the guarded K4b, tables staged by stage_items<true>): a lane
 // whose src0 entry lies outside the tile sets *bad and stores zero; a
 // tile whose lane XOR is -1 reads no src0 entry and stores zeros; a row

@@ -10,16 +10,22 @@ result), the map's input (``U``) or a Python number (``C``). K4b and K5
 (``tile_epilogue.cuh``) evaluate the tape on register values: float32
 ops as eager PyTorch rounds them on the card (one rounding an op;
 a division by a constant is a product with its reciprocal, as PyTorch's
-CUDA ``div`` computes it), bfloat16 ops in float rounded to bfloat16
-after each op, int32 ops wrapping. K5 takes the map's gradient by
-reverse mode over the tape, with autograd's derivative formulas rounded
-as PyTorch's CUDA kernels round them (:func:`tape_vjp`).
+CUDA ``div`` computes it), bfloat16 and float16 ops in float rounded to
+the type after each op, integer ops (8, 16 and 32 bits) in int narrowed
+to the type's width after each op, so they wrap where torch wraps (bool:
+``~`` as an XOR with 1, and only ``&``, ``|``, ``^`` and ``*``, which keep
+0 and 1). K5 takes the map's gradient by reverse mode over the tape, with
+autograd's derivative formulas rounded as PyTorch's CUDA kernels round
+them (:func:`tape_vjp`).
 
 A function the list does not cover, one whose trace fails (``.item()``,
 data-dependent Python branches), changes dtype or shape, or is longer
 than :data:`TAPE_MAX` ops is not lowered (``Tape.ops is None``): a
 cluster that holds it runs stage by stage and counts a fused fallback.
-A float function lowers for float32 and bfloat16 alike or for neither.
+A float function lowers for float32, bfloat16 and float16 alike or for
+none of them. An op torch does not define for a type (most of them for
+uint16 and uint32 on the CPU) fails the trace, so the map is not lowered
+for that type.
 Tapes are kept in a bounded cache by ``(Map.name, dtype)``, each holding
 its function (another function under a cached name is lowered anew),
 and dropped by ``combinators.clear_caches``.
@@ -42,19 +48,20 @@ R, U, C, NONE = 0, 1, 2, 3  # operand kinds: running value, map input,
 # opcodes, kept equal to tile_epilogue.cuh
 (OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
  OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
- OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR) = range(23)
+ OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR, OP_SIN, OP_COS) = range(25)
 
-_FLOATS = (torch.float32, torch.bfloat16)
-# not sin and cos: CUDA's sinf and cosf reduce a large argument through
-# an array in local memory, which the register epilogues keep out of
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_INTS = (torch.int32, torch.int8, torch.uint8, torch.int16, torch.uint16,
+         torch.uint32, torch.bool)
 _UNARY_FLOAT = {
     "exp": OP_EXP, "expm1": OP_EXPM1, "log": OP_LOG, "log1p": OP_LOG1P,
     "sqrt": OP_SQRT, "rsqrt": OP_RSQRT, "tanh": OP_TANH,
-    "sigmoid": OP_SIGMOID}
+    "sigmoid": OP_SIGMOID, "sin": OP_SIN, "cos": OP_COS}
 _BINARY = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV,
            "bitwise_and": OP_AND, "bitwise_or": OP_OR,
            "bitwise_xor": OP_XOR}
 _INT_ONLY = (OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR)
+_BOOL_OPS = (OP_AND, OP_OR, OP_XOR, OP_MUL)   # and OP_NOT, as an XOR
 
 
 class Tape:
@@ -116,17 +123,19 @@ def cache_info() -> tuple:
 
 def _lower(fn: Callable, dtype) -> Optional[tuple]:
     """The tape ops of ``fn`` for ``dtype``. A float function is lowered
-    only when its float32 and bfloat16 traces are the same ops on the
-    same operands (constants may round differently), so whether a map
+    only when its float32, bfloat16 and float16 traces are the same ops on
+    the same operands (constants may round differently), so whether a map
     runs in the kernels, and with it the round-trip model, does not
     depend on which float type it meets."""
     if dtype not in _FLOATS:
-        return _trace(fn, dtype) if dtype == torch.int32 else None
+        return _trace(fn, dtype) if dtype in _INTS else None
     ops = _trace(fn, dtype)
-    other = _trace(fn, _FLOATS[1 - _FLOATS.index(dtype)])
-    if ops is None or other is None or (
-            [o[:3] for o in ops] != [o[:3] for o in other]):
+    if ops is None:
         return None
+    for other in _FLOATS:
+        got = _trace(fn, other) if other != dtype else ops
+        if got is None or [o[:3] for o in ops] != [o[:3] for o in got]:
+            return None
     return ops
 
 
@@ -177,8 +186,9 @@ def _operand(arg, u, prev, dtype):
         return R, None
     if isinstance(arg, bool) or not isinstance(arg, (int, float)):
         return None
-    if dtype == torch.int32:
-        if not isinstance(arg, int) or not -2**31 <= arg < 2**31:
+    if dtype in _INTS:
+        if (dtype == torch.bool or not isinstance(arg, int)
+                or not torch.iinfo(dtype).min <= arg <= torch.iinfo(dtype).max):
             return None
         return C, int(arg)
     if math.isnan(float(arg)):
@@ -209,6 +219,11 @@ def _op(nd, u, prev, dtype) -> Optional[list]:
             return None
         if op in _INT_ONLY and is_float:
             return None
+        if dtype == torch.bool:
+            if op == OP_NOT:    # ~ on 0 and 1: an XOR with 1
+                return (OP_XOR, x[0], C, 1)
+            if op not in _BOOL_OPS:
+                return None
         if op in (OP_SHL, OP_SHR) and not (y[0] == C and 0 <= y[1] < 32):
             return None
         return (op, x[0], y[0], x[1] if x[0] == C else y[1])
@@ -238,8 +253,9 @@ def _op(nd, u, prev, dtype) -> Optional[list]:
             if bound[0] != C:
                 return None
             c = bound[1]
-            if dtype == torch.bfloat16:   # PyTorch casts a clamp bound
-                c = float(torch.tensor(c, dtype=torch.bfloat16))
+            if dtype in (torch.bfloat16, torch.float16):
+                # PyTorch casts a clamp bound to the type
+                c = float(torch.tensor(c, dtype=dtype))
             ops.append(one(op, x, (C, c)))
             x = (R, None)
         if not ops:
@@ -261,13 +277,14 @@ def _op(nd, u, prev, dtype) -> Optional[list]:
 
 def tape_words(tape: Tape) -> list:
     """Two int32 words per op: ``op | a << 8 | b << 10`` (operand kinds)
-    and the constant (float32 bits, or the int32 value)."""
+    and the constant (float32 bits, or the integer's low 32 bits)."""
     out = []
     for op, a, b, c in tape.ops:
         if c is None:
             cw = 0
-        elif tape.dtype == torch.int32:
-            cw = int(np.int32(c))
+        elif tape.dtype in _INTS:
+            cw = int(np.array(c, dtype=np.int64).astype(np.uint32).view(
+                np.int32))
         else:
             cw = int(np.float32(c).view(np.int32))
         out += [op | a << 8 | b << 10, cw]
@@ -283,7 +300,7 @@ _TORCH_UNARY = {
     OP_EXP: torch.exp, OP_EXPM1: torch.expm1, OP_LOG: torch.log,
     OP_LOG1P: torch.log1p, OP_SQRT: torch.sqrt, OP_RSQRT: torch.rsqrt,
     OP_TANH: torch.tanh, OP_SIGMOID: torch.sigmoid,
-    OP_NOT: torch.bitwise_not}
+    OP_NOT: torch.bitwise_not, OP_SIN: torch.sin, OP_COS: torch.cos}
 
 
 def eval_tape(tape: Tape, u: torch.Tensor) -> torch.Tensor:
@@ -292,6 +309,8 @@ def eval_tape(tape: Tape, u: torch.Tensor) -> torch.Tensor:
     compute, and equal to ``tape.fn(u)`` on every input."""
     r = u
     for op, a, b, c in tape.ops:
+        if u.dtype == torch.bool and c is not None:
+            c = bool(c)             # bool's NOT: an XOR with True
         x, y = _pick(a, r, u, c), _pick(b, r, u, c)
         if op in _TORCH_UNARY:
             r = _TORCH_UNARY[op](x)
@@ -327,11 +346,12 @@ def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     rounded once to the dtype, the cotangents of ``u`` summed in the
     order autograd receives them. The fused ``tanh_backward`` and
     ``sigmoid_backward`` round as PyTorch's kernels do: float32 tanh's
-    ``1 - y * y`` is one FMA on either device; in bfloat16 the CUDA
-    kernels round after each op, the CPU's once. Intermediates come from
-    :func:`eval_tape`."""
+    ``1 - y * y`` is one FMA on either device; in bfloat16 and float16 the
+    CUDA kernels round after each op, the CPU's once. Intermediates come
+    from :func:`eval_tape`."""
     dt = u.dtype
-    per_op = dt == torch.bfloat16 and u.device.type == "cuda"
+    per_op = (dt in (torch.bfloat16, torch.float16)
+              and u.device.type == "cuda")
 
     def rnd(v):
         return v.to(dt).float()
@@ -412,4 +432,8 @@ def _backward(op, ka, kb, g, x, y, res, c, rnd, per_op):
         if not per_op:
             return rnd(g * (1 - res) * res), None
         return rnd(rnd(g * rnd(1 - res)) * res), None
-    raise ValueError(f"op {op} has no gradient (int32)")
+    if op == OP_SIN:    # autograd: grad * x.cos(), two aten ops
+        return rnd(g * rnd(torch.cos(x))), None
+    if op == OP_COS:    # grad * -x.sin()
+        return rnd(g * -rnd(torch.sin(x))), None
+    raise ValueError(f"op {op} has no gradient (integers)")

@@ -96,7 +96,15 @@ def bmmc_ref(x: torch.Tensor, bmmc: Bmmc, *,
         bad = (idx < 0) | (idx >= bmmc.size)
         flags.bitwise_or_(bad.any().to(torch.int32))
         idx = idx.clamp(0, bmmc.size - 1)
-    return torch.index_select(x, axis, idx)
+    return _gather(x, axis, idx)
+
+
+def _gather(x: torch.Tensor, axis: int, idx: torch.Tensor) -> torch.Tensor:
+    """``index_select`` of ``x``'s bits (a signed integer view of its
+    width: torch on the CPU has no index_select for uint16, uint32 and
+    uint64)."""
+    from .bmmc_permute import _bits
+    return torch.index_select(_bits(x), axis, idx).view(x.dtype)
 
 
 def _parity(v: torch.Tensor) -> torch.Tensor:
@@ -144,5 +152,5 @@ def bmmc_ref_device(x: torch.Tensor, bmmc: Bmmc, *, batched: bool = False,
     for s in range(0, bmmc.size, chunk):
         e = min(bmmc.size, s + chunk)
         idx = bmmc_src_index(bmmc, x.device, start=s, stop=e)
-        out.narrow(axis, s, e - s).copy_(torch.index_select(x, axis, idx))
+        out.narrow(axis, s, e - s).copy_(_gather(x, axis, idx))
     return out

@@ -1452,3 +1452,275 @@ def test_cuda_dry_run_counts_equal_the_real_run(cuda_device, kind):
     assert k4a == per_layer * cfg.n_layers == pk.launch_counts()["tile"]
     peak = torch.cuda.max_memory_allocated() - other
     assert abs(peak - dry["peak_bytes"]) <= 64 * 2 ** 20
+
+
+# ---------------------------------------------------------------------------
+# the element types the reference's fused kernel takes: float16, 8- and
+# 16-bit integers, uint32, bool; half-float butterflies; maps beside them
+# ---------------------------------------------------------------------------
+
+_SIGNED_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def _typed_keys(dtype, shape, device, seed):
+    """Keys of ``dtype``: random bits of integers over their whole range
+    (bool 0 and 1), ties, NaNs and signed zeros for float16."""
+    if dtype.is_floating_point:
+        return _ties(shape, dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=g, device=device) > 0
+    size = torch.empty((), dtype=dtype).element_size()
+    raw = torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                        device=device, dtype=torch.int64)
+    return raw.to(_SIGNED_VIEW[size]).view(dtype)
+
+
+def _bits_of(x):
+    return x.view(_SIGNED_VIEW.get(x.element_size(), torch.int32))
+
+
+_NEW_TYPES = [torch.float16, torch.int8, torch.uint8, torch.int16,
+              torch.uint16, torch.uint32, torch.bool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 14])
+@pytest.mark.parametrize("dtype", _NEW_TYPES, ids=str)
+def test_cuda_new_types_k4b_and_guarded_match_plain(cuda_device, dtype, n):
+    """Every new K4b instantiation (the first three and the largest sort
+    clusters: 8 and 16 registers, 2^14-position tiles of 1-byte elements
+    at 2^14) and the guarded K4b, bit for bit against their plain
+    versions, on the 16-byte path and one element off it (the word path).
+    The guarded K4b sets no flag on clean tables and bit 1, as its plain
+    version does, with entry 1 of each table poisoned."""
+    from repro_torch.combinators import execute as pex
+    from repro_torch.combinators.sort import sort_expr
+    size = torch.empty((), dtype=dtype).element_size()
+    t = pops.choose_tile(n, size)
+    clusters = _fused_clusters(sort_expr(n), n, t)
+    picked = clusters[:3] + [max(clusters, key=lambda s: len(s.computes))]
+    before = pk.launch_counts()
+    for off in (0, 1):
+        x = _offset(_typed_keys(dtype, (1 << n,), cuda_device, n + off), off)
+        for fs in picked:
+            got = _fused(fs, t, x, False, plain=False)
+            want = _fused(fs, t, x, False, plain=True)
+            assert torch.equal(_bits_of(got), _bits_of(want)), (off, fs)
+        fs = picked[-1]
+        plans, entries = pex._fused_plan_cached(fs, t)
+        tabs, epi = pex._pass_tables(plans[0], entries, x)
+        geo = pk.plan_geometry(plans[0])
+        flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        pflags = torch.zeros_like(flags)
+        want = pk.tiled_permute_tables(x, *tabs, geometry=geo, **epi)
+        got = pk.tiled_permute_tables(x, *tabs, geometry=geo, flags=flags,
+                                      **epi)
+        plain = pk.tiled_permute_tables_plain(x, *tabs, geometry=geo,
+                                              flags=pflags, **epi)
+        torch.cuda.synchronize()
+        assert int(flags) == 0 and int(pflags) == 0
+        assert torch.equal(_bits_of(got), _bits_of(want))
+        assert torch.equal(_bits_of(got), _bits_of(plain))
+        for table in range(4):
+            bad = [a.clone() for a in tabs]
+            bad[table].view(-1)[1] = 1 << 30
+            flags.zero_()
+            pflags.zero_()
+            got = pk.tiled_permute_tables(x, *bad, geometry=geo, flags=flags,
+                                          **epi)
+            plain = pk.tiled_permute_tables_plain(x, *bad, geometry=geo,
+                                                  flags=pflags, **epi)
+            torch.cuda.synchronize()
+            assert int(flags) == 1 and int(pflags) == 1, table
+            keep = torch.ones(1 << n, dtype=torch.bool, device=cuda_device)
+            if table == 1:   # a bad output row id leaves that row unwritten
+                r0 = int(tabs[1].view(-1)[1])
+                keep[r0 << geo[1]:(r0 + 1) << geo[1]] = False
+            assert torch.equal(_bits_of(got)[keep], _bits_of(plain)[keep])
+    after = pk.launch_counts()
+    assert after["tile_fused"] >= before["tile_fused"] + 2 * len(picked)
+    assert after["tile_fused_guarded"] == before["tile_fused_guarded"] + 10
+
+
+def _fft_map_expr(n, t, name, fn):
+    """The 2^n FFT with ``emap(name, fn)`` after the first butterfly stage
+    whose cluster at tile ``t`` then holds the map beside butterflies."""
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import vocab as V
+    for map_at in range(n):
+        stages = [V.bit_reverse(n)]
+        for s in range(n):
+            e = F._stage_core(s)
+            for _ in range(n - s - 1):
+                e = V.two(e)
+            stages.append(e)
+            if s == map_at:
+                stages.append(V.emap(name, fn))
+        expr = V.seq(*stages)
+        for fs in compile_expr(expr).clustered_program(n, t):
+            kinds = {type(c).__name__ for c, _ in getattr(fs, "computes", ())}
+            if {"Map", "Bfly"} <= kinds:
+                return expr
+    raise AssertionError("no cluster holds the map beside butterflies")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("case", ["fft", "fft + map", "fft + sin",
+                                  "fft, 2 bytes off"])
+def test_cuda_planar_butterflies_of_every_float_type(cuda_device, dtype,
+                                                     case):
+    """Butterflies on planar float32, bfloat16 and float16 (each product
+    and sum rounded to the type, the twiddles rounded to it), alone, beside
+    a map (``v * 2 - 1``, ``sin``) and one element off 16-byte alignment:
+    K4b, the guarded K4b (no map) and K5 bit for bit against their plain
+    versions, K5 on the map variant where the cluster holds a map."""
+    from repro_torch.combinators.fft import fft_expr
+    n = 12
+    t = pops.choose_tile(n, torch.empty((), dtype=dtype).element_size(), 2)
+    expr = {"fft": fft_expr(n), "fft, 2 bytes off": fft_expr(n),
+            "fft + map": _fft_map_expr(n, t, "twice_less_one",
+                                       lambda v: v * 2 - 1),
+            "fft + sin": _fft_map_expr(n, t, "sin", torch.sin)}[case]
+    clusters = _fused_clusters(expr, n, t)
+    if "+" in case:
+        clusters = [fs for fs in clusters
+                    if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
+        assert clusters and any(type(c).__name__ == "Bfly"
+                                for c, _ in clusters[0].computes)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    off = 1 if "off" in case else 0
+    x = _offset(torch.randn(1 << n, 2, generator=g, device=cuda_device)
+                .to(dtype), 2 * off)
+    ct = _offset(torch.randn(1 << n, 2, generator=g, device=cuda_device)
+                 .to(dtype), 2 * off)
+    iv = _SIGNED_VIEW[x.element_size()]
+    flags = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for fs in clusters:
+        got = _fused(fs, t, x, False, plain=False)
+        want = _fused(fs, t, x, False, plain=True)
+        assert torch.equal(got.view(iv), want.view(iv)), case
+        if "+" not in case:
+            with pk.guard_flags(flags):
+                guarded = _fused(fs, t, x, False, plain=False)
+            torch.cuda.synchronize()
+            assert int(flags) == 0
+            assert torch.equal(guarded.view(iv), want.view(iv))
+        got = _bwd(fs, t, x, ct, False, plain=False)
+        want = _bwd(fs, t, x, ct, False, plain=True)
+        assert torch.equal(got.view(iv), want.view(iv)), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,tail,batch", [("float16", (), None),
+                                              ("float16 d=3", (3,), None),
+                                              ("float16 B=3", (), 3)])
+def test_cuda_k5_float16_matches_plain(cuda_device, label, tail, batch):
+    """K5 on float16 compare clusters (ties, NaNs, signed zeros; the 0.5
+    tie masks and the products and sums in half arithmetic) bit for bit
+    against its plain version."""
+    from repro_torch.combinators.sort import sort_expr
+    n = 12
+    d = tail[0] if tail else 1
+    t = pops.choose_tile(n, 2, d)
+    shape = ((batch,) if batch else ()) + (1 << n,) + tail
+    x = _ties(shape, torch.float16, cuda_device, 5)
+    ct = torch.randn(shape, device=cuda_device).to(torch.float16)
+    clusters = _fused_clusters(sort_expr(n), n, t)
+    picked = clusters[:2] + [max(clusters, key=lambda s: len(s.computes))]
+    for fs in picked:
+        got = _bwd(fs, t, x, ct, bool(batch), plain=False)
+        want = _bwd(fs, t, x, ct, bool(batch), plain=True)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+_TYPED_MAPS = [
+    (torch.float16, "tanh", torch.tanh),
+    (torch.float16, "sigmoid", torch.sigmoid),
+    (torch.float16, "affine3", lambda v: (v * 3 + 1) * 0.5),
+    (torch.float16, "div7", lambda v: v / 7),
+    (torch.float32, "sin", torch.sin), (torch.float32, "cos", torch.cos),
+    (torch.bfloat16, "sin", torch.sin), (torch.bfloat16, "cos", torch.cos),
+    (torch.float16, "sin", torch.sin), (torch.float16, "cos", torch.cos),
+    (torch.float32, "sin of large", lambda v: torch.sin(v * 1000)),
+    (torch.int8, "wrap", lambda v: v * 7 + 3),
+    (torch.uint8, "shr", lambda v: v >> 1),
+    (torch.int16, "not", torch.bitwise_not),
+    (torch.uint8, "x3", lambda v: v * 3),
+    (torch.int16, "clamp", lambda v: torch.clamp(v, -1000, 1000)),
+    (torch.bool, "not", torch.bitwise_not)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name,fn", _TYPED_MAPS,
+                         ids=[f"{d}-{n}" for d, n, _ in _TYPED_MAPS])
+def test_cuda_maps_of_every_type_match_plain(cuda_device, dtype, name, fn):
+    """Map epilogues of each new type in K4b (and K5 for the float types),
+    bit for bit against their plain versions, which run the map's torch
+    function eagerly on the card: float16 computes in float and rounds
+    after each op, the integers wrap at their width, bool's NOT is an XOR
+    with 1; sin and cos (float32, bfloat16, float16; large arguments
+    included) equal eager torch, their derivatives autograd's."""
+    n = 12
+    t = pops.choose_tile(n, torch.empty((), dtype=dtype).element_size())
+    x = _typed_keys(dtype, (1 << n,), cuda_device, 9)
+    if dtype.is_floating_point:
+        u = torch.rand(1 << n, device=cuda_device)
+        x = ((u - 0.5) * 8).to(dtype)
+    clusters = [fs for fs in _fused_clusters(_map_expr(n, name, fn), n, t)
+                if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
+    assert clusters
+    for fs in clusters:
+        got = _fused(fs, t, x, False, plain=False)
+        want = _fused(fs, t, x, False, plain=True)
+        assert torch.equal(_bits_of(got), _bits_of(want)), name
+        if dtype.is_floating_point:
+            ct = torch.randn(1 << n, device=cuda_device).to(dtype)
+            got = _bwd(fs, t, x, ct, False, plain=False)
+            want = _bwd(fs, t, x, ct, False, plain=True)
+            assert torch.equal(_bits_of(got), _bits_of(want)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _NEW_TYPES, ids=str)
+def test_cuda_sort_of_every_type_fuses(cuda_device, dtype):
+    """``sort.sort`` of 2^16 keys of each new type on the card: no fused
+    fallback, every compute cluster one K4b launch, bit-equal to the same
+    program's plain run on the CPU (float16: NaNs by position) and, where
+    torch sorts the type, to ``torch.sort``; the float16 gradient through
+    K5 bit-equal to the CPU's."""
+    from repro_torch import obs
+    from repro_torch.combinators import FusedStage
+    from repro_torch.combinators.sort import compiled_sort
+    n = 16
+    x = _typed_keys(dtype, (1 << n,), cuda_device, 17)
+    f = compiled_sort(n)
+    pk.reset_launch_counts()
+    obs.reset()
+    obs.enable()
+    try:
+        got = f(x)
+        torch.cuda.synchronize()
+        assert obs.counter_total("dispatch.fused_fallback") == 0
+    finally:
+        obs.disable()
+        obs.reset()
+    t = pops.choose_tile(n, x.element_size())
+    fused = sum(1 for s in f.clustered_program(n, t)
+                if isinstance(s, FusedStage) and s.computes)
+    assert pk.launch_counts()["tile_fused"] == fused > 0
+    want = f(x.cpu())
+    assert torch.equal(_bits_of(got).cpu(), _bits_of(want))
+    if dtype in (torch.int8, torch.uint8, torch.int16):
+        assert torch.equal(got, torch.sort(x).values)
+    if dtype == torch.float16:
+        xg = x.clone().requires_grad_(True)
+        w = torch.randn(1 << n, device=cuda_device).to(dtype)
+        (w * f(xg)).sum().backward()
+        xc = x.cpu().requires_grad_(True)
+        (w.cpu() * f(xc)).sum().backward()
+        assert torch.equal(xg.grad.cpu().view(torch.int16),
+                           xc.grad.view(torch.int16))

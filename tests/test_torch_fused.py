@@ -210,7 +210,7 @@ def test_map_cluster_falls_back_per_stage(name, fn, lowered):
     """A cluster that holds a map runs as one K4b pass when the map's
     function lowers to a tape (no fused fallback), and stage by stage,
     counted as a fused fallback, when it does not; both equal the
-    reference bit for bit."""
+    reference bit for bit (on int16 keys, a type K4b took last)."""
     n = 7
     pf = pc.compile_expr(_map_expr(PV, PBmmc, name, fn), engine="cuda")
     rf = rc.compile_expr(_map_expr(RV, RBmmc, name, fn), engine="ref")
@@ -219,7 +219,7 @@ def test_map_cluster_falls_back_per_stage(name, fn, lowered):
                and any(isinstance(ss, pc.Map) for ss in s.stages)
                for s in prog)
     x = np.random.default_rng(2).integers(-1000, 1000, 1 << n).astype(
-        np.int32)
+        np.int16)
     pobs.reset()
     pobs.enable()
     try:

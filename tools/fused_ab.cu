@@ -16,6 +16,9 @@
 // launchers passed (tools/fused_ab.py's _old_args, then the element
 // type, tail, registers and maps, the guarded kernel's flag word, or K5's
 // compare, spill and map-set counts).
+// The port's entry points (and their instantiations of every element
+// class) are left out: this library instantiates what it launches.
+#define REPRO_NO_EPI_ENTRY_POINTS
 #include "tile_fused.cu"
 #include "tile_bwd.cu"
 
