@@ -263,7 +263,23 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    a row of the kernels line (``tile_fused[int8]``, ...). Last, a ``sin``
    map's cluster on keys up to 300 in magnitude against an exact map, and
    the map kernel's stack frame;
-21. last line: ``{"ok": true, "device": {...}}``.
+21. the example twins (``EXAMPLE_TWINS``): each ``examples/*_torch.py``
+   run as a subprocess with ``--device cuda`` and ``PYTHONPATH=src`` at its
+   default size, then the sort, the FFT and the gradient twins again at
+   the card's sizes (``--n`` of 2^n_sort keys, 2^n_fft points, 2^n_ties
+   elements): the user-facing paths of the port (``bmmc_permute`` by
+   class, the fused sort and FFT, the compiled backward and
+   ``PermuteLayer``, ``distributed_bmmc`` on one NCCL rank, the serving
+   launcher's cold and disk-warm boots, the training launcher's stop and
+   resume); a twin that exits non-zero fails the run. One line a twin:
+   exit code, wall seconds and the kernel launches it reports (K4b, K5
+   and every other kernel it launched); each twin's own output, times in
+   ms of CUDA events, follows it. The kernels line gains
+   ``examples_launches`` on the rows of phase 3's kernels (summed over
+   the twins' runs; for ``tile_serve`` the serving twin's K4a launches);
+   the element-type rows of phase 20 have none, since a twin counts its
+   launches by kernel and not by element type;
+22. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -272,6 +288,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -325,6 +342,15 @@ N_PERM = 26               # log2 elements of the gradient's permutation chain
 # float32 rounding grows like eps * log2(N) (eps = 6e-8, 22 stages), so
 # 1e-5 leaves about an order of magnitude of room.
 FFT_REL_TOL = 1e-5
+
+# The example twins of phase 21, run in this order at their default sizes
+# (the serving and training twins at the smallest profile their reference
+# offers: a smoke-sized model, the ``smoke`` training profile)
+EXAMPLE_TWINS = ("quickstart_torch.py", "sorting_network_torch.py",
+                 "fft_pipeline_torch.py", "grad_permute_torch.py",
+                 "distributed_permute_torch.py", "serve_batch_torch.py",
+                 "train_lm_torch.py")
+EXAMPLE_TIMEOUT_S = 300   # seconds a twin may take before the run fails
 
 # Peak HBM bandwidth by card (NVIDIA data sheets); the byte bound of a
 # kernel is the bytes it must move over this rate.
@@ -4507,6 +4533,58 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
     return rows
 
 
+def twin_launches(out: str) -> dict:
+    """The kernel launches a twin reported: every ``kernel launches...:
+    name=count ...`` line of its output, summed."""
+    counts: dict = {}
+    for line in out.splitlines():
+        if line.startswith("kernel launches"):
+            for pair in line.split(":", 1)[1].split():
+                k, v = pair.split("=")
+                counts[k] = counts.get(k, 0) + int(v)
+    return counts
+
+
+def phase_examples(smi: str, card_sizes: dict) -> dict:
+    """Run each example twin on the card at its default size, then the
+    twins of ``card_sizes`` again at the card's size (``--n``); returns
+    the launches of each kernel summed over all these runs, and under
+    ``tile_serve`` the serving twin's K4a launches."""
+    say("== phase 21: the example twins ==")
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
+    runs = [(name, []) for name in EXAMPLE_TWINS]
+    runs += [(name, ["--n", str(n)]) for name, n in card_sizes.items()]
+    total: dict = {}
+    for name, extra in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(HERE / "examples" / name), "--device",
+             "cuda"] + extra, cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        got = twin_launches(res.stdout)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        ran = {k: v for k, v in got.items() if v}
+        size = " ".join(extra) if extra else "default size"
+        say(f"  {name} ({size}): exit {res.returncode} in {wall:.1f} s; "
+            f"K4b (tile_fused) {got.get('tile_fused', 0)}, K5 (tile_bwd) "
+            f"{got.get('tile_bwd', 0)} launches; all launched: {ran}  "
+            f"[{smi}]")
+        for line in res.stdout.splitlines():
+            say(f"    | {line}")
+        if res.returncode != 0:
+            say(res.stderr[-4000:])
+        check(res.returncode == 0, f"{name} {size} exited {res.returncode}")
+        if name.startswith("serve_batch"):
+            total["tile_serve"] = got.get("tile", 0)
+    check(total.get("tile_fused", 0) > 0, "no twin launched K4b")
+    check(total.get("tile_bwd", 0) > 0, "no twin launched K5")
+    say(f"  launches summed over the twins' runs: "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=30,
@@ -4580,6 +4658,10 @@ def main(argv=None) -> int:
                                                 REPS).values())}
     dry_counts = {"tile_serve": sum(phase_dryrun(torch, smi).values())}
     dtype_rows = phase_dtypes(torch, args.n_sort, args.n_fft, REPS, bw, smi)
+    ex_counts = phase_examples(smi, {
+        "sorting_network_torch.py": args.n_sort,
+        "fft_pipeline_torch.py": args.n_fft,
+        "grad_permute_torch.py": args.n_ties})
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = records[name]
@@ -4597,7 +4679,8 @@ def main(argv=None) -> int:
                         "kinds_train_launches":
                             kinds_counts.get(name, (0, 0))[1],
                         "mesh_launches": mesh_counts.get(name, 0),
-                        "dryrun_launches": dry_counts.get(name, 0)})
+                        "dryrun_launches": dry_counts.get(name, 0),
+                        "examples_launches": ex_counts.get(name, 0)})
     kernels += dtype_rows
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

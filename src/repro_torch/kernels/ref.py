@@ -15,20 +15,17 @@ from ..core.bmmc import Bmmc
 from ..obs import metrics as _ometrics
 
 
-def _np_parity(vals: np.ndarray) -> np.ndarray:
-    v = vals.astype(np.int64)
-    for s in (32, 16, 8, 4, 2, 1):
-        v ^= v >> s
-    return v & 1
-
-
 def bmmc_indices(bmmc: Bmmc) -> np.ndarray:
-    """Gather indices realizing the permutation: src[y] = A^-1 (y ^ c)."""
+    """Gather indices realizing the permutation: src[y] = A^-1 (y ^ c).
+
+    Built by doubling: ``A^-1 y`` is the XOR of the columns of ``A^-1``
+    at the set bits of ``y``, so the entries for ``y < 2^(k+1)`` are
+    those for ``y < 2^k`` and the same XOR column k (2^n XORs in all)."""
     binv = bmmc.inverse()  # (A^-1, A^-1 c)
-    y = np.arange(1 << bmmc.n, dtype=np.int64)
-    src = np.zeros_like(y)
-    for i, r in enumerate(binv.rows):
-        src |= _np_parity(y & r) << i
+    src = np.zeros(1 << bmmc.n, dtype=np.int64)
+    for k in range(bmmc.n):
+        col = sum(((r >> k) & 1) << i for i, r in enumerate(binv.rows))
+        np.bitwise_xor(src[:1 << k], col, out=src[1 << k:2 << k])
     src ^= binv.c
     return src.astype(np.int32)
 

@@ -27,6 +27,10 @@ handed to a collective on it raises.
 
 Meshes are made by functions, never at import: importing this module
 touches no device and no process group.
+
+:func:`spawn_gloo` runs a function on ``world`` ``gloo`` CPU ranks in
+spawned processes, joined over a ``file://`` store (no network): the
+multi-rank runs of the CPU tests and of the distributed example.
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ import math
 import os
 import shutil
 import tempfile
+import time
+import traceback
+from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
@@ -267,3 +274,60 @@ def all_sum(x, group):
     """An all-reduce (sum) whose terms are added in group-rank order, so
     every rank holds the same bits."""
     return ordered_sum(all_gather(x, group))
+
+
+# ---------------------------------------------------------------------------
+# gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+
+def _gloo_entry(rank, fn, world, out_dir, args):
+    import torch
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    try:
+        dist.init_process_group(
+            "gloo", init_method="file://" + str(out / "store"), rank=rank,
+            world_size=world)
+        result = fn(rank, world, *args)
+        dist.barrier()
+        torch.save(result, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_gloo(fn, world: int, out_dir, *args,
+               timeout: float = 120.0) -> list:
+    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks, each a
+    spawned process with one CPU thread, joined over a file store in
+    ``out_dir``; returns each rank's result (``torch.save``), in rank
+    order. ``fn`` must be importable by name. A rank's error (its
+    traceback is in the message) or a run past ``timeout`` seconds raises
+    ``AssertionError``; no rank outlives the call."""
+    import torch
+    import torch.multiprocessing as tmp
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    ctx = tmp.start_processes(_gloo_entry, args=(fn, world, str(out), args),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks "
+                                   f"passed {timeout} s")
+    except Exception as err:
+        errs = [p.read_text() for p in sorted(out.glob("rank*.err"))]
+        raise AssertionError(f"{fn.__name__} on {world} ranks failed: "
+                             f"{err}\n" + "\n".join(errs)) from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]

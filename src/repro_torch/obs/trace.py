@@ -6,9 +6,18 @@ nothing to the device work and forces no host sync of its own.
 Disabled (the default) every instrumentation site reduces to a single
 module-attribute check.
 
-Span taxonomy (the same names as :mod:`repro.obs`): ``kernel.dispatch``
-(one class-dispatch decision). The program-level spans arrive with the
-combinator layer.
+Span taxonomy (the same names as :mod:`repro.obs`), as
+:mod:`repro_torch.combinators.execute` emits them: ``program.call`` (one
+compiled program call, labeled by engine, path and warm/cold; the
+guarded path of :mod:`repro_torch.guard.runtime` emits it too) >
+``stage.*`` (one stage of an eager program walk: ``stage.perm``,
+``stage.cmphalves``, ``stage.map``, ``stage.fusedstage``, ...; a call
+replayed from a CUDA graph records none) > ``kernel.fused`` (one fused
+cluster's tiled pass, K4b) and ``kernel.dispatch`` (one class-dispatch
+decision, :mod:`repro_torch.kernels.ops`). Backward rules record
+``program.vjp`` / ``fused.vjp`` / ``stage.vjp``, and ``kernel.fused_bwd``
+wraps the gradient kernel K5. The drivers add ``serve.prefill``,
+``serve.decode_step`` and ``train.step``.
 
 ``enable(sync=True)`` additionally lets *measurement sites* block on
 device results so recorded wall-clock is end-to-end; ``sync=False``

@@ -1,69 +1,19 @@
 """Multi-rank runs of the port on the CPU for its tests: ``gloo`` process
 groups in spawned processes, joined over a ``file://`` store.
 
-:func:`spawn` starts ``world`` ranks of ``fn(rank, world, *args)`` with
-``torch.multiprocessing`` (the spawn method), each with one CPU thread.
-Each rank reports through a file: what ``fn`` returns (``torch.save``)
-or its traceback. A run that outlives its time limit is killed and
-fails; it never hangs the test. Workers live in modules that import
-neither JAX nor the reference (this one, for the tests' workers), so a
-rank starts in about two seconds.
+:func:`spawn` (the port's ``launch.mesh.spawn_gloo``) starts ``world``
+ranks of ``fn(rank, world, *args)`` with ``torch.multiprocessing`` (the
+spawn method), each with one CPU thread. Each rank reports through a
+file: what ``fn`` returns (``torch.save``) or its traceback. A run that
+outlives its time limit is killed and fails; it never hangs the test.
+Workers live in modules that import neither JAX nor the reference (this
+one, for the tests' workers), so a rank starts in about two seconds.
 """
 from __future__ import annotations
 
-import time
-import traceback
-from pathlib import Path
-
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as tmp
 
-
-def _entry(rank, fn, world, out_dir, args):
-    torch.set_num_threads(1)
-    out = Path(out_dir)
-    try:
-        dist.init_process_group(
-            "gloo", init_method="file://" + str(out / "store"), rank=rank,
-            world_size=world)
-        result = fn(rank, world, *args)
-        dist.barrier()
-        torch.save(result, out / f"rank{rank}.pt")
-    except BaseException:
-        (out / f"rank{rank}.err").write_text(traceback.format_exc())
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def spawn(fn, world: int, out_dir, *args, timeout: float = 120.0) -> list:
-    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns each
-    rank's result, in rank order. Fails on a rank's error or after
-    ``timeout`` seconds."""
-    out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    ctx = tmp.start_processes(_entry, args=(fn, world, str(out), args),
-                              nprocs=world, join=False,
-                              start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{fn.__name__} on {world} ranks "
-                                   f"passed {timeout} s")
-    except Exception as err:
-        errs = [p.read_text() for p in sorted(out.glob("rank*.err"))]
-        raise AssertionError(f"{fn.__name__} on {world} ranks failed: "
-                             f"{err}\n" + "\n".join(errs)) from None
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    return [torch.load(out / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
+from repro_torch.launch.mesh import spawn_gloo as spawn  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
