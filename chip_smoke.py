@@ -244,25 +244,29 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    line gains ``dryrun_launches`` (K4a in phase 19's real runs, under
    ``tile_serve``);
 20. element types (``NEW_TYPES``: float16, int8, uint8, int16, uint16,
-   uint32, bool), each path with the launch counts set to 0 just before
-   and read just after: the sort of 2^n_sort keys of each type through
-   ``compiled_sort`` (no fused fallback, round trips equal to
-   ``program_cost``, K4b launched once a compute cluster; bit-equal to
-   ``torch.sort`` where torch sorts the type, else sorted and the same
-   keys; graph and stage-by-stage one call), then the same sort guarded
-   (``guard.guarded()``: the guarded K4b once a cluster, the unguarded
-   output); the float16 sort gradient (K5 once a cluster, the gradient
-   ``w`` scattered to the sorting permutation on distinct keys); the FFT
-   of 2^n_fft points on float16 and bfloat16 planar input (within
-   ``log2(N)`` unit roundoffs of float64, norm-wise) and its gradient; the
-   float32 FFT with a map (``v * 2 - 1``) beside the butterflies of one
-   cluster, forward and gradient. For each, the largest cluster's K4b,
-   guarded K4b (the sorts) and K5 bit for bit against their plain
-   versions (the guarded one with no flag), timed (one call, device time,
-   plain version; the sorts' torch composite) beside the byte bound, each
-   a row of the kernels line (``tile_fused[int8]``, ...). Last, a ``sin``
-   map's cluster on keys up to 300 in magnitude against an exact map, and
-   the map kernel's stack frame;
+   uint32, bool; ``WIDE_TYPES``: int64, uint64, float64), each path with
+   the launch counts set to 0 just before and read just after: the sort of
+   2^n_sort keys of each type through ``compiled_sort`` (no fused
+   fallback, round trips equal to ``program_cost``, K4b launched once a
+   compute cluster; bit-equal to ``torch.sort`` where torch sorts the
+   type, else sorted and the same keys; graph and stage-by-stage one
+   call), then the same sort guarded (``guard.guarded()``: the guarded K4b
+   once a cluster, the unguarded output); the float16 and float64 sort
+   gradients (K5 once a cluster, the gradient ``w`` scattered to the
+   sorting permutation where the keys are distinct, the K5 route equal to
+   the collapsed route on keys with ties); the FFT of 2^n_fft points on
+   float16, bfloat16 and float64 planar input (within ``log2(N)`` unit
+   roundoffs of the float64 library FFT, norm-wise; ``torch.fft.fft`` of
+   the whole transform timed beside it) and its gradient; the float32 FFT
+   with a map (``v * 2 - 1``) beside the butterflies of one cluster,
+   forward and gradient. For each, the largest cluster's K4b, guarded K4b
+   (the sorts and FFTs) and K5 bit for bit against their plain versions
+   (the guarded one with no flag), timed (one call, device time, plain
+   version, the torch composite of the cluster: its forward, or for K5 its
+   backward under autograd) beside the byte bound, each a row of the
+   kernels line (``tile_fused[int8]``, ..., ``tile_bwd[float64]``). Last,
+   a ``sin`` map's cluster on keys up to 300 in magnitude against an
+   exact map, and the map kernel's stack frame;
 21. the example twins (``EXAMPLE_TWINS``): each ``examples/*_torch.py``
    run as a subprocess with ``--device cuda`` and ``PYTHONPATH=src`` at its
    default size, then the sort, the FFT and the gradient twins again at
@@ -358,7 +362,13 @@ PEAK_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                     ("H100", 3.35e12), ("H200", 4.8e12))
 
 
+_T0 = time.perf_counter()
+
+
 def say(*a):
+    """Print a line; a phase's heading with the run's seconds so far."""
+    if a and str(a[0]).startswith("== phase"):
+        a = (f"[{time.perf_counter() - _T0:.0f} s]",) + a
     print(*a, flush=True)
 
 
@@ -4160,11 +4170,13 @@ def phase_dryrun(torch, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 NEW_TYPES = ("float16", "int8", "uint8", "int16", "uint16", "uint32", "bool")
-# Norm-wise relative error of a half-float planar FFT against float64:
-# each product and sum rounds to the type (unit roundoff u = 2^-11 for
-# float16, 2^-8 for bfloat16), and a radix-2 FFT's error grows like
+WIDE_TYPES = ("int64", "uint64", "float64")
+# Norm-wise relative error of a planar FFT against the exact (float64, or
+# for float64 itself the float64 library FFT): each product and sum
+# rounds to the type (unit roundoff u = 2^-11 for float16, 2^-8 for
+# bfloat16, 2^-53 for float64), and a radix-2 FFT's error grows like
 # u * log2(N) at worst; the limit is that bound.
-HALF_FFT_U = {"float16": 2.0 ** -11, "bfloat16": 2.0 ** -8}
+FFT_U = {"float16": 2.0 ** -11, "bfloat16": 2.0 ** -8, "float64": 2.0 ** -53}
 
 
 def stack_frames(log: str, fragment: str) -> list:
@@ -4181,13 +4193,15 @@ def stack_frames(log: str, fragment: str) -> list:
 
 def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                  smi: str) -> list:
-    """Phase 20: the 2^n_sort sort of each new element type, the float16
-    sort gradient, the 2^n_fft FFT on float16 and bfloat16 planar input
-    and a map beside butterflies, through their entry points, each with
-    the launch counts set to 0 just before and read just after; the
-    largest cluster's K4b, guarded K4b and K5 bit for bit against their
-    plain versions and timed beside their byte bound. Returns the rows
-    this phase adds to the kernels line."""
+    """Phase 20: the 2^n_sort sort of each new element type (the 64-bit
+    ones too), the float16 and float64 sort gradients, the 2^n_fft FFT on
+    float16, bfloat16 and float64 planar input and a map beside
+    butterflies, through their entry points, each with the launch counts
+    set to 0 just before and read just after; the largest cluster's K4b,
+    guarded K4b and K5 bit for bit against their plain versions and timed
+    beside their byte bound and the torch composite of the cluster
+    (forward, or its backward under autograd). Returns the rows this phase
+    adds to the kernels line."""
     say("== phase 20: element types ==")
     from repro_torch import guard, obs
     from repro_torch.combinators import (CmpHalves, FusedStage, Perm,
@@ -4209,11 +4223,16 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
             return torch.randint(0, 2, (1 << n,), generator=gen,
                                  device=dev) > 0
         if dtype.is_floating_point:
-            return torch.randn(1 << n, generator=gen, device=dev).to(dtype)
+            return torch.randn(1 << n, generator=gen, device=dev,
+                               dtype=torch.float64).to(dtype)
         raw = torch.randint(-2**31, 2**31 - 1, (1 << n,), generator=gen,
                             device=dev, dtype=torch.int64)
-        return raw.to(signed[torch.empty((), dtype=dtype).element_size()]
-                      ).view(dtype)
+        size = torch.empty((), dtype=dtype).element_size()
+        if size == 8:   # all 64 bits random
+            low = torch.randint(0, 2**32, (1 << n,), generator=gen,
+                                device=dev, dtype=torch.int64)
+            return ((raw << 32) | low).view(dtype)
+        return raw.to(signed[size]).view(dtype)
 
     def cold(fn, x):
         """``fn(x)`` with telemetry on and the launch counts set to 0 just
@@ -4240,7 +4259,7 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                     and s.computes), key=lambda s: len(s.computes))
 
     def row(name, src, launches, err, ms, dev_ms, plain_ms, bound_ms,
-            composite_ms=None):
+            composite_ms):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": "src/repro/kernels/bmmc_permute.py:"
                                  + ("265" if "bwd" in name else "181"),
@@ -4252,13 +4271,12 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
             f"launches on its path; {ms:.4f} ms a call, {dev_ms:.4f} ms on "
             f"the device (bound {bound_ms:.4f} ms, "
             f"{bound_ms / dev_ms:.2f} of it), plain {plain_ms:.3f} ms"
-            + ("" if composite_ms is None
-               else f", torch composite {composite_ms:.3f} ms")
-            + f"  [{smi}]")
+            + f", torch composite {composite_ms:.3f} ms  [{smi}]")
 
     def k4b_rows(label, fs, t, x, launches, guarded_launches, composite):
         """K4b and the guarded K4b on cluster ``fs``: bit for bit against
-        their plain versions (the guarded one with no flag), timed."""
+        their plain versions (the guarded one with no flag), timed beside
+        the cluster's torch composite ``composite``."""
         got = fused_call(K, ex, fs, t, x)
         want = fused_call(K, ex, fs, t, x, plain=True)
         check(max_abs_err(torch, got, want) == 0.0, ("K4b", label))
@@ -4283,8 +4301,16 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                   ("guarded", label))
         nbytes = x.numel() * x.element_size()
         bound = 2 * nbytes / bw * 1e3
-        comp = (cuda_ms(torch, composite, max(3, reps // 3))
-                if composite is not None else None)
+        if all(isinstance(s, (Perm, CmpHalves)) for s in fs.stages):
+            check(max_abs_err(torch, composite(), want) == 0.0,
+                  ("composite", label))
+        else:   # butterflies: the ref engine may round apart
+            c = composite().double()
+            check(float(torch.linalg.vector_norm(c - want.double())
+                        / torch.linalg.vector_norm(want.double()))
+                  <= 8 * fs.bmmc.n * FFT_U.get(str(x.dtype)[6:], 2.0 ** -24),
+                  ("composite", label))
+        comp = cuda_ms(torch, composite, max(3, reps // 3))
         row(f"tile_fused[{label}]", KERNEL_INFO["tile_fused"][0], launches,
             0.0, cuda_ms(torch, lambda: fused_call(K, ex, fs, t, x), reps),
             device_ms(torch, lambda: fused_call(K, ex, fs, t, x)),
@@ -4296,23 +4322,36 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                 cuda_ms(torch, guarded, reps), device_ms(torch, guarded),
                 cuda_ms(torch, lambda: K.tiled_permute_tables_plain(
                     x, *tabs, geometry=geo, flags=pflags, **epi),
-                    max(3, reps // 3), warmup=1), bound)
+                    max(3, reps // 3), warmup=1), bound, comp)
 
     def k5_row(label, fs, t, x, ct, launches):
+        """K5 on cluster ``fs`` bit for bit against its plain version,
+        timed beside the torch composite's backward (autograd through the
+        cluster's stages as torch calls, the forward not timed)."""
         got = bwd_call(K, ex, fs, t, x, ct)
         want = bwd_call(K, ex, fs, t, x, ct, plain=True)
         check(max_abs_err(torch, got, want) == 0.0, ("K5", label))
         nbytes = x.numel() * x.element_size()
+        xr = x.clone().requires_grad_(True)
+        v = composite_of(fs, xr, grad=True)()
+        comp = cuda_ms(torch, lambda: torch.autograd.grad(
+            v, xr, ct, retain_graph=True), max(3, reps // 3))
         row(f"tile_bwd[{label}]", KERNEL_INFO["tile_bwd"][0], launches, 0.0,
             cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct), reps),
             device_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct)),
             cuda_ms(torch, lambda: bwd_call(K, ex, fs, t, x, ct, plain=True),
-                    max(3, reps // 3), warmup=1), 3 * nbytes / bw * 1e3)
+                    max(3, reps // 3), warmup=1), 3 * nbytes / bw * 1e3,
+            comp)
+        del v, xr
 
-    def composite_of(fs, x):
+    def composite_of(fs, x, grad=False):
         """The cluster's stages as torch calls: each Perm an index_select of
-        the bits on a precomputed index, each CmpHalves ``cmp_min`` and
-        ``cmp_max`` of the halves."""
+        the bits (of the values, ``grad``) on a precomputed index, each
+        CmpHalves ``cmp_min`` and ``cmp_max`` of the halves; a cluster of
+        butterflies runs its stages on the ``ref`` engine (torch gathers and
+        the butterfly's torch ops)."""
+        if any(not isinstance(s, (Perm, CmpHalves)) for s in fs.stages):
+            return lambda: ex.run_program(fs.stages, x, "ref")
         idx = {id(s): ref.bmmc_src_index(s.bmmc, dev) for s in fs.stages
                if isinstance(s, Perm)}
 
@@ -4320,17 +4359,19 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
             v = x
             for s in fs.stages:
                 if isinstance(s, Perm):
-                    v = torch.index_select(K._bits(v), 0, idx[id(s)]).view(
-                        x.dtype)
+                    v = (torch.index_select(v, 0, idx[id(s)]) if grad else
+                         torch.index_select(K._bits(v), 0, idx[id(s)]).view(
+                             x.dtype))
                 else:
-                    check(isinstance(s, CmpHalves), type(s).__name__)
                     lo, hi = v.chunk(2)
                     v = torch.cat([K.cmp_min(lo, hi), K.cmp_max(lo, hi)])
             return v
         return run
 
-    # the sort of every new type
-    for name in NEW_TYPES:
+    # the sort of every new type, the 64-bit ones too
+    sorts_of = {torch.int8, torch.uint8, torch.int16, torch.float16,
+                torch.int64, torch.float64}   # where torch.sort is the oracle
+    for name in NEW_TYPES + WIDE_TYPES:
         dtype = getattr(torch, name)
         x = keys(dtype, n_sort)
         f = S.compiled_sort(n_sort)
@@ -4343,18 +4384,17 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         check(rt == cost["round_trips"], (name, rt, cost["round_trips"]))
         check(c["tile_fused"] == fused == hist.get("fused"),
               (name, c["tile_fused"], fused, hist))
-        if dtype in (torch.int8, torch.uint8, torch.int16, torch.float16):
+        if dtype in sorts_of:
             check(max_abs_err(torch, y, torch.sort(x).values) == 0.0,
                   (name, "torch.sort"))
         else:   # no torch.sort of the type: sorted, and the same keys
-            wide = (K._int_view(y).to(torch.int64) & 0xFFFFFFFF
-                    if dtype == torch.uint32 else
-                    K._int_view(y).to(torch.int64) & 0xFFFF
-                    if dtype == torch.uint16 else y.to(torch.int64))
-            xw = (K._int_view(x).to(torch.int64) & 0xFFFFFFFF
-                  if dtype == torch.uint32 else
-                  K._int_view(x).to(torch.int64) & 0xFFFF
-                  if dtype == torch.uint16 else x.to(torch.int64))
+            def ordered(v):   # as int64 in the type's order
+                w = K._int_view(v).to(torch.int64)
+                if dtype == torch.uint64:
+                    return w ^ (-2**63)
+                return w & (0xFFFFFFFF if dtype == torch.uint32 else 0xFFFF
+                            if dtype == torch.uint16 else -1)
+            wide, xw = ordered(y), ordered(x)
             check(bool((wide[1:] >= wide[:-1]).all())
                   and torch.equal(wide, torch.sort(xw).values),
                   (name, "sorted"))
@@ -4363,7 +4403,7 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         eager_ms = cuda_ms(torch, lambda: f.call_per_stage(x),
                            max(3, reps // 3), warmup=1)
         say(f"  sort of 2^{n_sort} {name} (t={t}): bit-equal "
-            f"{'to torch.sort' if dtype in (torch.int8, torch.uint8, torch.int16, torch.float16) else 'to the sorted keys'}; "
+            f"{'to torch.sort' if dtype in sorts_of else 'to the sorted keys'}; "
             f"plan {plan_s:.2f} s; fused fallbacks 0; round trips "
             f"{int(rt)} = program_cost; histogram {hist}; launches "
             f"{ {k: v for k, v in c.items() if v} }; graph {graph_ms:.3f} ms, "
@@ -4379,68 +4419,83 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         del x, y, yg
         torch.cuda.empty_cache()
 
-    # the float16 sort gradient: K5 once a compute cluster
-    x = keys(torch.float16, n_sort)
-    w = torch.randn(1 << n_sort, generator=gen, device=dev).to(torch.float16)
-    f = S.compiled_sort(n_sort)
-    prog, t, _ = plan_program(f, x)
-
-    def grad(v):
-        v = v.clone().requires_grad_(True)
-        (w * f(v)).sum().backward()
-        return v.grad
-    gx, _, fb, c, _ = cold(grad, x)
-    fused = sum(1 for s in prog if isinstance(s, FusedStage) and s.computes)
-    check(fb == 0 and c["tile_bwd"] == fused, ("float16 gradient", fb, c))
-    check(bool(torch.isfinite(gx).all()), "float16 gradient finite")
-    g_ms = cuda_ms(torch, lambda: grad(x), max(3, reps // 3))
-    # with ties, the kernel route against the collapsed route, bit for bit
-    n_ties = min(n_sort, N_TIES)
-    xt = torch.randint(0, 6, (1 << n_ties,), generator=gen,
-                       device=dev).to(torch.float16)
-    wt = torch.randn(1 << n_ties, generator=gen, device=dev).to(
-        torch.float16)
-    ft = S.compiled_sort(n_ties)
-    routes = {}
-    for mega in (True, False):
-        ex.BWD_MEGAKERNEL = mega
-        try:
-            v = xt.clone().requires_grad_(True)
-            (wt * ft(v)).sum().backward()
-            routes[mega] = v.grad
-        finally:
-            ex.BWD_MEGAKERNEL = True
-    check(max_abs_err(torch, routes[True], routes[False]) == 0.0,
-          "float16 gradient routes")
-    say(f"  float16 sort gradient at 2^{n_sort}: fused fallbacks 0, K5 "
-        f"{c['tile_bwd']} launches (one a compute cluster); forward + "
-        f"backward {g_ms:.3f} ms; at 2^{n_ties} keys with ties the K5 "
-        f"route bit-equal to the collapsed route")
-    ct = torch.randn(1 << n_sort, generator=gen, device=dev).to(torch.float16)
-    k5_row("float16", largest(prog), t, x, ct, c["tile_bwd"])
-    del x, w, gx, ct, routes
-    torch.cuda.empty_cache()
-
-    # the FFT on half-float planar input, forward and gradient
-    z = torch.complex(torch.randn(1 << n_fft, generator=gen, device=dev),
-                      torch.randn(1 << n_fft, generator=gen, device=dev))
-    for name in ("float16", "bfloat16"):
+    # the float16 and float64 sort gradients: K5 once a compute cluster
+    for name in ("float16", "float64"):
         dtype = getattr(torch, name)
-        xr = F.to_planar(z).to(dtype)
+        x = keys(dtype, n_sort)
+        w = torch.randn(1 << n_sort, generator=gen, device=dev,
+                        dtype=torch.float64).to(dtype)
+        f = S.compiled_sort(n_sort)
+        prog, t, _ = plan_program(f, x)
+
+        def grad(v):
+            v = v.clone().requires_grad_(True)
+            (w * f(v)).sum().backward()
+            return v.grad
+        gx, _, fb, c, _ = cold(grad, x)
+        fused = sum(1 for s in prog if isinstance(s, FusedStage)
+                    and s.computes)
+        check(fb == 0 and c["tile_bwd"] == fused, (name, "gradient", fb, c))
+        check(bool(torch.isfinite(gx).all()), (name, "gradient finite"))
+        # distinct keys: the gradient is w scattered to the sorting
+        # permutation
+        order = torch.sort(x.double(), stable=True).indices
+        if int(torch.unique(x).numel()) == x.numel():
+            check(torch.equal(gx, torch.zeros_like(w).index_put_(
+                (order,), w)), (name, "gradient = scattered w"))
+        g_ms = cuda_ms(torch, lambda: grad(x), max(3, reps // 3))
+        # with ties, the kernel route against the collapsed route, bit for
+        # bit
+        n_ties = min(n_sort, N_TIES)
+        xt = torch.randint(0, 6, (1 << n_ties,), generator=gen,
+                           device=dev).to(dtype)
+        wt = torch.randn(1 << n_ties, generator=gen, device=dev,
+                         dtype=torch.float64).to(dtype)
+        ft = S.compiled_sort(n_ties)
+        routes = {}
+        for mega in (True, False):
+            ex.BWD_MEGAKERNEL = mega
+            try:
+                v = xt.clone().requires_grad_(True)
+                (wt * ft(v)).sum().backward()
+                routes[mega] = v.grad
+            finally:
+                ex.BWD_MEGAKERNEL = True
+        check(max_abs_err(torch, routes[True], routes[False]) == 0.0,
+              (name, "gradient routes"))
+        say(f"  {name} sort gradient at 2^{n_sort}: fused fallbacks 0, K5 "
+            f"{c['tile_bwd']} launches (one a compute cluster); forward + "
+            f"backward {g_ms:.3f} ms; at 2^{n_ties} keys with ties the K5 "
+            f"route bit-equal to the collapsed route")
+        ct = torch.randn(1 << n_sort, generator=gen, device=dev,
+                         dtype=torch.float64).to(dtype)
+        k5_row(name, largest(prog), t, x, ct, c["tile_bwd"])
+        del x, w, gx, ct, routes
+        torch.cuda.empty_cache()
+
+    # the FFT on half-float and float64 planar input, forward and gradient
+    z = torch.complex(torch.randn(1 << n_fft, generator=gen, device=dev,
+                                  dtype=torch.float64),
+                      torch.randn(1 << n_fft, generator=gen, device=dev,
+                                  dtype=torch.float64))
+    for name in ("float16", "bfloat16", "float64"):
+        dtype = getattr(torch, name)
+        xr = torch.stack([z.real, z.imag], dim=-1).to(dtype)
         g = F.compiled_fft(n_fft)
         prog, t, _ = plan_program(g, xr)
         y, rt, fb, c, hist = cold(F.fft_planar, xr)
         fused = sum(1 for s in prog if isinstance(s, FusedStage)
                     and s.computes)
         check(fb == 0 and c["tile_fused"] == fused, (name, "fft", fb, c))
-        exact = torch.fft.fft(torch.complex(xr[:, 0].double(),
-                                            xr[:, 1].double()))
+        xc = torch.complex(xr[:, 0].double(), xr[:, 1].double())
+        exact = torch.fft.fft(xc)
         got = torch.complex(y[:, 0].double(), y[:, 1].double())
         rel = float(torch.linalg.vector_norm(got - exact)
                     / torch.linalg.vector_norm(exact))
-        tol = n_fft * HALF_FFT_U[name]
+        tol = n_fft * FFT_U[name]
         check(rel <= tol, (name, "fft error", rel, tol))
-        wg = torch.randn(xr.shape, generator=gen, device=dev).to(dtype)
+        wg = torch.randn(xr.shape, generator=gen, device=dev,
+                         dtype=torch.float64).to(dtype)
 
         def grad(v):
             v = v.clone().requires_grad_(True)
@@ -4448,21 +4503,29 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
             return v.grad
         _, _, fbg, cg, _ = cold(grad, xr)
         check(fbg == 0 and cg["tile_bwd"] == fused, (name, "fft grad", cg))
+        # the library FFT of the whole transform in the nearest complex
+        # type torch has on the card (complex32 for float16, complex64 for
+        # bfloat16, complex128 for float64)
+        lib = xc.to({"float16": torch.complex32, "bfloat16": torch.complex64,
+                     "float64": torch.complex128}[name])
+        lib_ms = cuda_ms(torch, lambda: torch.fft.fft(lib), reps)
         say(f"  FFT of 2^{n_fft} planar {name} (t={t}): fused fallbacks 0, "
             f"K4b {c['tile_fused']} launches = the model's clusters; "
             f"norm-wise relative error {rel:.3e} against float64 (limit "
             f"{tol:.3e} = log2(N) * unit roundoff); its gradient K5 "
             f"{cg['tile_bwd']} launches; graph "
-            f"{cuda_ms(torch, lambda: g(xr), reps):.3f} ms")
+            f"{cuda_ms(torch, lambda: g(xr), reps):.3f} ms, torch.fft.fft "
+            f"({lib.dtype}) {lib_ms:.3f} ms  [{smi}]")
         fs = largest(prog)
         with guard.guarded():
             _, _, _, cgf, _ = cold(F.fft_planar, xr)
         check(cgf["tile_fused_guarded"] == fused, (name, "guarded fft", cgf))
         k4b_rows(f"{name} planar", fs, t, xr, c["tile_fused"],
-                 cgf["tile_fused_guarded"], None)
-        ct = torch.randn(xr.shape, generator=gen, device=dev).to(dtype)
+                 cgf["tile_fused_guarded"], composite_of(fs, xr))
+        ct = torch.randn(xr.shape, generator=gen, device=dev,
+                         dtype=torch.float64).to(dtype)
         k5_row(f"{name} planar", fs, t, xr, ct, cg["tile_bwd"])
-        del xr, y, ct
+        del xr, y, ct, lib, xc, exact, got
         torch.cuda.empty_cache()
 
     # a map beside butterflies: v * 2 - 1 after the first FFT stage whose
@@ -4501,7 +4564,7 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         f"its butterflies in one cluster, fused fallbacks 0, K4b "
         f"{c['tile_fused']} launches, K5 {cg['tile_bwd']} in its gradient")
     k4b_rows("float32 planar + map", mixed[0], t, xr, c["tile_fused"], None,
-             None)
+             composite_of(mixed[0], xr))
     ct = torch.randn(xr.shape, generator=gen, device=dev)
     k5_row("float32 planar + map", mixed[0], t, xr, ct, cg["tile_bwd"])
     del xr, y, ct, z

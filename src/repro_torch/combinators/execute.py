@@ -30,14 +30,14 @@ the kernel as the tape :mod:`repro_torch.kernels.map_lower` lowers it to
 engine executes the cluster's original stages one at a time. A complex64
 array's butterfly clusters run on its planar (re, im) float32 view.
 The kernel takes every element type the reference's fused kernel takes
-but complex: integers of 8, 16 and 32 bits (uint64 and int64 not), bool,
-float32, bfloat16 and float16; butterflies on a planar (re, im) tail of 2
-in any of the three float types, a ``Map`` beside them on both planar
-values. Clusters the kernel cannot take fall back to stage-at-a-time
-execution and count ``dispatch.fused_fallback``: 64-bit and complex
-types, butterflies off the planar layout, arrays too small to tile and a
-``Map`` whose function is not lowered (outside the tape's op list for the
-type, or its trace fails).
+but complex: integers of 8, 16, 32 and 64 bits, bool, float32, bfloat16,
+float16 and float64; butterflies on a planar (re, im) tail of 2 in any of
+the four float types, a ``Map`` beside them on both planar values.
+Clusters the kernel cannot take fall back to stage-at-a-time execution
+and count ``dispatch.fused_fallback``: complex types, butterflies off the
+planar layout, arrays too small to tile and a ``Map`` whose function is
+not lowered (outside the tape's op list for the type, or its trace
+fails).
 
 Whole-program executable: the reference jit-compiles each resolved
 program once per ``(program, engine, batched)``. Here that is a CUDA
@@ -246,12 +246,14 @@ def _w_planar_cached(bfly: Bfly, dtype: str) -> np.ndarray:
     """The (2^(n-1), 2) (re, im) twiddle-value table of a butterfly stage.
     Each value is the Python complex's double rounded to ``dtype`` as the
     reference's table is (:func:`_rounded`), kept as float32 (a half
-    value is exact there; the kernels read float32 twiddles). Keyed by the
-    stage, whose hash is kept, not by its twiddle tuple, which would be
-    hashed anew (2^21 complex numbers at 2^22 points) on every lookup."""
+    value is exact there; the kernels read float32 twiddles), or as
+    float64 for float64 (the kernels read float64 twiddles there). Keyed
+    by the stage, whose hash is kept, not by its twiddle tuple, which
+    would be hashed anew (2^21 complex numbers at 2^22 points) on every
+    lookup."""
     w = np.array(bfly.twiddles, dtype=np.complex128)
-    return _rounded(np.stack([w.real, w.imag], axis=-1),
-                    getattr(torch, dtype)).float().numpy()
+    out = _rounded(np.stack([w.real, w.imag], axis=-1), getattr(torch, dtype))
+    return (out if dtype == "float64" else out.float()).numpy()
 
 
 def _maps_lowered(fs: FusedStage, dtype) -> bool:

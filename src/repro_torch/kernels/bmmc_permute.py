@@ -832,13 +832,15 @@ def _tile_launch(xc, tabs, geometry, flags=None):
 
 # The element types K4b and the guarded K4b take, by the code the kernels
 # switch on: the class (signed or unsigned integer, float32, a half float
-# widened to float) and the storage width. bool is uint8 (max is OR and
-# min is AND on 0 and 1).
+# widened to float, float64) and the storage width. bool is uint8 (max is
+# OR and min is AND on 0 and 1).
 _ELEM_TYPE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2,
               torch.float16: 3, torch.int8: 4, torch.uint8: 5,
               torch.bool: 5, torch.int16: 6, torch.uint16: 7,
-              torch.uint32: 8}
-_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)  # and K5's
+              torch.uint32: 8, torch.int64: 9, torch.uint64: 10,
+              torch.float64: 11}
+_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16,
+                torch.float64)  # and K5's
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 # unsigned types torch's CPU build lacks max, index_select and index_put for
 _WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
@@ -936,9 +938,9 @@ def _epi_entries(epilogue, epi_scalar, epi_vmem, map_fns=(), dtype=None):
 def _check_epi_input(xc, entries, geometry):
     _, t, rpt, _, _, _, _ = geometry
     if xc.dtype not in _ELEM_TYPE:
-        raise ValueError(f"fused epilogues take integers of 8, 16 and 32 "
-                         f"bits, bool, float32, bfloat16 and float16, got "
-                         f"{xc.dtype}")
+        raise ValueError(f"fused epilogues take integers of 8, 16, 32 and "
+                         f"64 bits, bool, float32, bfloat16, float16 and "
+                         f"float64, got {xc.dtype}")
     for e in entries:
         if e[0] == EP.KIND_MAP:
             if e[9].dtype != xc.dtype:
@@ -951,9 +953,10 @@ def _check_epi_input(xc, entries, geometry):
                              f"a tile of {rpt} x 2^{t}")
         if e[0] == 1 and (xc.dtype not in _FLOAT_TYPES
                           or xc.shape[2] != 2):
-            raise ValueError("a butterfly epilogue needs float32, bfloat16 "
-                             "or float16 with a planar (re, im) tail of 2, "
-                             f"got {xc.dtype} with a tail of {xc.shape[2]}")
+            raise ValueError("a butterfly epilogue needs float32, bfloat16, "
+                             "float16 or float64 with a planar (re, im) "
+                             f"tail of 2, got {xc.dtype} with a tail of "
+                             f"{xc.shape[2]}")
 
 
 def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
@@ -963,7 +966,7 @@ def _apply_epilogue(tile, e, hi_base_g, tw_base_g):
     function on the tile, as the reference does (beside butterflies on
     both planar values). A butterfly on bfloat16 or float16 rounds each
     product and sum to the tile's type, its twiddles ``w`` already in it
-    (:func:`_plain_entries`)."""
+    (:func:`_plain_entries`); a float64 one computes in float64."""
     kind, vr, vc, hi_row, hi_lane, _, tw_row, tw_lane, _, w = e
     if kind == EP.KIND_MAP:
         out = w.fn(tile)
@@ -1062,12 +1065,19 @@ def _tile_fused_plain(xc, in_rows, out_rows, xor_low, src0, geometry,
     return out.view(xc.dtype)
 
 
+def _tw_type(dtype):
+    """The type the kernels read a tile of ``dtype``'s twiddles in:
+    float64 for float64, float32 for the others."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _device_float(a, device) -> torch.Tensor:
-    """A float32 twiddle table on ``device``."""
+    """A float32 or float64 twiddle table on ``device``."""
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(a, dtype=np.float32))
-    if t.dtype != torch.float32:
-        raise ValueError(f"twiddle tables are float32, got {t.dtype}")
+        np.ascontiguousarray(a))
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"twiddle tables are float32 or float64, got "
+                         f"{t.dtype}")
     return t.to(device).contiguous()
 
 
@@ -1083,7 +1093,8 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
     (:func:`.epilogue_plan.plan_epilogues`, with the device pointers of
     each epilogue's per-tile tables and twiddle values filled in), built
     once per set of tables, launch geometry and element type and kept
-    (twiddles as float32 values rounded to ``dtype``). The tensor
+    (twiddles as float32 values rounded to ``dtype``; float64 ones for a
+    float64 tile). The tensor
     carries the plan's summary as ``.info`` and holds every table it
     points to (or was built from) in ``._keep``; the cache counts those
     tables in the entry's bytes. A table that is not linear (affine per
@@ -1114,7 +1125,7 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
             keep.append(hb)
             if e[0] == 1:
                 tb = _device_table(e[8], dev, n_tiles)
-                w = _device_float(e[9], dev).to(dtype).float()
+                w = _device_float(e[9], dev).to(dtype).to(_tw_type(dtype))
                 if w.shape != (1 << (n - 1), 2):
                     raise ValueError(
                         f"twiddle table of shape {tuple(w.shape)}, a 2^{n} "
@@ -1451,8 +1462,9 @@ def _transposed_epilogue(ct, u, o, e, hi_base_g, tw_base_g):
 
 def _plain_entries(entries, dev, dtype=torch.float32) -> list:
     """Epilogue entries with their tables as int64 tensors on ``dev`` and
-    the twiddles in the tile's type ``dtype``, rounded from float32 (the
-    plain versions' form; the kernels read the same values as float32)."""
+    the twiddles in the tile's type ``dtype``, rounded from float32
+    (float64 for a float64 tile: the plain versions' form; the kernels read
+    the same values as float32, or float64)."""
     ents = []
     for e in entries:
         if e[0] == EP.KIND_MAP:
@@ -1460,7 +1472,7 @@ def _plain_entries(entries, dev, dtype=torch.float32) -> list:
             continue
         tabs = [None if a is None else _long(a, dev) for a in e[3:9]]
         w = None if e[9] is None else torch.as_tensor(
-            e[9], device=dev).to(torch.float32).to(dtype)
+            e[9], device=dev).to(_tw_type(dtype)).to(dtype)
         ents.append(e[:3] + tuple(tabs) + (w,))
     return ents
 
@@ -1531,11 +1543,11 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
     inverse of the pass's ``src0`` table; the geometry and the epilogue
     signature and tables are the forward's own (see
     :func:`tiled_permute_tables`). Returns the input's cotangent, shaped
-    as ``x``. It takes float32, bfloat16 and float16 (integers have no
-    gradient), butterflies on their planar (re, im) tail; a map's gradient is
-    reverse mode over its lowered tape in the kernel, autograd through
-    its function in the plain version. A CUDA tensor launches the kernel,
-    a CPU tensor runs its plain version."""
+    as ``x``. It takes float32, bfloat16, float16 and float64 (integers
+    have no gradient), butterflies on their planar (re, im) tail; a map's
+    gradient is reverse mode over its lowered tape in the kernel, autograd
+    through its function in the plain version. A CUDA tensor launches the
+    kernel, a CPU tensor runs its plain version."""
     check_no_grad(ct, "tiled_permute_bwd_tables")
     xc, cc = _canonical(x, batched), _canonical(ct, batched)
     if xc.shape != cc.shape or x.dtype != ct.dtype or x.device != ct.device:
@@ -1550,8 +1562,8 @@ def tiled_permute_bwd_tables(x: torch.Tensor, ct: torch.Tensor, in_rows,
                          "pass without epilogues inverts as a plain pass")
     _check_epi_input(xc, entries, geometry)
     if x.dtype not in _FLOAT_TYPES:
-        raise ValueError(f"gradients take float32, bfloat16 or float16, got "
-                         f"{x.dtype}")
+        raise ValueError(f"gradients take float32, bfloat16, float16 or "
+                         f"float64, got {x.dtype}")
     if isinstance(x, _FakeTensor):
         out = _dry_launch(xc, "tile_bwd", None, 3 * _nbytes(x))
     elif _route(x, "tiled_permute_bwd_tables"):

@@ -23,13 +23,14 @@
 //        map:  ct <- ct * f'(u), by reverse mode over the map's tape with
 //              autograd's derivative formulas (the reference's jax.vjp);
 //   5. writes the result where the forward read: rows in_rows[g].
-// float32, bfloat16 and float16 (cmp, map, and bfly on a planar (re, im)
-// tail; integers have no gradient); a half float computes each product and
-// sum in float and rounds it to nearest even once, as PyTorch does;
-// float32 rounds each on its own (__fmul_rn/__fadd_rn: no contraction
-// into FMAs); a map's derivative formulas round as PyTorch's CUDA kernels
-// for them round (map_op_back). So the kernel is bit-equal to its plain
-// version tiled_permute_bwd_tables_plain on the card.
+// float32, bfloat16, float16 and float64 (cmp, map, and bfly on a planar
+// (re, im) tail; integers have no gradient); a half float computes each
+// product and sum in float and rounds it to nearest even once, as PyTorch
+// does; float32 and float64 round each on their own (__fmul_rn/__fadd_rn,
+// __dmul_rn/__dadd_rn: no contraction into FMAs); a map's derivative
+// formulas round as PyTorch's CUDA kernels for them round (map_op_back).
+// So the kernel is bit-equal to its plain version
+// tiled_permute_bwd_tables_plain on the card.
 //
 // Bound on the H100: bytes. x and ct are read once and the result written
 // once, 3 * size bytes over 3.35 TB/s, plus the tables. The first design
@@ -73,7 +74,8 @@
 //
 // Measured (PERF.md; H100 80GB HBM3, 700 W; the largest 2^24 sort
 // cluster, float32, device time): 0.393 ms against 0.442 for the design
-// before (tools/fused_ab.cu), in turns; bound 0.061 ms. What still
+// before (tools/fused_ab.cu), in turns; bound 0.061 ms. On float64 0.5015
+// ms (bound 0.120). What still
 // bounds it: the replay and the transposed compares (about 20
 // instructions an element and compare: keys, compare bits, the masks'
 // byte permutes, two products and a sum), issued at 3 blocks an SM with
@@ -98,6 +100,12 @@ __device__ __forceinline__ Bf16 sum(Bf16 a, Bf16 b) {
 }
 __device__ __forceinline__ F16 sum(F16 a, F16 b) {
   return round_f16(__fadd_rn(as_float(a), as_float(b)));
+}
+__device__ __forceinline__ double prod(double a, float m) {
+  return __dmul_rn(a, (double)m);
+}
+__device__ __forceinline__ double sum(double a, double b) {
+  return __dadd_rn(a, b);
 }
 
 // The compare bits b of one element (bit 0: u == o, bit 1: P(u) == o) as
@@ -134,16 +142,31 @@ __device__ __forceinline__ void tr_cmp_regs(T (&v)[DV][KR],
   }
 }
 
-// Transposed butterfly on registers (planar float32, bfloat16 or float16;
-// a half float rounds each product and sum to its type).
+// Transposed butterfly on registers (planar float32, bfloat16, float16 or
+// float64; a half float rounds each product and sum to its type).
 template <int VR, int KR, typename T>
 __device__ __forceinline__ void tr_bfly_regs(T (&v)[2][KR], unsigned hx,
-                                             int vlane, const float2* w,
+                                             int vlane,
+                                             const typename TwOf<T>::type* w,
                                              const unsigned (&tw)[KR]) {
   T pr[KR], pi[KR];
   partners<VR>(v[0], vlane, pr);
   partners<VR>(v[1], vlane, pi);
-  if constexpr (std::is_same_v<T, float>) {   // float32's code, as it was
+  if constexpr (std::is_same_v<T, double>) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      if ((hx >> i) & 1u) {                // the pair's "hi" member
+        const double2 wv = __ldg(w + tw[i]);
+        const double s_re = __dsub_rn(pr[i], v[0][i]);
+        const double s_im = __dsub_rn(pi[i], v[1][i]);
+        v[0][i] = __dadd_rn(__dmul_rn(wv.x, s_re), __dmul_rn(wv.y, s_im));
+        v[1][i] = __dsub_rn(__dmul_rn(wv.x, s_im), __dmul_rn(wv.y, s_re));
+      } else {
+        v[0][i] = __dadd_rn(v[0][i], pr[i]);
+        v[1][i] = __dadd_rn(v[1][i], pi[i]);
+      }
+    }
+  } else if constexpr (std::is_same_v<T, float>) {   // float32's code
 #pragma unroll
     for (int i = 0; i < KR; ++i) {
       if ((hx >> i) & 1u) {                // the pair's "hi" member
@@ -249,6 +272,57 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
   return make_float2(ga, gb);
 }
 
+// map_op_back in double (float64): each aten op rounded once, tanh's
+// 1 - y * y an FMA as in float32.
+__device__ __noinline__ double2 map_op_back(int op, int kb, double c,
+                                            double a, double b, double y,
+                                            double g) {
+  double ga, gb = 0.0;
+  switch (op) {
+    case OP_ADD: ga = g; gb = g; break;
+    case OP_SUB: ga = g; gb = -g; break;
+    case OP_MUL: ga = __dmul_rn(g, b); gb = __dmul_rn(g, a); break;
+    case OP_DIV:
+      if (kb == OPND_C) {   // g / c, as PyTorch divides by a number
+        ga = __dmul_rn(g, __ddiv_rn(1.0, c));
+      } else {
+        const double q = __ddiv_rn(__ddiv_rn(a, b), b);
+        ga = __ddiv_rn(g, b);
+        gb = __dmul_rn(-g, q);
+      }
+      break;
+    case OP_NEG: ga = -g; break;
+    case OP_ABS: ga = __dmul_rn(g, (double)((a > 0.0) - (a < 0.0))); break;
+    case OP_MAXC: ga = a >= b ? g : 0.0; break;
+    case OP_MINC: ga = a <= b ? g : 0.0; break;
+    case OP_RELU: ga = y <= 0.0 ? 0.0 : g; break;
+    case OP_EXP: ga = __dmul_rn(g, y); break;
+    case OP_EXPM1: ga = __dmul_rn(g, __dadd_rn(y, 1.0)); break;
+    case OP_LOG: ga = __ddiv_rn(g, a); break;
+    case OP_LOG1P: ga = __ddiv_rn(g, __dadd_rn(a, 1.0)); break;
+    case OP_SQRT: ga = __ddiv_rn(g, __dmul_rn(2.0, y)); break;
+    case OP_RSQRT:
+      ga = __dmul_rn(__dmul_rn(-0.5, g), __dmul_rn(__dmul_rn(y, y), y));
+      break;
+    case OP_TANH: ga = __dmul_rn(g, __fma_rn(-y, y, 1.0)); break;
+    case OP_SIGMOID:
+      ga = __dmul_rn(__dmul_rn(g, __dsub_rn(1.0, y)), y);
+      break;
+    case OP_SIN: ga = __dmul_rn(g, map_trig(OP_COS, a)); break;
+    case OP_COS: ga = __dmul_rn(g, -map_trig(OP_SIN, a)); break;
+    default: ga = g; break;
+  }
+  return make_double2(ga, gb);
+}
+
+// cotangents summed as autograd sums them: rounded to T once (float64 in
+// double)
+template <typename T, typename F>
+__device__ __forceinline__ F ct_sum(F a, F b) {
+  if constexpr (std::is_same_v<T, double>) return __dadd_rn(a, b);
+  else return rnd<T>(__fadd_rn(a, b));
+}
+
 // The transposed map (staged record ep) on the cotangent registers ct,
 // `at` the map's input values the replay kept (map_save_at): reverse mode
 // over the tape, one register at a time, the input of op s recomputed
@@ -257,25 +331,38 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
 template <int KR, typename T>
 __device__ __forceinline__ void map_vjp_regs(const int* ep, T (&ct)[KR],
                                              const T* at) {
+  using F = typename MapOf<T>::type;   // float, or double for float64
   const int n = ep[EP_MAP_LEN];
   if (n == 0) return;
-  const int* tape = ep + EP_MAP_OPS;
 #pragma unroll
   for (int i = 0; i < KR; ++i) {
-    const float u = widen(at[i * REPRO_THREADS]);
-    float g = widen(ct[i]), cu = -0.0f;   // -0 + x == x for every x
+    const F u = widen(at[i * REPRO_THREADS]);
+    F g = widen(ct[i]), cu = -F(0);   // -0 + x == x for every x
     for (int s = n - 1; s >= 0; --s) {
-      const int* w = tape + 2 * s;
-      const float x = map_eval<T>(tape, s, u);   // the op's R operand
-      const float y = map_elem_op<T>(w, x, u);
+      const int* w = ep + EP_MAP_OPS + 2 * s;
+      const F x = map_eval<T>(ep, s, u);   // the op's R operand
+      const F y = map_step<T>(ep, s, x, u);
       const int op = w[0] & 0xff, ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
-      const float c = __int_as_float(w[1]);
-      const float2 gg = map_op_back<T>(op, kb, c, operand(ka, x, u, c),
-                                        operand(kb, x, u, c), y, g);
-      const float ga = gg.x, gb = gg.y;
-      if (ka == OPND_U) cu = rnd<T>(__fadd_rn(cu, ga));
-      if (kb == OPND_U) cu = rnd<T>(__fadd_rn(cu, gb));
-      if (kb == OPND_R) g = ka == OPND_R ? rnd<T>(__fadd_rn(ga, gb)) : gb;
+      F c;
+      if constexpr (std::is_same_v<T, double>)
+        c = __longlong_as_double(wide_const(w[1], ep[EP_MAP_HI + s]));
+      else
+        c = __int_as_float(w[1]);
+      F ga, gb;
+      if constexpr (std::is_same_v<T, double>) {
+        const double2 gg = map_op_back(op, kb, c, operand(ka, x, u, c),
+                                       operand(kb, x, u, c), y, g);
+        ga = gg.x;
+        gb = gg.y;
+      } else {
+        const float2 gg = map_op_back<T>(op, kb, c, operand(ka, x, u, c),
+                                          operand(kb, x, u, c), y, g);
+        ga = gg.x;
+        gb = gg.y;
+      }
+      if (ka == OPND_U) cu = ct_sum<T>(cu, ga);
+      if (kb == OPND_U) cu = ct_sum<T>(cu, gb);
+      if (kb == OPND_R) g = ka == OPND_R ? ct_sum<T>(ga, gb) : gb;
       else if (ka == OPND_R) g = ga;
     }
     narrow_to(cu, ct[i]);
@@ -307,7 +394,8 @@ __device__ __forceinline__ void transposed_epilogue(
     }
   } else {
     if constexpr (DV == 2) {
-      const float2* w = reinterpret_cast<const float2*>(__ldg(gep + EP_W));
+      using TW = typename TwOf<T>::type;
+      const TW* w = reinterpret_cast<const TW*>(__ldg(gep + EP_W));
       unsigned tw[KR];
       tw_index(ep, tw_thread(ep, chunk, outer_bits), tw);
       REPRO_VREG_SWITCH(vreg, (tr_bfly_regs<VR>(v, hi_bits(ep, qb), vlane, w,
@@ -544,11 +632,21 @@ static int launch_bwd(const void* x, const void* ct, void* out,
   return (int)cudaGetLastError();
 }
 
+// Blocks per SM of K5 on float64: compares on single values, and planar
+// butterflies. The fastest of a sweep on the H100 (tools/fused_ab.py
+// --wide; PERF.md; device ms): the largest 2^24 sort cluster at 2 / 3 / 4
+// blocks an SM 0.5630 / 0.5030 / 0.5225 (80 registers and 48 bytes of
+// spills at 3); the 2^22 FFT's planar cluster at 1 / 2 / 3 0.4447 /
+// 0.3237 / 0.4320 (128 registers, no spills at 2).
+#define REPRO_MB_BWD_F64 3
+#define REPRO_MB_BWD_F64_PLANAR 2
+
 #ifndef REPRO_NO_EPI_ENTRY_POINTS   // as in tile_fused.cu
 
 // One K5 launch under the schedule *a (EpiTileArgs; k5_schedule in
-// bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16, 3 = float16
-// (integers have no gradient); dv as in repro_tile_fused; 8 registers a
+// bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16, 3 = float16, 11
+// = float64 (integers have no gradient); dv as in repro_tile_fused; 8
+// registers a
 // thread (its compare bits sit beside its values); has_cmp: the cluster
 // has compares (dv 1, and a planar cluster with maps, take the compare
 // variant either way: a cluster of maps alone has no compare bits to
@@ -562,8 +660,9 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
       a->per_cta <= 0 || a->groups <= 0 || a->n_groups <= 0 ||
       (a->n_buf != 1 && a->n_buf != 2) || a->d <= 0 || a->n_spill < 0 ||
       a->n_map_sets < 0 || a->plan == nullptr || a->n_words < kHdrWords ||
-      a->n_epi < 0 || a->regs != 8 || a->elem_type < 1 ||
-      a->elem_type > 3 || (a->dv == 2 && a->d != 2) ||
+      a->n_epi < 0 || a->regs != 8 ||
+      !(a->elem_type == 11 || (a->elem_type >= 1 && a->elem_type <= 3)) ||
+      (a->dv == 2 && a->d != 2) ||
       (a->vec && a->wpe != a->dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -583,6 +682,10 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
       case 1: REPRO_PLANAR(float);
       case 2: REPRO_PLANAR(Bf16);
       case 3: REPRO_PLANAR(F16);
+      case 11:   // float64: its own blocks per SM
+        if (a->n_map_sets) REPRO_BWD(double, 2, true, true, 2);
+        if (a->has_cmp) REPRO_BWD(double, 2, true, false, 2);
+        REPRO_BWD(double, 2, false, false, REPRO_MB_BWD_F64_PLANAR);
       default: break;
     }
 #undef REPRO_PLANAR
@@ -593,11 +696,13 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
     if (a->elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
     if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, true, 2);
     if (a->elem_type == 3) REPRO_BWD(F16, 1, true, true, 2);
+    if (a->elem_type == 11) REPRO_BWD(double, 1, true, true, 2);
     return (int)cudaErrorInvalidValue;
   }
   if (a->elem_type == 1) REPRO_BWD(float, 1, true, false, 4);
   if (a->elem_type == 2) REPRO_BWD(Bf16, 1, true, false, 3);
   if (a->elem_type == 3) REPRO_BWD(F16, 1, true, false, 3);
+  if (a->elem_type == 11) REPRO_BWD(double, 1, true, false, REPRO_MB_BWD_F64);
   return (int)cudaErrorInvalidValue;
 #undef REPRO_BWD
 }

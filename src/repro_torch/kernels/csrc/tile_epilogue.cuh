@@ -31,12 +31,13 @@
 //     own and its partner's values;
 //   * floats compare as integer keys (the float order, -0 < +0) in every
 //     warp whose values hold no NaN, so a float32, bfloat16 or float16
-//     compare costs what an int32 one does; a warp with a NaN takes the
-//     float selects. Integers of 8, 16 and 32 bits (signed or unsigned;
-//     bool is uint8) always compare as int keys. NaN, -0 and the no-FMA
-//     rounding are exactly those of cmp_max, cmp_min and the butterfly in
-//     bmmc_permute.py; a bfloat16 or float16 butterfly computes each
-//     product and sum in float and rounds it to its type;
+//     compare costs what an int32 one does (float64 as a 64-bit key); a
+//     warp with a NaN takes the float selects. Integers of 8 to 64 bits
+//     (signed or unsigned; bool is uint8) always compare as int keys. NaN,
+//     -0 and the no-FMA rounding are exactly those of cmp_max, cmp_min and
+//     the butterfly in bmmc_permute.py; a bfloat16 or float16 butterfly
+//     computes each product and sum in float and rounds it to its type, a
+//     float64 one in double;
 //   * a map (an element-wise torch function, map_lower.py) runs in the
 //     thread on each register as a tape of ops, uniform over the block.
 //     A map can make NaNs or move keys, so a phase that holds maps runs
@@ -45,9 +46,9 @@
 //     both planar values of a register slot).
 //
 // Element types: the kernels are instantiated by storage width and
-// compare class, not by dtype: int, U32 (4 bytes), I16, U16 (2), I8, U8
-// (1; bool), float and the half floats Bf16 and F16 (2, computed through
-// float).
+// compare class, not by dtype: I64, U64, double (8 bytes), int, U32 (4),
+// I16, U16 (2), I8, U8 (1; bool), float and the half floats Bf16 and F16
+// (2, computed through float).
 //
 // The plan is int64 words in device memory: a header (phases, epilogues,
 // outer bits, register bits), then one record per phase and one per
@@ -84,12 +85,24 @@ struct U16 {
 struct U32 {
   uint32_t v;
 };
+struct I64 {
+  long long v;
+};
+struct U64 {
+  unsigned long long v;
+};
 
 template <typename T>
 inline constexpr bool kHalf =
     std::is_same_v<T, Bf16> || std::is_same_v<T, F16>;
 template <typename T>
-inline constexpr bool kFloatElem = std::is_same_v<T, float> || kHalf<T>;
+inline constexpr bool kFloatElem =
+    std::is_same_v<T, float> || std::is_same_v<T, double> || kHalf<T>;
+// The 8-byte classes: 64-bit compare keys, maps on 64-bit values.
+template <typename T>
+inline constexpr bool kWide = std::is_same_v<T, I64> ||
+                              std::is_same_v<T, U64> ||
+                              std::is_same_v<T, double>;
 
 __device__ __forceinline__ float as_float(Bf16 v) {
   return __uint_as_float((unsigned)v.bits << 16);
@@ -116,6 +129,20 @@ __device__ __forceinline__ F16 round_f16(float f) {
 // bmmc_permute.py.
 __device__ __forceinline__ int cmp_sel(bool hi, int a, int b) {
   return hi ? (a > b ? a : b) : (a < b ? a : b);
+}
+__device__ __forceinline__ long long cmp_sel(bool hi, long long a,
+                                             long long b) {
+  return hi ? (a > b ? a : b) : (a < b ? a : b);
+}
+__device__ __forceinline__ double cmp_sel(bool hi, double a, double b) {
+  const long long ia = __double_as_longlong(a), ib = __double_as_longlong(b);
+  const bool a_wins = hi ? (a > b) : (a < b);
+  const bool b_wins = hi ? (b > a) : (b < a);
+  double r = __longlong_as_double(hi ? (ia & ib) : (ia | ib));
+  r = b_wins ? b : r;
+  r = a_wins ? a : r;
+  r = (b != b) ? b : r;
+  return (a != a) ? a : r;
 }
 __device__ __forceinline__ float cmp_sel(bool hi, float a, float b) {
   const int ia = __float_as_int(a), ib = __float_as_int(b);
@@ -199,6 +226,34 @@ __device__ __forceinline__ void from_key(Key k, U16& v) {
 __device__ __forceinline__ void from_key(Key k, U32& v) {
   v.v = (unsigned)k.k ^ 0x80000000u;
 }
+// 64-bit keys: float64 as float_key's 64-bit twin, int64 as itself,
+// uint64 with its sign bit flipped.
+struct Key64 {
+  long long k;
+};
+__device__ __forceinline__ long long double_key(long long b) {
+  return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFFLL);
+}
+__device__ __forceinline__ Key64 to_key(double v) {
+  return Key64{double_key(__double_as_longlong(v))};
+}
+__device__ __forceinline__ void from_key(Key64 k, double& v) {
+  v = __longlong_as_double(double_key(k.k));
+}
+__device__ __forceinline__ Key64 to_key(I64 v) { return Key64{v.v}; }
+__device__ __forceinline__ void from_key(Key64 k, I64& v) { v.v = k.k; }
+__device__ __forceinline__ Key64 to_key(U64 v) {
+  return Key64{(long long)(v.v ^ 0x8000000000000000ull)};
+}
+__device__ __forceinline__ void from_key(Key64 k, U64& v) {
+  v.v = (unsigned long long)k.k ^ 0x8000000000000000ull;
+}
+// The key type of an element class.
+template <typename T>
+struct KeyOf {
+  using type = std::conditional_t<kWide<T>, Key64, Key>;
+};
+__device__ __forceinline__ bool is_nan(double v) { return v != v; }
 __device__ __forceinline__ bool is_nan(float v) { return v != v; }
 __device__ __forceinline__ bool is_nan(Bf16 v) {
   return as_float(v) != as_float(v);
@@ -211,6 +266,12 @@ __device__ __forceinline__ Key cmp_sel(bool hi, Key a, Key b) {
 }
 __device__ __forceinline__ Key shfl_x(Key v, int m) {
   return Key{__shfl_xor_sync(0xffffffffu, v.k, m)};
+}
+__device__ __forceinline__ Key64 cmp_sel(bool hi, Key64 a, Key64 b) {
+  return Key64{cmp_sel(hi, a.k, b.k)};
+}
+__device__ __forceinline__ Key64 shfl_x(Key64 v, int m) {
+  return Key64{__shfl_xor_sync(0xffffffffu, v.k, m)};
 }
 
 // One result rounded to T (float32, or a half float), kept in float.
@@ -246,11 +307,35 @@ __device__ __forceinline__ void bfly_out(bool hi, T v_re, T v_im, T p_re,
   narrow_to(hi ? __fsub_rn(lo_re, t_re) : __fadd_rn(lo_re, t_re), o[0]);
   narrow_to(hi ? __fsub_rn(lo_im, t_im) : __fadd_rn(lo_im, t_im), o[1]);
 }
+// The same in double (float64 twiddles; nvcc would contract a * b + c).
+__device__ __forceinline__ void bfly_out(bool hi, double v_re, double v_im,
+                                         double p_re, double p_im, double wr,
+                                         double wi, double* o) {
+  const double lo_re = hi ? p_re : v_re, lo_im = hi ? p_im : v_im;
+  const double hr = hi ? v_re : p_re, him = hi ? v_im : p_im;
+  const double t_re = __dsub_rn(__dmul_rn(wr, hr), __dmul_rn(wi, him));
+  const double t_im = __dadd_rn(__dmul_rn(wr, him), __dmul_rn(wi, hr));
+  o[0] = hi ? __dsub_rn(lo_re, t_re) : __dadd_rn(lo_re, t_re);
+  o[1] = hi ? __dsub_rn(lo_im, t_im) : __dadd_rn(lo_im, t_im);
+}
+// A butterfly's twiddle pair as the plan's table holds it: float32 values
+// (rounded to a half type where the tile holds one), float64 for double.
+template <typename T>
+struct TwOf {
+  using type = float2;
+};
+template <>
+struct TwOf<double> {
+  using type = double2;
+};
 
 __device__ __forceinline__ int shfl_x(int v, int m) {
   return __shfl_xor_sync(0xffffffffu, v, m);
 }
 __device__ __forceinline__ float shfl_x(float v, int m) {
+  return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ double shfl_x(double v, int m) {
   return __shfl_xor_sync(0xffffffffu, v, m);
 }
 __device__ __forceinline__ Bf16 shfl_x(Bf16 v, int m) {
@@ -440,6 +525,15 @@ __device__ __forceinline__ unsigned eq_bits(Key a, Key p, Key o) {
       (a.k == p.k) | ((((unsigned)a.k + 1u) | ((unsigned)p.k + 1u)) <= 1u);
   return tie ? 3u : 2u - (unsigned)(a.k == o.k);
 }
+__device__ __forceinline__ unsigned eq_bits(double a, double p, double o) {
+  return (unsigned)(a == o) | ((unsigned)(p == o) << 1);
+}
+__device__ __forceinline__ unsigned eq_bits(Key64 a, Key64 p, Key64 o) {
+  const unsigned long long ua = (unsigned long long)a.k + 1ull;
+  const unsigned long long up = (unsigned long long)p.k + 1ull;
+  const bool tie = (a.k == p.k) | ((ua | up) <= 1ull);
+  return tie ? 3u : 2u - (unsigned)(a.k == o.k);
+}
 
 // Compare epilogue on registers; with kMask, the compare bits of each
 // element go to bits `shift`, `shift` + 1 of m. hx: bit i says whether
@@ -520,18 +614,19 @@ __device__ __forceinline__ unsigned tw_thread(const int* ep, unsigned chunk,
          image_of(ep + EP_TW_OUT, chunk, outer_bits);
 }
 
-// Butterfly epilogue on registers (planar float32, bfloat16 or float16:
-// v[0] re, v[1] im).
+// Butterfly epilogue on registers (planar float32, bfloat16, float16 or
+// float64: v[0] re, v[1] im).
 template <int VR, int KR, typename T>
 __device__ __forceinline__ void bfly_regs(T (&v)[2][KR], unsigned hx,
-                                          int vlane, const float2* w,
+                                          int vlane,
+                                          const typename TwOf<T>::type* w,
                                           const unsigned (&tw)[KR]) {
   T pr[KR], pi[KR];
   partners<VR>(v[0], vlane, pr);
   partners<VR>(v[1], vlane, pi);
 #pragma unroll
   for (int i = 0; i < KR; ++i) {
-    const float2 wv = __ldg(w + tw[i]);
+    const typename TwOf<T>::type wv = __ldg(w + tw[i]);
     T o[2];
     bfly_out((hx >> i) & 1u, v[0][i], v[1][i], pr[i], pi[i], wv.x, wv.y, o);
     v[0][i] = o[0];
@@ -553,16 +648,19 @@ __device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
 // (R; the map's input before the first op), the map's input (U) or a
 // constant (C). A float32 op rounds as eager PyTorch does on the card (no
 // contraction into FMAs; a / c as a * (1 / c), PyTorch's CUDA division by
-// a number); a bfloat16 or float16 op computes in float and rounds to its
-// type; an integer op computes in int and wraps at its type's width
-// (uint32 unsigned). The record: kind 2, the tape's length, the map's slot,
-// two words an op from EP_MAP_OPS (opcode | a << 8 | b << 10, constant),
-// past EP_HI_BASE and EP_TW_BASE, which stage_plan reads as pointers.
+// a number); a float64 op the same in double; a bfloat16 or float16 op
+// computes in float and rounds to its type; an integer op computes in int
+// (long long for int64 and uint64) and wraps at its type's width (uint32
+// and uint64 unsigned). The record: kind 2, the tape's length, the map's
+// slot, two words an op from EP_MAP_OPS (opcode | a << 8 | b << 10, the
+// constant's low 32 bits), past EP_HI_BASE and EP_TW_BASE, which
+// stage_plan reads as pointers; a 64-bit type's constants keep their high
+// 32 bits at EP_MAP_HI + op.
 // The tape runs one register at a time (a value and its input live), so
 // a map adds few registers to the phase around it.
 // ---------------------------------------------------------------------
 constexpr int kKindMap = 2;
-enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_OPS = 8 };
+enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_OPS = 8, EP_MAP_HI = 24 };
 enum {   // opcodes (map_lower.py)
   OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
   OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
@@ -570,11 +668,15 @@ enum {   // opcodes (map_lower.py)
 };
 enum { OPND_R, OPND_U, OPND_C, OPND_NONE };
 
-// The value type a tape computes in: float for the float types, int for
-// the integers.
+// The value type a tape computes in: float for the float types of 32 bits
+// and less, int for the integers of 32 bits and less, double and long long
+// for the 64-bit ones.
 template <typename T>
 struct MapOf {
-  using type = std::conditional_t<kFloatElem<T>, float, int>;
+  using type = std::conditional_t<
+      kWide<T>, std::conditional_t<std::is_same_v<T, double>, double,
+                                   long long>,
+      std::conditional_t<kFloatElem<T>, float, int>>;
 };
 __device__ __forceinline__ int widen(int v) { return v; }
 __device__ __forceinline__ int widen(I8 v) { return v.v; }
@@ -585,6 +687,14 @@ __device__ __forceinline__ int widen(U32 v) { return (int)v.v; }
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(Bf16 v) { return as_float(v); }
 __device__ __forceinline__ float widen(F16 v) { return as_float(v); }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ long long widen(I64 v) { return v.v; }
+__device__ __forceinline__ long long widen(U64 v) { return (long long)v.v; }
+__device__ __forceinline__ void narrow_to(double f, double& v) { v = f; }
+__device__ __forceinline__ void narrow_to(long long f, I64& v) { v.v = f; }
+__device__ __forceinline__ void narrow_to(long long f, U64& v) {
+  v.v = (unsigned long long)f;
+}
 __device__ __forceinline__ void narrow_to(int f, int& v) { v = f; }
 __device__ __forceinline__ void narrow_to(int f, I8& v) { v.v = (int8_t)f; }
 __device__ __forceinline__ void narrow_to(int f, U8& v) { v.v = (uint8_t)f; }
@@ -618,6 +728,9 @@ __device__ __forceinline__ F operand(int kind, F r, F u, F c) {
 __device__ __noinline__ float map_trig(int op, float a) {
   return op == OP_SIN ? sinf(a) : cosf(a);
 }
+__device__ __noinline__ double map_trig(int op, double a) {
+  return op == OP_SIN ? sin(a) : cos(a);
+}
 
 // One float op (float32, bfloat16 or float16 T) on resolved operands.
 template <typename T>
@@ -648,53 +761,101 @@ __device__ __forceinline__ float map_op(int op, float a, float b) {
   return rnd<T>(y);
 }
 
-// One int32 op, wrapping (kUnsigned: uint32's bits, compared and
-// shifted as unsigned).
-template <bool kUnsigned = false>
-__device__ __forceinline__ int map_op_int(int op, int a, int b) {
-  const unsigned ua = (unsigned)a, ub = (unsigned)b;
-  if constexpr (kUnsigned) {
-    switch (op) {
-      case OP_ABS: return a;
-      case OP_MAXC: return (int)(ua > ub ? ua : ub);
-      case OP_MINC: return (int)(ua < ub ? ua : ub);
-      case OP_RELU: return a;
-      case OP_SHR: return (int)(ua >> (b & 31));
-      default: break;
-    }
-  }
+// One float64 op on resolved operands, as eager PyTorch computes it on
+// the card in double (one rounding an op).
+__device__ __forceinline__ double map_op(int op, double a, double b) {
   switch (op) {
-    case OP_ADD: return (int)(ua + ub);
-    case OP_SUB: return (int)(ua - ub);
-    case OP_MUL: return (int)(ua * ub);
-    case OP_NEG: return (int)(0u - ua);
-    case OP_ABS: return a < 0 ? (int)(0u - ua) : a;
-    case OP_MAXC: return a > b ? a : b;
-    case OP_MINC: return a < b ? a : b;
-    case OP_RELU: return a > 0 ? a : 0;
-    case OP_NOT: return ~a;
-    case OP_AND: return a & b;
-    case OP_OR: return a | b;
-    case OP_XOR: return a ^ b;
-    case OP_SHL: return (int)(ua << (b & 31));
-    case OP_SHR: return a >> (b & 31);
+    case OP_ADD: return __dadd_rn(a, b);
+    case OP_SUB: return __dsub_rn(a, b);
+    case OP_MUL: return __dmul_rn(a, b);
+    case OP_DIV: return __ddiv_rn(a, b);
+    case OP_NEG: return -a;
+    case OP_ABS: return fabs(a);
+    case OP_MAXC: return (a != a) ? a : fmax(a, b);
+    case OP_MINC: return (a != a) ? a : fmin(a, b);
+    case OP_RELU: return (a != a) ? a : fmax(a, 0.0);
+    case OP_EXP: return exp(a);
+    case OP_EXPM1: return expm1(a);
+    case OP_LOG: return log(a);
+    case OP_LOG1P: return log1p(a);
+    case OP_SQRT: return __dsqrt_rn(a);
+    case OP_RSQRT: return rsqrt(a);
+    case OP_TANH: return tanh(a);
+    case OP_SIGMOID: return __ddiv_rn(1.0, __dadd_rn(1.0, exp(-a)));
+    case OP_SIN:
+    case OP_COS: return map_trig(op, a);
     default: return a;
   }
 }
 
-// Tape op w (its two staged words) on one value: r the running value, u
-// the map's input. Out of line, so the switch and its math functions are
-// one copy for all of a thread's registers: inlined into each unrolled
-// register they made the map kernels' code 1.3-1.7x larger and K5 on a
-// tanh cluster 0.61 ms instead of 0.36 on the H100 (PERF.md, PR 15).
+// One integer op of int (32 bits) or long long (64), wrapping (kUnsigned:
+// uint32's or uint64's bits, compared and shifted as unsigned).
+template <bool kUnsigned = false, typename I>
+__device__ __forceinline__ I map_op_int(int op, I a, I b) {
+  using U = std::make_unsigned_t<I>;
+  constexpr int kShift = 8 * (int)sizeof(I) - 1;
+  const U ua = (U)a, ub = (U)b;
+  if constexpr (kUnsigned) {
+    switch (op) {
+      case OP_ABS: return a;
+      case OP_MAXC: return (I)(ua > ub ? ua : ub);
+      case OP_MINC: return (I)(ua < ub ? ua : ub);
+      case OP_RELU: return a;
+      case OP_SHR: return (I)(ua >> (b & kShift));
+      default: break;
+    }
+  }
+  switch (op) {
+    case OP_ADD: return (I)(ua + ub);
+    case OP_SUB: return (I)(ua - ub);
+    case OP_MUL: return (I)(ua * ub);
+    case OP_NEG: return (I)((U)0 - ua);
+    case OP_ABS: return a < 0 ? (I)((U)0 - ua) : a;
+    case OP_MAXC: return a > b ? a : b;
+    case OP_MINC: return a < b ? a : b;
+    case OP_RELU: return a > 0 ? a : (I)0;
+    case OP_NOT: return ~a;
+    case OP_AND: return a & b;
+    case OP_OR: return a | b;
+    case OP_XOR: return a ^ b;
+    case OP_SHL: return (I)(ua << (b & kShift));
+    case OP_SHR: return a >> (b & kShift);
+    default: return a;
+  }
+}
+
+// A 64-bit type's constant: the op's low word and its high word.
+__device__ __forceinline__ long long wide_const(int lo, int hi) {
+  return (long long)(((unsigned long long)(unsigned)hi << 32) |
+                     (unsigned long long)(unsigned)lo);
+}
+
+// Tape op w (its two staged words; hi its constant's high word, read by
+// the 64-bit types) on one value: r the running value, u the map's input.
+// Out of line, so the switch and its math functions are one copy for all
+// of a thread's registers: inlined into each unrolled register they made
+// the map kernels' code 1.3-1.7x larger and K5 on a tanh cluster 0.61 ms
+// instead of 0.36 on the H100 (PERF.md).
 template <typename T>
 __device__ __noinline__ typename MapOf<T>::type map_elem_op(
-    const int* w, typename MapOf<T>::type r, typename MapOf<T>::type u) {
+    const int* w, int hi, typename MapOf<T>::type r,
+    typename MapOf<T>::type u) {
   int op = w[0] & 0xff;
   const int ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
   if constexpr (std::is_same_v<T, int>) {
     const int c = w[1];
     return map_op_int(op, operand(ka, r, u, c), operand(kb, r, u, c));
+  } else if constexpr (std::is_same_v<T, double>) {
+    double c = __longlong_as_double(wide_const(w[1], hi));
+    if (op == OP_DIV && kb == OPND_C) {   // PyTorch: a * (1 / c)
+      op = OP_MUL;
+      c = __ddiv_rn(1.0, c);
+    }
+    return map_op(op, operand(ka, r, u, c), operand(kb, r, u, c));
+  } else if constexpr (kWide<T>) {
+    const long long c = wide_const(w[1], hi);
+    return map_op_int<std::is_same_v<T, U64>>(op, operand(ka, r, u, c),
+                                              operand(kb, r, u, c));
   } else if constexpr (!kFloatElem<T>) {
     const int c = w[1];
     return wrap<T>(map_op_int<std::is_same_v<T, U32>>(
@@ -709,12 +870,21 @@ __device__ __noinline__ typename MapOf<T>::type map_elem_op(
   }
 }
 
-// The first n ops of the tape at w on one input u.
+// Op s of the tape of record ep on one value.
+template <typename T>
+__device__ __forceinline__ typename MapOf<T>::type map_step(
+    const int* ep, int s, typename MapOf<T>::type r,
+    typename MapOf<T>::type u) {
+  return map_elem_op<T>(ep + EP_MAP_OPS + 2 * s,
+                        kWide<T> ? ep[EP_MAP_HI + s] : 0, r, u);
+}
+
+// The first n ops of the tape of record ep on one input u.
 template <typename T>
 __device__ __forceinline__ typename MapOf<T>::type map_eval(
-    const int* w, int n, typename MapOf<T>::type u) {
+    const int* ep, int n, typename MapOf<T>::type u) {
   typename MapOf<T>::type r = u;
-  for (int s = 0; s < n; ++s) r = map_elem_op<T>(w + 2 * s, r, u);
+  for (int s = 0; s < n; ++s) r = map_step<T>(ep, s, r, u);
   return r;
 }
 
@@ -724,13 +894,13 @@ __device__ __forceinline__ void map_regs(const int* ep, T (&v)[KR]) {
   const int n = ep[EP_MAP_LEN];
 #pragma unroll
   for (int i = 0; i < KR; ++i)
-    narrow_to(map_eval<T>(ep + EP_MAP_OPS, n, widen(v[i])), v[i]);
+    narrow_to(map_eval<T>(ep, n, widen(v[i])), v[i]);
 }
 
 // Epilogue e of the plan (staged record ep, device record gep) on the
 // registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
 // kPairs: integer values and keys compare through cmp_pairs. A butterfly
-// runs on planar pairs (DV 2) of float32, bfloat16 or float16.
+// runs on planar pairs (DV 2) of float32, bfloat16, float16 or float64.
 template <bool kMask, bool kPairs = false, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogue(const int* ep,
                                                  const long long* gep,
@@ -743,14 +913,16 @@ __device__ __forceinline__ void forward_epilogue(const int* ep,
   if (ep[EP_KIND] == 0) {
     const int shift = ep[EP_SHIFT];
     if constexpr (kPairs && (std::is_same_v<T, int> ||
-                             std::is_same_v<T, Key>)) {
+                             std::is_same_v<T, Key> ||
+                             std::is_same_v<T, Key64>)) {
       REPRO_VREG_SWITCH(vreg, (cmp_pairs<VR, kMask>(v, m, hx, vlane, shift)))
     } else {
       REPRO_VREG_SWITCH(vreg, (cmp_regs<VR, kMask>(v, m, hx, vlane, shift)))
     }
   } else {
     if constexpr (DV == 2) {
-      const float2* w = reinterpret_cast<const float2*>(__ldg(gep + EP_W));
+      using TW = typename TwOf<T>::type;
+      const TW* w = reinterpret_cast<const TW*>(__ldg(gep + EP_W));
       unsigned tw[KR];
       tw_index(ep, tw_thread(ep, chunk, outer_bits), tw);
       REPRO_VREG_SWITCH(vreg, (bfly_regs<VR>(v, hx, vlane, w, tw)))
@@ -760,11 +932,12 @@ __device__ __forceinline__ void forward_epilogue(const int* ep,
 
 // Epilogues e0 .. e1 - 1 of a phase (staged plan sp, device plan gp; the
 // records from word ebase) on a thread's registers. A compare cluster's
-// float, bfloat16 or float16 values run on keys (integer compares, as
-// cheap as int32's) in every warp whose values hold no NaN; a warp holds
-// every partner of its positions within a phase, so the test is the
-// warp's own. Integers other than int32 always run on keys (the forward
-// pass only: no compare bits are kept for them).
+// float, bfloat16, float16 or float64 values run on keys (integer
+// compares, as cheap as int32's; 64-bit ones for float64) in every warp
+// whose values hold no NaN; a warp holds every partner of its positions
+// within a phase, so the test is the warp's own. Integers other than int32
+// always run on keys (the forward pass only: no compare bits are kept for
+// them).
 template <bool kMask, bool kPairs, int DV, int KR, typename T>
 __device__ __forceinline__ void forward_epilogues_of(
     const int* sp, const long long* gp, int ebase, int e0, int e1,
@@ -778,7 +951,7 @@ __device__ __forceinline__ void forward_epilogues(
     int outer_bits) {
   if constexpr (!kFloatElem<T> && !std::is_same_v<T, int>) {
     static_assert(DV == 1 && !kMask, "integers: single values, forward");
-    Key kv[1][KR];
+    typename KeyOf<T>::type kv[1][KR];
 #pragma unroll
     for (int i = 0; i < KR; ++i) kv[0][i] = to_key(v[0][i]);
     for (int e = e0; e < e1; ++e) {
@@ -806,7 +979,7 @@ __device__ __forceinline__ void forward_epilogues_of(
 #pragma unroll
     for (int i = 0; i < KR; ++i) nan |= is_nan(v[0][i]);
     if (!__any_sync(0xffffffffu, nan)) {
-      Key kv[1][KR];
+      typename KeyOf<T>::type kv[1][KR];
 #pragma unroll
       for (int i = 0; i < KR; ++i) kv[0][i] = to_key(v[0][i]);
       for (int e = e0; e < e1; ++e) {
@@ -903,5 +1076,8 @@ template <typename T>
 struct ElemWord {
   using type = std::conditional_t<
       sizeof(T) == 1, uint8_t,
-      std::conditional_t<sizeof(T) == 2, uint16_t, uint32_t>>;
+      std::conditional_t<
+          sizeof(T) == 2, uint16_t,
+          std::conditional_t<sizeof(T) == 4, uint32_t,
+                             unsigned long long>>>;
 };

@@ -8,11 +8,12 @@
 // epilogue, tile position (r, c) pairs with (r ^ vr, c ^ vc) and
 //     hi = hi_row[r] ^ hi_lane[c] ^ hi_base[g]
 //   cmp:  v = hi ? max(v, partner) : min(v, partner), elementwise over
-//         the tail d (integers of 8, 16 and 32 bits, bool, float32,
-//         bfloat16, float16);
+//         the tail d (integers of 8, 16, 32 and 64 bits, bool, float32,
+//         bfloat16, float16, float64);
 //   bfly: (lo, hi) pair values of the planar (re, im) tail (float32,
-//         bfloat16 or float16; a half float rounds each product and sum
-//         to its type, the twiddles already rounded to it), twiddle
+//         bfloat16, float16 or float64; a half float rounds each product
+//         and sum to its type, the twiddles already rounded to it; float64
+//         computes in double with float64 twiddles), twiddle
 //         w = w_planar[tw_row[r] ^ tw_lane[c] ^ tw_base[g]],
 //         v = hi ? lo - w * hi_val : lo + w * hi_val;
 //   map:  v = f(v), f the Map's torch function as the tape map_lower.py
@@ -49,12 +50,14 @@
 // tail alone); a cluster with butterflies holds the planar (re, im) pair
 // of each position. A map runs its tape on each register in the thread
 // (beside butterflies, on both planar values). The kernel is compiled once
-// per element class (storage width and compare class: int, U32, I16, U16,
-// I8, U8 for uint8 and bool, float, Bf16, F16), register count,
-// planar-or-not and with-or-without maps, at the blocks per SM its
-// registers allow (a sweep, tools/fused_ab.py, for the int32, float32 and
-// bfloat16 ones; the classes added later take the blocks per SM of the
-// class they widen like). A pointer off 16-byte
+// per element class (storage width and compare class: I64, U64, int, U32,
+// I16, U16, I8, U8 for uint8 and bool, double, float, Bf16, F16), register
+// count, planar-or-not and with-or-without maps, at the blocks per SM its
+// registers allow (a sweep, tools/fused_ab.py, for the int32, float32,
+// bfloat16 and 64-bit ones; the 8- and 16-bit classes take the blocks per
+// SM of the class they widen like). The 8-byte classes run at 8
+// positions a thread only: their work items of 16 KiB hold 2048
+// positions (2^11, epilogue_plan.regs_for). A pointer off 16-byte
 // alignment, rows of fewer than 16 bytes or a tail of several values a
 // register slot does not hold take the same schedule one word of the
 // element's width at a time.
@@ -81,7 +84,9 @@
 // tools/fused_ab.cu, beside the unguarded design before the schedule.
 // Measured (PERF.md; H100 80GB HBM3, 700 W; the same cluster, device
 // time, in turns): 0.1042 ms on int32 keys against 0.1595 for the guarded
-// design before and 0.0996 for the unguarded K4b.
+// design before and 0.0996 for the unguarded K4b. On 64-bit keys (t = 5,
+// bound 0.080 ms): K4b int64 0.1785, uint64 0.1814, float64 0.1993 ms;
+// the guarded K4b 0.1870, 0.1917, 0.2115.
 #include "tile_common.cuh"
 #include "tile_items.cuh"
 
@@ -220,16 +225,30 @@ static bool valid_args(const EpiTileArgs* a) {
          (a->n_buf == 1 || a->n_buf == 2) && a->d > 0 &&
          a->plan != nullptr && a->n_words >= kHdrWords && a->n_epi >= 0 &&
          (a->regs == 8 || a->regs == 16) &&
-         !(a->dv == 2 && (a->elem_type < 1 || a->elem_type > 3 ||
-                          a->d != 2)) &&
+         !(a->dv == 2 && (a->d != 2 || !(a->elem_type == 11 ||
+                                         (a->elem_type >= 1 &&
+                                          a->elem_type <= 3)))) &&
          !(a->maps && a->regs != 8) && !(a->vec && a->wpe != a->dv);
 }
+
+// Blocks per SM of the 64-bit classes (K4b and the guarded K4b, 8
+// registers): int64, uint64 and float64 single values, and planar float64.
+// The fastest of a sweep on the H100 (tools/fused_ab.py --wide; PERF.md;
+// device ms on the largest 2^24 sort cluster at 2 / 3 / 4 / 5 blocks an
+// SM): int64 0.1894 / 0.1893 / 0.1780 / 0.1789, uint64 0.1929 / 0.1925 /
+// 0.1817 / 0.1796, float64 0.2437 / 0.2066 / 0.1991 / 0.2014 (63-64
+// registers at 4); the 2^22 FFT's planar float64 cluster at 2 / 3 / 4:
+// 0.3201 / 0.2948 / 0.3414 (80 registers and 196 bytes of spills at 3:
+// without spills, at 2, fewer blocks cost more).
+#define REPRO_MB_64 4
+#define REPRO_MB_F64_PLANAR 3
 
 // The entry points (a file that includes this one for its device code,
 // tools/fused_ab.cu, leaves them and their instantiations out).
 #ifndef REPRO_NO_EPI_ENTRY_POINTS
 
-// The planar (dv 2) element types: float32, bfloat16, float16.
+// The planar (dv 2) element types of 32 bits and less: float32,
+// bfloat16, float16 (float64, 11, is launched on its own).
 #define REPRO_PLANAR_SWITCH(elem_type, CASE) \
   switch (elem_type) {                       \
     case 1: CASE(float);                     \
@@ -241,10 +260,11 @@ static bool valid_args(const EpiTileArgs* a) {
 // One K4b launch under the schedule *a (EpiTileArgs; k4b_schedule in
 // bmmc_permute.py): elem_type 0 = int32, 1 = float32, 2 = bfloat16, 3 =
 // float16, 4 = int8, 5 = uint8 (and bool), 6 = int16, 7 = uint16, 8 =
-// uint32; dv: tail values a register slot holds (2: a planar (re, im)
-// cluster with butterflies, float types only); regs: positions a thread
-// holds (16, or 8: see tile_epilogue.cuh); maps: the cluster holds map
-// epilogues (8 registers).
+// uint32, 9 = int64, 10 = uint64, 11 = float64; dv: tail values a
+// register slot holds (2: a planar (re, im) cluster with butterflies,
+// float types only); regs: positions a thread holds (16, or 8: see
+// tile_epilogue.cuh; the 64-bit types 8 only); maps: the cluster holds
+// map epilogues (8 registers).
 extern "C" int repro_tile_fused(const void* x, void* out,
                                 const EpiTileArgs* a, void* stream) {
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
@@ -255,6 +275,10 @@ extern "C" int repro_tile_fused(const void* x, void* out,
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 3 with a few spills than at 2 without
   if (a->dv == 2) {
+    if (a->elem_type == 11) {
+      if (a->maps) REPRO_FUSED(double, 2, 8, true, REPRO_MB_F64_PLANAR);
+      REPRO_FUSED(double, 2, 8, false, REPRO_MB_F64_PLANAR);
+    }
 #define REPRO_PLANAR(T)                                    \
   if (a->maps) REPRO_FUSED(T, 2, 8, true, 3);              \
   REPRO_FUSED(T, 2, 8, false, 3)
@@ -262,6 +286,18 @@ extern "C" int repro_tile_fused(const void* x, void* out,
 #undef REPRO_PLANAR
   }
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  if (a->elem_type >= 9) {   // 64-bit: 8 registers (see above)
+    if (a->regs != 8) return (int)cudaErrorInvalidValue;
+    switch (a->elem_type) {
+      case 9: if (a->maps) REPRO_FUSED(I64, 1, 8, true, REPRO_MB_64);
+              REPRO_FUSED(I64, 1, 8, false, REPRO_MB_64);
+      case 10: if (a->maps) REPRO_FUSED(U64, 1, 8, true, REPRO_MB_64);
+               REPRO_FUSED(U64, 1, 8, false, REPRO_MB_64);
+      case 11: if (a->maps) REPRO_FUSED(double, 1, 8, true, REPRO_MB_64);
+               REPRO_FUSED(double, 1, 8, false, REPRO_MB_64);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (a->maps) {
     switch (a->elem_type) {
       case 0: REPRO_FUSED(int, 1, 8, true, 4);
@@ -316,11 +352,21 @@ extern "C" int repro_tile_fused_guarded(const void* x, void* out,
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 4 with spills than at 3
   if (a->dv == 2) {
+    if (a->elem_type == 11) REPRO_GUARDED(double, 2, 8, REPRO_MB_F64_PLANAR);
 #define REPRO_PLANAR(T) REPRO_GUARDED(T, 2, 8, 3)
     REPRO_PLANAR_SWITCH(a->elem_type, REPRO_PLANAR)
 #undef REPRO_PLANAR
   }
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  if (a->elem_type >= 9) {
+    if (a->regs != 8) return (int)cudaErrorInvalidValue;
+    switch (a->elem_type) {
+      case 9: REPRO_GUARDED(I64, 1, 8, REPRO_MB_64);
+      case 10: REPRO_GUARDED(U64, 1, 8, REPRO_MB_64);
+      case 11: REPRO_GUARDED(double, 1, 8, REPRO_MB_64);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const bool r16 = a->regs == 16;
   switch (a->elem_type) {
     case 0: if (r16) REPRO_GUARDED(int, 1, 16, 4);

@@ -247,6 +247,10 @@ template <>
 struct ElemVec<uint16_t, 2> {   // a planar bfloat16 or float16 pair
   using type = uint32_t;
 };
+template <>
+struct ElemVec<unsigned long long, 2> {   // a planar float64 pair
+  using type = uint4;
+};
 
 // An item's output rows from its tile: out.flat[r * 2^t + l] =
 // tile.flat[src0.flat[r * 2^t + (l ^ xl[j])]] (j the row's tile), whole

@@ -56,7 +56,7 @@ import numpy as np
 
 from ..core.f2 import in_span, parity
 from ..core.tiling import _affine_table, _coords
-from .map_lower import TAPE_MAX, tape_words
+from .map_lower import TAPE_MAX, tape_high_words, tape_words
 
 REGS = 16            # most positions a thread holds (register slots: 4 bits)
 LANE_BITS = 5
@@ -79,10 +79,12 @@ KIND_CMP, KIND_BFLY, KIND_MAP = 0, 1, 2
 EP_TW_REG, EP_TW_THR, EP_TW_OUT = 12, 16, 24
 # a map's record: the tape's length, the map's slot among the cluster's
 # maps (K5 keeps each map's input in shared memory by slot), then two
-# words an op (map_lower.tape_words) past EP_HI_BASE and EP_TW_BASE, which
-# the kernels read as pointers
-EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_OPS = 1, 2, 8
-assert EP_MAP_OPS + 2 * TAPE_MAX <= EPI_WORDS
+# words an op (map_lower.tape_words) and, for a 64-bit type, the high
+# words of its constants from EP_MAP_HI (map_lower.tape_high_words), past
+# EP_HI_BASE and EP_TW_BASE, which the kernels read as pointers
+EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_OPS, EP_MAP_HI = 1, 2, 8, 24
+assert EP_MAP_OPS + 2 * TAPE_MAX <= EP_MAP_HI
+assert EP_MAP_HI + TAPE_MAX <= EPI_WORDS
 
 
 def _log2(v: int) -> int:
@@ -302,6 +304,8 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
                 ep[EP_MAP_LEN] = len(tw) // 2
                 ep[EP_MAP_SLOT] = n_maps
                 ep[EP_MAP_OPS:EP_MAP_OPS + len(tw)] = tw
+                hw = tape_high_words(entries[e][9])
+                ep[EP_MAP_HI:EP_MAP_HI + len(hw)] = hw
                 n_maps += 1
                 continue
             c = coord(vs[e])

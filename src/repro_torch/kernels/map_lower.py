@@ -8,24 +8,26 @@ element-wise aten ops from a closed list, each keeping the dtype and
 shape, each operand the running value (``R``, the previous op's
 result), the map's input (``U``) or a Python number (``C``). K4b and K5
 (``tile_epilogue.cuh``) evaluate the tape on register values: float32
-ops as eager PyTorch rounds them on the card (one rounding an op;
-a division by a constant is a product with its reciprocal, as PyTorch's
-CUDA ``div`` computes it), bfloat16 and float16 ops in float rounded to
-the type after each op, integer ops (8, 16 and 32 bits) in int narrowed
-to the type's width after each op, so they wrap where torch wraps (bool:
-``~`` as an XOR with 1, and only ``&``, ``|``, ``^`` and ``*``, which keep
-0 and 1). K5 takes the map's gradient by reverse mode over the tape, with
-autograd's derivative formulas rounded as PyTorch's CUDA kernels round
-them (:func:`tape_vjp`).
+and float64 ops as eager PyTorch rounds them on the card (one rounding an
+op; a division by a constant is a product with its reciprocal, as
+PyTorch's CUDA ``div`` computes it), bfloat16 and float16 ops in float
+rounded to the type after each op, integer ops (8, 16 and 32 bits) in int
+narrowed to the type's width after each op, so they wrap where torch
+wraps, int64 and uint64 ops in 64 bits (bool: ``~`` as an XOR with 1, and
+only ``&``, ``|``, ``^`` and ``*``, which keep 0 and 1). A 64-bit type's
+constants keep all 64 bits (:func:`tape_high_words`). K5 takes the map's
+gradient by reverse mode over the tape, with autograd's derivative
+formulas rounded as PyTorch's CUDA kernels round them
+(:func:`tape_vjp`).
 
 A function the list does not cover, one whose trace fails (``.item()``,
 data-dependent Python branches), changes dtype or shape, or is longer
 than :data:`TAPE_MAX` ops is not lowered (``Tape.ops is None``): a
 cluster that holds it runs stage by stage and counts a fused fallback.
-A float function lowers for float32, bfloat16 and float16 alike or for
-none of them. An op torch does not define for a type (most of them for
-uint16 and uint32 on the CPU) fails the trace, so the map is not lowered
-for that type.
+A float function lowers for float32, bfloat16, float16 and float64 alike
+or for none of them. An op torch does not define for a type (most of them
+for uint16, uint32 and uint64 on the CPU) fails the trace, so the map is
+not lowered for that type.
 Tapes are kept in a bounded cache by ``(Map.name, dtype)``, each holding
 its function (another function under a cached name is lowered anew),
 and dropped by ``combinators.clear_caches``.
@@ -50,9 +52,10 @@ R, U, C, NONE = 0, 1, 2, 3  # operand kinds: running value, map input,
  OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR, OP_SIN, OP_COS) = range(25)
 
-_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 _INTS = (torch.int32, torch.int8, torch.uint8, torch.int16, torch.uint16,
-         torch.uint32, torch.bool)
+         torch.uint32, torch.bool, torch.int64, torch.uint64)
+_WIDE = (torch.int64, torch.uint64, torch.float64)   # 64-bit constants
 _UNARY_FLOAT = {
     "exp": OP_EXP, "expm1": OP_EXPM1, "log": OP_LOG, "log1p": OP_LOG1P,
     "sqrt": OP_SQRT, "rsqrt": OP_RSQRT, "tanh": OP_TANH,
@@ -123,10 +126,10 @@ def cache_info() -> tuple:
 
 def _lower(fn: Callable, dtype) -> Optional[tuple]:
     """The tape ops of ``fn`` for ``dtype``. A float function is lowered
-    only when its float32, bfloat16 and float16 traces are the same ops on
-    the same operands (constants may round differently), so whether a map
-    runs in the kernels, and with it the round-trip model, does not
-    depend on which float type it meets."""
+    only when its float32, bfloat16, float16 and float64 traces are the
+    same ops on the same operands (constants may round differently), so
+    whether a map runs in the kernels, and with it the round-trip model,
+    does not depend on which float type it meets."""
     if dtype not in _FLOATS:
         return _trace(fn, dtype) if dtype in _INTS else None
     ops = _trace(fn, dtype)
@@ -224,7 +227,8 @@ def _op(nd, u, prev, dtype) -> Optional[list]:
                 return (OP_XOR, x[0], C, 1)
             if op not in _BOOL_OPS:
                 return None
-        if op in (OP_SHL, OP_SHR) and not (y[0] == C and 0 <= y[1] < 32):
+        if op in (OP_SHL, OP_SHR) and not (
+                y[0] == C and 0 <= y[1] < (64 if dtype in _WIDE else 32)):
             return None
         return (op, x[0], y[0], x[1] if x[0] == C else y[1])
 
@@ -275,20 +279,41 @@ def _op(nd, u, prev, dtype) -> Optional[list]:
 # the tape as kernel words, and its plain emulation
 # ---------------------------------------------------------------------------
 
+def _const_bits(tape: Tape, c) -> int:
+    """The bits of constant ``c`` as the kernels hold it: float32's (a
+    float of 32 bits or less), float64's, or the integer's two's
+    complement, as an unsigned 64-bit number."""
+    if c is None:
+        return 0
+    if tape.dtype in _INTS:
+        return int(c) & 0xFFFFFFFFFFFFFFFF
+    if tape.dtype == torch.float64:
+        return int(np.float64(c).view(np.uint64))
+    return int(np.float32(c).view(np.uint32))
+
+
+def _int32(w: int) -> int:
+    return w - (1 << 32) if w >= 1 << 31 else w
+
+
 def tape_words(tape: Tape) -> list:
     """Two int32 words per op: ``op | a << 8 | b << 10`` (operand kinds)
-    and the constant (float32 bits, or the integer's low 32 bits)."""
+    and the constant's low 32 bits (float32 bits, float64's low word, or
+    the integer's low 32 bits)."""
     out = []
     for op, a, b, c in tape.ops:
-        if c is None:
-            cw = 0
-        elif tape.dtype in _INTS:
-            cw = int(np.array(c, dtype=np.int64).astype(np.uint32).view(
-                np.int32))
-        else:
-            cw = int(np.float32(c).view(np.int32))
-        out += [op | a << 8 | b << 10, cw]
+        out += [op | a << 8 | b << 10,
+                _int32(_const_bits(tape, c) & 0xFFFFFFFF)]
     return out
+
+
+def tape_high_words(tape: Tape) -> list:
+    """The high 32 bits of each op's constant (int32 words) for a 64-bit
+    type (int64, uint64, float64), which 32 bits would cut; no words for
+    the other types."""
+    if tape.dtype not in _WIDE:
+        return []
+    return [_int32(_const_bits(tape, c) >> 32) for _, _, _, c in tape.ops]
 
 
 def _pick(kind, r, u, c):
@@ -343,32 +368,37 @@ def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     """The map's VJP at ``u`` as eager autograd computes it on ``u``'s
     device, and K5 on the card: reverse mode over the tape with
     autograd's derivative formulas, each aten op computed in float32 and
-    rounded once to the dtype, the cotangents of ``u`` summed in the
-    order autograd receives them. The fused ``tanh_backward`` and
-    ``sigmoid_backward`` round as PyTorch's kernels do: float32 tanh's
-    ``1 - y * y`` is one FMA on either device; in bfloat16 and float16 the
-    CUDA kernels round after each op, the CPU's once. Intermediates come
-    from :func:`eval_tape`."""
+    rounded once to the dtype (float64 in float64), the cotangents of
+    ``u`` summed in the order autograd receives them. The fused
+    ``tanh_backward`` and ``sigmoid_backward`` round as PyTorch's kernels
+    do: float32 tanh's ``1 - y * y`` is one FMA on either device; in
+    bfloat16 and float16 the CUDA kernels round after each op, the CPU's
+    once; float64 runs the aten ops themselves on ``u``'s device.
+    Intermediates come from :func:`eval_tape`."""
     dt = u.dtype
+    wide = dt == torch.float64
     per_op = (dt in (torch.bfloat16, torch.float16)
               and u.device.type == "cuda")
 
+    def up(v):
+        return v if wide else v.float()
+
     def rnd(v):
-        return v.to(dt).float()
+        return v if wide else v.to(dt).float()
 
     rs = [u]
     for k in range(len(tape.ops)):
         rs.append(eval_tape(Tape(tape.name, tape.fn, dt, tape.ops[:k + 1]),
                             u))
-    uf = u.float()
-    g = ct.float()
+    uf = up(u)
+    g = up(ct)
     cu = torch.full_like(uf, -0.0)
     for s in range(len(tape.ops) - 1, -1, -1):
         op, ka, kb, c = tape.ops[s]
-        x = _pick(ka, rs[s].float(), uf, c)
-        y = _pick(kb, rs[s].float(), uf, c)
-        res = rs[s + 1].float()
-        ga, gb = _backward(op, ka, kb, g, x, y, res, c, rnd, per_op)
+        x = _pick(ka, up(rs[s]), uf, c)
+        y = _pick(kb, up(rs[s]), uf, c)
+        res = up(rs[s + 1])
+        ga, gb = _backward(op, ka, kb, g, x, y, res, c, rnd, per_op, wide)
         ng = None
         if ka == R:
             ng = ga
@@ -384,11 +414,12 @@ def tape_vjp(tape: Tape, u: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
     return cu.to(dt)
 
 
-def _backward(op, ka, kb, g, x, y, res, c, rnd, per_op):
+def _backward(op, ka, kb, g, x, y, res, c, rnd, per_op, wide=False):
     """(cotangent of the first operand, of the second or None) of one op
-    with output cotangent ``g`` (float32 tensors; ``rnd`` rounds to the
-    dtype; ``per_op``: tanh's and sigmoid's backward round after each op,
-    as PyTorch's CUDA kernels do in bfloat16)."""
+    with output cotangent ``g`` (float32 tensors, float64 with ``wide``;
+    ``rnd`` rounds to the dtype; ``per_op``: tanh's and sigmoid's backward
+    round after each op, as PyTorch's CUDA kernels do in bfloat16;
+    ``wide``: they are the aten ops themselves)."""
     zero = torch.zeros_like(g)
     if op == OP_ADD:
         return g, g
@@ -424,6 +455,10 @@ def _backward(op, ka, kb, g, x, y, res, c, rnd, per_op):
     if op == OP_RSQRT:
         # result.pow(3) as PyTorch's pow takes a cube: (y * y) * y in T
         return rnd(rnd(-0.5 * g) * rnd(rnd(res * res) * res)), None
+    if op == OP_TANH and wide:
+        return torch.ops.aten.tanh_backward(g, res), None
+    if op == OP_SIGMOID and wide:
+        return torch.ops.aten.sigmoid_backward(g, res), None
     if op == OP_TANH:   # float32: 1 - y * y contracted into an FMA
         if not per_op:
             return rnd(g * (1 - res.double() ** 2).float()), None

@@ -274,11 +274,13 @@ def test_residuals_are_the_inputs_of_compute_bearing_stages():
 
 
 def test_fallback_layout_counts_and_agrees(monkeypatch):
-    """float64 has no kernel: each compute cluster counts a fused
-    fallback in the forward and again in the backward, where it takes its
-    collapsed plan (whose final inverse pass, compute-free, falls back
-    too); the result agrees with the collapsed route of the whole
-    program bit for bit."""
+    """An element type with no kernel (float64, its code taken out of the
+    kernels' type table for this test): each compute cluster counts a
+    fused fallback in the forward and again in the backward, where it
+    takes its collapsed plan (whose final inverse pass, compute-free,
+    falls back too); the result agrees with the collapsed route of the
+    whole program bit for bit."""
+    monkeypatch.delitem(pk._ELEM_TYPE, torch.float64)
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.integers(0, 5, 1 << N).astype(np.float64))
     w = torch.from_numpy(rng.normal(size=1 << N))

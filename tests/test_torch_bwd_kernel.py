@@ -166,7 +166,8 @@ def test_plain_version_is_the_cpu_route_of_the_wrapper(sort_clusters):
         pk.tiled_permute_bwd_tables(x, ct, plan.in_rows, plan.out_rows,
                                     plan.xor_low, inv,
                                     **dict(mkw, map_fns=()))
-    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+    with pytest.raises(ValueError,
+                       match="float32, bfloat16, float16 or float64"):
         pk.tiled_permute_bwd_tables(x.to(torch.int32), ct.to(torch.int32),
                                     plan.in_rows, plan.out_rows,
                                     plan.xor_low, inv, **kw)

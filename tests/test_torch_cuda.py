@@ -1459,7 +1459,8 @@ def test_cuda_dry_run_counts_equal_the_real_run(cuda_device, kind):
 # 16-bit integers, uint32, bool; half-float butterflies; maps beside them
 # ---------------------------------------------------------------------------
 
-_SIGNED_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+_SIGNED_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
 
 
 def _typed_keys(dtype, shape, device, seed):
@@ -1473,6 +1474,10 @@ def _typed_keys(dtype, shape, device, seed):
     size = torch.empty((), dtype=dtype).element_size()
     raw = torch.randint(-2**31, 2**31 - 1, shape, generator=g,
                         device=device, dtype=torch.int64)
+    if size == 8:   # all 64 bits random
+        low = torch.randint(0, 2**32, shape, generator=g, device=device,
+                            dtype=torch.int64)
+        return ((raw << 32) | low).view(dtype)
     return raw.to(_SIGNED_VIEW[size]).view(dtype)
 
 
@@ -1482,15 +1487,17 @@ def _bits_of(x):
 
 _NEW_TYPES = [torch.float16, torch.int8, torch.uint8, torch.int16,
               torch.uint16, torch.uint32, torch.bool]
+_WIDE_TYPES = [torch.int64, torch.uint64, torch.float64]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [12, 14])
-@pytest.mark.parametrize("dtype", _NEW_TYPES, ids=str)
+@pytest.mark.parametrize("dtype", _NEW_TYPES + _WIDE_TYPES, ids=str)
 def test_cuda_new_types_k4b_and_guarded_match_plain(cuda_device, dtype, n):
     """Every new K4b instantiation (the first three and the largest sort
     clusters: 8 and 16 registers, 2^14-position tiles of 1-byte elements
-    at 2^14) and the guarded K4b, bit for bit against their plain
+    at 2^14; the 64-bit types at 8 registers only) and the guarded K4b,
+    bit for bit against their plain
     versions, on the 16-byte path and one element off it (the word path).
     The guarded K4b sets no flag on clean tables and bit 1, as its plain
     version does, with entry 1 of each table poisoned."""
@@ -1568,13 +1575,15 @@ def _fft_map_expr(n, t, name, fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16], ids=str)
+                                   torch.float16, torch.float64], ids=str)
 @pytest.mark.parametrize("case", ["fft", "fft + map", "fft + sin",
                                   "fft, 2 bytes off"])
 def test_cuda_planar_butterflies_of_every_float_type(cuda_device, dtype,
                                                      case):
-    """Butterflies on planar float32, bfloat16 and float16 (each product
-    and sum rounded to the type, the twiddles rounded to it), alone, beside
+    """Butterflies on planar float32, bfloat16, float16 and float64 (each
+    product and sum rounded to the type, the twiddles rounded to it;
+    float64 in double with float64 twiddles; "2 bytes off" moves a float64
+    pair 16 bytes, so it stays on the 16-byte path), alone, beside
     a map (``v * 2 - 1``, ``sin``) and one element off 16-byte alignment:
     K4b, the guarded K4b (no map) and K5 bit for bit against their plain
     versions, K5 on the map variant where the cluster holds a map."""
@@ -1615,6 +1624,30 @@ def test_cuda_planar_butterflies_of_every_float_type(cuda_device, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("label,tail,batch,off", [
+    ("float64", (), None, 0), ("float64 d=3", (3,), None, 0),
+    ("float64 B=3", (), 3, 0), ("float64 8 bytes off", (), None, 1)])
+def test_cuda_k5_float64_matches_plain(cuda_device, label, tail, batch, off):
+    """K5 on float64 compare clusters (ties, NaNs, signed zeros; the
+    compare bits from 64-bit keys, products and sums in double) bit for bit
+    against its plain version, on the 16-byte path and off it."""
+    from repro_torch.combinators.sort import sort_expr
+    n = 12
+    d = tail[0] if tail else 1
+    t = pops.choose_tile(n, 8, d)
+    shape = ((batch,) if batch else ()) + (1 << n,) + tail
+    x = _offset(_ties(shape, torch.float64, cuda_device, 6), off)
+    ct = _offset(torch.randn(shape, device=cuda_device,
+                             dtype=torch.float64), off)
+    clusters = _fused_clusters(sort_expr(n), n, t)
+    picked = clusters[:2] + [max(clusters, key=lambda s: len(s.computes))]
+    for fs in picked:
+        got = _bwd(fs, t, x, ct, bool(batch), plain=False)
+        want = _bwd(fs, t, x, ct, bool(batch), plain=True)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("label,tail,batch", [("float16", (), None),
                                               ("float16 d=3", (3,), None),
                                               ("float16 B=3", (), 3)])
@@ -1651,7 +1684,21 @@ _TYPED_MAPS = [
     (torch.int16, "not", torch.bitwise_not),
     (torch.uint8, "x3", lambda v: v * 3),
     (torch.int16, "clamp", lambda v: torch.clamp(v, -1000, 1000)),
-    (torch.bool, "not", torch.bitwise_not)]
+    (torch.bool, "not", torch.bitwise_not),
+    (torch.float64, "tanh", torch.tanh),
+    (torch.float64, "sigmoid", torch.sigmoid),
+    (torch.float64, "affine3", lambda v: (v * 3 + 1) * 0.5),
+    (torch.float64, "div7", lambda v: v / 7),
+    (torch.float64, "sin", torch.sin), (torch.float64, "cos", torch.cos),
+    (torch.float64, "exp, log1p", lambda v: torch.log1p(torch.exp(v))),
+    (torch.float64, "sqrt, rsqrt", lambda v: torch.rsqrt(torch.sqrt(
+        torch.abs(v) + 1))),
+    (torch.float64, "wide constant", lambda v: v * 0.1 + 1e300),
+    (torch.int64, "wrap", lambda v: v * 1000003 + (1 << 40)),
+    (torch.int64, "shr 40", lambda v: (v >> 40) ^ -(1 << 50)),
+    (torch.int64, "clamp", lambda v: torch.clamp(v, -(1 << 45), 1 << 33)),
+    (torch.uint64, "xor wide", lambda v: v ^ ((1 << 63) + 5)),
+    (torch.uint64, "x3", lambda v: v * 3)]
 
 
 @pytest.mark.cuda
@@ -1662,21 +1709,28 @@ def test_cuda_maps_of_every_type_match_plain(cuda_device, dtype, name, fn):
     bit for bit against their plain versions, which run the map's torch
     function eagerly on the card: float16 computes in float and rounds
     after each op, the integers wrap at their width, bool's NOT is an XOR
-    with 1; sin and cos (float32, bfloat16, float16; large arguments
-    included) equal eager torch, their derivatives autograd's."""
+    with 1; sin and cos (float32, bfloat16, float16, float64; large
+    arguments included) equal eager torch, their derivatives autograd's;
+    the 64-bit types keep every bit of their constants (uint64 against
+    its plain version on the CPU)."""
     n = 12
     t = pops.choose_tile(n, torch.empty((), dtype=dtype).element_size())
     x = _typed_keys(dtype, (1 << n,), cuda_device, 9)
     if dtype.is_floating_point:
-        u = torch.rand(1 << n, device=cuda_device)
+        u = torch.rand(1 << n, device=cuda_device,
+                       dtype=torch.float64 if dtype == torch.float64
+                       else torch.float32)
         x = ((u - 0.5) * 8).to(dtype)
     clusters = [fs for fs in _fused_clusters(_map_expr(n, name, fn), n, t)
                 if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
     assert clusters
+    # torch on the card has no uint64 mul or xor: its plain version runs
+    # on the CPU
+    plain_x = x.cpu() if dtype == torch.uint64 else x
     for fs in clusters:
         got = _fused(fs, t, x, False, plain=False)
-        want = _fused(fs, t, x, False, plain=True)
-        assert torch.equal(_bits_of(got), _bits_of(want)), name
+        want = _fused(fs, t, plain_x, False, plain=True)
+        assert torch.equal(_bits_of(got).cpu(), _bits_of(want).cpu()), name
         if dtype.is_floating_point:
             ct = torch.randn(1 << n, device=cuda_device).to(dtype)
             got = _bwd(fs, t, x, ct, False, plain=False)
@@ -1685,13 +1739,13 @@ def test_cuda_maps_of_every_type_match_plain(cuda_device, dtype, name, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", _NEW_TYPES, ids=str)
+@pytest.mark.parametrize("dtype", _NEW_TYPES + _WIDE_TYPES, ids=str)
 def test_cuda_sort_of_every_type_fuses(cuda_device, dtype):
     """``sort.sort`` of 2^16 keys of each new type on the card: no fused
     fallback, every compute cluster one K4b launch, bit-equal to the same
     program's plain run on the CPU (float16: NaNs by position) and, where
-    torch sorts the type, to ``torch.sort``; the float16 gradient through
-    K5 bit-equal to the CPU's."""
+    torch sorts the type, to ``torch.sort``; the float16 and float64
+    gradients through K5 bit-equal to the CPU's."""
     from repro_torch import obs
     from repro_torch.combinators import FusedStage
     from repro_torch.combinators.sort import compiled_sort
@@ -1714,13 +1768,13 @@ def test_cuda_sort_of_every_type_fuses(cuda_device, dtype):
     assert pk.launch_counts()["tile_fused"] == fused > 0
     want = f(x.cpu())
     assert torch.equal(_bits_of(got).cpu(), _bits_of(want))
-    if dtype in (torch.int8, torch.uint8, torch.int16):
+    if dtype in (torch.int8, torch.uint8, torch.int16, torch.int64):
         assert torch.equal(got, torch.sort(x).values)
-    if dtype == torch.float16:
+    if dtype in (torch.float16, torch.float64):
         xg = x.clone().requires_grad_(True)
         w = torch.randn(1 << n, device=cuda_device).to(dtype)
         (w * f(xg)).sum().backward()
         xc = x.cpu().requires_grad_(True)
         (w.cpu() * f(xc)).sum().backward()
-        assert torch.equal(xg.grad.cpu().view(torch.int16),
-                           xc.grad.view(torch.int16))
+        iv = _SIGNED_VIEW[x.element_size()]
+        assert torch.equal(xg.grad.cpu().view(iv), xc.grad.view(iv))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the 2^24 sort of each element type the fused kernels took last
-(float16, int8, uint8, int16, uint16, uint32, bool) and the float16 sort
-gradient, in a checkout, on one GPU.
+(int64, uint64, float64; ``--types`` also takes float16, int8, uint8,
+int16, uint16, uint32 and bool) and a sort gradient (float64, or
+``--grad-dtype``), in a checkout, on one GPU.
 
     python3 tools/dtype_sort_times.py --src OTHER/src --tag parent
     python3 tools/dtype_sort_times.py --src src --tag change
@@ -15,9 +16,10 @@ tree whose K4b does not take the type runs its clusters stage by stage);
 then the device time of K4b and K5 on the map cluster of ``tanh >>
 sort`` (float32 and bfloat16: the map kernels, whose code the added map
 ops changed; 10 calls in one CUDA graph); then forward + backward of
-``(w * sort(x)).sum()`` on float16 keys (``--grad-n``: its log2 keys;
-a tree whose K4b does not take float16 runs the clusters' backward
-stage by stage, minutes at 2^24). ``--types`` picks the sorts. A type
+``(w * sort(x)).sum()`` on float64 keys (``--grad-dtype``; ``--grad-n``:
+its log2 keys; a tree whose K4b does not take the type runs the
+clusters' backward stage by stage, minutes at 2^24). ``--types`` picks
+the sorts. A type
 the tree cannot sort prints its error. Two checkouts compare only
 within one run on one card: run parent, change, change, parent. Imports
 torch and the checkout's ``repro_torch`` only.
@@ -30,7 +32,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-TYPES = ("float16", "int8", "uint8", "int16", "uint16", "uint32", "bool")
+TYPES = ("int64", "uint64", "float64")
 
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -59,6 +61,8 @@ def main(argv=None) -> int:
                     help="comma-separated types to sort (empty: none)")
     ap.add_argument("--grad-n", type=int, default=None,
                     help="log2 keys of the gradient (default --n)")
+    ap.add_argument("--grad-dtype", default="float64",
+                    help="the gradient's key type (a float type)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -75,7 +79,7 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2616)
-    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     f = S.compiled_sort(args.n)
     for name in filter(None, args.types.split(",")):
         dtype = getattr(torch, name)
@@ -83,13 +87,17 @@ def main(argv=None) -> int:
             x = torch.randint(0, 2, (1 << args.n,), generator=gen,
                               device=dev) > 0
         elif dtype.is_floating_point:
-            x = torch.randn(1 << args.n, generator=gen, device=dev).to(dtype)
+            x = torch.randn(1 << args.n, generator=gen, device=dev,
+                            dtype=torch.float64).to(dtype)
         else:
             x = torch.randint(-2**31, 2**31 - 1, (1 << args.n,),
-                              generator=gen, device=dev,
-                              dtype=torch.int64).to(
-                signed[torch.empty((), dtype=dtype).element_size()]
-            ).view(dtype)
+                              generator=gen, device=dev, dtype=torch.int64)
+            size = torch.empty((), dtype=dtype).element_size()
+            if size == 8:   # all 64 bits random
+                x = (x << 32) | torch.randint(
+                    0, 2**32, (1 << args.n,), generator=gen, device=dev,
+                    dtype=torch.int64)
+            x = x.to(signed[size]).view(dtype)
         rec = {"tag": args.tag, "type": name, "card": smi}
         try:
             obs.reset()
@@ -150,9 +158,12 @@ def main(argv=None) -> int:
                           f"{str(dtype)[6:]}", "card": smi,
                           "device_ms": times}), flush=True)
     gn = args.grad_n or args.n
+    gd = getattr(torch, args.grad_dtype)
     fg = S.compiled_sort(gn)
-    x = torch.randn(1 << gn, generator=gen, device=dev).to(torch.float16)
-    w = torch.randn(1 << gn, generator=gen, device=dev).to(torch.float16)
+    x = torch.randn(1 << gn, generator=gen, device=dev,
+                    dtype=torch.float64).to(gd)
+    w = torch.randn(1 << gn, generator=gen, device=dev,
+                    dtype=torch.float64).to(gd)
 
     def grad():
         v = x.clone().requires_grad_(True)
@@ -161,7 +172,8 @@ def main(argv=None) -> int:
     K.reset_launch_counts()
     grad()
     torch.cuda.synchronize()
-    rec = {"tag": args.tag, "type": f"float16 gradient 2^{gn}", "card": smi,
+    rec = {"tag": args.tag, "type": f"{args.grad_dtype} gradient 2^{gn}",
+           "card": smi,
            "tile_bwd_launches": K.launch_counts()["tile_bwd"],
            "ms": [cuda_ms(torch, grad, 3, 1) for _ in range(2)]}
     print(json.dumps(rec), flush=True)

@@ -579,3 +579,58 @@ extern "C" int k5_kr16(const void* x, void* out, const void* ct,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The 64-bit classes (8 registers, no maps) at other blocks per SM: K4b on
+// int64, uint64 and float64 single values and on planar float64, K5 on
+// float64 compares and planar float64 butterflies (tools/fused_ab.py
+// --wide, which defines REPRO_WIDE_SWEEP; the port keeps the values
+// PERF.md records). Left out otherwise, so that chip_smoke.py's build of
+// this file does not compile them.
+#ifdef REPRO_WIDE_SWEEP
+extern "C" int k4b_wide_mb(const void* x, void* out, const EpiTileArgs* a,
+                           int mb, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->maps || a->regs != 8) return (int)cudaErrorInvalidValue;
+#define REPRO_WMB(T, DV)                                                   \
+  switch (mb) {                                                            \
+    case 2: return launch_items<T, DV, 8, false, 2>(x, out, *a, s);        \
+    case 3: return launch_items<T, DV, 8, false, 3>(x, out, *a, s);        \
+    case 4: return launch_items<T, DV, 8, false, 4>(x, out, *a, s);        \
+    case 5: return launch_items<T, DV, 8, false, 5>(x, out, *a, s);        \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
+  if (a->dv == 2 && a->elem_type == 11) REPRO_WMB(double, 2)
+  if (a->dv == 1 && a->elem_type == 9) REPRO_WMB(I64, 1)
+  if (a->dv == 1 && a->elem_type == 10) REPRO_WMB(U64, 1)
+  if (a->dv == 1 && a->elem_type == 11) REPRO_WMB(double, 1)
+#undef REPRO_WMB
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int k5_wide_mb(const void* x, void* out, const void* ct,
+                          const EpiTileArgs* a, int mb, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->n_map_sets || a->elem_type != 11) return (int)cudaErrorInvalidValue;
+  if (a->dv == 2 && !a->has_cmp) {
+    switch (mb) {
+      case 1: return launch_bwd<double, 2, 8, false, false, 1>(x, ct, out,
+                                                               *a, s);
+      case 2: return launch_bwd<double, 2, 8, false, false, 2>(x, ct, out,
+                                                               *a, s);
+      case 3: return launch_bwd<double, 2, 8, false, false, 3>(x, ct, out,
+                                                               *a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (a->dv != 1) return (int)cudaErrorInvalidValue;
+  switch (mb) {
+    case 2: return launch_bwd<double, 1, 8, true, false, 2>(x, ct, out, *a,
+                                                            s);
+    case 3: return launch_bwd<double, 1, 8, true, false, 3>(x, ct, out, *a,
+                                                            s);
+    case 4: return launch_bwd<double, 1, 8, true, false, 4>(x, ct, out, *a,
+                                                            s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // REPRO_WIDE_SWEEP

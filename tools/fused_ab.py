@@ -3,7 +3,7 @@
 were before their work-item schedules, built from ``tools/fused_ab.cu``,
 and their callers.
 
-    python3 tools/fused_ab.py [--n 24] [--guarded-only]
+    python3 tools/fused_ab.py [--n 24] [--guarded-only] [--wide]
 
 Run as a script on a card, it builds the reference beside the port's
 kernels, holds old and new K4b (int32, float32) and K5 (float32,
@@ -16,6 +16,11 @@ and the unguarded K4b bit for bit against each other and the guarded
 plain version with no flag set, timed in turns on the largest cluster
 (one call and device time) and summed over all the sort's clusters
 (device time), and the new guarded K4b at 2, 3 and 4 blocks an SM.
+With ``--wide``, only the 64-bit classes: K4b on int64, uint64 and
+float64 keys on the largest cluster of the 2^n sort and on planar float64
+on the largest cluster of the 2^(n-2) FFT, K5 on float64 on both, each
+held bit for bit against its plain version and timed (device time) as the
+port launches it and at each blocks-an-SM value of the sweep.
 ``chip_smoke.py`` (phases 2, 6, 9 and 11) and
 ``tools/fused_kernel_times.py`` import the helpers below. Imports torch
 and ``repro_torch`` only; the timers are ``chip_smoke.py``'s
@@ -34,14 +39,15 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = Path(__file__).resolve().with_name("fused_ab.cu")
 
 
-def start_build(out_dir: Path):
+def start_build(out_dir: Path, wide: bool = False):
     """Start ``nvcc`` on ``fused_ab.cu`` (returns what :func:`finish_build`
-    waits for), so a caller can build it beside the port's kernels."""
+    waits for), so a caller can build it beside the port's kernels;
+    ``wide`` adds the 64-bit classes' sweep (``REPRO_WIDE_SWEEP``)."""
     from repro_torch.kernels import build as B
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "fused_ab.so"
+    lib = out_dir / ("fused_ab_wide.so" if wide else "fused_ab.so")
     cmd = [B.nvcc(), *B.NVCC_FLAGS, "-I", str(B.CSRC), "-o", str(lib),
-           str(SRC)]
+           *(("-DREPRO_WIDE_SWEEP",) if wide else ()), str(SRC)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
@@ -61,6 +67,10 @@ def finish_build(started):
     so.k5_kr16.argtypes = [P, P, P, P, I, P]
     so.k4b_guarded_old.argtypes = [P] * 7 + [I] * 10 + [L] + [I] * 6 + [P, P]
     so.k4b_guarded_mb.argtypes = [P, P, P, P, I, P]
+    if hasattr(so, "k4b_wide_mb"):   # built with REPRO_WIDE_SWEEP
+        so.k4b_wide_mb.argtypes = [P, P, P, I, P]
+        so.k5_wide_mb.argtypes = [P, P, P, P, I, P]
+        so.k4b_wide_mb.restype = so.k5_wide_mb.restype = I
     so.k5_kr16.restype = I
     so.k4b_old.restype = so.k5_old.restype = I
     so.k4b_mb.restype = so.k5_mb.restype = I
@@ -204,8 +214,12 @@ def cluster_calls(so, fs, t, x, ct=None, groups=None, mb=None,
         out = torch.empty_like(xc)
         ptrs = (xc.data_ptr(), out.data_ptr()) + (
             (cc.data_ptr(),) if bwd else ())
+        wide = x.element_size() == 8
         if mb is None:
             rc = fn(*ptrs, ctypes.addressof(args), *guard, K._stream(x))
+        elif wide:
+            rc = (so.k5_wide_mb if bwd else so.k4b_wide_mb)(
+                *ptrs, ctypes.addressof(args), mb, K._stream(x))
         elif bwd:
             rc = so.k5_mb(*ptrs, ctypes.addressof(args), mb, K._stream(x))
         elif guard:
@@ -343,6 +357,53 @@ def guarded_ab(torch, so, n, t, xi, xf, rounds, sweep):
           f"clusters, device ms in turns: {sums}", flush=True)
 
 
+def wide_sweep(torch, so, n: int) -> None:
+    """``--wide``: the 64-bit classes as the port launches them and at
+    each blocks-an-SM value (device time), each bit for bit against its
+    plain version first."""
+    from chip_smoke import device_ms, fused_cases
+    from repro_torch.combinators import fft as F
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    t = ops.choose_tile(n, 8)
+    sort_fs = max(fused_cases(n, t, "sort"), key=lambda s: len(s.computes))
+    nf = n - 2
+    tf = ops.choose_tile(nf, 8, 2)
+    fft_fs = max(fused_cases(nf, tf, "fft"), key=lambda s: len(s.computes))
+    bits = torch.randint(-2**62, 2**62, (1 << n,), generator=gen,
+                         device=dev, dtype=torch.int64)
+    xd = torch.randn(1 << n, generator=gen, device=dev, dtype=torch.float64)
+    z = torch.complex(torch.randn(1 << nf, generator=gen, device=dev),
+                      torch.randn(1 << nf, generator=gen, device=dev))
+    xp = F.to_planar(z).double()
+    cases = (("K4b int64", sort_fs, t, bits, None, (2, 3, 4, 5)),
+             ("K4b uint64", sort_fs, t, bits.view(torch.uint64), None,
+              (2, 3, 4, 5)),
+             ("K4b float64", sort_fs, t, xd, None, (2, 3, 4, 5)),
+             ("K4b planar float64", fft_fs, tf, xp, None, (2, 3, 4)),
+             ("K5 float64", sort_fs, t, xd, torch.randn_like(xd), (2, 3, 4)),
+             ("K5 planar float64", fft_fs, tf, xp, torch.randn_like(xp),
+              (1, 2, 3)))
+    for label, fs, tt, x, c, mbs in cases:
+        _, new, plain, s = cluster_calls(so, fs, tt, x, c)
+        want = plain().view(torch.int64)
+        if not torch.equal(new().view(torch.int64), want):
+            raise SystemExit(f"fused_ab: {label} differs from its plain "
+                             f"version")
+        print(f"2^{n if fs is sort_fs else nf} largest "
+              f"{'sort' if fs is sort_fs else 'FFT'} cluster {label} "
+              f"({schedule_text(s)}): device {device_ms(torch, new):.4f} ms "
+              f"as the port launches it", flush=True)
+        for mb in mbs:
+            _, newm, _, _ = cluster_calls(so, fs, tt, x, c, mb=mb)
+            if not torch.equal(newm().view(torch.int64), want):
+                raise SystemExit(f"fused_ab: {label} at {mb} blocks an SM "
+                                 f"differs")
+            print(f"  {label} at {mb} blocks an SM: device "
+                  f"{device_ms(torch, newm):.4f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=24)
@@ -352,6 +413,8 @@ def main(argv=None) -> int:
                          "blocks-an-SM sweep)")
     ap.add_argument("--guarded-only", action="store_true",
                     help="the guarded K4b's A/B only")
+    ap.add_argument("--wide", action="store_true",
+                    help="the 64-bit classes' blocks-an-SM sweep only")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
@@ -362,7 +425,7 @@ def main(argv=None) -> int:
     from chip_smoke import cuda_ms, device_ms, fused_cases, in_turns
     from repro_torch.kernels import build as B
     from repro_torch.kernels import ops
-    started = start_build(B.build_dir().parent / "sweep")
+    started = start_build(B.build_dir().parent / "sweep", wide=args.wide)
     log = B.build_all()
     so, ab_log = finish_build(started)
     for k in ("tile_fused", "tile_bwd"):
@@ -370,6 +433,12 @@ def main(argv=None) -> int:
             for name, u in usage(log[k]["ptxas"], "items_kernel") + usage(
                     log[k]["ptxas"], "tile_bwd_kernel"):
                 print(f"new {name}: {u}", flush=True)
+    if args.wide:
+        for name, u in usage(ab_log, "kernelId") + usage(
+                ab_log, "I64") + usage(ab_log, "U64"):
+            print(f"sweep {name}: {u}", flush=True)
+        wide_sweep(torch, so, args.n)
+        return 0
     for name, u in usage(ab_log, "old_kernel"):
         print(f"old {name}: {u}", flush=True)
     for name, u in usage(ab_log, "Li3EE") + usage(ab_log, "Li5EE") + usage(
