@@ -283,7 +283,27 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    the twins' runs; for ``tile_serve`` the serving twin's K4a launches);
    the element-type rows of phase 20 have none, since a twin counts its
    launches by kernel and not by element type;
-22. last line: ``{"ok": true, "device": {...}}``.
+22. maps beyond the chain (``map_dag_cases``): each new aten op of the
+   tape, a DAG map (gelu-tanh written out), a ``where`` map (leaky ReLU)
+   and a 32-op tape, one map in the largest 2^n_sort sort cluster (a
+   hand-built pass; exact maps mid-cluster, transcendental ones last), on
+   float32, bfloat16, float16, float64 and int32 where torch defines the
+   op: K4b and K5 held against their plain versions (eager torch and
+   autograd on the card) bit for bit, the transcendental ops within
+   ``MAP_DAG_ULPS``, each case timed on its first type (one call,
+   device); clusters of 6 and 12
+   maps on float32 and float64 (K5 one launch, keeping the inputs of the
+   maps that fit its shared memory and recomputing the others'); then,
+   the launch counts set to 0 just before each: ``emap(leaky) >> sort``
+   of 2^n_sort float32 and bfloat16 keys and its gradient (bit-equal to
+   ``torch.sort`` and, float32 on distinct keys, to autograd through it;
+   the K5 route against the collapsed route at 2^n_ties), a sort with a
+   map after each of its last 12 compares (float32; at 2^n_ties bit-equal
+   to the same program on the ``ref`` engine), the 2^n_fft FFT with a DAG
+   map beside its butterflies; ``dispatch.fused_fallback`` 0 throughout.
+   The kernels line gains ``tile_fused[dag maps]``, ``tile_bwd[dag
+   maps]`` and the 12-map clusters' rows;
+23. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
 ``build/kernels`` of this checkout.
@@ -4596,6 +4616,475 @@ def phase_dtypes(torch, n_sort: int, n_fft: int, reps: int, bw: float,
     return rows
 
 
+# Phase 22: the map cases beyond a chain. Exact cases are held bit for bit
+# against their plain versions (eager torch on the card); the
+# transcendental ones (erf, log2, exp2, gelu, silu, softplus, a general
+# pow) to MAP_DAG_ULPS units of the last place (the distance of the bit
+# patterns): their libm calls and their contracted products are the same
+# code as PyTorch's only where nvcc compiles them alike.
+MAP_DAG_ULPS = 8
+
+
+def map_dag_cases(torch) -> list:
+    """(name, function, dtypes, exact) of phase 22's single-map cases: a
+    DAG map, a where/comparison map, a 32-op tape and each new aten op
+    once, on the types torch defines it for."""
+    import functools
+    F = torch.nn.functional
+    fl = ("float32", "bfloat16", "float16", "float64")
+    fi = fl + ("int32",)
+    w = torch.where
+    return [
+        ("gelu-tanh written out (a DAG)", lambda v: 0.5 * v * (1 + torch.tanh(
+            0.7978845608028654 * (v + 0.044715 * v * v * v))), fl, True),
+        ("leaky ReLU by where", lambda v: w(v > 0, v, 0.01 * v), fl, True),
+        ("32-op tape", lambda v: functools.reduce(
+            lambda a, k: a * 0.5 + 0.25 * (k % 3), range(16), v), fl, True),
+        ("32-op tape, int", lambda v: functools.reduce(
+            lambda a, k: a * 3 + k, range(16), v), ("int32",), True),
+        ("eq", lambda v: w(v == 1, v, -v), fi, True),
+        ("ne", lambda v: w(v != 1, v, -v), fi, True),
+        ("lt", lambda v: w(v < 1, v, 2 * v), fi, True),
+        ("le", lambda v: w(v <= 1, v, 2 * v), fi, True),
+        ("gt", lambda v: w(v > v * 2, v, -v), fi, True),
+        ("ge", lambda v: w(v >= -1, v * v, v), fi, True),
+        ("logical_not", lambda v: w(torch.logical_not(v > 0), v, 2 * v), fi,
+         True),
+        ("logical_and", lambda v: w(torch.logical_and(v > -2, v < 2), v * v,
+                                    v), fi, True),
+        ("logical_or", lambda v: w(torch.logical_or(v < -2, v > 2), -v, v),
+         fi, True),
+        ("maximum", lambda v: torch.maximum(v, -v), fi, True),
+        ("minimum", lambda v: torch.minimum(v, v * 2), fi, True),
+        ("pow 2", lambda v: v ** 2, fi, True),
+        ("pow 3", lambda v: v ** 3, fi, True),
+        ("pow 0.5", lambda v: torch.abs(v) ** 0.5, fl, True),
+        ("pow -0.5", lambda v: (torch.abs(v) + 1) ** -0.5, fl, True),
+        ("pow -1", lambda v: v ** -1, fl, True),
+        ("pow -2", lambda v: v ** -2, fl, True),
+        ("pow 1.7", lambda v: torch.abs(v) ** 1.7, fl, False),
+        ("reciprocal", torch.reciprocal, fl, True),
+        ("floor", lambda v: torch.floor(v * 3), fi, True),
+        ("ceil", lambda v: torch.ceil(v * 3), fi, True),
+        ("trunc", lambda v: torch.trunc(v * 3), fi, True),
+        ("round", lambda v: torch.round(v * 2), fi, True),
+        ("sign", torch.sign, fi, True),
+        ("erf", torch.erf, fl, False),
+        ("log2", lambda v: torch.log2(torch.abs(v) + 0.25), fl, False),
+        ("exp2", torch.exp2, fl, False),
+        ("gelu", F.gelu, fl, False),
+        ("gelu tanh", lambda v: F.gelu(v, approximate="tanh"), fl, False),
+        ("silu", F.silu, fl, False),
+        ("softplus", lambda v: F.softplus(v, beta=2.0, threshold=4.0), fl,
+         False),
+        ("leaky_relu", lambda v: F.leaky_relu(v, 0.1), fl, True),
+        ("hardtanh", lambda v: F.hardtanh(v, -0.5, 0.5), fl, True),
+        ("relu6", F.relu6, fi, True),
+        ("floor_divide", lambda v: v // 0.75, fl, True),
+        ("floor_divide, int", lambda v: v // -3, ("int32",), True),
+        ("div floor", lambda v: torch.div(v, 0.75, rounding_mode="floor"), fl,
+         True),
+        ("div trunc", lambda v: torch.div(v, 0.75, rounding_mode="trunc"), fl,
+         True),
+        ("div trunc, int", lambda v: torch.div(v, -3, rounding_mode="trunc"),
+         ("int32",), True),
+        ("remainder", lambda v: v % 0.75, fl, True),
+        ("remainder, int", lambda v: v % -3, ("int32",), True),
+        ("fmod", lambda v: torch.fmod(v, 0.75), fl, True),
+        ("fmod, int", lambda v: torch.fmod(v, -3), ("int32",), True),
+    ]
+
+
+def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
+                  smi: str) -> list:
+    """Phase 22: K4b and K5 on the maps the chain tapes left out, at the
+    largest 2^n_sort sort cluster's geometry (each case a map inserted in
+    that cluster: an exact one in the middle, a transcendental one last,
+    so that its rounding stays where it is made), then clusters of 6 and
+    12 maps (K5 keeping the inputs of those that fit and recomputing the
+    others'), then programs through ``compile_expr`` with the launch
+    counts set to 0 just before each and read just after: ``emap(leaky)
+    >> sort`` and its gradient, a sort with a map after each of its last
+    12 compares, the 2^n_fft FFT with a DAG map beside its butterflies.
+    Returns the rows this phase adds to the kernels line."""
+    say("== phase 22: maps beyond the chain ==")
+    import functools
+    from repro_torch import obs
+    from repro_torch.combinators import (CmpHalves, FusedStage, Perm,
+                                         compile_expr)
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import sort as S
+    from repro_torch.combinators import vocab as V
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2919)
+    rows = []
+
+    def inputs(dtype, n):
+        """Keys of 2^n: half uniform in [-4, 4), half multiples of 1/4
+        there (ties, the halves of round, floor's integers), zeros of
+        both signs; int32 in [-1000, 1000]."""
+        if dtype == torch.int32:
+            return torch.randint(-1000, 1001, (1 << n,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        cont = (torch.rand(1 << n, generator=gen, device=dev) - 0.5) * 8
+        grid = torch.randint(-16, 17, (1 << n,), generator=gen,
+                             device=dev).float() / 4
+        u = torch.rand(1 << n, generator=gen, device=dev)
+        v = torch.where(u < 0.5, cont, grid)
+        v[:4] = torch.tensor([0.0, -0.0, 1.0, -1.0], device=dev)
+        return v.to(dtype)
+
+    @functools.lru_cache(maxsize=None)
+    def cluster(itemsize):
+        t = ops.choose_tile(n_sort, itemsize)
+        fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
+        return fs, t
+
+    def with_maps(fs, t, dtype, maps):
+        """The cluster's one tiled pass with ``maps`` (position, name,
+        function) inserted: (keyword arguments, forward tables, backward
+        tables) of the raw wrappers, the tables on the card."""
+        plans, entries = ex._fused_plan_cached(fs, t)
+        sig, scal, vmem, _ = map(list, ex._fused_kernel_args(entries, dtype))
+        for pos, name, _ in sorted(maps, key=lambda m: m[0]):
+            sig.insert(pos, ("map", name))
+            scal.insert(pos, ())
+            vmem.insert(pos, ())
+        fns = [next(f for _, nm, f in maps if nm == sg[1]) for sg in sig
+               if sg[0] == "map"]
+        plan = plans[0]
+        s0 = plan.src0.reshape(-1)
+        inv = np.empty_like(s0)
+        inv[s0] = np.arange(s0.size, dtype=s0.dtype)
+        tabs = [torch.from_numpy(a).to(dev) for a in (
+            plan.in_rows, plan.out_rows, plan.xor_low, plan.src0,
+            inv.reshape(plan.src0.shape))]
+        kw = dict(geometry=K.plan_geometry(plan), epilogue=tuple(sig),
+                  epi_scalar=tuple(scal), epi_vmem=tuple(vmem),
+                  map_fns=tuple(fns))
+        return kw, tabs[:4], tabs[:3] + tabs[4:]
+
+    def held(label, call, plain, exact, timed=True):
+        """The error of ``call`` against ``plain`` (held to 0, or to
+        MAP_DAG_ULPS) and, ``timed``, the text of its time: one call and
+        device time (3 calls a graph)."""
+        err = max_abs_err(torch, call(), plain())
+        check(err == 0.0 if exact else err <= MAP_DAG_ULPS,
+              ("phase 22", label, err))
+        if not timed:
+            return err, ""
+        return err, (f" ({cuda_ms(torch, call, 3):.4f} ms a call, "
+                     f"{device_ms(torch, call, inner=3):.4f} device)")
+
+    def ulp(err):
+        return "bit-equal" if not err else f"{err:.0f} ulp"
+
+    def slots_of(x, kw):
+        ents = K._epi_entries(kw["epilogue"], kw["epi_scalar"],
+                              kw["epi_vmem"], kw["map_fns"], x.dtype)
+        info = K._epi_launch_args(x.reshape(1, -1, 1), kw["geometry"], ents,
+                                  n_buf=2)[2].info
+        return info["maps"], info["map_slots"]
+
+    # each case alone in the largest sort cluster, timed on its first type
+    worst = {True: 0.0, False: 0.0}
+    for name, fn, dtypes, exact in map_dag_cases(torch):
+        for dname in dtypes:
+            timed = dname == dtypes[0]
+            dtype = getattr(torch, dname)
+            fs, t = cluster(torch.empty((), dtype=dtype).element_size())
+            n_epi = len(fs.computes)
+            kw, ft, bt = with_maps(fs, t, dtype, [(
+                n_epi // 2 if exact else n_epi, "dag_" + name, fn)])
+            x = inputs(dtype, n_sort)
+            err, ms = held((name, dname), lambda: K.tiled_permute_tables(
+                x, *ft, **kw), lambda: K.tiled_permute_tables_plain(
+                x, *ft, **kw), exact, timed)
+            line = f"  {name}, {dname}: K4b {ulp(err)}{ms}"
+            worst[exact] = max(worst[exact], err)
+            if dtype.is_floating_point and "floor_divide" not in name:
+                ct = inputs(dtype, n_sort).flip(0).contiguous()
+                err, ms = held(
+                    (name, dname, "K5"),
+                    lambda: K.tiled_permute_bwd_tables(x, ct, *bt, **kw),
+                    lambda: K.tiled_permute_bwd_tables_plain(x, ct, *bt,
+                                                             **kw),
+                    exact, timed)
+                worst[exact] = max(worst[exact], err)
+                line += f"; K5 {ulp(err)}{ms}"
+            say(line)
+            del x
+    say(f"  [{time.perf_counter() - _T0:.0f} s] the largest 2^{n_sort} sort "
+        f"cluster with one map each: exact "
+        f"cases bit-equal to eager torch (worst {worst[True]}), "
+        f"transcendental ones within {worst[False]:.0f} of {MAP_DAG_ULPS} "
+        f"ulp  [{smi}]")
+
+    # clusters of 6 and 12 maps, forward and backward
+    mix = [c for c in map_dag_cases(torch) if c[3] and "float64" in c[2]
+           and "floor_divide" not in c[0]]
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        fs, t = cluster(torch.empty((), dtype=dtype).element_size())
+        n_epi = len(fs.computes)
+        for n_maps in (6, 12):
+            maps = [(k * (n_epi + n_maps) // n_maps, f"mix{k}_" + c[0], c[1])
+                    for k, c in enumerate(mix[:n_maps])]
+            kw, ft, bt = with_maps(fs, t, dtype, maps)
+            x = inputs(dtype, n_sort)
+            ct = inputs(dtype, n_sort).flip(0).contiguous()
+            _, f_ms = held((n_maps, dname), lambda: K.tiled_permute_tables(
+                x, *ft, **kw), lambda: K.tiled_permute_tables_plain(
+                x, *ft, **kw), True)
+            K.reset_launch_counts()
+            K.tiled_permute_bwd_tables(x, ct, *bt, **kw)
+            torch.cuda.synchronize()
+            check(K.launch_counts()["tile_bwd"] == 1, ("one K5", n_maps))
+            _, b_ms = held((n_maps, dname, "K5"),
+                           lambda: K.tiled_permute_bwd_tables(x, ct, *bt,
+                                                              **kw),
+                           lambda: K.tiled_permute_bwd_tables_plain(
+                               x, ct, *bt, **kw), True)
+            n_m, slots = slots_of(x, kw)
+            kept = n_m if slots >= n_m else slots - 1
+            say(f"  {n_maps} maps in the largest 2^{n_sort} sort cluster, "
+                f"{dname}: K4b bit-equal{f_ms}, K5 one launch, bit-equal"
+                f"{b_ms}; K5 keeps {kept} maps' inputs and recomputes "
+                f"{n_m - kept}  [{smi}]")
+            del x, ct
+    torch.cuda.empty_cache()
+
+    def cold(fn, x):
+        obs.reset()
+        obs.enable(sync=True)
+        K.reset_launch_counts()
+        try:
+            y = fn(x)
+            torch.cuda.synchronize()
+        finally:
+            obs.disable()
+        fb = obs.counter_total("dispatch.fused_fallback")
+        obs.reset()
+        return y, fb, K.launch_counts()
+
+    def grad_of(f, w):
+        def run(v):
+            v = v.clone().requires_grad_(True)
+            (w * f(v)).sum().backward()
+            return v.grad
+        return run
+
+    def routes(f, x, w):
+        got = {}
+        for mega in (True, False):
+            ex.BWD_MEGAKERNEL = mega
+            try:
+                got[mega] = grad_of(f, w)(x)
+            finally:
+                ex.BWD_MEGAKERNEL = True
+        return max_abs_err(torch, got[True], got[False])
+
+    def composite_of(fs, x):
+        """The cluster's stages as torch calls: each Perm an index_select
+        on a precomputed index, each CmpHalves ``cmp_min`` and ``cmp_max``
+        of the halves, each Map its function."""
+        idx = {id(s): ref.bmmc_src_index(s.bmmc, dev) for s in fs.stages
+               if isinstance(s, Perm)}
+
+        def run():
+            v = x
+            for s in fs.stages:
+                if isinstance(s, Perm):
+                    v = torch.index_select(v, 0, idx[id(s)])
+                elif isinstance(s, CmpHalves):
+                    lo, hi = v.chunk(2)
+                    v = torch.cat([K.cmp_min(lo, hi), K.cmp_max(lo, hi)])
+                else:
+                    v = s.fn(v)
+            return v
+        return run
+
+    def rows_of(label, fs, t, x, ct, fwd_launches, bwd_launches):
+        nbytes = x.numel() * x.element_size()
+        check(max_abs_err(torch, composite_of(fs, x)(), fused_call(
+            K, ex, fs, t, x, plain=True)) == 0.0, ("composite", label))
+        comp = cuda_ms(torch, composite_of(fs, x), 3)
+        xr = x.clone().requires_grad_(True)
+        v = composite_of(fs, xr)()
+        comp_b = cuda_ms(torch, lambda: torch.autograd.grad(
+            v, xr, ct, retain_graph=True), 3)
+        del v, xr
+        for name, call, plain, launches, bound, cm in (
+                (f"tile_fused[{label}]", lambda: fused_call(K, ex, fs, t, x),
+                 lambda: fused_call(K, ex, fs, t, x, plain=True),
+                 fwd_launches, 2 * nbytes / bw * 1e3, comp),
+                (f"tile_bwd[{label}]", lambda: bwd_call(K, ex, fs, t, x, ct),
+                 lambda: bwd_call(K, ex, fs, t, x, ct, plain=True),
+                 bwd_launches, 3 * nbytes / bw * 1e3, comp_b)):
+            err = max_abs_err(torch, call(), plain())
+            check(err == 0.0, (name, err))
+            ms, dms = cuda_ms(torch, call, reps), device_ms(torch, call)
+            plain_ms = cuda_ms(torch, plain, max(3, reps // 3), warmup=1)
+            rows.append({"name": name, "route": "cuda",
+                         "source": KERNEL_INFO[name.split("[")[0]][0],
+                         "replaces": KERNEL_INFO[name.split("[")[0]][1],
+                         "launches": launches, "max_abs_err": err, "ms": ms,
+                         "device_ms": dms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": "bytes",
+                         "library_ms": None, "composite_ms": cm})
+            say(f"  {name}: bit-equal to its plain version; {launches} "
+                f"launches on its path; {ms:.4f} ms a call, {dms:.4f} ms on "
+                f"the device (bound {bound:.4f} ms, {bound / dms:.2f} of it),"
+                f" plain {plain_ms:.3f} ms, torch composite {cm:.3f} ms  "
+                f"[{smi}]")
+
+    # emap(leaky) >> sort and its gradient, float32 and bfloat16
+    leaky = ("leaky", lambda v: torch.where(v > 0, v, 0.01 * v))
+    f = compile_expr(V.emap(*leaky) >> S.sort_expr(n_sort))
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        x = torch.randn(1 << n_sort, generator=gen, device=dev).to(dtype)
+        w = torch.randn(1 << n_sort, generator=gen, device=dev).to(dtype)
+        y, fb, c = cold(f, x)
+        check(fb == 0 and c["tile_fused"] >= 1, ("leaky >> sort", fb, c))
+        want = torch.sort(torch.where(x > 0, x, 0.01 * x)).values
+        check(max_abs_err(torch, y, want) == 0.0, ("leaky >> sort", dname))
+        g, fbg, cg = cold(grad_of(f, w), x)
+        check(fbg == 0 and cg["tile_bwd"] >= 1, ("leaky >> sort grad", cg))
+        lib = ""
+        if (dtype == torch.float32
+                and int(torch.unique(x).numel()) == x.numel()):
+            xr = x.clone().requires_grad_(True)
+            (w * torch.sort(torch.where(xr > 0, xr, 0.01 * xr)).values
+             ).sum().backward()
+            check(max_abs_err(torch, g, xr.grad) == 0.0, ("leaky grad", "lib"))
+            lib = ", bit-equal to autograd through torch.sort (distinct keys)"
+        n_t = min(n_sort, N_TIES)
+        ft = compile_expr(V.emap(*leaky) >> S.sort_expr(n_t))
+        xt = torch.randint(-3, 4, (1 << n_t,), generator=gen,
+                           device=dev).to(dtype)
+        wt = torch.randn(1 << n_t, generator=gen, device=dev).to(dtype)
+        check(routes(ft, xt, wt) == 0.0, ("leaky routes", dname))
+        ms = cuda_ms(torch, lambda: f(x), reps)
+        g_ms = cuda_ms(torch, lambda: grad_of(f, w)(x), max(3, reps // 3))
+        say(f"  [{time.perf_counter() - _T0:.0f} s] emap(leaky) >> sort, "
+            f"2^{n_sort} {dname}: bit-equal to "
+            f"torch.sort, fused fallbacks 0 (forward and gradient), K4b "
+            f"{c['tile_fused']}, K5 {cg['tile_bwd']} launches; the gradient"
+            f"{lib}; at 2^{n_t} keys with ties the K5 route bit-equal to the "
+            f"collapsed route; {ms:.3f} ms a call, forward + backward "
+            f"{g_ms:.3f} ms  [{smi}]")
+        if dtype == torch.float32:
+            prog, t, _ = plan_program(f, x)
+            fs = next(s for s in prog if isinstance(s, FusedStage) and any(
+                type(cc).__name__ == "Map" for cc, _ in s.computes))
+            ct = torch.randn(1 << n_sort, generator=gen, device=dev)
+            rows_of("dag maps", fs, t, x, ct, c["tile_fused"], cg["tile_bwd"])
+            del ct
+        del x, w, y, g
+        torch.cuda.empty_cache()
+
+    # a sort with a map after each of its last 12 compares: one cluster
+    # holds 12 maps
+    mix12 = [(f"s{k}_" + c[0], c[1]) for k, c in enumerate(mix[:12])]
+
+    def sort_with_maps(n, engine="cuda"):
+        stages = list(S.compiled_sort(n).program(n))
+        at = [i for i, s in enumerate(stages) if isinstance(s, CmpHalves)]
+        for k, i in enumerate(reversed(at[-12:])):
+            stages.insert(i + 1, V.emap(*mix12[k]))
+        return compile_expr(V.seq(*stages), engine=engine)
+
+    for dname in ("float32",):
+        dtype = getattr(torch, dname)
+        f12 = sort_with_maps(n_sort)
+        x = inputs(dtype, n_sort)
+        prog, t, _ = plan_program(f12, x)
+        fs = max((s for s in prog if isinstance(s, FusedStage)),
+                 key=lambda s: sum(type(cc).__name__ == "Map"
+                                   for cc, _ in s.computes))
+        n_m = sum(type(cc).__name__ == "Map" for cc, _ in fs.computes)
+        y, fb, c = cold(f12, x)
+        w = inputs(dtype, n_sort).flip(0).contiguous()
+        g, fbg, cg = cold(grad_of(f12, w), x)
+        check(fb == 0 and fbg == 0, ("12 maps", fb, fbg))
+        # at 2^n_ties: the forward against the ref engine, the K5 route
+        # against the collapsed route
+        n_t = min(n_sort, N_TIES)
+        xt = inputs(dtype, n_t)
+        check(max_abs_err(torch, sort_with_maps(n_t)(xt),
+                          sort_with_maps(n_t, "ref")(xt)) == 0.0,
+              ("12 maps", dname, "forward against the ref engine"))
+        check(routes(sort_with_maps(n_t), xt,
+                     inputs(dtype, n_t).flip(0).contiguous()) == 0.0,
+              ("12 maps routes", dname))
+        plans, entries = ex._fused_plan_cached(fs, t)
+        ents = K._epi_entries(*ex._fused_kernel_args(entries, dtype), dtype)
+        info = K._epi_launch_args(x.reshape(1, -1, 1), K.plan_geometry(
+            plans[0]), ents, n_buf=2)[2].info
+        kept = n_m if info["map_slots"] >= n_m else info["map_slots"] - 1
+        say(f"  [{time.perf_counter() - _T0:.0f} s] sort of 2^{n_sort} "
+            f"{dname} with a map after each of its last "
+            f"12 compares: its largest map cluster holds {n_m} maps, K5 "
+            f"keeps {kept} maps' inputs and recomputes {n_m - kept}; fused "
+            f"fallbacks 0, K4b {c['tile_fused']}, K5 {cg['tile_bwd']} "
+            f"launches; at 2^{n_t} bit-equal to the same program on the ref "
+            f"engine, and the K5 route to the collapsed route")
+        ct = inputs(dtype, n_sort)
+        rows_of(f"{n_m} maps {dname}", fs, t, x, ct, c["tile_fused"],
+                cg["tile_bwd"])
+        del x, w, y, g, ct
+        torch.cuda.empty_cache()
+
+    # the FFT with a DAG map beside its butterflies
+    dag = ("dag_fft", lambda v: torch.where(v > 0, v * v, -v) * 0.5)
+    z = torch.randn(1 << n_fft, generator=gen, device=dev,
+                    dtype=torch.complex64)
+    xr = F.to_planar(z)
+    for map_at in range(n_fft):
+        stages = [V.bit_reverse(n_fft)]
+        for s in range(n_fft):
+            e = F._stage_core(s)
+            for _ in range(n_fft - s - 1):
+                e = V.two(e)
+            stages.append(e)
+            if s == map_at:
+                stages.append(V.emap(*dag))
+        fm = compile_expr(V.seq(*stages))
+        prog, t, _ = plan_program(fm, xr)
+        mixed = [s for s in prog if isinstance(s, FusedStage)
+                 and {"Map", "Bfly"} <= {type(cc).__name__
+                                         for cc, _ in s.computes}]
+        if mixed:
+            break
+    y, fb, c = cold(fm, xr)
+    wg = torch.randn(xr.shape, generator=gen, device=dev)
+    _, fbg, cg = cold(grad_of(fm, wg), xr)
+    check(fb == 0 and fbg == 0 and cg["tile_bwd"] >= 1, ("fft dag", fb, cg))
+    fs = mixed[0]
+    check(max_abs_err(torch, fused_call(K, ex, fs, t, xr),
+                      fused_call(K, ex, fs, t, xr, plain=True)) == 0.0,
+          "fft dag K4b")
+    ct = torch.randn(xr.shape, generator=gen, device=dev)
+    check(max_abs_err(torch, bwd_call(K, ex, fs, t, xr, ct),
+                      bwd_call(K, ex, fs, t, xr, ct, plain=True)) == 0.0,
+          "fft dag K5")
+    say(f"  [{time.perf_counter() - _T0:.0f} s] FFT of 2^{n_fft} planar "
+        f"float32 with a DAG map after stage "
+        f"{map_at}: the map beside butterflies in one cluster, fused "
+        f"fallbacks 0, K4b {c['tile_fused']} and K5 {cg['tile_bwd']} "
+        f"launches, both bit-equal to their plain versions; K4b "
+        f"{device_ms(torch, lambda: fused_call(K, ex, fs, t, xr)):.4f} ms, "
+        f"K5 {device_ms(torch, lambda: bwd_call(K, ex, fs, t, xr, ct)):.4f}"
+        f" ms on the device  [{smi}]")
+    del xr, z, y, ct
+    torch.cuda.empty_cache()
+    return rows
+
+
 def twin_launches(out: str) -> dict:
     """The kernel launches a twin reported: every ``kernel launches...:
     name=count ...`` line of its output, summed."""
@@ -4721,6 +5210,7 @@ def main(argv=None) -> int:
                                                 REPS).values())}
     dry_counts = {"tile_serve": sum(phase_dryrun(torch, smi).values())}
     dtype_rows = phase_dtypes(torch, args.n_sort, args.n_fft, REPS, bw, smi)
+    dag_rows = phase_map_dag(torch, args.n_sort, args.n_fft, REPS, bw, smi)
     ex_counts = phase_examples(smi, {
         "sorting_network_torch.py": args.n_sort,
         "fft_pipeline_torch.py": args.n_fft,
@@ -4744,7 +5234,7 @@ def main(argv=None) -> int:
                         "mesh_launches": mesh_counts.get(name, 0),
                         "dryrun_launches": dry_counts.get(name, 0),
                         "examples_launches": ex_counts.get(name, 0)})
-    kernels += dtype_rows
+    kernels += dtype_rows + dag_rows
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -978,16 +978,12 @@ def _collapsed_bwd(plan, res, ct, engine, batched):
     return ct
 
 
-# Maps whose inputs K5 keeps in shared memory, one tile's worth each
-# (16 KiB at the 2^24 sort's blocks): a cluster with more falls back.
-MAX_BWD_MAPS = 4
-
-
 @functools.lru_cache(maxsize=256)
 def _fused_bwd_kernel_plan(fs: FusedStage, t: int):
     """Offline artifacts of the gradient kernel for one cluster, or None
-    when it can't run at this tile parameter (or holds more than
-    :data:`MAX_BWD_MAPS` maps): the forward plan + epilogue
+    when it can't run at this tile parameter (any number of maps: K5
+    keeps the inputs of those that fit its shared memory and recomputes
+    the others'): the forward plan + epilogue
     entries (shared tables), the inverse ``src0`` gather table
     (``inv[src0[j]] = j``; the per-tile XOR folds into the lookup at
     kernel time), and the inverse plans of any trailing plain passes
@@ -995,8 +991,7 @@ def _fused_bwd_kernel_plan(fs: FusedStage, t: int):
     gradient kernel, keeping the backward round-trip count equal to the
     forward's; unreachable for ``0 < t <= n/2``, kept for parity)."""
     got = _fused_plan_cached(fs, t)
-    if got is None or sum(isinstance(c, Map)
-                          for c, _ in fs.computes) > MAX_BWD_MAPS:
+    if got is None:
         return None
     plans, entries = got
     p = plans[0].src0.reshape(-1)
@@ -1071,7 +1066,9 @@ def _fused_bwd_impl(fs, engine, batched, x, ct):
         return _replay_vjp(fs.stages, x, ct, engine, batched)
     if engine == "cuda" and BWD_MEGAKERNEL:
         t = _fused_tile(x, fs, batched)
-        if t is not None and _fused_bwd_kernel_plan(fs, t) is not None:
+        if (t is not None and _fused_bwd_kernel_plan(fs, t) is not None
+                and not any(map_lower.lower_map(c.name, c.fn, x.dtype).nodiff
+                            for c, _ in fs.computes if isinstance(c, Map))):
             if _otrace._state.enabled:
                 plans, _, _, extra = _fused_bwd_kernel_plan(fs, t)
                 rt = 1 + sum(len(ip) for ip in extra)
@@ -1091,8 +1088,8 @@ def _fused_bwd_impl(fs, engine, batched, x, ct):
                     return _fused_bwd_cuda(fs, t, batched, x, ct)
             return _fused_bwd_cuda(fs, t, batched, x, ct)
         # a layout the kernel does not take (dtype, tail, a Map the tape
-        # cannot run, too many maps): the honest count the model lacks,
-        # as in the forward
+        # cannot run or autograd cannot differentiate): the honest count
+        # the model lacks, as in the forward
         _ometrics.inc("dispatch.fused_fallback")
     plan = _program_bwd_plan((fs,), batched)
     if plan is None:

@@ -79,7 +79,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -1088,7 +1088,8 @@ def _host(a):
 def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
                      elem_bytes: int, stride_bytes: int, access: int,
                      dv: int, reg_bits: int,
-                     dtype=torch.float32) -> torch.Tensor:
+                     dtype=torch.float32,
+                     map_slots: Optional[int] = None) -> torch.Tensor:
     """The register-epilogue plan of a K4b or K5 launch on ``dev``
     (:func:`.epilogue_plan.plan_epilogues`, with the device pointers of
     each epilogue's per-tile tables and twiddle values filled in), built
@@ -1098,12 +1099,14 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
     carries the plan's summary as ``.info`` and holds every table it
     points to (or was built from) in ``._keep``; the cache counts those
     tables in the entry's bytes. A table that is not linear (affine per
-    block) raises ValueError."""
+    block) raises ValueError. ``map_slots``: the sets of map inputs K5
+    keeps (:func:`.epilogue_plan.map_checkpoints`)."""
     n, t, rpt, _, _, n_tiles, _ = geometry
     tables = tuple(a for e in entries for a in e[3:10])
     key = ("epi_plan", tuple(id(a) for a in tables),
            tuple(e[:3] for e in entries), tuple(geometry), per_cta,
-           elem_bytes, stride_bytes, access, dv, reg_bits, str(dtype))
+           elem_bytes, stride_bytes, access, dv, reg_bits, str(dtype),
+           map_slots)
 
     def make():
         # the plan reads the index tables and a map's tape, not the
@@ -1114,7 +1117,7 @@ def _epi_plan_tensor(entries, geometry, dev, per_cta: int, *,
         words, info = EP.plan_epilogues(
             host, geometry, per_cta, elem_bytes=elem_bytes,
             stride_bytes=stride_bytes, access=access, dv=dv,
-            reg_bits=reg_bits)
+            reg_bits=reg_bits, map_slots=map_slots)
         keep = [a for a in tables if a is not None]
         for k, e in enumerate(entries):
             if e[0] == EP.KIND_MAP:
@@ -1288,20 +1291,44 @@ def _epi_args(s: EpiSchedule, tabs, plan, geometry, batch: int, dtype,
 def _epi_plan(xc, geometry, entries, n_buf: int, stride_bytes: int):
     """(plan tensor, dv) of a K4b (``n_buf`` 1) or K5 (2: an x and a ct
     tile) launch on work items of :func:`_epi_item`'s tiles, its layouts
-    chosen for tile rows of ``stride_bytes``."""
+    chosen for tile rows of ``stride_bytes``. K5 keeps the input values of
+    as many maps as fit its shared memory with one work item in flight
+    (:func:`k5_map_slots`); the others it recomputes."""
     _, t, rpt, _, _, _, _ = geometry
     size = xc.element_size()
     d = xc.shape[2]
     dv = 2 if any(e[0] == 1 for e in entries) else 1
     per_cta = _epi_item(geometry, d * size)[0]
-    plan = _epi_plan_tensor(
-        entries, geometry, xc.device, per_cta, elem_bytes=d * size,
-        stride_bytes=stride_bytes, access=size, dv=dv,
-        reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
-                             n_buf > 1,
-                             any(e[0] == EP.KIND_MAP for e in entries)),
-        dtype=xc.dtype)
+
+    def plan_of(map_slots=None):
+        return _epi_plan_tensor(
+            entries, geometry, xc.device, per_cta, elem_bytes=d * size,
+            stride_bytes=stride_bytes, access=size, dv=dv,
+            reg_bits=EP.regs_for(t + _shift(rpt) + _shift(per_cta), dv,
+                                 n_buf > 1,
+                                 any(e[0] == EP.KIND_MAP for e in entries)),
+            dtype=xc.dtype, map_slots=map_slots)
+    plan = plan_of()
+    if n_buf > 1 and plan.info["maps"]:
+        fit = k5_map_slots(geometry, xc.shape[0], d, size, dv, plan)
+        if fit < plan.info["maps"]:
+            plan = plan_of(fit)
     return plan, dv
+
+
+def k5_map_slots(geometry, batch: int, d: int, itemsize: int, dv: int,
+                 plan) -> int:
+    """The sets of map inputs (one a map: a value a register, thread,
+    chunk and planar value) K5's block keeps beside its tables, plan,
+    tiles and spilled compare bits within _SMEM_MAX, one work item in
+    flight."""
+    info = plan.info
+    base = k5_schedule(geometry, batch, d, itemsize, 0,
+                       n_words=plan.numel(), n_epi=len(info["hmask"]),
+                       dv=dv, n_spill=EP.spill_sids(info), n_buf=1).smem
+    per_map = (itemsize * EP.THREADS * (1 << info["reg_bits"])
+               << info["outer_bits"]) * dv
+    return max(0, (_SMEM_MAX - base) // per_map)
 
 
 def _epi_launch_args(xc, geometry, entries, n_buf: int = 1,
@@ -1326,9 +1353,9 @@ def _epi_launch_args(xc, geometry, entries, n_buf: int = 1,
 
 
 def _map_sets(info: dict, dv: int) -> int:
-    """Sets of map inputs K5 keeps in shared memory: one a map, chunk and
-    planar value."""
-    return (info["maps"] << info["outer_bits"]) * dv
+    """Sets of map inputs K5 keeps in shared memory: one a kept map slot,
+    chunk and planar value."""
+    return (info["map_slots"] << info["outer_bits"]) * dv
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):

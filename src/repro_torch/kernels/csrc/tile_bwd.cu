@@ -64,13 +64,18 @@
 // reads the cotangent straight from the loaded ct tile through the
 // un-gather. Shared memory per block: the tables, the staged plan, an x
 // and a ct tile per item in flight and, with more than two bit sets, the
-// waiting compare bits, and each map's input values: the replay keeps
-// the values a map met (one per register and thread, by the map's slot
-// and chunk) for the transposed sweep, which recomputes the tape's
-// intermediates from them op by op (a tape of n ops costs n(n+1)/2 op
-// evaluations, no array indexed at run time). A pointer off 16-byte
-// alignment or rows of fewer than 16 bytes take the same schedule one
-// word of the element's width at a time.
+// waiting compare bits, and the maps' input values: the replay keeps the
+// values a map met (one per register and thread, by the map's slot and
+// chunk) for the transposed sweep, which runs the tape forward once from
+// them (every value kept in a per-thread array) and then in reverse. The
+// host gives as many maps a slot as fit 227 KiB with one work item in
+// flight (k5_map_slots); past that, the first map of each phase keeps
+// one, and a map without one has its input recomputed, when its turn
+// comes in the transposed sweep, from the nearest kept map before it in
+// its phase: the replay's epilogues in between run again on the kept
+// values, into the one spare slot. A pointer off 16-byte alignment or
+// rows of fewer than 16 bytes take the same schedule one word of the
+// element's width at a time.
 //
 // Measured (PERF.md; H100 80GB HBM3, 700 W; the largest 2^24 sort
 // cluster, float32, device time): 0.393 ms against 0.442 for the design
@@ -201,40 +206,71 @@ __device__ __forceinline__ void tr_bfly_regs(T (&v)[2][KR], unsigned hx,
   }
 }
 
-// The cotangents (ga, gb) of the first and second operand (a, b) of one
-// tape op from g, that of its result y: autograd's formulas as eager
-// PyTorch rounds them on the card, each aten op rounded to T once (the
-// fused tanh_backward and sigmoid_backward kernels as they compute:
-// bfloat16 after each op, float32 tanh's 1 - y * y an FMA), as
-// map_lower.tape_vjp computes them for a CUDA tensor; float16 rounds as
+// The cotangents of an op's operands (a, b, c) from that of its result.
+template <typename F>
+struct Back {
+  F a, b, c;
+};
+
+// PyTorch's fused backward kernels (gelu_backward, silu_backward,
+// softplus_backward) as PyTorch's CUDA kernels write them, in their
+// compute type F.
+template <typename F>
+__device__ __forceinline__ F gelu_erf_back(F dy, F x) {
+  constexpr F kBeta = k2SqrtPi * kSqrt1_2 * F(0.5);
+  constexpr F kAlpha = kSqrt1_2;
+  const F cdf = F(0.5) * (F(1) + erf(x * kAlpha));
+  const F pdf = exp(F(-0.5) * x * x) * kBeta;
+  return dy * (cdf + x * pdf);
+}
+template <typename F>
+__device__ __forceinline__ F gelu_tanh_back(F dy, F x) {
+  constexpr F kBeta = kSqrt2 * k2SqrtPi * F(0.5);
+  constexpr F kKappa = 0.044715;
+  auto x_sq = x * x;
+  auto x_cube = x_sq * x;
+  auto inner = kBeta * (x + kKappa * x_cube);
+  auto tanh_inner = tanh(inner);
+  auto left = F(0.5) * x;
+  auto right = F(1) + tanh_inner;
+  auto left_derivative = F(0.5) * right;
+  auto tanh_derivative = F(1) - tanh_inner * tanh_inner;
+  auto inner_derivative = kBeta * (F(1) + F(3) * kKappa * x_sq);
+  auto right_derivative = left * tanh_derivative * inner_derivative;
+  return dy * (left_derivative + right_derivative);
+}
+template <typename F>
+__device__ __forceinline__ F silu_back(F dy, F x) {
+  const F s = F(1) / (F(1) + exp(-x));
+  return dy * s * (F(1) + x * (F(1) - s));
+}
+template <typename F>
+__device__ __forceinline__ F softplus_back(F dy, F x, F beta, F threshold) {
+  const F z = exp(x * beta);
+  return (x * beta) > threshold ? dy : dy * z / (z + F(1));
+}
+
+// The cotangents of the operands (a, b, c) of tape op w from g, that of
+// its result y, for the ops map_back_step does not run inline:
+// autograd's formulas as eager PyTorch rounds them on the card, each aten
+// op rounded to T once (the fused tanh_backward and sigmoid_backward
+// kernels as they compute: bfloat16 after each op, float32 tanh's 1 - y *
+// y an FMA; the fused gelu, silu and softplus backward kernels rounded
+// once), as autograd computes them for a CUDA tensor; float16 rounds as
 // bfloat16 does. Out of line, as map_elem_op.
 template <typename T>
-__device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
-                                           float b, float y, float g) {
-  float ga, gb = 0.0f;
+__device__ __noinline__ Back<float> map_op_back(int w, float a, float b,
+                                                float c, float y, float g,
+                                                const int* pool) {
+  const int op = w & 0x7F;
+  float ga = 0.0f, gb = 0.0f;
   switch (op) {
-    case OP_ADD: ga = g; gb = g; break;
-    case OP_SUB: ga = g; gb = -g; break;
-    case OP_MUL:
-      ga = rnd<T>(__fmul_rn(g, b));
-      gb = rnd<T>(__fmul_rn(g, a));
+    case OP_DIV: {   // b a value (map_back_step takes b a number)
+      const float q = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(a, b)), b));
+      ga = rnd<T>(__fdiv_rn(g, b));
+      gb = rnd<T>(__fmul_rn(-g, q));
       break;
-    case OP_DIV:
-      if (kb == OPND_C) {   // g / c, as PyTorch divides by a number
-        ga = rnd<T>(__fmul_rn(g, __fdiv_rn(1.0f, c)));
-      } else {
-        const float q = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(a, b)), b));
-        ga = rnd<T>(__fdiv_rn(g, b));
-        gb = rnd<T>(__fmul_rn(-g, q));
-      }
-      break;
-    case OP_NEG: ga = -g; break;
-    case OP_ABS:
-      ga = rnd<T>(__fmul_rn(g, (float)((a > 0.0f) - (a < 0.0f))));
-      break;
-    case OP_MAXC: ga = a >= b ? g : 0.0f; break;
-    case OP_MINC: ga = a <= b ? g : 0.0f; break;
-    case OP_RELU: ga = y <= 0.0f ? 0.0f : g; break;
+    }
     case OP_EXP: ga = rnd<T>(__fmul_rn(g, y)); break;
     case OP_EXPM1:
       ga = rnd<T>(__fmul_rn(g, rnd<T>(__fadd_rn(y, 1.0f))));
@@ -267,35 +303,51 @@ __device__ __noinline__ float2 map_op_back(int op, int kb, float c, float a,
     case OP_COS:   // g * -a.sin()
       ga = rnd<T>(__fmul_rn(g, -rnd<T>(map_trig(OP_SIN, a))));
       break;
-    default: ga = g; break;
+    case OP_POW: {   // g * (e * a.pow(e - 1)); 0 for e == 0
+      const int k = (w >> 16) & 0x3F;
+      const double e = __longlong_as_double(wide_const(pool[2 * k],
+                                                       pool[2 * k + 1]));
+      if (e != 0.0)
+        ga = rnd<T>(__fmul_rn(g, rnd<T>(__fmul_rn((float)e,
+                                                  map_pow<T>(a, e - 1.0)))));
+      break;
+    }
+    case OP_RECIP: ga = rnd<T>(__fmul_rn(-g, rnd<T>(__fmul_rn(y, y)))); break;
+    case OP_ERF: {   // 2 / sqrt(pi) * exp(-(a.pow(2))) * g
+      const float k = (float)(2.0 / sqrt(kPi));
+      ga = rnd<T>(__fmul_rn(
+          rnd<T>(__fmul_rn(rnd<T>(expf(-rnd<T>(__fmul_rn(a, a)))), k)), g));
+      break;
+    }
+    case OP_LOG2:   // g / (a * ln 2)
+      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fmul_rn(a, (float)kLn2))));
+      break;
+    case OP_EXP2:   // g * y * ln 2
+      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, y)), (float)kLn2));
+      break;
+    case OP_GELU: ga = rnd<T>(gelu_erf_back(g, a)); break;
+    case OP_GELU_TANH: ga = rnd<T>(gelu_tanh_back(g, a)); break;
+    case OP_SILU: ga = rnd<T>(silu_back(g, a)); break;
+    case OP_SOFTPLUS: ga = rnd<T>(softplus_back(g, a, b, c)); break;
+    default: break;
   }
-  return make_float2(ga, gb);
+  return Back<float>{ga, gb, 0.0f};
 }
 
 // map_op_back in double (float64): each aten op rounded once, tanh's
 // 1 - y * y an FMA as in float32.
-__device__ __noinline__ double2 map_op_back(int op, int kb, double c,
-                                            double a, double b, double y,
-                                            double g) {
-  double ga, gb = 0.0;
+__device__ __noinline__ Back<double> map_op_back(int w, double a, double b,
+                                                 double c, double y, double g,
+                                                 const int* pool) {
+  const int op = w & 0x7F;
+  double ga = 0.0, gb = 0.0;
   switch (op) {
-    case OP_ADD: ga = g; gb = g; break;
-    case OP_SUB: ga = g; gb = -g; break;
-    case OP_MUL: ga = __dmul_rn(g, b); gb = __dmul_rn(g, a); break;
-    case OP_DIV:
-      if (kb == OPND_C) {   // g / c, as PyTorch divides by a number
-        ga = __dmul_rn(g, __ddiv_rn(1.0, c));
-      } else {
-        const double q = __ddiv_rn(__ddiv_rn(a, b), b);
-        ga = __ddiv_rn(g, b);
-        gb = __dmul_rn(-g, q);
-      }
+    case OP_DIV: {
+      const double q = __ddiv_rn(__ddiv_rn(a, b), b);
+      ga = __ddiv_rn(g, b);
+      gb = __dmul_rn(-g, q);
       break;
-    case OP_NEG: ga = -g; break;
-    case OP_ABS: ga = __dmul_rn(g, (double)((a > 0.0) - (a < 0.0))); break;
-    case OP_MAXC: ga = a >= b ? g : 0.0; break;
-    case OP_MINC: ga = a <= b ? g : 0.0; break;
-    case OP_RELU: ga = y <= 0.0 ? 0.0 : g; break;
+    }
     case OP_EXP: ga = __dmul_rn(g, y); break;
     case OP_EXPM1: ga = __dmul_rn(g, __dadd_rn(y, 1.0)); break;
     case OP_LOG: ga = __ddiv_rn(g, a); break;
@@ -310,9 +362,23 @@ __device__ __noinline__ double2 map_op_back(int op, int kb, double c,
       break;
     case OP_SIN: ga = __dmul_rn(g, map_trig(OP_COS, a)); break;
     case OP_COS: ga = __dmul_rn(g, -map_trig(OP_SIN, a)); break;
-    default: ga = g; break;
+    case OP_POW:
+      if (b != 0.0)
+        ga = __dmul_rn(g, __dmul_rn(b, map_pow<double>(a, b - 1.0)));
+      break;
+    case OP_RECIP: ga = __dmul_rn(-g, __dmul_rn(y, y)); break;
+    case OP_ERF:
+      ga = __dmul_rn(__dmul_rn(exp(-__dmul_rn(a, a)), 2.0 / sqrt(kPi)), g);
+      break;
+    case OP_LOG2: ga = __ddiv_rn(g, __dmul_rn(a, kLn2)); break;
+    case OP_EXP2: ga = __dmul_rn(__dmul_rn(g, y), kLn2); break;
+    case OP_GELU: ga = gelu_erf_back(g, a); break;
+    case OP_GELU_TANH: ga = gelu_tanh_back(g, a); break;
+    case OP_SILU: ga = silu_back(g, a); break;
+    case OP_SOFTPLUS: ga = softplus_back(g, a, b, c); break;
+    default: break;
   }
-  return make_double2(ga, gb);
+  return Back<double>{ga, gb, 0.0};
 }
 
 // cotangents summed as autograd sums them: rounded to T once (float64 in
@@ -323,66 +389,277 @@ __device__ __forceinline__ F ct_sum(F a, F b) {
   else return rnd<T>(__fadd_rn(a, b));
 }
 
-// The transposed map (staged record ep) on the cotangent registers ct,
-// `at` the map's input values the replay kept (map_save_at): reverse mode
-// over the tape, one register at a time, the input of op s recomputed
-// from u by ops 0 .. s - 1; the cotangents of u summed in the order
-// autograd receives them (last op first).
-template <int KR, typename T>
-__device__ __forceinline__ void map_vjp_regs(const int* ep, T (&ct)[KR],
-                                             const T* at) {
-  using F = typename MapOf<T>::type;   // float, or double for float64
-  const int n = ep[EP_MAP_LEN];
-  if (n == 0) return;
+// An operand byte d for every register, every slot's values in vals
+// (vals[0] the inputs).
+template <int KR, typename F>
+__device__ __forceinline__ void tape_args(int d, const F (*vals)[KR],
+                                          const int* pool, F (&x)[KR]) {
+  if (d & 0x80) {
 #pragma unroll
-  for (int i = 0; i < KR; ++i) {
-    const F u = widen(at[i * REPRO_THREADS]);
-    F g = widen(ct[i]), cu = -F(0);   // -0 + x == x for every x
-    for (int s = n - 1; s >= 0; --s) {
-      const int* w = ep + EP_MAP_OPS + 2 * s;
-      const F x = map_eval<T>(ep, s, u);   // the op's R operand
-      const F y = map_step<T>(ep, s, x, u);
-      const int op = w[0] & 0xff, ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
-      F c;
-      if constexpr (std::is_same_v<T, double>)
-        c = __longlong_as_double(wide_const(w[1], ep[EP_MAP_HI + s]));
-      else
-        c = __int_as_float(w[1]);
-      F ga, gb;
-      if constexpr (std::is_same_v<T, double>) {
-        const double2 gg = map_op_back(op, kb, c, operand(ka, x, u, c),
-                                       operand(kb, x, u, c), y, g);
-        ga = gg.x;
-        gb = gg.y;
-      } else {
-        const float2 gg = map_op_back<T>(op, kb, c, operand(ka, x, u, c),
-                                          operand(kb, x, u, c), y, g);
-        ga = gg.x;
-        gb = gg.y;
-      }
-      if (ka == OPND_U) cu = ct_sum<T>(cu, ga);
-      if (kb == OPND_U) cu = ct_sum<T>(cu, gb);
-      if (kb == OPND_R) g = ka == OPND_R ? ct_sum<T>(ga, gb) : gb;
-      else if (ka == OPND_R) g = ga;
-    }
-    narrow_to(cu, ct[i]);
+    for (int i = 0; i < KR; ++i) x[i] = F(0);
+  } else if (d & kOpndConst) {
+    const F k = map_const<F>(pool, d & 0x3F);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = k;
+  } else {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = vals[d][i];
   }
 }
 
-// The transpose of epilogue e (staged record ep, device record gep) on the
-// cotangent registers (see step 4); `save` holds the maps' inputs.
+// The cotangents (ga, gb, gc) of tape op w's operands (a, b, c) for every
+// register, from g, that of its result y (autograd's formulas, rounded as
+// PyTorch's CUDA kernels round them): the ops whose formula is a few
+// instructions inline across the registers, the others through
+// map_op_back once a register.
+#define REPRO_BACK_ALL(A, B, C)                                       \
+  {                                                                   \
+    _Pragma("unroll") for (int i = 0; i < KR; ++i) {                  \
+      ga[i] = (A);                                                    \
+      gb[i] = (B);                                                    \
+      gc[i] = (C);                                                    \
+    }                                                                 \
+  }                                                                   \
+  return;
+template <typename T, int KR, typename F>
+__device__ __forceinline__ void map_back_step(
+    int w, const F (&a)[KR], const F (&b)[KR], const F (&c)[KR],
+    const F (&y)[KR], const F (&g)[KR], F (&ga)[KR], F (&gb)[KR],
+    F (&gc)[KR], const int* pool) {
+  const int op = w & 0x7F;
+  const bool b_const = ((w >> 16) & 0xC0) == kOpndConst;
+  const F z = F(0);
+  if constexpr (std::is_same_v<F, float>) {
+    switch (op) {
+      case OP_ADD: REPRO_BACK_ALL(g[i], g[i], z)
+      case OP_SUB: REPRO_BACK_ALL(g[i], -g[i], z)
+      case OP_MUL:
+        REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], b[i])),
+                       rnd<T>(__fmul_rn(g[i], a[i])), z)
+      case OP_DIV:
+        if (b_const) {   // g / c, as PyTorch divides by a number
+          const float inv = __fdiv_rn(1.0f, b[0]);
+          REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], inv)), z, z)
+        }
+        break;
+      case OP_NEG: REPRO_BACK_ALL(-g[i], z, z)
+      case OP_ABS:
+        REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], (float)((a[i] > 0.0f) -
+                                                       (a[i] < 0.0f)))),
+                       z, z)
+      case OP_MAXC: REPRO_BACK_ALL(a[i] >= b[i] ? g[i] : z, z, z)
+      case OP_MINC: REPRO_BACK_ALL(a[i] <= b[i] ? g[i] : z, z, z)
+      case OP_RELU: REPRO_BACK_ALL(y[i] <= 0.0f ? z : g[i], z, z)
+      case OP_WHERE:
+        REPRO_BACK_ALL(z, a[i] != 0.0f ? g[i] : z, a[i] != 0.0f ? z : g[i])
+      case OP_MAXIMUM:
+        REPRO_BACK_ALL(
+            a[i] < b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
+                                            : g[i]),
+            a[i] > b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
+                                            : g[i]), z)
+      case OP_MINIMUM:
+        REPRO_BACK_ALL(
+            a[i] > b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
+                                            : g[i]),
+            a[i] < b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
+                                            : g[i]), z)
+      case OP_FLOOR:
+      case OP_CEIL:
+      case OP_TRUNC:
+      case OP_ROUND:
+      case OP_SIGN:
+      case OP_FLOORDIV:
+      case OP_TRUNCDIV: REPRO_BACK_ALL(z, z, z)
+      case OP_REM:
+      case OP_FMOD: REPRO_BACK_ALL(g[i], z, z)
+      case OP_LEAKY:
+        REPRO_BACK_ALL(rnd<T>(a[i] > 0.0f ? g[i] : g[i] * b[i]), z, z)
+      case OP_HARDTANH:
+        REPRO_BACK_ALL((a[i] <= b[i]) || (a[i] >= c[i]) ? z : g[i], z, z)
+      default: break;
+    }
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const Back<float> r = map_op_back<T>(w, a[i], b[i], c[i], y[i], g[i],
+                                           pool);
+      ga[i] = r.a;
+      gb[i] = r.b;
+      gc[i] = r.c;
+    }
+  } else {
+    switch (op) {
+      case OP_ADD: REPRO_BACK_ALL(g[i], g[i], z)
+      case OP_SUB: REPRO_BACK_ALL(g[i], -g[i], z)
+      case OP_MUL:
+        REPRO_BACK_ALL(__dmul_rn(g[i], b[i]), __dmul_rn(g[i], a[i]), z)
+      case OP_DIV:
+        if (b_const) {
+          const double inv = __ddiv_rn(1.0, b[0]);
+          REPRO_BACK_ALL(__dmul_rn(g[i], inv), z, z)
+        }
+        break;
+      case OP_NEG: REPRO_BACK_ALL(-g[i], z, z)
+      case OP_ABS:
+        REPRO_BACK_ALL(__dmul_rn(g[i], (double)((a[i] > 0.0) - (a[i] < 0.0))),
+                       z, z)
+      case OP_MAXC: REPRO_BACK_ALL(a[i] >= b[i] ? g[i] : z, z, z)
+      case OP_MINC: REPRO_BACK_ALL(a[i] <= b[i] ? g[i] : z, z, z)
+      case OP_RELU: REPRO_BACK_ALL(y[i] <= 0.0 ? z : g[i], z, z)
+      case OP_WHERE:
+        REPRO_BACK_ALL(z, a[i] != 0.0 ? g[i] : z, a[i] != 0.0 ? z : g[i])
+      case OP_MAXIMUM:
+        REPRO_BACK_ALL(
+            a[i] < b[i] ? z : (a[i] == b[i] ? __dmul_rn(g[i], 0.5) : g[i]),
+            a[i] > b[i] ? z : (a[i] == b[i] ? __dmul_rn(g[i], 0.5) : g[i]),
+            z)
+      case OP_MINIMUM:
+        REPRO_BACK_ALL(
+            a[i] > b[i] ? z : (a[i] == b[i] ? __dmul_rn(g[i], 0.5) : g[i]),
+            a[i] < b[i] ? z : (a[i] == b[i] ? __dmul_rn(g[i], 0.5) : g[i]),
+            z)
+      case OP_FLOOR:
+      case OP_CEIL:
+      case OP_TRUNC:
+      case OP_ROUND:
+      case OP_SIGN:
+      case OP_FLOORDIV:
+      case OP_TRUNCDIV: REPRO_BACK_ALL(z, z, z)
+      case OP_REM:
+      case OP_FMOD: REPRO_BACK_ALL(g[i], z, z)
+      case OP_LEAKY: REPRO_BACK_ALL(a[i] > 0.0 ? g[i] : g[i] * b[i], z, z)
+      case OP_HARDTANH:
+        REPRO_BACK_ALL((a[i] <= b[i]) || (a[i] >= c[i]) ? z : g[i], z, z)
+      default: break;
+    }
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const Back<double> r = map_op_back(w, a[i], b[i], c[i], y[i], g[i],
+                                         pool);
+      ga[i] = r.a;
+      gb[i] = r.b;
+      gc[i] = r.c;
+    }
+  }
+}
+
+// The transposed map (its tape's words at tape, n ops) on the cotangent
+// registers ct, `at` the map's input values the replay kept (map_save_at):
+// the tape once forward, op by op on every register, keeping every slot's
+// values, then reverse mode over the ops whose backward autograd runs
+// (the tape's gradient mask), last first, each slot's cotangents summed in
+// that order (autograd's engine runs the ops of a graph in that order and
+// sums what a tensor receives as it arrives). Out of line: one copy of its
+// code a kernel, not one a planar value (the slot values live in a
+// per-thread array either way).
+template <int KR, typename T>
+__device__ __noinline__ void map_vjp_regs(const int* tape, int n,
+                                             T (&ct)[KR], const T* at) {
+  using F = typename MapOf<T>::type;   // float, or double for float64
+  if (n == 0) return;
+  const unsigned gmask = (unsigned)tape[0];
+  const int* ops = tape + 1;
+  const int* pool = ops + n;
+  F vals[kTapeMax + 1][KR], adj[kTapeMax + 1][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) vals[0][i] = widen(at[i * REPRO_THREADS]);
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s];
+    F a[KR], b[KR], c[KR];
+    tape_args((w >> 8) & 0xFF, vals, pool, a);
+    tape_args((w >> 16) & 0xFF, vals, pool, b);
+    tape_args((w >> 24) & 0xFF, vals, pool, c);
+    map_step<T>(w, a, b, c, vals[s + 1], pool);
+  }
+  for (int k = 0; k < n; ++k) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) adj[k][i] = -F(0);   // -0 + x == x
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) adj[n][i] = widen(ct[i]);
+  for (int s = n - 1; s >= 0; --s) {
+    if (!((gmask >> s) & 1u)) continue;
+    const int w = ops[s];
+    const int da = (w >> 8) & 0xFF, db = (w >> 16) & 0xFF;
+    const int dc = (w >> 24) & 0xFF;
+    F a[KR], b[KR], c[KR], ga[KR], gb[KR], gc[KR];
+    tape_args(da, vals, pool, a);
+    tape_args(db, vals, pool, b);
+    tape_args(dc, vals, pool, c);
+    map_back_step<T>(w, a, b, c, vals[s + 1], adj[s + 1], ga, gb, gc, pool);
+    const bool where = (w & 0x7F) == OP_WHERE;   // no cotangent for c
+    if (!where && (da & 0xC0) == 0) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) adj[da][i] = ct_sum<T>(adj[da][i], ga[i]);
+    }
+    if ((db & 0xC0) == 0) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) adj[db][i] = ct_sum<T>(adj[db][i], gb[i]);
+    }
+    if (where && (dc & 0xC0) == 0) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) adj[dc][i] = ct_sum<T>(adj[dc][i], gc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) narrow_to(adj[0][i], ct[i]);
+}
+
+// The input values of map epilogue e, recomputed from those kept for map
+// `from` (the nearest map before it in its phase that keeps them): the
+// replay's epilogues from .. e - 1 run on them, as the replay ran them,
+// into e's slot (the spare one). Out of line, so the replay's code is one
+// copy more, not one a map.
+template <int DV, int KR, typename T>
+__device__ __noinline__ void recompute_map_input(const int* sp,
+                                                 const long long* gp,
+                                                 int ebase, int from, int e,
+                                                 T* save, unsigned qb,
+                                                 unsigned chunk,
+                                                 int outer_bits) {
+  T u[DV][KR];
+  unsigned m[DV][KR];   // no compare bits are kept
+  const int* fe = sp + ebase + from * kEpiWords;
+  const int* ee = sp + ebase + e * kEpiWords;
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    const T* at = map_save_at<KR>(save, fe[EP_MAP_SLOT] * DV + c, chunk,
+                                  outer_bits);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) u[c][i] = at[i * REPRO_THREADS];
+  }
+  run_epilogues<false, true, true>(sp, gp, ebase, from, e, true, u, m, qb,
+                                   chunk, outer_bits, (T*)nullptr);
+#pragma unroll
+  for (int c = 0; c < DV; ++c) {
+    T* at = map_save_at<KR>(save, ee[EP_MAP_SLOT] * DV + c, chunk,
+                            outer_bits);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = u[c][i];
+  }
+}
+
+// The transpose of epilogue e (staged plan sp, device plan gp, records
+// from word ebase) on the cotangent registers (see step 4); `save` holds
+// the maps' inputs.
 template <bool kCmp, bool kMaps, int DV, int KR, typename T>
 __device__ __forceinline__ void transposed_epilogue(
-    const int* ep, const long long* gep, T (&v)[DV][KR],
+    const int* sp, const long long* gp, int ebase, int e, T (&v)[DV][KR],
     const unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
-    int outer_bits, const T* save) {
+    int outer_bits, T* save) {
+  const int* ep = sp + ebase + e * kEpiWords;
+  const long long* gep = gp + ebase + e * kEpiWords;
   if constexpr (kMaps) {
     if (ep[EP_KIND] == kKindMap) {
+      if (ep[EP_MAP_FROM] >= 0)
+        recompute_map_input<DV, KR>(sp, gp, ebase, ep[EP_MAP_FROM], e, save,
+                                    qb, chunk, outer_bits);
+      const int* tape = sp + ep[EP_MAP_TAPE];
 #pragma unroll
       for (int c = 0; c < DV; ++c)
-        map_vjp_regs(ep, v[c], map_save_at<KR>(save,
-                                               ep[EP_MAP_SLOT] * DV + c,
-                                               chunk, outer_bits));
+        map_vjp_regs(tape, ep[EP_MAP_LEN], v[c],
+                     map_save_at<KR>(save, ep[EP_MAP_SLOT] * DV + c, chunk,
+                                     outer_bits));
       return;
     }
   }
@@ -538,11 +815,9 @@ __device__ __forceinline__ void bwd_phases(const TileView& tv,
                               rpt_shift);
         else
           load_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
-        for (int e = e1 - 1; e >= e0; --e) {
-          const int off = ebase + e * kEpiWords;
-          transposed_epilogue<kCmp, kMaps>(sp + off, gp + off, v, m, qb, c,
+        for (int e = e1 - 1; e >= e0; --e)
+          transposed_epilogue<kCmp, kMaps>(sp, gp, ebase, e, v, m, qb, c,
                                            outer_bits, save);
-        }
         store_regs<DV, true>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }

@@ -52,7 +52,8 @@
 //
 // The plan is int64 words in device memory: a header (phases, epilogues,
 // outer bits, register bits), then one record per phase and one per
-// epilogue, with the offsets below (kept equal to epilogue_plan.py).
+// epilogue, with the offsets below (kept equal to epilogue_plan.py), then
+// the maps' tapes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -368,10 +369,12 @@ __device__ __forceinline__ void stage_plan(int* s_plan,
                                            const long long* __restrict__ plan,
                                            int n_words, long long g0) {
   const int ebase = kHdrWords + (int)__ldg(plan) * kPhaseWords;
+  const int eend = ebase + (int)__ldg(plan + 1) * kEpiWords;   // then tapes
   for (int i = threadIdx.x; i < n_words; i += REPRO_THREADS) {
     long long w = __ldg(plan + i);
     const int f = (i - ebase) % kEpiWords;
-    if (i >= ebase && (f == EP_HI_BASE || f == EP_TW_BASE) && w != 0)
+    if (i >= ebase && i < eend && (f == EP_HI_BASE || f == EP_TW_BASE) &&
+        w != 0)
       w = __ldg(reinterpret_cast<const int*>(w) + g0);
     s_plan[i] = (int)w;
   }
@@ -644,29 +647,44 @@ __device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
 }
 
 // ---------------------------------------------------------------------
-// Map epilogues: the tape of map_lower.py. Its ops take the running value
-// (R; the map's input before the first op), the map's input (U) or a
-// constant (C). A float32 op rounds as eager PyTorch does on the card (no
-// contraction into FMAs; a / c as a * (1 / c), PyTorch's CUDA division by
-// a number); a float64 op the same in double; a bfloat16 or float16 op
-// computes in float and rounds to its type; an integer op computes in int
-// (long long for int64 and uint64) and wraps at its type's width (uint32
-// and uint64 unsigned). The record: kind 2, the tape's length, the map's
-// slot, two words an op from EP_MAP_OPS (opcode | a << 8 | b << 10, the
-// constant's low 32 bits), past EP_HI_BASE and EP_TW_BASE, which
-// stage_plan reads as pointers; a 64-bit type's constants keep their high
-// 32 bits at EP_MAP_HI + op.
-// The tape runs one register at a time (a value and its input live), so
-// a map adds few registers to the phase around it.
+// Map epilogues: the tape of map_lower.py, a DAG of at most kTapeMax ops.
+// Each value of the tape is a slot: slot 0 the map's input, slot s + 1 op
+// s's result. An op reads up to three operands, each a slot or a
+// constant of the tape's pool. Each op computes what PyTorch's CUDA
+// kernel for its aten op computes: a float32 op in float (no contraction
+// into FMAs where PyTorch's kernel has none; a / c as a * (1 / c),
+// PyTorch's CUDA division by a number), a float64 op the same in double,
+// a bfloat16 or float16 op in float rounded to its type once an op, an
+// integer op in int (long long for int64 and uint64) wrapped at its
+// type's width (uint32 and uint64 compared, shifted and divided as
+// unsigned). PyTorch's fused kernels (gelu, silu, softplus and their
+// backward) are written as PyTorch writes them, so nvcc contracts them as
+// it contracts PyTorch's. Comparisons and the logical ops make 0 and 1.
+// The record: kind 2, the tape's length, the map's slot in K5's saved
+// inputs, the epilogue K5 recomputes its input from (-1: none), and the
+// plan word of its tape (EP_MAP_TAPE, past EP_HI_BASE and EP_TW_BASE,
+// which the kernels read as pointers). The tape (map_lower.tape_words):
+// the gradient mask (bit s: op s's backward runs), a word an op (op | keep
+// << 7 | a << 8 | b << 16 | c << 24; an operand byte is a slot, 0x40 | k
+// constant k, or 0xC0 none; keep: a later op other than the next reads
+// the result), then two words a constant (low, high).
+// The tape runs one register at a time: the running value and the input
+// in registers, the results a later op reads again in a per-thread array.
 // ---------------------------------------------------------------------
 constexpr int kKindMap = 2;
-enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_OPS = 8, EP_MAP_HI = 24 };
+constexpr int kTapeMax = 32;
+enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_FROM = 3, EP_MAP_TAPE = 8 };
 enum {   // opcodes (map_lower.py)
   OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
   OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
-  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR, OP_SIN, OP_COS
+  OP_NOT, OP_AND, OP_OR, OP_XOR, OP_SHL, OP_SHR, OP_SIN, OP_COS,
+  OP_EQ, OP_NE, OP_LT, OP_LE, OP_GT, OP_GE, OP_LNOT, OP_LAND, OP_LOR,
+  OP_WHERE, OP_MAXIMUM, OP_MINIMUM, OP_POW, OP_RECIP, OP_FLOOR, OP_CEIL,
+  OP_TRUNC, OP_ROUND, OP_SIGN, OP_ERF, OP_LOG2, OP_EXP2, OP_GELU,
+  OP_GELU_TANH, OP_SILU, OP_SOFTPLUS, OP_LEAKY, OP_HARDTANH, OP_FLOORDIV,
+  OP_TRUNCDIV, OP_REM, OP_FMOD
 };
-enum { OPND_R, OPND_U, OPND_C, OPND_NONE };
+constexpr int kOpndConst = 0x40;   // operand byte: a constant (0x80: none)
 
 // The value type a tape computes in: float for the float types of 32 bits
 // and less, int for the integers of 32 bits and less, double and long long
@@ -716,12 +734,31 @@ __device__ __forceinline__ int wrap(int f) {
   if constexpr (std::is_same_v<T, U16>) return (uint16_t)f;
   return f;
 }
-
-template <typename F>
-__device__ __forceinline__ F operand(int kind, F r, F u, F c) {
-  return kind == OPND_R ? r : (kind == OPND_U ? u : c);
+// The same for a tape value of either integer width (64 bits: itself).
+template <typename T, typename F>
+__device__ __forceinline__ F map_wrap(F f) {
+  if constexpr (std::is_same_v<F, int>) return wrap<T>(f);
+  else return f;
 }
 
+// A constant's 64 bits: its low word and its high word.
+__device__ __forceinline__ long long wide_const(int lo, int hi) {
+  return (long long)(((unsigned long long)(unsigned)hi << 32) |
+                     (unsigned long long)(unsigned)lo);
+}
+// Constant k of a tape's pool in the tape's value type F.
+template <typename F>
+__device__ __forceinline__ F map_const(const int* pool, int k) {
+  const int lo = pool[2 * k], hi = pool[2 * k + 1];
+  if constexpr (std::is_same_v<F, double>)
+    return __longlong_as_double(wide_const(lo, hi));
+  else if constexpr (std::is_same_v<F, long long>)
+    return wide_const(lo, hi);
+  else if constexpr (std::is_same_v<F, float>)
+    return __int_as_float(lo);
+  else
+    return lo;
+}
 // sin and cos (CUDA's sinf and cosf: a large argument reduces through a
 // local-memory array). Out of line, so that their code and stack frame
 // stay out of map_elem_op's other ops.
@@ -732,20 +769,101 @@ __device__ __noinline__ double map_trig(int op, double a) {
   return op == OP_SIN ? sin(a) : cos(a);
 }
 
-// One float op (float32, bfloat16 or float16 T) on resolved operands.
+// x ** e as PyTorch's CUDA pow by a number computes it for T (float, a
+// half float, or double F): 0 and 1 fill and copy, 0.5, -0.5 and -1 are
+// sqrt, rsqrt and reciprocal, and past them the exponent is cast to T
+// and 2, 3 and -2 are products (each rounded to T), anything else pow.
+template <typename T, typename F>
+__device__ __forceinline__ F map_pow(F x, double e) {
+  if constexpr (std::is_same_v<F, double>) {
+    if (e == 0.0) return 1.0;
+    if (e == 1.0) return x;
+    if (e == 0.5) return __dsqrt_rn(x);
+    if (e == -0.5) return rsqrt(x);
+    if (e == -1.0) return __ddiv_rn(1.0, x);
+    if (e == 2.0) return __dmul_rn(x, x);
+    if (e == 3.0) return __dmul_rn(__dmul_rn(x, x), x);
+    if (e == -2.0) return __ddiv_rn(1.0, __dmul_rn(x, x));
+    return pow(x, e);
+  } else {
+    if (e == 0.0) return 1.0f;
+    if (e == 1.0) return x;
+    if (e == 0.5) return rnd<T>(sqrtf(x));
+    if (e == -0.5) return rnd<T>(rsqrtf(x));
+    if (e == -1.0) return rnd<T>(__fdiv_rn(1.0f, x));
+    const float et = rnd<T>((float)e);
+    if (et == 2.0f) return rnd<T>(__fmul_rn(x, x));
+    if (et == 3.0f) return rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(x, x)), x));
+    if (et == -2.0f) return rnd<T>(__fdiv_rn(1.0f, rnd<T>(__fmul_rn(x, x))));
+    return rnd<T>(powf(x, et));
+  }
+}
+
+// The constants of math.h's M_SQRT1_2, M_SQRT2, M_2_SQRTPI, M_PI, M_LN2.
+constexpr double kSqrt1_2 = 0.70710678118654752440;
+constexpr double kSqrt2 = 1.41421356237309504880;
+constexpr double k2SqrtPi = 1.12837916709551257390;
+constexpr double kPi = 3.14159265358979323846;
+constexpr double kLn2 = 0.69314718055994530942;
+
+// The activations PyTorch fuses into one kernel, in its compute type F
+// (float for the half floats), as PyTorch's CUDA kernels write them.
+template <typename F>
+__device__ __forceinline__ F gelu_erf(F x) {
+  constexpr F kAlpha = kSqrt1_2;
+  return x * F(0.5) * (F(1) + erf(x * kAlpha));
+}
+template <typename F>
+__device__ __forceinline__ F gelu_tanh(F x) {
+  constexpr F kBeta = kSqrt2 * k2SqrtPi * F(0.5);
+  constexpr F kKappa = 0.044715;
+  auto x_cube = x * x * x;
+  auto inner = kBeta * (x + kKappa * x_cube);
+  return F(0.5) * x * (F(1) + tanh(inner));
+}
+template <typename F>
+__device__ __forceinline__ F silu_f(F x) {
+  return x / (F(1) + exp(-x));
+}
+template <typename F>
+__device__ __forceinline__ F softplus_f(F a, F beta, F threshold) {
+  return (a * beta) > threshold ? a : (log1p(exp(a * beta))) / beta;
+}
+// floor_divide and div(..., rounding_mode="floor") by a number: PyTorch's
+// CUDA kernel multiplies by the number's reciprocal, the result held in T
+// where it writes T.
+template <typename T, typename F>
+__device__ __forceinline__ F floor_div(F a, F b) {
+  if (b == F(0)) return a / b;
+  const F inv_b = F(1) / b;
+  const F mod = fmod(a, b);
+  F div = (a - mod) * inv_b;
+  if ((mod != F(0)) && (b < F(0)) != (mod < F(0))) div -= F(1);
+  F fd;
+  if (div != F(0)) {
+    if constexpr (std::is_same_v<F, double>) {
+      fd = floor(div);
+      if (div - fd > 0.5) fd += 1.0;
+    } else {
+      fd = rnd<T>(floorf(div));
+      if (div - fd > 0.5f) fd = rnd<T>(fd + 1.0f);
+    }
+  } else {
+    fd = copysign(F(0), a * inv_b);
+  }
+  return fd;
+}
+
+// One float op (float32, bfloat16 or float16 T) on resolved operands; w
+// its word (the op in the low 7 bits), pool its tape's constants. The ops
+// map_step runs inline are not here.
 template <typename T>
-__device__ __forceinline__ float map_op(int op, float a, float b) {
+__device__ __forceinline__ float map_op(int w, float a, float b, float c,
+                                        const int* pool) {
+  const int op = w & 0x7F;
   float y;
   switch (op) {
-    case OP_ADD: y = __fadd_rn(a, b); break;
-    case OP_SUB: y = __fsub_rn(a, b); break;
-    case OP_MUL: y = __fmul_rn(a, b); break;
     case OP_DIV: y = __fdiv_rn(a, b); break;
-    case OP_NEG: y = -a; break;
-    case OP_ABS: y = fabsf(a); break;
-    case OP_MAXC: y = (a != a) ? a : fmaxf(a, b); break;
-    case OP_MINC: y = (a != a) ? a : fminf(a, b); break;
-    case OP_RELU: y = (a != a) ? a : fmaxf(a, 0.0f); break;
     case OP_EXP: y = expf(a); break;
     case OP_EXPM1: y = expm1f(a); break;
     case OP_LOG: y = logf(a); break;
@@ -756,24 +874,39 @@ __device__ __forceinline__ float map_op(int op, float a, float b) {
     case OP_SIGMOID: y = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))); break;
     case OP_SIN:
     case OP_COS: y = map_trig(op, a); break;
+    case OP_POW:
+      return map_pow<T>(a, __longlong_as_double(wide_const(
+                               pool[2 * ((w >> 16) & 0x3F)],
+                               pool[2 * ((w >> 16) & 0x3F) + 1])));
+    case OP_RECIP: y = __fdiv_rn(1.0f, a); break;
+    case OP_ERF: y = erff(a); break;
+    case OP_LOG2: y = log2f(a); break;
+    case OP_EXP2: y = exp2f(a); break;
+    case OP_GELU: y = gelu_erf(a); break;
+    case OP_GELU_TANH: y = gelu_tanh(a); break;
+    case OP_SILU: y = silu_f(a); break;
+    case OP_SOFTPLUS: y = softplus_f(a, b, c); break;
+    case OP_FLOORDIV: y = floor_div<T>(a, b); break;
+    case OP_TRUNCDIV: y = truncf(__fmul_rn(a, __fdiv_rn(1.0f, b))); break;
+    case OP_REM: {
+      y = fmodf(a, b);
+      if (y != 0.0f && ((b < 0.0f) != (y < 0.0f))) y = __fadd_rn(y, b);
+      break;
+    }
+    case OP_FMOD: y = fmodf(a, b); break;
     default: y = a; break;
   }
   return rnd<T>(y);
 }
 
 // One float64 op on resolved operands, as eager PyTorch computes it on
-// the card in double (one rounding an op).
-__device__ __forceinline__ double map_op(int op, double a, double b) {
+// the card in double (one rounding an op). The ops map_step runs inline
+// are not here.
+__device__ __forceinline__ double map_op(int w, double a, double b, double c,
+                                         const int* pool) {
+  const int op = w & 0x7F;
   switch (op) {
-    case OP_ADD: return __dadd_rn(a, b);
-    case OP_SUB: return __dsub_rn(a, b);
-    case OP_MUL: return __dmul_rn(a, b);
     case OP_DIV: return __ddiv_rn(a, b);
-    case OP_NEG: return -a;
-    case OP_ABS: return fabs(a);
-    case OP_MAXC: return (a != a) ? a : fmax(a, b);
-    case OP_MINC: return (a != a) ? a : fmin(a, b);
-    case OP_RELU: return (a != a) ? a : fmax(a, 0.0);
     case OP_EXP: return exp(a);
     case OP_EXPM1: return expm1(a);
     case OP_LOG: return log(a);
@@ -784,24 +917,58 @@ __device__ __forceinline__ double map_op(int op, double a, double b) {
     case OP_SIGMOID: return __ddiv_rn(1.0, __dadd_rn(1.0, exp(-a)));
     case OP_SIN:
     case OP_COS: return map_trig(op, a);
+    case OP_POW: return map_pow<double>(a, b);
+    case OP_RECIP: return __ddiv_rn(1.0, a);
+    case OP_ERF: return erf(a);
+    case OP_LOG2: return log2(a);
+    case OP_EXP2: return exp2(a);
+    case OP_GELU: return gelu_erf(a);
+    case OP_GELU_TANH: return gelu_tanh(a);
+    case OP_SILU: return silu_f(a);
+    case OP_SOFTPLUS: return softplus_f(a, b, c);
+    case OP_FLOORDIV: return floor_div<double>(a, b);
+    case OP_TRUNCDIV: return trunc(__dmul_rn(a, __ddiv_rn(1.0, b)));
+    case OP_REM: {
+      double m = fmod(a, b);
+      if (m != 0.0 && ((b < 0.0) != (m < 0.0))) m = __dadd_rn(m, b);
+      return m;
+    }
+    case OP_FMOD: return fmod(a, b);
     default: return a;
   }
 }
 
 // One integer op of int (32 bits) or long long (64), wrapping (kUnsigned:
-// uint32's or uint64's bits, compared and shifted as unsigned).
+// uint32's or uint64's bits, compared, shifted and divided as unsigned).
+// A divisor of -1 negates (floor and trunc) or leaves 0 (remainder, fmod),
+// as PyTorch's kernels give the type's least value divided by -1.
 template <bool kUnsigned = false, typename I>
-__device__ __forceinline__ I map_op_int(int op, I a, I b) {
+__device__ __forceinline__ I map_op_int(int op, I a, I b, I c) {
   using U = std::make_unsigned_t<I>;
   constexpr int kShift = 8 * (int)sizeof(I) - 1;
   const U ua = (U)a, ub = (U)b;
   if constexpr (kUnsigned) {
     switch (op) {
       case OP_ABS: return a;
-      case OP_MAXC: return (I)(ua > ub ? ua : ub);
-      case OP_MINC: return (I)(ua < ub ? ua : ub);
+      case OP_MAXC:
+      case OP_MAXIMUM: return (I)(ua > ub ? ua : ub);
+      case OP_MINC:
+      case OP_MINIMUM: return (I)(ua < ub ? ua : ub);
       case OP_RELU: return a;
       case OP_SHR: return (I)(ua >> (b & kShift));
+      case OP_LT: return ua < ub;
+      case OP_LE: return ua <= ub;
+      case OP_GT: return ua > ub;
+      case OP_GE: return ua >= ub;
+      case OP_SIGN: return ua != 0;
+      case OP_HARDTANH: {
+        const U lo = ua > ub ? ua : ub;
+        return (I)(lo < (U)c ? lo : (U)c);
+      }
+      case OP_FLOORDIV:
+      case OP_TRUNCDIV: return (I)(ua / ub);
+      case OP_REM:
+      case OP_FMOD: return (I)(ua % ub);
       default: break;
     }
   }
@@ -811,8 +978,10 @@ __device__ __forceinline__ I map_op_int(int op, I a, I b) {
     case OP_MUL: return (I)(ua * ub);
     case OP_NEG: return (I)((U)0 - ua);
     case OP_ABS: return a < 0 ? (I)((U)0 - ua) : a;
-    case OP_MAXC: return a > b ? a : b;
-    case OP_MINC: return a < b ? a : b;
+    case OP_MAXC:
+    case OP_MAXIMUM: return a > b ? a : b;
+    case OP_MINC:
+    case OP_MINIMUM: return a < b ? a : b;
     case OP_RELU: return a > 0 ? a : (I)0;
     case OP_NOT: return ~a;
     case OP_AND: return a & b;
@@ -820,81 +989,269 @@ __device__ __forceinline__ I map_op_int(int op, I a, I b) {
     case OP_XOR: return a ^ b;
     case OP_SHL: return (I)(ua << (b & kShift));
     case OP_SHR: return a >> (b & kShift);
-    default: return a;
+    case OP_EQ: return a == b;
+    case OP_NE: return a != b;
+    case OP_LT: return a < b;
+    case OP_LE: return a <= b;
+    case OP_GT: return a > b;
+    case OP_GE: return a >= b;
+    case OP_LNOT: return a == 0;
+    case OP_LAND: return (a != 0) && (b != 0);
+    case OP_LOR: return (a != 0) || (b != 0);
+    case OP_WHERE: return a != 0 ? b : c;
+    case OP_POW: {   // b >= 0 (the lowering takes no other)
+      U r = 1, base = ua;
+      for (U e = ub; e; e >>= 1) {
+        if (e & 1) r *= base;
+        base *= base;
+      }
+      return (I)r;
+    }
+    case OP_SIGN: return (I)((0 < a) - (a < 0));
+    case OP_HARDTANH: {
+      const I lo = a > b ? a : b;
+      return lo < c ? lo : c;
+    }
+    case OP_FLOORDIV: {
+      if (b == (I)-1) return (I)((U)0 - ua);
+      const I q = a / b, r = a % b;
+      return (r != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+    }
+    case OP_TRUNCDIV: return b == (I)-1 ? (I)((U)0 - ua) : a / b;
+    case OP_REM: {
+      if (b == (I)-1) return 0;
+      I r = a % b;
+      if (r != 0 && ((r < 0) != (b < 0))) r += b;
+      return r;
+    }
+    case OP_FMOD: return b == (I)-1 ? (I)0 : a % b;
+    default: return a;   // floor, ceil, trunc, round: the value itself
   }
 }
 
-// A 64-bit type's constant: the op's low word and its high word.
-__device__ __forceinline__ long long wide_const(int lo, int hi) {
-  return (long long)(((unsigned long long)(unsigned)hi << 32) |
-                     (unsigned long long)(unsigned)lo);
-}
-
-// Tape op w (its two staged words; hi its constant's high word, read by
-// the 64-bit types) on one value: r the running value, u the map's input.
-// Out of line, so the switch and its math functions are one copy for all
-// of a thread's registers: inlined into each unrolled register they made
-// the map kernels' code 1.3-1.7x larger and K5 on a tanh cluster 0.61 ms
-// instead of 0.36 on the H100 (PERF.md).
+// Tape op w on resolved operands a, b, c (pool: the tape's constants),
+// for the ops map_step does not run inline (a division by a number is
+// one of those it does). Out of line, so the switch and its math
+// functions are one copy for all of a thread's registers: inlined into
+// each unrolled register they made the map kernels' code 1.3-1.7x larger
+// and K5 on a tanh cluster 0.61 ms instead of 0.36 on the H100 (PERF.md).
 template <typename T>
 __device__ __noinline__ typename MapOf<T>::type map_elem_op(
-    const int* w, int hi, typename MapOf<T>::type r,
-    typename MapOf<T>::type u) {
-  int op = w[0] & 0xff;
-  const int ka = (w[0] >> 8) & 3, kb = (w[0] >> 10) & 3;
+    int w, typename MapOf<T>::type a, typename MapOf<T>::type b,
+    typename MapOf<T>::type c, const int* pool) {
   if constexpr (std::is_same_v<T, int>) {
-    const int c = w[1];
-    return map_op_int(op, operand(ka, r, u, c), operand(kb, r, u, c));
+    return map_op_int(w & 0x7F, a, b, c);
   } else if constexpr (std::is_same_v<T, double>) {
-    double c = __longlong_as_double(wide_const(w[1], hi));
-    if (op == OP_DIV && kb == OPND_C) {   // PyTorch: a * (1 / c)
-      op = OP_MUL;
-      c = __ddiv_rn(1.0, c);
-    }
-    return map_op(op, operand(ka, r, u, c), operand(kb, r, u, c));
+    return map_op(w, a, b, c, pool);
+  } else if constexpr (kFloatElem<T>) {
+    return map_op<T>(w, a, b, c, pool);
   } else if constexpr (kWide<T>) {
-    const long long c = wide_const(w[1], hi);
-    return map_op_int<std::is_same_v<T, U64>>(op, operand(ka, r, u, c),
-                                              operand(kb, r, u, c));
-  } else if constexpr (!kFloatElem<T>) {
-    const int c = w[1];
-    return wrap<T>(map_op_int<std::is_same_v<T, U32>>(
-        op, operand(ka, r, u, c), operand(kb, r, u, c)));
+    return map_op_int<std::is_same_v<T, U64>>(w & 0x7F, a, b, c);
   } else {
-    float c = __int_as_float(w[1]);
-    if (op == OP_DIV && kb == OPND_C) {   // PyTorch: a * (1 / c)
-      op = OP_MUL;
-      c = __fdiv_rn(1.0f, c);
-    }
-    return map_op<T>(op, operand(ka, r, u, c), operand(kb, r, u, c));
+    return wrap<T>(map_op_int<std::is_same_v<T, U32>>(w & 0x7F, a, b, c));
   }
 }
 
-// Op s of the tape of record ep on one value.
-template <typename T>
-__device__ __forceinline__ typename MapOf<T>::type map_step(
-    const int* ep, int s, typename MapOf<T>::type r,
-    typename MapOf<T>::type u) {
-  return map_elem_op<T>(ep + EP_MAP_OPS + 2 * s,
-                        kWide<T> ? ep[EP_MAP_HI + s] : 0, r, u);
-}
-
-// The first n ops of the tape of record ep on one input u.
-template <typename T>
-__device__ __forceinline__ typename MapOf<T>::type map_eval(
-    const int* ep, int n, typename MapOf<T>::type u) {
-  typename MapOf<T>::type r = u;
-  for (int s = 0; s < n; ++s) r = map_step<T>(ep, s, r, u);
-  return r;
-}
-
-// A map epilogue (staged record ep) on a thread's registers.
-template <int KR, typename T>
-__device__ __forceinline__ void map_regs(const int* ep, T (&v)[KR]) {
-  const int n = ep[EP_MAP_LEN];
+// Tape op w on the thread's registers at once: y[i] = op(a[i], b[i],
+// c[i]), as PyTorch's CUDA kernel for the op computes it. The op is
+// uniform over the block, so the switch runs once an op; the ops whose
+// code is a few instructions run inline across the registers, and the
+// others call map_elem_op (out of line) once a register: with every op
+// out of line, a where map cost K4b and K5 2.6-2.9x their time on the
+// H100 (PERF.md).
+#define REPRO_MAP_ALL(EXPR)                 \
+  {                                         \
+    _Pragma("unroll") for (int i = 0; i < KR; ++i) y[i] = (EXPR); \
+  }                                         \
+  return;
+template <typename T, int KR, typename F>
+__device__ __forceinline__ void map_step(int w, const F (&a)[KR],
+                                         const F (&b)[KR], const F (&c)[KR],
+                                         F (&y)[KR], const int* pool) {
+  const int op = w & 0x7F;
+  const bool b_const = ((w >> 16) & 0xC0) == kOpndConst;
+  if constexpr (std::is_same_v<F, float>) {
+    switch (op) {
+      case OP_ADD: REPRO_MAP_ALL(rnd<T>(__fadd_rn(a[i], b[i])))
+      case OP_SUB: REPRO_MAP_ALL(rnd<T>(__fsub_rn(a[i], b[i])))
+      case OP_MUL: REPRO_MAP_ALL(rnd<T>(__fmul_rn(a[i], b[i])))
+      case OP_DIV:
+        if (b_const) {   // PyTorch: a * (1 / c)
+          const float inv = __fdiv_rn(1.0f, b[0]);
+          REPRO_MAP_ALL(rnd<T>(__fmul_rn(a[i], inv)))
+        }
+        break;
+      case OP_NEG: REPRO_MAP_ALL(rnd<T>(-a[i]))
+      case OP_ABS: REPRO_MAP_ALL(rnd<T>(fabsf(a[i])))
+      case OP_MAXC:
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i] : fmaxf(a[i], b[i])))
+      case OP_MINC:
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i] : fminf(a[i], b[i])))
+      case OP_RELU:
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i] : fmaxf(a[i], 0.0f)))
+      case OP_EQ: REPRO_MAP_ALL((float)(a[i] == b[i]))
+      case OP_NE: REPRO_MAP_ALL((float)(a[i] != b[i]))
+      case OP_LT: REPRO_MAP_ALL((float)(a[i] < b[i]))
+      case OP_LE: REPRO_MAP_ALL((float)(a[i] <= b[i]))
+      case OP_GT: REPRO_MAP_ALL((float)(a[i] > b[i]))
+      case OP_GE: REPRO_MAP_ALL((float)(a[i] >= b[i]))
+      case OP_LNOT: REPRO_MAP_ALL((float)(a[i] == 0.0f))
+      case OP_LAND: REPRO_MAP_ALL((float)((a[i] != 0.0f) && (b[i] != 0.0f)))
+      case OP_LOR: REPRO_MAP_ALL((float)((a[i] != 0.0f) || (b[i] != 0.0f)))
+      case OP_WHERE: REPRO_MAP_ALL(a[i] != 0.0f ? b[i] : c[i])
+      case OP_MAXIMUM:
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i]
+                             : ((b[i] != b[i]) ? b[i] : fmaxf(a[i], b[i]))))
+      case OP_MINIMUM:
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i]
+                             : ((b[i] != b[i]) ? b[i] : fminf(a[i], b[i]))))
+      case OP_FLOOR: REPRO_MAP_ALL(rnd<T>(floorf(a[i])))
+      case OP_CEIL: REPRO_MAP_ALL(rnd<T>(ceilf(a[i])))
+      case OP_TRUNC: REPRO_MAP_ALL(rnd<T>(truncf(a[i])))
+      case OP_ROUND: REPRO_MAP_ALL(rnd<T>(rintf(a[i])))
+      case OP_SIGN:
+        REPRO_MAP_ALL(rnd<T>((float)((0.0f < a[i]) - (a[i] < 0.0f))))
+      case OP_LEAKY: REPRO_MAP_ALL(rnd<T>(a[i] > 0.0f ? a[i] : a[i] * b[i]))
+      case OP_HARDTANH: {
+        const float lo = rnd<T>(b[0]), hi = rnd<T>(c[0]);
+        REPRO_MAP_ALL(rnd<T>((a[i] != a[i]) ? a[i]
+                             : fminf(fmaxf(a[i], lo), hi)))
+      }
+      default: break;
+    }
+  } else if constexpr (std::is_same_v<F, double>) {
+    switch (op) {
+      case OP_ADD: REPRO_MAP_ALL(__dadd_rn(a[i], b[i]))
+      case OP_SUB: REPRO_MAP_ALL(__dsub_rn(a[i], b[i]))
+      case OP_MUL: REPRO_MAP_ALL(__dmul_rn(a[i], b[i]))
+      case OP_DIV:
+        if (b_const) {
+          const double inv = __ddiv_rn(1.0, b[0]);
+          REPRO_MAP_ALL(__dmul_rn(a[i], inv))
+        }
+        break;
+      case OP_NEG: REPRO_MAP_ALL(-a[i])
+      case OP_ABS: REPRO_MAP_ALL(fabs(a[i]))
+      case OP_MAXC: REPRO_MAP_ALL((a[i] != a[i]) ? a[i] : fmax(a[i], b[i]))
+      case OP_MINC: REPRO_MAP_ALL((a[i] != a[i]) ? a[i] : fmin(a[i], b[i]))
+      case OP_RELU: REPRO_MAP_ALL((a[i] != a[i]) ? a[i] : fmax(a[i], 0.0))
+      case OP_EQ: REPRO_MAP_ALL((double)(a[i] == b[i]))
+      case OP_NE: REPRO_MAP_ALL((double)(a[i] != b[i]))
+      case OP_LT: REPRO_MAP_ALL((double)(a[i] < b[i]))
+      case OP_LE: REPRO_MAP_ALL((double)(a[i] <= b[i]))
+      case OP_GT: REPRO_MAP_ALL((double)(a[i] > b[i]))
+      case OP_GE: REPRO_MAP_ALL((double)(a[i] >= b[i]))
+      case OP_LNOT: REPRO_MAP_ALL((double)(a[i] == 0.0))
+      case OP_LAND: REPRO_MAP_ALL((double)((a[i] != 0.0) && (b[i] != 0.0)))
+      case OP_LOR: REPRO_MAP_ALL((double)((a[i] != 0.0) || (b[i] != 0.0)))
+      case OP_WHERE: REPRO_MAP_ALL(a[i] != 0.0 ? b[i] : c[i])
+      case OP_MAXIMUM:
+        REPRO_MAP_ALL((a[i] != a[i]) ? a[i]
+                      : ((b[i] != b[i]) ? b[i] : fmax(a[i], b[i])))
+      case OP_MINIMUM:
+        REPRO_MAP_ALL((a[i] != a[i]) ? a[i]
+                      : ((b[i] != b[i]) ? b[i] : fmin(a[i], b[i])))
+      case OP_FLOOR: REPRO_MAP_ALL(floor(a[i]))
+      case OP_CEIL: REPRO_MAP_ALL(ceil(a[i]))
+      case OP_TRUNC: REPRO_MAP_ALL(trunc(a[i]))
+      case OP_ROUND: REPRO_MAP_ALL(rint(a[i]))
+      case OP_SIGN: REPRO_MAP_ALL((double)((0.0 < a[i]) - (a[i] < 0.0)))
+      case OP_LEAKY: REPRO_MAP_ALL(a[i] > 0.0 ? a[i] : a[i] * b[i])
+      case OP_HARDTANH:
+        REPRO_MAP_ALL((a[i] != a[i]) ? a[i] : fmin(fmax(a[i], b[i]), c[i]))
+      default: break;
+    }
+  } else if constexpr (!std::is_same_v<T, U32> && !std::is_same_v<T, U64>) {
+    // signed integers, and the narrow unsigned ones held as int
+    using U = std::make_unsigned_t<F>;
+    switch (op) {
+      case OP_ADD: REPRO_MAP_ALL(map_wrap<T>((F)((U)a[i] + (U)b[i])))
+      case OP_SUB: REPRO_MAP_ALL(map_wrap<T>((F)((U)a[i] - (U)b[i])))
+      case OP_MUL: REPRO_MAP_ALL(map_wrap<T>((F)((U)a[i] * (U)b[i])))
+      case OP_NEG: REPRO_MAP_ALL(map_wrap<T>((F)((U)0 - (U)a[i])))
+      case OP_NOT: REPRO_MAP_ALL(map_wrap<T>(~a[i]))
+      case OP_AND: REPRO_MAP_ALL(map_wrap<T>(a[i] & b[i]))
+      case OP_OR: REPRO_MAP_ALL(map_wrap<T>(a[i] | b[i]))
+      case OP_XOR: REPRO_MAP_ALL(map_wrap<T>(a[i] ^ b[i]))
+      case OP_MAXC:
+      case OP_MAXIMUM: REPRO_MAP_ALL(a[i] > b[i] ? a[i] : b[i])
+      case OP_MINC:
+      case OP_MINIMUM: REPRO_MAP_ALL(a[i] < b[i] ? a[i] : b[i])
+      case OP_EQ: REPRO_MAP_ALL((F)(a[i] == b[i]))
+      case OP_NE: REPRO_MAP_ALL((F)(a[i] != b[i]))
+      case OP_LT: REPRO_MAP_ALL((F)(a[i] < b[i]))
+      case OP_LE: REPRO_MAP_ALL((F)(a[i] <= b[i]))
+      case OP_GT: REPRO_MAP_ALL((F)(a[i] > b[i]))
+      case OP_GE: REPRO_MAP_ALL((F)(a[i] >= b[i]))
+      case OP_LNOT: REPRO_MAP_ALL((F)(a[i] == 0))
+      case OP_LAND: REPRO_MAP_ALL((F)((a[i] != 0) && (b[i] != 0)))
+      case OP_LOR: REPRO_MAP_ALL((F)((a[i] != 0) || (b[i] != 0)))
+      case OP_WHERE: REPRO_MAP_ALL(a[i] != 0 ? b[i] : c[i])
+      case OP_FLOOR:
+      case OP_CEIL:
+      case OP_TRUNC:
+      case OP_ROUND: REPRO_MAP_ALL(a[i])
+      default: break;
+    }
+  }
 #pragma unroll
-  for (int i = 0; i < KR; ++i)
-    narrow_to(map_eval<T>(ep, n, widen(v[i])), v[i]);
+  for (int i = 0; i < KR; ++i) y[i] = map_elem_op<T>(w, a[i], b[i], c[i], pool);
+}
+
+// The operand byte d of op s for every register: the running values r
+// (slot s), the inputs u (slot 0), a kept result (vals) or a constant.
+template <int KR, typename F>
+__device__ __forceinline__ void map_args(int d, int s, const F (&r)[KR],
+                                         const F (&u)[KR],
+                                         const F (*vals)[KR],
+                                         const int* pool, F (&x)[KR]) {
+  if (d & 0x80) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = F(0);
+  } else if (d & kOpndConst) {
+    const F k = map_const<F>(pool, d & 0x3F);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = k;
+  } else if (d == s) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = r[i];
+  } else if (d == 0) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = u[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) x[i] = vals[d - 1][i];
+  }
+}
+
+// A map epilogue (its tape's words at tape, n ops) on a thread's
+// registers, op by op: the running values and the inputs in registers,
+// the results a later op reads again (their keep bit) in a per-thread
+// array. Out of line: one copy of the tape code a kernel, not one a
+// planar value and call site (the registers pass through local memory
+// once a map).
+template <int KR, typename T>
+__device__ __noinline__ void map_regs(const int* tape, int n, T (&v)[KR]) {
+  using F = typename MapOf<T>::type;
+  const int* ops = tape + 1;
+  const int* pool = ops + n;
+  F u[KR], r[KR], vals[kTapeMax][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) r[i] = u[i] = widen(v[i]);
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s];
+    F a[KR], b[KR], c[KR];
+    map_args((w >> 8) & 0xFF, s, r, u, vals, pool, a);
+    map_args((w >> 16) & 0xFF, s, r, u, vals, pool, b);
+    map_args((w >> 24) & 0xFF, s, r, u, vals, pool, c);
+    map_step<T>(w, a, b, c, r, pool);
+    if (w & 0x80) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) vals[s][i] = r[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) narrow_to(r[i], v[i]);
 }
 
 // Epilogue e of the plan (staged record ep, device record gep) on the
@@ -1009,28 +1366,23 @@ __device__ __forceinline__ T* map_save_at(T* save, int slot, unsigned chunk,
                     REPRO_THREADS + threadIdx.x;
 }
 
-// A phase's epilogues (staged record ph). The kernels are compiled
-// without maps (kMaps false: exactly the compare and butterfly code) and,
-// for clusters that hold maps, with them: the map code's registers would
-// otherwise cost the map-free clusters 3-8 % of their time on the H100
-// (PERF.md, PR 15). With kMaps, a phase runs the compares and butterflies
-// between two maps as forward_epilogues runs them, with their own NaN
-// vote and keys, and each map on the values (on both planar values of a
-// butterfly cluster's register slots). K5 passes `save`: each map's input
-// values (map_save_at), for its transposed sweep.
+// Epilogues e0 .. e1 - 1 of one phase on the registers. With kMaps, the
+// compares and butterflies between two maps run as forward_epilogues runs
+// them, with their own NaN vote and keys, and each map on the values (on
+// both planar values of a butterfly cluster's register slots); K5 passes
+// `save`: the input values of each map that keeps them (map_save_at; a
+// map with EP_MAP_FROM >= 0 keeps none), for its transposed sweep.
 template <bool kMask, bool kMaps, bool kPairs = false, int DV, int KR,
           typename T>
-__device__ __forceinline__ void phase_epilogues(
-    const int* ph, const int* sp, const long long* gp, int ebase,
-    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
-    int outer_bits, T* save) {
-  const int e1 = ph[PH_E1];
+__device__ __forceinline__ void run_epilogues(
+    const int* sp, const long long* gp, int ebase, int e0, int e1,
+    bool maps, T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb,
+    unsigned chunk, int outer_bits, T* save) {
   if constexpr (!kMaps) {
-    forward_epilogues<kMask, kPairs>(sp, gp, ebase, ph[PH_E0], e1, v, m, qb,
-                                     chunk, outer_bits);
+    forward_epilogues<kMask, kPairs>(sp, gp, ebase, e0, e1, v, m, qb, chunk,
+                                     outer_bits);
   } else {
-    const bool maps = ph[PH_MAPS] != 0;
-    int e = ph[PH_E0];
+    int e = e0;
     for (;;) {
       int s = e1;   // the run e .. s - 1 ends at the next map
       if (maps) {
@@ -1042,19 +1394,36 @@ __device__ __forceinline__ void phase_epilogues(
                                          chunk, outer_bits);
       if (s == e1) return;
       const int* ep = sp + ebase + s * kEpiWords;
+      const int* tape = sp + ep[EP_MAP_TAPE];
 #pragma unroll
       for (int c = 0; c < DV; ++c) {
-        if (save != nullptr) {
+        if (save != nullptr && ep[EP_MAP_FROM] < 0) {
           T* at = map_save_at<KR>(save, ep[EP_MAP_SLOT] * DV + c, chunk,
                                   outer_bits);
 #pragma unroll
           for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = v[c][i];
         }
-        map_regs(ep, v[c]);
+        map_regs(tape, ep[EP_MAP_LEN], v[c]);
       }
       e = s + 1;
     }
   }
+}
+
+// A phase's epilogues (staged record ph). The kernels are compiled
+// without maps (kMaps false: exactly the compare and butterfly code) and,
+// for clusters that hold maps, with them: the map code's registers would
+// otherwise cost the map-free clusters 3-8 % of their time on the H100
+// (PERF.md).
+template <bool kMask, bool kMaps, bool kPairs = false, int DV, int KR,
+          typename T>
+__device__ __forceinline__ void phase_epilogues(
+    const int* ph, const int* sp, const long long* gp, int ebase,
+    T (&v)[DV][KR], unsigned (&m)[DV][KR], unsigned qb, unsigned chunk,
+    int outer_bits, T* save) {
+  run_epilogues<kMask, kMaps, kPairs>(sp, gp, ebase, ph[PH_E0], ph[PH_E1],
+                                      ph[PH_MAPS] != 0, v, m, qb, chunk,
+                                      outer_bits, save);
 }
 
 // A thread's place in a phase (staged record ph): its position bits,

@@ -48,11 +48,12 @@
 // per phase. The 12-compare clusters of a 2^24 sort run in two phases.
 // Tails are taken one value at a time (cmp acts on each value of the
 // tail alone); a cluster with butterflies holds the planar (re, im) pair
-// of each position. A map runs its tape on each register in the thread
-// (beside butterflies, on both planar values). The kernel is compiled once
-// per element class (storage width and compare class: I64, U64, int, U32,
-// I16, U16, I8, U8 for uint8 and bool, double, float, Bf16, F16), register
-// count, planar-or-not and with-or-without maps, at the blocks per SM its
+// of each position. A map runs its tape op by op on all of the thread's
+// registers at once (beside butterflies, on both planar values). The
+// kernel is compiled once per element class (storage width and compare
+// class: I64, U64, int, U32, I16, U16, I8, U8 for uint8 and bool, double,
+// float, Bf16, F16), register count, planar-or-not and with-or-without
+// maps, at the blocks per SM its
 // registers allow (a sweep, tools/fused_ab.py, for the int32, float32,
 // bfloat16 and 64-bit ones; the 8- and 16-bit classes take the blocks per
 // SM of the class they widen like). The 8-byte classes run at 8

@@ -38,13 +38,20 @@ fallback to tables.
 
 A ``map`` epilogue (kind 2, an element-wise function lowered to a tape
 by :mod:`.map_lower`) has no partner (XOR 0): it runs in the thread on
-each register, in any phase, and its record holds the tape.
+each register, in any phase, and its record points to its tape. K5 keeps
+each map's input values in shared memory for its transposed sweep, one
+*slot* a map, as many as fit (``map_slots``); past that, a map keeps no
+slot and K5 recomputes its input from the nearest map before it in the
+same phase that keeps one, replaying the epilogues in between into one
+spare slot (:func:`map_checkpoints`). The first map of each phase always
+keeps a slot.
 
 The plan is a flat int64 array (:data:`HDR_WORDS` header words, then
-:data:`PHASE_WORDS` per phase, then :data:`EPI_WORDS` per epilogue)
-whose offsets ``tile_epilogue.cuh`` mirrors; the device pointers of
-``hi_base``, ``tw_base`` and the twiddle values are filled in by the
-launcher.
+:data:`PHASE_WORDS` per phase, :data:`EPI_WORDS` per epilogue, then the
+maps' tapes, :func:`.map_lower.tape_words` each, a tape shared by the
+maps that hold the same words) whose offsets ``tile_epilogue.cuh``
+mirrors; the device pointers of ``hi_base``, ``tw_base`` and the twiddle
+values are filled in by the launcher.
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ import numpy as np
 
 from ..core.f2 import in_span, parity
 from ..core.tiling import _affine_table, _coords
-from .map_lower import TAPE_MAX, tape_high_words, tape_words
+from .map_lower import tape_words
 
 REGS = 16            # most positions a thread holds (register slots: 4 bits)
 LANE_BITS = 5
@@ -77,14 +84,12 @@ KIND_CMP, KIND_BFLY, KIND_MAP = 0, 1, 2
 (EP_KIND, EP_VREG, EP_VLANE, EP_HREG, EP_HMASK, EP_HI_BASE, EP_TW_BASE,
  EP_W, EP_SHIFT) = range(9)
 EP_TW_REG, EP_TW_THR, EP_TW_OUT = 12, 16, 24
-# a map's record: the tape's length, the map's slot among the cluster's
-# maps (K5 keeps each map's input in shared memory by slot), then two
-# words an op (map_lower.tape_words) and, for a 64-bit type, the high
-# words of its constants from EP_MAP_HI (map_lower.tape_high_words), past
+# a map's record: the tape's length, the slot where K5 keeps the map's
+# input values, the epilogue whose kept input K5 recomputes this one's
+# from (-1: the map keeps its own; its slot is then the spare one), and
+# the plan word where its tape starts (map_lower.tape_words), past
 # EP_HI_BASE and EP_TW_BASE, which the kernels read as pointers
-EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_OPS, EP_MAP_HI = 1, 2, 8, 24
-assert EP_MAP_OPS + 2 * TAPE_MAX <= EP_MAP_HI
-assert EP_MAP_HI + TAPE_MAX <= EPI_WORDS
+EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_FROM, EP_MAP_TAPE = 1, 2, 3, 8
 
 
 def _log2(v: int) -> int:
@@ -219,14 +224,52 @@ def _layout(span: tuple, vs: tuple, B: int, reg_bits: int, smem: tuple):
         rest[WARP_BITS:])
 
 
+def map_checkpoints(phase_of: list, map_slots: Optional[int]) -> tuple:
+    """(slot, from) of each map, its phase ``phase_of[i]`` (maps in
+    order), when K5 may keep ``map_slots`` sets of map inputs (None: as
+    many as there are maps). Each map keeps a slot while they last;
+    otherwise the first map of each phase keeps one, then the maps
+    after them in order, and each other map takes the spare slot (the
+    last) and ``from`` the nearest map before it in its phase that keeps
+    one (-1 for a map that keeps its own). Raises when the phases that
+    hold maps outnumber the slots but the spare."""
+    n = len(phase_of)
+    if map_slots is None or n <= map_slots:
+        return list(range(n)), [-1] * n
+    keep = map_slots - 1
+    firsts = [i for i in range(n) if i == 0 or phase_of[i] != phase_of[i - 1]]
+    if keep < len(firsts):
+        raise ValueError(f"K5 keeps the inputs of {map_slots} maps in shared "
+                         f"memory; {len(firsts)} phases hold maps and each "
+                         f"needs one, besides the spare")
+    saved = set(firsts)
+    for i in range(n):
+        if len(saved) == keep:
+            break
+        saved.add(i)
+    slot, frm, last, k = [], [], -1, 0
+    for i in range(n):
+        if i in saved:
+            slot.append(k)
+            frm.append(-1)
+            k += 1
+            last = i
+        else:
+            slot.append(keep)
+            frm.append(last)
+    return slot, frm
+
+
 def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
                    elem_bytes: int, stride_bytes: int, access: int,
-                   dv: int, reg_bits: int = 4) -> tuple:
+                   dv: int, reg_bits: int = 4,
+                   map_slots: Optional[int] = None) -> tuple:
     """(plan, info) of a cluster's epilogues on blocks of ``per_cta``
     tiles: ``plan`` the int64 words of :mod:`tile_epilogue.cuh` (device
     pointer words 0), ``info`` a dict with ``n_phases``, ``outer_bits``,
-    ``groups`` (of CMP_GROUP compares), ``maps``, ``B``, ``reg_bits`` and
-    per-epilogue ``hmask`` and
+    ``groups`` (of CMP_GROUP compares), ``maps``, ``map_slots`` (the sets
+    of map inputs K5 keeps, :func:`map_checkpoints`), ``B``, ``reg_bits``
+    and per-epilogue ``hmask`` and
     ``tw_pos`` (the twiddle image of each position bit, bfly only).
 
     ``entries`` are the wrappers' epilogue entries (kind, vr, vc, hi_row,
@@ -271,9 +314,21 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
     cap = min(B, reg_bits + LANE_BITS)
     phases = _split_phases(vs, is_cmp, cap)
     n_cmp = sum(is_cmp)
-    words = np.zeros(HDR_WORDS + PHASE_WORDS * len(phases)
-                     + EPI_WORDS * len(entries), dtype=np.int64)
+    maps = [e for e in range(len(entries)) if entries[e][0] == KIND_MAP]
+    phase_at = {e: p for p, (e0, e1, _) in enumerate(phases)
+                for e in range(e0, e1)}
+    slot, frm = map_checkpoints([phase_at[e] for e in maps], map_slots)
+    tapes, tape_at = [], {}
+    epi_end = HDR_WORDS + PHASE_WORDS * len(phases) + EPI_WORDS * len(
+        entries)
+    for e in maps:
+        tw = tuple(tape_words(entries[e][9]))
+        if tw not in tape_at:
+            tape_at[tw] = epi_end + sum(map(len, tapes))
+            tapes.append(tw)
+    words = np.zeros(epi_end + sum(map(len, tapes)), dtype=np.int64)
     words[:HDR_WORDS] = (len(phases), len(entries), outer_bits, reg_bits)
+    words[epi_end:] = [w for tw in tapes for w in tw]
     ci = n_maps = 0
     for p, (e0, e1, span) in enumerate(phases):
         regs, lanes, warps, outer = map(list, _layout(
@@ -299,13 +354,12 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
             ep = words[HDR_WORDS + PHASE_WORDS * len(phases)
                        + e * EPI_WORDS:][:EPI_WORDS]
             if entries[e][0] == KIND_MAP:
-                tw = tape_words(entries[e][9])
                 ep[EP_KIND] = KIND_MAP
-                ep[EP_MAP_LEN] = len(tw) // 2
-                ep[EP_MAP_SLOT] = n_maps
-                ep[EP_MAP_OPS:EP_MAP_OPS + len(tw)] = tw
-                hw = tape_high_words(entries[e][9])
-                ep[EP_MAP_HI:EP_MAP_HI + len(hw)] = hw
+                ep[EP_MAP_LEN] = len(entries[e][9].ops)
+                ep[EP_MAP_SLOT] = slot[n_maps]
+                ep[EP_MAP_FROM] = (-1 if frm[n_maps] < 0
+                                   else maps[frm[n_maps]])
+                ep[EP_MAP_TAPE] = tape_at[tuple(tape_words(entries[e][9]))]
                 n_maps += 1
                 continue
             c = coord(vs[e])
@@ -331,6 +385,7 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
                                                         for q in outer]
     info = {"n_phases": len(phases), "outer_bits": outer_bits,
             "groups": -(-n_cmp // CMP_GROUP), "maps": n_maps,
+            "map_slots": max(slot, default=-1) + 1,
             "hmask": hmasks,
             "tw_pos": tw_pos, "B": B, "reg_bits": reg_bits}
     return words, info

@@ -655,6 +655,114 @@ def test_cuda_map_epilogues_match_plain(cuda_device, dtype, name, fn, tail,
         0 if dtype == torch.int32 else len(clusters))
 
 
+_DAG_MAPS = [   # dtype, name, function: DAG tapes and the ops past a chain
+    (torch.float32, "leaky", lambda v: torch.where(v > 0, v, 0.01 * v)),
+    (torch.float32, "gelu_dag", lambda v: 0.5 * v * (1 + torch.tanh(
+        0.7978845608028654 * (v + 0.044715 * v * v * v)))),
+    (torch.float32, "band", lambda v: torch.where(
+        torch.logical_and(v > -1, v < 1), torch.maximum(v * 2, -v), v)),
+    (torch.float32, "pow_rem", lambda v: v ** 2 % 0.75 + torch.floor(v)),
+    (torch.float32, "hardtanh", lambda v: torch.nn.functional.hardtanh(
+        v, -0.5, 0.5) + torch.sign(v)),
+    (torch.bfloat16, "leaky", lambda v: torch.where(v > 0, v, 0.01 * v)),
+    (torch.bfloat16, "round_min", lambda v: torch.minimum(
+        torch.round(v * 2), v ** -1)),
+    (torch.float16, "trunc_div", lambda v: torch.div(
+        v, 0.75, rounding_mode="trunc") + torch.fmod(v, 0.75)),
+    (torch.float64, "fan_out", lambda v: v * v + torch.exp(v) * v
+     - torch.sin(v)),
+    (torch.int32, "int_ops", lambda v: torch.where(
+        v % -7 > 2, v // 3, torch.maximum(v ** 2, -v))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name,fn", _DAG_MAPS,
+                         ids=[f"{str(d)[6:]}-{m}" for d, m, _ in _DAG_MAPS])
+def test_cuda_dag_maps_match_plain(cuda_device, dtype, name, fn):
+    """DAG tapes, comparisons, ``where`` and the new exact ops in K4b and
+    K5, bit for bit against their plain versions (eager torch and autograd
+    on the card), each cluster a launch of the map variant."""
+    n = 12
+    t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size())
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    if dtype == torch.int32:
+        x = torch.randint(-1000, 1001, (1 << n,), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    else:   # half continuous, half multiples of 1/4 in [-4, 4)
+        cont = (torch.rand(1 << n, generator=gen, device=cuda_device) - 0.5) * 8
+        grid = torch.randint(-16, 16, (1 << n,), generator=gen,
+                             device=cuda_device).float() / 4
+        x = torch.where(torch.rand(1 << n, generator=gen,
+                                   device=cuda_device) < 0.5, cont,
+                        grid).to(dtype)
+    ct = torch.randn(1 << n, generator=gen, device=cuda_device).to(
+        torch.float32 if dtype == torch.int32 else dtype)
+    clusters = [fs for fs in _fused_clusters(_map_expr(n, "dag_" + name, fn),
+                                             n, t)
+                if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
+    assert clusters
+    before = pk.launch_counts()
+    for fs in clusters:
+        got = _fused(fs, t, x, False, plain=False)
+        want = _fused(fs, t, x, False, plain=True)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        if dtype != torch.int32:
+            got = _bwd(fs, t, x, ct, False, plain=False)
+            want = _bwd(fs, t, x, ct, False, plain=True)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    after = pk.launch_counts()
+    assert after["tile_fused"] == before["tile_fused"] + len(clusters)
+    assert after["tile_bwd"] == before["tile_bwd"] + (
+        0 if dtype == torch.int32 else len(clusters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_twelve_maps_in_one_k5_launch(cuda_device, dtype):
+    """A sort with a map after each of its last 12 compares: its gradient
+    runs with no fused fallback, each map cluster one K5 launch (the
+    inputs of the maps that do not fit K5's shared memory recomputed),
+    bit-equal to the collapsed route."""
+    from repro_torch import obs as pobs
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.sort import compiled_sort
+    n = 16
+    maps = [lambda v: torch.where(v > 0, v, v * 0.25),
+            lambda v: torch.tanh(v) * v * 0.5,
+            lambda v: v * 0.5 + torch.tanh(v)]
+    stages = list(compiled_sort(n).program(n))
+    at = [i for i, s in enumerate(stages) if type(s).__name__ == "CmpHalves"]
+    for j, i in enumerate(reversed(at[-12:])):
+        stages.insert(i + 1, V.emap(f"twelve{j}", maps[j % 3]))
+    f = compile_expr(V.seq(*stages))
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.randn(1 << n, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(1 << n, generator=gen, device=cuda_device).to(dtype)
+
+    def grad():
+        v = x.clone().requires_grad_(True)
+        (w * f(v)).sum().backward()
+        return v.grad
+    pobs.reset()
+    pobs.enable()
+    try:
+        got = grad()
+        fb = pobs.counter_total("dispatch.fused_fallback")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert fb == 0
+    ex.BWD_MEGAKERNEL = False
+    try:
+        want = grad()
+    finally:
+        ex.BWD_MEGAKERNEL = True
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 @pytest.mark.cuda
 def test_cuda_map_programs_fuse_in_both_directions(cuda_device):
     """``not >> sort >> not`` sorts in descending order and ``tanh >>

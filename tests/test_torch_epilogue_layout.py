@@ -284,7 +284,8 @@ def _run_phase(V, eps, ents, lay, g0, outer_bits, masks, saved):
     i = 0
     while i < len(eps):
         if int(eps[i][EP.EP_KIND]) == EP.KIND_MAP:
-            saved[int(eps[i][EP.EP_MAP_SLOT])] = V
+            if int(eps[i][EP.EP_MAP_FROM]) < 0:   # else K5 recomputes it
+                saved[int(eps[i][EP.EP_MAP_SLOT])] = V
             V = ML.eval_tape(ents[i][9], V)
             i += 1
             continue
@@ -380,6 +381,17 @@ def _emulate(xc, plan_t, entries, geometry, cc=None, inv_src0=None):
             for e in reversed(epis(p)):
                 ep = EP.epi_slice(words, e)
                 if int(ep[EP.EP_KIND]) == EP.KIND_MAP:
+                    frm = int(ep[EP.EP_MAP_FROM])
+                    if frm >= 0:
+                        # the input recomputed from map frm's kept input:
+                        # epilogues frm .. e - 1 replayed, into e's slot
+                        ev = range(frm, e)
+                        saved[int(ep[EP.EP_MAP_SLOT])] = _run_phase(
+                            saved[int(EP.epi_slice(words, frm)[
+                                EP.EP_MAP_SLOT])],
+                            [EP.epi_slice(words, i) for i in ev],
+                            [entries[i] for i in ev], lay, g0, outer_bits,
+                            None, {})
                     V = ML.tape_vjp(entries[e][9],
                                     saved[int(ep[EP.EP_MAP_SLOT])], V)
                     continue
@@ -682,7 +694,45 @@ MAP_CASES = [
      [(1, "wrap", _wrap), (8, "wrap", _wrap)], 1, 1),
     ("float32 map alone", torch.float32, 12, 6, 0,
      [(0, "e^x", torch.exp)], 1, 1),
+    ("float32 DAG maps: a value read twice, where on a comparison, 12 maps",
+     torch.float32, 12, 6, 14,
+     [(k, name, fn) for k, (name, fn) in zip(range(0, 26, 2), [
+         ("dag", lambda v: torch.tanh(v) * torch.exp(-v * v)),
+         ("leaky", lambda v: torch.where(v > 0, v, 0.01 * v)),
+         ("gelu", torch.nn.functional.gelu),
+         ("maxfl", lambda v: torch.maximum(v, torch.floor(v))),
+         ("rem", lambda v: torch.remainder(v, 0.75)),
+         ("sq", _sq)] * 2)], 1, 1),
 ]
+
+
+@pytest.mark.parametrize("slots", [3, 5])
+def test_k5_recomputes_the_inputs_of_maps_it_does_not_keep(monkeypatch,
+                                                           slots):
+    """With room for ``slots`` sets of map inputs, K5 keeps the first map's
+    of each phase and recomputes the others' from the nearest kept one
+    before them in their phase, replaying the epilogues in between into
+    the spare slot; the emulated schedule equals the plain version bit for
+    bit (12 maps in one cluster)."""
+    label, dtype, n, t, n_cmp, maps, d, batch = MAP_CASES[-1]
+    plan, entries = _hand_cluster(n, t, n_cmp, seed=n_cmp + t)
+    entries = _with_maps(entries, maps, dtype)
+    monkeypatch.setattr(pk, "k5_map_slots", lambda *a: slots)
+    shape = (batch, 1 << n, d)
+    xc = _values(shape, dtype, seed=t, nan=False)
+    cc = _values(shape, dtype, seed=t + 1)
+    _check_cluster(plan, entries, xc, cc)
+    words = pk._epi_launch_args(xc, pk.plan_geometry(plan), entries,
+                                n_buf=2)[2]
+    w = words.numpy()
+    maps_at = [e for e in range(len(entries)) if entries[e][0] == EP.KIND_MAP]
+    frm = [int(EP.epi_slice(w, e)[EP.EP_MAP_FROM]) for e in maps_at]
+    assert words.info["map_slots"] == slots
+    assert sum(f < 0 for f in frm) == slots - 1 and max(frm) >= 0
+    for e, f in zip(maps_at, frm):
+        if f >= 0:
+            assert f in maps_at and f < e
+            assert int(EP.epi_slice(w, e)[EP.EP_MAP_SLOT]) == slots - 1
 
 
 @pytest.mark.parametrize("label,dtype,n,t,n_cmp,maps,d,batch", MAP_CASES,

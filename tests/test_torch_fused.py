@@ -202,10 +202,19 @@ def _map_expr(V, Bmmc, name, fn):
                  V.perm(Bmmc.random(n, rng)))
 
 
+def _cast_round_trip(v):
+    """The identity through a float32 cast, in torch or jnp: a cast is
+    outside the tape's op list, so the port does not lower it."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).to(v.dtype)
+    return v.astype(jnp.float32).astype(v.dtype)
+
+
 @pytest.mark.parametrize("name,fn,lowered", [
     ("x2", lambda v: v * 2, True),
-    # floor division is outside the tape's op list: not lowered
-    ("fdiv3", lambda v: v // 3, False)])
+    ("fdiv3", lambda v: v // 3, True),      # floor division by a number
+    # a cast is outside the tape's op list: not lowered
+    ("cast", _cast_round_trip, False)])
 def test_map_cluster_falls_back_per_stage(name, fn, lowered):
     """A cluster that holds a map runs as one K4b pass when the map's
     function lowers to a tape (no fused fallback), and stage by stage,

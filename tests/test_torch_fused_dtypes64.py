@@ -153,27 +153,27 @@ _WIDE_CONSTANTS = {
 
 @pytest.mark.parametrize("dtype", WIDE_TYPES)
 def test_map_constant_keeps_all_64_bits(dtype):
-    """A 64-bit tape keeps each constant whole: the record's low word
-    (``tape_words``) and high word (``tape_high_words``, at
-    ``EP_MAP_HI``) give back the constant's 64 bits, where one 32-bit word
-    would cut it; the tape evaluates as eager torch does."""
+    """A 64-bit tape keeps each constant whole: the tape words' constant
+    pool (``tape_words``: a low and a high word a constant) gives back the
+    constant's 64 bits, where one 32-bit word would cut it; a 32-bit
+    type's high words are 0; the tape evaluates as eager torch does."""
     fn, const = _WIDE_CONSTANTS[dtype]
     tape = map_lower.lower_map(f"wide_const_{dtype}", fn, _TORCH[dtype])
     assert tape.lowered
-    lo, hi = map_lower.tape_words(tape)[1::2], map_lower.tape_high_words(tape)
-    assert len(hi) == len(tape.ops)
+    words = map_lower.tape_words(tape)
+    pool = words[1 + len(tape.ops):]
     got = [((h & 0xFFFFFFFF) << 32) | (w & 0xFFFFFFFF)
-           for w, h in zip(lo, hi)]
+           for w, h in zip(pool[0::2], pool[1::2])]
     bits = (int(np.float64(const).view(np.uint64)) if dtype == "float64"
             else const & 0xFFFFFFFFFFFFFFFF)
-    assert got[-1] == bits and bits >> 32, (got, bits)
-    for k, (_, _, _, c) in enumerate(tape.ops):
-        want = (0 if c is None else
-                int(np.float64(c).view(np.uint64)) if dtype == "float64"
-                else int(c) & 0xFFFFFFFFFFFFFFFF)
-        assert got[k] == want, k
-    assert map_lower.tape_high_words(map_lower.lower_map(
-        "wide_const_int32", lambda v: v + 7, torch.int32)) == []
+    assert bits in got and bits >> 32, (got, bits)
+    want = [int(np.float64(c).view(np.uint64)) if dtype == "float64"
+            else int(c) & 0xFFFFFFFFFFFFFFFF
+            for _, opnds in tape.ops for k, c in opnds if k == map_lower.C]
+    assert got == list(dict.fromkeys(want))
+    narrow = map_lower.lower_map("wide_const_int32", lambda v: v + 7,
+                                 torch.int32)
+    assert map_lower.tape_words(narrow)[2:] == [7, 0]
     u = _to_torch(_keys(dtype, (256,), seed=2))
     if dtype == "float64":
         u = torch.where(torch.isnan(u), torch.zeros_like(u), u)
@@ -183,9 +183,9 @@ def test_map_constant_keeps_all_64_bits(dtype):
 
 @pytest.mark.parametrize("dtype", ["int64", "float64"])
 def test_wide_constant_in_the_epilogue_plan(dtype):
-    """The plan record of a map cluster holds the constant's high words at
-    ``EP_MAP_HI``, and the cluster (``emap >> sort >> emap``) runs fused
-    (its plain version here) bit-equal to the reference under x64."""
+    """The plan of a map cluster holds the map's tape with its constants'
+    high words, and the cluster (``emap >> sort >> emap``) runs fused (its
+    plain version here) bit-equal to the reference under x64."""
     n = 7
     fn = {"int64": lambda v: v ^ ((1 << 40) + 3),
           "float64": lambda v: v * 3 + 1e300}[dtype]
@@ -214,10 +214,8 @@ def test_wide_constant_in_the_epilogue_plan(dtype):
     _, _, words, _ = pk._epi_launch_args(xz.reshape(1, -1, 1),
                                          pk.plan_geometry(plans[0]), ents)
     k = next(k for k, e in enumerate(ents) if e[0] == EP.KIND_MAP)
-    rec, tape = EP.epi_slice(words.numpy(), k), ents[k][9]
-    n_ops = len(tape.ops)
-    assert list(rec[EP.EP_MAP_OPS:EP.EP_MAP_OPS + 2 * n_ops]) == \
-        map_lower.tape_words(tape)
-    assert list(rec[EP.EP_MAP_HI:EP.EP_MAP_HI + n_ops]) == \
-        map_lower.tape_high_words(tape)
-    assert any(rec[EP.EP_MAP_HI:EP.EP_MAP_HI + n_ops])
+    tape, w = ents[k][9], words.numpy()
+    tw = map_lower.tape_words(tape)
+    at = int(EP.epi_slice(w, k)[EP.EP_MAP_TAPE])
+    assert list(w[at:at + len(tw)]) == tw
+    assert any(tw[1 + len(tape.ops) + 1::2])     # a constant's high word

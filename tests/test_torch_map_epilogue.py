@@ -37,6 +37,8 @@ import random
 import jax
 import jax.numpy as jnp
 import ml_dtypes
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -90,6 +92,10 @@ LISTED = [
     ("shl", lambda v: v << 5, (I32,), 1),
     ("shr", lambda v: v >> 3, (I32,), 1),
     ("wrap", lambda v: v * 1000003 + 7, (F32, BF, I32), 2),
+    # DAG tapes: a value read by two ops, and a chain past 8 ops
+    ("two_branches", lambda v: torch.tanh(v) * torch.exp(v), (F32, BF), 3),
+    ("too_long", lambda v: ((((v + 1) * 2 + 3) * 4 + 5) * 6 + 7) * 8 + 9,
+     (F32, BF, I32), 9),
 ]
 
 
@@ -117,7 +123,9 @@ def test_each_listed_op_lowers_and_its_tape_equals_the_function(
         if not tape.lowered:
             continue
         assert len(tape.ops) == length
-        assert len(ML.tape_words(tape)) == 2 * length
+        # the gradient mask, a word an op, two words a constant
+        assert len(ML.tape_words(tape)) == 1 + length + 2 * len(
+            ML.tape_constants(tape))
         u = _inputs(dtype, seed=len(name))
         assert torch.equal(_bits(ML.eval_tape(tape, u)), _bits(fn(u)))
         if dtype == I32:
@@ -141,8 +149,10 @@ def test_each_listed_op_lowers_and_its_tape_equals_the_function(
     ("tan", torch.tan),                       # outside the list
     ("tensor_const", lambda v: torch.maximum(v, torch.tensor(0.0))),
     ("reduce", lambda v: v - v.sum()),
-    ("two_branches", lambda v: torch.tanh(v) * torch.exp(v)),
-    ("too_long", lambda v: ((((v + 1) * 2 + 3) * 4 + 5) * 6 + 7) * 8 + 9),
+    ("ops_33", lambda v: functools.reduce(lambda a, k: a * 1.5 + k,
+                                          range(16), v) + 1),
+    ("cast", lambda v: v.to(torch.float64).to(v.dtype)),
+    ("erfinv", torch.erfinv),                 # outside the list
 ])
 def test_functions_outside_the_list_are_not_lowered(name, fn):
     for dtype in (F32, BF):
@@ -362,9 +372,10 @@ def test_map_plan_records_hold_the_tape():
             tape = ents[k][9]
             assert ep[EP.EP_KIND] == EP.KIND_MAP
             assert ep[EP.EP_MAP_SLOT] == slot
+            assert ep[EP.EP_MAP_FROM] == -1       # every input kept
             assert ep[EP.EP_MAP_LEN] == len(tape.ops)
-            assert list(ep[EP.EP_MAP_OPS:EP.EP_MAP_OPS + 2 * len(tape.ops)]) \
-                == ML.tape_words(tape)
+            tw, at = ML.tape_words(tape), int(ep[EP.EP_MAP_TAPE])
+            assert list(w[at:at + len(tw)]) == tw
         assert sum(int(EP.phase_slice(w, p)[EP.PH_MAPS])
                    for p in range(words.info["n_phases"])) == len(maps)
 

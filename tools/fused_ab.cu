@@ -352,11 +352,9 @@ __device__ __forceinline__ void bwd_phases_old(const TileView& tv,
                               rpt_shift);
         else
           load_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
-        for (int e = e1 - 1; e >= e0; --e) {
-          const int off = ebase + e * kEpiWords;
-          transposed_epilogue<kCmp, kMaps>(sp + off, gp + off, v, m, qb, c,
+        for (int e = e1 - 1; e >= e0; --e)
+          transposed_epilogue<kCmp, kMaps>(sp, gp, ebase, e, v, m, qb, c,
                                            outer_bits, save);
-        }
         store_regs<DV>(v, tv, qb, pr.qr, pr.valid, k);
       }
     }

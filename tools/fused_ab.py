@@ -102,7 +102,7 @@ def _old_args(K, EP, xc, geometry, entries, n_buf):
     extra = (plan.numel() * 4 + 15) & ~15
     if n_buf > 1:
         extra += spill * dv * EP.THREADS * 4 << info["reg_bits"]
-        extra += (info["maps"] * size * EP.THREADS
+        extra += (info["map_slots"] * size * EP.THREADS
                   << (info["reg_bits"] + info["outer_bits"]))
     per_cta = K._epi_item(geometry, d * size)[0]
     rows = per_cta * rpt
@@ -152,7 +152,7 @@ def old_bwd(so, K, EP, xc, cc, tabs, geometry, entries):
                    *(K._ptr(a) for a in tabs), K._ptr(plan), plan.numel(),
                    *args, K._ELEM_TYPE[xc.dtype], xc.shape[2], dv,
                    int(info["groups"] > 0), spill,
-                   info["maps"] << info["outer_bits"], K._stream(xc))
+                   info["map_slots"] << info["outer_bits"], K._stream(xc))
     if rc:
         raise SystemExit(f"k5_old: CUDA error {rc}")
     return out
@@ -198,12 +198,12 @@ def cluster_calls(so, fs, t, x, ct=None, groups=None, mb=None,
         s = (K.k5_schedule(geometry, 1, xc.shape[2], x.element_size(),
                            xc.data_ptr() | tabs[3].data_ptr()
                            | cc.data_ptr(), n_spill=EP.spill_sids(info),
-                           n_map_sets=info["maps"] << info["outer_bits"],
+                           n_map_sets=info["map_slots"] << info["outer_bits"],
                            **kw) if bwd else
              K.k4b_schedule(geometry, 1, xc.shape[2], x.element_size(),
                             xc.data_ptr() | tabs[3].data_ptr(), **kw))
     k5 = dict(has_cmp=int(info["groups"] > 0), n_spill=EP.spill_sids(info),
-              n_map_sets=info["maps"] << info["outer_bits"]) if bwd else {}
+              n_map_sets=info["map_slots"] << info["outer_bits"]) if bwd else {}
     args = K._epi_args(s, tabs, pl, geometry, 1, x.dtype, xc.shape[2], dv,
                        **k5)
     guard = () if flags is None else (flags.data_ptr(),)

@@ -18,9 +18,10 @@ place at most:
 * ``fma``: as ``once``, with tanh's ``1 - y * y`` one fused multiply-add;
 * ``per_op``: each op rounded to the dtype (bfloat16 arithmetic).
 
-``map_lower.tape_vjp`` and K5's ``map_op_back`` (``csrc/tile_bwd.cu``)
-compute the candidate that matches. Then, for each listed map op, the
-count of results of ``tape_vjp`` on the card that differ from autograd's.
+K5's ``map_op_back`` (``csrc/tile_bwd.cu``) computes the candidate that
+matches. Then, for each listed map op, the count of results of
+``map_lower.tape_vjp`` (autograd's own aten ops, op by op) on the card
+that differ from autograd's.
 Imports torch and ``repro_torch`` only.
 """
 from __future__ import annotations
