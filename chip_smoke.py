@@ -117,8 +117,11 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    ``ref`` and equal the oracle; a poisoned ref table raises
    ``GuardTrap`` and the process keeps launching;
 13. store warm start: a fresh process (this script with
-   ``--store-child``) populates a plan store in a temporary root with the
-   six 2^n BMMCs, the 2^n_sort sort and its float32 gradient; a second
+   ``--store-child``) populates a plan store in a temporary root with
+   four of phase 4's 2^n BMMCs (``STORE_CASES``: one of each class; the
+   random BPC and the mixed complement, tiled like the bit reversal, are
+   left to phases 4 and 11), the 2^n_sort sort and its float32 gradient;
+   a second
    replays them with zero plans built, only hits, and outputs equal to
    the first's (64-bit checksums on the card); first-call latency cold,
    disk-warm and warm, and the store's bytes; then the disk-fault
@@ -271,12 +274,14 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    run as a subprocess with ``--device cuda`` and ``PYTHONPATH=src`` at its
    default size, then the sort, the FFT and the gradient twins again at
    the card's sizes (``--n`` of 2^n_sort keys, 2^n_fft points, 2^n_ties
-   elements): the user-facing paths of the port (``bmmc_permute`` by
+   elements), ``TWIN_WORKERS`` twins at a time, the longest first: the
+   user-facing paths of the port (``bmmc_permute`` by
    class, the fused sort and FFT, the compiled backward and
    ``PermuteLayer``, ``distributed_bmmc`` on one NCCL rank, the serving
    launcher's cold and disk-warm boots, the training launcher's stop and
-   resume); a twin that exits non-zero fails the run. One line a twin:
-   exit code, wall seconds and the kernel launches it reports (K4b, K5
+   resume); a twin that exits non-zero fails the run. One line a twin,
+   in the order above: exit code, wall seconds (beside the twins that ran
+   with it) and the kernel launches it reports (K4b, K5
    and every other kernel it launched); each twin's own output, times in
    ms of CUDA events, follows it. The kernels line gains
    ``examples_launches`` on the rows of phase 3's kernels (summed over
@@ -301,8 +306,19 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    map after each of its last 12 compares (float32; at 2^n_ties bit-equal
    to the same program on the ``ref`` engine), the 2^n_fft FFT with a DAG
    map beside its butterflies; ``dispatch.fused_fallback`` 0 throughout.
-   The kernels line gains ``tile_fused[dag maps]``, ``tile_bwd[dag
-   maps]`` and the 12-map clusters' rows;
+   Typed tapes (``map_typed_cases``): each cast inside a map and each op
+   the DAG tapes left out (tests of a value, ops between two values, the
+   rest of PyTorch's activations and transcendentals) in the same
+   cluster, on the types it takes (the four floats, int32, int8, int64,
+   int16, uint8), K4b and K5 bit for bit against eager torch and autograd
+   on the card; ``emap(torch.tanh(v.float()).to(v.dtype)) >> sort`` of
+   2^n_sort bfloat16 keys and its gradient with no fused fallback (the
+   gradient at 2^12 keys of distinct mapped values bit-equal to autograd
+   through ``torch.sort``, at 2^n_ties keys with ties the K5 route
+   bit-equal to the collapsed route). The
+   kernels line gains ``tile_fused[dag maps]``, ``tile_bwd[dag maps]``,
+   the 12-map clusters' rows and ``tile_fused[typed maps]``,
+   ``tile_bwd[typed maps]`` (the cast-tanh sort's map cluster);
 23. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
@@ -361,6 +377,8 @@ TILE_SWEEP = (5, 6, 7)    # tile sizes of the sweep phase
 N_SORT = 24               # log2 keys of the combinator path's sort (64 MiB)
 N_FFT = 22                # log2 points of its FFT (32 MiB planar float32)
 N_TIES = 20               # log2 keys of the K5-route vs collapsed-route check
+# phase 13's BMMCs (of make_cases): one of each class
+STORE_CASES = ("bit-reverse", "random-bmmc", "block-class", "lane-class")
 N_PERM = 26               # log2 elements of the gradient's permutation chain
 # Norm-wise relative error of the float32 FFT against float64: radix-2
 # float32 rounding grows like eps * log2(N) (eps = 6e-8, 22 stages), so
@@ -375,6 +393,9 @@ EXAMPLE_TWINS = ("quickstart_torch.py", "sorting_network_torch.py",
                  "distributed_permute_torch.py", "serve_batch_torch.py",
                  "train_lm_torch.py")
 EXAMPLE_TIMEOUT_S = 300   # seconds a twin may take before the run fails
+# Twins run at once (each a process that spends most of its wall time
+# starting up and planning on the host; 8 cores on the card's machine)
+TWIN_WORKERS = 4
 
 # Peak HBM bandwidth by card (NVIDIA data sheets); the byte bound of a
 # kernel is the bytes it must move over this rate.
@@ -2304,7 +2325,8 @@ def phase_traps(torch, n: int):
 
 
 def store_child(args) -> int:
-    """Phase 13's subprocess: drive the six 2^n BMMCs, the 2^n_sort sort
+    """Phase 13's subprocess: drive the 2^n BMMCs of ``STORE_CASES``, the
+    2^n_sort sort
     and its float32 gradient against the store at ``args.store_child``;
     write first-call latencies, output hashes and store stats as JSON."""
     import torch
@@ -2339,8 +2361,9 @@ def store_child(args) -> int:
 
     t = ops.choose_tile(args.n, 4)
     for name, b, _ in make_cases(args.n, t):
-        timed(name, lambda b=b: ops.bmmc_permute(x, b),
-              lambda b=b: ops.class_plan(b, t))
+        if name in STORE_CASES:
+            timed(name, lambda b=b: ops.bmmc_permute(x, b),
+                  lambda b=b: ops.class_plan(b, t))
     f = S.compiled_sort(args.n_sort)
 
     def sort_plans():
@@ -2371,8 +2394,8 @@ def store_child(args) -> int:
 def phase_store(torch, n: int, n_sort: int, hashes: dict):
     """Phase 13: a store populated by one process and replayed by a fresh
     one; then the disk-fault matrix."""
-    say(f"== phase 13: store warm start (six 2^{n} BMMCs, sort of "
-        f"2^{n_sort}, its float32 gradient) ==")
+    say(f"== phase 13: store warm start ({len(STORE_CASES)} 2^{n} BMMCs, "
+        f"sort of 2^{n_sort}, its float32 gradient) ==")
     import tempfile
     from repro_torch.guard import inject
     root = tempfile.mkdtemp(prefix="repro-torch-store-")
@@ -2398,8 +2421,13 @@ def phase_store(torch, n: int, n_sort: int, hashes: dict):
           and warm["stats"]["hit"] > 0, ("disk-warm process built plans",
                                          warm["stats"]))
     check(cold["hash"] == warm["hash"], "outputs differ between processes")
+    from repro_torch.kernels import ops
+    left_out = {name for name, _, _ in make_cases(
+        n, ops.choose_tile(n, 4))} - set(STORE_CASES)
     for name, h in hashes.items():
-        check(cold["hash"][name] == h, (name, "differs from this process"))
+        if name not in left_out:
+            check(cold["hash"].get(name) == h,
+                  (name, "differs from this process"))
     for name in cold["first_s"]:
         plans = ("" if name not in cold["plans_s"] else
                  f" (of which resolving and planning or loading plans "
@@ -4695,6 +4723,89 @@ def map_dag_cases(torch) -> list:
     ]
 
 
+def map_typed_cases(torch) -> list:
+    """(name, function, dtypes, exact) of phase 22's typed-tape cases:
+    each cast inside a map and each aten op the DAG tapes left out, once,
+    on the types it takes; all held bit for bit (each op as PyTorch's CUDA
+    kernel computes it)."""
+    F = torch.nn.functional
+    fl = ("float32", "bfloat16", "float16", "float64")
+    ints = ("int32", "int8", "int64")
+    w = torch.where
+    return [(name, fn, dts, True) for name, fn, dts in [
+        ("cast tanh", lambda v: torch.tanh(v.float()).to(v.dtype), fl),
+        ("cast affine", lambda v: (v.float() * 3 + 1).to(v.dtype), fl),
+        ("cast mask", lambda v: (v > 0).to(v.dtype) * v, fl + ints),
+        ("cast double", lambda v: (v.double() * 0.1).to(v.dtype), fl),
+        ("cast half", lambda v: (v.half() * 3 - v.bfloat16()).to(v.dtype),
+         fl),
+        ("cast int", lambda v: (v.int() * 3).to(v.dtype) + v, fl),
+        ("cast int half", lambda v: (v.float() * 0.5).to(v.dtype),
+         ints + ("int16", "uint8")),
+        ("cast long", lambda v: (v.long() * 3).to(v.dtype), ints),
+        ("cast bool", lambda v: v.bool().to(v.dtype) + v, fl + ints),
+        ("cast uint8", lambda v: v.to(torch.uint8).to(v.dtype) * 0.5 + v,
+         fl),
+        ("cast int64 float", lambda v: (v.to(torch.int64) + 7).float().to(
+            v.dtype) + v, fl),
+        ("cast uint64", lambda v: v.to(torch.uint64).to(v.dtype) + 1,
+         ("int64", "int32")),
+        ("cast float64 int32", lambda v: (v.double() * 0.75).to(
+            torch.int32).to(v.dtype), ("int64", "int32")),
+        ("isnan", lambda v: w(torch.isnan(torch.log(v)), 0.0, v), fl),
+        ("isinf", lambda v: w(torch.isinf(torch.exp(v * 30)), -v, v), fl),
+        ("isfinite", lambda v: w(torch.isfinite(torch.log(v)), v, 1.0), fl),
+        ("nan_to_num", lambda v: torch.nan_to_num(torch.log(v)), fl),
+        ("nan_to_num numbers", lambda v: torch.nan_to_num(
+            torch.log(v), 1.0, 2.0, -3.0), fl),
+        ("copysign", lambda v: torch.copysign(v, -1.0), fl),
+        ("copysign value", lambda v: torch.copysign(v, v - 1), fl),
+        ("signbit", lambda v: w(torch.signbit(v), v, -v * 2), fl),
+        ("pow values", lambda v: torch.pow(v.abs() + 1, v * 0.5), fl),
+        ("remainder values", lambda v: torch.remainder(v, v.abs() + 1), fl),
+        ("fmod values", lambda v: torch.fmod(v, v.abs() + 0.5), fl),
+        ("remainder and fmod values, int", lambda v: torch.remainder(
+            v, v.abs() + 1) + torch.fmod(v, v.abs() + 3), ints),
+        ("atan2", lambda v: torch.atan2(v, v + 1), fl),
+        ("hypot", lambda v: torch.hypot(v, v + 1), fl),
+        ("lerp", lambda v: torch.lerp(v, v * 2 + 1, 0.3), fl),
+        ("lerp far", lambda v: torch.lerp(v, v * 2 + 1, 0.7), fl),
+        ("addcmul", lambda v: torch.addcmul(v, v, v + 1, value=0.5), fl),
+        ("addcmul value 1", lambda v: torch.addcmul(v, v, v + 1), fl),
+        ("addcdiv", lambda v: torch.addcdiv(v, v, v.abs() + 1, value=0.3),
+         fl),
+        ("elu", F.elu, fl),
+        ("elu alpha", lambda v: F.elu(v, 0.3), fl),
+        ("selu", F.selu, fl),
+        ("celu", lambda v: F.celu(v, 0.5), fl),
+        ("hardsigmoid", F.hardsigmoid, fl),
+        ("hardswish", F.hardswish, fl),
+        ("mish", F.mish, fl),
+        ("logsigmoid", F.logsigmoid, fl),
+        ("hardshrink", lambda v: F.hardshrink(v, 1.0), fl),
+        ("softshrink", lambda v: F.softshrink(v, 0.75), fl),
+        ("threshold", lambda v: F.threshold(v, 0.5, 2.0), fl),
+        ("threshold, int", lambda v: F.threshold(v, 3, -7), ints),
+        ("logit", lambda v: torch.logit(torch.sigmoid(v)), fl),
+        ("logit eps", lambda v: torch.logit(v * 0.2 + 0.5, 0.05), fl),
+        ("tan", lambda v: torch.tan(v * 0.3), fl),
+        ("atan", torch.atan, fl),
+        ("asin", lambda v: torch.asin(v * 0.2), fl),
+        ("acos", lambda v: torch.acos(v * 0.2), fl),
+        ("sinh", torch.sinh, fl),
+        ("cosh", torch.cosh, fl),
+        ("asinh", torch.asinh, fl),
+        ("acosh", lambda v: torch.acosh(v.abs() + 1), fl),
+        ("atanh", lambda v: torch.atanh(v * 0.2), fl),
+        ("erfc", torch.erfc, fl),
+        ("erfinv", lambda v: torch.erfinv(v * 0.2), fl),
+        ("log10", lambda v: torch.log10(v.abs() + 0.5), fl),
+        ("xlogy", lambda v: torch.xlogy(v, v.abs() + 1), fl),
+        ("sinc", torch.sinc, fl),
+        ("round decimals", lambda v: torch.round(v * 3, decimals=1) + v, fl),
+    ]]
+
+
 def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                   smi: str) -> list:
     """Phase 22: K4b and K5 on the maps the chain tapes left out, at the
@@ -4729,6 +4840,9 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         if dtype == torch.int32:
             return torch.randint(-1000, 1001, (1 << n,), generator=gen,
                                  device=dev, dtype=torch.int32)
+        if not dtype.is_floating_point:   # other integers: in [-100, 100)
+            return torch.randint(-100, 100, (1 << n,), generator=gen,
+                                 device=dev).to(dtype)
         cont = (torch.rand(1 << n, generator=gen, device=dev) - 0.5) * 8
         grid = torch.randint(-16, 17, (1 << n,), generator=gen,
                              device=dev).float() / 4
@@ -4791,7 +4905,8 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
 
     # each case alone in the largest sort cluster, timed on its first type
     worst = {True: 0.0, False: 0.0}
-    for name, fn, dtypes, exact in map_dag_cases(torch):
+    for name, fn, dtypes, exact in (map_dag_cases(torch)
+                                    + map_typed_cases(torch)):
         for dname in dtypes:
             timed = dname == dtypes[0]
             dtype = getattr(torch, dname)
@@ -4987,6 +5102,66 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         del x, w, y, g
         torch.cuda.empty_cache()
 
+    # emap(tanh(v.float()).to(v.dtype)) >> sort on bfloat16: a typed tape
+    # (casts around a float32 tanh) in K4b and K5
+    cast_tanh = ("cast_tanh", lambda v: torch.tanh(v.float()).to(v.dtype))
+    f = compile_expr(V.emap(*cast_tanh) >> S.sort_expr(n_sort))
+    dtype = torch.bfloat16
+    x = torch.randn(1 << n_sort, generator=gen, device=dev).to(dtype)
+    w = torch.randn(1 << n_sort, generator=gen, device=dev).to(dtype)
+    y, fb, c = cold(f, x)
+    check(fb == 0 and c["tile_fused"] >= 1, ("cast tanh >> sort", fb, c))
+    want = torch.sort(torch.tanh(x.float()).to(dtype)).values
+    check(max_abs_err(torch, y, want) == 0.0, "cast tanh >> sort")
+    g, fbg, cg = cold(grad_of(f, w), x)
+    check(fbg == 0 and cg["tile_bwd"] >= 1, ("cast tanh >> sort grad", cg))
+    check(bool(torch.isfinite(g).all()), "cast tanh >> sort grad finite")
+    # the whole sort's gradient against autograd through torch.sort, on
+    # 2^n_d keys whose mapped values are distinct (bfloat16 holds too few
+    # values for 2^n_sort), and the K5 route against the collapsed route
+    # at 2^n_ties keys with ties
+    n_d = min(n_sort, 12)
+    cand = torch.arange(-(1 << 15), 1 << 15, device=dev,
+                        dtype=torch.int32).to(torch.int16).view(dtype)
+    cand = cand[(cand.float().abs() > 1e-6) & (cand.float().abs() < 3)]
+    _, inv, cnt = torch.unique(torch.tanh(cand.float()).to(dtype).float(),
+                               return_inverse=True, return_counts=True)
+    cand = cand[cnt[inv] == 1]
+    check(cand.numel() >= 1 << n_d, ("distinct cast-tanh keys", cand.numel()))
+    xd = cand[torch.randperm(cand.numel(), generator=gen,
+                             device=dev)[:1 << n_d]]
+    wd = torch.randn(1 << n_d, generator=gen, device=dev).to(dtype)
+    fd = compile_expr(V.emap(*cast_tanh) >> S.sort_expr(n_d))
+    gd, fbd, cd = cold(grad_of(fd, wd), xd)
+    check(fbd == 0 and cd["tile_bwd"] >= 1, ("cast tanh grad, 2^n_d", cd))
+    xr = xd.clone().requires_grad_(True)
+    (wd * torch.sort(torch.tanh(xr.float()).to(dtype)).values).sum(
+        ).backward()
+    check(max_abs_err(torch, gd, xr.grad) == 0.0, ("cast tanh grad", "lib"))
+    n_t = min(n_sort, N_TIES)
+    ft = compile_expr(V.emap(*cast_tanh) >> S.sort_expr(n_t))
+    xt = torch.randint(-3, 4, (1 << n_t,), generator=gen,
+                       device=dev).to(dtype)
+    wt = torch.randn(1 << n_t, generator=gen, device=dev).to(dtype)
+    check(routes(ft, xt, wt) == 0.0, "cast tanh routes")
+    ms = cuda_ms(torch, lambda: f(x), reps)
+    g_ms = cuda_ms(torch, lambda: grad_of(f, w)(x), max(3, reps // 3))
+    say(f"  [{time.perf_counter() - _T0:.0f} s] emap(torch.tanh(v.float())"
+        f".to(v.dtype)) >> sort, 2^{n_sort} bfloat16: bit-equal to "
+        f"torch.sort of the eager map, fused fallbacks 0 (forward and "
+        f"gradient), K4b {c['tile_fused']}, K5 {cg['tile_bwd']} launches; "
+        f"the gradient at 2^{n_d} keys of distinct mapped values bit-equal "
+        f"to autograd through torch.sort; at 2^{n_t} keys with ties the K5 "
+        f"route bit-equal to the collapsed route; {ms:.3f} ms a call, "
+        f"forward + backward {g_ms:.3f} ms  [{smi}]")
+    prog, t, _ = plan_program(f, x)
+    fs = next(s for s in prog if isinstance(s, FusedStage) and any(
+        type(cc).__name__ == "Map" for cc, _ in s.computes))
+    ct = torch.randn(1 << n_sort, generator=gen, device=dev).to(dtype)
+    rows_of("typed maps", fs, t, x, ct, c["tile_fused"], cg["tile_bwd"])
+    del x, w, y, g, ct, xd, wd, gd, xr, xt, wt
+    torch.cuda.empty_cache()
+
     # a sort with a map after each of its last 12 compares: one cluster
     # holds 12 maps
     mix12 = [(f"s{k}_" + c[0], c[1]) for k, c in enumerate(mix[:12])]
@@ -5099,21 +5274,31 @@ def twin_launches(out: str) -> dict:
 
 def phase_examples(smi: str, card_sizes: dict) -> dict:
     """Run each example twin on the card at its default size, then the
-    twins of ``card_sizes`` again at the card's size (``--n``); returns
-    the launches of each kernel summed over all these runs, and under
+    twins of ``card_sizes`` again at the card's size (``--n``),
+    ``TWIN_WORKERS`` at a time, the card's sizes first; returns the
+    launches of each kernel summed over all these runs, and under
     ``tile_serve`` the serving twin's K4a launches."""
-    say("== phase 21: the example twins ==")
+    say(f"== phase 21: the example twins ({TWIN_WORKERS} at a time) ==")
+    from concurrent.futures import ThreadPoolExecutor
     env = dict(os.environ, PYTHONPATH=str(HERE / "src"))
     runs = [(name, []) for name in EXAMPLE_TWINS]
     runs += [(name, ["--n", str(n)]) for name, n in card_sizes.items()]
-    total: dict = {}
-    for name, extra in runs:
+
+    def run(name_extra):
+        name, extra = name_extra
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, str(HERE / "examples" / name), "--device",
              "cuda"] + extra, cwd=HERE, env=env, capture_output=True,
             text=True, timeout=EXAMPLE_TIMEOUT_S)
-        wall = time.perf_counter() - t0
+        return res, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(TWIN_WORKERS) as pool:
+        done = list(pool.map(run, runs[::-1]))[::-1]
+    say(f"  all {len(runs)} runs: {time.perf_counter() - t0:.1f} s")
+    total: dict = {}
+    for (name, extra), (res, wall) in zip(runs, done):
         got = twin_launches(res.stdout)
         for k, v in got.items():
             total[k] = total.get(k, 0) + v

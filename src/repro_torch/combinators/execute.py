@@ -257,9 +257,14 @@ def _w_planar_cached(bfly: Bfly, dtype: str) -> np.ndarray:
 
 
 def _maps_lowered(fs: FusedStage, dtype) -> bool:
-    """Does every ``Map`` of the cluster lower to a tape for ``dtype``?"""
-    return all(map_lower.lower_map(c.name, c.fn, dtype).lowered
-               for c, _ in fs.computes if isinstance(c, Map))
+    """Does every ``Map`` of the cluster lower to a tape for ``dtype`` that
+    the fused kernels run (a typed tape not beside butterflies: the ext
+    map kernels hold no planar variant)?"""
+    tapes = [map_lower.lower_map(c.name, c.fn, dtype)
+             for c, _ in fs.computes if isinstance(c, Map)]
+    return all(t.lowered for t in tapes) and not (
+        any(t.typed for t in tapes)
+        and any(isinstance(c, Bfly) for c, _ in fs.computes))
 
 
 def _fused_tile(x: torch.Tensor, fs: FusedStage,

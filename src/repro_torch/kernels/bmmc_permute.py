@@ -94,7 +94,7 @@ LAUNCHES = {"copy": 0, "block": 0, "lane": 0, "tile": 0, "tile_fused": 0,
             "tile_bwd": 0, "copy_bulk": 0, "copy_words": 0,
             "tile_narrow": 0, "tile_wide": 0,
             "block_guarded": 0, "lane_guarded": 0, "tile_guarded": 0,
-            "tile_fused_guarded": 0}
+            "tile_fused_guarded": 0, "tile_fused_ext": 0, "tile_bwd_ext": 0}
 
 _SMEM_MAX = 227 * 1024          # dynamic shared memory a block may use
 _LANE_SMEM = 16 * 1024          # bytes of rows one lane-permute block stages
@@ -224,8 +224,12 @@ def _stream(x: torch.Tensor):
 
 def _launch(name: str, x: torch.Tensor, *args, path: str = None,
             moved: int = 0) -> None:
+    """Launch kernel ``name`` (on the ``ext`` path from the ext library
+    that holds ``x``'s element type: K4b's and K5's map kernels for typed
+    tapes), counted under ``name`` and ``name_path``."""
     from . import build as _build
-    fn = _build.load(name)
+    fn = _build.load(name if path != "ext" else _build.ext_library(
+        name, _ELEM_TYPE[x.dtype]))
     if x.device.index == torch.cuda.current_device():
         rc = fn(*args, _stream(x))
     else:
@@ -1358,6 +1362,18 @@ def _map_sets(info: dict, dv: int) -> int:
     return (info["map_slots"] << info["outer_bits"]) * dv
 
 
+def _map_path(entries, dv: int):
+    """``"ext"`` when a map of the cluster holds a typed tape (K4b's and
+    K5's ext map kernels run it), else None; raises for one beside
+    butterflies (``dv`` 2), which the ext kernels do not take."""
+    if not any(e[0] == EP.KIND_MAP and e[9].typed for e in entries):
+        return None
+    if dv != 1:
+        raise ValueError("a typed map tape beside butterflies is not fused "
+                         "(the ext map kernels hold no planar variant)")
+    return "ext"
+
+
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
     """K4b on tables passed as arguments under :func:`k4b_schedule`, its
     descriptor built for this call; with ``flags`` the guarded K4b, the
@@ -1371,7 +1387,7 @@ def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
                   xc.shape[2], dv)
     if flags is None:
         _launch("tile_fused", xc, _ptr(xc), _ptr(out), ctypes.addressof(a),
-                moved=2 * _nbytes(xc))
+                path=_map_path(entries, dv), moved=2 * _nbytes(xc))
     else:
         _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
                 ctypes.addressof(a), _ptr(flags), moved=2 * _nbytes(xc))
@@ -1555,7 +1571,8 @@ def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
                   n_spill=EP.spill_sids(info),
                   n_map_sets=_map_sets(info, dv))
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
-            ctypes.addressof(a), moved=3 * _nbytes(xc))
+            ctypes.addressof(a), path=_map_path(entries, dv),
+            moved=3 * _nbytes(xc))
     return out
 
 

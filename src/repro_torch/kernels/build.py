@@ -9,7 +9,11 @@ caller raises when it is not 0.
 The libraries go to ``<checkout>/build/kernels`` (``REPRO_TORCH_BUILD_DIR``
 overrides it), named by a hash of the sources and flags, so a library is
 rebuilt exactly when its source changes. :func:`build_all` starts one
-``nvcc`` per source, all at once. Nothing here runs at import time, and
+``nvcc`` per library, all at once (K4b's and K5's map kernels for typed
+tapes are their sources built again with ``-DREPRO_MAP_EXT=1`` and
+``=2``: libraries of their own, split by element class, so that the base
+kernels keep their code and no library takes longer to build than they).
+Nothing here runs at import time, and
 nothing falls back: a missing ``nvcc``, a failed compile or a failed load
 raises :class:`KernelBuildError`.
 """
@@ -22,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -49,11 +54,29 @@ KERNELS = {
                      [_P, _P, _P, _P] + [_I] * 9 + [_L, _I, _P, _P]),
     "tile_fused_guarded": ("tile_fused.cu", "repro_tile_fused_guarded",
                            [_P, _P, _P]),
+    # K4b's and K5's map kernels for typed tapes (map_lower.Tape.typed):
+    # the same sources built with EXT_FLAGS into libraries of their own,
+    # two each (ext_library)
+    **{f"{k}_ext{part}": (f"{k}.cu", f"repro_{k}", rest)
+       for k, rest in (("tile_fused", [_P, _P]), ("tile_bwd", [_P, _P, _P]))
+       for part in (1, 2)},
 }
 GUARDED = {"block": "block_guarded", "lane": "lane_guarded",
            "tile": "tile_guarded", "tile_fused": "tile_fused_guarded"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags past NVCC_FLAGS of the libraries built from a shared source: an
+# ext library instantiates the map kernels of its part's element classes
+EXT_FLAGS = {name: (f"-DREPRO_MAP_EXT={name[-1]}",) for name in KERNELS
+             if "_ext" in name}
+
+
+def ext_library(name: str, elem_type: int) -> str:
+    """The ext library of kernel ``name`` that holds the map kernel of the
+    element type code ``elem_type`` (``bmmc_permute._ELEM_TYPE``): part 1
+    int32, float32 and bfloat16, part 2 the others (``kExtPart`` in
+    ``tile_epilogue.cuh``)."""
+    return f"{name}_ext{1 if elem_type <= 2 else 2}"
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -84,23 +107,29 @@ def nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXT_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     src = KERNELS[name][0]
     h = hashlib.sha256()
     for part in (CSRC / src, *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(name)).encode())
+    stem = name if name in EXT_FLAGS else Path(src).stem
+    return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict:
     """Compile every kernel (or ``names``) not built yet, one ``nvcc`` per
-    source, all started together (a guarded variant shares its kernel's
-    library, logged under the kernel's name). Returns :data:`BUILD_LOG`."""
+    library, all started together (a guarded variant shares its kernel's
+    library, logged under the kernel's name; an ext library is its
+    source built with its EXT_FLAGS). Returns :data:`BUILD_LOG`."""
     names = list(KERNELS) if names is None else list(names)
     by_src = {}
     for n in names:
-        by_src.setdefault(KERNELS[n][0], n)
+        by_src.setdefault((KERNELS[n][0], EXT_FLAGS.get(n, ())), n)
     todo = [n for n in by_src.values() if not _lib_path(n).exists()]
     if todo:
         exe = nvcc()
@@ -109,7 +138,8 @@ def build_all(names=None) -> dict:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [exe, *_flags(name), "-o", str(tmp),
+               str(CSRC / KERNELS[name][0])]
         try:
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
@@ -119,11 +149,19 @@ def build_all(names=None) -> dict:
                 p.wait()
             raise KernelBuildError(f"cannot run {exe}: {e}") from e
         procs[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    def finish(name):
+        """Wait for ``name``'s nvcc: (its log, its own seconds)."""
+        proc, _, _, t0 = procs[name]
         log, _ = proc.communicate()
-        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
-                           "ptxas": log, "path": str(out)}
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = dict(zip(procs, pool.map(finish, procs)))
+    failed = []
+    for name, (proc, tmp, out, _) in procs.items():
+        log, seconds = done[name]
+        BUILD_LOG[name] = {"seconds": seconds, "ptxas": log,
+                           "path": str(out)}
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)

@@ -261,77 +261,107 @@ __device__ __forceinline__ F softplus_back(F dy, F x, F beta, F threshold) {
 template <typename T>
 __device__ __noinline__ Back<float> map_op_back(int w, float a, float b,
                                                 float c, float y, float g,
-                                                const int* pool) {
+                                                const int* pool);
+
+// A float value rounded to element class T: the policy the float formulas
+// of K5 take (the ext build's RndK rounds to a type chosen at run time).
+template <typename T>
+struct RndT {
+  __device__ __forceinline__ float operator()(float f) const {
+    return rnd<T>(f);
+  }
+  __device__ __forceinline__ bool half() const { return kHalf<T>; }
+  __device__ __forceinline__ float pow(float x, double e) const {
+    return map_pow<T>(x, e);
+  }
+  __device__ __forceinline__ Back<float> back(int w, float a, float b,
+                                              float c, float y, float g,
+                                              const int* pool) const {
+    return map_op_back<T>(w, a, b, c, y, g, pool);
+  }
+};
+
+template <typename R>
+__device__ __forceinline__ Back<float> map_op_back_f(R rn, int w, float a,
+                                                     float b, float c,
+                                                     float y, float g,
+                                                     const int* pool) {
   const int op = w & 0x7F;
   float ga = 0.0f, gb = 0.0f;
   switch (op) {
     case OP_DIV: {   // b a value (map_back_step takes b a number)
-      const float q = rnd<T>(__fdiv_rn(rnd<T>(__fdiv_rn(a, b)), b));
-      ga = rnd<T>(__fdiv_rn(g, b));
-      gb = rnd<T>(__fmul_rn(-g, q));
+      const float q = rn(__fdiv_rn(rn(__fdiv_rn(a, b)), b));
+      ga = rn(__fdiv_rn(g, b));
+      gb = rn(__fmul_rn(-g, q));
       break;
     }
-    case OP_EXP: ga = rnd<T>(__fmul_rn(g, y)); break;
+    case OP_EXP: ga = rn(__fmul_rn(g, y)); break;
     case OP_EXPM1:
-      ga = rnd<T>(__fmul_rn(g, rnd<T>(__fadd_rn(y, 1.0f))));
+      ga = rn(__fmul_rn(g, rn(__fadd_rn(y, 1.0f))));
       break;
-    case OP_LOG: ga = rnd<T>(__fdiv_rn(g, a)); break;
+    case OP_LOG: ga = rn(__fdiv_rn(g, a)); break;
     case OP_LOG1P:
-      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fadd_rn(a, 1.0f))));
+      ga = rn(__fdiv_rn(g, rn(__fadd_rn(a, 1.0f))));
       break;
     case OP_SQRT:
-      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fmul_rn(2.0f, y))));
+      ga = rn(__fdiv_rn(g, rn(__fmul_rn(2.0f, y))));
       break;
     case OP_RSQRT:   // y.pow(3) as PyTorch's pow takes a cube, in T
-      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(-0.5f, g)),
-                            rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(y, y)), y))));
+      ga = rn(__fmul_rn(rn(__fmul_rn(-0.5f, g)),
+                            rn(__fmul_rn(rn(__fmul_rn(y, y)), y))));
       break;
     case OP_TANH:   // PyTorch's CUDA tanh_backward: g * (1 - y * y)
-      if constexpr (kHalf<T>)                  // in half arithmetic
-        ga = rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f,
-                                                  rnd<T>(__fmul_rn(y, y))))));
+      if (rn.half())                  // in half arithmetic
+        ga = rn(__fmul_rn(g, rn(__fsub_rn(1.0f,
+                                                  rn(__fmul_rn(y, y))))));
       else                                     // contracted into an FMA
         ga = __fmul_rn(g, __fmaf_rn(-y, y, 1.0f));
       break;
     case OP_SIGMOID:   // sigmoid_backward: (g * (1 - y)) * y, each in T
-      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, rnd<T>(__fsub_rn(1.0f, y)))),
+      ga = rn(__fmul_rn(rn(__fmul_rn(g, rn(__fsub_rn(1.0f, y)))),
                             y));
       break;
     case OP_SIN:   // autograd: g * a.cos(), two ops
-      ga = rnd<T>(__fmul_rn(g, rnd<T>(map_trig(OP_COS, a))));
+      ga = rn(__fmul_rn(g, rn(map_trig(OP_COS, a))));
       break;
     case OP_COS:   // g * -a.sin()
-      ga = rnd<T>(__fmul_rn(g, -rnd<T>(map_trig(OP_SIN, a))));
+      ga = rn(__fmul_rn(g, -rn(map_trig(OP_SIN, a))));
       break;
     case OP_POW: {   // g * (e * a.pow(e - 1)); 0 for e == 0
       const int k = (w >> 16) & 0x3F;
       const double e = __longlong_as_double(wide_const(pool[2 * k],
                                                        pool[2 * k + 1]));
       if (e != 0.0)
-        ga = rnd<T>(__fmul_rn(g, rnd<T>(__fmul_rn((float)e,
-                                                  map_pow<T>(a, e - 1.0)))));
+        ga = rn(__fmul_rn(g, rn(__fmul_rn((float)e,
+                                                  rn.pow(a, e - 1.0)))));
       break;
     }
-    case OP_RECIP: ga = rnd<T>(__fmul_rn(-g, rnd<T>(__fmul_rn(y, y)))); break;
+    case OP_RECIP: ga = rn(__fmul_rn(-g, rn(__fmul_rn(y, y)))); break;
     case OP_ERF: {   // 2 / sqrt(pi) * exp(-(a.pow(2))) * g
       const float k = (float)(2.0 / sqrt(kPi));
-      ga = rnd<T>(__fmul_rn(
-          rnd<T>(__fmul_rn(rnd<T>(expf(-rnd<T>(__fmul_rn(a, a)))), k)), g));
+      ga = rn(__fmul_rn(
+          rn(__fmul_rn(rn(expf(-rn(__fmul_rn(a, a)))), k)), g));
       break;
     }
     case OP_LOG2:   // g / (a * ln 2)
-      ga = rnd<T>(__fdiv_rn(g, rnd<T>(__fmul_rn(a, (float)kLn2))));
+      ga = rn(__fdiv_rn(g, rn(__fmul_rn(a, (float)kLn2))));
       break;
     case OP_EXP2:   // g * y * ln 2
-      ga = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(g, y)), (float)kLn2));
+      ga = rn(__fmul_rn(rn(__fmul_rn(g, y)), (float)kLn2));
       break;
-    case OP_GELU: ga = rnd<T>(gelu_erf_back(g, a)); break;
-    case OP_GELU_TANH: ga = rnd<T>(gelu_tanh_back(g, a)); break;
-    case OP_SILU: ga = rnd<T>(silu_back(g, a)); break;
-    case OP_SOFTPLUS: ga = rnd<T>(softplus_back(g, a, b, c)); break;
+    case OP_GELU: ga = rn(gelu_erf_back(g, a)); break;
+    case OP_GELU_TANH: ga = rn(gelu_tanh_back(g, a)); break;
+    case OP_SILU: ga = rn(silu_back(g, a)); break;
+    case OP_SOFTPLUS: ga = rn(softplus_back(g, a, b, c)); break;
     default: break;
   }
   return Back<float>{ga, gb, 0.0f};
+}
+template <typename T>
+__device__ __noinline__ Back<float> map_op_back(int w, float a, float b,
+                                                float c, float y, float g,
+                                                const int* pool) {
+  return map_op_back_f(RndT<T>{}, w, a, b, c, y, g, pool);
 }
 
 // map_op_back in double (float64): each aten op rounded once, tanh's
@@ -421,6 +451,75 @@ __device__ __forceinline__ void tape_args(int d, const F (*vals)[KR],
     }                                                                 \
   }                                                                   \
   return;
+// The float branch of map_back_step under rounding policy rn (its back:
+// the out-of-line formulas, map_op_back, for the ops not run inline).
+template <int KR, typename R>
+__device__ __forceinline__ void map_back_step_f(
+    R rn, int w, const float (&a)[KR], const float (&b)[KR],
+    const float (&c)[KR], const float (&y)[KR], const float (&g)[KR],
+    float (&ga)[KR], float (&gb)[KR], float (&gc)[KR], const int* pool) {
+  const int op = w & 0x7F;
+  const bool b_const = ((w >> 16) & 0xC0) == kOpndConst;
+  const float z = 0.0f;
+  switch (op) {
+    case OP_ADD: REPRO_BACK_ALL(g[i], g[i], z)
+    case OP_SUB: REPRO_BACK_ALL(g[i], -g[i], z)
+    case OP_MUL:
+      REPRO_BACK_ALL(rn(__fmul_rn(g[i], b[i])),
+                     rn(__fmul_rn(g[i], a[i])), z)
+    case OP_DIV:
+      if (b_const) {   // g / c, as PyTorch divides by a number
+        const float inv = __fdiv_rn(1.0f, b[0]);
+        REPRO_BACK_ALL(rn(__fmul_rn(g[i], inv)), z, z)
+      }
+      break;
+    case OP_NEG: REPRO_BACK_ALL(-g[i], z, z)
+    case OP_ABS:
+      REPRO_BACK_ALL(rn(__fmul_rn(g[i], (float)((a[i] > 0.0f) -
+                                                     (a[i] < 0.0f)))),
+                     z, z)
+    case OP_MAXC: REPRO_BACK_ALL(a[i] >= b[i] ? g[i] : z, z, z)
+    case OP_MINC: REPRO_BACK_ALL(a[i] <= b[i] ? g[i] : z, z, z)
+    case OP_RELU: REPRO_BACK_ALL(y[i] <= 0.0f ? z : g[i], z, z)
+    case OP_WHERE:
+      REPRO_BACK_ALL(z, a[i] != 0.0f ? g[i] : z, a[i] != 0.0f ? z : g[i])
+    case OP_MAXIMUM:
+      REPRO_BACK_ALL(
+          a[i] < b[i] ? z : (a[i] == b[i] ? rn(__fmul_rn(g[i], 0.5f))
+                                          : g[i]),
+          a[i] > b[i] ? z : (a[i] == b[i] ? rn(__fmul_rn(g[i], 0.5f))
+                                          : g[i]), z)
+    case OP_MINIMUM:
+      REPRO_BACK_ALL(
+          a[i] > b[i] ? z : (a[i] == b[i] ? rn(__fmul_rn(g[i], 0.5f))
+                                          : g[i]),
+          a[i] < b[i] ? z : (a[i] == b[i] ? rn(__fmul_rn(g[i], 0.5f))
+                                          : g[i]), z)
+    case OP_FLOOR:
+    case OP_CEIL:
+    case OP_TRUNC:
+    case OP_ROUND:
+    case OP_SIGN:
+    case OP_FLOORDIV:
+    case OP_TRUNCDIV: REPRO_BACK_ALL(z, z, z)
+    case OP_REM:
+    case OP_FMOD: REPRO_BACK_ALL(g[i], z, z)
+    case OP_LEAKY:
+      REPRO_BACK_ALL(rn(a[i] > 0.0f ? g[i] : g[i] * b[i]), z, z)
+    case OP_HARDTANH:
+      REPRO_BACK_ALL((a[i] <= b[i]) || (a[i] >= c[i]) ? z : g[i], z, z)
+    default: break;
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    const Back<float> r = rn.back(w, a[i], b[i], c[i], y[i], g[i],
+                                  pool);
+    ga[i] = r.a;
+    gb[i] = r.b;
+    gc[i] = r.c;
+  }
+}
+
 template <typename T, int KR, typename F>
 __device__ __forceinline__ void map_back_step(
     int w, const F (&a)[KR], const F (&b)[KR], const F (&c)[KR],
@@ -430,63 +529,7 @@ __device__ __forceinline__ void map_back_step(
   const bool b_const = ((w >> 16) & 0xC0) == kOpndConst;
   const F z = F(0);
   if constexpr (std::is_same_v<F, float>) {
-    switch (op) {
-      case OP_ADD: REPRO_BACK_ALL(g[i], g[i], z)
-      case OP_SUB: REPRO_BACK_ALL(g[i], -g[i], z)
-      case OP_MUL:
-        REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], b[i])),
-                       rnd<T>(__fmul_rn(g[i], a[i])), z)
-      case OP_DIV:
-        if (b_const) {   // g / c, as PyTorch divides by a number
-          const float inv = __fdiv_rn(1.0f, b[0]);
-          REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], inv)), z, z)
-        }
-        break;
-      case OP_NEG: REPRO_BACK_ALL(-g[i], z, z)
-      case OP_ABS:
-        REPRO_BACK_ALL(rnd<T>(__fmul_rn(g[i], (float)((a[i] > 0.0f) -
-                                                       (a[i] < 0.0f)))),
-                       z, z)
-      case OP_MAXC: REPRO_BACK_ALL(a[i] >= b[i] ? g[i] : z, z, z)
-      case OP_MINC: REPRO_BACK_ALL(a[i] <= b[i] ? g[i] : z, z, z)
-      case OP_RELU: REPRO_BACK_ALL(y[i] <= 0.0f ? z : g[i], z, z)
-      case OP_WHERE:
-        REPRO_BACK_ALL(z, a[i] != 0.0f ? g[i] : z, a[i] != 0.0f ? z : g[i])
-      case OP_MAXIMUM:
-        REPRO_BACK_ALL(
-            a[i] < b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
-                                            : g[i]),
-            a[i] > b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
-                                            : g[i]), z)
-      case OP_MINIMUM:
-        REPRO_BACK_ALL(
-            a[i] > b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
-                                            : g[i]),
-            a[i] < b[i] ? z : (a[i] == b[i] ? rnd<T>(__fmul_rn(g[i], 0.5f))
-                                            : g[i]), z)
-      case OP_FLOOR:
-      case OP_CEIL:
-      case OP_TRUNC:
-      case OP_ROUND:
-      case OP_SIGN:
-      case OP_FLOORDIV:
-      case OP_TRUNCDIV: REPRO_BACK_ALL(z, z, z)
-      case OP_REM:
-      case OP_FMOD: REPRO_BACK_ALL(g[i], z, z)
-      case OP_LEAKY:
-        REPRO_BACK_ALL(rnd<T>(a[i] > 0.0f ? g[i] : g[i] * b[i]), z, z)
-      case OP_HARDTANH:
-        REPRO_BACK_ALL((a[i] <= b[i]) || (a[i] >= c[i]) ? z : g[i], z, z)
-      default: break;
-    }
-#pragma unroll
-    for (int i = 0; i < KR; ++i) {
-      const Back<float> r = map_op_back<T>(w, a[i], b[i], c[i], y[i], g[i],
-                                           pool);
-      ga[i] = r.a;
-      gb[i] = r.b;
-      gc[i] = r.c;
-    }
+    map_back_step_f<KR>(RndT<T>{}, w, a, b, c, y, g, ga, gb, gc, pool);
   } else {
     switch (op) {
       case OP_ADD: REPRO_BACK_ALL(g[i], g[i], z)
@@ -542,6 +585,460 @@ __device__ __forceinline__ void map_back_step(
     }
   }
 }
+
+#ifdef REPRO_MAP_EXT
+// The ext build's K5 side (tile_epilogue.cuh's ext build): the derivative
+// formulas of the ops past the register path's list, and typed tapes.
+// Each aten op of a derivative formula on its own: no contraction into
+// FMAs across ops (float32 and float64).
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// The cotangents of the ops past PyTorch's one-op activations (d: a
+// fourth operand, addcmul's and addcdiv's value), in the compute type F:
+// autograd's formulas as eager PyTorch rounds them on the card, each aten
+// op rounded to the type (rk, kRk) once; PyTorch's fused backward
+// kernels (elu, hardsigmoid, hardswish, mish, log_sigmoid, the shrinks,
+// threshold, logit) written as PyTorch writes them and rounded once. Out
+// of line (map_ext_back): one copy a translation unit and compute type.
+template <typename F>
+__device__ __forceinline__ Back<F> map_ext_back_f(int w, int rk, F a, F b,
+                                                  F c, F d, F y, F g,
+                                                  const int* pool) {
+  auto R = [rk](F x) { return rnd_k(x, rk); };
+  const F zero(0.0f), one(1.0f);
+  F ga = zero, gb = zero, gc = zero;
+  switch (w & 0x7F) {
+    case OP_REM:     // by a value: other gets -g * a.div(b, "floor")
+      ga = g;
+      gb = R(mul_rn(-g, floor_div_tt(a, b, rk)));
+      break;
+    case OP_FMOD:    // -g * a.div(b, "trunc")
+      ga = g;
+      gb = R(mul_rn(-g, trunc(R(div_rn(a, b)))));
+      break;
+    case OP_NAN_TO_NUM:   // g * isfinite(a)
+      ga = R(mul_rn(g, isfinite(a) ? one : zero));
+      break;
+    case OP_COPYSIGN: {   // ratio = y / a, 0 where a == 0; other: zeros
+      const F ratio = (a == zero) ? zero : R(div_rn(y, a));
+      ga = R(mul_rn(g, ratio));
+      break;
+    }
+    case OP_POWT:
+      ga = (b == zero) ? zero
+           : R(mul_rn(g, R(mul_rn(b, R(m_pow(a, R(sub_rn(b, one))))))));
+      gb = R(mul_rn(g, (a == zero && b >= zero) ? zero
+                                                : R(mul_rn(y, R(m_log(a))))));
+      break;
+    case OP_ATAN2: {
+      const F recip = R(div_rn(one, R(add_rn(R(mul_rn(a, a)),
+                                             R(mul_rn(b, b))))));
+      ga = R(mul_rn(R(mul_rn(g, b)), recip));
+      gb = R(mul_rn(R(mul_rn(g, -a)), recip));
+      break;
+    }
+    case OP_HYPOT:
+      ga = R(div_rn(R(mul_rn(g, a)), y));
+      gb = R(div_rn(R(mul_rn(g, b)), y));
+      break;
+    case OP_LERP:   // g * (1 - w) from the double, g * w
+      if constexpr (std::is_same_v<F, double>) {
+        ga = mul_rn(g, 1.0 - c);
+      } else {
+        ga = R(mul_rn(g, __int_as_float(pool[2 * ((w >> 24) & 0x3F) + 1])));
+      }
+      gb = R(mul_rn(g, c));
+      break;
+    case OP_ADDCMUL:
+      ga = g;
+      gb = R(mul_rn(g, R(mul_rn(c, d))));
+      gc = R(mul_rn(g, R(mul_rn(b, d))));
+      break;
+    case OP_ADDCDIV:   // value / c fills the value in the type first
+      ga = g;
+      gb = R(mul_rn(g, R(div_rn(R(d), c))));
+      gc = R(mul_rn(-g, R(div_rn(R(mul_rn(b, d)), R(mul_rn(c, c))))));
+      break;
+    case OP_ELU:
+    case OP_ELU_SCALED: {   // elu_backward, is_result false
+      const bool scaled = (w & 0x7F) == OP_ELU_SCALED;
+      const F negcoef = scaled ? b * c : b;
+      const F poscoef = scaled ? c : one;
+      const F negiptcoef = scaled ? one : c;
+      ga = R(a <= zero ? g * negiptcoef * negcoef * m_exp(a * negiptcoef)
+                       : g * poscoef);
+      break;
+    }
+    case OP_HARDSIGMOID: {
+      const F one_sixth(1.0f / 6.0f);
+      ga = R((a > F(-3.0f) && a < F(3.0f)) ? g * one_sixth : zero);
+      break;
+    }
+    case OP_HARDSWISH:
+      ga = R(a <= F(-3.0f) ? zero
+             : (a < F(3.0f) ? g * ((a / F(3.0f)) + F(0.5f)) : g));
+      break;
+    case OP_MISH: {
+      const F s = one / (one + m_exp(-a));
+      const F t = m_softplus_tanh(a);
+      ga = R(g * (t + a * s * (one - t * t)));
+      break;
+    }
+    case OP_LOGSIGMOID: {
+      const bool neg = a < zero;
+      const F max_deriv = neg ? one : zero;
+      const F sign = neg ? one : -one;
+      const F z = m_exp(-fabs(a));
+      ga = R(g * (max_deriv - sign * (z / (one + z))));
+      break;
+    }
+    case OP_HARDSHRINK:
+    case OP_SOFTSHRINK: ga = (a >= -b && a <= b) ? zero : g; break;
+    case OP_THRESHOLD: ga = a <= b ? zero : g; break;
+    case OP_LOGIT:
+      if (b < zero) {
+        ga = R((a < zero || a > one) ? F(NAN) : g / (a * (one - a)));
+      } else {
+        const F hi = one - b;
+        ga = R((a < b || a > hi) ? zero : g / (a * (one - a)));
+      }
+      break;
+    case OP_TAN:   // g * (1 + y.pow(2))
+      ga = R(mul_rn(g, R(add_rn(R(mul_rn(y, y)), one))));
+      break;
+    case OP_ATAN:   // g / (a * a + 1)
+      ga = R(div_rn(g, R(add_rn(R(mul_rn(a, a)), one))));
+      break;
+    case OP_ASIN:   // g * (-a * a + 1).rsqrt()
+      ga = R(mul_rn(g, R(m_rsqrt(R(add_rn(R(mul_rn(-a, a)), one))))));
+      break;
+    case OP_ACOS:   // g * -((-a * a + 1).rsqrt())
+      ga = R(mul_rn(g, -R(m_rsqrt(R(add_rn(R(mul_rn(-a, a)), one))))));
+      break;
+    case OP_SINH: ga = R(mul_rn(g, R(m_cosh(a)))); break;
+    case OP_COSH: ga = R(mul_rn(g, R(m_sinh(a)))); break;
+    case OP_ASINH:   // g * (a.pow(2) + 1).rsqrt()
+      ga = R(mul_rn(g, R(m_rsqrt(R(add_rn(R(mul_rn(a, a)), one))))));
+      break;
+    case OP_ACOSH:   // g * (a.pow(2) - 1).rsqrt()
+      ga = R(mul_rn(g, R(m_rsqrt(R(sub_rn(R(mul_rn(a, a)), one))))));
+      break;
+    case OP_ATANH:   // g * 1 / (1 - a.pow(2))
+      ga = R(div_rn(R(mul_rn(g, one)), R(sub_rn(one, R(mul_rn(a, a))))));
+      break;
+    case OP_ERFC: {   // -2 / sqrt(pi) * exp(-(a.pow(2))) * g
+      const F k = F(-2.0 / sqrt(kPi));
+      ga = R(mul_rn(R(mul_rn(R(m_exp(-R(mul_rn(a, a)))), k)), g));
+      break;
+    }
+    case OP_ERFINV: {   // 0.5 * sqrt(pi) * exp(a.erfinv().pow(2)) * g
+      const F k = F(0.5 * sqrt(kPi));
+      const F e = R(m_erfinv(a));
+      ga = R(mul_rn(R(mul_rn(R(m_exp(R(mul_rn(e, e)))), k)), g));
+      break;
+    }
+    case OP_LOG10:   // g / (a * ln 10)
+      ga = R(div_rn(g, R(mul_rn(a, F(2.3025850929940456)))));
+      break;
+    case OP_XLOGY: {   // xlogy(g, b), 0 where a == 0 and b <= 0; g * a / b
+      const F xl = (b != b) ? F(NAN)
+                   : (g == zero ? zero : R(g * m_log(b)));
+      ga = (a == zero && b <= zero) ? zero : xl;
+      gb = R(div_rn(R(mul_rn(g, a)), b));
+      break;
+    }
+    case OP_SINC: {
+      const F pi = F(kPi);
+      const F x_pi = R(mul_rn(a, pi));
+      const F x2_pi = R(mul_rn(R(mul_rn(a, a)), pi));
+      const F t = R(sub_rn(R(mul_rn(x_pi, R(m_cos(x_pi)))), R(m_sin(x_pi))));
+      const F out = R(mul_rn(g, R(div_rn(t, x2_pi))));
+      ga = (x2_pi == zero) ? zero : out;
+      break;
+    }
+    default: break;   // rounding, tests of a value, casts: none
+  }
+  return Back<F>{ga, gb, gc};
+}
+__device__ __noinline__ Back<float> map_ext_back(int w, int rk, float a,
+                                                 float b, float c, float d,
+                                                 float y, float g,
+                                                 const int* pool) {
+  return map_ext_back_f(w, rk, a, b, c, d, y, g, pool);
+}
+__device__ __noinline__ Back<double> map_ext_back(int w, int rk, double a,
+                                                  double b, double c,
+                                                  double d, double y,
+                                                  double g,
+                                                  const int* pool) {
+  return map_ext_back_f(w, rk, a, b, c, d, y, g, pool);
+}
+
+// The float formulas' rounding policy for a compute dtype chosen at run
+// time (rk, kRk): map_back_step_f and map_op_back_f round with it.
+__device__ __noinline__ Back<float> map_op_back_k(int rk, int w, float a,
+                                                  float b, float c, float y,
+                                                  float g, const int* pool);
+struct RndK {
+  int rk;
+  __device__ __forceinline__ float operator()(float f) const {
+    return rnd_k(f, rk);
+  }
+  __device__ __forceinline__ bool half() const { return rk != 0; }
+  __device__ __forceinline__ float pow(float x, double e) const {
+    return map_pow_rk(x, e, rk);
+  }
+  __device__ __forceinline__ Back<float> back(int w, float a, float b,
+                                              float c, float y, float g,
+                                              const int* pool) const {
+    return map_op_back_k(rk, w, a, b, c, y, g, pool);
+  }
+};
+__device__ __noinline__ Back<float> map_op_back_k(int rk, int w, float a,
+                                                  float b, float c, float y,
+                                                  float g, const int* pool) {
+  return map_op_back_f(RndK{rk}, w, a, b, c, y, g, pool);
+}
+
+// ---------------------------------------------------------------------
+// Typed tapes in K5 (tile_epilogue.cuh's typed path): the forward on
+// words, then reverse mode with each slot's cotangent a word of the
+// slot's own float type, summed in that type; a cast's cotangent is the
+// cotangent cast back to its source type (between float types; none to
+// or from an integer or bool), the other ops' as map_back_step gives them
+// in the op's compute type.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ bool float_ty(int t) {
+  return t == TY_F32 || t == TY_BF16 || t == TY_F16 || t == TY_F64;
+}
+// The cotangents of typed op w in the float family (compute dtype of
+// rounding rk: float32's formulas, each op rounded to the type) or in
+// float64 (F double).
+template <typename F>
+__device__ __noinline__ Back<Word> typed_back_as(int rk, int w, int tw,
+                                                 Word a, Word b, Word c,
+                                                 Word y, Word g,
+                                                 const int* pool) {
+  F x[1] = {typed_arg<F>(w >> 8, tw, 0, a, pool)};
+  F u[1] = {typed_arg<F>(w >> 16, tw, 1, b, pool)};
+  F z[1] = {typed_arg<F>(w >> 24, tw, 2, c, pool)};
+  F yv[1] = {word_as<F>(y)}, gv[1] = {word_as<F>(g)};
+  const int op = w & 0x7F;
+  if (op > OP_SIGNBIT || ((op == OP_REM || op == OP_FMOD) &&
+                          !(((w >> 16) & 0xC0) == kOpndConst))) {
+    // the ops past the list (d: addcmul's and addcdiv's value), and
+    // remainder and fmod by a value
+    const Back<F> r = map_ext_back(w, rk, x[0], u[0], z[0],
+                                   fourth<F>(tw, pool),
+                                   yv[0], gv[0], pool);
+    return Back<Word>{as_word(r.a), as_word(r.b), as_word(r.c)};
+  }
+  F ga[1], gb[1], gc[1];
+  if constexpr (std::is_same_v<F, double>)
+    map_back_step<double>(w, x, u, z, yv, gv, ga, gb, gc, pool);
+  else
+    map_back_step_f<1>(RndK{rk}, w, x, u, z, yv, gv, ga, gb, gc, pool);
+  return Back<Word>{as_word(ga[0]), as_word(gb[0]), as_word(gc[0])};
+}
+__device__ __noinline__ Back<Word> typed_back(int w, int tw, Word a, Word b,
+                                              Word c, Word y, Word g,
+                                              const int* pool) {
+  const int rt = tw & 0xF, ct = (tw >> 4) & 0xF;
+  if ((w & 0x7F) == OP_CAST)
+    return Back<Word>{float_ty(rt) && float_ty(ct) ? cast_word(g, rt, ct)
+                                                   : Word(0), 0, 0};
+  switch (ct) {
+    case TY_F32:
+    case TY_BF16:
+    case TY_F16:
+      return typed_back_as<float>(rk_of(ct), w, tw, a, b, c, y, g, pool);
+    case TY_F64: return typed_back_as<double>(0, w, tw, a, b, c, y, g, pool);
+    default: return Back<Word>{0, 0, 0};
+  }
+}
+// cotangents x + y summed in float type t (a half float rounded once)
+__device__ __noinline__ Word typed_sum(int t, Word x, Word y) {
+  switch (t) {
+    case TY_F64:
+      return as_word(__dadd_rn(word_as<double>(x), word_as<double>(y)));
+    case TY_BF16:
+      return as_word(rnd<Bf16>(__fadd_rn(word_as<float>(x), word_as<float>(y))));
+    case TY_F16:
+      return as_word(rnd<F16>(__fadd_rn(word_as<float>(x), word_as<float>(y))));
+    default: return as_word(__fadd_rn(word_as<float>(x), word_as<float>(y)));
+  }
+}
+
+// map_vjp_regs for a typed tape on words: u the map's inputs, ct the
+// cotangents (the map's dtype t0), replaced by the inputs' cotangents.
+template <int KR>
+__device__ __noinline__ void map_vjp_typed(const int* tape, int n, int t0,
+                                           const Word (&u)[KR],
+                                           Word (&ct)[KR]) {
+  const unsigned gmask = (unsigned)tape[0];
+  const int* ops = tape + 1;
+  const int* tys = ops + n;
+  const int* pool = tys + n;
+  Word vals[kTapeMax + 1][KR], adj[kTapeMax + 1][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) vals[0][i] = u[i];
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s], tw = tys[s];
+    const int da = (w >> 8) & 0xFF, db = (w >> 16) & 0xFF;
+    const int dc = (w >> 24) & 0xFF;
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      vals[s + 1][i] = typed_op(w, tw, (da & 0xC0) ? 0 : vals[da][i],
+                                (db & 0xC0) ? 0 : vals[db][i],
+                                (dc & 0xC0) ? 0 : vals[dc][i], pool);
+  }
+  for (int k = 0; k < n; ++k) {   // -0 of each slot's type: -0 + x == x
+    const int t = k == 0 ? t0 : tys[k - 1] & 0xF;
+    const Word nz = t == TY_F64 ? 0x8000000000000000ull : 0x80000000ull;
+#pragma unroll
+    for (int i = 0; i < KR; ++i) adj[k][i] = nz;
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) adj[n][i] = ct[i];
+  for (int s = n - 1; s >= 0; --s) {
+    if (!((gmask >> s) & 1u)) continue;
+    const int w = ops[s], tw = tys[s], op = w & 0x7F, t = (tw >> 4) & 0xF;
+    const int da = (w >> 8) & 0xFF, db = (w >> 16) & 0xFF;
+    const int dc = (w >> 24) & 0xFF;
+    const bool to_a = op != OP_WHERE && !(da & 0xC0) && !((tw >> 8) & 1);
+    const bool to_b = !(db & 0xC0) && !((tw >> 9) & 1);
+    const bool to_c = (op == OP_WHERE || op == OP_ADDCMUL ||
+                       op == OP_ADDCDIV) && !(dc & 0xC0) && !((tw >> 10) & 1);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      const Back<Word> r = typed_back(
+          w, tw, (da & 0xC0) ? 0 : vals[da][i], (db & 0xC0) ? 0 : vals[db][i],
+          (dc & 0xC0) ? 0 : vals[dc][i], vals[s + 1][i], adj[s + 1][i], pool);
+      if (to_a) adj[da][i] = typed_sum(t, adj[da][i], r.a);
+      if (to_b) adj[db][i] = typed_sum(t, adj[db][i], r.b);
+      if (to_c) adj[dc][i] = typed_sum(t, adj[dc][i], r.c);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) ct[i] = adj[0][i];
+}
+// map_vjp_regs for a typed tape: the registers as words and back.
+template <int KR, typename T>
+__device__ __noinline__ void map_vjp_of_typed(const int* tape, int n,
+                                              T (&ct)[KR], const T* at) {
+  Word u[KR], g[KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) {
+    u[i] = to_word(at[i * REPRO_THREADS]);
+    g[i] = to_word(ct[i]);
+  }
+  map_vjp_typed<KR>(tape, n, kTypeOf<T>, u, g);
+#pragma unroll
+  for (int i = 0; i < KR; ++i) from_word(g[i], ct[i]);
+}
+
+
+// K5 on a float-family tape (map_regs_mixed): the structure of
+// map_vjp_regs on float registers; each op's formulas rounded to its own
+// compute dtype (RndK: map_back_step's and map_op_back's float code with
+// the rounding chosen at run time), a cast's cotangent rounded back to its
+// source's type, the ops past the list through map_ext_back, a slot's
+// cotangents summed in its type.
+template <int KR, typename T>
+__device__ __noinline__ void map_vjp_mixed(const int* tape, int n,
+                                           T (&ct)[KR], const T* at) {
+  const unsigned gmask = (unsigned)tape[0];
+  const int* ops = tape + 1;
+  const int* tys = ops + n;
+  const int* pool = tys + n;
+  float vals[kTapeMax + 1][KR], adj[kTapeMax + 1][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) vals[0][i] = widen(at[i * REPRO_THREADS]);
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s];
+    float a[KR], b[KR], c[KR];
+    tape_args((w >> 8) & 0xFF, vals, pool, a);
+    tape_args((w >> 16) & 0xFF, vals, pool, b);
+    tape_args((w >> 24) & 0xFF, vals, pool, c);
+    mixed_step(w, tys[s], a, b, c, vals[s + 1], pool);
+  }
+  for (int k = 0; k < n; ++k) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) adj[k][i] = -0.0f;   // -0 + x == x
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) adj[n][i] = widen(ct[i]);
+  for (int s = n - 1; s >= 0; --s) {
+    if (!((gmask >> s) & 1u)) continue;
+    const int w = ops[s], tw = tys[s], op = w & 0x7F;
+    const int rk = rk_of((tw >> 4) & 0xF);
+    const int da = (w >> 8) & 0xFF, db = (w >> 16) & 0xFF;
+    const int dc = (w >> 24) & 0xFF;
+    float a[KR], b[KR], c[KR], ga[KR], gb[KR], gc[KR];
+    tape_args(da, vals, pool, a);
+    tape_args(db, vals, pool, b);
+    tape_args(dc, vals, pool, c);
+    if (op == OP_CAST) {   // the cotangent cast back to the source's type
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        ga[i] = rnd_k(adj[s + 1][i], rk);
+        gb[i] = gc[i] = 0.0f;
+      }
+    } else if (op > OP_SIGNBIT ||
+               ((op == OP_REM || op == OP_FMOD) &&
+                ((w >> 16) & 0xC0) != kOpndConst)) {
+      const float d = fourth<float>(tw, pool);
+#pragma unroll
+      for (int i = 0; i < KR; ++i) {
+        const Back<float> r = map_ext_back(w, rk, a[i], b[i], c[i], d,
+                                           vals[s + 1][i], adj[s + 1][i],
+                                           pool);
+        ga[i] = r.a;
+        gb[i] = r.b;
+        gc[i] = r.c;
+      }
+    } else {
+      map_back_step_f<KR>(RndK{rk}, w, a, b, c, vals[s + 1], adj[s + 1], ga,
+                          gb, gc, pool);
+    }
+    const bool to_a = op != OP_WHERE && !(da & 0xC0);
+    const bool to_b = !(db & 0xC0);
+    const bool to_c = (op == OP_WHERE || op == OP_ADDCMUL ||
+                       op == OP_ADDCDIV) && !(dc & 0xC0);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) {
+      if (to_a) adj[da][i] = rnd_k(__fadd_rn(adj[da][i], ga[i]), rk);
+      if (to_b) adj[db][i] = rnd_k(__fadd_rn(adj[db][i], gb[i]), rk);
+      if (to_c) adj[dc][i] = rnd_k(__fadd_rn(adj[dc][i], gc[i]), rk);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) narrow_to(adj[0][i], ct[i]);
+}
+#endif  // REPRO_MAP_EXT
 
 // The transposed map (its tape's words at tape, n ops) on the cotangent
 // registers ct, `at` the map's input values the replay kept (map_save_at):
@@ -655,11 +1152,29 @@ __device__ __forceinline__ void transposed_epilogue(
         recompute_map_input<DV, KR>(sp, gp, ebase, ep[EP_MAP_FROM], e, save,
                                     qb, chunk, outer_bits);
       const int* tape = sp + ep[EP_MAP_TAPE];
+#ifdef REPRO_MAP_EXT
+#pragma unroll
+      for (int c = 0; c < DV; ++c) {
+        const T* at = map_save_at<KR>(save, ep[EP_MAP_SLOT] * DV + c, chunk,
+                                      outer_bits);
+        if constexpr (!std::is_same_v<T, double>) {
+          if (ep[EP_MAP_TYPED] == 2) {
+            map_vjp_mixed(tape, ep[EP_MAP_LEN], v[c], at);
+            continue;
+          }
+        }
+        if (ep[EP_MAP_TYPED])
+          map_vjp_of_typed(tape, ep[EP_MAP_LEN], v[c], at);
+        else
+          map_vjp_regs(tape, ep[EP_MAP_LEN], v[c], at);
+      }
+#else
 #pragma unroll
       for (int c = 0; c < DV; ++c)
         map_vjp_regs(tape, ep[EP_MAP_LEN], v[c],
                      map_save_at<KR>(save, ep[EP_MAP_SLOT] * DV + c, chunk,
                                      outer_bits));
+#endif
       return;
     }
   }
@@ -918,6 +1433,19 @@ static int launch_bwd(const void* x, const void* ct, void* out,
 
 #ifndef REPRO_NO_EPI_ENTRY_POINTS   // as in tile_fused.cu
 
+#ifdef REPRO_MAP_EXT
+// An ext library's map kernel of class T: instantiated in the library of
+// its part (kExtPart, REPRO_MAP_EXT = 1 or 2), refused in the other.
+template <typename T, int DV, bool kCmp, int MB>
+static int launch_bwd_ext(const void* x, const void* ct, void* out,
+                          const EpiTileArgs& a, cudaStream_t s) {
+  if constexpr (kExtPart<T> == REPRO_MAP_EXT)
+    return launch_bwd<T, DV, 8, kCmp, true, MB>(x, ct, out, a, s);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+#endif
+
 // One K5 launch under the schedule *a (EpiTileArgs; k5_schedule in
 // bmmc_permute.py): elem_type 1 = float32, 2 = bfloat16, 3 = float16, 11
 // = float64 (integers have no gradient); dv as in repro_tile_fused; 8
@@ -941,12 +1469,23 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
       (a->vec && a->wpe != a->dv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_BWD(T, DV, CMP, MAPS, MB) \
-  return launch_bwd<T, DV, 8, CMP, MAPS, MB>(x, ct, out, *a, s)
+#define REPRO_BWD(T, DV, CMP, MAPS, MB) REPRO_BWD_##MAPS(T, DV, CMP, MB)
+#define REPRO_BWD_true(T, DV, CMP, MB) \
+  return launch_bwd<T, DV, 8, CMP, true, MB>(x, ct, out, *a, s)
+#ifdef REPRO_MAP_EXT   // an ext library holds its part's map kernels only
+#undef REPRO_BWD_true
+#define REPRO_BWD_true(T, DV, CMP, MB) \
+  return launch_bwd_ext<T, DV, CMP, MB>(x, ct, out, *a, s)
+#define REPRO_BWD_false(T, DV, CMP, MB) return (int)cudaErrorInvalidValue
+#else
+#define REPRO_BWD_false(T, DV, CMP, MB) \
+  return launch_bwd<T, DV, 8, CMP, false, MB>(x, ct, out, *a, s)
+#endif
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): compares at 4 (float32, 64 registers)
   // and 3 (bfloat16, 80) ran faster than at 3 and 2, with no spills
   // (float16 takes bfloat16's)
+#ifndef REPRO_MAP_EXT   // the ext library: no planar variant
   if (a->dv == 2) {
 #define REPRO_PLANAR(T)                                     \
   if (a->n_map_sets) REPRO_BWD(T, 2, true, true, 2);        \
@@ -966,6 +1505,7 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
 #undef REPRO_PLANAR
     return (int)cudaErrorInvalidValue;
   }
+#endif
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->n_map_sets) {   // 2 blocks an SM: the map code spills at 3
     if (a->elem_type == 1) REPRO_BWD(float, 1, true, true, 2);
@@ -980,6 +1520,8 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
   if (a->elem_type == 11) REPRO_BWD(double, 1, true, false, REPRO_MB_BWD_F64);
   return (int)cudaErrorInvalidValue;
 #undef REPRO_BWD
+#undef REPRO_BWD_true
+#undef REPRO_BWD_false
 }
 
 #endif  // REPRO_NO_EPI_ENTRY_POINTS

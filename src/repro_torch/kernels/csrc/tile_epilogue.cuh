@@ -667,13 +667,16 @@ __device__ __forceinline__ unsigned hi_bits(const int* ep, unsigned qb) {
 // the gradient mask (bit s: op s's backward runs), a word an op (op | keep
 // << 7 | a << 8 | b << 16 | c << 24; an operand byte is a slot, 0x40 | k
 // constant k, or 0xC0 none; keep: a later op other than the next reads
-// the result), then two words a constant (low, high).
+// the result), then two words a constant (low, high). EP_MAP_TYPED: 1
+// for a typed tape (map_lower.Tape.typed: a type word an op after its op
+// words), which the ext build runs (below, REPRO_MAP_EXT).
 // The tape runs one register at a time: the running value and the input
 // in registers, the results a later op reads again in a per-thread array.
 // ---------------------------------------------------------------------
 constexpr int kKindMap = 2;
 constexpr int kTapeMax = 32;
-enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_FROM = 3, EP_MAP_TAPE = 8 };
+enum { EP_MAP_LEN = 1, EP_MAP_SLOT = 2, EP_MAP_FROM = 3, EP_MAP_TAPE = 8,
+       EP_MAP_TYPED = 9 };
 enum {   // opcodes (map_lower.py)
   OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_NEG, OP_ABS, OP_MAXC, OP_MINC, OP_RELU,
   OP_EXP, OP_EXPM1, OP_LOG, OP_LOG1P, OP_SQRT, OP_RSQRT, OP_TANH, OP_SIGMOID,
@@ -682,9 +685,18 @@ enum {   // opcodes (map_lower.py)
   OP_WHERE, OP_MAXIMUM, OP_MINIMUM, OP_POW, OP_RECIP, OP_FLOOR, OP_CEIL,
   OP_TRUNC, OP_ROUND, OP_SIGN, OP_ERF, OP_LOG2, OP_EXP2, OP_GELU,
   OP_GELU_TANH, OP_SILU, OP_SOFTPLUS, OP_LEAKY, OP_HARDTANH, OP_FLOORDIV,
-  OP_TRUNCDIV, OP_REM, OP_FMOD
+  OP_TRUNCDIV, OP_REM, OP_FMOD,
+  OP_CAST, OP_ISNAN, OP_ISINF, OP_SIGNBIT, OP_NAN_TO_NUM, OP_COPYSIGN,
+  OP_POWT, OP_ATAN2, OP_HYPOT, OP_LERP, OP_ADDCMUL, OP_ADDCDIV, OP_ELU,
+  OP_ELU_SCALED, OP_HARDSIGMOID, OP_HARDSWISH, OP_MISH, OP_LOGSIGMOID,
+  OP_HARDSHRINK, OP_SOFTSHRINK, OP_THRESHOLD, OP_LOGIT, OP_TAN, OP_ATAN,
+  OP_ASIN, OP_ACOS, OP_SINH, OP_COSH, OP_ASINH, OP_ACOSH, OP_ATANH,
+  OP_ERFC, OP_ERFINV, OP_LOG10, OP_XLOGY, OP_SINC, OP_ROUND_DEC
 };
 constexpr int kOpndConst = 0x40;   // operand byte: a constant (0x80: none)
+// A value's dtype in a typed tape's type words (map_lower.TYPE_CODE)
+enum { TY_I32, TY_F32, TY_BF16, TY_F16, TY_I8, TY_U8, TY_I16, TY_U16,
+       TY_U32, TY_I64, TY_U64, TY_F64, TY_BOOL };
 
 // The value type a tape computes in: float for the float types of 32 bits
 // and less, int for the integers of 32 bits and less, double and long long
@@ -1254,6 +1266,563 @@ __device__ __noinline__ void map_regs(const int* tape, int n, T (&v)[KR]) {
   for (int i = 0; i < KR; ++i) narrow_to(r[i], v[i]);
 }
 
+#ifdef REPRO_MAP_EXT
+// =====================================================================
+// The ext build (compiled with -DREPRO_MAP_EXT=1 and =2 into the
+// libraries tile_fused_ext1/2 and tile_bwd_ext1/2, which hold the map
+// kernels only; the base libraries hold no code of this path): typed
+// tapes (map_lower.Tape.typed), which hold casts, values of other dtypes
+// than the map's and the ops past the register path's list. The base
+// kernels have every map op's code cloned into each map kernel (ptxas
+// compiles a kernel's callees with it); this path in every one of them
+// cost the base build 58-70 % more (PERF.md), so it lives in kernels of
+// its own, built beside the others, split in two parts by element class
+// so that no ext library takes longer to build than its base library.
+// =====================================================================
+// The part of the ext build that instantiates class T's map kernels
+// (build.ext_library picks the library by the same rule): 1 for int32,
+// float32 and bfloat16, 2 for the other classes.
+template <typename T>
+inline constexpr int kExtPart = (std::is_same_v<T, int> ||
+                                 std::is_same_v<T, float> ||
+                                 std::is_same_v<T, Bf16>) ? 1 : 2;
+// A float result rounded as the compute type rk holds it: 0 float32 (as
+// it is), 1 bfloat16, 2 float16; float64 as it is.
+__device__ __forceinline__ float rnd_k(float f, int rk) {
+  return rk == 1 ? as_float(round_bf16(f))
+                 : (rk == 2 ? as_float(round_f16(f)) : f);
+}
+__device__ __forceinline__ double rnd_k(double f, int) { return f; }
+template <typename T>
+inline constexpr int kRk = std::is_same_v<T, Bf16> ? 1
+                           : (std::is_same_v<T, F16> ? 2 : 0);
+
+// floor division of two values, as c10's div_floor_floating computes it
+// in its type (a half float's every op rounded: the kernel's arithmetic
+// is on c10::BFloat16 / c10::Half)
+template <typename F>
+__device__ __forceinline__ F floor_div_tt(F a, F b, int rk) {
+  if (b == F(0)) return rnd_k(a / b, rk);
+  const F mod = fmod(a, b);
+  F div = rnd_k(rnd_k(a - mod, rk) / b, rk);
+  if ((mod != F(0)) && (b < F(0)) != (mod < F(0))) div = rnd_k(div - F(1), rk);
+  F fd;
+  if (div != F(0)) {
+    fd = floor(div);
+    if (rnd_k(div - fd, rk) > F(0.5)) fd = rnd_k(fd + F(1), rk);
+  } else {
+    fd = copysign(F(0), rnd_k(a / b, rk));
+  }
+  return fd;
+}
+
+// The math functions of the ops past PyTorch's one-op activations, each
+// out of line once a translation unit for float and for double (CUDA's
+// float and double versions: tanf, tan, ...), shared by the forward ops
+// and K5's derivative formulas: inlined into every switch they cost the
+// build more than the kernels (PERF.md).
+#define REPRO_MATH1(NAME, EXPR)                                        \
+  __device__ __noinline__ float NAME(float a) { return EXPR; }         \
+  __device__ __noinline__ double NAME(double a) { return EXPR; }
+#define REPRO_MATH2(NAME, EXPR)                                        \
+  __device__ __noinline__ float NAME(float a, float b) { return EXPR; } \
+  __device__ __noinline__ double NAME(double a, double b) { return EXPR; }
+REPRO_MATH1(m_tan, tan(a))
+REPRO_MATH1(m_atan, atan(a))
+REPRO_MATH1(m_asin, asin(a))
+REPRO_MATH1(m_acos, acos(a))
+REPRO_MATH1(m_sinh, sinh(a))
+REPRO_MATH1(m_cosh, cosh(a))
+REPRO_MATH1(m_asinh, asinh(a))
+REPRO_MATH1(m_acosh, acosh(a))
+REPRO_MATH1(m_atanh, atanh(a))
+REPRO_MATH1(m_erfc, erfc(a))
+REPRO_MATH1(m_log10, log10(a))
+REPRO_MATH1(m_log, log(a))
+REPRO_MATH1(m_exp, exp(a))
+REPRO_MATH1(m_expm1, expm1(a))
+REPRO_MATH1(m_sin, sin(a))
+REPRO_MATH1(m_cos, cos(a))
+REPRO_MATH1(m_rsqrt, rsqrt(a))
+REPRO_MATH1(m_softplus_tanh, tanh(log1p(exp(a))))   // mish's tanh(softplus)
+REPRO_MATH2(m_pow, pow(a, b))
+REPRO_MATH2(m_atan2, atan2(a, b))
+REPRO_MATH2(m_hypot, hypot(a, b))
+__device__ __noinline__ float m_erfinv(float a) { return erfinvf(a); }
+__device__ __noinline__ double m_erfinv(double a) { return erfinv(a); }
+#undef REPRO_MATH1
+#undef REPRO_MATH2
+
+// The ops past PyTorch's one-op activations, in the compute type F (float
+// for the types of 32 bits and less, before the caller rounds to the type;
+// double for float64), as PyTorch's CUDA kernels write them (rk: the half
+// float whose arithmetic a kernel rounds inside, kRk). d is a fourth
+// operand (addcmul's and addcdiv's value, nan_to_num's -inf). Out of line
+// (map_ext): one copy a translation unit and compute type.
+template <typename F>
+__device__ __forceinline__ F map_ext_f(int op, int rk, F a, F b, F c, F d) {
+  const F kInf = F(INFINITY);
+  const F zero(0.0f), three(3.0f), six(6.0f);
+  const F one_sixth(1.0f / 6.0f);
+  switch (op) {
+    case OP_NAN_TO_NUM:
+      return a != a ? b : (a == kInf ? c : (a == -kInf ? d : a));
+    case OP_COPYSIGN: return copysign(a, b);
+    case OP_POWT: return m_pow(a, b);
+    case OP_ATAN2: return m_atan2(a, b);
+    case OP_HYPOT: return m_hypot(a, b);
+    case OP_LERP:
+      return (fabs(c) < F(0.5)) ? a + c * (b - a)
+                                : b - (b - a) * (F(1) - c);
+    case OP_ADDCMUL:   // PyTorch's pointwise_op_impl: explicit FMAs
+      return d == F(1) ? fma(b, c, a) : fma(d, b * c, a);
+    case OP_ADDCDIV: return d == F(1) ? a + b / c : fma(d, b / c, a);
+    case OP_ELU: return a > F(0) ? a : m_expm1(a * c) * b;
+    case OP_ELU_SCALED: {
+      const F negcoef = b * c;
+      return a > F(0) ? a * c : m_expm1(a) * negcoef;
+    }
+    case OP_HARDSIGMOID: {   // std::min(std::max(a + 3, 0), 6) / 6
+      const F lo = (a + three < zero) ? zero : a + three;
+      return ((six < lo) ? six : lo) * one_sixth;
+    }
+    case OP_HARDSWISH: {
+      const F lo = (a + three < zero) ? zero : a + three;
+      return a * ((six < lo) ? six : lo) * one_sixth;
+    }
+    case OP_MISH: return a * m_softplus_tanh(a);
+    case OP_LOGSIGMOID: {
+      const F mn = (a < F(0)) ? a : F(0);
+      const F z = m_exp(-fabs(a));
+      return mn - log1p(z);
+    }
+    case OP_HARDSHRINK: return (a >= -b && a <= b) ? F(0) : a;
+    case OP_SOFTSHRINK:
+      return a != a ? a : (a > b ? a - b : (a < -b ? a + b : F(0)));
+    case OP_THRESHOLD: return a <= b ? c : a;
+    case OP_LOGIT: {
+      if (b < F(0)) return m_log(a / (F(1) - a));
+      const F hi = F(1) - b;
+      const F z = a < b ? b : (a > hi ? hi : a);
+      return m_log(z / (F(1) - z));
+    }
+    case OP_TAN: return m_tan(a);
+    case OP_ATAN: return m_atan(a);
+    case OP_ASIN: return m_asin(a);
+    case OP_ACOS: return m_acos(a);
+    case OP_SINH: return m_sinh(a);
+    case OP_COSH: return m_cosh(a);
+    case OP_ASINH: return m_asinh(a);
+    case OP_ACOSH: return m_acosh(a);
+    case OP_ATANH: return m_atanh(a);
+    case OP_ERFC: return m_erfc(a);
+    case OP_ERFINV: return m_erfinv(a);
+    case OP_LOG10: return m_log10(a);
+    case OP_XLOGY:
+      if (b != b) return F(NAN);
+      if (a == F(0)) return F(0);
+      return a * m_log(b);
+    case OP_SINC: {
+      if (a == F(0)) return F(1);
+      const F product = F(kPi) * a;
+      return m_sin(product) / product;
+    }
+    case OP_ROUND_DEC: {   // in the type (a half float rounds each op)
+      const F ten = rnd_k(b, rk);
+      return c != F(0) ? rnd_k(nearbyint(rnd_k(a / ten, rk)), rk) * ten
+                       : nearbyint(rnd_k(a * ten, rk)) / ten;
+    }
+    default: return a;   // not reached: map_op takes the others
+  }
+}
+__device__ __noinline__ float map_ext(int op, int rk, float a, float b,
+                                      float c, float d) {
+  return map_ext_f(op, rk, a, b, c, d);
+}
+__device__ __noinline__ double map_ext(int op, int rk, double a, double b,
+                                       double c, double d) {
+  return map_ext_f(op, rk, a, b, c, d);
+}
+
+// ---------------------------------------------------------------------
+// Typed tapes: each value a 64-bit word read as its own dtype: a float
+// type of 32 bits and less as float32's bits (a half float's value
+// exactly), float64's bits, an integer of 32 bits and less as int's bits
+// (its wrapped value; bool 0 or 1), int64 as itself. Type word s (after
+// the op words): the op's result and compute dtypes (TY_*, bits 0-3 and
+// 4-7), which of its first three operands are bool values read as 0 or 1
+// (bits 8-10) and a fourth operand's byte (bits 16-23). An op runs in one
+// of four families, each one copy of the register path's ops for one
+// element class: float32's (a half float rounded once at the end, as its
+// class rounds each op; pow and floor division, which round inside, by
+// the half float's rules), float64's, int's (wrapped to the type's width
+// at the end, as the narrow classes wrap) and int64's; the ops past the
+// list through map_ext; a cast as c10::convert casts: static_cast
+// (saturating on the card, NaN to 0), into uint8 through int64, into the
+// half floats through float32, into bool as x != 0. uint32 and uint64
+// compute no op here (map_lower refuses them: they compare unsigned).
+// ---------------------------------------------------------------------
+using Word = unsigned long long;
+
+template <typename T>
+inline constexpr int kTypeOf =
+    std::is_same_v<T, float> ? TY_F32
+    : std::is_same_v<T, Bf16> ? TY_BF16
+    : std::is_same_v<T, F16> ? TY_F16
+    : std::is_same_v<T, double> ? TY_F64
+    : std::is_same_v<T, I8> ? TY_I8
+    : std::is_same_v<T, U8> ? TY_U8
+    : std::is_same_v<T, I16> ? TY_I16
+    : std::is_same_v<T, U16> ? TY_U16
+    : std::is_same_v<T, U32> ? TY_U32
+    : std::is_same_v<T, I64> ? TY_I64
+    : std::is_same_v<T, U64> ? TY_U64 : TY_I32;
+
+template <typename F>
+__device__ __forceinline__ F word_as(Word w) {
+  if constexpr (std::is_same_v<F, float>) return __uint_as_float((unsigned)w);
+  else if constexpr (std::is_same_v<F, double>)
+    return __longlong_as_double((long long)w);
+  else if constexpr (std::is_same_v<F, int>) return (int)(unsigned)w;
+  else return (long long)w;
+}
+__device__ __forceinline__ Word as_word(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ Word as_word(double v) {
+  return (Word)__double_as_longlong(v);
+}
+__device__ __forceinline__ Word as_word(int v) { return (unsigned)v; }
+__device__ __forceinline__ Word as_word(long long v) { return (Word)v; }
+template <typename T>
+__device__ __forceinline__ Word to_word(T v) { return as_word(widen(v)); }
+template <typename T>
+__device__ __forceinline__ void from_word(Word w, T& v) {
+  narrow_to(word_as<typename MapOf<T>::type>(w), v);
+}
+
+// Value s of source type S cast to dtype `to`, as a word.
+template <typename S>
+__device__ __forceinline__ Word cast_from(S s, int to) {
+  switch (to) {
+    case TY_F32: return as_word(static_cast<float>(s));
+    case TY_BF16: return as_word(as_float(round_bf16(static_cast<float>(s))));
+    case TY_F16: return as_word(as_float(round_f16(static_cast<float>(s))));
+    case TY_F64: return as_word(static_cast<double>(s));
+    case TY_I32: return as_word(static_cast<int>(s));
+    case TY_I8: return as_word((int)static_cast<int8_t>(s));
+    case TY_U8:
+      return as_word((int)static_cast<uint8_t>(static_cast<long long>(s)));
+    case TY_I16: return as_word((int)static_cast<int16_t>(s));
+    case TY_U16: return as_word((int)static_cast<uint16_t>(s));
+    case TY_U32: return as_word((int)static_cast<unsigned>(s));
+    case TY_I64: return as_word(static_cast<long long>(s));
+    case TY_U64: return (Word)static_cast<unsigned long long>(s);
+    default: return s != S(0);   // bool
+  }
+}
+// Word w of dtype `from` cast to dtype `to`.
+__device__ __noinline__ Word cast_word(Word w, int from, int to) {
+  switch (from) {
+    case TY_F32:
+    case TY_BF16:
+    case TY_F16: return cast_from(word_as<float>(w), to);
+    case TY_F64: return cast_from(word_as<double>(w), to);
+    case TY_U32: return cast_from((unsigned)w, to);
+    case TY_I64: return cast_from((long long)w, to);
+    case TY_U64: return cast_from((unsigned long long)w, to);
+    default: return cast_from(word_as<int>(w), to);   // int, narrow, bool
+  }
+}
+
+// A typed op's fourth operand (type word tw: its byte at bits 16-23), a
+// constant, or 0 where it has none.
+template <typename F>
+__device__ __forceinline__ F fourth(int tw, const int* pool) {
+  return ((tw >> 16) & 0xC0) == kOpndConst
+             ? map_const<F>(pool, (tw >> 16) & 0x3F) : F(0);
+}
+// Operand i of a typed op (byte d, its value v) in the compute type F.
+template <typename F>
+__device__ __forceinline__ F typed_arg(int d, int tw, int i, Word v,
+                                       const int* pool) {
+  d &= 0xFF;
+  if (d & 0x80) return F(0);
+  if (d & kOpndConst) return map_const<F>(pool, d & 0x3F);
+  if ((tw >> (8 + i)) & 1) return F((int)(v & 1u));   // a bool as 0 or 1
+  return word_as<F>(v);
+}
+
+// map_pow<T> and floor_div<T, float> with T's rounding (rk) at run time.
+__device__ __forceinline__ float map_pow_rk(float x, double e, int rk) {
+  if (e == 0.0) return 1.0f;
+  if (e == 1.0) return x;
+  if (e == 0.5) return rnd_k(sqrtf(x), rk);
+  if (e == -0.5) return rnd_k(rsqrtf(x), rk);
+  if (e == -1.0) return rnd_k(__fdiv_rn(1.0f, x), rk);
+  const float et = rnd_k((float)e, rk);
+  if (et == 2.0f) return rnd_k(__fmul_rn(x, x), rk);
+  if (et == 3.0f) return rnd_k(__fmul_rn(rnd_k(__fmul_rn(x, x), rk), x), rk);
+  if (et == -2.0f)
+    return rnd_k(__fdiv_rn(1.0f, rnd_k(__fmul_rn(x, x), rk)), rk);
+  return rnd_k(powf(x, et), rk);
+}
+__device__ __forceinline__ float floor_div_rk(float a, float b, int rk) {
+  if (b == 0.0f) return a / b;
+  const float inv_b = 1.0f / b;
+  const float mod = fmodf(a, b);
+  float div = (a - mod) * inv_b;
+  if ((mod != 0.0f) && (b < 0.0f) != (mod < 0.0f)) div -= 1.0f;
+  float fd;
+  if (div != 0.0f) {
+    fd = rnd_k(floorf(div), rk);
+    if (div - fd > 0.5f) fd = rnd_k(fd + 1.0f, rk);
+  } else {
+    fd = copysignf(0.0f, a * inv_b);
+  }
+  return fd;
+}
+
+// The integer ops past the list, in int or long long.
+template <typename I>
+__device__ __forceinline__ I int_ext(int op, I a, I b, I c) {
+  using U = std::make_unsigned_t<I>;
+  switch (op) {
+    case OP_POWT: {   // PyTorch's powi: a negative power of 1, -1 or 0
+      if (b < 0) return a == 1 ? (I)1 : (a == -1 ? ((b & 1) ? a : (I)1) : (I)0);
+      U r = 1, base = (U)a;
+      for (U e = (U)b; e; e >>= 1) {
+        if (e & 1) r *= base;
+        base *= base;
+      }
+      return (I)r;
+    }
+    case OP_SIGNBIT: return a < 0;
+    case OP_THRESHOLD: return a <= b ? c : a;
+    default: return 0;   // isnan, isinf
+  }
+}
+// An int value wrapped to the width of integer dtype t.
+__device__ __forceinline__ int wrap_ty(int f, int t) {
+  switch (t) {
+    case TY_I8: return (int8_t)f;
+    case TY_U8:
+    case TY_BOOL: return (uint8_t)f;
+    case TY_I16: return (int16_t)f;
+    case TY_U16: return (uint16_t)f;
+    default: return f;
+  }
+}
+
+// One typed op in the float family: float32, bfloat16 or float16 (rk).
+__device__ __noinline__ Word typed_float(int w, int tw, Word a, Word b,
+                                         Word c, const int* pool) {
+  const int op = w & 0x7F, ct = (tw >> 4) & 0xF;
+  const int rk = ct == TY_BF16 ? 1 : (ct == TY_F16 ? 2 : 0);
+  float x[1] = {typed_arg<float>(w >> 8, tw, 0, a, pool)};
+  float y[1] = {typed_arg<float>(w >> 16, tw, 1, b, pool)};
+  float z[1] = {typed_arg<float>(w >> 24, tw, 2, c, pool)};
+  float r[1];
+  if (op == OP_ISNAN) {
+    r[0] = x[0] != x[0];
+  } else if (op == OP_ISINF) {
+    r[0] = fabsf(x[0]) == INFINITY;
+  } else if (op == OP_SIGNBIT) {
+    r[0] = signbit(x[0]);
+  } else if (op > OP_SIGNBIT) {
+    const float d = fourth<float>(tw, pool);
+    r[0] = rnd_k(map_ext(op, rk, x[0], y[0], z[0], d), rk);
+  } else if (op == OP_POW) {
+    const int k = (w >> 16) & 0x3F;
+    r[0] = map_pow_rk(x[0], __longlong_as_double(wide_const(
+                                pool[2 * k], pool[2 * k + 1])), rk);
+  } else if (op == OP_FLOORDIV) {
+    r[0] = rnd_k(floor_div_rk(x[0], y[0], rk), rk);
+  } else {
+    map_step<float>(w, x, y, z, r, pool);
+    r[0] = rnd_k(r[0], rk);
+  }
+  return (tw & 0xF) == TY_BOOL ? Word(r[0] != 0.0f) : as_word(r[0]);
+}
+// ... in float64
+__device__ __noinline__ Word typed_double(int w, int tw, Word a, Word b,
+                                          Word c, const int* pool) {
+  const int op = w & 0x7F;
+  double x[1] = {typed_arg<double>(w >> 8, tw, 0, a, pool)};
+  double y[1] = {typed_arg<double>(w >> 16, tw, 1, b, pool)};
+  double z[1] = {typed_arg<double>(w >> 24, tw, 2, c, pool)};
+  double r[1];
+  if (op == OP_ISNAN) {
+    r[0] = x[0] != x[0];
+  } else if (op == OP_ISINF) {
+    r[0] = fabs(x[0]) == (double)INFINITY;
+  } else if (op == OP_SIGNBIT) {
+    r[0] = signbit(x[0]);
+  } else if (op > OP_SIGNBIT) {
+    r[0] = map_ext(op, 0, x[0], y[0], z[0],
+                   fourth<double>(tw, pool));
+  } else {
+    map_step<double>(w, x, y, z, r, pool);
+  }
+  return (tw & 0xF) == TY_BOOL ? Word(r[0] != 0.0) : as_word(r[0]);
+}
+// ... in int (the integers of 32 bits and less, and bool) or int64
+template <typename T, typename I>
+__device__ __forceinline__ Word typed_int_of(int w, int tw, Word a, Word b,
+                                             Word c, const int* pool) {
+  const int op = w & 0x7F;
+  I x[1] = {typed_arg<I>(w >> 8, tw, 0, a, pool)};
+  I y[1] = {typed_arg<I>(w >> 16, tw, 1, b, pool)};
+  I z[1] = {typed_arg<I>(w >> 24, tw, 2, c, pool)};
+  I r[1];
+  if (op > OP_CAST) r[0] = int_ext(op, x[0], y[0], z[0]);
+  else map_step<T>(w, x, y, z, r, pool);
+  if constexpr (std::is_same_v<I, int>) r[0] = wrap_ty(r[0], (tw >> 4) & 0xF);
+  return (tw & 0xF) == TY_BOOL ? Word(r[0] != 0) : as_word(r[0]);
+}
+__device__ __noinline__ Word typed_int(int w, int tw, Word a, Word b, Word c,
+                                       const int* pool) {
+  return typed_int_of<int, int>(w, tw, a, b, c, pool);
+}
+__device__ __noinline__ Word typed_long(int w, int tw, Word a, Word b,
+                                        Word c, const int* pool) {
+  return typed_int_of<I64, long long>(w, tw, a, b, c, pool);
+}
+
+// Typed op w (type word tw) on one register: a cast, or the op in its
+// compute dtype's family.
+__device__ __noinline__ Word typed_op(int w, int tw, Word a, Word b, Word c,
+                                      const int* pool) {
+  const int ct = (tw >> 4) & 0xF;
+  if ((w & 0x7F) == OP_CAST) return cast_word(a, ct, tw & 0xF);
+  switch (ct) {
+    case TY_F32:
+    case TY_BF16:
+    case TY_F16: return typed_float(w, tw, a, b, c, pool);
+    case TY_F64: return typed_double(w, tw, a, b, c, pool);
+    case TY_I64: return typed_long(w, tw, a, b, c, pool);
+    default: return typed_int(w, tw, a, b, c, pool);
+  }
+}
+
+// A typed tape (its words at tape, n ops) on a thread's registers as
+// words, op by op, every slot's values kept. Out of line, one copy a
+// register count.
+template <int KR>
+__device__ __noinline__ void map_regs_typed(const int* tape, int n,
+                                            Word (&v)[KR]) {
+  const int* ops = tape + 1;
+  const int* tys = ops + n;
+  const int* pool = tys + n;
+  Word vals[kTapeMax + 1][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) vals[0][i] = v[i];
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s], tw = tys[s];
+    const int da = (w >> 8) & 0xFF, db = (w >> 16) & 0xFF;
+    const int dc = (w >> 24) & 0xFF;
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      vals[s + 1][i] = typed_op(w, tw, (da & 0xC0) ? 0 : vals[da][i],
+                                (db & 0xC0) ? 0 : vals[db][i],
+                                (dc & 0xC0) ? 0 : vals[dc][i], pool);
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) v[i] = vals[n][i];
+}
+
+// map_regs for a typed tape: the registers as words and back.
+template <int KR, typename T>
+__device__ __noinline__ void map_regs_of_typed(const int* tape, int n,
+                                               T (&v)[KR]) {
+  Word wv[KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) wv[i] = to_word(v[i]);
+  map_regs_typed<KR>(tape, n, wv);
+#pragma unroll
+  for (int i = 0; i < KR; ++i) from_word(wv[i], v[i]);
+}
+
+// A float-family tape (EP_MAP_TYPED 2: every value float32, bfloat16,
+// float16 or bool, the map's dtype one of the three; map_lower's
+// Tape.mixed): the register path's code on float registers, each op
+// computed as float32's class computes it and rounded once to its type
+// (kRk of the type word's compute dtype), a cast as the rounding to its
+// result's type, pow and floor division by the half float's own rules,
+// the ops past the list through map_ext. The casts around a float32
+// computation of a half-float map (tanh(v.float()).to(v.dtype)) take no
+// word and no call.
+__device__ __forceinline__ int rk_of(int t) {
+  return t == TY_BF16 ? 1 : (t == TY_F16 ? 2 : 0);
+}
+template <int KR>
+__device__ __forceinline__ void mixed_step(int w, int tw, const float (&a)[KR],
+                                           const float (&b)[KR],
+                                           const float (&c)[KR],
+                                           float (&y)[KR], const int* pool) {
+  const int op = w & 0x7F, rk = rk_of((tw >> 4) & 0xF);
+  if (op == OP_CAST) {   // from bool: 0 and 1 as they are
+    const int rr = rk_of(tw & 0xF);
+#pragma unroll
+    for (int i = 0; i < KR; ++i) y[i] = rnd_k(a[i], rr);
+  } else if (op == OP_ISNAN) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) y[i] = a[i] != a[i];
+  } else if (op == OP_ISINF) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) y[i] = fabsf(a[i]) == INFINITY;
+  } else if (op == OP_SIGNBIT) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i) y[i] = signbit(a[i]);
+  } else if (op > OP_SIGNBIT) {
+    const float d = fourth<float>(tw, pool);
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      y[i] = rnd_k(map_ext(op, rk, a[i], b[i], c[i], d), rk);
+  } else if (op == OP_POW) {
+    const int k = (w >> 16) & 0x3F;
+    const double e = __longlong_as_double(wide_const(pool[2 * k],
+                                                     pool[2 * k + 1]));
+#pragma unroll
+    for (int i = 0; i < KR; ++i) y[i] = map_pow_rk(a[i], e, rk);
+  } else if (op == OP_FLOORDIV) {
+#pragma unroll
+    for (int i = 0; i < KR; ++i)
+      y[i] = rnd_k(floor_div_rk(a[i], b[i], rk), rk);
+  } else {
+    map_step<float>(w, a, b, c, y, pool);
+    if (rk) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) y[i] = rnd_k(y[i], rk);
+    }
+  }
+}
+// map_regs for a float-family tape, its words at tape (type words after
+// the op words): the structure of map_regs.
+template <int KR, typename T>
+__device__ __noinline__ void map_regs_mixed(const int* tape, int n,
+                                            T (&v)[KR]) {
+  const int* ops = tape + 1;
+  const int* tys = ops + n;
+  const int* pool = tys + n;
+  float u[KR], r[KR], vals[kTapeMax][KR];
+#pragma unroll
+  for (int i = 0; i < KR; ++i) r[i] = u[i] = widen(v[i]);
+  for (int s = 0; s < n; ++s) {
+    const int w = ops[s];
+    float a[KR], b[KR], c[KR];
+    map_args((w >> 8) & 0xFF, s, r, u, vals, pool, a);
+    map_args((w >> 16) & 0xFF, s, r, u, vals, pool, b);
+    map_args((w >> 24) & 0xFF, s, r, u, vals, pool, c);
+    mixed_step(w, tys[s], a, b, c, r, pool);
+    if (w & 0x80) {
+#pragma unroll
+      for (int i = 0; i < KR; ++i) vals[s][i] = r[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < KR; ++i) narrow_to(r[i], v[i]);
+}
+#endif  // REPRO_MAP_EXT
+
 // Epilogue e of the plan (staged record ep, device record gep) on the
 // registers of a thread whose positions are qb ^ qr(i); chunk `chunk`.
 // kPairs: integer values and keys compare through cmp_pairs. A butterfly
@@ -1403,6 +1972,18 @@ __device__ __forceinline__ void run_epilogues(
 #pragma unroll
           for (int i = 0; i < KR; ++i) at[i * REPRO_THREADS] = v[c][i];
         }
+#ifdef REPRO_MAP_EXT
+        if (ep[EP_MAP_TYPED]) {
+          if constexpr (kFloatElem<T> && !std::is_same_v<T, double>) {
+            if (ep[EP_MAP_TYPED] == 2) {
+              map_regs_mixed(tape, ep[EP_MAP_LEN], v[c]);
+              continue;
+            }
+          }
+          map_regs_of_typed(tape, ep[EP_MAP_LEN], v[c]);
+          continue;
+        }
+#endif
         map_regs(tape, ep[EP_MAP_LEN], v[c]);
       }
       e = s + 1;

@@ -258,6 +258,19 @@ static bool valid_args(const EpiTileArgs* a) {
     default: return (int)cudaErrorInvalidValue; \
   }
 
+#ifdef REPRO_MAP_EXT
+// An ext library's map kernel of class T: instantiated in the library of
+// its part (kExtPart, REPRO_MAP_EXT = 1 or 2), refused in the other.
+template <typename T, int DV, int KR, int MB>
+static int launch_ext(const void* x, void* out, const EpiTileArgs& a,
+                      cudaStream_t s) {
+  if constexpr (kExtPart<T> == REPRO_MAP_EXT)
+    return launch_items<T, DV, KR, true, MB>(x, out, a, s);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+#endif
+
 // One K4b launch under the schedule *a (EpiTileArgs; k4b_schedule in
 // bmmc_permute.py): elem_type 0 = int32, 1 = float32, 2 = bfloat16, 3 =
 // float16, 4 = int8, 5 = uint8 (and bool), 6 = int16, 7 = uint16, 8 =
@@ -270,11 +283,22 @@ extern "C" int repro_tile_fused(const void* x, void* out,
                                 const EpiTileArgs* a, void* stream) {
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_FUSED(T, DV, KR, MAPS, MB) \
-  return launch_items<T, DV, KR, MAPS, MB>(x, out, *a, s)
+#define REPRO_FUSED(T, DV, KR, MAPS, MB) REPRO_FUSED_##MAPS(T, DV, KR, MB)
+#define REPRO_FUSED_true(T, DV, KR, MB) \
+  return launch_items<T, DV, KR, true, MB>(x, out, *a, s)
+#ifdef REPRO_MAP_EXT   // an ext library holds its part's map kernels only
+#undef REPRO_FUSED_true
+#define REPRO_FUSED_true(T, DV, KR, MB) \
+  return launch_ext<T, DV, KR, MB>(x, out, *a, s)
+#define REPRO_FUSED_false(T, DV, KR, MB) return (int)cudaErrorInvalidValue
+#else
+#define REPRO_FUSED_false(T, DV, KR, MB) \
+  return launch_items<T, DV, KR, false, MB>(x, out, *a, s)
+#endif
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 3 with a few spills than at 2 without
+#ifndef REPRO_MAP_EXT   // the ext library: no planar variant
   if (a->dv == 2) {
     if (a->elem_type == 11) {
       if (a->maps) REPRO_FUSED(double, 2, 8, true, REPRO_MB_F64_PLANAR);
@@ -286,6 +310,7 @@ extern "C" int repro_tile_fused(const void* x, void* out,
     REPRO_PLANAR_SWITCH(a->elem_type, REPRO_PLANAR)
 #undef REPRO_PLANAR
   }
+#endif
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->elem_type >= 9) {   // 64-bit: 8 registers (see above)
     if (a->regs != 8) return (int)cudaErrorInvalidValue;
@@ -336,8 +361,11 @@ extern "C" int repro_tile_fused(const void* x, void* out,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef REPRO_FUSED
+#undef REPRO_FUSED_true
+#undef REPRO_FUSED_false
 }
 
+#ifndef REPRO_MAP_EXT
 // The guarded K4b under the same schedule (clusters without maps): bit 1
 // of the int32 *flags on the device is set when a table entry lies out of
 // range.
@@ -392,5 +420,6 @@ extern "C" int repro_tile_fused_guarded(const void* x, void* out,
   }
 #undef REPRO_GUARDED
 }
+#endif  // REPRO_MAP_EXT
 
 #endif  // REPRO_NO_EPI_ENTRY_POINTS

@@ -88,8 +88,11 @@ EP_TW_REG, EP_TW_THR, EP_TW_OUT = 12, 16, 24
 # input values, the epilogue whose kept input K5 recomputes this one's
 # from (-1: the map keeps its own; its slot is then the spare one), and
 # the plan word where its tape starts (map_lower.tape_words), past
-# EP_HI_BASE and EP_TW_BASE, which the kernels read as pointers
-EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_FROM, EP_MAP_TAPE = 1, 2, 3, 8
+# EP_HI_BASE and EP_TW_BASE, which the kernels read as pointers, and 1
+# for a typed tape (map_lower.Tape.typed: its type words follow its ops),
+# 2 for a typed tape of the float family (Tape.mixed)
+EP_MAP_LEN, EP_MAP_SLOT, EP_MAP_FROM, EP_MAP_TAPE, EP_MAP_TYPED = \
+    1, 2, 3, 8, 9
 
 
 def _log2(v: int) -> int:
@@ -360,6 +363,8 @@ def plan_epilogues(entries, geometry: tuple, per_cta: int, *,
                 ep[EP_MAP_FROM] = (-1 if frm[n_maps] < 0
                                    else maps[frm[n_maps]])
                 ep[EP_MAP_TAPE] = tape_at[tuple(tape_words(entries[e][9]))]
+                tape = entries[e][9]
+                ep[EP_MAP_TYPED] = 2 if tape.mixed else int(tape.typed)
                 n_maps += 1
                 continue
             c = coord(vs[e])

@@ -16,6 +16,8 @@ from repro_torch.kernels import bmmc_permute as pk
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import ref as pref
 
+import _torch_typed_maps as _TM
+
 
 def _bmmc(kind, n, rng):
     ident = tuple(1 << i for i in range(n))
@@ -812,6 +814,116 @@ def test_cuda_map_programs_fuse_in_both_directions(cuda_device):
     xl = xf.clone().requires_grad_(True)
     (w * torch.sort(torch.tanh(xl)).values).sum().backward()
     assert torch.allclose(xt.grad, xl.grad, rtol=1e-5, atol=1e-6)
+
+
+_TYPED = _TM.cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name,fn", _TYPED,
+                         ids=[_TM.case_id(c) for c in _TYPED])
+def test_cuda_typed_maps_match_eager(cuda_device, dtype, name, fn):
+    """Casts inside a map (typed tapes) and the ops past the DAG tapes'
+    list in K4b and K5, bit for bit against their plain versions, which
+    call the map's function eagerly on the card and differentiate it with
+    autograd; each cluster one launch of the map variant, and the map
+    lowered (no fallback hides it)."""
+    from repro_torch.kernels import map_lower as ML
+    n = 12
+    assert ML.lower_map("typed_" + name, fn, dtype).lowered
+    t = pops.choose_tile(n, torch.tensor([], dtype=dtype).element_size())
+    gen = torch.Generator(device=cuda_device).manual_seed(30)
+    if dtype.is_floating_point:   # half continuous, half multiples of 1/4
+        cont = (torch.rand(1 << n, generator=gen, device=cuda_device) - 0.5) * 8
+        grid = torch.randint(-16, 16, (1 << n,), generator=gen,
+                             device=cuda_device).float() / 4
+        x = torch.where(torch.rand(1 << n, generator=gen,
+                                   device=cuda_device) < 0.5, cont,
+                        grid).to(dtype)
+    else:
+        x = torch.randint(-100, 100, (1 << n,), generator=gen,
+                          device=cuda_device).to(dtype)
+    ct = torch.randn(1 << n, generator=gen, device=cuda_device).to(
+        dtype if dtype.is_floating_point else torch.float32)
+    clusters = [fs for fs in _fused_clusters(_map_expr(n, "typed_" + name,
+                                                       fn), n, t)
+                if any(type(c).__name__ == "Map" for c, _ in fs.computes)]
+    assert clusters
+    before = pk.launch_counts()
+    for fs in clusters:
+        got = _fused(fs, t, x, False, plain=False)
+        want = _fused(fs, t, x, False, plain=True)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        if dtype.is_floating_point:
+            got = _bwd(fs, t, x, ct, False, plain=False)
+            want = _bwd(fs, t, x, ct, False, plain=True)
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    after = pk.launch_counts()
+    assert after["tile_fused"] == before["tile_fused"] + len(clusters)
+    assert after["tile_bwd"] == before["tile_bwd"] + (
+        len(clusters) if dtype.is_floating_point else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_cast_tanh_sort_fuses_in_both_directions(cuda_device):
+    """``emap(torch.tanh(v.float()).to(v.dtype)) >> sort`` on bfloat16 and
+    its gradient: no fused fallback, the maps inside K4b and K5, equal to
+    the library composite (sort of the eager map) and to autograd
+    through it."""
+    from repro_torch import obs as pobs
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import vocab as V
+    from repro_torch.combinators.sort import sort_expr
+    n = 16
+    g = compile_expr(V.emap("cast_tanh", lambda v: torch.tanh(v.float()).to(
+        v.dtype)) >> sort_expr(n))
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x = torch.randn(1 << n, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    w = torch.randn(1 << n, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    pk.reset_launch_counts()
+    pobs.reset()
+    pobs.enable()
+    try:
+        xt = x.clone().requires_grad_(True)
+        out = g(xt)
+        (w * out).sum().backward()
+        fb = pobs.counter_total("dispatch.fused_fallback")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert fb == 0
+    counts = pk.launch_counts()
+    assert counts["tile_fused"] > 0 and counts["tile_bwd"] > 0
+    xl = x.clone().requires_grad_(True)
+    want = torch.sort(torch.tanh(xl.float()).to(xl.dtype)).values
+    assert torch.equal(out.detach().view(torch.int16), want.detach().view(
+        torch.int16))
+    # the gradient against autograd through torch.sort, on 2^12 keys
+    # whose mapped values are distinct (no ties for the sorts to order
+    # differently)
+    nd = 12
+    cand = torch.arange(-(1 << 15), 1 << 15, device=cuda_device,
+                        dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    cand = cand[(cand.float().abs() > 1e-6) & (cand.float().abs() < 3)]
+    _, inv, cnt = torch.unique(torch.tanh(cand.float()).to(
+        torch.bfloat16).float(), return_inverse=True, return_counts=True)
+    cand = cand[cnt[inv] == 1]
+    xd = cand[torch.randperm(cand.numel(), generator=gen,
+                             device=cuda_device)[:1 << nd]]
+    wd = torch.randn(1 << nd, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    gd = compile_expr(V.emap("cast_tanh", lambda v: torch.tanh(
+        v.float()).to(v.dtype)) >> sort_expr(nd))
+    pk.reset_launch_counts()
+    xt = xd.clone().requires_grad_(True)
+    (wd * gd(xt)).sum().backward()
+    assert pk.launch_counts()["tile_bwd"] > 0
+    xl = xd.clone().requires_grad_(True)
+    (wd * torch.sort(torch.tanh(xl.float()).to(xl.dtype)).values).sum(
+        ).backward()
+    assert torch.equal(xt.grad.view(torch.int16), xl.grad.view(torch.int16))
 
 
 # ---------------------------------------------------------------------------

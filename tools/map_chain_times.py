@@ -1,8 +1,14 @@
 #!/usr/bin/env python3
 """Time the map kernels of a checkout on chain maps (tapes of at most 8
-ops), on one GPU: K4b and K5 on ``chip_smoke.py``'s hand-built map
-clusters of phases 6 and 9 (``MAP_CASES``), and on the map cluster of
-``tanh >> sort`` at 2^24 (float32 and bfloat16).
+ops) and DAG maps, on one GPU: K4b and K5 on ``chip_smoke.py``'s
+hand-built map clusters of phases 6 and 9 (``MAP_CASES``), on the map
+cluster of ``tanh >> sort`` at 2^24 (float32 and bfloat16), of
+``dag >> sort`` for three DAG maps (``dag_maps``, float32) and of the
+bfloat16 ``cast_tanh >> sort`` (where the checkout lowers it); then the
+whole ``emap(torch.tanh(v.float()).to(v.dtype)) >> sort`` on 2^24
+bfloat16 and its gradient, one call each, with the fused fallbacks the
+checkout counts (a checkout whose tapes take no cast runs that map
+stage by stage).
 
     python3 tools/map_chain_times.py --src OTHER/src --tag parent
     python3 tools/map_chain_times.py --src src --tag change
@@ -28,6 +34,18 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def dag_maps(torch) -> list:
+    """(name, function) of the DAG maps timed: a where, a gelu written
+    out (a value read by several ops), a band of comparisons."""
+    return [
+        ("leaky_where", lambda v: torch.where(v > 0, v, 0.01 * v)),
+        ("gelu_dag", lambda v: 0.5 * v * (1 + torch.tanh(
+            0.7978845608028654 * (v + 0.044715 * v * v * v)))),
+        ("band", lambda v: torch.where(torch.logical_and(v > -1, v < 1),
+                                       torch.maximum(v * 2, -v), v)),
+    ]
 
 
 def main(argv=None) -> int:
@@ -108,15 +126,29 @@ def main(argv=None) -> int:
                 lambda: K.tiled_permute_bwd_tables_plain(x, ct, *bt, **kw))
         print(json.dumps(rec), flush=True)
 
-    fm = compile_expr(V.emap("tanh", torch.tanh) >> S.sort_expr(args.n))
-    t = ops.choose_tile(args.n, 4)
-    fs = next(s for s in fm.clustered_program(args.n, t)
-              if isinstance(s, FusedStage)
-              and any(type(c).__name__ == "Map" for c, _ in s.computes))
-    for dtype in (torch.float32, torch.bfloat16):
+    def map_cluster(fn, name):
+        fm = compile_expr(V.emap(name, fn) >> S.sort_expr(args.n))
+        t = ops.choose_tile(args.n, 4)
+        return t, next(s for s in fm.clustered_program(args.n, t)
+                       if isinstance(s, FusedStage) and any(
+                           type(c).__name__ == "Map" for c, _ in s.computes))
+
+    from repro_torch.kernels.map_lower import lower_map
+    cases = [("tanh", torch.tanh, dt) for dt in (torch.float32,
+                                                 torch.bfloat16)]
+    cases += [(name, fn, torch.float32) for name, fn in dag_maps(torch)]
+    cases += [("cast_tanh", lambda v: torch.tanh(v.float()).to(v.dtype),
+               torch.bfloat16)]
+    for name, fn, dtype in cases:
+        if not lower_map(name, fn, dtype).lowered:   # runs stage by stage
+            print(json.dumps({"tag": args.tag, "case": f"{name} >> sort "
+                              f"map cluster {str(dtype)[6:]}",
+                              "card": smi, "lowered": False}), flush=True)
+            continue
+        t, fs = map_cluster(fn, name)
         x = torch.randn(1 << args.n, generator=gen, device=dev).to(dtype)
         ct = torch.randn(1 << args.n, generator=gen, device=dev).to(dtype)
-        rec = {"tag": args.tag, "case": f"tanh >> sort 2^{args.n} map "
+        rec = {"tag": args.tag, "case": f"{name} >> sort 2^{args.n} map "
                f"cluster {str(dtype)[6:]}", "card": smi,
                "k4b": timed(lambda: ex._fused_cuda(x, fs, t),
                             lambda: CS.fused_call(K, ex, fs, t, x,
@@ -127,6 +159,36 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
         del x, ct
         torch.cuda.empty_cache()
+
+    # the whole cast-tanh sort on bfloat16 and its gradient: fused where
+    # the checkout's tapes take casts, stage by stage where they do not
+    from repro_torch import obs
+    f = compile_expr(V.emap("cast_tanh", lambda v: torch.tanh(v.float()).to(
+        v.dtype)) >> S.sort_expr(args.n))
+    x = torch.randn(1 << args.n, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(1 << args.n, generator=gen, device=dev).to(torch.bfloat16)
+
+    def grad():
+        v = x.clone().requires_grad_(True)
+        (w * f(v)).sum().backward()
+        return v.grad
+    obs.reset()
+    obs.enable(sync=True)
+    try:
+        f(x)
+        fb_fwd = obs.counter_total("dispatch.fused_fallback")
+        obs.reset()
+        grad()
+        fb_grad = obs.counter_total("dispatch.fused_fallback")
+    finally:
+        obs.disable()
+        obs.reset()
+    rec = {"tag": args.tag, "case": f"cast tanh >> sort 2^{args.n} "
+           "bfloat16", "card": smi, "fallbacks": [fb_fwd, fb_grad],
+           "forward_ms": [CS.cuda_ms(torch, lambda: f(x), 10)
+                          for _ in range(3)],
+           "gradient_ms": [CS.cuda_ms(torch, grad, 3) for _ in range(3)]}
+    print(json.dumps(rec), flush=True)
     return 0
 
 
