@@ -290,8 +290,9 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    launches by kernel and not by element type;
 22. maps beyond the chain (``map_dag_cases``): each new aten op of the
    tape, a DAG map (gelu-tanh written out), a ``where`` map (leaky ReLU)
-   and a 32-op tape, one map in the largest 2^n_sort sort cluster (a
-   hand-built pass; exact maps mid-cluster, transcendental ones last), on
+   and a 32-op tape, one map in the largest 2^n_sort sort cluster (the
+   2^(n_sort - 2) one past a case's first type; a hand-built pass; exact
+   maps mid-cluster, transcendental ones last), on
    float32, bfloat16, float16, float64 and int32 where torch defines the
    op: K4b and K5 held against their plain versions (eager torch and
    autograd on the card) bit for bit, the transcendental ops within
@@ -319,6 +320,19 @@ Phases (each fails loudly; a failure exits non-zero and prints no result):
    kernels line gains ``tile_fused[dag maps]``, ``tile_bwd[dag maps]``,
    the 12-map clusters' rows and ``tile_fused[typed maps]``,
    ``tile_bwd[typed maps]`` (the cast-tanh sort's map cluster);
+   22b. typed maps beside butterflies (``planar_typed_maps``: a cast
+   around tanh, a word-path cast through int32, an exact cast around an
+   affine map): ``emap(m) >> fft`` on 2^n_fft planar float32, bfloat16,
+   float16 and float64 points and its gradient, the launch counts set to
+   0 just before each: no fused fallback, the counted K5 passes equal to
+   ``vjp_round_trips(n, t, dtype)``, a typed tape's cluster one launch of
+   the planar ext map kernels each way, the program bit-equal to the
+   same program on the ``ref`` engine (eager torch) and its gradient to
+   autograd through it; the map cluster's K4b and K5 bit for bit against
+   their plain versions and timed (on the cast-tanh map beside the plain
+   versions and the cluster's torch composite); rows ``tile_fused[typed
+   maps, planar]``, ``tile_bwd[typed maps, planar]`` (the bfloat16
+   cast-tanh cluster);
 23. last line: ``{"ok": true, "device": {...}}``.
 
 It imports only torch, numpy and ``repro_torch``; the kernels build into
@@ -4809,9 +4823,11 @@ def map_typed_cases(torch) -> list:
 def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                   smi: str) -> list:
     """Phase 22: K4b and K5 on the maps the chain tapes left out, at the
-    largest 2^n_sort sort cluster's geometry (each case a map inserted in
-    that cluster: an exact one in the middle, a transcendental one last,
-    so that its rounding stays where it is made), then clusters of 6 and
+    largest 2^n_sort sort cluster's geometry on a case's first type and
+    the largest 2^(n_sort - 2) one's on its others (each case a map
+    inserted in that cluster: an exact one in the middle, a
+    transcendental one last, so that its rounding stays where it is
+    made), then clusters of 6 and
     12 maps (K5 keeping the inputs of those that fit and recomputing the
     others'), then programs through ``compile_expr`` with the launch
     counts set to 0 just before each and read just after: ``emap(leaky)
@@ -4852,9 +4868,9 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
         return v.to(dtype)
 
     @functools.lru_cache(maxsize=None)
-    def cluster(itemsize):
-        t = ops.choose_tile(n_sort, itemsize)
-        fs = max(fused_cases(n_sort, t, "sort"), key=lambda s: len(s.computes))
+    def cluster(itemsize, n=n_sort):
+        t = ops.choose_tile(n, itemsize)
+        fs = max(fused_cases(n, t, "sort"), key=lambda s: len(s.computes))
         return fs, t
 
     def with_maps(fs, t, dtype, maps):
@@ -4903,25 +4919,28 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
                                   n_buf=2)[2].info
         return info["maps"], info["map_slots"]
 
-    # each case alone in the largest sort cluster, timed on its first type
+    # each case alone in the largest sort cluster, timed on its first type;
+    # its other types at the largest 2^(n_sort - 2) sort cluster (the same
+    # kernels at a quarter of the plain versions' work)
     worst = {True: 0.0, False: 0.0}
     for name, fn, dtypes, exact in (map_dag_cases(torch)
                                     + map_typed_cases(torch)):
         for dname in dtypes:
             timed = dname == dtypes[0]
+            n = n_sort if timed else n_sort - 2
             dtype = getattr(torch, dname)
-            fs, t = cluster(torch.empty((), dtype=dtype).element_size())
+            fs, t = cluster(torch.empty((), dtype=dtype).element_size(), n)
             n_epi = len(fs.computes)
             kw, ft, bt = with_maps(fs, t, dtype, [(
                 n_epi // 2 if exact else n_epi, "dag_" + name, fn)])
-            x = inputs(dtype, n_sort)
+            x = inputs(dtype, n)
             err, ms = held((name, dname), lambda: K.tiled_permute_tables(
                 x, *ft, **kw), lambda: K.tiled_permute_tables_plain(
                 x, *ft, **kw), exact, timed)
             line = f"  {name}, {dname}: K4b {ulp(err)}{ms}"
             worst[exact] = max(worst[exact], err)
             if dtype.is_floating_point and "floor_divide" not in name:
-                ct = inputs(dtype, n_sort).flip(0).contiguous()
+                ct = inputs(dtype, n).flip(0).contiguous()
                 err, ms = held(
                     (name, dname, "K5"),
                     lambda: K.tiled_permute_bwd_tables(x, ct, *bt, **kw),
@@ -4933,7 +4952,8 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
             say(line)
             del x
     say(f"  [{time.perf_counter() - _T0:.0f} s] the largest 2^{n_sort} sort "
-        f"cluster with one map each: exact "
+        f"cluster (2^{n_sort - 2} past a case's first type) with one map "
+        f"each: exact "
         f"cases bit-equal to eager torch (worst {worst[True]}), "
         f"transcendental ones within {worst[False]:.0f} of {MAP_DAG_ULPS} "
         f"ulp  [{smi}]")
@@ -5260,6 +5280,176 @@ def phase_map_dag(torch, n_sort: int, n_fft: int, reps: int, bw: float,
     return rows
 
 
+def planar_typed_maps(torch) -> list:
+    """(name, function) of phase 22b's maps beside butterflies: a
+    transcendental cast (float-family registers on the half floats, the
+    word path on float64), a word-path map, an exact float-family cast."""
+    return [("cast tanh", lambda v: torch.tanh(v.float()).to(v.dtype)),
+            ("cast int", lambda v: (v.int() * 3).to(v.dtype) + v),
+            ("cast affine", lambda v: (v.float() * 3 + 1).to(v.dtype))]
+
+
+def phase_map_planar(torch, n_fft: int, reps: int, bw: float,
+                     smi: str) -> list:
+    """Phase 22b: ``emap(m) >> fft`` on 2^n_fft planar points of float32,
+    bfloat16, float16 and float64 for each map of planar_typed_maps,
+    through ``compile_expr`` with the launch counts set to 0 just before
+    the program and its gradient and read just after: no fused fallback
+    in either direction, the counted K5 passes equal to
+    ``vjp_round_trips(n, t, dtype)``, the program bit-equal to the same
+    program stage by stage on the ``ref`` engine (eager torch) and its
+    gradient to autograd through it; the map cluster's K4b and K5 bit for
+    bit against their plain versions and timed (one call, device); on the
+    cast-tanh map also their plain versions and the cluster's torch
+    composite (its stages on the ``ref`` engine, forward, and its backward
+    under autograd). The maps share one FFT expression and run type by
+    type, and the store of device tables is raised to 16 GiB for the
+    phase (then emptied): the ``ref`` engine's index tables and twiddles
+    of one 2^22 FFT outgrow its 1 GiB, so each of its passes would upload
+    them again. Returns the rows this phase adds to the kernels line (the
+    bfloat16 cast-tanh cluster)."""
+    say("== phase 22b: typed maps beside butterflies ==")
+    from repro_torch import obs
+    from repro_torch.combinators import FusedStage, compile_expr
+    from repro_torch.combinators import execute as ex
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import vocab as V
+    from repro_torch.kernels import bmmc_permute as K
+    from repro_torch.kernels import map_lower as ML
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3131)
+    rows = []
+
+    def counted(f, x, w):
+        """A cold ``(w * f(x)).sum()`` and its backward, the counts set to
+        0 just before: (output, gradient, forward and backward fallbacks,
+        counted backward round trips, launches after the forward and
+        after the backward)."""
+        obs.reset()
+        obs.enable(sync=True)
+        K.reset_launch_counts()
+        try:
+            xt = x.clone().requires_grad_(True)
+            y = f(xt)
+            torch.cuda.synchronize()
+            fb, c = obs.counter_total("dispatch.fused_fallback"), \
+                K.launch_counts()
+            (w * y).sum().backward()
+            torch.cuda.synchronize()
+            return (y.detach(), xt.grad, fb,
+                    obs.counter_total("dispatch.fused_fallback") - fb,
+                    obs.counter_total("model.vjp_round_trips"), c,
+                    K.launch_counts())
+        finally:
+            obs.disable()
+            obs.reset()
+
+    fft = F.fft_expr(n_fft)
+    progs = []
+    for mname, fn in planar_typed_maps(torch):
+        name = "planar_" + mname.replace(" ", "_")
+        expr = V.seq(V.emap(name, fn), fft)
+        progs.append((mname, name, fn, compile_expr(expr),
+                      compile_expr(expr, engine="ref")))
+    keep = K._DEV_CACHE.max_bytes
+    K._DEV_CACHE.max_bytes = 16 << 30
+    try:
+        for dname in ("float32", "bfloat16", "float16", "float64"):
+            dtype = getattr(torch, dname)
+            for mname, name, fn, f, fr in progs:
+                typed = ML.lower_map(name, fn, dtype).typed
+                x, w, ct = (torch.randn(1 << n_fft, 2, generator=gen,
+                                        device=dev, dtype=torch.float64)
+                            .to(dtype) for _ in range(3))
+                prog, t, _ = plan_program(f, x)
+                (fs,) = [s for s in prog if isinstance(s, FusedStage)
+                         and {"Map", "Bfly"} <= {type(c).__name__
+                                                 for c, _ in s.computes}]
+                y, g, fb, fbg, rt, c, cg = counted(f, x, w)
+                model = f.vjp_round_trips(n_fft, t, dtype)
+                label = (mname, dname)
+                check(fb == 0 and fbg == 0, (label, "fused fallbacks", fb,
+                                             fbg))
+                check(rt == model and model is not None,
+                      (label, "vjp round trips", rt, model))
+                check(c["tile_fused_ext"] == int(typed)
+                      and c["tile_bwd"] == 0
+                      and cg["tile_bwd_ext"] == int(typed)
+                      and cg["tile_bwd"] >= 1, (label, "launches", c, cg))
+                xr = x.clone().requires_grad_(True)
+                yr = fr(xr)
+                (w * yr).sum().backward()
+                check(max_abs_err(torch, y, yr.detach()) == 0.0,
+                      (label, "program"))
+                check(max_abs_err(torch, g, xr.grad) == 0.0,
+                      (label, "gradient"))
+                del xr, yr
+                row = mname == "cast tanh"
+                times = {}
+                for kname, call, plain in (
+                        ("tile_fused", lambda: fused_call(K, ex, fs, t, x),
+                         lambda: fused_call(K, ex, fs, t, x, plain=True)),
+                        ("tile_bwd", lambda: bwd_call(K, ex, fs, t, x, ct),
+                         lambda: bwd_call(K, ex, fs, t, x, ct,
+                                          plain=True))):
+                    err = max_abs_err(torch, call(), plain())
+                    check(err == 0.0, (label, kname, err))
+                    times[kname] = (cuda_ms(torch, call, reps),
+                                    device_ms(torch, call),
+                                    cuda_ms(torch, plain, 3, warmup=0)
+                                    if row else None)
+                (fm, fd, fp), (bm, bd, bp) = (times["tile_fused"],
+                                              times["tile_bwd"])
+                nbytes = x.numel() * x.element_size()
+                line = (f"  emap({mname}) >> fft, 2^{n_fft} planar {dname} "
+                        f"({'typed: ext' if typed else 'untyped: base'} "
+                        f"kernels, t={t}): fused fallbacks 0 / 0, K5 passes "
+                        f"{rt} = the model's; program and gradient bit-equal "
+                        f"to eager torch and autograd; the map cluster's "
+                        f"K4b bit-equal, {fm:.4f} ms a call, {fd:.4f} "
+                        f"device, bound {2 * nbytes / bw * 1e3:.4f}; K5 "
+                        f"bit-equal, {bm:.4f} a call, {bd:.4f} device, bound "
+                        f"{3 * nbytes / bw * 1e3:.4f} ms; K4b "
+                        f"{c['tile_fused']} (ext {c['tile_fused_ext']}), K5 "
+                        f"{cg['tile_bwd']} (ext {cg['tile_bwd_ext']}) "
+                        f"launches")
+                if row:
+                    comp = cuda_ms(torch, lambda: ex.run_program(
+                        fs.stages, x, "ref"), 3)
+                    xr = x.clone().requires_grad_(True)
+                    v = ex.run_program(fs.stages, xr, "ref")
+                    comp_b = cuda_ms(torch, lambda: torch.autograd.grad(
+                        v, xr, ct, retain_graph=True), 3)
+                    del v, xr
+                    line += (f"; plain K4b {fp:.3f}, K5 {bp:.3f} ms, torch "
+                             f"composite {comp:.3f}, backward {comp_b:.3f}")
+                say(line + f"  [{smi}]")
+                if label == ("cast tanh", "bfloat16"):
+                    for kname, (ms, dms, pms), bound, cm, n_l in (
+                            ("tile_fused", times["tile_fused"], 2, comp,
+                             c["tile_fused_ext"]),
+                            ("tile_bwd", times["tile_bwd"], 3, comp_b,
+                             cg["tile_bwd_ext"])):
+                        rows.append({
+                            "name": f"{kname}[typed maps, planar]",
+                            "route": "cuda", "source": KERNEL_INFO[kname][0],
+                            "replaces": KERNEL_INFO[kname][1],
+                            "launches": n_l, "max_abs_err": 0.0, "ms": ms,
+                            "device_ms": dms, "plain_ms": pms,
+                            "bound_ms": bound * nbytes / bw * 1e3,
+                            "bound_by": "bytes", "library_ms": None,
+                            "composite_ms": cm})
+                del x, w, ct, y, g
+            torch.cuda.empty_cache()
+    finally:
+        K._DEV_CACHE.max_bytes = keep
+        K.clear_device_tables()
+        torch.cuda.empty_cache()
+    say(f"  [{time.perf_counter() - _T0:.0f} s] typed maps beside "
+        f"butterflies: {len(progs)} maps x 4 float types, every check held")
+    return rows
+
+
 def twin_launches(out: str) -> dict:
     """The kernel launches a twin reported: every ``kernel launches...:
     name=count ...`` line of its output, summed."""
@@ -5396,6 +5586,7 @@ def main(argv=None) -> int:
     dry_counts = {"tile_serve": sum(phase_dryrun(torch, smi).values())}
     dtype_rows = phase_dtypes(torch, args.n_sort, args.n_fft, REPS, bw, smi)
     dag_rows = phase_map_dag(torch, args.n_sort, args.n_fft, REPS, bw, smi)
+    dag_rows += phase_map_planar(torch, args.n_fft, REPS, bw, smi)
     ex_counts = phase_examples(smi, {
         "sorting_network_torch.py": args.n_sort,
         "fft_pipeline_torch.py": args.n_fft,

@@ -257,14 +257,11 @@ def _w_planar_cached(bfly: Bfly, dtype: str) -> np.ndarray:
 
 
 def _maps_lowered(fs: FusedStage, dtype) -> bool:
-    """Does every ``Map`` of the cluster lower to a tape for ``dtype`` that
-    the fused kernels run (a typed tape not beside butterflies: the ext
-    map kernels hold no planar variant)?"""
-    tapes = [map_lower.lower_map(c.name, c.fn, dtype)
-             for c, _ in fs.computes if isinstance(c, Map)]
-    return all(t.lowered for t in tapes) and not (
-        any(t.typed for t in tapes)
-        and any(isinstance(c, Bfly) for c, _ in fs.computes))
+    """Does every ``Map`` of the cluster lower to a tape for ``dtype`` (the
+    fused kernels run it: an untyped tape in the base kernels, a typed
+    one in the ext map kernels, beside butterflies too)?"""
+    return all(map_lower.lower_map(c.name, c.fn, dtype).lowered
+               for c, _ in fs.computes if isinstance(c, Map))
 
 
 def _fused_tile(x: torch.Tensor, fs: FusedStage,
@@ -1524,6 +1521,7 @@ class CompiledExpr:
         return inverse_program(prog)
 
     def vjp_round_trips(self, n: int, t: Optional[int],
+                        dtype: torch.dtype = torch.float32,
                         batched: bool = False) -> Optional[int]:
         """Modeled HBM round trips of ONE backward (cotangent) pass — what
         a cold backward call's ``model.vjp_round_trips`` counter delta
@@ -1539,10 +1537,12 @@ class CompiledExpr:
         program that holds a ``Map`` runs stage by stage, each stage's
         backward by its own rule, and counts the same on this route: a
         standalone ``Map`` one sweep, a Map-bearing cluster one K5 pass
-        when its maps lower (for float32 and bfloat16 alike: a map that
-        lowers for one lowers for the other). With a collapsed plan it pays
-        exactly the final composed pass. None when the backward is the
-        per-stage replay (no compiled model to hold it against)."""
+        when its maps lower for the element type ``dtype`` (a map may
+        lower for one type and not for another: then the cluster runs
+        stage by stage on that type, and the model is None there). With a
+        collapsed plan it pays exactly the final composed pass. None when
+        the backward is the per-stage replay (no compiled model to hold it
+        against)."""
         from .optimize import program_cost
         prog = (self.clustered_program(n, t)
                 if self.engine == "cuda" and self.optimized
@@ -1556,7 +1556,7 @@ class CompiledExpr:
             for s in prog:
                 if isinstance(s, FusedStage) and s.computes:
                     kp = _fused_bwd_kernel_plan(s, t)
-                    if kp is None or not _maps_lowered(s, torch.float32):
+                    if kp is None or not _maps_lowered(s, dtype):
                         return None
                     total += 1 + sum(len(ip) for ip in kp[3])
                 elif isinstance(s, (Perm, FusedStage)):

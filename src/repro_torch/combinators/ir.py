@@ -46,7 +46,10 @@ Composition reads left to right: ``a >> b`` means "apply ``a``, then
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable, Tuple
+
+import numpy as np
 
 from ..core.bmmc import Bmmc
 
@@ -116,6 +119,26 @@ class Bfly(Expr):
 
     def size_bits(self):
         return len(self.twiddles).bit_length()  # 2^(n-1) pairs -> n
+
+    def __eq__(self, other):
+        """Equal twiddles, compared through a digest each node computes
+        once and keeps: every lowering of an FFT makes its own lifted
+        stages of 2^(n-1) twiddles, and a plan-cache lookup that met an
+        equal stage of another lowering would otherwise compare them
+        element by element on every call (milliseconds at 2^22 points)."""
+        if self is other:
+            return True
+        if other.__class__ is not self.__class__:
+            return NotImplemented
+        return hash(self) == hash(other) and self._digest() == other._digest()
+
+    def _digest(self) -> bytes:
+        d = self.__dict__.get("_twiddle_digest")
+        if d is None:
+            d = hashlib.sha256(np.asarray(self.twiddles, dtype=np.complex128)
+                               .tobytes()).digest()
+            object.__setattr__(self, "_twiddle_digest", d)
+        return d
 
 
 @_node

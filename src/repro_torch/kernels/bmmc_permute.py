@@ -223,13 +223,14 @@ def _stream(x: torch.Tensor):
 
 
 def _launch(name: str, x: torch.Tensor, *args, path: str = None,
-            moved: int = 0) -> None:
+            moved: int = 0, dv: int = 1) -> None:
     """Launch kernel ``name`` (on the ``ext`` path from the ext library
-    that holds ``x``'s element type: K4b's and K5's map kernels for typed
-    tapes), counted under ``name`` and ``name_path``."""
+    that holds ``x``'s element type with ``dv`` values a register slot:
+    K4b's and K5's map kernels for typed tapes), counted under ``name``
+    and ``name_path``."""
     from . import build as _build
     fn = _build.load(name if path != "ext" else _build.ext_library(
-        name, _ELEM_TYPE[x.dtype]))
+        name, _ELEM_TYPE[x.dtype], dv))
     if x.device.index == torch.cuda.current_device():
         rc = fn(*args, _stream(x))
     else:
@@ -1362,16 +1363,13 @@ def _map_sets(info: dict, dv: int) -> int:
     return (info["map_slots"] << info["outer_bits"]) * dv
 
 
-def _map_path(entries, dv: int):
+def _map_path(entries):
     """``"ext"`` when a map of the cluster holds a typed tape (K4b's and
-    K5's ext map kernels run it), else None; raises for one beside
-    butterflies (``dv`` 2), which the ext kernels do not take."""
-    if not any(e[0] == EP.KIND_MAP and e[9].typed for e in entries):
-        return None
-    if dv != 1:
-        raise ValueError("a typed map tape beside butterflies is not fused "
-                         "(the ext map kernels hold no planar variant)")
-    return "ext"
+    K5's ext map kernels run it, beside butterflies in their planar
+    variants), else None."""
+    if any(e[0] == EP.KIND_MAP and e[9].typed for e in entries):
+        return "ext"
+    return None
 
 
 def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
@@ -1387,7 +1385,7 @@ def _tile_fused_launch(xc, tabs, geometry, entries, flags=None):
                   xc.shape[2], dv)
     if flags is None:
         _launch("tile_fused", xc, _ptr(xc), _ptr(out), ctypes.addressof(a),
-                path=_map_path(entries, dv), moved=2 * _nbytes(xc))
+                path=_map_path(entries), moved=2 * _nbytes(xc), dv=dv)
     else:
         _launch("tile_fused_guarded", xc, _ptr(xc), _ptr(out),
                 ctypes.addressof(a), _ptr(flags), moved=2 * _nbytes(xc))
@@ -1571,8 +1569,8 @@ def _tile_bwd_launch(xc, cc, tabs, geometry, entries):
                   n_spill=EP.spill_sids(info),
                   n_map_sets=_map_sets(info, dv))
     _launch("tile_bwd", xc, _ptr(xc), _ptr(out), _ptr(cc),
-            ctypes.addressof(a), path=_map_path(entries, dv),
-            moved=3 * _nbytes(xc))
+            ctypes.addressof(a), path=_map_path(entries),
+            moved=3 * _nbytes(xc), dv=dv)
     return out
 
 

@@ -10,9 +10,11 @@ The libraries go to ``<checkout>/build/kernels`` (``REPRO_TORCH_BUILD_DIR``
 overrides it), named by a hash of the sources and flags, so a library is
 rebuilt exactly when its source changes. :func:`build_all` starts one
 ``nvcc`` per library, all at once (K4b's and K5's map kernels for typed
-tapes are their sources built again with ``-DREPRO_MAP_EXT=1`` and
-``=2``: libraries of their own, split by element class, so that the base
-kernels keep their code and no library takes longer to build than they).
+tapes are their sources built again with ``-DREPRO_MAP_EXT=1`` to ``=4``:
+libraries of their own, split by element class and planar layout, so
+that the base kernels keep their code and no library takes longer to
+build than they; these ``nvcc`` run at a lower priority, so that the base
+libraries' ``nvcc`` take the cores first).
 Nothing here runs at import time, and
 nothing falls back: a missing ``nvcc``, a failed compile or a failed load
 raises :class:`KernelBuildError`.
@@ -35,6 +37,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # two data pointers). A guarded variant (name ``*_guarded``) lives in its
 # kernel's source and takes the flag word's pointer before the stream.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the ext build's parts (kExtPart in tile_epilogue.cuh)
+EXT_PARTS = (1, 2, 3, 4)
 KERNELS = {
     "copy": ("copy.cu", "repro_copy", [_L, _L, _L] + [_I] * 4 + [_P]),
     "block": ("block_permute.cu", "repro_block_permute",
@@ -56,10 +60,10 @@ KERNELS = {
                            [_P, _P, _P]),
     # K4b's and K5's map kernels for typed tapes (map_lower.Tape.typed):
     # the same sources built with EXT_FLAGS into libraries of their own,
-    # two each (ext_library)
+    # four each (ext_library)
     **{f"{k}_ext{part}": (f"{k}.cu", f"repro_{k}", rest)
        for k, rest in (("tile_fused", [_P, _P]), ("tile_bwd", [_P, _P, _P]))
-       for part in (1, 2)},
+       for part in EXT_PARTS},
 }
 GUARDED = {"block": "block_guarded", "lane": "lane_guarded",
            "tile": "tile_guarded", "tile_fused": "tile_fused_guarded"}
@@ -69,13 +73,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ext library instantiates the map kernels of its part's element classes
 EXT_FLAGS = {name: (f"-DREPRO_MAP_EXT={name[-1]}",) for name in KERNELS
              if "_ext" in name}
+EXT_NICE = 19   # the niceness added to an ext library's nvcc
 
 
-def ext_library(name: str, elem_type: int) -> str:
+def ext_library(name: str, elem_type: int, dv: int = 1) -> str:
     """The ext library of kernel ``name`` that holds the map kernel of the
-    element type code ``elem_type`` (``bmmc_permute._ELEM_TYPE``): part 1
-    int32, float32 and bfloat16, part 2 the others (``kExtPart`` in
-    ``tile_epilogue.cuh``)."""
+    element type code ``elem_type`` (``bmmc_permute._ELEM_TYPE``) with
+    ``dv`` values a register slot (``kExtPart`` in ``tile_epilogue.cuh``):
+    single values part 1 for int32, float32 and bfloat16 and part 2 for
+    the others; planar (re, im) pairs beside butterflies part 3 for
+    float32 and float64 and part 4 for bfloat16 and float16."""
+    if dv == 2:
+        return f"{name}_ext{4 if elem_type in (2, 3) else 3}"
     return f"{name}_ext{1 if elem_type <= 2 else 2}"
 
 _lock = threading.Lock()
@@ -121,11 +130,18 @@ def _lib_path(name: str) -> Path:
     return build_dir() / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
+def _lower_priority() -> None:
+    """Run this process (an ext library's ``nvcc``, before it starts) at
+    :data:`EXT_NICE`: the base libraries' ``nvcc`` take the cores first."""
+    os.nice(EXT_NICE)
+
+
 def build_all(names=None) -> dict:
     """Compile every kernel (or ``names``) not built yet, one ``nvcc`` per
     library, all started together (a guarded variant shares its kernel's
     library, logged under the kernel's name; an ext library is its
-    source built with its EXT_FLAGS). Returns :data:`BUILD_LOG`."""
+    source built with its EXT_FLAGS, at a lower priority). Returns
+    :data:`BUILD_LOG`."""
     names = list(KERNELS) if names is None else list(names)
     by_src = {}
     for n in names:
@@ -141,8 +157,10 @@ def build_all(names=None) -> dict:
         cmd = [exe, *_flags(name), "-o", str(tmp),
                str(CSRC / KERNELS[name][0])]
         try:
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+                preexec_fn=_lower_priority if name in EXT_FLAGS else None)
         except OSError as e:
             for p, *_ in procs.values():
                 p.kill()

@@ -1434,12 +1434,13 @@ static int launch_bwd(const void* x, const void* ct, void* out,
 #ifndef REPRO_NO_EPI_ENTRY_POINTS   // as in tile_fused.cu
 
 #ifdef REPRO_MAP_EXT
-// An ext library's map kernel of class T: instantiated in the library of
-// its part (kExtPart, REPRO_MAP_EXT = 1 or 2), refused in the other.
+// An ext library's map kernel of class T with DV values a register slot:
+// instantiated in the library of its part (kExtPart, REPRO_MAP_EXT = 1
+// to 4), refused in the others.
 template <typename T, int DV, bool kCmp, int MB>
 static int launch_bwd_ext(const void* x, const void* ct, void* out,
                           const EpiTileArgs& a, cudaStream_t s) {
-  if constexpr (kExtPart<T> == REPRO_MAP_EXT)
+  if constexpr (kExtPart<T, DV> == REPRO_MAP_EXT)
     return launch_bwd<T, DV, 8, kCmp, true, MB>(x, ct, out, a, s);
   else
     return (int)cudaErrorInvalidValue;
@@ -1485,7 +1486,6 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
   // (tools/fused_ab.py; PERF.md): compares at 4 (float32, 64 registers)
   // and 3 (bfloat16, 80) ran faster than at 3 and 2, with no spills
   // (float16 takes bfloat16's)
-#ifndef REPRO_MAP_EXT   // the ext library: no planar variant
   if (a->dv == 2) {
 #define REPRO_PLANAR(T)                                     \
   if (a->n_map_sets) REPRO_BWD(T, 2, true, true, 2);        \
@@ -1505,7 +1505,6 @@ extern "C" int repro_tile_bwd(const void* x, void* out, const void* ct,
 #undef REPRO_PLANAR
     return (int)cudaErrorInvalidValue;
   }
-#endif
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->n_map_sets) {   // 2 blocks an SM: the map code spills at 3
     if (a->elem_type == 1) REPRO_BWD(float, 1, true, true, 2);

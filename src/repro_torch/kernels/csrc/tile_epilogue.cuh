@@ -1268,24 +1268,28 @@ __device__ __noinline__ void map_regs(const int* tape, int n, T (&v)[KR]) {
 
 #ifdef REPRO_MAP_EXT
 // =====================================================================
-// The ext build (compiled with -DREPRO_MAP_EXT=1 and =2 into the
-// libraries tile_fused_ext1/2 and tile_bwd_ext1/2, which hold the map
+// The ext build (compiled with -DREPRO_MAP_EXT=1 to =4 into the
+// libraries tile_fused_ext1-4 and tile_bwd_ext1-4, which hold the map
 // kernels only; the base libraries hold no code of this path): typed
 // tapes (map_lower.Tape.typed), which hold casts, values of other dtypes
 // than the map's and the ops past the register path's list. The base
 // kernels have every map op's code cloned into each map kernel (ptxas
 // compiles a kernel's callees with it); this path in every one of them
 // cost the base build 58-70 % more (PERF.md), so it lives in kernels of
-// its own, built beside the others, split in two parts by element class
-// so that no ext library takes longer to build than its base library.
+// its own, built beside the others, split in four parts by element class
+// and layout so that no ext library takes longer to build than its base
+// library.
 // =====================================================================
-// The part of the ext build that instantiates class T's map kernels
-// (build.ext_library picks the library by the same rule): 1 for int32,
-// float32 and bfloat16, 2 for the other classes.
-template <typename T>
-inline constexpr int kExtPart = (std::is_same_v<T, int> ||
-                                 std::is_same_v<T, float> ||
-                                 std::is_same_v<T, Bf16>) ? 1 : 2;
+// The part of the ext build that instantiates class T's map kernels with
+// DV values a register slot (build.ext_library picks the library by the
+// same rule): single values 1 for int32, float32 and bfloat16, 2 for the
+// other classes; planar pairs beside butterflies (DV 2) 3 for float32
+// and float64, 4 for bfloat16 and float16.
+template <typename T, int DV = 1>
+inline constexpr int kExtPart =
+    DV == 2 ? ((std::is_same_v<T, Bf16> || std::is_same_v<T, F16>) ? 4 : 3)
+            : ((std::is_same_v<T, int> || std::is_same_v<T, float> ||
+                std::is_same_v<T, Bf16>) ? 1 : 2);
 // A float result rounded as the compute type rk holds it: 0 float32 (as
 // it is), 1 bfloat16, 2 float16; float64 as it is.
 __device__ __forceinline__ float rnd_k(float f, int rk) {

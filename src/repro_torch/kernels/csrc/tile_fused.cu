@@ -259,12 +259,13 @@ static bool valid_args(const EpiTileArgs* a) {
   }
 
 #ifdef REPRO_MAP_EXT
-// An ext library's map kernel of class T: instantiated in the library of
-// its part (kExtPart, REPRO_MAP_EXT = 1 or 2), refused in the other.
+// An ext library's map kernel of class T with DV values a register slot:
+// instantiated in the library of its part (kExtPart, REPRO_MAP_EXT = 1
+// to 4), refused in the others.
 template <typename T, int DV, int KR, int MB>
 static int launch_ext(const void* x, void* out, const EpiTileArgs& a,
                       cudaStream_t s) {
-  if constexpr (kExtPart<T> == REPRO_MAP_EXT)
+  if constexpr (kExtPart<T, DV> == REPRO_MAP_EXT)
     return launch_items<T, DV, KR, true, MB>(x, out, a, s);
   else
     return (int)cudaErrorInvalidValue;
@@ -298,7 +299,6 @@ extern "C" int repro_tile_fused(const void* x, void* out,
   // the last argument: blocks per SM, the fastest of a sweep on the H100
   // (tools/fused_ab.py; PERF.md): bfloat16 at 16 registers runs faster at
   // 3 with a few spills than at 2 without
-#ifndef REPRO_MAP_EXT   // the ext library: no planar variant
   if (a->dv == 2) {
     if (a->elem_type == 11) {
       if (a->maps) REPRO_FUSED(double, 2, 8, true, REPRO_MB_F64_PLANAR);
@@ -310,7 +310,6 @@ extern "C" int repro_tile_fused(const void* x, void* out,
     REPRO_PLANAR_SWITCH(a->elem_type, REPRO_PLANAR)
 #undef REPRO_PLANAR
   }
-#endif
   if (a->dv != 1) return (int)cudaErrorInvalidValue;
   if (a->elem_type >= 9) {   // 64-bit: 8 registers (see above)
     if (a->regs != 8) return (int)cudaErrorInvalidValue;

@@ -259,11 +259,13 @@ def _lower(fn: Callable, dtype) -> Optional[tuple]:
     constants may round differently), so whether a map runs in the
     kernels, and with it the round-trip model, does not depend on which
     float type it meets."""
-    if dtype not in _FLOATS:
-        return _trace(fn, dtype) if dtype in _INTS else None
-    got = _trace(fn, dtype)
-    if got is None:
+    if dtype not in _FLOATS and dtype not in _INTS:
         return None
+    got = _trace(fn, dtype)
+    if got is None or not _same_at_two_lengths(fn, dtype, got):
+        return None
+    if dtype not in _FLOATS:
+        return got
     for other in _FLOATS:
         o = _trace(fn, other) if other != dtype else got
         if o is None or _shape(got[0]) != _shape(o[0]):
@@ -271,15 +273,30 @@ def _lower(fn: Callable, dtype) -> Optional[tuple]:
     return got
 
 
+def _same_at_two_lengths(fn: Callable, dtype, got: tuple) -> bool:
+    """Is ``got`` (the trace on one element) also the tape of ``fn`` on two
+    elements? A function that reads its input's shape (``len(v)``,
+    ``v.size(-1)``, ``v.numel()``) traces its length as a number, which
+    the tape would keep while the function itself meets tiles and arrays
+    of other lengths: such a map is not lowered."""
+    other = _trace(fn, dtype, 2)
+    if other is None:
+        return False
+    one, two = (tape_words(Tape("", None, dtype, ops, _grad_ops(ops, types),
+                                types=types, ctypes=ctypes))
+                for ops, types, ctypes, _ in (got, other))
+    return one == two
+
+
 def _name(nd) -> str:
     return getattr(nd.target, "__name__", str(nd.target))
 
 
-def _trace(fn: Callable, dtype) -> Optional[tuple]:
+def _trace(fn: Callable, dtype, length: int = 1) -> Optional[tuple]:
     from torch.fx.experimental.proxy_tensor import make_fx
     try:
         gm = make_fx(lambda v: fn(v), tracing_mode="real")(
-            torch.ones(1, dtype=dtype))
+            torch.ones(length, dtype=dtype))
     except Exception:   # any trace failure: the function is not lowered
         return None
     nodes = list(gm.graph.nodes)
@@ -315,7 +332,7 @@ def _trace(fn: Callable, dtype) -> Optional[tuple]:
             if c is not None:
                 consts[nd] = c
                 continue
-            if val.dtype not in TYPE_CODE or tuple(val.shape) != (1,):
+            if val.dtype not in TYPE_CODE or tuple(val.shape) != (length,):
                 return None
             got = _op(nd, _Group(slot, types, consts, dtype), val.dtype)
         if not got:

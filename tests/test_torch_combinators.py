@@ -161,6 +161,25 @@ def test_expression_hash_is_kept():
     assert PV.emap("f", abs) == PV.emap("f", len)  # Map compares by name
 
 
+def test_butterflies_of_two_lowerings_compare_through_a_kept_digest():
+    """Two lowerings of one FFT hold equal butterfly stages in distinct
+    nodes: they compare equal and hash alike, through a twiddle digest
+    each node computes once and keeps; different twiddles do not."""
+    n = 9
+    from repro_torch.combinators.optimize import lower
+    one, two = (lower(p_fft_expr(n), n) for _ in range(2))
+    pairs = [(a, b) for a, b in zip(one, two)
+             if type(a).__name__ == "Bfly" and a is not b]
+    assert len(pairs) == n - 1      # all but the last stage are lifted
+    for a, b in pairs:
+        assert a.twiddles is not b.twiddles
+        assert a == b and hash(a) == hash(b) and {a: 1}[b] == 1
+        assert {"_twiddle_digest"} <= a.__dict__.keys() & b.__dict__.keys()
+    a = pairs[-1][0]
+    assert a != type(a)(a.twiddles[:-1] + (0j,))
+    assert a != pairs[0][0]
+
+
 def test_guard_ring1_validates_resolved_programs():
     """With the guard on, ``CompiledExpr`` proves its resolved program
     before running it (``validate_program_fast``); the audit counts the

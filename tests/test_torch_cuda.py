@@ -926,6 +926,74 @@ def test_cuda_cast_tanh_sort_fuses_in_both_directions(cuda_device):
     assert torch.equal(xt.grad.view(torch.int16), xl.grad.view(torch.int16))
 
 
+_PLANAR_TYPED = [c for c in _TM.CASTS if c[0] in (
+    "cast_tanh", "cast_affine", "cast_int_floor", "cast_half", "cast_bool")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fn", [c[:2] for c in _PLANAR_TYPED],
+                         ids=[c[0] for c in _PLANAR_TYPED])
+@pytest.mark.parametrize("dtype", _TM.FLOATS, ids=str)
+def test_cuda_typed_maps_beside_butterflies(cuda_device, dtype, name, fn):
+    """``emap(m) >> fft`` on planar input: the map cluster's K4b and K5
+    (the planar ext map kernels for a typed tape) bit for bit against
+    their plain versions; the whole program with no fused fallback in
+    either direction, the counted K5 passes equal to the model for this
+    element type, bit-equal to the same program stage by stage on the
+    ``ref`` engine (eager torch) and its gradient to autograd through
+    it."""
+    from repro_torch import obs as pobs
+    from repro_torch.combinators import compile_expr
+    from repro_torch.combinators import fft as F
+    from repro_torch.combinators import vocab as V
+    from repro_torch.kernels import map_lower as ML
+    n = 12
+    tape = ML.lower_map("planar_" + name, fn, dtype)
+    assert tape.lowered
+    expr = V.seq(V.emap("planar_" + name, fn), F.fft_expr(n))
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x, w, ct = (torch.randn(1 << n, 2, generator=gen, device=cuda_device,
+                            dtype=torch.float64).to(dtype) for _ in range(3))
+    t = pops.choose_tile(n, x.element_size(), 2)
+    clusters = [fs for fs in _fused_clusters(expr, n, t)
+                if {"Map", "Bfly"} <= {type(c).__name__
+                                       for c, _ in fs.computes}]
+    assert len(clusters) == 1
+    fs = clusters[0]
+    before = pk.launch_counts()
+    got = _fused(fs, t, x, False, plain=False)
+    want = _fused(fs, t, x, False, plain=True)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    got = _bwd(fs, t, x, ct, False, plain=False)
+    want = _bwd(fs, t, x, ct, False, plain=True)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    after = pk.launch_counts()
+    for k in ("tile_fused", "tile_bwd"):
+        assert after[k] == before[k] + 1
+        assert after[f"{k}_ext"] == before[f"{k}_ext"] + int(tape.typed)
+    f = compile_expr(expr)
+    pobs.reset()
+    pobs.enable()
+    try:
+        xt = x.clone().requires_grad_(True)
+        y = f(xt)
+        fb = pobs.counter_total("dispatch.fused_fallback")
+        (w * y).sum().backward()
+        fbg = pobs.counter_total("dispatch.fused_fallback") - fb
+        rt = pobs.counter_total("model.vjp_round_trips")
+    finally:
+        pobs.disable()
+        pobs.reset()
+    assert fb == fbg == 0
+    assert rt == f.vjp_round_trips(n, t, dtype) is not None
+    xr = x.clone().requires_grad_(True)
+    yr = compile_expr(expr, engine="ref")(xr)
+    (w * yr).sum().backward()
+    assert torch.equal(y.detach().view(torch.uint8),
+                       yr.detach().view(torch.uint8))
+    assert torch.equal(xt.grad.view(torch.uint8), xr.grad.view(torch.uint8))
+
+
 # ---------------------------------------------------------------------------
 # ring 2: the guarded variants of K2, K3, K4a and K4b
 # ---------------------------------------------------------------------------

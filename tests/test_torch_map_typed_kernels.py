@@ -205,10 +205,11 @@ def test_cast_map_sort_gradient_has_no_fallback():
 
 def test_typed_clusters_run_in_the_ext_map_kernels():
     """A cluster that holds a typed tape takes K4b's and K5's ext map
-    kernels (the same sources built with ``-DREPRO_MAP_EXT=1`` and ``=2``
-    into libraries of their own, by element class); its map record says typed and points at the
-    tape's words, type words included; an untyped cluster keeps the base
-    kernels."""
+    kernels (the same sources built with ``-DREPRO_MAP_EXT=1`` to ``=4``
+    into libraries of their own, by element class and layout: beside
+    butterflies, planar pairs in parts 3 and 4); its map record says
+    typed and points at the tape's words, type words included; an
+    untyped cluster keeps the base kernels."""
     from repro_torch.kernels import build as B
     from repro_torch.kernels import epilogue_plan as EP
     n, t = 7, 3
@@ -219,10 +220,7 @@ def test_typed_clusters_run_in_the_ext_map_kernels():
         plans, entries = pex._fused_plan_cached(fs, t)
         ents = pk._epi_entries(*pex._fused_kernel_args(entries, dtype),
                                dtype)
-        assert pk._map_path(ents, 1) == ("ext" if typed else None)
-        if typed:
-            with pytest.raises(ValueError, match="beside butterflies"):
-                pk._map_path(ents, 2)
+        assert pk._map_path(ents) == ("ext" if typed else None)
         x = torch.zeros(1 << n, dtype=dtype)
         words = pk._epi_launch_args(x.reshape(1, -1, 1), pk.plan_geometry(
             plans[0]), ents)[2]
@@ -240,14 +238,19 @@ def test_typed_clusters_run_in_the_ext_map_kernels():
             assert len(tape) == 1 + n_ops * (2 if typed else 1) + 2 * len(
                 pool)
     for k in ("tile_fused", "tile_bwd"):
-        for part in (1, 2):
+        for part in (1, 2, 3, 4):
             lib = f"{k}_ext{part}"
             assert B.KERNELS[lib][:2] == B.KERNELS[k][:2]
             assert f"-DREPRO_MAP_EXT={part}" in B._flags(lib)
             assert B._lib_path(lib) != B._lib_path(k)
-        assert B._lib_path(f"{k}_ext1") != B._lib_path(f"{k}_ext2")
-        # the parts split the element classes as kExtPart does
+        assert len({B._lib_path(f"{k}_ext{p}") for p in (1, 2, 3, 4)}) == 4
+        # the parts split the element classes as kExtPart does: single
+        # values in parts 1 and 2, planar pairs beside butterflies in 3
+        # (float32, float64) and 4 (bfloat16, float16)
         assert [B.ext_library(k, pk._ELEM_TYPE[d]) for d in (
             torch.int32, torch.float32, torch.bfloat16, torch.float16,
             torch.int8, torch.bool, torch.int64, torch.float64)] == [
             f"{k}_ext1"] * 3 + [f"{k}_ext2"] * 5
+        assert [B.ext_library(k, pk._ELEM_TYPE[d], 2) for d in (
+            torch.float32, torch.float64, torch.bfloat16, torch.float16)] == [
+            f"{k}_ext3"] * 2 + [f"{k}_ext4"] * 2
